@@ -1,0 +1,44 @@
+"""gubernator-tpu on PyTorch and CUDA: the one-node serving path.
+
+A second implementation of the rate-limit engine beside `gubernator_tpu`
+(the JAX package, which stays the reference).  The arena lives as int64
+tensors in device memory and each batching window is applied by one
+hand-written CUDA kernel (ops/csrc/window_drain.cu) that sorts the
+window's lanes by slot, walks each slot's lanes in arrival order through
+the five-algorithm transition ladder, and commits one write per touched
+slot.  ops/kernel.py holds the same math as plain tensor code: it is
+what the kernel is tested against, and what runs for tensors on the CPU.
+
+This package imports neither JAX nor `gubernator_tpu`, and needs neither
+grpcio nor protobuf.  Entry points default to the `cuda` device and raise
+when none is present; pass `device="cpu"` to run the plain versions.
+"""
+
+from gubernator_tpu_torch.api.types import (
+    Algorithm,
+    Behavior,
+    HealthCheckResp,
+    Hour,
+    Millisecond,
+    Minute,
+    RateLimitReq,
+    RateLimitResp,
+    Second,
+    Status,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Algorithm",
+    "Behavior",
+    "Status",
+    "RateLimitReq",
+    "RateLimitResp",
+    "HealthCheckResp",
+    "Second",
+    "Minute",
+    "Hour",
+    "Millisecond",
+    "__version__",
+]

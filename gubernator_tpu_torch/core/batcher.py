@@ -1,0 +1,96 @@
+"""Window batcher: accumulates decisions into device windows.
+
+The classic window path of `gubernator_tpu/core/batcher.py` (the analog of
+the reference's per-peer batching loop, peers.go:143-172): requests queue
+until `batch_limit` items or `batch_wait` elapses, then the whole window
+ships as one `engine.process` call.  Responses resolve back to awaiting
+callers by position.
+
+The engine is not thread-safe, so all device work funnels through a
+single-thread executor; NO_BATCHING requests jump the window (submit_now)
+but share that serialization.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
+
+from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp
+from gubernator_tpu_torch.config import BehaviorConfig
+from gubernator_tpu_torch.core.engine import RateLimitEngine
+from gubernator_tpu_torch.core.interval import ArmedInterval
+
+
+class WindowBatcher:
+    def __init__(self, engine: RateLimitEngine,
+                 behaviors: Optional[BehaviorConfig] = None):
+        self.engine = engine
+        self.behaviors = behaviors or BehaviorConfig()
+        self._pending: List[tuple] = []  # (req, future)
+        self._interval: Optional[ArmedInterval] = None
+        self._waiter: Optional[asyncio.Task] = None
+        self._windows: set = set()  # in-flight window tasks (strong refs)
+        # one thread == one device stream; serializes all engine access
+        self._executor = ThreadPoolExecutor(max_workers=1,
+                                            thread_name_prefix="guber-device")
+        # Injectable clock (ms epoch) for the window path; None = wall time.
+        self.now_fn = None
+
+    async def submit(self, req: RateLimitReq) -> RateLimitResp:
+        """Queue into the current window; resolves when the window executes."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._pending.append((req, fut))
+        if len(self._pending) >= max(1, self.behaviors.batch_limit):
+            self._flush()
+        elif len(self._pending) == 1:
+            if self._interval is None:
+                self._interval = ArmedInterval(self.behaviors.batch_wait)
+            self._interval.arm()
+            if self._waiter is None or self._waiter.done():
+                self._waiter = asyncio.create_task(self._wait_interval())
+        return await fut
+
+    async def _wait_interval(self) -> None:
+        await self._interval.wait()
+        if self._pending:
+            self._flush()
+
+    def _flush(self) -> None:
+        window, self._pending = self._pending, []
+        task = asyncio.create_task(self._run_window(window))
+        self._windows.add(task)
+        task.add_done_callback(self._windows.discard)
+
+    async def _run_window(self, window: List[tuple]) -> None:
+        reqs = [w[0] for w in window]
+        loop = asyncio.get_running_loop()
+
+        def run():
+            now = self.now_fn() if self.now_fn is not None else None
+            return self.engine.process(reqs, now)
+
+        try:
+            resps = await loop.run_in_executor(self._executor, run)
+        except Exception as e:  # resolve every waiter with the failure
+            for _, fut in window:
+                if not fut.done():
+                    fut.set_exception(e)
+            return
+        for (_, fut), resp in zip(window, resps):
+            if not fut.done():
+                fut.set_result(resp)
+
+    async def submit_now(self, reqs: Sequence[RateLimitReq]
+                         ) -> List[RateLimitResp]:
+        """Run a ready-made window immediately (the NO_BATCHING lane)."""
+        loop = asyncio.get_running_loop()
+        now = self.now_fn() if self.now_fn is not None else None
+        return await loop.run_in_executor(
+            self._executor, lambda: self.engine.process(reqs, now))
+
+    def close(self) -> None:
+        if self._interval is not None:
+            self._interval.stop()
+        self._executor.shutdown(wait=False)

@@ -1,0 +1,97 @@
+"""Service core: request validation and dispatch on one node.
+
+The single-node subset of `gubernator_tpu/core/service.py` Instance (the
+reference's Instance, gubernator.go:41-322): per-item validation with the
+reference's exact error strings (gubernator.go:102-110), the 1000-item RPC
+cap (:78-81), and local decisions through the WindowBatcher into one
+kernel launch per window.  Peers, GLOBAL, leases, QoS and snapshots are
+not part of this slice: a GLOBAL item is answered with a per-item error.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from typing import List, Optional, Sequence
+
+from gubernator_tpu_torch.api.types import (
+    Algorithm,
+    Behavior,
+    HealthCheckResp,
+    RateLimitReq,
+    RateLimitResp,
+)
+from gubernator_tpu_torch.config import (
+    MAX_BATCH_SIZE,
+    BehaviorConfig,
+    EngineConfig,
+)
+from gubernator_tpu_torch.core.batcher import WindowBatcher
+from gubernator_tpu_torch.core.engine import RateLimitEngine
+
+HEALTHY = "healthy"
+
+_ALGORITHMS = (Algorithm.TOKEN_BUCKET, Algorithm.LEAKY_BUCKET, Algorithm.GCRA,
+               Algorithm.SLIDING_WINDOW, Algorithm.CONCURRENCY)
+
+
+class BatchTooLargeError(Exception):
+    """Maps to gRPC OutOfRange at the transport layer (gubernator.go:78-81)."""
+
+
+class Instance:
+    def __init__(self, engine: Optional[RateLimitEngine] = None,
+                 engine_config: Optional[EngineConfig] = None,
+                 behaviors: Optional[BehaviorConfig] = None,
+                 device=None):
+        """engine: a ready engine, else one is built from engine_config on
+        `device` (default `cuda`)."""
+        self.behaviors = behaviors or BehaviorConfig()
+        self.behaviors.validate()
+        if engine is None:
+            e = engine_config or EngineConfig()
+            engine = RateLimitEngine(
+                capacity_per_shard=e.capacity_per_shard,
+                batch_per_shard=e.batch_per_shard,
+                replay_cap=e.replay_cap, device=device)
+        self.engine = engine
+        self.batcher = WindowBatcher(self.engine, self.behaviors)
+        self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
+
+    async def get_rate_limits(self, requests: Sequence[RateLimitReq]
+                              ) -> List[RateLimitResp]:
+        if len(requests) > MAX_BATCH_SIZE:
+            raise BatchTooLargeError(
+                f"Requests.RateLimits list too large; max size is "
+                f"'{MAX_BATCH_SIZE}'")
+        return list(await asyncio.gather(
+            *(self._route(r) for r in requests)))
+
+    async def _route(self, r: RateLimitReq) -> RateLimitResp:
+        key = r.hash_key()
+        # validation: exact reference strings and order (gubernator.go:102-110)
+        if not r.unique_key:
+            return RateLimitResp(error="field 'unique_key' cannot be empty")
+        if not r.name:
+            return RateLimitResp(error="field 'namespace' cannot be empty")
+        if r.algorithm not in _ALGORITHMS:
+            return RateLimitResp(error=(
+                f"while applying rate limit for '{key}' - "
+                f"'invalid rate limit algorithm '{r.algorithm}''"))
+        err = self.engine.routing_error(r)
+        if err is not None:
+            return RateLimitResp(
+                error=f"while applying rate limit for '{key}' - '{err}'")
+        return await self._local(r)
+
+    async def _local(self, r: RateLimitReq) -> RateLimitResp:
+        """Owner-side decision through the device engine (the reference's
+        getRateLimit under the cache mutex, gubernator.go:236-251)."""
+        if r.behavior == Behavior.NO_BATCHING:
+            return (await self.batcher.submit_now([r]))[0]
+        return await self.batcher.submit(r)
+
+    async def health_check(self) -> HealthCheckResp:
+        return self.health
+
+    def close(self) -> None:
+        self.batcher.close()

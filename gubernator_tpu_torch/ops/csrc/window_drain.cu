@@ -1,0 +1,756 @@
+// The serving window drain for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the JAX package's Pallas kernels window_drain_fused_planes
+// (gubernator_tpu/ops/pallas_kernel.py:974) and its K=1 form
+// window_step_fused_planes (:793).  It computes what they compute, which is
+// what the int64 oracle computes (gubernator_tpu_torch/ops/kernel.py
+// window_step + encode_output_word): K windows of requests applied in order
+// to one shard's slot arena.  Per window:
+//
+//   decode each lane -> stable sort of the lanes by slot -> for each slot,
+//   its lanes walked in arrival order through the five-algorithm transition
+//   ladder -> one write per touched slot -> each lane's response written
+//   straight to its request position (no unsort pass).
+//
+// Design.  One CTA per drain loops over the K windows; a __syncthreads()
+// between windows makes window k's commits visible to window k+1's reads.
+// The lanes of a window live in shared memory as one u64 sort key each,
+// (clean_slot << lane_bits) | lane: the keys are unique, so a bitonic
+// network over them is a stable argsort (pads sort last on slot 2^31-1).
+// One thread owns each slot's run of lanes and walks it in arrival order;
+// a lane with is_init starts a fresh virtual segment inside the run (a
+// recycled slot's new tenant), and the run's final register - the last
+// virtual segment's - is the one that commits.  Since one thread reads and
+// writes each slot, no two threads touch one arena row.  Each virtual
+// segment is classified as the oracle classifies it (fold_classify): a
+// uniform segment (one config, every nonzero hit equal, no AGG lane) takes
+// each lane's entering register in closed form (fold_entering) from the
+// segment's entry register; any other segment is replayed lane by lane,
+// fresh on its first lane on is_init, expire < now or an algorithm switch
+// and on later lanes on an algorithm switch.  The two agree on sane state;
+// they part where the clock runs backwards over a leaky bucket (a negative
+// leak), and there the kernel follows the oracle's fold.
+// The arena stays int64 in device memory; all int64 arithmetic wraps
+// (done in uint64_t), and every `//` of the oracle is a floor division.
+//
+// Bounds on this card.  The work per drain is small: 16 B in and 16 B out
+// per lane, plus one read and one write of six arena planes per touched
+// slot, each a scattered 32 B sector.  At 3.35 TB/s that is about a
+// microsecond for a 8 x 1024-lane drain, so the launch latency and this
+// design's serial parts set the time: one SM works while the rest idle,
+// the sort is 55 barrier-separated stages at 1024 lanes, and a hot slot's
+// lanes run one after another on one thread (a folded segment's lanes need
+// not wait for each other, but this kernel still walks them in turn).
+//
+// Pad lanes (slot field 0, so slot < 0) get response word 0 and limit 0;
+// the plain version does the same.  Slots >= C read row C-1 and commit
+// nothing, as in the oracle; the router never emits them.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int32_t kToken = 0;
+constexpr int32_t kLeaky = 1;
+constexpr int32_t kGcra = 2;
+constexpr int32_t kSliding = 3;
+constexpr int32_t kConcurrency = 4;
+constexpr int64_t kSlidingPackBits = 15;
+constexpr int64_t kSlidingMaxLimit = (1 << 15) - 1;
+constexpr int64_t kSlidingWeightQ = 1024;
+constexpr int64_t kConcMaxHits = 1 << 27;
+constexpr int64_t kCompactMaxHits = 1 << 28;
+constexpr int32_t kAggSlotBit = 1 << 30;
+constexpr uint64_t kPadKey = 0x7FFFFFFFull;
+constexpr int kMaxLanes = 16384;  // 128 KB of sort keys in shared memory
+// threads per CTA: __launch_bounds__ lets the transition ladder keep up to
+// 128 registers a thread without spilling
+constexpr int kThreads = 512;
+
+__device__ __forceinline__ int64_t add(int64_t a, int64_t b) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) + static_cast<uint64_t>(b));
+}
+__device__ __forceinline__ int64_t sub(int64_t a, int64_t b) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) - static_cast<uint64_t>(b));
+}
+__device__ __forceinline__ int64_t mul(int64_t a, int64_t b) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) * static_cast<uint64_t>(b));
+}
+__device__ __forceinline__ int64_t shl(int64_t a, int s) {
+  return static_cast<int64_t>(static_cast<uint64_t>(a) << s);
+}
+// floor division; every divisor the ladder uses is >= 1
+__device__ __forceinline__ int64_t fdiv(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
+__device__ __forceinline__ int64_t clip(int64_t x, int64_t lo, int64_t hi) {
+  return imin(imax(x, lo), hi);
+}
+
+struct Reg {
+  int64_t limit, duration, remaining, tstamp, expire;
+  int32_t algo;
+};
+
+struct Req {
+  int32_t slot;  // clean slot (AGG bit stripped); < 0 on pad lanes
+  bool valid, agg, init;
+  int64_t hits, limit, duration;
+  int32_t algo;
+};
+
+struct Out {
+  int32_t status;
+  int64_t limit, remaining, reset;
+};
+
+struct Arena {
+  int64_t* limit;
+  int64_t* duration;
+  int64_t* remaining;
+  int64_t* tstamp;
+  int64_t* expire;
+  int32_t* algo;
+  int64_t capacity;
+};
+
+__device__ __forceinline__ void set_slot(Req& q, int32_t raw) {
+  q.valid = raw >= 0;
+  q.agg = q.valid && (raw & kAggSlotBit) != 0;
+  q.slot = q.agg ? (raw & ~kAggSlotBit) : raw;
+}
+
+// the compact request pair (gubernator_tpu_torch/ops/kernel.py decode_batch)
+struct CompactSrc {
+  const int64_t* packed;  // [B, 2]
+  __device__ Req load(int lane) const {
+    const int64_t w0 = packed[2 * lane];
+    const int64_t w1 = packed[2 * lane + 1];
+    Req q;
+    q.algo = static_cast<int32_t>(((w0 >> 33) & 1) | (((w0 >> 62) & 3) << 1));
+    const int64_t raw = (w0 >> 34) & (kCompactMaxHits - 1);
+    q.hits = q.algo == kConcurrency ? (raw ^ kConcMaxHits) - kConcMaxHits : raw;
+    q.limit = w1 & 0xFFFFFFFFll;
+    q.duration = (w1 >> 32) & 0x7FFFFFFFll;
+    q.init = ((w0 >> 32) & 1) != 0;
+    set_slot(q, static_cast<int32_t>(static_cast<uint32_t>(w0) - 1u));
+    return q;
+  }
+};
+
+// decoded int64 columns (the engine's full-format window)
+struct FullSrc {
+  const int32_t* slot;
+  const int64_t* hits;
+  const int64_t* limit;
+  const int64_t* duration;
+  const int32_t* algo;
+  const uint8_t* init;
+  __device__ Req load(int lane) const {
+    Req q;
+    set_slot(q, slot[lane]);
+    q.hits = hits[lane];
+    q.limit = limit[lane];
+    q.duration = duration[lane];
+    q.algo = algo[lane];
+    q.init = init[lane] != 0;
+    return q;
+  }
+};
+
+// response word: kernel.encode_output_word
+struct CompactDst {
+  int64_t* words;
+  int64_t* limits;
+  __device__ void store(int lane, const Out& o, int64_t now) const {
+    const int64_t enc =
+        o.reset == 0 ? 0 : clip(sub(o.reset, now), 0, (1ll << 31) - 2) + 1;
+    const uint64_t rem = static_cast<uint64_t>(clip(o.remaining, 0, (1ll << 31) - 1));
+    words[lane] = static_cast<int64_t>((static_cast<uint64_t>(enc) << 32) |
+                                       (static_cast<uint64_t>(o.status) << 31) | rem);
+    limits[lane] = o.limit;
+  }
+  __device__ void pad(int lane) const {
+    words[lane] = 0;
+    limits[lane] = 0;
+  }
+};
+
+struct FullDst {
+  int32_t* status;
+  int64_t* limit;
+  int64_t* remaining;
+  int64_t* reset;
+  __device__ void store(int lane, const Out& o, int64_t) const {
+    status[lane] = o.status;
+    limit[lane] = o.limit;
+    remaining[lane] = o.remaining;
+    reset[lane] = o.reset;
+  }
+  __device__ void pad(int lane) const {
+    status[lane] = 0;
+    limit[lane] = 0;
+    remaining[lane] = 0;
+    reset[lane] = 0;
+  }
+};
+
+// A sliding-window register advanced to the window holding now
+// (kernel._sliding_roll).
+struct Roll {
+  int64_t prev1, cur1, ws1, est, sl_L, maxD;
+};
+
+__device__ Roll sliding_roll(int64_t R, int64_t T, int64_t D, int64_t L, int64_t now) {
+  Roll o;
+  o.sl_L = imin(L, kSlidingMaxLimit);
+  const int64_t cur = R & kSlidingMaxLimit;
+  const int64_t prev = (R >> kSlidingPackBits) & kSlidingMaxLimit;
+  o.maxD = imax(D, 1);
+  const int64_t k = imax(fdiv(sub(now, T), o.maxD), 0);
+  o.prev1 = k == 0 ? prev : (k == 1 ? cur : 0);
+  o.cur1 = k == 0 ? cur : 0;
+  o.ws1 = add(T, mul(k, o.maxD));
+  const int64_t offc = clip(sub(now, o.ws1), 0, o.maxD);
+  int64_t pos_q = o.maxD <= kSlidingWeightQ
+                      ? fdiv(mul(offc, kSlidingWeightQ), o.maxD)
+                      : imin(fdiv(offc, imax(fdiv(o.maxD, kSlidingWeightQ), 1)),
+                             kSlidingWeightQ);
+  pos_q = clip(pos_q, 0, kSlidingWeightQ);
+  o.est = add(fdiv(mul(o.prev1, kSlidingWeightQ - pos_q), kSlidingWeightQ), o.cur1);
+  return o;
+}
+
+// One request applied to one bucket: kernel.transition, branch for branch
+// (reference algorithms.go:24-186 plus the GCRA / sliding / concurrency
+// ladders).  Updates r in place and returns the response.
+__device__ Out transition(Reg& r, const Req& q, int64_t now, bool fresh) {
+  const int64_t h = q.hits;
+  const int32_t a = q.algo;
+  const bool is_token = a == kToken;
+  const bool is_leaky = a == kLeaky;
+  const bool is_gcra = a == kGcra;
+  const bool is_sliding = a == kSliding;
+  const bool is_conc = a == kConcurrency;
+  const int64_t L = r.limit, D = r.duration, R = r.remaining, T = r.tstamp, E = r.expire;
+  // leaky's rate (stored duration over REQUEST limit, clamped to >= 1) and
+  // leaked balance: read by the leaky and GCRA ladders and by AGG lanes
+  const int64_t rate = imax(fdiv(D, imax(q.limit, 1)), 1);
+  const int64_t R2 = add(R, imin(fdiv(sub(now, T), rate), sub(L, R)));
+  Out o;
+  Reg n = r;
+
+  if (fresh) {
+    // ---- init path (cache miss) ----
+    const int64_t rate_q = imax(fdiv(q.duration, imax(q.limit, 1)), 1);
+    const int64_t sl_l0 = imin(q.limit, kSlidingMaxLimit);
+    const int64_t eff = is_sliding ? sl_l0 : q.limit;
+    const bool conc_rel0 = is_conc && h < 0;
+    const bool over = h > eff && !conc_rel0;
+    const int64_t init_R = conc_rel0 ? eff : (over ? 0 : sub(eff, h));
+    n.limit = q.limit;
+    n.duration = q.duration;
+    n.remaining = is_sliding ? (over ? sl_l0 : imax(h, 0)) : init_R;
+    if (is_leaky || is_sliding || is_conc) {
+      n.tstamp = now;
+    } else if (is_gcra) {
+      n.tstamp = over ? add(now, q.duration) : add(now, mul(h, rate_q));
+    } else {
+      n.tstamp = add(now, q.duration);
+    }
+    n.expire = add(now, q.duration);
+    n.algo = a;
+    o.status = over ? 1 : 0;
+    o.limit = q.limit;
+    o.remaining = init_R;
+    if (is_leaky || is_conc) {
+      o.reset = 0;
+    } else if (is_gcra) {
+      o.reset = over ? add(now, rate_q) : add(now, mul(h, rate_q));
+    } else {
+      o.reset = add(now, q.duration);
+    }
+  } else if (is_leaky) {
+    // ---- leaky bucket hit path: algorithms.go:107-158 ----
+    int64_t nR = R2, resp, reset = 0;
+    bool hit = false;
+    if (R2 == 0) {
+      o.status = 1; resp = 0; reset = add(now, rate);
+    } else if (h == R2) {
+      o.status = 0; resp = 0; nR = 0;
+    } else if (h > R2) {
+      o.status = 1; resp = R2; reset = add(now, rate);
+    } else if (h == 0) {
+      o.status = 0; resp = R2;
+    } else {
+      o.status = 0; resp = sub(R2, h); nR = sub(R2, h); hit = true;
+    }
+    n.remaining = nR;
+    n.tstamp = h != 0 ? now : T;
+    n.expire = hit ? add(now, q.duration) : E;
+    o.limit = L;
+    o.remaining = resp;
+    o.reset = reset;
+  } else if (is_gcra) {
+    // ---- GCRA hit path: TAT arithmetic on the tstamp column ----
+    const int64_t base = imax(T, now);
+    const int64_t cap = imin(imax(fdiv(sub(add(now, D), base), rate), 0), L);
+    const int64_t consumed = add(base, mul(h, rate));
+    if (cap == 0) {
+      o.status = 1; o.remaining = 0; o.reset = add(now, rate);
+    } else if (h == 0) {
+      o.status = 0; o.remaining = cap; o.reset = base;
+    } else if (h == cap) {
+      o.status = 0; o.remaining = 0; o.reset = consumed; n.tstamp = consumed;
+    } else if (h > cap) {
+      o.status = 1; o.remaining = cap; o.reset = add(now, rate);
+    } else {
+      o.status = 0; o.remaining = sub(cap, h); o.reset = consumed; n.tstamp = consumed;
+    }
+    o.limit = L;
+  } else if (is_sliding) {
+    // ---- sliding window: roll to the window holding now, interpolate ----
+    const Roll w = sliding_roll(R, T, D, L, now);
+    const int64_t sl_L = w.sl_L, prev1 = w.prev1, cur1 = w.cur1, ws1 = w.ws1;
+    const int64_t maxD = w.maxD, est = w.est;
+    bool accept = false;
+    if (est >= sl_L) {
+      o.status = 1; o.remaining = 0;
+    } else if (h == 0) {
+      o.status = 0; o.remaining = sub(sl_L, est);
+    } else if (add(est, h) > sl_L) {
+      o.status = 1; o.remaining = sub(sl_L, est);
+    } else {
+      o.status = 0; o.remaining = sub(sub(sl_L, est), h); accept = true;
+    }
+    const int64_t cur2 = accept ? add(cur1, h) : cur1;
+    n.remaining = static_cast<int64_t>(static_cast<uint64_t>(cur2) |
+                                       static_cast<uint64_t>(shl(prev1, kSlidingPackBits)));
+    n.tstamp = ws1;
+    n.expire = accept ? add(now, q.duration) : E;
+    o.limit = L;
+    o.reset = add(ws1, maxD);
+  } else if (is_conc) {
+    // ---- concurrency: acquire (token ladder) or saturating release ----
+    bool mut = false;
+    int64_t nR = R;
+    if (h < 0) {
+      nR = add(R, imin(sub(0, h), sub(L, R)));
+      o.status = 0; o.remaining = nR; mut = true;
+    } else if (R == 0) {
+      o.status = 1; o.remaining = 0;
+    } else if (h == 0) {
+      o.status = 0; o.remaining = R;
+    } else if (h > R) {
+      o.status = 1; o.remaining = R;
+    } else {
+      nR = sub(R, h);
+      o.status = 0; o.remaining = nR; mut = true;
+    }
+    n.remaining = nR;
+    n.tstamp = mut ? now : T;
+    n.expire = mut ? add(now, q.duration) : E;
+    o.limit = L;
+    o.reset = 0;
+  } else {
+    // ---- token bucket (and any out-of-range algorithm): algorithms.go:40-65
+    if (R == 0) {
+      o.status = 1; o.remaining = 0;
+    } else if (h == 0) {
+      o.status = 0; o.remaining = R;
+    } else if (h == R) {
+      o.status = 0; o.remaining = 0; n.remaining = 0;
+    } else if (h > R) {
+      o.status = 1; o.remaining = R;
+    } else {
+      o.status = 0; o.remaining = sub(R, h); n.remaining = sub(R, h);
+    }
+    o.limit = L;
+    o.reset = T;
+  }
+
+  if (q.agg) {
+    // ---- aggregated run: n sequential hits=1 transitions in one lane ----
+    const int64_t base =
+        fresh ? q.limit : (is_token ? R : R2);
+    const int64_t aL = fresh ? q.limit : L;
+    const int64_t aD = fresh ? q.duration : D;
+    const int64_t k = imin(h, base);
+    const int64_t aR = sub(base, k);
+    const int64_t a_rate = imax(fdiv(aD, imax(q.limit, 1)), 1);
+    const bool extended = sub(k, aR == 0 ? 1 : 0) >= 1;
+    const int64_t tok_T = fresh ? add(now, q.duration) : T;
+    n.limit = aL;
+    n.duration = aD;
+    n.remaining = aR;
+    n.tstamp = is_token ? tok_T : now;
+    n.expire = is_token ? (fresh ? add(now, q.duration) : E)
+                        : ((fresh || extended) ? add(now, q.duration) : E);
+    n.algo = a;
+    o.status = k < h ? 1 : 0;
+    o.limit = aL;
+    o.remaining = base;
+    o.reset = is_token ? tok_T : add(now, a_rate);
+  }
+  r = n;
+  return o;
+}
+
+// The closed-form ENTERING registers of a foldable segment's lanes
+// (kernel.fold_entering), split in two: the constructor computes what the
+// whole segment shares (every division among it) from the segment's entry
+// register, its first lane's request (h0, l0, d0, a0), its leading
+// zero-hit lanes n_lead and its one nonzero hit hstar; enter(pos, nz) then
+// gives the lane at position pos, with nz nonzero-hit lanes before it.
+struct Fold {
+  Reg reg;
+  bool fresh0;
+  int32_t a0;
+  int64_t now, now_d0, hstar, L_eff, D_eff;
+  // token and concurrency acquires
+  int64_t Rt, Rt_q;
+  // leaky
+  int64_t leak0, p_sat, Rh, Kf;
+  // GCRA
+  bool g_on;
+  int64_t rate0, g_q, g_baset, entR_gc;
+  // sliding
+  bool s_on;
+  int64_t s_q, s_cur_base, s_prev_ent, entT_sl;
+  // concurrency releases
+  int64_t c_a, c_ksat;
+
+  __device__ Fold(const Reg& r, bool fresh, int64_t h0, int64_t l0, int64_t d0, int32_t a,
+                  int64_t n_lead, int64_t hs, int64_t t)
+      : reg(r), fresh0(fresh), a0(a), now(t), now_d0(add(t, d0)), hstar(hs) {
+    const bool over0 = fresh0 && h0 > l0;
+    L_eff = fresh0 ? l0 : reg.limit;
+    D_eff = fresh0 ? d0 : reg.duration;
+    const int64_t hs1 = imax(hstar, 1);
+    // ---- token: balance only moves on accepts, T/E never move on hits ----
+    Rt = fresh0 ? (over0 ? 0 : l0) : reg.remaining;
+    Rt_q = fdiv(Rt, hs1);
+    // ---- leaky: leading reads re-apply the SAME leak0, saturating ----
+    rate0 = imax(fdiv(D_eff, imax(l0, 1)), 1);
+    leak0 = fresh0 ? 0 : fdiv(sub(now, reg.tstamp), rate0);
+    const int64_t gap = sub(L_eff, reg.remaining);
+    p_sat = leak0 > 0 ? fdiv(sub(add(gap, leak0), 1), imax(leak0, 1)) : (1ll << 30);
+    Rh = fresh0 ? (over0 ? 0 : l0) : satA(add(n_lead, 1));
+    Kf = fdiv(Rh, hs1);
+    // ---- GCRA: token-shaped fold on the TAT-derived burst capacity ----
+    const int64_t g_base_nf = imax(reg.tstamp, now);
+    const int64_t g_rawNF = imax(fdiv(sub(add(now, D_eff), g_base_nf), rate0), 0);
+    const int64_t g_rawT = fresh0 ? (over0 ? 0 : fdiv(D_eff, rate0)) : g_rawNF;
+    g_on = hstar > 0 && hstar <= L_eff;
+    g_q = fdiv(g_rawT, hs1);
+    g_baset = fresh0 ? (over0 ? now_d0 : now) : g_base_nf;
+    entR_gc = fresh0 ? (over0 ? 0 : sub(l0, h0)) : reg.remaining;
+    // ---- sliding: one roll per window, token greedy min over headroom ----
+    const Roll w = sliding_roll(reg.remaining, reg.tstamp, D_eff, L_eff, now);
+    const bool s_over0 = fresh0 && h0 > w.sl_L;
+    const int64_t s_est_base = fresh0 ? (s_over0 ? w.sl_L : 0) : w.est;
+    s_on = hstar > 0;
+    s_q = fdiv(imax(sub(w.sl_L, s_est_base), 0), hs1);
+    s_cur_base = fresh0 ? (s_over0 ? w.sl_L : 0) : w.cur1;
+    s_prev_ent = fresh0 ? 0 : w.prev1;
+    entT_sl = fresh0 ? now : w.ws1;
+    // ---- concurrency: acquires fold like token; releases saturate ----
+    c_a = sub(0, hstar);
+    const int64_t c_gap = sub(L_eff, reg.remaining);
+    c_ksat = c_gap > 0 ? fdiv(sub(add(c_gap, c_a), 1), imax(c_a, 1)) : 0;
+  }
+
+  __device__ int64_t satA(int64_t p) const {
+    return p >= p_sat ? L_eff : add(reg.remaining, mul(p, leak0));
+  }
+
+  __device__ Reg enter(int64_t pos, int64_t nz) const {
+    Reg e;
+    e.limit = L_eff;
+    e.duration = D_eff;
+    e.algo = a0;
+    const int64_t kt = imin(nz, Rt_q);
+    const int64_t entR_tok = sub(Rt, mul(hstar, kt));
+    const int64_t T_tok = fresh0 ? now_d0 : reg.tstamp;
+    const int64_t E_tok = fresh0 ? now_d0 : reg.expire;
+    if (a0 == kLeaky) {
+      const int64_t kl = imin(nz, Kf);
+      const bool drained = hstar > 0 && Rh == mul(Kf, hstar) && kl == Kf && kl >= 1;
+      const int64_t gen = sub(kl, drained ? 1 : 0);
+      e.remaining = (!fresh0 && nz == 0) ? satA(pos) : sub(Rh, mul(hstar, kl));
+      e.tstamp = (fresh0 || nz > 0) ? now : reg.tstamp;
+      e.expire = (fresh0 || gen >= 1) ? now_d0 : reg.expire;
+    } else if (a0 == kGcra) {
+      const int64_t g_kp = g_on ? imin(nz, g_q) : 0;
+      e.remaining = entR_gc;
+      e.tstamp = (g_kp > 0 || fresh0) ? add(g_baset, mul(mul(g_kp, hstar), rate0))
+                                      : reg.tstamp;
+      e.expire = E_tok;
+    } else if (a0 == kSliding) {
+      const int64_t s_kp = s_on ? imin(nz, s_q) : 0;
+      const int64_t cur = add(s_cur_base, mul(s_kp, hstar));
+      e.remaining = static_cast<int64_t>(static_cast<uint64_t>(cur) |
+                                         static_cast<uint64_t>(shl(s_prev_ent, kSlidingPackBits)));
+      e.tstamp = entT_sl;
+      e.expire = (fresh0 || s_kp >= 1) ? now_d0 : reg.expire;
+    } else if (a0 == kConcurrency) {
+      int64_t applied = kt;
+      e.remaining = entR_tok;
+      if (hstar < 0) {
+        applied = nz;
+        e.remaining = fresh0 ? L_eff
+                             : (nz == 0 ? reg.remaining
+                                        : (nz >= c_ksat ? L_eff
+                                                        : add(reg.remaining, mul(nz, c_a))));
+      }
+      e.tstamp = (fresh0 || applied >= 1) ? now : reg.tstamp;
+      e.expire = (fresh0 || applied >= 1) ? now_d0 : reg.expire;
+    } else {
+      e.remaining = entR_tok;
+      e.tstamp = T_tok;
+      e.expire = E_tok;
+    }
+    return e;
+  }
+};
+
+// Ascending bitonic sort of n (a power of two) unique keys in shared memory.
+__device__ void bitonic_sort(uint64_t* key, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t a = key[i], b = key[ixj];
+          if ((a > b) == ((i & k) == 0)) {
+            key[i] = b;
+            key[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One window: sort, walk each slot's run, commit, respond.  Ends with a
+// barrier so the next window sees this one's commits and the key buffer
+// can be refilled.
+template <class Src, class Dst>
+__device__ void run_window(const Src& src, const Dst& dst, const Arena& arena,
+                           int B, int Bp, int lane_bits, int64_t now,
+                           uint64_t* key, int* mism) {
+  for (int i = threadIdx.x; i < Bp; i += blockDim.x) {
+    uint64_t slot_key = kPadKey;
+    if (i < B) {
+      const Req q = src.load(i);
+      if (q.valid) slot_key = static_cast<uint32_t>(q.slot);
+    }
+    key[i] = (slot_key << lane_bits) | static_cast<uint64_t>(i);
+  }
+  __syncthreads();
+  bitonic_sort(key, Bp);
+
+  const uint64_t lane_mask = (1ull << lane_bits) - 1;
+  for (int i = threadIdx.x; i < Bp; i += blockDim.x) {
+    int lane = static_cast<int>(key[i] & lane_mask);
+    if (lane >= B) continue;
+    Req q = src.load(lane);
+    if (!q.valid) {
+      dst.pad(lane);
+      continue;
+    }
+    const uint64_t slot = key[i] >> lane_bits;
+    if (i > 0 && (key[i - 1] >> lane_bits) == slot) continue;  // not the run's head
+
+    const int64_t row = imin(static_cast<int64_t>(slot), arena.capacity - 1);
+    Reg r{arena.limit[row], arena.duration[row], arena.remaining[row],
+          arena.tstamp[row], arena.expire[row], arena.algo[row]};
+    bool mismatch = false;
+    auto lane_at = [&](int m) { return static_cast<int>(key[m] & lane_mask); };
+    auto in_run = [&](int m) {
+      return m < Bp && (key[m] >> lane_bits) == slot && lane_at(m) < B;
+    };
+    // the run's virtual segments in turn: [j, e) ends before the next
+    // is_init lane or at the run's end (kernel.segment_structure)
+    for (int j = i; in_run(j);) {
+      const Req q0 = src.load(lane_at(j));
+      int64_t n_lead = q0.hits == 0 ? 1 : 0;
+      int64_t hstar = q0.hits;
+      bool cfg_ok = !q0.agg;
+      int e = j + 1;
+      for (; in_run(e); ++e) {
+        const Req q = src.load(lane_at(e));
+        if (q.init) break;
+        if (hstar == 0) {
+          if (q.hits == 0) ++n_lead; else hstar = q.hits;
+        }
+        cfg_ok = cfg_ok && !q.agg && q.limit == q0.limit && q.duration == q0.duration &&
+                 q.algo == q0.algo && (q.hits == 0 || q.hits == hstar);
+      }
+      // kernel.fold_classify
+      const bool fresh_seg = q0.init || r.expire < now;
+      const bool fresh0 = fresh_seg || q0.algo != r.algo;
+      bool fold = false;
+      if (e - j >= 2) {
+        const int64_t L_eff = fresh0 ? q0.limit : r.limit;
+        const int64_t rate0 =
+            imax(fdiv(fresh0 ? q0.duration : r.duration, imax(q0.limit, 1)), 1);
+        const int64_t leak0 = fresh0 ? 0 : fdiv(sub(now, r.tstamp), rate0);
+        const bool lky_ok = q0.algo != kLeaky || fresh0 ||
+                            (r.remaining <= L_eff && (leak0 >= 0 || n_lead == 0));
+        fold = cfg_ok && (hstar >= 0 || q0.algo == kConcurrency) && lky_ok;
+      }
+      // one lane through the ladder from r, its response to its position
+      auto apply = [&](int m, bool fresh) {
+        const int lane = lane_at(m);
+        const Req q = src.load(lane);
+        const Out o = transition(r, q, now, fresh);
+        dst.store(lane, o, now);
+        mismatch |= o.limit != q.limit;
+        return q.hits != 0;
+      };
+      if (fold) {
+        // every lane enters from the closed form; only the first is fresh
+        const Fold f(r, fresh0, q0.hits, q0.limit, q0.duration, q0.algo, n_lead, hstar, now);
+        int64_t nz = apply(j, fresh0) ? 1 : 0;
+        for (int m = j + 1; m < e; ++m) {
+          r = f.enter(m - j, nz);
+          if (apply(m, false)) ++nz;
+        }
+      } else {
+        // replay: lane by lane from the previous lane's register
+        apply(j, fresh0);
+        for (int m = j + 1; m < e; ++m) {
+          apply(m, src.load(lane_at(m)).algo != r.algo);
+        }
+      }
+      j = e;
+    }
+    if (static_cast<int64_t>(slot) < arena.capacity) {
+      arena.limit[slot] = r.limit;
+      arena.duration[slot] = r.duration;
+      arena.remaining[slot] = r.remaining;
+      arena.tstamp[slot] = r.tstamp;
+      arena.expire[slot] = r.expire;
+      arena.algo[slot] = r.algo;
+    }
+    if (mismatch) *mism = 1;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads) drain_compact_kernel(const int64_t* __restrict__ packed,
+                                     const int64_t* __restrict__ nows, int K, int B,
+                                     int Bp, int lane_bits, Arena arena,
+                                     int64_t* words, int64_t* limits, uint8_t* mism) {
+  extern __shared__ uint64_t key[];
+  __shared__ int window_mism;
+  for (int k = 0; k < K; ++k) {
+    if (threadIdx.x == 0) window_mism = 0;
+    const size_t off = static_cast<size_t>(k) * B;
+    run_window(CompactSrc{packed + 2 * off}, CompactDst{words + off, limits + off},
+               arena, B, Bp, lane_bits, nows[k], key, &window_mism);
+    if (threadIdx.x == 0) mism[k] = static_cast<uint8_t>(window_mism);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) window_full_kernel(FullSrc src, int64_t now, int B, int Bp,
+                                   int lane_bits, Arena arena, FullDst dst) {
+  extern __shared__ uint64_t key[];
+  __shared__ int unused_mism;
+  run_window(src, dst, arena, B, Bp, lane_bits, now, key, &unused_mism);
+}
+
+struct Geometry {
+  int Bp, lane_bits, threads;
+  size_t smem;
+};
+
+Geometry geometry(int B) {
+  Geometry g;
+  g.Bp = 1;
+  g.lane_bits = 0;
+  while (g.Bp < B) {
+    g.Bp <<= 1;
+    ++g.lane_bits;
+  }
+  if (g.lane_bits < 1) g.lane_bits = 1;
+  g.threads = g.Bp < 32 ? 32 : (g.Bp > kThreads ? kThreads : g.Bp);
+  g.smem = static_cast<size_t>(g.Bp) * sizeof(uint64_t);
+  return g;
+}
+
+Arena make_arena(void* limit, void* duration, void* remaining, void* tstamp,
+                 void* expire, void* algo, long long capacity) {
+  return Arena{static_cast<int64_t*>(limit),  static_cast<int64_t*>(duration),
+               static_cast<int64_t*>(remaining), static_cast<int64_t*>(tstamp),
+               static_cast<int64_t*>(expire), static_cast<int32_t*>(algo),
+               static_cast<int64_t>(capacity)};
+}
+
+}  // namespace
+
+extern "C" {
+
+int guber_max_lanes() { return kMaxLanes; }
+
+const char* guber_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// K compact windows in one launch: packed i64[K, B, 2], nows i64[K], the six
+// arena planes of length C updated in place; writes words i64[K, B],
+// limits i64[K, B], mism u8[K].  Returns cudaGetLastError() after the launch.
+int guber_drain_compact(const void* packed, const void* nows, int K, int B,
+                        void* limit, void* duration, void* remaining, void* tstamp,
+                        void* expire, void* algo, long long capacity, void* words,
+                        void* limits, void* mism, void* stream) {
+  if (K < 1 || B < 1 || B > kMaxLanes || capacity < 1) return cudaErrorInvalidValue;
+  const Geometry g = geometry(B);
+  cudaError_t err = cudaFuncSetAttribute(
+      drain_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.smem));
+  if (err != cudaSuccess) return err;
+  drain_compact_kernel<<<1, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(packed), static_cast<const int64_t*>(nows), K, B,
+      g.Bp, g.lane_bits,
+      make_arena(limit, duration, remaining, tstamp, expire, algo, capacity),
+      static_cast<int64_t*>(words), static_cast<int64_t*>(limits),
+      static_cast<uint8_t*>(mism));
+  return cudaGetLastError();
+}
+
+// One window of decoded columns (the engine's full-format path): slot i32,
+// hits/limit/duration i64, algo i32, is_init u8, all [B]; writes status i32,
+// limit/remaining/reset i64 [B].  Returns cudaGetLastError() after the launch.
+int guber_window_full(const void* slot, const void* hits, const void* limit_in,
+                      const void* duration_in, const void* algo_in, const void* init,
+                      long long now, int B, void* limit, void* duration,
+                      void* remaining, void* tstamp, void* expire, void* algo,
+                      long long capacity, void* status_out, void* limit_out,
+                      void* remaining_out, void* reset_out, void* stream) {
+  if (B < 1 || B > kMaxLanes || capacity < 1) return cudaErrorInvalidValue;
+  const Geometry g = geometry(B);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.smem));
+  if (err != cudaSuccess) return err;
+  const FullSrc src{static_cast<const int32_t*>(slot), static_cast<const int64_t*>(hits),
+                    static_cast<const int64_t*>(limit_in),
+                    static_cast<const int64_t*>(duration_in),
+                    static_cast<const int32_t*>(algo_in), static_cast<const uint8_t*>(init)};
+  const FullDst dst{static_cast<int32_t*>(status_out), static_cast<int64_t*>(limit_out),
+                    static_cast<int64_t*>(remaining_out), static_cast<int64_t*>(reset_out)};
+  window_full_kernel<<<1, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      src, static_cast<int64_t>(now), B, g.Bp, g.lane_bits,
+      make_arena(limit, duration, remaining, tstamp, expire, algo, capacity), dst);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

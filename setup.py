@@ -4,8 +4,11 @@ setup(
     name="gubernator-tpu",
     version="0.1.0",
     description="TPU-native distributed rate-limiting service",
-    packages=find_packages(include=["gubernator_tpu", "gubernator_tpu.*"]),
-    package_data={"gubernator_tpu.api": ["proto/*.proto", "proto/*.py"]},
+    packages=find_packages(include=["gubernator_tpu", "gubernator_tpu.*",
+                                    "gubernator_tpu_torch",
+                                    "gubernator_tpu_torch.*"]),
+    package_data={"gubernator_tpu.api": ["proto/*.proto", "proto/*.py"],
+                  "gubernator_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,247 @@
+"""The CUDA window-drain kernel's source, built for the host, against the
+JAX package's int64 oracle.
+
+ops/csrc/window_drain.cu runs only on the card, where chip_smoke.py holds
+it against its plain version.  Its device code is plain C++ over integers,
+so these tests compile the same source with the host C++ compiler behind a
+small shim (one thread per CTA, shared memory as a static buffer, the C
+entry points that launch on a stream left out) and run it on the CPU, on
+numpy-seeded windows that also go through the JAX oracle
+(decode_batch -> window_step -> encode_output_word, as in
+tests/test_torch_drain.py).  With one thread the bitonic sort and every
+slot's walk run in turn, so what is checked is the kernel's arithmetic, its
+segment classification and its commits, not its thread layout.
+
+Compared exactly: every valid lane's word and limit, zero pad lanes, the
+mismatch flags and every arena plane; `window_full` on int64 columns
+outside the compact caps against kernel.window_step.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import gubernator_tpu  # noqa: F401  (enables x64)
+import jax
+import jax.numpy as jnp
+
+from gubernator_tpu.ops import kernel as jk
+
+from .test_fold_fuzz import T0
+from .test_torch_drain import _adversarial_drain, _host_oracle
+
+pytestmark = pytest.mark.torch_port
+
+_SRC = (Path(__file__).resolve().parent.parent / "gubernator_tpu_torch"
+        / "ops" / "csrc" / "window_drain.cu")
+
+# what nvcc provides and a host compiler does not: one thread per CTA, and
+# the dynamic shared-memory key buffer as a static array of MAX_LANES keys
+_SHIM = r"""
+#include <cstddef>
+#include <cstdint>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+#define __shared__ static
+struct HostDim3 { unsigned x; };
+static const HostDim3 threadIdx{0}, blockDim{1};
+inline void __syncthreads() {}
+static uint64_t host_keys[16384];
+"""
+
+_ENTRY = r"""
+extern "C" void host_drain_compact(
+    const int64_t* packed, const int64_t* nows, int K, int B, int64_t* limit,
+    int64_t* duration, int64_t* remaining, int64_t* tstamp, int64_t* expire,
+    int32_t* algo, long long C, int64_t* words, int64_t* limits, uint8_t* mism) {
+  const Geometry g = geometry(B);
+  drain_compact_kernel(packed, nows, K, B, g.Bp, g.lane_bits,
+                       make_arena(limit, duration, remaining, tstamp, expire, algo, C),
+                       words, limits, mism);
+}
+extern "C" void host_window_full(
+    const int32_t* slot, const int64_t* hits, const int64_t* limit_in,
+    const int64_t* duration_in, const int32_t* algo_in, const uint8_t* init,
+    long long now, int B, int64_t* limit, int64_t* duration, int64_t* remaining,
+    int64_t* tstamp, int64_t* expire, int32_t* algo, long long C,
+    int32_t* status_out, int64_t* limit_out, int64_t* remaining_out,
+    int64_t* reset_out) {
+  const Geometry g = geometry(B);
+  window_full_kernel(FullSrc{slot, hits, limit_in, duration_in, algo_in, init}, now, B,
+                     g.Bp, g.lane_bits,
+                     make_arena(limit, duration, remaining, tstamp, expire, algo, C),
+                     FullDst{status_out, limit_out, remaining_out, reset_out});
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source with")
+    src = _SRC.read_text()
+    device_code = src[:src.index('extern "C" {')]
+    device_code = device_code.replace("#include <cuda_runtime.h>", "")
+    device_code = device_code.replace("extern __shared__ uint64_t key[];",
+                                      "uint64_t* key = host_keys;")
+    out = tmp_path_factory.mktemp("host_kernel")
+    cpp = out / "window_drain_host.cpp"
+    cpp.write_text(_SHIM + device_code + _ENTRY)
+    so = out / "libwindow_drain_host.so"
+    res = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                          "-o", str(so), str(cpp)],
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    return ctypes.CDLL(str(so))
+
+
+def _ptr(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _planes(st):
+    return [np.ascontiguousarray(np.asarray(a)).copy() for a in st]
+
+
+def _host_drain(lib, st0, packed, nows):
+    arena = _planes(st0)
+    K, B = packed.shape[:2]
+    words = np.zeros((K, B), np.int64)
+    limits = np.zeros((K, B), np.int64)
+    mism = np.zeros(K, np.uint8)
+    packed = np.ascontiguousarray(packed, np.int64)
+    nows = np.ascontiguousarray(nows, np.int64)
+    lib.host_drain_compact(_ptr(packed), _ptr(nows), K, B,
+                           *[_ptr(a) for a in arena],
+                           ctypes.c_longlong(arena[0].shape[0]), _ptr(words),
+                           _ptr(limits), _ptr(mism))
+    return arena, words, limits, mism.astype(bool)
+
+
+def _assert_host_drain(lib, st0, packed, nows, tag):
+    arena, words, limits, mism = _host_drain(lib, st0, packed, nows)
+    want_st, want_words, want_limits, want_mism = _host_oracle(
+        st0, packed, nows)
+    valid = (packed[..., 0] & 0xFFFFFFFF) != 0
+    np.testing.assert_array_equal(words[valid], want_words[valid],
+                                  err_msg=f"{tag} words")
+    np.testing.assert_array_equal(limits[valid], want_limits[valid],
+                                  err_msg=f"{tag} limits")
+    assert not words[~valid].any() and not limits[~valid].any(), \
+        f"{tag} pad lanes must answer 0"
+    np.testing.assert_array_equal(mism, want_mism, err_msg=f"{tag} mism")
+    for f, a, b in zip(jk.BucketState._fields, arena, want_st):
+        np.testing.assert_array_equal(a, np.asarray(b),
+                                      err_msg=f"{tag} state.{f}")
+
+
+def _slot_config(slot):
+    """A key's (algo, limit, duration): it follows the slot."""
+    return ((slot % 5).astype(np.int32), (slot * 7 % 40 + 1).astype(np.int64),
+            (slot * 131 % 3000 + 10).astype(np.int64))
+
+
+def _uniform_drain(rng, K, B, C):
+    """Windows whose keys each send one config, hot runs with a single
+    nonzero hit per key and reads mixed in, over an arena whose rows hold
+    their key's config and whose clock is often ahead of the window's: the
+    runs fold, and leaky keys see negative leaks."""
+    algo, limit, duration = _slot_config(np.arange(C))
+    st0 = jk.BucketState(
+        limit=jnp.asarray(limit), duration=jnp.asarray(duration),
+        remaining=jnp.asarray(rng.integers(0, 4, C).astype(np.int64)),
+        tstamp=jnp.asarray(T0 + rng.integers(-3_000, 3_000, C)),
+        expire=jnp.asarray(T0 + rng.integers(-500, 3_000, C)),
+        algo=jnp.asarray(algo))
+    packs, nows = [], []
+    for k in range(K):
+        slot = rng.integers(0, C, B).astype(np.int32)
+        hot = rng.random(B) < 0.7
+        slot[hot] = rng.integers(0, 4, int(hot.sum()))
+        a, lim, dur = _slot_config(slot)
+        hstar = np.where(a == jk.CONCURRENCY, 1 - slot % 3, slot % 3 + 1)
+        hits = np.where(rng.random(B) < 0.3, 0, hstar).astype(np.int64)
+        is_init = rng.random(B) < 0.05
+        agg = (rng.random(B) < 0.05) & (a <= 1) & (hits > 0)
+        eslot = np.where(agg, slot | jk.AGG_SLOT_BIT, slot).astype(np.int32)
+        eslot[rng.random(B) < 0.1] = jk.PAD_SLOT
+        packs.append(np.asarray(jk.encode_batch_host(
+            eslot, hits, lim, dur, a, is_init)))
+        nows.append(T0 + 5 * k)
+    return st0, np.stack(packs), np.asarray(nows, np.int64)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_host_kernel_folds_uniform_runs_like_the_oracle(host_kernel, seed):
+    """Uniform runs over an arena whose clock runs ahead: the kernel must
+    take the oracle's closed-form fold, not a lane-by-lane replay, where
+    the two part (a negative leak with no leading reads)."""
+    rng = np.random.default_rng(500 + seed)
+    for rep in range(6):
+        st0, packed, nows = _uniform_drain(rng, 4, 48, 16)
+        _assert_host_drain(host_kernel, st0, packed, nows, f"s{seed} r{rep}")
+
+
+@pytest.mark.parametrize("algo_hi", [2, 5])
+def test_host_kernel_drain_matches_oracle_on_adversarial_windows(host_kernel,
+                                                                 algo_hi):
+    """The fold fuzz's adversarial windows (recycles, AGG runs, algorithm
+    switches, mixed configs) in K=4 drains."""
+    rng = np.random.default_rng(600 + algo_hi)
+    for rep in range(4):
+        st0, packed, nows = _adversarial_drain(rng, 4, 64, 24, algo_hi)
+        _assert_host_drain(host_kernel, st0, packed, nows, f"rep {rep}")
+
+
+def test_host_kernel_window_full_matches_oracle(host_kernel):
+    """window_full on int64 columns outside the compact caps, non-power-of
+    two widths and algorithm values past 4, chained over windows."""
+    rng = np.random.default_rng(700)
+    step = jax.jit(jk.window_step)
+    C = 32
+    st = jk.BucketState(
+        limit=jnp.asarray(rng.integers(1, 2**40, C)),
+        duration=jnp.asarray(rng.integers(1, 2**36, C)),
+        remaining=jnp.asarray(rng.integers(0, 2**33, C)),
+        tstamp=jnp.asarray(T0 + rng.integers(-2**33, 2**33, C)),
+        expire=jnp.asarray(T0 + rng.integers(-2**33, 2**33, C)),
+        algo=jnp.asarray(rng.integers(0, 5, C).astype(np.int32)))
+    arena = _planes(st)
+    for w, B in enumerate((37, 64, 5)):
+        now = T0 + w * 10**9
+        slot = rng.integers(0, C, B).astype(np.int32)
+        slot[rng.random(B) < 0.5] = rng.integers(0, 3)
+        slot[rng.random(B) < 0.1] = jk.PAD_SLOT
+        algo = rng.integers(0, 7, B).astype(np.int32)
+        hits = rng.integers(-5, 2**33, B)
+        hits[rng.random(B) < 0.5] = rng.integers(0, 3)
+        cols = [slot, hits.astype(np.int64),
+                rng.integers(0, 2**45, B).astype(np.int64),
+                rng.integers(0, 2**40, B).astype(np.int64), algo,
+                (rng.random(B) < 0.1).astype(np.uint8)]
+        status = np.zeros(B, np.int32)
+        outs = [np.zeros(B, np.int64) for _ in range(3)]
+        host_kernel.host_window_full(
+            *[_ptr(c) for c in cols], ctypes.c_longlong(now), B,
+            *[_ptr(a) for a in arena], ctypes.c_longlong(C), _ptr(status),
+            *[_ptr(o) for o in outs])
+        st, want = step(st, jk.WindowBatch(
+            *[jnp.asarray(c) for c in cols[:5]],
+            jnp.asarray(cols[5].astype(bool))), jnp.int64(now))
+        valid = slot >= 0
+        for name, got, exp in zip(jk.WindowOutput._fields,
+                                  [status] + outs, want):
+            np.testing.assert_array_equal(got[valid], np.asarray(exp)[valid],
+                                          err_msg=f"w{w} {name}")
+            assert not got[~valid].any(), f"w{w} {name} pad lanes"
+        for f, a, b in zip(jk.BucketState._fields, arena, st):
+            np.testing.assert_array_equal(a, np.asarray(b),
+                                          err_msg=f"w{w} state.{f}")

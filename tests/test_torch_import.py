@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: importing it loads no JAX, nothing of the
+JAX package, and neither grpc nor protobuf; its wire enums equal the JAX
+package's; its entry points refuse a CUDA device that is not there."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import gubernator_tpu.api.types as jtypes
+import gubernator_tpu_torch as gt
+from gubernator_tpu_torch.core.engine import RateLimitEngine, resolve_device
+
+pytestmark = pytest.mark.torch_port
+
+_ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
+                  "gubernator_tpu_torch.core.engine",
+                  "gubernator_tpu_torch.ops.drain_kernel")
+
+
+@pytest.mark.parametrize("module", _ENTRY_MODULES)
+def test_import_loads_no_jax_grpc_or_protobuf(module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'gubernator_tpu', 'grpc') "
+        "or m.startswith('google.protobuf')]\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"{module} pulled in {res.stdout}"
+
+
+@pytest.mark.parametrize("name", ["Algorithm", "Behavior", "Status"])
+def test_enum_values_match_jax_package(name):
+    port, ref = getattr(gt, name), getattr(jtypes, name)
+    assert {m.name: int(m) for m in port} == {m.name: int(m) for m in ref}
+
+
+def test_duration_constants_and_hash_key_match():
+    assert (gt.Millisecond, gt.Second, gt.Minute, gt.Hour) == (
+        jtypes.Millisecond, jtypes.Second, jtypes.Minute, jtypes.Hour)
+    assert (gt.RateLimitReq(name="n", unique_key="k").hash_key()
+            == jtypes.RateLimitReq(name="n", unique_key="k").hash_key())
+
+
+def test_default_device_is_cuda_or_raises():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RateLimitEngine(capacity_per_shard=8, batch_per_shard=8)
+    assert resolve_device("cpu").type == "cpu"
