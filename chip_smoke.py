@@ -4,35 +4,58 @@
 
 Phases (one line each; any mismatch raises and exits non-zero):
 
-  1. device: the card (nvidia-smi name and power limit) and the nvcc build
-     of gubernator_tpu_torch/ops/csrc/window_drain.cu;
+  1. device: the card (nvidia-smi name and power limit) and the nvcc builds
+     of gubernator_tpu_torch/ops/csrc/window_drain.cu and global_window.cu,
+     one nvcc each, started together;
   2. kernel vs plain: drain_compact on seeded windows (hot duplicates, AGG
      lanes, recycle inits, zero reads, cap edges, all five algorithms,
      negative CONCURRENCY hits; K in {1, 4}), on uniform runs that fold
      over an arena whose clock is often ahead, and window_full on int64
      values outside the compact caps, each bit for bit against the plain
      torch version (ops/kernel.py) on copies of the same arena, on the card;
-  3. full size: a RateLimitEngine with a 2^24-slot arena (a random arena
-     brought in with import_arena) and K=8 windows of B=1024 lanes (half
-     to 64 hot slots).  3a calls the kernel's wrappers directly: one
-     window per launch, the same drain shape with no hot slots and with
-     every lane on one key (the serial walk's hot-key cost), and
-     window_full.  3b drives the engine's pipeline_dispatch: one drain
-     compared with the plain version including the whole arena, then 50
-     drains timed with CUDA events and 50 with the profiler (device time);
-  4. the serving path end to end: RateLimitEngine() on its default device
-     (warmup, a 1000-request window, scripted token / leaky /
+  3. full size, one shard: a RateLimitEngine with a 2^24-slot arena (a
+     random arena brought in with import_arena) and K=8 windows of B=1024
+     lanes (half to 64 hot slots).  3a calls the kernel's wrappers
+     directly: one window per launch, the same drain shape with no hot
+     slots and with every lane on one key (the serial walk's hot-key
+     cost), and window_full.  3b drives the engine's pipeline_dispatch: one
+     drain compared with the plain version including the whole arena, then
+     50 drains timed with CUDA events and 50 with the profiler (device time);
+  4. the serving path end to end, one shard: RateLimitEngine() on its
+     default device (warmup, a 1000-request window, scripted token / leaky /
      duplicate-burst / out-of-cap sequences against closed-form answers),
      Instance.get_rate_limits under asyncio and a 4-window
      pipeline_dispatch; the kernels' launch counters must move by what
-     each entry point launches and the plain versions must not run.
+     each entry point launches and the plain versions must not run;
+  5. GLOBAL over 8 shards.  5a: global_combined bit for bit against its
+     plain version at G = 4096 and 8 x 256 read lanes on edge inputs (all
+     five algorithms and out-of-range values, int64 wrapped at both ends,
+     expired rows, algorithm switches, is_init, zero sums, pad and
+     out-of-range slots).  5b: drain_compact with 8 CTAs against its plain
+     version.  5c: a [8, 2^21] arena and a 4096-slot GLOBAL arena; K = 8
+     windows x 8 shards x 1024 lanes plus one GLOBAL window of 8 x 256
+     lanes (half on 16 hot keys, at most 256 keys, 70% token / 30% leaky)
+     through pipeline_dispatch_global, compared with the plain versions
+     including every plane of both arenas and the config, then timed (CUDA
+     events, profiler device time of each kernel in the call); before
+     that, and before the GLOBAL path's counts start, global_combined is
+     called directly on the same window, checked and timed alone.  5d:
+     serving on
+     RateLimitEngine(num_shards=8): warmup, a 1000-request window mixing
+     regular and GLOBAL keys against the CPU plain engine, scripted GLOBAL
+     sequences (stale then consistent, a limit raise, leaky) against
+     closed-form answers, Instance RPCs carrying GLOBAL items and the
+     GLOBAL+GCRA refusal.
 
-The launch counts in the kernel table are those of phases 3b and 4, the
-main path: every count is set to 0 just before 3b.  The third-to-last line
-is the kernel table as JSON, the next the card's nvidia-smi name and power
-limit; the last line is {"ok": true, "device": {...}}.
-Tolerance everywhere is exact equality:
-every quantity is an integer.
+Two main paths are counted, each from 0: the one-shard path (phases 3b and
+4) and the GLOBAL path over 8 shards (phases 5c and 5d); each must launch
+its kernels and never run a plain version.  The kernel table's launch
+counts are drain_compact's and window_full's on the first path and
+global_combined's on the second; calls of a wrapper made only to check or
+time it against its plain version come before the counts start.  The third-to-last line is the kernel
+table as JSON, the next the card's nvidia-smi name and power limit; the
+last line is {"ok": true, "device": {...}}.  Tolerance everywhere is exact
+equality: every quantity is an integer.
 """
 
 import asyncio
@@ -49,12 +72,18 @@ if not torch.cuda.is_available():
 
 from gubernator_tpu_torch.api.types import (  # noqa: E402
     Algorithm,
+    Behavior,
     RateLimitReq,
     millisecond_now,
 )
-from gubernator_tpu_torch.core.engine import RateLimitEngine  # noqa: E402
+from gubernator_tpu_torch.core.engine import (  # noqa: E402
+    RateLimitEngine,
+    apply_config,
+)
 from gubernator_tpu_torch.core.service import Instance  # noqa: E402
+from gubernator_tpu_torch.ops import build  # noqa: E402
 from gubernator_tpu_torch.ops import drain_kernel as dk  # noqa: E402
+from gubernator_tpu_torch.ops import global_kernel as gk  # noqa: E402
 from gubernator_tpu_torch.ops import kernel as tk  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -67,6 +96,7 @@ SCALAR_OPS_PER_S = 67e12
 SECTOR = 32                 # bytes per scattered arena access
 PLANES = 6
 SOURCE = "gubernator_tpu_torch/ops/csrc/window_drain.cu"
+GLOBAL_SOURCE = "gubernator_tpu_torch/ops/csrc/global_window.cu"
 # phase 3: the survey's 100M keys over 8 chips (12.5M a chip), rounded up to
 # a power of two; the top of the JAX engine's stacked-drain depths
 # (PIPELINE_K_BUCKETS, gubernator_tpu/core/engine.py:68-84); the engine's
@@ -75,6 +105,15 @@ FULL_CAPACITY = 1 << 24
 FULL_K = 8
 FULL_LANES = 1024
 TIMED_DRAINS = 50
+# phase 5: the JAX package's 8-device mesh as 8 shards on the card, the same
+# 2^24 slots as [8, 2^21]; the JAX engine's GLOBAL defaults
+# (gubernator_tpu/core/engine.py:152-160): 4096 slots, 256 lanes per shard
+# per window, 256 distinct keys per window
+SHARDS = 8
+G_FULL = 4096
+BG_FULL = 256
+KG_FULL = 256
+I64_MAX, I64_MIN = 2**63 - 1, -2**63
 
 
 def log(msg):
@@ -120,11 +159,12 @@ def random_windows(rng, K, B, C, hot=6, cap_edges=False):
     return out
 
 
-def random_arena(gen, C, now, device):
-    """Arena rows as serving would leave them: configs inside the compact
-    caps, times within a few minutes of `now` (about half expired)."""
+def random_arena(gen, C, now, device, S=1):
+    """[S, C] arena rows as serving would leave them: configs inside the
+    compact caps, times within a few minutes of `now` (about half
+    expired)."""
     def ri(lo, hi):
-        return torch.randint(lo, hi, (C,), generator=gen, device=device,
+        return torch.randint(lo, hi, (S, C), generator=gen, device=device,
                              dtype=torch.int64)
     limit = ri(1, 1000)
     return tk.BucketState(
@@ -135,7 +175,7 @@ def random_arena(gen, C, now, device):
 
 
 def clone(arena):
-    return tk.BucketState(*[t.clone() for t in arena])
+    return type(arena)(*[t.clone() for t in arena])
 
 
 def assert_same(a, b, what):
@@ -187,6 +227,23 @@ def cuda_ms(fn, n):
     return start.elapsed_time(stop) / n
 
 
+def device_busy_ms(fn, n):
+    """Mean device time per call (ms) of every kernel, copy and fill the
+    card ran over n calls, from a torch.profiler trace; None when the trace
+    shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / n / 1e3 if busy_us else None
+
+
 def device_ms(fn, n, kernel_name):
     """Mean device time (ms) of the kernel named `kernel_name` per launch
     over n calls, from a torch.profiler CUDA trace; None when the trace
@@ -212,14 +269,20 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    # both sources at once, one nvcc each
     t0 = time.perf_counter()
+    build.build([dk.SOURCE, gk.SOURCE])
     dk.load_library()
+    gk.load_library()
     load_s = time.perf_counter() - t0
-    build_s, build_log = dk.build_info if dk.build_info else (0.0, "")
-    regs = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
+    builds = []
+    for name in (dk.SOURCE, gk.SOURCE):
+        secs, out = build.build_info.get(name, (0.0, ""))
+        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
+        builds.append(f"{name}.cu {secs:.1f} s, ptxas: {' | '.join(regs)}")
     log(f"phase 1 device: {smi}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; nvcc build {build_s:.1f} s (load "
-        f"{load_s:.1f} s); ptxas: {' | '.join(regs)}")
+        f"{torch.version.cuda}; nvcc builds in parallel, {load_s:.1f} s in "
+        f"all: {'; '.join(builds)}")
     return smi
 
 
@@ -244,20 +307,18 @@ def phase_kernel_vs_plain():
         arena = random_arena(gen, C, T0, DEV)
         if traffic == "uniform":
             # rows hold the config their key's traffic sends
-            algo, limit, duration = slot_config(np.arange(C))
+            algo, limit, duration = (torch.from_numpy(a).to(DEV)[None]
+                                     for a in slot_config(np.arange(C)))
             arena = arena._replace(
-                algo=torch.from_numpy(algo).to(DEV),
-                limit=torch.from_numpy(limit).to(DEV),
-                duration=torch.from_numpy(duration).to(DEV),
-                remaining=torch.remainder(arena.remaining,
-                                          torch.from_numpy(limit).to(DEV) + 1))
+                algo=algo, limit=limit, duration=duration,
+                remaining=torch.remainder(arena.remaining, limit + 1))
         plain_arena = clone(arena)
         if traffic == "mixed":
             packed = random_windows(rng, K, lanes, C, hot=hot,
                                     cap_edges=(i % 2 == 1))
         else:
             packed = full_size_traffic(rng, K, lanes, C, 0.5, hot)
-        packed = torch.from_numpy(packed).to(DEV)
+        packed = torch.from_numpy(packed[:, None]).to(DEV)
         nows = torch.tensor([T0 + 997 * (k + 1) * (i + 1) for k in range(K)],
                             dtype=torch.int64, device=DEV)
         got = dk.drain_compact(arena, packed, nows)
@@ -288,7 +349,7 @@ def phase_kernel_vs_plain():
                 rng.integers(2**31, 2**40, B)), bt.duration),
             algo=torch.where(torch.from_numpy(rng.random(B) < 0.1),
                              torch.tensor(9, dtype=torch.int32), bt.algo))
-        bt = tk.WindowBatch(*[t.contiguous().to(DEV) for t in bt])
+        bt = tk.WindowBatch(*[t.contiguous().to(DEV)[None] for t in bt])
         now = T0 + 10**9 * (i + 1)
         got = dk.window_full(arena, bt, now)
         want = dk.window_full_plain(plain_arena, bt, now)
@@ -348,7 +409,7 @@ def full_size_engine(gen):
                           batch_per_shard=FULL_LANES)
     check(eng.device.type == DEV.type, f"engine on {eng.device}")
     arena = random_arena(gen, FULL_CAPACITY, T0, DEV)
-    eng.import_arena({name: t.cpu().numpy()[None]
+    eng.import_arena({name: t.cpu().numpy()
                       for name, t in zip(tk.BucketState._fields, arena)})
     return eng
 
@@ -357,9 +418,9 @@ def phase_kernel_full_size(eng, packed, nows):
     """Phase 3a: the kernel's wrappers called directly on the full-size
     arena: one window per launch (the engine's single-window compact step),
     the serial walk's hot-key cost, and window_full at the engine's width."""
-    arena = eng._arena()
+    arena = eng.state
     plain_arena = clone(arena)
-    B = packed.shape[1]
+    B = packed.shape[2]
 
     one, now1 = packed[:1].contiguous(), nows[:1].contiguous()
     dk.drain_compact(arena, one, now1)  # warm-up
@@ -381,7 +442,7 @@ def phase_kernel_full_size(eng, packed, nows):
     for label, share, n_hot in (("uniform", 0.0, 1), ("one key", 1.0, 1)):
         pk = torch.from_numpy(full_size_traffic(
             np.random.default_rng(8), FULL_K, B, FULL_CAPACITY, share,
-            n_hot)).to(DEV)
+            n_hot)[:, None]).to(DEV)
         dk.drain_compact(arena, pk, nows)  # warm-up
         t = device_ms(lambda: dk.drain_compact(arena, pk, nows), 10,
                       "drain_compact_kernel")
@@ -416,15 +477,14 @@ def phase_engine_full_size(eng, packed, nows):
     """Phase 3b: the engine's stacked drain at full size.  One
     pipeline_dispatch compared with the plain version including the whole
     arena, then 50 timed with CUDA events and 50 with the profiler."""
-    K, B = packed.shape[0], packed.shape[1]
+    K, B = packed.shape[0], packed.shape[2]
     C = eng.capacity_per_shard
-    arena = eng._arena()
+    arena = eng.state
     plain_arena = clone(arena)
     arena_mb = sum(t.numel() * t.element_size() for t in eng.state) / 1e6
-    stack = packed[:, None]
 
     def drain():
-        return eng.pipeline_dispatch(stack, nows)
+        return eng.pipeline_dispatch(packed, nows)
 
     before = dk.launches["drain_compact"]
     words, limits, mism = drain()
@@ -432,7 +492,7 @@ def phase_engine_full_size(eng, packed, nows):
     torch.cuda.synchronize()
     check(dk.launches["drain_compact"] - before == 1,
           "pipeline_dispatch did not launch the kernel exactly once")
-    got = (words[:, 0], limits[:, 0], mism[:, 0])
+    got = (words, limits, mism)
     assert_same(got, want, "full-size pipeline_dispatch outputs")
     assert_same(arena, plain_arena, "full-size pipeline_dispatch arena")
     err = max_abs_err(list(zip(got, want)) + list(zip(arena, plain_arena)))
@@ -474,20 +534,34 @@ def moved(before, after):
     return {k: after[k] - before[k] for k in after}
 
 
+def launch_counts():
+    return {**dk.launches, **gk.launches}
+
+
+def plain_counts():
+    return {**dk.plain_calls, **gk.plain_calls}
+
+
+def reset_counts():
+    dk.reset_counts()
+    gk.reset_counts()
+
+
 def phase_serving():
-    launch0, plain0 = dict(dk.launches), dict(dk.plain_calls)
+    launch0, plain0 = launch_counts(), plain_counts()
     eng = RateLimitEngine()
     check(eng.device.type == DEV.type, f"engine on {eng.device}")
     t0 = millisecond_now()
 
-    # warmup launches the full format once, each compact lane bucket once
-    # and a one-window stacked drain
-    before = dict(dk.launches)
+    # warmup launches the full format once, each compact lane bucket once,
+    # a one-window stacked drain and one GLOBAL window
+    before = launch_counts()
     eng.warmup(now=t0)
     want_warm = {"drain_compact": len(eng._lane_bucket_list) + 1,
-                 "window_full": 1}
-    check(moved(before, dk.launches) == want_warm,
-          f"warmup launches {moved(before, dk.launches)}, want {want_warm}")
+                 "window_full": 1, "global_combined": 1}
+    check(moved(before, launch_counts()) == want_warm,
+          f"warmup launches {moved(before, launch_counts())}, "
+          f"want {want_warm}")
 
     # a 1000-request window: 400 keys, hot duplicates, all algorithms
     rng = np.random.default_rng(11)
@@ -556,15 +630,17 @@ def phase_serving():
     # against the plain version below, once the serving counts are read
     rng4 = np.random.default_rng(12)
     packed = torch.from_numpy(full_size_traffic(
-        rng4, 4, eng.batch_per_shard, eng.capacity_per_shard)).to(DEV)
+        rng4, 4, eng.batch_per_shard, eng.capacity_per_shard)[:, None]).to(DEV)
     nows = torch.tensor([t0 + 30 + k for k in range(4)], dtype=torch.int64,
                         device=DEV)
-    pre = clone(eng._arena())
-    before = dict(dk.launches)
-    stacked = eng.pipeline_dispatch(packed[:, None], nows)
-    check(moved(before, dk.launches) == {"drain_compact": 1, "window_full": 0},
-          f"pipeline_dispatch launches {moved(before, dk.launches)}")
-    post = clone(eng._arena())
+    pre = clone(eng.state)
+    before = launch_counts()
+    stacked = eng.pipeline_dispatch(packed, nows)
+    check(moved(before, launch_counts()) == {"drain_compact": 1,
+                                             "window_full": 0,
+                                             "global_combined": 0},
+          f"pipeline_dispatch launches {moved(before, launch_counts())}")
+    post = clone(eng.state)
 
     # a config past the compact caps takes the full-format kernel
     huge = eng.process([RateLimitReq(name="s", unique_key="huge", hits=2**30,
@@ -573,16 +649,15 @@ def phase_serving():
     expect(huge, [(0, 2**40, 2**40 - 2**30, t0 + 20 + 2**35)], "int64 config")
     check(not eng._compact_sound, "full-format window kept compact on")
 
-    launches = moved(launch0, dk.launches)
-    plain = moved(plain0, dk.plain_calls)
+    launches = moved(launch0, launch_counts())
+    plain = moved(plain0, plain_counts())
     check(launches["drain_compact"] > 0 and launches["window_full"] > 0,
           f"a kernel of the serving path never launched: {launches}")
-    check(plain == {"drain_compact": 0, "window_full": 0},
+    check(not any(plain.values()),
           f"the plain versions ran on the serving path: {plain}")
 
     want = dk.drain_compact_plain(pre, packed, nows)
-    assert_same(tuple(t[:, 0] for t in stacked), want,
-                "pipeline_dispatch outputs")
+    assert_same(stacked, want, "pipeline_dispatch outputs")
     assert_same(post, pre, "pipeline_dispatch arena")
 
     # the same 1000-request window on a CPU engine (plain version) agrees
@@ -598,6 +673,446 @@ def phase_serving():
         f"pipeline_dispatch = plain; launches {launches}, plain calls {plain}")
 
 
+# ---------------------------------------------------------------- GLOBAL
+
+def global_edge_inputs(rng, G, n, algos, wrap):
+    """A numpy GLOBAL window (state, cfg, batch, summed) with the edge
+    cases: about a tenth of the rows never initialized and half expired,
+    configs that mostly agree with the rows and sometimes switch algorithm,
+    read lanes with pads, out-of-range slots, hot slots and is_init, summed
+    hits 0 on ~40% of the rows; with `wrap`, a quarter of every int64 field
+    at or near both ends of the range (tests/test_torch_global.py draws the
+    same kinds of input)."""
+    algos = np.asarray(algos, np.int32)
+    pick = lambda size: rng.choice(algos, size).astype(np.int32)  # noqa: E731
+    limit = rng.integers(0, 200, G)
+    s_algo = pick(G)
+    state = dict(
+        limit=limit, duration=rng.integers(0, 120_000, G),
+        remaining=rng.integers(-3, 1 << 20, G),
+        tstamp=T0 + rng.integers(-120_000, 120_000, G),
+        expire=np.where(rng.random(G) < 0.1, 0,
+                        T0 + rng.integers(-120_000, 120_000, G)),
+        algo=s_algo)
+    keep = rng.random(G) < 0.7
+    cfg = dict(limit=np.where(keep, limit, rng.integers(0, 200, G)),
+               duration=np.where(keep, state["duration"],
+                                 rng.integers(0, 120_000, G)),
+               algo=np.where(rng.random(G) < 0.7, s_algo,
+                             pick(G)).astype(np.int32))
+    slot = rng.integers(-2, G + 3, n)
+    hot = rng.random(n) < 0.4
+    slot[hot] = rng.integers(0, 16, int(hot.sum()))
+    slot[:2] = (-1, G)
+    batch = dict(
+        slot=slot.astype(np.int32),
+        hits=rng.choice([0, 0, 1, 2, 5, -1, -3], n).astype(np.int64),
+        limit=rng.integers(0, 200, n), duration=rng.integers(0, 120_000, n),
+        algo=np.where(rng.random(n) < 0.7, s_algo[np.clip(slot, 0, G - 1)],
+                      pick(n)).astype(np.int32),
+        is_init=rng.random(n) < 0.15)
+    summed = np.where(rng.random(G) < 0.4, 0, rng.integers(-5, 20, G))
+    if wrap:
+        ends = np.asarray([I64_MAX, I64_MAX - 1, I64_MIN, I64_MIN + 1,
+                           2**62, -2**62, 2**32 + 7], np.int64)
+        for d, names in ((state, ("limit", "duration", "remaining", "tstamp",
+                                  "expire")),
+                         (cfg, ("limit", "duration")),
+                         (batch, ("hits", "limit", "duration"))):
+            for k in names:
+                m = rng.random(d[k].shape[0]) < 0.25
+                d[k] = np.where(m, rng.choice(ends, d[k].shape[0]), d[k])
+        summed = np.where(rng.random(G) < 0.25, rng.choice(ends, G), summed)
+
+    def dev(kind, d):
+        return kind(**{k: torch.from_numpy(np.ascontiguousarray(
+            v if v.dtype in (np.int32, np.bool_) else v.astype(np.int64)))
+            .to(DEV) for k, v in d.items()})
+    return (dev(tk.BucketState, state), dev(tk.GlobalConfig, cfg),
+            dev(tk.WindowBatch, batch),
+            torch.from_numpy(summed.astype(np.int64)).to(DEV))
+
+
+def phase_global_vs_plain():
+    """Phase 5a: global_combined against its plain version on seeded edge
+    inputs at the JAX engine's GLOBAL shape (G = 4096, 8 x 256 lanes)."""
+    rng = np.random.default_rng(5150)
+    n = SHARDS * BG_FULL
+    errs = []
+    cases = [(range(7), False), ((0, 1), False), (range(7), True),
+             ((0, 1), True), ((2, 3, 4), False)]
+    for i, (algos, wrap) in enumerate(cases):
+        st, cfg, bt, summed = global_edge_inputs(rng, G_FULL, n, algos, wrap)
+        before = clone(st)
+        got = gk.global_combined(st, cfg, bt, summed, T0 + i)
+        want = gk.global_combined_plain(st, cfg, bt, summed, T0 + i)
+        torch.cuda.synchronize()
+        assert_same(got[0], want[0], f"global case {i} arena")
+        assert_same(got[1:], want[1:], f"global case {i} read block")
+        assert_same(st, before, f"global case {i} wrote its input arena")
+        errs += list(zip(got[0], want[0])) + [(got[1], want[1])]
+    err = max_abs_err(errs)
+    log(f"phase 5a global_combined vs plain: {len(cases)} windows of "
+        f"{n} lanes over G={G_FULL} (all five algorithms and out-of-range "
+        f"values, int64 wrapped at both ends, expired rows, switches, "
+        f"is_init, zero sums, pad and out-of-range slots), bit-exact "
+        f"(max_abs_err {err})")
+    return err
+
+
+def phase_sharded_drain_vs_plain():
+    """Phase 5b: drain_compact with S = 8 CTAs against its plain version:
+    eight shards' arenas and windows in one launch, shard 5 all padding."""
+    rng = np.random.default_rng(2025)
+    gen = torch.Generator(device=DEV).manual_seed(2025)
+    C, K, B = 4096, 4, 256
+    arena = random_arena(gen, C, T0, DEV, S=SHARDS)
+    plain_arena = clone(arena)
+    packed = np.stack([random_windows(rng, K, B, C, cap_edges=(s % 2 == 1))
+                       for s in range(SHARDS)], axis=1)
+    packed[:, 5] = 0
+    packed = torch.from_numpy(packed).to(DEV)
+    nows = torch.tensor([T0 + 1009 * (k + 1) for k in range(K)],
+                        dtype=torch.int64, device=DEV)
+    got = dk.drain_compact(arena, packed, nows)
+    want = dk.drain_compact_plain(plain_arena, packed, nows)
+    torch.cuda.synchronize()
+    assert_same(got, want, "S=8 drain outputs")
+    assert_same(arena, plain_arena, "S=8 drain arena")
+    err = max_abs_err(list(zip(got, want)) + list(zip(arena, plain_arena)))
+    log(f"phase 5b drain_compact with {SHARDS} CTAs vs plain: K={K} x "
+        f"S={SHARDS} x B={B} over [{SHARDS}, {C}] (shard 5 idle), "
+        f"bit-exact (max_abs_err {err})")
+    return err
+
+
+def global_traffic(rng, eng, n_hot=16):
+    """One GLOBAL window as the engine stages it, at the engine's full
+    GLOBAL width: S x Bg lanes spread round-robin over the shards, half on
+    `n_hot` hot keys and the rest over other slots of the arena, at most
+    max_global_updates distinct keys; a key's config follows its slot
+    (the arena's config, 70% token, 30% leaky); 10% reads; 5% of the keys
+    reallocated (config write + reset, is_init on their first lane).
+    Returns numpy (gbatch [S, Bg], gacc [S, Bg], upd)."""
+    S, Bg = eng.num_shards, eng.global_batch_per_shard
+    G, Kg = eng.global_capacity, eng.max_global_updates
+    keys = rng.choice(G, Kg, replace=False)
+    n = S * Bg
+    lane_key = np.where(rng.random(n) < 0.5, rng.integers(0, n_hot, n),
+                        rng.integers(n_hot, Kg, n))
+    slot = keys[lane_key]
+    cfg = [t.cpu().numpy() for t in eng.gcfg]
+    hits = np.where(rng.random(n) < 0.1, 0, 1).astype(np.int64)
+    used = np.unique(lane_key)
+    reset = used[rng.random(used.size) < 0.05]
+    first = np.zeros(n, bool)
+    first[np.unique(lane_key, return_index=True)[1]] = True
+    is_init = first & np.isin(lane_key, reset)
+    # request i goes to shard i % S, lane i // S
+    rr = lambda a: np.ascontiguousarray(a.reshape(Bg, S).T)  # noqa: E731
+    gbatch = tk.WindowBatch(
+        slot=rr(slot.astype(np.int32)), hits=rr(hits),
+        limit=rr(cfg[0][slot]), duration=rr(cfg[1][slot]),
+        algo=rr(cfg[2][slot]), is_init=rr(is_init))
+    upd = (np.full(Kg, G, np.int32), np.zeros(Kg, np.int64),
+           np.zeros(Kg, np.int64), np.zeros(Kg, np.int32),
+           np.full(Kg, G, np.int32))
+    u = keys[used]
+    upd[0][:u.size] = u
+    upd[1][:u.size], upd[2][:u.size], upd[3][:u.size] = (c[u] for c in cfg)
+    upd[4][:reset.size] = keys[reset]
+    return gbatch, rr(hits), upd
+
+
+def global_bound_ms(G, n):
+    """The least time of one GLOBAL window: each input read once (the
+    arena's six planes 44 B a row, its config 20 B, the summed hits 8 B;
+    33 B a read lane) and each output written once (44 B a row, 32 B a
+    lane); or ~200 32-bit operations of the ladder per lane and row, at
+    the scalar rate; whichever is larger."""
+    nbytes = G * (44 + 20 + 8 + 44) + n * (33 + 32)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (G + n) * 200 / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sharded_engine(gen):
+    """The phase-5c engine: 8 shards of 2^21 slots with a random regular
+    arena, and a random GLOBAL arena whose rows hold their configs (70%
+    token, 30% leaky), brought in with import_arena."""
+    eng = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                          batch_per_shard=FULL_LANES, num_shards=SHARDS)
+    check(eng.device.type == DEV.type, f"engine on {eng.device}")
+    planes = {name: t.cpu().numpy() for name, t in zip(
+        tk.BucketState._fields,
+        random_arena(gen, FULL_CAPACITY // SHARDS, T0, DEV, S=SHARDS))}
+    g = random_arena(gen, G_FULL, T0, DEV)
+    galgo = (torch.rand(G_FULL, generator=gen, device=DEV) < 0.3).to(
+        torch.int32)
+    for name, t in zip(tk.BucketState._fields, g):
+        planes[f"gstate.{name}"] = (galgo if name == "algo" else t[0]).cpu() \
+            .numpy()
+    for name in tk.GlobalConfig._fields:
+        planes[f"gcfg.{name}"] = planes[f"gstate.{name}"]
+    eng.import_arena(planes)
+    return eng
+
+
+def global_full_size_inputs(gen, rng):
+    """The phase-5c engine and its window: K = 8 windows x 8 shards x 1024
+    lanes over a [8, 2^21] arena plus one GLOBAL window of 8 x 256 lanes
+    over G = 4096; and the plain versions' inputs, taken before the engine
+    runs: copies of the regular arena, and of the GLOBAL arena and config
+    with the window's config writes applied, its lanes flattened over the
+    shards and its summed hits."""
+    eng = sharded_engine(gen)
+    S, B = SHARDS, FULL_LANES
+    packed = torch.from_numpy(np.stack(
+        [full_size_traffic(rng, FULL_K, B, eng.capacity_per_shard)
+         for _ in range(S)], axis=1)).to(DEV)
+    nows = torch.tensor([T0 + 7 * k for k in range(FULL_K)],
+                        dtype=torch.int64, device=DEV)
+    gbatch, gacc, upd = global_traffic(rng, eng)
+    arena0, gstate0, gcfg0 = clone(eng.state), clone(eng.gstate), \
+        clone(eng.gcfg)
+    apply_config(gstate0, gcfg0, tuple(torch.from_numpy(a).to(DEV)
+                                       for a in upd))
+    flat = tk.WindowBatch(*[torch.from_numpy(a).to(DEV).reshape(-1)
+                            for a in gbatch])
+    summed = tk.global_accumulate(
+        torch.zeros(G_FULL, dtype=torch.int64, device=DEV),
+        flat._replace(hits=torch.from_numpy(gacc).to(DEV).reshape(-1)))
+    return dict(eng=eng, packed=packed, nows=nows, gbatch=gbatch, gacc=gacc,
+                upd=upd, arena0=arena0, gstate0=gstate0, gcfg0=gcfg0,
+                flat=flat, summed=summed)
+
+
+def phase_global_alone(w):
+    """Phase 5c, first part, before the GLOBAL path's counts start: the
+    wrapper called directly on the full-size GLOBAL window's inputs (its
+    config writes applied), against its plain version, then 100 launches
+    timed with CUDA events and 100 with the profiler, and the plain version
+    timed.  It writes out of place, so every call sees the same arena.
+    Leaves the plain version's outputs in `w` for the engine's check."""
+    args = (w["gstate0"], w["gcfg0"], w["flat"], w["summed"],
+            int(w["nows"][0]))
+    got = gk.global_combined(*args)
+    want = gk.global_combined_plain(*args)
+    torch.cuda.synchronize()
+    assert_same(got[0], want[0], "full-size GLOBAL window arena")
+    assert_same(got[1:], want[1:], "full-size GLOBAL window read block")
+    err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+    w["gwant"], w["gread"] = want
+
+    def gone():
+        return gk.global_combined(*args)
+
+    gone()  # warm-up
+    events = cuda_ms(gone, 100)
+    device = device_ms(gone, 100, "global_combined_kernel")
+    plain = cuda_ms(lambda: gk.global_combined_plain(*args), 5)
+    log(f"phase 5c global_combined alone (direct calls, outside the counted "
+        f"path): bit-exact vs plain on the full-size window; "
+        f"{'not measured' if device is None else f'{device:.4f} ms'} device "
+        f"(profiler, 100 launches), {events:.4f} ms/call (CUDA events, 100 "
+        f"calls back to back); plain {plain:.2f} ms")
+    return dict(err=err, ms=device, events_ms=events, plain_ms=plain)
+
+
+def phase_global_full_size(w, alone, s1_drain_ms):
+    """Phase 5c, on the counted GLOBAL path: the GLOBAL-composed drain at
+    full size through pipeline_dispatch_global.  One call compared with the
+    plain versions including every arena plane, then 20 calls timed with
+    CUDA events and 20 with the profiler (device time of each kernel in the
+    call, and the card's busy time)."""
+    eng, packed, nows = w["eng"], w["packed"], w["nows"]
+    gbatch, gacc, upd = w["gbatch"], w["gacc"], w["upd"]
+    S, B = SHARDS, FULL_LANES
+    n = S * eng.global_batch_per_shard
+    arena0 = w["arena0"]
+    before = launch_counts()
+    words, limits, mism, gfused = eng.pipeline_dispatch_global(
+        packed, nows, gbatch, gacc, upd)
+    torch.cuda.synchronize()
+    check(moved(before, launch_counts()) == {"drain_compact": 1,
+                                             "window_full": 0,
+                                             "global_combined": 1},
+          f"pipeline_dispatch_global launches "
+          f"{moved(before, launch_counts())}")
+    # the plain drain on the copy; the GLOBAL window's plain outputs came
+    # from phase_global_alone on the same inputs
+    t0 = time.perf_counter()
+    want = dk.drain_compact_plain(arena0, packed, nows)
+    torch.cuda.synchronize()
+    drain_plain_ms = (time.perf_counter() - t0) * 1e3
+    gwant, gread = w["gwant"], w["gread"]
+    assert_same((words, limits, mism), want, "S=8 composed drain outputs")
+    assert_same((gfused.reshape(n, 4),), (gread,), "GLOBAL response block")
+    assert_same(eng.state, arena0, "S=8 composed drain arena")
+    assert_same(eng.gstate, gwant, "GLOBAL arena")
+    assert_same(eng.gcfg, w["gcfg0"], "GLOBAL config")
+    drain_err = max_abs_err(list(zip((words, limits, mism), want))
+                            + list(zip(eng.state, arena0)))
+    global_err = max_abs_err([(gfused.reshape(n, 4), gread)]
+                             + list(zip(eng.gstate, gwant)))
+    valid = int(((packed[..., 0] & 0xFFFFFFFF) != 0).sum())
+    gvalid = int((w["flat"].slot >= 0).sum())
+
+    def call():
+        return eng.pipeline_dispatch_global(packed, nows, gbatch, gacc, upd)
+
+    call()  # warm-up
+    call_ms = cuda_ms(call, 20)
+    drain_ms = device_ms(call, 20, "drain_compact_kernel")
+    gcall_ms = device_ms(call, 20, "global_combined_kernel")
+    busy_ms = device_busy_ms(call, 20)
+    idle = ("not measured" if busy_ms is None else
+            f"{busy_ms:.4f} ms busy, idle share {1 - busy_ms / call_ms:.3f}")
+    timer = "profiler"
+    if drain_ms is None or gcall_ms is None:
+        timer = "events (the profiler showed no device time)"
+    # the kernel's time in the table: its device time in the call, or, where
+    # the profiler saw none, the direct calls' time per call (CUDA events)
+    g_ms, g_timer = gcall_ms, "device in the call (profiler, 20 launches)"
+    if g_ms is None:
+        g_ms, g_timer = alone["events_ms"], "alone per call (CUDA events)"
+    gbms, gby = global_bound_ms(G_FULL, n)
+    slots = sum(touched_slots(packed[:, s]) for s in range(S))
+    dbms, dby = bound_ms(FULL_K * S * B, 16, 16, slots)
+    drain_ms = drain_ms if drain_ms is not None else call_ms
+    log(f"phase 5c full-size pipeline_dispatch_global: [{S}, "
+        f"{eng.capacity_per_shard}] arena, K={FULL_K} x S={S} x B={B} "
+        f"({valid} valid lanes, {slots} distinct slots) + GLOBAL {S} x "
+        f"{eng.global_batch_per_shard} lanes ({gvalid} valid, "
+        f"{int((upd[0] < G_FULL).sum())} keys) over G={G_FULL}; bit-exact "
+        f"vs plain incl. every arena plane, gstate and gcfg; "
+        f"{call_ms:.4f} ms/call over 20 calls (CUDA events), device "
+        f"{idle} per call; device "
+        f"({timer}): drain_compact S=8 {drain_ms:.4f} ms per "
+        f"{FULL_K} x {S} x {B} drain = {valid / drain_ms * 1e3:.3e} "
+        f"decisions/s, beside S=1 {s1_drain_ms:.4f} ms per {FULL_K} x {B} "
+        f"(phase 3b); global_combined {g_ms} ms ({g_timer}); plain "
+        f"S=8 drain {drain_plain_ms:.2f} ms; byte bound {dbms * 1e3:.3f} us;"
+        f" GLOBAL bound {gbms * 1e3:.3f} us ({gby})")
+    return dict(drain_err=drain_err, global_err=global_err, ms=g_ms,
+                bound_ms=gbms, bound_by=gby, drain_s8_ms=drain_ms)
+
+
+def phase_global_serving():
+    """Phase 5d: the serving path with GLOBAL on RateLimitEngine(num_shards=
+    8): warmup, a 1000-request window mixing regular and GLOBAL keys
+    (= the CPU plain engine), scripted GLOBAL sequences against closed-form
+    answers, and Instance.get_rate_limits serving GLOBAL standalone."""
+    launch0, plain0 = launch_counts(), plain_counts()
+    eng = RateLimitEngine(num_shards=SHARDS)
+    check(eng.device.type == DEV.type, f"engine on {eng.device}")
+    t0 = millisecond_now()
+    before = launch_counts()
+    eng.warmup(now=t0)
+    check(moved(before, launch_counts())["global_combined"] == 1,
+          "warmup did not launch the GLOBAL kernel once")
+
+    rng = np.random.default_rng(13)
+    window = []
+    for _ in range(1000):
+        if rng.random() < 0.2:
+            window.append(RateLimitReq(
+                name="sg", unique_key=f"g{int(rng.zipf(1.3)) % 50}",
+                hits=int(rng.integers(0, 3)), limit=30, duration=60_000,
+                algorithm=int(rng.integers(0, 2)), behavior=Behavior.GLOBAL))
+        else:
+            window.append(RateLimitReq(
+                name="sr", unique_key=f"k{int(rng.zipf(1.3)) % 400}",
+                hits=int(rng.integers(0, 3)), limit=20, duration=60_000,
+                algorithm=int(rng.integers(0, 5))))
+    big = eng.process(window, now=t0)
+    walls = []
+    for i in range(10):
+        w0 = time.perf_counter()
+        eng.process(window, now=t0 + 1 + i)
+        walls.append((time.perf_counter() - w0) * 1e3)
+    wall_ms = float(np.median(walls))
+
+    def g(key, hits, limit=5, duration=3_000, algo=0):
+        return RateLimitReq(name="s", unique_key=key, hits=hits, limit=limit,
+                            duration=duration, algorithm=algo,
+                            behavior=Behavior.GLOBAL)
+
+    # stale, then consistent (tests/test_engine.py:75-120): a window's reads
+    # see the arena from before it; its summed hits land at its end
+    t = t0 + 100
+    seq = [eng.step([g("st", 1), g("st", 1)], now=t),
+           eng.step([g("st", 0)], now=t + 10),
+           eng.step([g("st", 1)], now=t + 20),
+           eng.step([g("st", 0)], now=t + 30)]
+    expect([r for w in seq for r in w],
+           [(0, 5, 4, t + 3_000)] * 2 + [(0, 5, 3, t + 3_000)] * 2
+           + [(0, 5, 2, t + 3_000)], "GLOBAL stale-then-consistent")
+    # a limit raise on a live key: the config takes it at once, the stored
+    # limit after expiry
+    raise_seq = [eng.step([g("up", 2, 5, 60_000)], now=t),
+                 eng.step([g("up", 1, 50, 60_000)], now=t + 1),
+                 eng.step([g("up", 0, 50, 60_000)], now=t + 2),
+                 eng.step([g("up", 0, 50, 60_000)], now=t + 61_000),
+                 eng.step([g("up", 1, 50, 60_000)], now=t + 61_010)]
+    expect([r for w in raise_seq for r in w],
+           [(0, 5, 3, t + 60_000), (0, 5, 3, t + 60_000),
+            (0, 5, 2, t + 60_000), (0, 50, 50, t + 121_000),
+            (0, 50, 49, t + 121_010)], "GLOBAL limit raise")
+    # leaky: limit 4 over 4 s; a read 10 ms on leaks nothing
+    lk = [eng.step([g("lk", 1, 4, 4_000, Algorithm.LEAKY_BUCKET)], now=t),
+          eng.step([g("lk", 0, 4, 4_000, Algorithm.LEAKY_BUCKET)],
+                   now=t + 10)]
+    expect([r for w in lk for r in w], [(0, 4, 3, 0), (0, 4, 3, 0)],
+           "GLOBAL leaky")
+
+    # Instance: 3 RPCs of 100 regular items (50 keys x 2, limit 3) and one
+    # GLOBAL item (limit 3) each, then GLOBAL on GCRA
+    inst = Instance(engine=eng)
+
+    async def rpcs():
+        out = []
+        for _ in range(3):
+            reqs = [RateLimitReq(name="rpc", unique_key=f"r{j % 50}", hits=1,
+                                 limit=3, duration=60_000)
+                    for j in range(100)]
+            reqs.append(g("inst", 1, 3, 60_000))
+            out.append(await inst.get_rate_limits(reqs))
+        bad = await inst.get_rate_limits([g("bad", 1, algo=Algorithm.GCRA)])
+        return out, bad[0].error
+
+    try:
+        rpc, bad = asyncio.run(rpcs())
+    finally:
+        inst.close()
+    check([[r.status for r in o[:100]] for o in rpc]
+          == [[0] * 100, [0] * 50 + [1] * 50, [1] * 100],
+          "Instance regular statuses")
+    check([(o[100].status, o[100].remaining) for o in rpc]
+          == [(0, 2), (0, 2), (0, 1)], "Instance GLOBAL answers")
+    check(bad == "while applying rate limit for 's_bad' - 'GLOBAL behavior "
+          "does not support algorithm '2''", f"GLOBAL+GCRA error {bad!r}")
+
+    launches = moved(launch0, launch_counts())
+    plain = moved(plain0, plain_counts())
+    check(launches["drain_compact"] > 0 and launches["global_combined"] > 0,
+          f"a kernel of the GLOBAL serving path never launched: {launches}")
+    check(not any(plain.values()),
+          f"the plain versions ran on the serving path: {plain}")
+    # the same mixed window on a CPU engine (the plain versions) agrees
+    ref = RateLimitEngine(num_shards=SHARDS, device="cpu")
+    want = ref.process(window, now=t0)
+    check([(r.status, r.limit, r.remaining, r.reset_time) for r in big]
+          == [(r.status, r.limit, r.remaining, r.reset_time) for r in want],
+          "mixed 1000-request window differs from the CPU plain engine")
+    log(f"phase 5d GLOBAL serving on {SHARDS} shards: warmup, a mixed "
+        f"1000-request window (20% GLOBAL) = CPU plain engine "
+        f"({wall_ms:.3f} ms median host wall over 10, "
+        f"{1000 / wall_ms * 1e3:.3e} decisions/s), stale-then-consistent, "
+        f"limit raise, leaky, 3 Instance RPCs with GLOBAL, GLOBAL+GCRA "
+        f"refused; launches {launches}, plain calls {plain}")
+
+
 def main():
     smi = phase_device()
     drain_err, full_err = phase_kernel_vs_plain()
@@ -605,29 +1120,51 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(7)
     eng = full_size_engine(gen)
     packed = torch.from_numpy(full_size_traffic(
-        rng, FULL_K, FULL_LANES, FULL_CAPACITY)).to(DEV)
+        rng, FULL_K, FULL_LANES, FULL_CAPACITY)[:, None]).to(DEV)
     nows = torch.tensor([T0 + 5 * k for k in range(FULL_K)],
                         dtype=torch.int64, device=DEV)
     full = phase_kernel_full_size(eng, packed, nows)
-    # the main path: every count from 0, read when the serving phase ends
-    dk.reset_counts()
+    # the one-shard main path: every count from 0, read when the serving
+    # phase ends
+    reset_counts()
     drain = phase_engine_full_size(eng, packed, nows)
     del eng
     phase_serving()
-    launches = dict(dk.launches)
+    path1 = launch_counts()
+    log(f"main path, one shard (phases 3b + 4): launches {path1}")
+    global_err = phase_global_vs_plain()
+    s8_err = phase_sharded_drain_vs_plain()
+    w = global_full_size_inputs(gen, rng)
+    alone = phase_global_alone(w)
+    # the GLOBAL main path over 8 shards: counts from 0 again
+    reset_counts()
+    glob = phase_global_full_size(w, alone, drain["ms"])
+    del w
+    phase_global_serving()
+    path2 = launch_counts()
+    log(f"main path, {SHARDS} shards with GLOBAL (phases 5c + 5d): "
+        f"launches {path2}")
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
-             launches=launches["drain_compact"],
-             max_abs_err=max(drain_err, drain["max_abs_err"]),
+             launches=path1["drain_compact"],
+             max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
+                             glob["drain_err"]),
              ms=drain["ms"], plain_ms=drain["plain_ms"],
              bound_ms=drain["bound_ms"], bound_by=drain["bound_by"],
              library_ms=None),
         dict(name="window_full", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/kernel.py:1084",
-             launches=launches["window_full"], max_abs_err=full_err,
+             launches=path1["window_full"], max_abs_err=full_err,
              ms=full["ms"], plain_ms=full["plain_ms"],
              bound_ms=full["bound_ms"], bound_by=full["bound_by"],
+             library_ms=None),
+        dict(name="global_combined", route="cuda", source=GLOBAL_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
+             launches=path2["global_combined"],
+             max_abs_err=max(global_err, alone["err"], glob["global_err"]),
+             ms=glob["ms"], plain_ms=alone["plain_ms"],
+             bound_ms=glob["bound_ms"], bound_by=glob["bound_by"],
              library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,16 @@
 """gubernator-tpu on PyTorch and CUDA: the one-node serving path.
 
 A second implementation of the rate-limit engine beside `gubernator_tpu`
-(the JAX package, which stays the reference).  The arena lives as int64
-tensors in device memory and each batching window is applied by one
-hand-written CUDA kernel (ops/csrc/window_drain.cu) that sorts the
-window's lanes by slot, walks each slot's lanes in arrival order through
-the five-algorithm transition ladder, and commits one write per touched
-slot.  ops/kernel.py holds the same math as plain tensor code: it is
-what the kernel is tested against, and what runs for tensors on the CPU.
+(the JAX package, which stays the reference).  The arenas live as int64
+tensors in device memory: regular keys in [S, C] planes over S shards,
+GLOBAL keys in one replicated [G] arena.  Each batching window is applied
+by hand-written CUDA kernels: ops/csrc/window_drain.cu (one CTA per shard)
+sorts a shard's lanes by slot, walks each slot's lanes in arrival order
+through the five-algorithm transition ladder, and commits one write per
+touched slot; ops/csrc/global_window.cu answers the GLOBAL lanes from the
+replica and applies their hits, summed over the shards, once per slot.
+ops/kernel.py holds the same math as plain tensor code: it is what the
+kernels are tested against, and what runs for tensors on the CPU.
 
 This package imports neither JAX nor `gubernator_tpu`, and needs neither
 grpcio nor protobuf.  Entry points default to the `cuda` device and raise

@@ -1,8 +1,8 @@
 """Configuration read by the one-node serving path.
 
-The subset of `gubernator_tpu/config.py` this slice needs: the RPC item
-cap, the batching behaviors (reference config.go:43-66) and the arena
-dimensions.
+The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
+item cap, the batching behaviors (reference config.go:43-66) and the
+dimensions of the regular and GLOBAL arenas.
 """
 
 from __future__ import annotations
@@ -37,6 +37,14 @@ class EngineConfig:
 
     capacity_per_shard: int = 65536
     batch_per_shard: int = 1024
+    # shards of the regular arena on the one device (the JAX package's mesh
+    # size); keys spread over them by crc32
+    num_shards: int = 1
+    # the replicated GLOBAL arena: slots, lanes per shard per window, and
+    # distinct GLOBAL keys per window
+    global_capacity: int = 4096
+    global_batch_per_shard: int = 256
+    max_global_updates: int = 256
     # Replay-bound guard: max lanes of a NON-uniform duplicate-key run per
     # window before the window is cut there; 0 disables.
     replay_cap: int = 128

@@ -28,7 +28,7 @@ class WindowBatcher:
                  behaviors: Optional[BehaviorConfig] = None):
         self.engine = engine
         self.behaviors = behaviors or BehaviorConfig()
-        self._pending: List[tuple] = []  # (req, future)
+        self._pending: List[tuple] = []  # (req, accumulate, future)
         self._interval: Optional[ArmedInterval] = None
         self._waiter: Optional[asyncio.Task] = None
         self._windows: set = set()  # in-flight window tasks (strong refs)
@@ -38,10 +38,13 @@ class WindowBatcher:
         # Injectable clock (ms epoch) for the window path; None = wall time.
         self.now_fn = None
 
-    async def submit(self, req: RateLimitReq) -> RateLimitResp:
-        """Queue into the current window; resolves when the window executes."""
+    async def submit(self, req: RateLimitReq,
+                     accumulate: bool = True) -> RateLimitResp:
+        """Queue into the current window; resolves when the window executes.
+        accumulate=False keeps a GLOBAL request's hits out of the window's
+        per-slot sum (engine.step)."""
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._pending.append((req, fut))
+        self._pending.append((req, accumulate, fut))
         if len(self._pending) >= max(1, self.behaviors.batch_limit):
             self._flush()
         elif len(self._pending) == 1:
@@ -65,20 +68,21 @@ class WindowBatcher:
 
     async def _run_window(self, window: List[tuple]) -> None:
         reqs = [w[0] for w in window]
+        accumulate = [w[1] for w in window]
         loop = asyncio.get_running_loop()
 
         def run():
             now = self.now_fn() if self.now_fn is not None else None
-            return self.engine.process(reqs, now)
+            return self.engine.process(reqs, now, accumulate)
 
         try:
             resps = await loop.run_in_executor(self._executor, run)
         except Exception as e:  # resolve every waiter with the failure
-            for _, fut in window:
+            for _, _, fut in window:
                 if not fut.done():
                     fut.set_exception(e)
             return
-        for (_, fut), resp in zip(window, resps):
+        for (_, _, fut), resp in zip(window, resps):
             if not fut.done():
                 fut.set_result(resp)
 

@@ -1,26 +1,38 @@
-"""The rate-limit engine: host routing + one kernel launch per window.
+"""The rate-limit engine: host routing + kernel launches per window.
 
-The one-shard serving subset of `gubernator_tpu/core/engine.py`
-(RateLimitEngine) on PyTorch.  The host maps each key to a slot of the
-arena (state/arena.py SlotTable, the JAX engine's use_native=False path)
-and stages the window's lanes; the device applies the whole window with
-one launch of the window-drain kernel (ops/drain_kernel.py):
+The single-process serving subset of `gubernator_tpu/core/engine.py`
+(RateLimitEngine) on PyTorch, over S shards on one device.  The JAX
+package's mesh shard axis is the leading dimension of the arena: regular
+keys live in [S, C] planes, a key's shard given by `shard_of`, and GLOBAL
+keys live in one replicated [G] arena.  The host maps each key to a slot
+(state/arena.py SlotTable, the JAX engine's use_native=False path) and
+stages the window's lanes; the device applies them:
 
-  * windows inside the compact caps travel as two i64 words per lane and
-    come back as one response word plus the stored limit (drain_compact);
-  * windows outside them take the full int64 columns (window_full), and an
-    out-of-range limit or duration switches compact dispatch off for the
-    engine's life, exactly like the JAX engine's `_compact_sound` latch, so
-    both engines choose the same path for the same stream;
-  * `pipeline_dispatch` runs K pre-packed windows in one launch.
+  * the regular lanes with one launch of the window-drain kernel
+    (ops/drain_kernel.py), one CTA per shard.  Windows inside the compact
+    caps travel as two i64 words per lane and come back as one response
+    word plus the stored limit (drain_compact); windows outside them take
+    the full int64 columns (window_full), and an out-of-range limit or
+    duration switches compact dispatch off for the engine's life, exactly
+    like the JAX engine's `_compact_sound` latch, so both engines choose
+    the same path for the same stream;
+  * the GLOBAL lanes, spread round-robin over the shards, with one launch
+    of the GLOBAL kernel (ops/global_kernel.py) after the host's config
+    writes: every lane reads the replicated arena as it was before the
+    window, and the hits of all shards' lanes, summed per slot on the
+    device (the mesh psum of the JAX package), apply once under each
+    slot's config.  A window with no GLOBAL lane and no config write
+    launches nothing there: it would read nothing and apply nothing;
+  * `pipeline_dispatch` runs K pre-packed windows in one launch, and
+    `pipeline_dispatch_global` adds one GLOBAL window to them.
 
-The arena is int64 tensors [S=1, C] (algo int32) on the engine's device.
-GLOBAL behavior is not served by this slice: GLOBAL requests raise, as the
-JAX engine does when configured skip_global=True.
+Mesh-mode registration (several processes) and upserts from an owner's
+broadcast are not part of this single-process engine.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,13 +44,20 @@ from gubernator_tpu_torch.api.types import (
     RateLimitResp,
     millisecond_now,
 )
-from gubernator_tpu_torch.ops import drain_kernel, kernel
-from gubernator_tpu_torch.ops.kernel import BucketState, WindowBatch, WindowOutput
+from gubernator_tpu_torch.ops import drain_kernel, global_kernel, kernel
+from gubernator_tpu_torch.ops.kernel import (
+    BucketState,
+    GlobalConfig,
+    WindowBatch,
+    WindowOutput,
+)
 from gubernator_tpu_torch.state.arena import SlotTable
 
 
-# planes of the arena, in BucketState order
+# planes of the arenas, in BucketState / GlobalConfig order
 ARENA_FIELDS = BucketState._fields
+GSTATE_FIELDS = tuple(f"gstate.{f}" for f in BucketState._fields)
+GCFG_FIELDS = tuple(f"gcfg.{f}" for f in GlobalConfig._fields)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,54 +71,130 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class _PackedWindow:
-    """Host-side staging buffers for one window (numpy, reused per step)."""
+def shard_of(key: str, num_shards: int) -> int:
+    """Map a hash key to its owning shard: crc32 IEEE (the reference ring's
+    hash, hash.go:41) modulo the shard count."""
+    return zlib.crc32(key.encode("utf-8")) % num_shards
 
-    def __init__(self, S: int, B: int):
+
+class _PackedWindow:
+    """Host-side staging buffers for one window (numpy, reused per step):
+    regular lanes [S, B], GLOBAL lanes [S, Bg], and Kg GLOBAL config-write
+    (u*) and state-reset (rslot) lanes."""
+
+    def __init__(self, S: int, B: int, Bg: int, Kg: int):
         self.slot = np.full((S, B), kernel.PAD_SLOT, dtype=np.int32)
         self.hits = np.zeros((S, B), dtype=np.int64)
         self.limit = np.zeros((S, B), dtype=np.int64)
         self.duration = np.zeros((S, B), dtype=np.int64)
         self.algo = np.zeros((S, B), dtype=np.int32)
         self.is_init = np.zeros((S, B), dtype=bool)
+        self.gslot = np.full((S, Bg), kernel.PAD_SLOT, dtype=np.int32)
+        self.ghits = np.zeros((S, Bg), dtype=np.int64)
+        # hits contributed to the per-slot sum (0 for accumulate=False lanes)
+        self.ghits_acc = np.zeros((S, Bg), dtype=np.int64)
+        self.glimit = np.zeros((S, Bg), dtype=np.int64)
+        self.gduration = np.zeros((S, Bg), dtype=np.int64)
+        self.galgo = np.zeros((S, Bg), dtype=np.int32)
+        self.gis_init = np.zeros((S, Bg), dtype=bool)
+        self.uslot = np.zeros((Kg,), dtype=np.int32)
+        self.ulimit = np.zeros((Kg,), dtype=np.int64)
+        self.uduration = np.zeros((Kg,), dtype=np.int64)
+        self.ualgo = np.zeros((Kg,), dtype=np.int32)
+        self.rslot = np.zeros((Kg,), dtype=np.int32)
 
-    def reset(self):
+    def reset(self, G: int):
         self.slot.fill(kernel.PAD_SLOT)
+        self.gslot.fill(kernel.PAD_SLOT)
+        self.ghits.fill(0)
+        self.ghits_acc.fill(0)
+        # pad config-write/reset lanes point one past the GLOBAL arena: dropped
+        self.uslot.fill(G)
+        self.rslot.fill(G)
+
+    def gbatch(self) -> WindowBatch:
+        return WindowBatch(self.gslot, self.ghits, self.glimit,
+                           self.gduration, self.galgo, self.gis_init)
+
+    def upd(self) -> tuple:
+        return (self.uslot, self.ulimit, self.uduration, self.ualgo,
+                self.rslot)
+
+
+def _control_live(gslot, upd, G: int) -> bool:
+    """Does a GLOBAL window stage a lane or a config write?  Without either
+    it is exact to skip it: every lane pads and every summed hit is 0."""
+    uslot, rslot = upd[0], upd[4]
+    return bool((gslot >= 0).any()) or bool((uslot < G).any()) \
+        or bool((rslot < G).any())
+
+
+def apply_config(gstate: BucketState, gcfg: GlobalConfig, upd) -> None:
+    """Host-issued GLOBAL slot (re)configuration, in place (JAX
+    engine.py:2645): config writes refresh limit/duration/algorithm from a
+    window's latest request per slot; state resets (expire = 0 reads as
+    never initialized) hit only the slots the host just (re)allocated.
+    Lanes at G or past it are padding and drop."""
+    uslot, ulimit, uduration, ualgo, rslot = upd
+    G = gcfg.limit.shape[0]
+    u = (uslot >= 0) & (uslot < G)
+    idx = uslot[u].long()
+    gcfg.limit[idx] = ulimit[u]
+    gcfg.duration[idx] = uduration[u]
+    gcfg.algo[idx] = ualgo[u]
+    r = (rslot >= 0) & (rslot < G)
+    gstate.expire[rslot[r].long()] = 0
 
 
 class RateLimitEngine:
-    """Dense rate-limit state on one device + one kernel launch per window.
+    """Dense rate-limit state on one device over S shards + kernel launches
+    per window.
 
-    capacity_per_shard: slots in the arena.
-    batch_per_shard: max request lanes per window.
+    capacity_per_shard: slots per shard.
+    batch_per_shard: max regular-key request lanes per shard per window.
+    num_shards: S, the shards of the regular arena (keys by `shard_of`).
+    global_capacity: G, slots of the replicated GLOBAL arena.
+    global_batch_per_shard: max GLOBAL lanes per shard per window.
+    max_global_updates: max distinct GLOBAL keys per window.
     replay_cap: max lanes of a non-uniform duplicate-key run per window
         (0 disables).  The kernel walks a slot's run serially and has no
         replay rounds to bound; the cap only mirrors the JAX engine's
         window cuts, so the differential tests see the same windows.  It
         can go once parity no longer depends on it.
-    device: where the arena lives and the kernel runs (default `cuda`).
+    device: where the arenas live and the kernels run (default `cuda`).
     """
-
-    num_shards = 1
-    num_local_shards = 1
 
     def __init__(
         self,
         capacity_per_shard: int = 65536,
         batch_per_shard: int = 1024,
+        num_shards: int = 1,
+        global_capacity: int = 4096,
+        global_batch_per_shard: int = 256,
+        max_global_updates: int = 256,
         replay_cap: Optional[int] = None,
         device=None,
     ):
         self.device = resolve_device(device)
+        if num_shards < 1:
+            raise ValueError("num_shards must be >= 1")
+        self.num_shards = num_shards
         self.capacity_per_shard = capacity_per_shard
         self.batch_per_shard = batch_per_shard
-        S, C = self.num_shards, capacity_per_shard
-        z = lambda dt: torch.zeros((S, C), dtype=dt, device=self.device)  # noqa: E731
-        self.state = BucketState(z(torch.int64), z(torch.int64),
-                                 z(torch.int64), z(torch.int64),
-                                 z(torch.int64), z(torch.int32))
-        self.tables = [SlotTable(C) for _ in range(self.num_local_shards)]
-        self._buf = _PackedWindow(self.num_local_shards, batch_per_shard)
+        self.global_capacity = global_capacity
+        self.global_batch_per_shard = global_batch_per_shard
+        self.max_global_updates = max_global_updates
+        S, C, G = num_shards, capacity_per_shard, global_capacity
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)  # noqa: E731
+        self.state = BucketState(*[z((S, C), torch.int64) for _ in range(5)],
+                                 z((S, C), torch.int32))
+        self.gstate = BucketState(*[z((G,), torch.int64) for _ in range(5)],
+                                  z((G,), torch.int32))
+        self.gcfg = GlobalConfig.zeros(G, self.device)
+        self.tables = [SlotTable(C) for _ in range(S)]
+        self.gtable = SlotTable(G)
+        self._buf = _PackedWindow(S, batch_per_shard, global_batch_per_shard,
+                                  max_global_updates)
         # Sound-saturation guard for the compact wire format: once any
         # out-of-range config enters the arena via the full path, stored
         # limits/durations may exceed what a compact response can carry, so
@@ -117,55 +212,107 @@ class RateLimitEngine:
 
     # ------------------------------------------------------------ serving
 
-    def _arena(self) -> BucketState:
-        """The shard's arena planes as [C] views (what the kernel takes)."""
-        return BucketState(*[p[0] for p in self.state])
-
     def step(self, requests: Sequence[RateLimitReq],
-             now: Optional[int] = None) -> List[RateLimitResp]:
-        """Process one window of requests synchronously.  The caller must
-        respect the window cap (<= batch_per_shard lanes); `process`
-        chunks automatically."""
+             now: Optional[int] = None,
+             accumulate: Optional[Sequence[bool]] = None
+             ) -> List[RateLimitResp]:
+        """Process one window of requests synchronously.
+
+        accumulate[i]=False keeps request i's GLOBAL hits out of the
+        per-slot sum and its config out of the arena (a replica read whose
+        hits reconcile elsewhere).  The caller must respect the window
+        caps (use `process` for auto-chunking): per-shard regular lanes <=
+        batch_per_shard, GLOBAL lanes <= num_shards *
+        global_batch_per_shard, distinct GLOBAL keys <= max_global_updates.
+        """
         now = self._resolve_now(now)
         buf = self._buf
-        buf.reset()
+        buf.reset(self.global_capacity)
         # init-pending protocol (state/arena.py): fresh allocations keep
         # reporting is_init until the dispatch below commits this window
         for t in self.tables:
             t.begin_window()
-        lanes, max_fill = self._stage_requests(buf, requests, now)
-        out = self._dispatch(now, reg_fill=max_fill)
+        self.gtable.begin_window()
+        lanes, gcfg_upd, greset, max_fill, g_count = self._stage_requests(
+            buf, requests, now, accumulate)
+        for i, (slot, cfg) in enumerate(gcfg_upd.items()):
+            buf.uslot[i] = slot
+            buf.ulimit[i], buf.uduration[i], buf.ualgo[i] = cfg
+        for i, slot in enumerate(greset):
+            buf.rslot[i] = slot
+        out, gout = self._dispatch(now, reg_fill=max_fill)
         for t in self.tables:
             t.commit_window()
+        self.gtable.commit_window()
         self.decisions_processed += len(requests)
-        return [RateLimitResp(status=int(out.status[s, lane]),
-                              limit=int(out.limit[s, lane]),
-                              remaining=int(out.remaining[s, lane]),
-                              reset_time=int(out.reset_time[s, lane]))
-                for s, lane in lanes]
+        responses = []
+        for s, lane, is_global in lanes:
+            if is_global:
+                st, lim, rem, rst = (int(v) for v in gout[s, lane])
+            else:
+                st, lim, rem, rst = (int(out.status[s, lane]),
+                                     int(out.limit[s, lane]),
+                                     int(out.remaining[s, lane]),
+                                     int(out.reset_time[s, lane]))
+            responses.append(RateLimitResp(status=st, limit=lim,
+                                           remaining=rem, reset_time=rst))
+        return responses
 
-    def _stage_requests(self, buf, requests, now):
+    def _stage_requests(self, buf, requests, now, accumulate):
         """Stage one window's requests into `buf`.  Returns (lanes,
-        max_fill) with lanes [(shard, lane)] per request for demux."""
-        for r in requests:
+        gcfg_upd, greset, max_reg_fill, g_count) with lanes [(shard, lane,
+        is_global)] per request for demux."""
+        S = self.num_shards
+        reg_fill = [0] * S
+        glob_fill = [0] * S
+        # slot -> (limit, duration, algo): the window's latest request per
+        # slot wins (deduplicated here: a scatter with duplicate indices
+        # has no order)
+        gcfg_upd: dict = {}
+        greset: List[int] = []
+        lanes: List[tuple] = []
+        g_count = 0
+        for i, r in enumerate(requests):
+            key = r.hash_key()
             if r.behavior == Behavior.GLOBAL:
-                raise ValueError(
-                    "GLOBAL behavior is not served by this engine "
-                    f"(key {r.hash_key()!r})")
-        fill = 0
-        lanes = []
-        table = self.tables[0]
-        for r in requests:
-            slot, is_init = table.lookup(r.hash_key(), now, r.duration)
-            buf.slot[0, fill] = slot
-            buf.hits[0, fill] = r.hits
-            buf.limit[0, fill] = r.limit
-            buf.duration[0, fill] = r.duration
-            buf.algo[0, fill] = r.algorithm
-            buf.is_init[0, fill] = is_init
-            lanes.append((0, fill))
-            fill += 1
-        return lanes, fill
+                slot, is_init = self.gtable.lookup(key, now, r.duration)
+                contribute = accumulate is None or accumulate[i]
+                if contribute:
+                    gcfg_upd[slot] = (r.limit, r.duration, r.algorithm)
+                    if is_init:
+                        greset.append(slot)
+                # GLOBAL lanes are shard-agnostic (the sum covers every
+                # shard), so they spread round-robin over the shards
+                if g_count >= S * self.global_batch_per_shard:
+                    raise ValueError(
+                        "window exceeds the GLOBAL lane cap "
+                        f"({S} shards x {self.global_batch_per_shard}); use "
+                        "process() for auto-chunking")
+                s = g_count % S
+                g_count += 1
+                lane = glob_fill[s]
+                glob_fill[s] += 1
+                buf.gslot[s, lane] = slot
+                buf.ghits[s, lane] = r.hits
+                buf.ghits_acc[s, lane] = r.hits if contribute else 0
+                buf.glimit[s, lane] = r.limit
+                buf.gduration[s, lane] = r.duration
+                buf.galgo[s, lane] = r.algorithm
+                buf.gis_init[s, lane] = is_init
+                lanes.append((s, lane, True))
+            else:
+                s = shard_of(key, S)
+                slot, is_init = self.tables[s].lookup(key, now, r.duration)
+                lane = reg_fill[s]
+                reg_fill[s] += 1
+                buf.slot[s, lane] = slot
+                buf.hits[s, lane] = r.hits
+                buf.limit[s, lane] = r.limit
+                buf.duration[s, lane] = r.duration
+                buf.algo[s, lane] = r.algorithm
+                buf.is_init[s, lane] = is_init
+                lanes.append((s, lane, False))
+        return lanes, gcfg_upd, greset, max(reg_fill, default=0), g_count
 
     def _resolve_now(self, now: Optional[int]) -> int:
         return millisecond_now() if now is None else now
@@ -207,11 +354,21 @@ class RateLimitEngine:
                 return b
         return self.batch_per_shard
 
-    def _dispatch(self, now: int, reg_fill: Optional[int] = None) -> WindowOutput:
-        """Run the staged window through the kernel; returns host copies of
-        the responses as [S, lanes] numpy arrays.  Compact-eligible windows
-        are sliced to the occupied-prefix bucket and travel as wire words;
-        the rest take the full int64 columns at full width."""
+    def _to_dev(self, a) -> torch.Tensor:
+        """A numpy array or tensor as a contiguous tensor on the device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _dispatch(self, now: int, reg_fill: Optional[int] = None):
+        """Run the staged buffers through the kernels; returns host copies
+        of the responses: the regular window as a WindowOutput of [S, lanes]
+        numpy arrays, the GLOBAL window as i64[S, Bg, 4] (status, limit,
+        remaining, reset_time), or None when it staged nothing.
+
+        Compact-eligible windows are sliced to the occupied-prefix bucket
+        and travel as wire words; the rest take the full int64 columns at
+        full width."""
         buf = self._buf
         compact = self._compact_eligible(buf)
         lanes = (self._lane_bucket(reg_fill)
@@ -223,83 +380,175 @@ class RateLimitEngine:
                 buf.limit[:, :lanes], buf.duration[:, :lanes],
                 buf.algo[:, :lanes], buf.is_init[:, :lanes])
             words, limits, _ = drain_kernel.drain_compact(
-                self._arena(), torch.from_numpy(packed).to(self.device),
+                self.state, self._to_dev(packed[None]),
                 torch.tensor([now], dtype=torch.int64, device=self.device))
-            self.windows_processed += 1
-            wire = torch.stack([words, limits], dim=-1).cpu().numpy()
-            return kernel.decode_output_host(wire, now)
-        batch = WindowBatch(*[
-            torch.from_numpy(a[0, :lanes].copy()).to(self.device)
-            for a in (buf.slot, buf.hits, buf.limit, buf.duration, buf.algo,
-                      buf.is_init)])
-        out = drain_kernel.window_full(self._arena(), batch, now)
+            wire = torch.stack([words[0], limits[0]], dim=-1)
+        else:
+            batch = WindowBatch(*[
+                self._to_dev(a[:, :lanes])
+                for a in (buf.slot, buf.hits, buf.limit, buf.duration,
+                          buf.algo, buf.is_init)])
+            fout = drain_kernel.window_full(self.state, batch, now)
         self.windows_processed += 1
-        return WindowOutput(*[f.cpu().numpy()[None] for f in out])
+        gout = None
+        if _control_live(buf.gslot, buf.upd(), self.global_capacity):
+            gout = self._global_window(buf.gbatch(), buf.ghits_acc,
+                                       buf.upd(), now)
+        # one fetch point: the responses come back after both launches
+        if compact:
+            out = kernel.decode_output_host(wire.cpu().numpy(), now)
+        else:
+            out = WindowOutput(*[f.cpu().numpy() for f in fout])
+        return out, (None if gout is None else gout.cpu().numpy())
+
+    def _global_window(self, gbatch: WindowBatch, gacc, upd,
+                       now) -> torch.Tensor:
+        """One GLOBAL window (JAX engine.py:2665): the config writes and
+        resets of `upd` (apply_config), the lanes' contributed hits summed
+        per slot over every shard (the mesh psum), then one launch of the
+        GLOBAL kernel over all S x Bg lanes and the G rows; the new arena
+        replaces `gstate`.  gbatch/gacc: [S, Bg] lanes, upd: Kg lanes
+        (numpy or tensors).  Returns the read block i64[S, Bg, 4] on the
+        device."""
+        apply_config(self.gstate, self.gcfg,
+                     tuple(self._to_dev(a) for a in upd))
+        flat = WindowBatch(*[self._to_dev(a).reshape(-1) for a in gbatch])
+        summed = kernel.global_accumulate(
+            torch.zeros(self.global_capacity, dtype=torch.int64,
+                        device=self.device),
+            flat._replace(hits=self._to_dev(gacc).reshape(-1)))
+        self.gstate, read = global_kernel.global_combined(
+            self.gstate, self.gcfg, flat, summed, now)
+        return read.reshape(*gbatch.slot.shape, 4)
 
     def pipeline_dispatch(self, packed, nows, n_windows: Optional[int] = None):
-        """Dispatch a stacked compact drain WITHOUT fetching: K windows in
-        one kernel launch.  packed: i64[K, S, B, 2] compact request stack
-        (numpy or tensor); nows: i64[K] per-window timestamps.  Returns
-        device tensors (words i64[K, S, B], limits i64[K, S, B],
-        mism bool[K, S]).  The caller guarantees compact eligibility."""
-        packed = torch.as_tensor(packed, dtype=torch.int64).to(self.device)
-        nows = torch.as_tensor(nows, dtype=torch.int64).to(self.device)
+        """Dispatch a stacked compact drain WITHOUT fetching: K windows over
+        every shard in one kernel launch.  packed: i64[K, S, B, 2] compact
+        request stack (numpy or tensor); nows: i64[K] per-window
+        timestamps.  Returns device tensors (words i64[K, S, B], limits
+        i64[K, S, B], mism bool[K, S]).  The caller guarantees compact
+        eligibility."""
+        packed = self._to_dev(torch.as_tensor(packed, dtype=torch.int64))
+        nows = self._to_dev(torch.as_tensor(nows, dtype=torch.int64))
         words, limits, mism = drain_kernel.drain_compact(
-            self._arena(), packed[:, 0].contiguous(), nows)
+            self.state, packed, nows)
         self.windows_processed += (int(packed.shape[0]) if n_windows is None
                                    else n_windows)
-        return words[:, None], limits[:, None], mism[:, None]
+        return words, limits, mism
+
+    def pipeline_dispatch_global(self, packed, nows, gbatch, gacc, upd,
+                                 n_windows: Optional[int] = None):
+        """pipeline_dispatch's K-window compact stack PLUS one GLOBAL window
+        at nows[0] (JAX engine.py:1545): the config writes, the replica
+        reads and the summed-hit apply.  gbatch: full-format GLOBAL
+        WindowBatch [S, Bg] (PAD_SLOT lanes drop); gacc: the lanes'
+        contributed hits i64[S, Bg]; upd: the 5-tuple of config-write and
+        reset lanes (empty_drain_control gives inert padding for all
+        three).  Returns device tensors (words, limits, mism, gfused) with
+        gfused i64[S, Bg, 4] the GLOBAL responses (status, limit,
+        remaining, reset_time)."""
+        # read before the drain launches, so the host does not wait on it
+        now0 = int(torch.as_tensor(nows).reshape(-1)[0])
+        words, limits, mism = self.pipeline_dispatch(packed, nows, n_windows)
+        if _control_live(gbatch.slot, upd, self.global_capacity):
+            gfused = self._global_window(gbatch, gacc, upd, now0)
+        else:
+            gfused = torch.zeros((*tuple(gbatch.slot.shape), 4),
+                                 dtype=torch.int64, device=self.device)
+        return words, limits, mism, gfused
+
+    def empty_drain_control(self):
+        """(gbatch, gacc, upd) padding for a pipeline_dispatch_global that
+        carries no GLOBAL lanes (JAX engine.py:1071): slots one past the
+        arena, which drop.  The JAX engine's empty_control adds the lanes
+        of an owner's upsert broadcast, which this engine does not take."""
+        S, Bg, G, Kg = (self.num_shards, self.global_batch_per_shard,
+                        self.global_capacity, self.max_global_updates)
+        gbatch = WindowBatch(
+            slot=np.full((S, Bg), kernel.PAD_SLOT, np.int32),
+            hits=np.zeros((S, Bg), np.int64),
+            limit=np.zeros((S, Bg), np.int64),
+            duration=np.zeros((S, Bg), np.int64),
+            algo=np.zeros((S, Bg), np.int32),
+            is_init=np.zeros((S, Bg), bool),
+        )
+        gacc = np.zeros((S, Bg), np.int64)
+        upd = (np.full((Kg,), G, np.int32), np.zeros((Kg,), np.int64),
+               np.zeros((Kg,), np.int64), np.zeros((Kg,), np.int32),
+               np.full((Kg,), G, np.int32))
+        return gbatch, gacc, upd
 
     def warmup(self, now: Optional[int] = None) -> None:
-        """Build the kernel and launch each serving shape once on an empty
+        """Build the kernels and launch each serving shape once on an empty
         window: the full format at full width, every compact lane bucket,
-        and a one-window stacked drain."""
+        a one-window stacked drain and a GLOBAL window at full width.
+        Leaves both arenas as they were."""
         now = self._resolve_now(now)
         saved = self._compact_enabled
         self._compact_enabled = False
-        self._buf.reset()
+        self._buf.reset(self.global_capacity)
         self._dispatch(now)
         self._compact_enabled = saved
         if saved:
             for lanes in self._lane_bucket_list:
-                self._buf.reset()
+                self._buf.reset(self.global_capacity)
                 self._dispatch(now, reg_fill=lanes)
         packed = np.zeros((1, self.num_shards, self.batch_per_shard, 2),
                           np.int64)
         _, _, mism = self.pipeline_dispatch(packed, np.full(1, now, np.int64),
                                             n_windows=0)
+        read = self._global_window(*self.empty_drain_control(), now)
         mism.cpu()
+        read.cpu()
 
     def process(self, requests: Sequence[RateLimitReq],
-                now: Optional[int] = None) -> List[RateLimitResp]:
+                now: Optional[int] = None,
+                accumulate: Optional[Sequence[bool]] = None
+                ) -> List[RateLimitResp]:
         """step() with automatic chunking when a window overflows the caps."""
         out: List[RateLimitResp] = []
+        acc = (list(accumulate) if accumulate is not None
+               else [True] * len(requests))
         pos = 0
         while pos < len(requests):
             n = self.max_window_prefix(requests[pos:])
-            out.extend(self.step(requests[pos:pos + n], now))
+            out.extend(self.step(requests[pos:pos + n], now,
+                                 acc[pos:pos + n]))
             pos += n
         return out
 
     def routing_error(self, r: RateLimitReq) -> Optional[str]:
-        """Why this request cannot be served by THIS engine, or None."""
-        if r.behavior == Behavior.GLOBAL:
-            return ("GLOBAL behavior is not served by this engine "
-                    f"(key {r.hash_key()!r})")
+        """Why this request cannot be served by THIS engine, or None.  One
+        process holds every shard and registers GLOBAL keys on first use,
+        so every well-formed request is servable here."""
         return None
 
     def max_window_prefix(self, requests: Sequence[RateLimitReq]) -> int:
         """How many leading requests fit in ONE step() window (>= 1 when any
-        are given): the lane cap, and the replay-bound guard that cuts a
+        are given): the per-shard lane cap, the GLOBAL lane cap
+        (num_shards x global_batch_per_shard), the distinct-GLOBAL-key cap
+        (max_global_updates), and the replay-bound guard that cuts a
         NON-uniform duplicate-key run longer than replay_cap lanes."""
-        fill = 0
+        S = self.num_shards
+        reg_fill = [0] * S
+        g_count = 0
+        gkeys: set = set()
         cap = self.replay_cap
         runs: dict = {}  # key -> [first (h,l,d,a), lanes, nonuniform]
         for i, r in enumerate(requests):
-            if fill + 1 > self.batch_per_shard:
+            key = r.hash_key()
+            if r.behavior == Behavior.GLOBAL:
+                new_gkey = 0 if key in gkeys else 1
+                if (g_count + 1 > S * self.global_batch_per_shard
+                        or len(gkeys) + new_gkey > self.max_global_updates):
+                    return max(i, 1)
+                g_count += 1
+                gkeys.add(key)
+                continue
+            s = shard_of(key, S)
+            if reg_fill[s] + 1 > self.batch_per_shard:
                 return max(i, 1)
             if cap:
-                key = r.hash_key()
                 tup = (r.hits, r.limit, r.duration, r.algorithm)
                 run = runs.get(key)
                 if run is None:
@@ -310,36 +559,38 @@ class RateLimitEngine:
                         run[2] = True
                     if run[2] and run[1] > cap:
                         return max(i, 1)
-            fill += 1
+            reg_fill[s] += 1
         return len(requests)
 
     # ------------------------------------------------------------ metrics
 
     @property
     def cache_size(self) -> int:
-        return sum(len(t) for t in self.tables)
+        return sum(len(t) for t in self.tables) + len(self.gtable)
 
     @property
     def cache_hits(self) -> int:
-        return sum(t.hits for t in self.tables)
+        return sum(t.hits for t in self.tables) + self.gtable.hits
 
     @property
     def cache_misses(self) -> int:
-        return sum(t.misses for t in self.tables)
+        return sum(t.misses for t in self.tables) + self.gtable.misses
 
     def cache_stats(self, now: Optional[int] = None) -> dict:
         """Hit/miss counters plus free/live/expired slot occupancy (by the
-        host expiry estimates) of the key tables."""
+        host expiry estimates) of the regular tables and the GLOBAL
+        table."""
         now = int(now) if now is not None else millisecond_now()
         live = expired = free = 0
-        for t in self.tables:
+        for t in self.tables + [self.gtable]:
             st = t.stats(now)
             free += st["free"]
             live += st["live"]
             expired += st["expired"]
         return {
             "size": self.cache_size,
-            "capacity": self.num_local_shards * self.capacity_per_shard,
+            "capacity": (self.num_shards * self.capacity_per_shard
+                         + self.global_capacity),
             "hits": self.cache_hits,
             "misses": self.cache_misses,
             "free": free,
@@ -349,19 +600,35 @@ class RateLimitEngine:
 
     # ------------------------------------------------------- state transfer
 
+    def _planes(self) -> Dict[str, torch.Tensor]:
+        return dict(zip(ARENA_FIELDS + GSTATE_FIELDS + GCFG_FIELDS,
+                        (*self.state, *self.gstate, *self.gcfg)))
+
     def import_arena(self, planes: Dict[str, np.ndarray]) -> None:
-        """Overwrite the arena with [S, C] planes named as BucketState's
-        fields (int64; algo int32) - the JAX engine's
-        `np.asarray(eng.state.<field>)`."""
-        for name, dst in zip(ARENA_FIELDS, self.state):
+        """Overwrite the arenas with host planes - the JAX engine's
+        `np.asarray(eng.state.<field>)` [S, C] under BucketState's field
+        names, and optionally its `gstate.<field>` [G] and
+        `gcfg.<field>` [G] under "gstate.<field>" / "gcfg.<field>" (each
+        group whole or not at all).  int64, algo int32."""
+        names = list(ARENA_FIELDS)
+        for group in (GSTATE_FIELDS, GCFG_FIELDS):
+            given = [n for n in group if n in planes]
+            if given and len(given) != len(group):
+                raise ValueError(f"planes {sorted(set(group) - set(given))} "
+                                 f"missing from a partial {group[0]} group")
+            names += given
+        dst_of = self._planes()
+        for name in names:
+            dst = dst_of[name]
             src = np.asarray(planes[name])
             if src.shape != tuple(dst.shape):
                 raise ValueError(f"plane {name}: want {tuple(dst.shape)}, "
                                  f"got {src.shape}")
-            dt = np.int32 if name == "algo" else np.int64
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(src, dtype=dt)))
+            dt = np.int32 if name.endswith("algo") else np.int64
+            dst.copy_(torch.from_numpy(np.array(src, dtype=dt)))
 
     def export_arena(self) -> Dict[str, np.ndarray]:
-        """The arena as host [S, C] planes keyed by BucketState field."""
+        """The arenas as host planes: [S, C] under BucketState's field
+        names, [G] under "gstate.<field>" and "gcfg.<field>"."""
         return {name: t.cpu().numpy().copy()
-                for name, t in zip(ARENA_FIELDS, self.state)}
+                for name, t in self._planes().items()}

@@ -3,9 +3,11 @@
 The single-node subset of `gubernator_tpu/core/service.py` Instance (the
 reference's Instance, gubernator.go:41-322): per-item validation with the
 reference's exact error strings (gubernator.go:102-110), the 1000-item RPC
-cap (:78-81), and local decisions through the WindowBatcher into one
-kernel launch per window.  Peers, GLOBAL, leases, QoS and snapshots are
-not part of this slice: a GLOBAL item is answered with a per-item error.
+cap (:78-81), and local decisions through the WindowBatcher into the
+engine's kernel launches per window.  GLOBAL items are served standalone
+(every replica is this node's), on the token and leaky algorithms only,
+as in the JAX package.  Peers, leases, QoS and snapshots are not part of
+the port yet.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ class Instance:
             engine = RateLimitEngine(
                 capacity_per_shard=e.capacity_per_shard,
                 batch_per_shard=e.batch_per_shard,
+                num_shards=e.num_shards,
+                global_capacity=e.global_capacity,
+                global_batch_per_shard=e.global_batch_per_shard,
+                max_global_updates=e.max_global_updates,
                 replay_cap=e.replay_cap, device=device)
         self.engine = engine
         self.batcher = WindowBatcher(self.engine, self.behaviors)
@@ -77,6 +83,16 @@ class Instance:
             return RateLimitResp(error=(
                 f"while applying rate limit for '{key}' - "
                 f"'invalid rate limit algorithm '{r.algorithm}''"))
+        if (r.behavior == Behavior.GLOBAL
+                and r.algorithm not in (Algorithm.TOKEN_BUCKET,
+                                        Algorithm.LEAKY_BUCKET)):
+            # the JAX package's GLOBAL kernel replicates only the token and
+            # leaky ladders, so its service refuses the others; the port
+            # keeps the same contract and string
+            return RateLimitResp(error=(
+                f"while applying rate limit for '{key}' - "
+                f"'GLOBAL behavior does not support algorithm "
+                f"'{r.algorithm}''"))
         err = self.engine.routing_error(r)
         if err is not None:
             return RateLimitResp(

@@ -5,15 +5,19 @@
 // window_step_fused_planes (:793).  It computes what they compute, which is
 // what the int64 oracle computes (gubernator_tpu_torch/ops/kernel.py
 // window_step + encode_output_word): K windows of requests applied in order
-// to one shard's slot arena.  Per window:
+// to each of S shards' slot arenas.  Per shard and window:
 //
 //   decode each lane -> stable sort of the lanes by slot -> for each slot,
 //   its lanes walked in arrival order through the five-algorithm transition
 //   ladder -> one write per touched slot -> each lane's response written
 //   straight to its request position (no unsort pass).
 //
-// Design.  One CTA per drain loops over the K windows; a __syncthreads()
-// between windows makes window k's commits visible to window k+1's reads.
+// Design.  The grid is one CTA per shard (the JAX mesh's shard axis as the
+// arena's leading dimension): CTA s drains row s of the [S, C] arena planes
+// with the shard's lanes of each window, and no CTA reads or writes another
+// shard's row, so the CTAs need nothing from each other.  Each CTA loops
+// over the K windows; a __syncthreads() between windows makes window k's
+// commits visible to window k+1's reads.
 // The lanes of a window live in shared memory as one u64 sort key each,
 // (clean_slot << lane_bits) | lane: the keys are unique, so a bitonic
 // network over them is a stable argsort (pads sort last on slot 2^31-1).
@@ -32,15 +36,18 @@
 // leak), and there the kernel follows the oracle's fold.
 // The arena stays int64 in device memory; all int64 arithmetic wraps
 // (done in uint64_t), and every `//` of the oracle is a floor division.
+// The ladder itself (transition, sliding_roll, the integer helpers) is
+// ladder.cuh, which global_window.cu shares.
 //
 // Bounds on this card.  The work per drain is small: 16 B in and 16 B out
 // per lane, plus one read and one write of six arena planes per touched
 // slot, each a scattered 32 B sector.  At 3.35 TB/s that is about a
 // microsecond for a 8 x 1024-lane drain, so the launch latency and this
-// design's serial parts set the time: one SM works while the rest idle,
-// the sort is 55 barrier-separated stages at 1024 lanes, and a hot slot's
-// lanes run one after another on one thread (a folded segment's lanes need
-// not wait for each other, but this kernel still walks them in turn).
+// design's serial parts set the time: one SM works per shard (at S = 1 the
+// other 131 idle), the sort is 55 barrier-separated stages at 1024 lanes,
+// and a hot slot's lanes run one after another on one thread (a folded
+// segment's lanes need not wait for each other, but this kernel still walks
+// them in turn).
 //
 // Pad lanes (slot field 0, so slot < 0) get response word 0 and limit 0;
 // the plain version does the same.  Slots >= C read row C-1 and commit
@@ -49,16 +56,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ladder.cuh"
+
 namespace {
 
-constexpr int32_t kToken = 0;
-constexpr int32_t kLeaky = 1;
-constexpr int32_t kGcra = 2;
-constexpr int32_t kSliding = 3;
-constexpr int32_t kConcurrency = 4;
-constexpr int64_t kSlidingPackBits = 15;
-constexpr int64_t kSlidingMaxLimit = (1 << 15) - 1;
-constexpr int64_t kSlidingWeightQ = 1024;
 constexpr int64_t kConcMaxHits = 1 << 27;
 constexpr int64_t kCompactMaxHits = 1 << 28;
 constexpr int32_t kAggSlotBit = 1 << 30;
@@ -68,47 +69,7 @@ constexpr int kMaxLanes = 16384;  // 128 KB of sort keys in shared memory
 // 128 registers a thread without spilling
 constexpr int kThreads = 512;
 
-__device__ __forceinline__ int64_t add(int64_t a, int64_t b) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) + static_cast<uint64_t>(b));
-}
-__device__ __forceinline__ int64_t sub(int64_t a, int64_t b) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) - static_cast<uint64_t>(b));
-}
-__device__ __forceinline__ int64_t mul(int64_t a, int64_t b) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) * static_cast<uint64_t>(b));
-}
-__device__ __forceinline__ int64_t shl(int64_t a, int s) {
-  return static_cast<int64_t>(static_cast<uint64_t>(a) << s);
-}
-// floor division; every divisor the ladder uses is >= 1
-__device__ __forceinline__ int64_t fdiv(int64_t a, int64_t b) {
-  int64_t q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
-__device__ __forceinline__ int64_t clip(int64_t x, int64_t lo, int64_t hi) {
-  return imin(imax(x, lo), hi);
-}
-
-struct Reg {
-  int64_t limit, duration, remaining, tstamp, expire;
-  int32_t algo;
-};
-
-struct Req {
-  int32_t slot;  // clean slot (AGG bit stripped); < 0 on pad lanes
-  bool valid, agg, init;
-  int64_t hits, limit, duration;
-  int32_t algo;
-};
-
-struct Out {
-  int32_t status;
-  int64_t limit, remaining, reset;
-};
-
+// One shard's row of the [S, C] arena planes.
 struct Arena {
   int64_t* limit;
   int64_t* duration;
@@ -117,6 +78,12 @@ struct Arena {
   int64_t* expire;
   int32_t* algo;
   int64_t capacity;
+
+  __device__ Arena shard(int s) const {
+    const size_t off = static_cast<size_t>(s) * static_cast<size_t>(capacity);
+    return Arena{limit + off, duration + off, remaining + off, tstamp + off,
+                 expire + off, algo + off, capacity};
+  }
 };
 
 __device__ __forceinline__ void set_slot(Req& q, int32_t raw) {
@@ -151,6 +118,9 @@ struct FullSrc {
   const int64_t* duration;
   const int32_t* algo;
   const uint8_t* init;
+  __device__ FullSrc shard(size_t off) const {
+    return FullSrc{slot + off, hits + off, limit + off, duration + off, algo + off, init + off};
+  }
   __device__ Req load(int lane) const {
     Req q;
     set_slot(q, slot[lane]);
@@ -186,6 +156,9 @@ struct FullDst {
   int64_t* limit;
   int64_t* remaining;
   int64_t* reset;
+  __device__ FullDst shard(size_t off) const {
+    return FullDst{status + off, limit + off, remaining + off, reset + off};
+  }
   __device__ void store(int lane, const Out& o, int64_t) const {
     status[lane] = o.status;
     limit[lane] = o.limit;
@@ -200,206 +173,6 @@ struct FullDst {
   }
 };
 
-// A sliding-window register advanced to the window holding now
-// (kernel._sliding_roll).
-struct Roll {
-  int64_t prev1, cur1, ws1, est, sl_L, maxD;
-};
-
-__device__ Roll sliding_roll(int64_t R, int64_t T, int64_t D, int64_t L, int64_t now) {
-  Roll o;
-  o.sl_L = imin(L, kSlidingMaxLimit);
-  const int64_t cur = R & kSlidingMaxLimit;
-  const int64_t prev = (R >> kSlidingPackBits) & kSlidingMaxLimit;
-  o.maxD = imax(D, 1);
-  const int64_t k = imax(fdiv(sub(now, T), o.maxD), 0);
-  o.prev1 = k == 0 ? prev : (k == 1 ? cur : 0);
-  o.cur1 = k == 0 ? cur : 0;
-  o.ws1 = add(T, mul(k, o.maxD));
-  const int64_t offc = clip(sub(now, o.ws1), 0, o.maxD);
-  int64_t pos_q = o.maxD <= kSlidingWeightQ
-                      ? fdiv(mul(offc, kSlidingWeightQ), o.maxD)
-                      : imin(fdiv(offc, imax(fdiv(o.maxD, kSlidingWeightQ), 1)),
-                             kSlidingWeightQ);
-  pos_q = clip(pos_q, 0, kSlidingWeightQ);
-  o.est = add(fdiv(mul(o.prev1, kSlidingWeightQ - pos_q), kSlidingWeightQ), o.cur1);
-  return o;
-}
-
-// One request applied to one bucket: kernel.transition, branch for branch
-// (reference algorithms.go:24-186 plus the GCRA / sliding / concurrency
-// ladders).  Updates r in place and returns the response.
-__device__ Out transition(Reg& r, const Req& q, int64_t now, bool fresh) {
-  const int64_t h = q.hits;
-  const int32_t a = q.algo;
-  const bool is_token = a == kToken;
-  const bool is_leaky = a == kLeaky;
-  const bool is_gcra = a == kGcra;
-  const bool is_sliding = a == kSliding;
-  const bool is_conc = a == kConcurrency;
-  const int64_t L = r.limit, D = r.duration, R = r.remaining, T = r.tstamp, E = r.expire;
-  // leaky's rate (stored duration over REQUEST limit, clamped to >= 1) and
-  // leaked balance: read by the leaky and GCRA ladders and by AGG lanes
-  const int64_t rate = imax(fdiv(D, imax(q.limit, 1)), 1);
-  const int64_t R2 = add(R, imin(fdiv(sub(now, T), rate), sub(L, R)));
-  Out o;
-  Reg n = r;
-
-  if (fresh) {
-    // ---- init path (cache miss) ----
-    const int64_t rate_q = imax(fdiv(q.duration, imax(q.limit, 1)), 1);
-    const int64_t sl_l0 = imin(q.limit, kSlidingMaxLimit);
-    const int64_t eff = is_sliding ? sl_l0 : q.limit;
-    const bool conc_rel0 = is_conc && h < 0;
-    const bool over = h > eff && !conc_rel0;
-    const int64_t init_R = conc_rel0 ? eff : (over ? 0 : sub(eff, h));
-    n.limit = q.limit;
-    n.duration = q.duration;
-    n.remaining = is_sliding ? (over ? sl_l0 : imax(h, 0)) : init_R;
-    if (is_leaky || is_sliding || is_conc) {
-      n.tstamp = now;
-    } else if (is_gcra) {
-      n.tstamp = over ? add(now, q.duration) : add(now, mul(h, rate_q));
-    } else {
-      n.tstamp = add(now, q.duration);
-    }
-    n.expire = add(now, q.duration);
-    n.algo = a;
-    o.status = over ? 1 : 0;
-    o.limit = q.limit;
-    o.remaining = init_R;
-    if (is_leaky || is_conc) {
-      o.reset = 0;
-    } else if (is_gcra) {
-      o.reset = over ? add(now, rate_q) : add(now, mul(h, rate_q));
-    } else {
-      o.reset = add(now, q.duration);
-    }
-  } else if (is_leaky) {
-    // ---- leaky bucket hit path: algorithms.go:107-158 ----
-    int64_t nR = R2, resp, reset = 0;
-    bool hit = false;
-    if (R2 == 0) {
-      o.status = 1; resp = 0; reset = add(now, rate);
-    } else if (h == R2) {
-      o.status = 0; resp = 0; nR = 0;
-    } else if (h > R2) {
-      o.status = 1; resp = R2; reset = add(now, rate);
-    } else if (h == 0) {
-      o.status = 0; resp = R2;
-    } else {
-      o.status = 0; resp = sub(R2, h); nR = sub(R2, h); hit = true;
-    }
-    n.remaining = nR;
-    n.tstamp = h != 0 ? now : T;
-    n.expire = hit ? add(now, q.duration) : E;
-    o.limit = L;
-    o.remaining = resp;
-    o.reset = reset;
-  } else if (is_gcra) {
-    // ---- GCRA hit path: TAT arithmetic on the tstamp column ----
-    const int64_t base = imax(T, now);
-    const int64_t cap = imin(imax(fdiv(sub(add(now, D), base), rate), 0), L);
-    const int64_t consumed = add(base, mul(h, rate));
-    if (cap == 0) {
-      o.status = 1; o.remaining = 0; o.reset = add(now, rate);
-    } else if (h == 0) {
-      o.status = 0; o.remaining = cap; o.reset = base;
-    } else if (h == cap) {
-      o.status = 0; o.remaining = 0; o.reset = consumed; n.tstamp = consumed;
-    } else if (h > cap) {
-      o.status = 1; o.remaining = cap; o.reset = add(now, rate);
-    } else {
-      o.status = 0; o.remaining = sub(cap, h); o.reset = consumed; n.tstamp = consumed;
-    }
-    o.limit = L;
-  } else if (is_sliding) {
-    // ---- sliding window: roll to the window holding now, interpolate ----
-    const Roll w = sliding_roll(R, T, D, L, now);
-    const int64_t sl_L = w.sl_L, prev1 = w.prev1, cur1 = w.cur1, ws1 = w.ws1;
-    const int64_t maxD = w.maxD, est = w.est;
-    bool accept = false;
-    if (est >= sl_L) {
-      o.status = 1; o.remaining = 0;
-    } else if (h == 0) {
-      o.status = 0; o.remaining = sub(sl_L, est);
-    } else if (add(est, h) > sl_L) {
-      o.status = 1; o.remaining = sub(sl_L, est);
-    } else {
-      o.status = 0; o.remaining = sub(sub(sl_L, est), h); accept = true;
-    }
-    const int64_t cur2 = accept ? add(cur1, h) : cur1;
-    n.remaining = static_cast<int64_t>(static_cast<uint64_t>(cur2) |
-                                       static_cast<uint64_t>(shl(prev1, kSlidingPackBits)));
-    n.tstamp = ws1;
-    n.expire = accept ? add(now, q.duration) : E;
-    o.limit = L;
-    o.reset = add(ws1, maxD);
-  } else if (is_conc) {
-    // ---- concurrency: acquire (token ladder) or saturating release ----
-    bool mut = false;
-    int64_t nR = R;
-    if (h < 0) {
-      nR = add(R, imin(sub(0, h), sub(L, R)));
-      o.status = 0; o.remaining = nR; mut = true;
-    } else if (R == 0) {
-      o.status = 1; o.remaining = 0;
-    } else if (h == 0) {
-      o.status = 0; o.remaining = R;
-    } else if (h > R) {
-      o.status = 1; o.remaining = R;
-    } else {
-      nR = sub(R, h);
-      o.status = 0; o.remaining = nR; mut = true;
-    }
-    n.remaining = nR;
-    n.tstamp = mut ? now : T;
-    n.expire = mut ? add(now, q.duration) : E;
-    o.limit = L;
-    o.reset = 0;
-  } else {
-    // ---- token bucket (and any out-of-range algorithm): algorithms.go:40-65
-    if (R == 0) {
-      o.status = 1; o.remaining = 0;
-    } else if (h == 0) {
-      o.status = 0; o.remaining = R;
-    } else if (h == R) {
-      o.status = 0; o.remaining = 0; n.remaining = 0;
-    } else if (h > R) {
-      o.status = 1; o.remaining = R;
-    } else {
-      o.status = 0; o.remaining = sub(R, h); n.remaining = sub(R, h);
-    }
-    o.limit = L;
-    o.reset = T;
-  }
-
-  if (q.agg) {
-    // ---- aggregated run: n sequential hits=1 transitions in one lane ----
-    const int64_t base =
-        fresh ? q.limit : (is_token ? R : R2);
-    const int64_t aL = fresh ? q.limit : L;
-    const int64_t aD = fresh ? q.duration : D;
-    const int64_t k = imin(h, base);
-    const int64_t aR = sub(base, k);
-    const int64_t a_rate = imax(fdiv(aD, imax(q.limit, 1)), 1);
-    const bool extended = sub(k, aR == 0 ? 1 : 0) >= 1;
-    const int64_t tok_T = fresh ? add(now, q.duration) : T;
-    n.limit = aL;
-    n.duration = aD;
-    n.remaining = aR;
-    n.tstamp = is_token ? tok_T : now;
-    n.expire = is_token ? (fresh ? add(now, q.duration) : E)
-                        : ((fresh || extended) ? add(now, q.duration) : E);
-    n.algo = a;
-    o.status = k < h ? 1 : 0;
-    o.limit = aL;
-    o.remaining = base;
-    o.reset = is_token ? tok_T : add(now, a_rate);
-  }
-  r = n;
-  return o;
-}
 
 // The closed-form ENTERING registers of a foldable segment's lanes
 // (kernel.fold_entering), split in two: the constructor computes what the
@@ -651,12 +424,16 @@ __global__ void __launch_bounds__(kThreads) drain_compact_kernel(const int64_t* 
                                      int64_t* words, int64_t* limits, uint8_t* mism) {
   extern __shared__ uint64_t key[];
   __shared__ int window_mism;
+  const int s = blockIdx.x, S = gridDim.x;
+  const Arena row = arena.shard(s);
   for (int k = 0; k < K; ++k) {
     if (threadIdx.x == 0) window_mism = 0;
-    const size_t off = static_cast<size_t>(k) * B;
+    // window k of shard s: [K, S, B] lane blocks, [K, S] flags
+    const size_t ks = static_cast<size_t>(k) * S + s;
+    const size_t off = ks * B;
     run_window(CompactSrc{packed + 2 * off}, CompactDst{words + off, limits + off},
-               arena, B, Bp, lane_bits, nows[k], key, &window_mism);
-    if (threadIdx.x == 0) mism[k] = static_cast<uint8_t>(window_mism);
+               row, B, Bp, lane_bits, nows[k], key, &window_mism);
+    if (threadIdx.x == 0) mism[ks] = static_cast<uint8_t>(window_mism);
   }
 }
 
@@ -664,7 +441,9 @@ __global__ void __launch_bounds__(kThreads) window_full_kernel(FullSrc src, int6
                                    int lane_bits, Arena arena, FullDst dst) {
   extern __shared__ uint64_t key[];
   __shared__ int unused_mism;
-  run_window(src, dst, arena, B, Bp, lane_bits, now, key, &unused_mism);
+  const size_t off = static_cast<size_t>(blockIdx.x) * B;
+  run_window(src.shard(off), dst.shard(off), arena.shard(blockIdx.x), B, Bp, lane_bits, now,
+             key, &unused_mism);
 }
 
 struct Geometry {
@@ -704,20 +483,21 @@ const char* guber_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K compact windows in one launch: packed i64[K, B, 2], nows i64[K], the six
-// arena planes of length C updated in place; writes words i64[K, B],
-// limits i64[K, B], mism u8[K].  Returns cudaGetLastError() after the launch.
-int guber_drain_compact(const void* packed, const void* nows, int K, int B,
+// K compact windows over S shards in one launch of S CTAs: packed
+// i64[K, S, B, 2], nows i64[K], the six [S, C] arena planes updated in place;
+// writes words i64[K, S, B], limits i64[K, S, B], mism u8[K, S].  Returns
+// cudaGetLastError() after the launch.
+int guber_drain_compact(const void* packed, const void* nows, int K, int S, int B,
                         void* limit, void* duration, void* remaining, void* tstamp,
                         void* expire, void* algo, long long capacity, void* words,
                         void* limits, void* mism, void* stream) {
-  if (K < 1 || B < 1 || B > kMaxLanes || capacity < 1) return cudaErrorInvalidValue;
+  if (K < 1 || S < 1 || B < 1 || B > kMaxLanes || capacity < 1) return cudaErrorInvalidValue;
   const Geometry g = geometry(B);
   cudaError_t err = cudaFuncSetAttribute(
       drain_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(g.smem));
   if (err != cudaSuccess) return err;
-  drain_compact_kernel<<<1, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+  drain_compact_kernel<<<S, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(packed), static_cast<const int64_t*>(nows), K, B,
       g.Bp, g.lane_bits,
       make_arena(limit, duration, remaining, tstamp, expire, algo, capacity),
@@ -726,16 +506,18 @@ int guber_drain_compact(const void* packed, const void* nows, int K, int B,
   return cudaGetLastError();
 }
 
-// One window of decoded columns (the engine's full-format path): slot i32,
-// hits/limit/duration i64, algo i32, is_init u8, all [B]; writes status i32,
-// limit/remaining/reset i64 [B].  Returns cudaGetLastError() after the launch.
+// One window of decoded columns over S shards (the engine's full-format
+// path), one CTA per shard: slot i32, hits/limit/duration i64, algo i32,
+// is_init u8, all [S, B]; the six [S, C] arena planes updated in place;
+// writes status i32, limit/remaining/reset i64 [S, B].  Returns
+// cudaGetLastError() after the launch.
 int guber_window_full(const void* slot, const void* hits, const void* limit_in,
                       const void* duration_in, const void* algo_in, const void* init,
-                      long long now, int B, void* limit, void* duration,
+                      long long now, int S, int B, void* limit, void* duration,
                       void* remaining, void* tstamp, void* expire, void* algo,
                       long long capacity, void* status_out, void* limit_out,
                       void* remaining_out, void* reset_out, void* stream) {
-  if (B < 1 || B > kMaxLanes || capacity < 1) return cudaErrorInvalidValue;
+  if (S < 1 || B < 1 || B > kMaxLanes || capacity < 1) return cudaErrorInvalidValue;
   const Geometry g = geometry(B);
   cudaError_t err = cudaFuncSetAttribute(
       window_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -747,7 +529,7 @@ int guber_window_full(const void* slot, const void* hits, const void* limit_in,
                     static_cast<const int32_t*>(algo_in), static_cast<const uint8_t*>(init)};
   const FullDst dst{static_cast<int32_t*>(status_out), static_cast<int64_t*>(limit_out),
                     static_cast<int64_t*>(remaining_out), static_cast<int64_t*>(reset_out)};
-  window_full_kernel<<<1, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+  window_full_kernel<<<S, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       src, static_cast<int64_t>(now), B, g.Bp, g.lane_bits,
       make_arena(limit, duration, remaining, tstamp, expire, algo, capacity), dst);
   return cudaGetLastError();

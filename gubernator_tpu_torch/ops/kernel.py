@@ -3,9 +3,11 @@
 A function-for-function port of `gubernator_tpu/ops/kernel.py` (the JAX
 package's int64 oracle) onto torch tensors, with the same names, argument
 order and NamedTuple shapes so each function can be read beside its
-counterpart.  It is the PLAIN version of the hand-written CUDA kernel in
-ops/csrc/window_drain.cu: ops/drain_kernel.py runs it for tensors on the
-CPU, and tests and chip_smoke.py hold the kernel against it bit for bit.
+counterpart.  It is the PLAIN version of the hand-written CUDA kernels in
+ops/csrc/: window_step of window_drain.cu (ops/drain_kernel.py) and
+global_combined of global_window.cu (ops/global_kernel.py).  The wrappers
+run it for tensors on the CPU, and tests and chip_smoke.py hold the kernels
+against it bit for bit.
 
 Semantics (see the JAX module docstring for the reference line numbers):
 one window of requests is sorted by slot; same-slot lanes form segments
@@ -735,6 +737,100 @@ def window_step(state: BucketState, batch: WindowBatch, now
         prep.a0, prep.fresh_seg, prep.cur, prep.nz, prep.n_lead,
         prep.hstar)
     return window_commit(state, prep, fin, out_sorted)
+
+
+# ---- GLOBAL behavior -----------------------------------------------------
+# GLOBAL keys live in one replicated arena of G rows beside the sharded
+# regular arena.  Each window, every shard's GLOBAL lanes read that arena
+# without spending (global_read), their hits are summed per slot over all
+# shards (global_accumulate; the JAX package's mesh psum), and the sums are
+# applied once under each row's config (global_apply).  global_combined is
+# the two in one pass, and the plain version of ops/csrc/global_window.cu.
+
+
+class GlobalConfig(NamedTuple):
+    """Per-slot config of the GLOBAL arena (host-written when a request
+    refreshes it): the apply half runs each row's summed hits under it
+    (JAX ops/kernel.py:1283)."""
+
+    limit: torch.Tensor  # i64[G]
+    duration: torch.Tensor  # i64[G]
+    algo: torch.Tensor  # i32[G]
+
+    @classmethod
+    def zeros(cls, capacity: int, device) -> "GlobalConfig":
+        z = lambda dt: torch.zeros((capacity,), dtype=dt, device=device)  # noqa: E731
+        return cls(z(I64), z(I64), z(I32))
+
+
+def _gather_rows(state: BucketState, slot) -> _Reg:
+    g = torch.clamp(slot, 0, state.limit.shape[0] - 1).long()
+    return _Reg(*[x[g] for x in state])
+
+
+def global_read(state: BucketState, batch: WindowBatch, now) -> WindowOutput:
+    """Answer GLOBAL lanes from the replica without mutating it (JAX
+    ops/kernel.py:1243): a cached entry answers through the hit path with
+    hits 0; a miss (is_init, expired, or another algorithm) answers through
+    the init path with the request's hits."""
+    now = torch.as_tensor(now, dtype=I64, device=batch.slot.device)
+    reg = _gather_rows(state, batch.slot)
+    fresh = batch.is_init | (reg.expire < now) | (batch.algo != reg.algo)
+    read_hits = torch.where(fresh, batch.hits, torch.zeros_like(batch.hits))
+    _, out = transition(reg, read_hits, batch.limit, batch.duration,
+                        batch.algo, now, fresh)
+    return out
+
+
+def global_accumulate(delta, batch: WindowBatch):
+    """Scatter-add the lanes' hits into the per-slot delta (JAX
+    ops/kernel.py:1273); pad slots (< 0) and slots >= G are dropped."""
+    keep = (batch.slot >= 0) & (batch.slot < delta.shape[0])
+    return delta.index_add(0, batch.slot[keep].long(), batch.hits[keep])
+
+
+def global_apply(state: BucketState, cfg: GlobalConfig, summed_hits, now
+                 ) -> BucketState:
+    """Apply the summed GLOBAL hits to every row under its config, merged
+    only where the sum is nonzero (JAX ops/kernel.py:1304)."""
+    now = torch.as_tensor(now, dtype=I64, device=summed_hits.device)
+    reg = _Reg(*state)
+    fresh = (reg.expire < now) | (cfg.algo != reg.algo)
+    new_reg, _ = transition(reg, summed_hits, cfg.limit, cfg.duration,
+                            cfg.algo, now, fresh)
+    touched = summed_hits != 0
+    return BucketState(*[torch.where(touched, n, o)
+                         for n, o in zip(new_reg, reg)])
+
+
+def global_combined(state: BucketState, cfg: GlobalConfig, batch: WindowBatch,
+                    summed_hits, now) -> tuple[BucketState, WindowOutput]:
+    """global_read then global_apply as ONE transition over the read lanes
+    and the arena rows concatenated (JAX ops/kernel.py:1334): every read
+    sees the pre-apply arena.  Returns (new_state, read_outputs)."""
+    now = torch.as_tensor(now, dtype=I64, device=summed_hits.device)
+    reg = _Reg(*state)
+    r_reg = _gather_rows(state, batch.slot)
+    r_fresh = (batch.is_init | (r_reg.expire < now)
+               | (batch.algo != r_reg.algo))
+    a_fresh = (reg.expire < now) | (cfg.algo != reg.algo)
+    cat = lambda a, b: torch.cat([a, b])  # noqa: E731
+    ent = _Reg(*[cat(r, s) for r, s in zip(r_reg, reg)])
+    new_reg, out = transition(
+        ent,
+        cat(torch.where(r_fresh, batch.hits, torch.zeros_like(batch.hits)),
+            summed_hits),
+        cat(batch.limit, cfg.limit),
+        cat(batch.duration, cfg.duration),
+        cat(batch.algo, cfg.algo),
+        now,
+        cat(r_fresh, a_fresh),
+    )
+    n = batch.slot.shape[0]
+    read_out = WindowOutput(*[o[:n] for o in out])
+    touched = summed_hits != 0
+    merged = [torch.where(touched, a[n:], o) for a, o in zip(new_reg, reg)]
+    return BucketState(*merged), read_out
 
 
 # ---- compact wire format -------------------------------------------------

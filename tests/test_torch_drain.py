@@ -1,6 +1,11 @@
 """The window-drain wrappers (gubernator_tpu_torch/ops/drain_kernel.py) on
 CPU tensors against the JAX package's TPU kernels and its int64 oracle.
 
+The wrappers take an arena of S shards ([S, C] planes) and windows of
+[K, S, B] lanes; the JAX kernels drain one shard.  Single-shard cases run
+at S = 1; the S > 1 cases hold each shard of one drain against that
+shard's own reference drain.
+
 On the CPU the wrappers run the kernel's plain version; the CUDA kernel
 itself is held against that same plain version on the card by
 chip_smoke.py.  References, on the same numpy-seeded inputs:
@@ -39,8 +44,18 @@ pytestmark = pytest.mark.torch_port
 _jstep = jax.jit(jk.window_step)
 
 
-def _arena(st):
-    return tk.BucketState(*[torch.from_numpy(np.array(a)) for a in st])
+def _arena(*states):
+    """The port's [S, C] arena from S per-shard states."""
+    return tk.BucketState(*[torch.from_numpy(np.stack([np.array(a) for a in p]))
+                            for p in zip(*states)])
+
+
+def _drain1(arena, packed, nows):
+    """drain_compact at S = 1: [K, B, 2] in, [K, B] / [K] out."""
+    words, limits, mism = dk.drain_compact(
+        arena, torch.from_numpy(np.ascontiguousarray(packed[:, None])),
+        torch.from_numpy(np.asarray(nows)))
+    return words[:, 0], limits[:, 0], mism[:, 0]
 
 
 def _adversarial_drain(rng, K, B, C, algo_hi):
@@ -72,7 +87,7 @@ def _host_oracle(st0, packed, nows):
 
 
 def _assert_drain(arena, got, want_st, want_words, want_limits, want_mism,
-                  packed, tag):
+                  packed, tag, shard=0):
     words, limits, mism = [t.numpy() for t in got]
     valid = (packed[..., 0] & 0xFFFFFFFF) != 0
     np.testing.assert_array_equal(words[valid], np.asarray(want_words)[valid],
@@ -85,7 +100,7 @@ def _assert_drain(arena, got, want_st, want_words, want_limits, want_mism,
     np.testing.assert_array_equal(mism, np.asarray(want_mism),
                                   err_msg=f"{tag} mism")
     for f, a, b in zip(jk.BucketState._fields, arena, want_st):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+        np.testing.assert_array_equal(a.numpy()[shard], np.asarray(b),
                                       err_msg=f"{tag} state.{f}")
 
 
@@ -100,8 +115,7 @@ def test_drain_compact_matches_jax_drain_kernel(seed):
         pk.fused_state_to_planes(st0), jnp.asarray(packed),
         jnp.asarray(nows), interpret=True)
     arena = _arena(st0)
-    got = dk.drain_compact(arena, torch.from_numpy(packed),
-                           torch.from_numpy(nows))
+    got = _drain1(arena, packed, nows)
     _assert_drain(arena, got, pk.fused_state_from_planes(new32), jwords,
                   jlimits, jmism, packed, f"seed {seed}")
 
@@ -119,8 +133,7 @@ def test_drain_compact_k1_matches_jax_window_kernel():
         packed = np.array(_random_packed(rng, B, C, cap_edges=(w == 1)))
         st, jwords, jlimits, jmism = pk.window_step_fused(
             st, jnp.asarray(packed), jnp.int64(now), interpret=True)
-        got = dk.drain_compact(arena, torch.from_numpy(packed)[None],
-                               torch.tensor([now]))
+        got = _drain1(arena, packed[None], np.asarray([now]))
         _assert_drain(arena, got, st, np.asarray(jwords)[None],
                       np.asarray(jlimits)[None],
                       np.asarray([bool(jmism)]), packed[None], f"w{w}")
@@ -173,76 +186,115 @@ def test_drain_compact_matches_host_oracle(case):
             np.random.default_rng(9000 + algo_hi), 4, 32, 24, algo_hi)
     want = _host_oracle(st0, packed, nows)
     arena = _arena(st0)
-    got = dk.drain_compact(arena, torch.from_numpy(packed),
-                           torch.from_numpy(nows))
+    got = _drain1(arena, packed, nows)
     _assert_drain(arena, got, *want, packed, case)
+
+
+@pytest.mark.parametrize("S", [3, 8])
+def test_drain_compact_s_shards_match_per_shard_oracle(S):
+    """One drain over S shards, each with its own arena and adversarial
+    windows (shard 1 all padding): every shard's words, limits, mismatch
+    flags and arena row equal that shard's own host-oracle drain."""
+    rng = np.random.default_rng(800 + S)
+    K, B, C = 3, 16, 12
+    drains = [_adversarial_drain(rng, K, B, C, algo_hi=5) for _ in range(S)]
+    nows = drains[0][2]
+    packed = np.stack([d[1] for d in drains], axis=1)  # [K, S, B, 2]
+    packed[:, 1] = 0
+    arena = _arena(*[d[0] for d in drains])
+    words, limits, mism = dk.drain_compact(
+        arena, torch.from_numpy(packed), torch.from_numpy(nows))
+    assert tuple(words.shape) == (K, S, B) and tuple(mism.shape) == (K, S)
+    for s, (st0, _, _) in enumerate(drains):
+        want = _host_oracle(st0, packed[:, s], nows)
+        _assert_drain(arena, (words[:, s], limits[:, s], mism[:, s]), *want,
+                      packed[:, s], f"S={S} shard {s}", shard=s)
 
 
 def test_window_full_matches_jax_oracle():
     """The full-format entry point on int64 columns outside the compact
     caps, chained over windows; pad lanes answer 0 in every field."""
-    rng = np.random.default_rng(41)
+    _window_full_vs_oracle(np.random.default_rng(41), S=1)
+
+
+def test_window_full_s_shards_match_per_shard_oracle():
+    """window_full over S = 4 shards: each shard's responses and arena row
+    equal that shard's own kernel.window_step chain."""
+    _window_full_vs_oracle(np.random.default_rng(42), S=4)
+
+
+def _window_full_vs_oracle(rng, S):
     B, C = 32, 16
-    st = _adversarial_state(rng, C, T0, algo_hi=5)
-    arena = _arena(st)
+    sts = [_adversarial_state(rng, C, T0, algo_hi=5) for _ in range(S)]
+    arena = _arena(*sts)
     now = T0
     for w in range(3):
         now += int(rng.integers(1, 10**9))
-        b = _adversarial_batch(rng, B, C, algo_hi=5)
-        big = rng.random(B) < 0.5
-        b = b._replace(
-            limit=np.where(big, rng.integers(2**31, 2**45, B),
-                           b.limit).astype(np.int64),
-            duration=np.where(big, rng.integers(2**31, 2**40, B),
-                              b.duration).astype(np.int64))
-        st, jout = _jstep(st, b, jnp.int64(now))
-        tout = dk.window_full(
-            arena, tk.WindowBatch(*[torch.from_numpy(np.array(a)) for a in b]),
-            now)
-        valid = np.asarray(b.slot) >= 0
-        for f, a, j in zip(jk.WindowOutput._fields, tout, jout):
-            a = a.numpy()
-            np.testing.assert_array_equal(a[valid], np.asarray(j)[valid],
-                                          err_msg=f"w{w} out.{f}")
-            assert not a[~valid].any(), f"w{w} pad lanes of {f}"
-        for f, a, j in zip(jk.BucketState._fields, arena, st):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(j),
-                                          err_msg=f"w{w} state.{f}")
+        bs = []
+        for _ in range(S):
+            b = _adversarial_batch(rng, B, C, algo_hi=5)
+            big = rng.random(B) < 0.5
+            bs.append(b._replace(
+                limit=np.where(big, rng.integers(2**31, 2**45, B),
+                               b.limit).astype(np.int64),
+                duration=np.where(big, rng.integers(2**31, 2**40, B),
+                                  b.duration).astype(np.int64)))
+        tout = dk.window_full(arena, tk.WindowBatch(*[
+            torch.from_numpy(np.stack([np.array(a) for a in col]))
+            for col in zip(*bs)]), now)
+        for s, b in enumerate(bs):
+            sts[s], jout = _jstep(sts[s], b, jnp.int64(now))
+            valid = np.asarray(b.slot) >= 0
+            for f, a, j in zip(jk.WindowOutput._fields, tout, jout):
+                a = a.numpy()[s]
+                np.testing.assert_array_equal(a[valid], np.asarray(j)[valid],
+                                              err_msg=f"w{w} s{s} out.{f}")
+                assert not a[~valid].any(), f"w{w} s{s} pad lanes of {f}"
+            for f, a, j in zip(jk.BucketState._fields, arena, sts[s]):
+                np.testing.assert_array_equal(a.numpy()[s], np.asarray(j),
+                                              err_msg=f"w{w} s{s} state.{f}")
 
 
 def test_cpu_calls_run_plain_and_never_count_launches():
     dk.reset_counts()
     C, B = 8, 4
-    arena = tk.BucketState.zeros(C, device="cpu")
+    arena = _arena(tk.BucketState.zeros(C, device="cpu"))
     packed = torch.from_numpy(np.asarray(jk.encode_batch_host(
         np.arange(B, dtype=np.int32), np.ones(B, np.int64),
         np.full(B, 5, np.int64), np.full(B, 1000, np.int64),
-        np.zeros(B, np.int32), np.ones(B, bool))))[None]
+        np.zeros(B, np.int32), np.ones(B, bool))))[None, None]
     dk.drain_compact(arena, packed, torch.tensor([T0]))
     again = tk.decode_batch(packed[0])
     dk.window_full(arena, again._replace(
         is_init=torch.zeros_like(again.is_init)), T0 + 1)
     assert dk.launches == {"drain_compact": 0, "window_full": 0}
     assert dk.plain_calls == {"drain_compact": 1, "window_full": 1}
-    assert arena.remaining[:B].tolist() == [3, 3, 3, 3]
+    assert arena.remaining[0, :B].tolist() == [3, 3, 3, 3]
 
 
 def test_wrappers_reject_malformed_inputs():
     C, B = 8, 4
-    arena = tk.BucketState.zeros(C, device="cpu")
-    packed = torch.zeros((1, B, 2), dtype=torch.int64)
+    arena = _arena(tk.BucketState.zeros(C, device="cpu"))
+    packed = torch.zeros((1, 1, B, 2), dtype=torch.int64)
     nows = torch.tensor([T0])
     with pytest.raises(ValueError, match="packed"):
         dk.drain_compact(arena, packed.to(torch.int32), nows)
+    with pytest.raises(ValueError, match="packed"):
+        dk.drain_compact(arena, packed[0], nows)
     with pytest.raises(ValueError, match="nows"):
         dk.drain_compact(arena, packed, torch.tensor([T0, T0]))
     with pytest.raises(ValueError, match="contiguous"):
-        dk.drain_compact(arena, torch.zeros((1, 2, B), dtype=torch.int64)
-                         .transpose(1, 2), nows)
+        dk.drain_compact(arena, torch.zeros((1, 1, 2, B), dtype=torch.int64)
+                         .transpose(2, 3), nows)
     with pytest.raises(ValueError, match="arena.algo"):
         dk.drain_compact(arena._replace(algo=arena.limit), packed, nows)
+    with pytest.raises(ValueError, match="arena.limit"):
+        dk.drain_compact(tk.BucketState.zeros(C, device="cpu"), packed, nows)
+    with pytest.raises(ValueError, match="shards"):
+        dk.drain_compact(arena, torch.zeros((1, 2, B, 2), dtype=torch.int64),
+                         nows)
     with pytest.raises(ValueError, match="lanes"):
-        dk.drain_compact(arena, torch.zeros((1, dk.MAX_LANES + 1, 2),
+        dk.drain_compact(arena, torch.zeros((1, 1, dk.MAX_LANES + 1, 2),
                                             dtype=torch.int64), nows)
     with pytest.raises(ValueError, match="zero windows"):
         dk.drain_compact(arena, packed[:0], nows[:0])

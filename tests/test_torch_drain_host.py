@@ -1,20 +1,25 @@
-"""The CUDA window-drain kernel's source, built for the host, against the
-JAX package's int64 oracle.
+"""The port's CUDA kernel sources, built for the host, against the JAX
+package's int64 oracle.
 
-ops/csrc/window_drain.cu runs only on the card, where chip_smoke.py holds
-it against its plain version.  Its device code is plain C++ over integers,
-so these tests compile the same source with the host C++ compiler behind a
-small shim (one thread per CTA, shared memory as a static buffer, the C
-entry points that launch on a stream left out) and run it on the CPU, on
-numpy-seeded windows that also go through the JAX oracle
-(decode_batch -> window_step -> encode_output_word, as in
-tests/test_torch_drain.py).  With one thread the bitonic sort and every
-slot's walk run in turn, so what is checked is the kernel's arithmetic, its
-segment classification and its commits, not its thread layout.
+ops/csrc/window_drain.cu and ops/csrc/global_window.cu run only on the
+card, where chip_smoke.py holds them against their plain versions.  Their
+device code (and the ladder.cuh both include) is plain C++ over integers,
+so these tests compile the same sources with the host C++ compiler behind a
+small shim (one thread per CTA, the grid's CTAs run in turn, shared memory
+as a static buffer, the C entry points that launch on a stream left out)
+and run them on the CPU, on numpy-seeded inputs that also go through the
+JAX oracle.  With one thread the bitonic sort and every slot's walk run in
+turn, so what is checked is the kernels' arithmetic, the drain's segment
+classification and commits and the S-shard indexing, not their thread
+layout.
 
-Compared exactly: every valid lane's word and limit, zero pad lanes, the
-mismatch flags and every arena plane; `window_full` on int64 columns
-outside the compact caps against kernel.window_step.
+Compared exactly: for the drain (decode_batch -> window_step ->
+encode_output_word, as in tests/test_torch_drain.py), every valid lane's
+word and limit, zero pad lanes, the mismatch flags and every arena plane,
+over one shard and over several; `window_full` on int64 columns outside
+the compact caps against kernel.window_step; for the GLOBAL kernel, the new
+arena and every valid read lane against kernel.global_combined on the
+inputs of tests/test_torch_global.py, zero pad lanes.
 """
 
 import ctypes
@@ -33,13 +38,15 @@ from gubernator_tpu.ops import kernel as jk
 
 from .test_fold_fuzz import T0
 from .test_torch_drain import _adversarial_drain, _host_oracle
+from .test_torch_global import CASES, G, global_inputs
 
 pytestmark = pytest.mark.torch_port
 
-_SRC = (Path(__file__).resolve().parent.parent / "gubernator_tpu_torch"
-        / "ops" / "csrc" / "window_drain.cu")
+_CSRC = (Path(__file__).resolve().parent.parent / "gubernator_tpu_torch"
+         / "ops" / "csrc")
 
-# what nvcc provides and a host compiler does not: one thread per CTA, and
+# what nvcc provides and a host compiler does not: one thread per CTA, the
+# grid's CTAs run one after another (the entries below set blockIdx), and
 # the dynamic shared-memory key buffer as a static array of MAX_LANES keys
 _SHIM = r"""
 #include <cstddef>
@@ -52,55 +59,99 @@ _SHIM = r"""
 #define __shared__ static
 struct HostDim3 { unsigned x; };
 static const HostDim3 threadIdx{0}, blockDim{1};
+static HostDim3 blockIdx{0}, gridDim{1};
 inline void __syncthreads() {}
 static uint64_t host_keys[16384];
 """
 
-_ENTRY = r"""
+_DRAIN_ENTRY = r"""
 extern "C" void host_drain_compact(
-    const int64_t* packed, const int64_t* nows, int K, int B, int64_t* limit,
+    const int64_t* packed, const int64_t* nows, int K, int S, int B, int64_t* limit,
     int64_t* duration, int64_t* remaining, int64_t* tstamp, int64_t* expire,
     int32_t* algo, long long C, int64_t* words, int64_t* limits, uint8_t* mism) {
   const Geometry g = geometry(B);
-  drain_compact_kernel(packed, nows, K, B, g.Bp, g.lane_bits,
-                       make_arena(limit, duration, remaining, tstamp, expire, algo, C),
-                       words, limits, mism);
+  gridDim.x = S;
+  for (int s = 0; s < S; ++s) {
+    blockIdx.x = s;
+    drain_compact_kernel(packed, nows, K, B, g.Bp, g.lane_bits,
+                         make_arena(limit, duration, remaining, tstamp, expire, algo, C),
+                         words, limits, mism);
+  }
 }
 extern "C" void host_window_full(
     const int32_t* slot, const int64_t* hits, const int64_t* limit_in,
     const int64_t* duration_in, const int32_t* algo_in, const uint8_t* init,
-    long long now, int B, int64_t* limit, int64_t* duration, int64_t* remaining,
+    long long now, int S, int B, int64_t* limit, int64_t* duration, int64_t* remaining,
     int64_t* tstamp, int64_t* expire, int32_t* algo, long long C,
     int32_t* status_out, int64_t* limit_out, int64_t* remaining_out,
     int64_t* reset_out) {
   const Geometry g = geometry(B);
-  window_full_kernel(FullSrc{slot, hits, limit_in, duration_in, algo_in, init}, now, B,
-                     g.Bp, g.lane_bits,
-                     make_arena(limit, duration, remaining, tstamp, expire, algo, C),
-                     FullDst{status_out, limit_out, remaining_out, reset_out});
+  gridDim.x = S;
+  for (int s = 0; s < S; ++s) {
+    blockIdx.x = s;
+    window_full_kernel(FullSrc{slot, hits, limit_in, duration_in, algo_in, init}, now, B,
+                       g.Bp, g.lane_bits,
+                       make_arena(limit, duration, remaining, tstamp, expire, algo, C),
+                       FullDst{status_out, limit_out, remaining_out, reset_out});
+  }
+}
+"""
+
+_GLOBAL_ENTRY = r"""
+extern "C" void host_global_combined(
+    const int64_t* limit, const int64_t* duration, const int64_t* remaining,
+    const int64_t* tstamp, const int64_t* expire, const int32_t* algo,
+    const int64_t* cfg_limit, const int64_t* cfg_duration, const int32_t* cfg_algo,
+    long long G, const int32_t* slot, const int64_t* hits, const int64_t* limit_in,
+    const int64_t* duration_in, const int32_t* algo_in, const uint8_t* init,
+    long long n, const int64_t* summed, long long now, int64_t* out_limit,
+    int64_t* out_duration, int64_t* out_remaining, int64_t* out_tstamp,
+    int64_t* out_expire, int32_t* out_algo, int64_t* read) {
+  gridDim.x = static_cast<unsigned>(n + G);
+  for (long long i = 0; i < n + G; ++i) {
+    blockIdx.x = static_cast<unsigned>(i);
+    global_combined_kernel(
+        GArena{limit, duration, remaining, tstamp, expire, algo},
+        GConfig{cfg_limit, cfg_duration, cfg_algo}, G,
+        GLanes{slot, hits, limit_in, duration_in, algo_in, init}, n, summed, now,
+        GArenaOut{out_limit, out_duration, out_remaining, out_tstamp, out_expire,
+                  out_algo},
+        read);
+  }
 }
 """
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def _host_build(tmp_path_factory, name, entry):
+    """csrc/<name>.cu's device code behind the shim, with `entry`, as a
+    host shared library."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source with")
-    src = _SRC.read_text()
+    src = (_CSRC / f"{name}.cu").read_text()
     device_code = src[:src.index('extern "C" {')]
     device_code = device_code.replace("#include <cuda_runtime.h>", "")
     device_code = device_code.replace("extern __shared__ uint64_t key[];",
                                       "uint64_t* key = host_keys;")
-    out = tmp_path_factory.mktemp("host_kernel")
-    cpp = out / "window_drain_host.cpp"
-    cpp.write_text(_SHIM + device_code + _ENTRY)
-    so = out / "libwindow_drain_host.so"
+    out = tmp_path_factory.mktemp(f"host_{name}")
+    cpp = out / f"{name}_host.cpp"
+    cpp.write_text(_SHIM + device_code + entry)
+    so = out / f"lib{name}_host.so"
     res = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
-                          "-o", str(so), str(cpp)],
+                          "-I", str(_CSRC), "-o", str(so), str(cpp)],
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    return _host_build(tmp_path_factory, "window_drain", _DRAIN_ENTRY)
+
+
+@pytest.fixture(scope="module")
+def host_global(tmp_path_factory):
+    return _host_build(tmp_path_factory, "global_window", _GLOBAL_ENTRY)
 
 
 def _ptr(a):
@@ -112,16 +163,24 @@ def _planes(st):
 
 
 def _host_drain(lib, st0, packed, nows):
-    arena = _planes(st0)
-    K, B = packed.shape[:2]
-    words = np.zeros((K, B), np.int64)
-    limits = np.zeros((K, B), np.int64)
-    mism = np.zeros(K, np.uint8)
+    """One shard: st0 [C] planes, packed [K, B, 2]."""
+    arena, words, limits, mism = _host_drain_s(
+        lib, [_planes(st0)], packed[:, None], nows)
+    return ([a[0] for a in arena], words[:, 0], limits[:, 0], mism[:, 0])
+
+
+def _host_drain_s(lib, states, packed, nows):
+    """S shards: states S lists of [C] planes, packed [K, S, B, 2]."""
+    arena = [np.ascontiguousarray(np.stack(p)) for p in zip(*states)]
+    K, S, B = packed.shape[:3]
+    words = np.zeros((K, S, B), np.int64)
+    limits = np.zeros((K, S, B), np.int64)
+    mism = np.zeros((K, S), np.uint8)
     packed = np.ascontiguousarray(packed, np.int64)
     nows = np.ascontiguousarray(nows, np.int64)
-    lib.host_drain_compact(_ptr(packed), _ptr(nows), K, B,
+    lib.host_drain_compact(_ptr(packed), _ptr(nows), K, S, B,
                            *[_ptr(a) for a in arena],
-                           ctypes.c_longlong(arena[0].shape[0]), _ptr(words),
+                           ctypes.c_longlong(arena[0].shape[1]), _ptr(words),
                            _ptr(limits), _ptr(mism))
     return arena, words, limits, mism.astype(bool)
 
@@ -230,7 +289,7 @@ def test_host_kernel_window_full_matches_oracle(host_kernel):
         status = np.zeros(B, np.int32)
         outs = [np.zeros(B, np.int64) for _ in range(3)]
         host_kernel.host_window_full(
-            *[_ptr(c) for c in cols], ctypes.c_longlong(now), B,
+            *[_ptr(c) for c in cols], ctypes.c_longlong(now), 1, B,
             *[_ptr(a) for a in arena], ctypes.c_longlong(C), _ptr(status),
             *[_ptr(o) for o in outs])
         st, want = step(st, jk.WindowBatch(
@@ -245,3 +304,76 @@ def test_host_kernel_window_full_matches_oracle(host_kernel):
         for f, a, b in zip(jk.BucketState._fields, arena, st):
             np.testing.assert_array_equal(a, np.asarray(b),
                                           err_msg=f"w{w} state.{f}")
+
+
+def test_host_kernel_drain_s_shards_match_per_shard_oracle(host_kernel):
+    """One host drain over S = 5 shards (one CTA each, run in turn), shard
+    2 all padding: each shard's outputs and arena row equal its own oracle
+    drain, so no CTA reads or writes another shard's row or lanes."""
+    rng = np.random.default_rng(650)
+    drains = [_adversarial_drain(rng, 3, 24, 16, 5) for _ in range(5)]
+    nows = drains[0][2]
+    packed = np.stack([d[1] for d in drains], axis=1)
+    packed[:, 2] = 0
+    arena, words, limits, mism = _host_drain_s(
+        host_kernel, [_planes(d[0]) for d in drains], packed, nows)
+    for s, (st0, _, _) in enumerate(drains):
+        want_st, want_words, want_limits, want_mism = _host_oracle(
+            st0, packed[:, s], nows)
+        valid = (packed[:, s, :, 0] & 0xFFFFFFFF) != 0
+        np.testing.assert_array_equal(words[:, s][valid], want_words[valid],
+                                      err_msg=f"shard {s} words")
+        np.testing.assert_array_equal(limits[:, s][valid],
+                                      want_limits[valid],
+                                      err_msg=f"shard {s} limits")
+        assert not words[:, s][~valid].any(), f"shard {s} pads"
+        np.testing.assert_array_equal(mism[:, s], want_mism,
+                                      err_msg=f"shard {s} mism")
+        for f, a, b in zip(jk.BucketState._fields, arena, want_st):
+            np.testing.assert_array_equal(a[s], np.asarray(b),
+                                          err_msg=f"shard {s} state.{f}")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(CASES))
+def test_host_global_kernel_matches_oracle(host_global, case, seed):
+    """global_window.cu's device code on the inputs of
+    tests/test_torch_global.py (all five algorithms and out-of-range
+    values, int64 values wrapped at both ends, expired rows, algorithm
+    switches, is_init, zero sums, pad and out-of-range slots): the new
+    arena and every valid read lane equal kernel.global_combined, pads
+    answer 0, and the input arena is not written."""
+    algos, wrap = CASES[case]
+    state, cfg, batch, summed = global_inputs(
+        np.random.default_rng(100 + seed), algos, wrap)
+    names = jk.BucketState._fields
+    planes = [np.ascontiguousarray(state[f]) for f in names]
+    before = [p.copy() for p in planes]
+    cfgs = [np.ascontiguousarray(cfg[f]) for f in jk.GlobalConfig._fields]
+    lanes = [np.ascontiguousarray(batch[f]) for f in jk.WindowBatch._fields]
+    lanes[-1] = lanes[-1].astype(np.uint8)
+    n = lanes[0].shape[0]
+    # outputs start as garbage, as torch.empty leaves them on the card
+    new = [np.full_like(p, -7) for p in planes]
+    read = np.full((n, 4), -7, np.int64)
+    host_global.host_global_combined(
+        *[_ptr(p) for p in planes], *[_ptr(c) for c in cfgs],
+        ctypes.c_longlong(G), *[_ptr(x) for x in lanes], ctypes.c_longlong(n),
+        _ptr(summed), ctypes.c_longlong(T0), *[_ptr(p) for p in new],
+        _ptr(read))
+    js = jk.BucketState(**{k: jnp.asarray(v) for k, v in state.items()})
+    jc = jk.GlobalConfig(**{k: jnp.asarray(v) for k, v in cfg.items()})
+    jb = jk.WindowBatch(**{k: jnp.asarray(v) for k, v in batch.items()})
+    w_state, w_out = jk.global_combined(js, jc, jb, jnp.asarray(summed),
+                                        jnp.int64(T0))
+    for f, a, b in zip(names, new, w_state):
+        np.testing.assert_array_equal(a, np.asarray(b),
+                                      err_msg=f"{case} state.{f}")
+    for a, b in zip(planes, before):
+        np.testing.assert_array_equal(a, b)
+    valid = batch["slot"] >= 0
+    for i, f in enumerate(jk.WindowOutput._fields):
+        np.testing.assert_array_equal(
+            read[valid, i], np.asarray(w_out[i]).astype(np.int64)[valid],
+            err_msg=f"{case} read.{f}")
+    assert not read[~valid].any()

@@ -207,12 +207,27 @@ def test_warmup_leaves_the_arena_untouched(engines):
 
 
 def test_global_requests_are_not_served(engines):
+    """GLOBAL requests on GCRA, sliding window and concurrency are not
+    served: the Instance answers each with the JAX service's per-item error
+    and runs no window.  (GLOBAL on token and leaky is served:
+    tests/test_torch_engine_global.py.)"""
     _, port = engines()
-    g = RateLimitReq(name="g", unique_key="k", hits=1, limit=5,
-                     duration=1000, behavior=Behavior.GLOBAL)
-    assert "GLOBAL" in port.routing_error(g)
-    with pytest.raises(ValueError, match="GLOBAL"):
-        port.process([g], now=T0)
+    inst = Instance(engine=port)
+
+    async def run():
+        return await inst.get_rate_limits([
+            RateLimitReq(name="g", unique_key="k", hits=1, limit=5,
+                         duration=1000, algorithm=a, behavior=Behavior.GLOBAL)
+            for a in (2, 3, 4)])
+
+    try:
+        errors = [r.error for r in asyncio.run(run())]
+    finally:
+        inst.close()
+    assert errors == [
+        f"while applying rate limit for 'g_k' - 'GLOBAL behavior does not "
+        f"support algorithm '{a}''" for a in (2, 3, 4)]
+    assert port.windows_processed == 0
 
 
 def test_instance_get_rate_limits_matches_jax_engine(engines):
@@ -238,7 +253,8 @@ def test_instance_get_rate_limits_matches_jax_engine(engines):
             RateLimitReq(name="n", unique_key=""),
             RateLimitReq(name="", unique_key="k"),
             RateLimitReq(name="n", unique_key="k", algorithm=7),
-            RateLimitReq(name="n", unique_key="k", behavior=Behavior.GLOBAL),
+            RateLimitReq(name="n", unique_key="k", algorithm=2,
+                         behavior=Behavior.GLOBAL),
         ])
         with pytest.raises(BatchTooLargeError):
             await inst.get_rate_limits([_req("x")] * 1001)

@@ -10,14 +10,20 @@ import pytest
 import torch
 
 import gubernator_tpu.api.types as jtypes
+import gubernator_tpu.core.engine as jengine
 import gubernator_tpu_torch as gt
-from gubernator_tpu_torch.core.engine import RateLimitEngine, resolve_device
+from gubernator_tpu_torch.core.engine import (
+    RateLimitEngine,
+    resolve_device,
+    shard_of,
+)
 
 pytestmark = pytest.mark.torch_port
 
 _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.core.engine",
-                  "gubernator_tpu_torch.ops.drain_kernel")
+                  "gubernator_tpu_torch.ops.drain_kernel",
+                  "gubernator_tpu_torch.ops.global_kernel")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
@@ -47,6 +53,13 @@ def test_duration_constants_and_hash_key_match():
         jtypes.Millisecond, jtypes.Second, jtypes.Minute, jtypes.Hour)
     assert (gt.RateLimitReq(name="n", unique_key="k").hash_key()
             == jtypes.RateLimitReq(name="n", unique_key="k").hash_key())
+
+
+def test_shard_of_matches_jax_package():
+    keys = [f"n_k{i}" for i in range(200)] + ["", "ü-ключ", "a" * 300]
+    for S in (1, 3, 8):
+        assert [shard_of(k, S) for k in keys] == [
+            jengine.shard_of(k, S) for k in keys]
 
 
 def test_default_device_is_cuda_or_raises():
