@@ -45,14 +45,34 @@ Phases (one line each; any mismatch raises and exits non-zero):
      regular and GLOBAL keys against the CPU plain engine, scripted GLOBAL
      sequences (stale then consistent, a limit raise, leaky) against
      closed-form answers, Instance RPCs carrying GLOBAL items and the
-     GLOBAL+GCRA refusal.
+     GLOBAL+GCRA refusal;
+  6. traffic analytics over 8 shards.  6a: the stats drain
+     (drain_compact_stats, window_drain.cu) and the finisher (stats_finish,
+     stats_finish.cu) bit for bit against their plain versions on edge
+     drains chained over one accumulator and sketch: CONCURRENCY releases,
+     AGG lanes, slots past the arena, slot fields the drain pads and the
+     oracle clips, tenant ids past both ends, ties in a narrow sketch,
+     decay, an empty drain, K in {1, 4}, S in {1, 8}.  6b: the phase-5c
+     shape on a fresh engine with analytics enabled at the JAX package's
+     defaults (D = 4, W = 2048, T = 64, topk = 32): 8 drains of K = 8 x 8 x
+     1024 lanes plus the GLOBAL window through pipeline_dispatch_global
+     (..., analytics_args), tenants from 64 ids with a few out of range,
+     decay on every fourth drain, each drain's stats ingested into
+     TrafficAnalytics; then the same call timed with and without analytics
+     (CUDA events, card busy share, profiler device time of the stats
+     drain, the plain drain and the finisher).  After the counts are read,
+     the first drain is held against the plain versions on the card
+     (arena, responses, sketch, stats) and against oracle_stats on the
+     host.
 
-Two main paths are counted, each from 0: the one-shard path (phases 3b and
-4) and the GLOBAL path over 8 shards (phases 5c and 5d); each must launch
-its kernels and never run a plain version.  The kernel table's launch
-counts are drain_compact's and window_full's on the first path and
-global_combined's on the second; calls of a wrapper made only to check or
-time it against its plain version come before the counts start.  The third-to-last line is the kernel
+Three main paths are counted, each from 0: the one-shard path (phases 3b
+and 4), the GLOBAL path over 8 shards (phases 5c and 5d) and the analytics
+path (phase 6b); each must launch its kernels and never run a plain
+version.  The kernel table's launch counts are drain_compact's and
+window_full's on the first path, global_combined's on the second and
+drain_compact_stats' and stats_finish's on the third; calls of a wrapper
+made only to check or time it against its plain version come before the
+counts start or after they are read.  The third-to-last line is the kernel
 table as JSON, the next the card's nvidia-smi name and power limit; the
 last line is {"ok": true, "device": {...}}.  Tolerance everywhere is exact
 equality: every quantity is an integer.
@@ -76,6 +96,7 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
     RateLimitReq,
     millisecond_now,
 )
+from gubernator_tpu_torch.config import AnalyticsConfig  # noqa: E402
 from gubernator_tpu_torch.core.engine import (  # noqa: E402
     RateLimitEngine,
     apply_config,
@@ -84,7 +105,12 @@ from gubernator_tpu_torch.core.service import Instance  # noqa: E402
 from gubernator_tpu_torch.ops import build  # noqa: E402
 from gubernator_tpu_torch.ops import drain_kernel as dk  # noqa: E402
 from gubernator_tpu_torch.ops import global_kernel as gk  # noqa: E402
+from gubernator_tpu_torch.ops import analytics as ta  # noqa: E402
 from gubernator_tpu_torch.ops import kernel as tk  # noqa: E402
+from gubernator_tpu_torch.ops import stats_kernel as sk  # noqa: E402
+from gubernator_tpu_torch.observability.analytics import (  # noqa: E402
+    TrafficAnalytics,
+)
 
 DEV = torch.device("cuda")
 T0 = 1_754_000_000_000
@@ -97,6 +123,7 @@ SECTOR = 32                 # bytes per scattered arena access
 PLANES = 6
 SOURCE = "gubernator_tpu_torch/ops/csrc/window_drain.cu"
 GLOBAL_SOURCE = "gubernator_tpu_torch/ops/csrc/global_window.cu"
+STATS_SOURCE = "gubernator_tpu_torch/ops/csrc/stats_finish.cu"
 # phase 3: the survey's 100M keys over 8 chips (12.5M a chip), rounded up to
 # a power of two; the top of the JAX engine's stacked-drain depths
 # (PIPELINE_K_BUCKETS, gubernator_tpu/core/engine.py:68-84); the engine's
@@ -114,6 +141,11 @@ G_FULL = 4096
 BG_FULL = 256
 KG_FULL = 256
 I64_MAX, I64_MIN = 2**63 - 1, -2**63
+# phase 6: the JAX package's analytics defaults
+# (gubernator_tpu/config.py:246-269)
+ANALYTICS = dict(topk=32, sketch_width=2048, sketch_depth=4, decay_ms=10_000,
+                 tenant_slots=64, over_weight=4)
+ANALYTICS_DRAINS = 8
 
 
 def log(msg):
@@ -271,12 +303,13 @@ def phase_device():
         check=True).stdout.strip().splitlines()[0]
     # both sources at once, one nvcc each
     t0 = time.perf_counter()
-    build.build([dk.SOURCE, gk.SOURCE])
+    build.build([dk.SOURCE, gk.SOURCE, sk.SOURCE])
     dk.load_library()
     gk.load_library()
+    sk.load_library()
     load_s = time.perf_counter() - t0
     builds = []
-    for name in (dk.SOURCE, gk.SOURCE):
+    for name in (dk.SOURCE, gk.SOURCE, sk.SOURCE):
         secs, out = build.build_info.get(name, (0.0, ""))
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         builds.append(f"{name}.cu {secs:.1f} s, ptxas: {' | '.join(regs)}")
@@ -535,16 +568,23 @@ def moved(before, after):
 
 
 def launch_counts():
-    return {**dk.launches, **gk.launches}
+    return {**dk.launches, **gk.launches, **sk.launches}
 
 
 def plain_counts():
-    return {**dk.plain_calls, **gk.plain_calls}
+    return {**dk.plain_calls, **gk.plain_calls, **sk.plain_calls}
 
 
 def reset_counts():
     dk.reset_counts()
     gk.reset_counts()
+    sk.reset_counts()
+
+
+def only(**moved_by):
+    """A launch-count delta: the named kernels moved as given, every other
+    kernel 0."""
+    return {k: moved_by.get(k, 0) for k in launch_counts()}
 
 
 def phase_serving():
@@ -557,8 +597,8 @@ def phase_serving():
     # a one-window stacked drain and one GLOBAL window
     before = launch_counts()
     eng.warmup(now=t0)
-    want_warm = {"drain_compact": len(eng._lane_bucket_list) + 1,
-                 "window_full": 1, "global_combined": 1}
+    want_warm = only(drain_compact=len(eng._lane_bucket_list) + 1,
+                     window_full=1, global_combined=1)
     check(moved(before, launch_counts()) == want_warm,
           f"warmup launches {moved(before, launch_counts())}, "
           f"want {want_warm}")
@@ -636,9 +676,7 @@ def phase_serving():
     pre = clone(eng.state)
     before = launch_counts()
     stacked = eng.pipeline_dispatch(packed, nows)
-    check(moved(before, launch_counts()) == {"drain_compact": 1,
-                                             "window_full": 0,
-                                             "global_combined": 0},
+    check(moved(before, launch_counts()) == only(drain_compact=1),
           f"pipeline_dispatch launches {moved(before, launch_counts())}")
     post = clone(eng.state)
 
@@ -934,9 +972,8 @@ def phase_global_full_size(w, alone, s1_drain_ms):
     words, limits, mism, gfused = eng.pipeline_dispatch_global(
         packed, nows, gbatch, gacc, upd)
     torch.cuda.synchronize()
-    check(moved(before, launch_counts()) == {"drain_compact": 1,
-                                             "window_full": 0,
-                                             "global_combined": 1},
+    check(moved(before, launch_counts()) == only(drain_compact=1,
+                                                 global_combined=1),
           f"pipeline_dispatch_global launches "
           f"{moved(before, launch_counts())}")
     # the plain drain on the copy; the GLOBAL window's plain outputs came
@@ -991,7 +1028,7 @@ def phase_global_full_size(w, alone, s1_drain_ms):
         f"({timer}): drain_compact S=8 {drain_ms:.4f} ms per "
         f"{FULL_K} x {S} x {B} drain = {valid / drain_ms * 1e3:.3e} "
         f"decisions/s, beside S=1 {s1_drain_ms:.4f} ms per {FULL_K} x {B} "
-        f"(phase 3b); global_combined {g_ms} ms ({g_timer}); plain "
+        f"(phase 3b); global_combined {g_ms:.4g} ms ({g_timer}); plain "
         f"S=8 drain {drain_plain_ms:.2f} ms; byte bound {dbms * 1e3:.3f} us;"
         f" GLOBAL bound {gbms * 1e3:.3f} us ({gby})")
     return dict(drain_err=drain_err, global_err=global_err, ms=g_ms,
@@ -1113,6 +1150,300 @@ def phase_global_serving():
         f"refused; launches {launches}, plain calls {plain}")
 
 
+# ---------------------------------------------------------------- analytics
+
+def stats_edge_inputs(rng, K, S, B, C, T, kind):
+    """A drain for the stats kernels: random_windows traffic on each shard
+    (all five algorithms, CONCURRENCY releases, AGG runs, inits, pads,
+    duplicates), with 2% of the lanes on slots past the arena and 1% with
+    slot bit 31 set (the drain pads them, the oracle clips them to row
+    C - 1), no lane on row C - 1 itself (a past-the-arena lane reads that
+    row, which a same-window commit would race), and tenant ids past both
+    ends.  kind "empty": every lane a pad; "few": three valid lanes in all.
+    Returns device tensors (packed i64[K, S, B, 2], tenants i32[K, S, B])."""
+    packed = np.stack([random_windows(rng, K, B, C) for _ in range(S)],
+                      axis=1)
+    w0 = packed[..., 0]
+    low = w0 & 0xFFFFFFFF
+    clean = (low - 1) & ~tk.AGG_SLOT_BIT
+    w0[(low != 0) & (clean == C - 1)] -= 1
+    past = (rng.random(w0.shape) < 0.02) & (low != 0)
+    w0[past] = (w0[past] & ~0xFFFFFFFF) | (C + 1 + rng.integers(0, 5, int(
+        past.sum())))
+    bit31 = (rng.random(w0.shape) < 0.01) & (low != 0)
+    w0[bit31] = (w0[bit31] & ~0xFFFFFFFF) | (1 << 31) | 3
+    if kind == "empty":
+        packed[:] = 0
+    elif kind == "few":
+        keep = np.zeros(w0.shape, bool)
+        keep.reshape(-1)[rng.choice(w0.size, 3, replace=False)] = True
+        packed[~keep] = 0
+        w0 = packed[..., 0]
+        w0[keep & (w0 == 0)] = (1 << 34) | 6     # slot 5, one hit
+    tenants = rng.integers(-3, T + 3, (K, S, B)).astype(np.int32)
+    return (torch.from_numpy(packed).to(DEV),
+            torch.from_numpy(tenants).to(DEV))
+
+
+def acc_state(acc):
+    """What an accumulator holds, whatever the order of its entries."""
+    return (*acc.dense(), acc.count.clone(), acc.ecount.clone(),
+            acc.edone.clone())
+
+
+def phase_stats_vs_plain():
+    """Phase 6a: drain_compact_stats and stats_finish against their plain
+    versions on the card, two drains chained over one accumulator and
+    sketch per case; after each finish the kernel's accumulator must be
+    empty again."""
+    rng = np.random.default_rng(6060)
+    gen = torch.Generator(device=DEV).manual_seed(6060)
+    # (label, K, S, B, C, T, D, W, topk, first decay, sketch start, kind)
+    cases = [
+        ("releases", 4, 1, 256, 4096, 64, 4, 2048, 32, 0, "zero", "edge"),
+        ("8 shards", 4, 8, 256, 4096, 64, 4, 2048, 32, 1, "random", "edge"),
+        ("ties", 1, 8, 1024, 4096, 8, 2, 16, 32, 0, "flat", "edge"),
+        ("wide", 2, 2, 3000, 1 << 16, 64, 4, 2048, 32, 1, "random", "edge"),
+        ("few", 1, 8, 64, 4096, 64, 4, 2048, 32, 0, "random", "few"),
+        ("empty", 1, 8, 37, 4096, 64, 4, 2048, 32, 1, "random", "empty"),
+    ]
+    errs, drains = [], 0
+    for label, K, S, B, C, T, D, W, topk, decay0, start, kind in cases:
+        arena = random_arena(gen, C, T0, DEV, S=S)
+        plain_arena = clone(arena)
+        acc = sk.StatsAccumulator(S, C, T, DEV)
+        plain_acc = sk.StatsAccumulator(S, C, T, DEV)
+        sketch = {"zero": torch.zeros((S, D, W), dtype=torch.int64),
+                  "flat": torch.full((S, D, W), 6, dtype=torch.int64),
+                  "random": torch.from_numpy(rng.integers(
+                      0, 1 << 40, (S, D, W)))}[start].to(DEV)
+        plain_sketch = sketch.clone()
+        for d in range(2):
+            packed, tenants = stats_edge_inputs(rng, K, S, B, C, T, kind)
+            nows = torch.tensor([T0 + 1000 * d + 3 * k for k in range(K)],
+                                dtype=torch.int64, device=DEV)
+            decay = decay0 ^ d
+            got = dk.drain_compact_stats(arena, packed, nows, tenants, acc)
+            want = dk.drain_compact_stats_plain(plain_arena, packed, nows,
+                                                tenants, plain_acc)
+            torch.cuda.synchronize()
+            what = f"stats drain {label} d{d}"
+            assert_same(got, want, f"{what} outputs")
+            assert_same(arena, plain_arena, f"{what} arena")
+            got_acc, want_acc = acc_state(acc), acc_state(plain_acc)
+            assert_same(got_acc, want_acc, f"{what} accumulator")
+            got_st = sk.stats_finish(sketch, acc, arena.expire, int(nows[0]),
+                                     decay, topk=topk, over_weight=4)
+            want_st = sk.stats_finish_plain(plain_sketch, plain_acc,
+                                            plain_arena.expire, int(nows[0]),
+                                            decay, topk=topk, over_weight=4)
+            torch.cuda.synchronize()
+            assert_same((got_st, sketch), (want_st, plain_sketch),
+                        f"finisher {label} d{d} stats, sketch")
+            for name in ("index", "count", "tenant", "header", "ecount",
+                         "edone"):
+                check(not getattr(acc, name).any(),
+                      f"finisher {label} d{d} left acc.{name} set")
+            errs += (list(zip(got, want)) + list(zip(arena, plain_arena))
+                     + list(zip(got_acc, want_acc))
+                     + [(got_st, want_st), (sketch, plain_sketch)])
+            drains += 1
+    err = max_abs_err(errs)
+    log(f"phase 6a stats drain + finisher vs plain: {drains} drains over "
+        f"{len(cases)} cases ({', '.join(c[0] for c in cases)}; K in 1,2,4, "
+        f"S in 1,2,8, B in 37..3000, T in 8,64, sketch 2x16 and 4x2048, "
+        f"decay both ways, chained over one accumulator), bit-exact "
+        f"(max_abs_err {err}); the accumulator empty after every finish")
+    return err
+
+
+def analytics_tenants(rng, K, S, B, T):
+    """Each lane's tenant: one of T ids, weighted toward a few (a tenant's
+    share follows a Zipf law), 0.5% out of range either way."""
+    t = (rng.zipf(1.5, (K, S, B)) - 1) % T
+    bad = rng.random((K, S, B)) < 0.005
+    t[bad] = rng.choice([-1, T, T + 7], int(bad.sum()))
+    return t.astype(np.int32)
+
+
+def stats_drain_bound_ms(lanes, slots):
+    """The stats drain's least time: the drain's (bound_ms) plus 4 B of
+    tenant id per lane and, per touched row, the accumulator's index read
+    and written and its entry written (a sector each)."""
+    t_drain, _ = bound_ms(lanes, 16, 16, slots)
+    extra = (lanes * 4 + slots * 3 * SECTOR) / HBM_BYTES_PER_S * 1e3
+    t_bytes = t_drain + extra
+    t_ops = lanes * 420 / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def finisher_bound_ms(S, C, D, W, T, topk, rows):
+    """The finisher's least time, all bytes: the expiry plane read once
+    (8 B a row), the touched rows' entries read (32 B) and index entries
+    cleared (a sector each), the sketch read and written, the tenant rows
+    read, the stats written."""
+    nbytes = (S * C * 8 + rows * (32 + SECTOR) + S * D * W * 8 * 2
+              + S * T * 24 + S * ta.stats_len(T, topk) * 8)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_analytics_full_size(gen, rng):
+    """Phase 6b: the analytics path at the phase-5c shape.  The counted
+    part: ANALYTICS_DRAINS composed drains with analytics, each ingested
+    into TrafficAnalytics, then the call timed with and without analytics.
+    The caller reads the counts when it returns; the checks of the first
+    drain against the plain versions and the host oracle come after."""
+    eng = sharded_engine(gen)
+    conf = AnalyticsConfig(enabled=True, **ANALYTICS)
+    eng.enable_analytics(conf)
+    S, B, C, T = SHARDS, FULL_LANES, eng.capacity_per_shard, conf.tenant_slots
+    drains = []
+    for i in range(ANALYTICS_DRAINS):
+        packed = torch.from_numpy(np.stack(
+            [full_size_traffic(rng, FULL_K, B, C) for _ in range(S)],
+            axis=1)).to(DEV)
+        nows = torch.tensor([T0 + 50 * i + k for k in range(FULL_K)],
+                            dtype=torch.int64, device=DEV)
+        tenants = torch.from_numpy(analytics_tenants(rng, FULL_K, S, B,
+                                                     T)).to(DEV)
+        drains.append((packed, nows, tenants, int(i % 4 == 3)))
+    gbatch, gacc, upd = global_traffic(rng, eng)
+    first = dict(arena0=clone(eng.state),
+                 sketch0=torch.from_numpy(eng.export_analytics()).to(DEV))
+    an = TrafficAnalytics(conf)
+
+    reset_counts()
+    for i, (packed, nows, tenants, decay) in enumerate(drains):
+        out = eng.pipeline_dispatch_global(packed, nows, gbatch, gacc, upd,
+                                           analytics_args=(tenants, decay))
+        if i == 0:
+            first.update(out=[t.clone() for t in out], arena=clone(eng.state),
+                         sketch=torch.from_numpy(eng.export_analytics()).to(
+                             DEV))
+        an.ingest(out[4].cpu().numpy(), decay)
+
+    packed, nows, tenants, _ = drains[-1]
+
+    def with_an():
+        return eng.pipeline_dispatch_global(packed, nows, gbatch, gacc, upd,
+                                            analytics_args=(tenants, 0))
+
+    def without():
+        return eng.pipeline_dispatch_global(packed, nows, gbatch, gacc, upd)
+
+    with_an()
+    without()
+    # in turns: with, without, without, with
+    a1 = cuda_ms(with_an, 20)
+    w1 = cuda_ms(without, 20)
+    w2 = cuda_ms(without, 20)
+    a2 = cuda_ms(with_an, 20)
+    busy_an = device_busy_ms(with_an, 20)
+    busy_wo = device_busy_ms(without, 20)
+    stats_drain_ms = device_ms(with_an, 20, "drain_compact_stats_kernel")
+    finish_ms = device_ms(with_an, 20, "stats_finish_kernel")
+    drain_ms = device_ms(without, 20, "drain_compact_kernel")
+    torch.cuda.synchronize()
+    return dict(eng=eng, conf=conf, drains=drains, first=first, an=an,
+                call_ms=((a1 + a2) / 2, (w1 + w2) / 2), busy=(busy_an, busy_wo),
+                stats_drain_ms=stats_drain_ms, finish_ms=finish_ms,
+                drain_ms=drain_ms, gbatch=gbatch, gacc=gacc, upd=upd)
+
+
+def check_analytics_full_size(r):
+    """Phase 6b, after the counts are read: the first drain against the
+    plain versions on the card (responses, arena, sketch, stats) and
+    against oracle_stats on the host; the ingested totals."""
+    eng, conf, first = r["eng"], r["conf"], r["first"]
+    packed, nows, tenants, decay = r["drains"][0]
+    S, C, T, topk = (SHARDS, eng.capacity_per_shard, conf.tenant_slots,
+                     conf.topk)
+    arena, sketch = first["arena0"], first["sketch0"]
+    sketch0 = sketch.cpu().numpy().copy()
+    acc = sk.StatsAccumulator(S, C, T, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dk.drain_compact_stats_plain(arena, packed, nows, tenants, acc)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want_st = sk.stats_finish_plain(sketch, acc, arena.expire, int(nows[0]),
+                                    decay, topk=topk,
+                                    over_weight=conf.over_weight)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    words, limits, mism, _, stats = first["out"]
+    assert_same((words, limits, mism), want, "analytics drain outputs")
+    assert_same(first["arena"], arena, "analytics drain arena")
+    assert_same((stats, first["sketch"]), (want_st, sketch),
+                "analytics stats, sketch")
+    err = max_abs_err(list(zip((words, limits, mism), want))
+                      + list(zip(first["arena"], arena))
+                      + [(stats, want_st), (first["sketch"], sketch)])
+    # the host oracle on every shard
+    h0 = time.perf_counter()
+    for s in range(S):
+        o_sk, o_st = ta.oracle_stats(
+            sketch0[s], packed[:, s].cpu().numpy(), words[:, s].cpu().numpy(),
+            tenants[:, s].cpu().numpy(), first["arena"].expire[s].cpu().numpy(),
+            int(nows[0]), decay, tenant_slots=T, topk=topk,
+            over_weight=conf.over_weight)
+        check(np.array_equal(o_st, stats[s].cpu().numpy()),
+              f"shard {s} stats differ from oracle_stats")
+        check(np.array_equal(o_sk, first["sketch"][s].cpu().numpy()),
+              f"shard {s} sketch differs from oracle_stats")
+    oracle_s = time.perf_counter() - h0
+    an = r["an"]
+    lanes = sum(int(((p[..., 0] & 0xFFFFFFFF) != 0).sum())
+                for p, *_ in r["drains"])
+    totals = an.snapshot()["totals"]
+    check(totals["drains"] == ANALYTICS_DRAINS
+          and totals["decisions"] == lanes,
+          f"TrafficAnalytics totals {totals}, want {lanes} decisions")
+    top = an.topk_snapshot(3)
+    check(len(top) == 3 and top[0]["score"] >= top[1]["score"] > 0,
+          f"TrafficAnalytics top-K {top}")
+    return dict(err=err, stats_plain_ms=(t1 - t0) * 1e3,
+                finish_plain_ms=(t2 - t1) * 1e3, oracle_s=oracle_s,
+                totals=totals, top=top)
+
+
+def report_analytics(r, chk, counts):
+    S, B, C = SHARDS, FULL_LANES, r["eng"].capacity_per_shard
+    conf = r["conf"]
+    packed = r["drains"][0][0]
+    lanes = FULL_K * S * B
+    slots = sum(touched_slots(packed[:, s]) for s in range(S))
+    sbms, sby = stats_drain_bound_ms(lanes, slots)
+    fbms, fby = finisher_bound_ms(S, C, conf.sketch_depth, conf.sketch_width,
+                                  conf.tenant_slots, conf.topk, slots)
+    (a_ms, w_ms), (busy_an, busy_wo) = r["call_ms"], r["busy"]
+
+    def busy(b, call):
+        return ("not measured" if b is None else
+                f"{b:.4f} ms busy, idle share {1 - b / call:.3f}")
+
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+    log(f"phase 6b analytics at full size: [{S}, {C}] arena, K={FULL_K} x "
+        f"S={S} x B={B} + GLOBAL {S} x {r['eng'].global_batch_per_shard}, "
+        f"sketch {conf.sketch_depth} x {conf.sketch_width}, T="
+        f"{conf.tenant_slots}, topk={conf.topk}; {ANALYTICS_DRAINS} drains "
+        f"(decay on every 4th) ingested: totals {chk['totals']}, top key "
+        f"{chk['top'][0]['key']} score {chk['top'][0]['score']}; first drain "
+        f"bit-exact vs plain (arena, responses, sketch, stats) and vs "
+        f"oracle_stats on all {S} shards ({chk['oracle_s']:.1f} s host); "
+        f"pipeline_dispatch_global with analytics {a_ms:.4f} ms/call, "
+        f"without {w_ms:.4f} ms/call (CUDA events, 2 x 20 calls each, in "
+        f"turns); card {busy(busy_an, a_ms)} with, {busy(busy_wo, w_ms)} "
+        f"without; device (profiler, 20 calls): drain_compact_stats "
+        f"{fmt(r['stats_drain_ms'])}, drain_compact {fmt(r['drain_ms'])}, "
+        f"stats_finish {fmt(r['finish_ms'])}; plain stats drain "
+        f"{chk['stats_plain_ms']:.2f} ms, plain finisher "
+        f"{chk['finish_plain_ms']:.2f} ms; bounds: stats drain "
+        f"{sbms * 1e3:.3f} us ({sby}), finisher {fbms * 1e3:.3f} us ({fby}) "
+        f"over {slots} touched rows; launches {counts}")
+    return dict(stats_bound=(sbms, sby), finish_bound=(fbms, fby))
+
+
 def main():
     smi = phase_device()
     drain_err, full_err = phase_kernel_vs_plain()
@@ -1144,28 +1475,60 @@ def main():
     path2 = launch_counts()
     log(f"main path, {SHARDS} shards with GLOBAL (phases 5c + 5d): "
         f"launches {path2}")
+    stats_err = phase_stats_vs_plain()
+    # the analytics path over 8 shards: counts from 0 again (inside, just
+    # before its first drain)
+    an = phase_analytics_full_size(gen, rng)
+    path3, plain3 = launch_counts(), plain_counts()
+    check(path3["drain_compact_stats"] > 0 and path3["stats_finish"] > 0,
+          f"a kernel of the analytics path never launched: {path3}")
+    check(not any(plain3.values()),
+          f"the plain versions ran on the analytics path: {plain3}")
+    log(f"main path, analytics over {SHARDS} shards (phase 6b): launches "
+        f"{path3}, plain calls {plain3}")
+    chk = check_analytics_full_size(an)
+    bounds = report_analytics(an, chk, path3)
+    sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
              launches=path1["drain_compact"],
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
-             ms=drain["ms"], plain_ms=drain["plain_ms"],
+             ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
              bound_ms=drain["bound_ms"], bound_by=drain["bound_by"],
              library_ms=None),
         dict(name="window_full", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/kernel.py:1084",
              launches=path1["window_full"], max_abs_err=full_err,
-             ms=full["ms"], plain_ms=full["plain_ms"],
+             ms=sig4(full["ms"]), plain_ms=sig4(full["plain_ms"]),
              bound_ms=full["bound_ms"], bound_by=full["bound_by"],
              library_ms=None),
         dict(name="global_combined", route="cuda", source=GLOBAL_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
              launches=path2["global_combined"],
              max_abs_err=max(global_err, alone["err"], glob["global_err"]),
-             ms=glob["ms"], plain_ms=alone["plain_ms"],
+             ms=sig4(glob["ms"]), plain_ms=sig4(alone["plain_ms"]),
              bound_ms=glob["bound_ms"], bound_by=glob["bound_by"],
              library_ms=None),
+        dict(name="drain_compact_stats", route="cuda", source=SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:852",
+             launches=path3["drain_compact_stats"],
+             max_abs_err=max(stats_err, chk["err"]),
+             ms=sig4(an["stats_drain_ms"] if an["stats_drain_ms"] is not None
+                     else an["call_ms"][0]),
+             plain_ms=sig4(chk["stats_plain_ms"]),
+             bound_ms=bounds["stats_bound"][0],
+             bound_by=bounds["stats_bound"][1], library_ms=None),
+        dict(name="stats_finish", route="cuda", source=STATS_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:1168",
+             launches=path3["stats_finish"],
+             max_abs_err=max(stats_err, chk["err"]),
+             ms=sig4(an["finish_ms"] if an["finish_ms"] is not None
+                     else an["call_ms"][0]),
+             plain_ms=sig4(chk["finish_plain_ms"]),
+             bound_ms=bounds["finish_bound"][0],
+             bound_by=bounds["finish_bound"][1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

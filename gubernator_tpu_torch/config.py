@@ -1,13 +1,17 @@
 """Configuration read by the one-node serving path.
 
 The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
-item cap, the batching behaviors (reference config.go:43-66) and the
-dimensions of the regular and GLOBAL arenas.
+item cap, the batching behaviors (reference config.go:43-66), the
+dimensions of the regular and GLOBAL arenas, the traffic-analytics and SLO
+knobs (GUBER_ANALYTICS_*, GUBER_SLO_*) and the env readers they use.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import logging
+import os
+from dataclasses import dataclass, field
+from typing import List
 
 # Hard cap on items per RPC (reference gubernator.go:34).
 MAX_BATCH_SIZE = 1000
@@ -48,3 +52,148 @@ class EngineConfig:
     # Replay-bound guard: max lanes of a NON-uniform duplicate-key run per
     # window before the window is cut there; 0 disables.
     replay_cap: int = 128
+
+
+@dataclass
+class AnalyticsConfig:
+    """Device-computed traffic analytics (ops/analytics.py +
+    observability/analytics.py): per-drain outcome counts, count-min
+    sketch + hot-key top-K, per-tenant usage rows, arena occupancy/churn.
+    Defaults read GUBER_ANALYTICS_* at construction, as in the JAX
+    package.  No reference analog: the reference exposes only cache
+    hit/miss."""
+
+    enabled: bool = field(
+        default_factory=lambda: env_bool("GUBER_ANALYTICS", False))
+    # Candidate rows per shard per drain AND the host's rolling table size.
+    topk: int = field(
+        default_factory=lambda: env_int("GUBER_ANALYTICS_TOPK", 32))
+    # Count-min sketch geometry (per shard, resident on device).
+    sketch_width: int = field(
+        default_factory=lambda: env_int("GUBER_ANALYTICS_SKETCH_WIDTH", 2048))
+    sketch_depth: int = field(
+        default_factory=lambda: env_int("GUBER_ANALYTICS_SKETCH_DEPTH", 4))
+    # Sketch + rolling-table halving cadence (ms); 0 disables decay.
+    decay_ms: int = field(
+        default_factory=lambda: env_int("GUBER_ANALYTICS_DECAY_MS", 10_000,
+                                        minimum=0))
+    # Distinct tenants tracked on device; id 0 is the shared
+    # "other/unattributed" row.
+    tenant_slots: int = field(
+        default_factory=lambda: env_int("GUBER_ANALYTICS_TENANTS", 64,
+                                        minimum=2))
+    # Hot-key score = hits + over_weight * over_limit decisions: keys
+    # burning their limit rank above merely chatty ones.
+    over_weight: int = field(
+        default_factory=lambda: env_int("GUBER_ANALYTICS_OVER_WEIGHT", 4,
+                                        minimum=0))
+
+    def validate(self) -> None:
+        from gubernator_tpu_torch.ops.analytics import MAX_SKETCH_DEPTH
+        if self.sketch_depth > MAX_SKETCH_DEPTH:
+            raise ValueError(
+                f"Analytics.sketch_depth cannot exceed {MAX_SKETCH_DEPTH}")
+        if self.topk < 1 or self.sketch_width < 16:
+            raise ValueError("Analytics.topk >= 1 and sketch_width >= 16 required")
+
+
+@dataclass
+class SLOConfig:
+    """SLO burn-rate engine (observability/analytics.py SLOEngine):
+    multi-window multi-burn-rate alerting over configured objectives.
+    Each burn window pairs with a short window (window/12); an alert fires
+    only when BOTH exceed the threshold (Google SRE workbook ch.5)."""
+
+    enabled: bool = field(
+        default_factory=lambda: env_bool("GUBER_SLO", False))
+    # drain p99 objective: fraction of drains allowed over the target.
+    drain_p99_ms: float = field(
+        default_factory=lambda: env_float("GUBER_SLO_DRAIN_P99_MS", 100.0,
+                                          minimum=1e-3))
+    drain_budget: float = field(
+        default_factory=lambda: env_float("GUBER_SLO_DRAIN_BUDGET", 0.01))
+    # shed-rate objective: fraction of decisions allowed to shed.
+    shed_budget: float = field(
+        default_factory=lambda: env_float("GUBER_SLO_SHED_BUDGET", 0.01))
+    # availability objective: 1 - availability is the error budget over
+    # decisions (sheds + errors count as bad).
+    availability: float = field(
+        default_factory=lambda: env_float("GUBER_SLO_AVAILABILITY", 0.999))
+    # "window_seconds:threshold" pairs, comma-separated (page = 14.4x over
+    # 5m, ticket = 6x over 30m, trend = 1x over 2h).
+    burn_windows: str = field(
+        default_factory=lambda: _env("GUBER_SLO_BURN_WINDOWS",
+                                     "300:14.4,1800:6,7200:1"))
+
+    def windows(self) -> List[tuple]:
+        """Parse burn_windows -> [(seconds, threshold)], skipping malformed
+        pairs (observability knobs must never crash a boot)."""
+        out = []
+        for part in self.burn_windows.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            try:
+                w, _, t = part.partition(":")
+                sec, thr = float(w), float(t) if t else 1.0
+                if sec > 0 and thr > 0:
+                    out.append((sec, thr))
+            except ValueError:
+                continue
+        return out or [(300.0, 14.4), (1800.0, 6.0), (7200.0, 1.0)]
+
+    def validate(self) -> None:
+        if not (0.0 < self.drain_budget <= 1.0):
+            raise ValueError("SLO.drain_budget must be in (0, 1]")
+        if not (0.0 < self.shed_budget <= 1.0):
+            raise ValueError("SLO.shed_budget must be in (0, 1]")
+        if not (0.0 < self.availability < 1.0):
+            raise ValueError("SLO.availability must be in (0, 1)")
+
+
+def _env(name: str, default: str = "") -> str:
+    v = os.environ.get(name)
+    return v if v not in (None, "") else default
+
+
+def env_int(name: str, default: int, minimum: int = 1) -> int:
+    """Integer GUBER_* knob with a floor; malformed values fall back to
+    the default."""
+    try:
+        return max(minimum, int(os.environ.get(name, default)))
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float, minimum: float = 0.0) -> float:
+    """Float GUBER_* knob with a floor; malformed values fall back to the
+    default."""
+    try:
+        return max(minimum, float(os.environ.get(name, default)))
+    except ValueError:
+        return default
+
+
+_TRUTHY = frozenset(("1", "true", "yes", "on"))
+_FALSY = frozenset(("0", "false", "no", "off", ""))
+_warned_env: set = set()
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    """Boolean GUBER_* knob: 0/1/true/false/yes/no/on/off
+    (case-insensitive); unset means `default`.  An unrecognized value
+    warns once per (name, value) and falls back to the default."""
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    s = v.strip().lower()
+    if s in _TRUTHY:
+        return True
+    if s in _FALSY:
+        return False
+    if (name, v) not in _warned_env:
+        _warned_env.add((name, v))
+        logging.getLogger("gubernator.config").warning(
+            "unrecognized boolean value %r for %s (expected 0/1/true/false); "
+            "using default %s", v, name, default)
+    return default

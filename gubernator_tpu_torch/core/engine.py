@@ -24,7 +24,13 @@ stages the window's lanes; the device applies them:
     slot's config.  A window with no GLOBAL lane and no config write
     launches nothing there: it would read nothing and apply nothing;
   * `pipeline_dispatch` runs K pre-packed windows in one launch, and
-    `pipeline_dispatch_global` adds one GLOBAL window to them.
+    `pipeline_dispatch_global` adds one GLOBAL window to them;
+  * with analytics enabled (`enable_analytics`), `pipeline_dispatch_global
+    (..., analytics_args=(tenants, decay))` drains through the stats drain
+    kernel and finishes the drain's traffic stats with the finisher
+    kernel (ops/stats_kernel.py) against the resident count-min sketch;
+    `analytics_dispatch` is the same reduction in torch ops over a
+    drain's wire arrays.
 
 Mesh-mode registration (several processes) and upserts from an owner's
 broadcast are not part of this single-process engine.
@@ -44,7 +50,13 @@ from gubernator_tpu_torch.api.types import (
     RateLimitResp,
     millisecond_now,
 )
-from gubernator_tpu_torch.ops import drain_kernel, global_kernel, kernel
+from gubernator_tpu_torch.ops import (
+    analytics,
+    drain_kernel,
+    global_kernel,
+    kernel,
+    stats_kernel,
+)
 from gubernator_tpu_torch.ops.kernel import (
     BucketState,
     GlobalConfig,
@@ -205,6 +217,11 @@ class RateLimitEngine:
         self._compact_sound = True
         self.windows_processed = 0
         self.decisions_processed = 0
+        # traffic analytics (enable_analytics): the reduction's geometry,
+        # the resident sketch i64[S, D, W] and the stats drain's accumulator
+        self._an_conf = None
+        self._an_sketch: Optional[torch.Tensor] = None
+        self._an_acc: Optional[stats_kernel.StatsAccumulator] = None
         B = batch_per_shard
         self._lane_bucket_list = sorted(
             {b for b in (max(64, B // 16), max(64, B // 4)) if b < B} | {B})
@@ -428,16 +445,28 @@ class RateLimitEngine:
         timestamps.  Returns device tensors (words i64[K, S, B], limits
         i64[K, S, B], mism bool[K, S]).  The caller guarantees compact
         eligibility."""
+        return self._drain(packed, nows, n_windows)
+
+    def _drain(self, packed, nows, n_windows: Optional[int],
+               tenants=None):
+        """One launch of the compact drain, or with `tenants` (lane tenant
+        ids [K, S, B]) of the stats drain into the analytics accumulator."""
         packed = self._to_dev(torch.as_tensor(packed, dtype=torch.int64))
         nows = self._to_dev(torch.as_tensor(nows, dtype=torch.int64))
-        words, limits, mism = drain_kernel.drain_compact(
-            self.state, packed, nows)
+        if tenants is None:
+            out = drain_kernel.drain_compact(self.state, packed, nows)
+        else:
+            out = drain_kernel.drain_compact_stats(
+                self.state, packed, nows,
+                self._to_dev(torch.as_tensor(tenants, dtype=torch.int32)),
+                self._an_acc)
         self.windows_processed += (int(packed.shape[0]) if n_windows is None
                                    else n_windows)
-        return words, limits, mism
+        return out
 
     def pipeline_dispatch_global(self, packed, nows, gbatch, gacc, upd,
-                                 n_windows: Optional[int] = None):
+                                 n_windows: Optional[int] = None,
+                                 analytics_args=None):
         """pipeline_dispatch's K-window compact stack PLUS one GLOBAL window
         at nows[0] (JAX engine.py:1545): the config writes, the replica
         reads and the summed-hit apply.  gbatch: full-format GLOBAL
@@ -446,16 +475,96 @@ class RateLimitEngine:
         reset lanes (empty_drain_control gives inert padding for all
         three).  Returns device tensors (words, limits, mism, gfused) with
         gfused i64[S, Bg, 4] the GLOBAL responses (status, limit,
-        remaining, reset_time)."""
+        remaining, reset_time).
+
+        `analytics_args=(tenants, decay)` (analytics enabled): tenants
+        i32[K, S, B] each lane's tenant id, decay 0 or 1 (halve the sketch
+        first).  The drain then runs the stats drain kernel, and after the
+        GLOBAL window the finisher kernel turns its sums into stats
+        i64[S, V] against the post-drain expiry plane at nows[0], updating
+        the resident sketch in place; the call returns (words, limits,
+        mism, gfused, stats)."""
         # read before the drain launches, so the host does not wait on it
         now0 = int(torch.as_tensor(nows).reshape(-1)[0])
-        words, limits, mism = self.pipeline_dispatch(packed, nows, n_windows)
+        tenants = decay = None
+        if analytics_args is not None:
+            conf = self._analytics_conf()
+            tenants, decay = analytics_args
+        words, limits, mism = self._drain(packed, nows, n_windows, tenants)
         if _control_live(gbatch.slot, upd, self.global_capacity):
             gfused = self._global_window(gbatch, gacc, upd, now0)
         else:
             gfused = torch.zeros((*tuple(gbatch.slot.shape), 4),
                                  dtype=torch.int64, device=self.device)
-        return words, limits, mism, gfused
+        if analytics_args is None:
+            return words, limits, mism, gfused
+        stats = stats_kernel.stats_finish(
+            self._an_sketch, self._an_acc, self.state.expire, now0,
+            int(decay), topk=conf.topk, over_weight=conf.over_weight)
+        return words, limits, mism, gfused, stats
+
+    # ------------------------------------------------------ traffic analytics
+
+    def enable_analytics(self, conf) -> None:
+        """Allocate the resident per-shard count-min sketch i64[S, D, W] and
+        the stats drain's accumulator, and record the reduction's geometry
+        (config.AnalyticsConfig).  Call once at wiring time
+        (core/service.py), before serving starts."""
+        conf.validate()
+        if conf.topk > self.capacity_per_shard:
+            raise ValueError(f"Analytics.topk {conf.topk} exceeds the "
+                             f"{self.capacity_per_shard} slots of a shard")
+        S = self.num_shards
+        self._an_conf = conf
+        self._an_sketch = torch.zeros(
+            (S, conf.sketch_depth, conf.sketch_width), dtype=torch.int64,
+            device=self.device)
+        self._an_acc = stats_kernel.StatsAccumulator(
+            S, self.capacity_per_shard, conf.tenant_slots, self.device)
+
+    def _analytics_conf(self):
+        if self._an_conf is None:
+            raise RuntimeError("analytics is not enabled on this engine "
+                               "(enable_analytics)")
+        return self._an_conf
+
+    def analytics_dispatch(self, packed, words, tenants, now: int,
+                           decay: int) -> torch.Tensor:
+        """The per-drain stats reduction on its own (JAX engine.py:1647),
+        in torch ops (ops/analytics.py shard_stats) per shard: the drain's
+        compact request stack [K, S, B, 2], its response words i64[K, S, B]
+        and the lanes' tenant ids [K, S, B] against the current expiry
+        plane; updates the resident sketch in place and returns stats
+        i64[S, V] on the device.  decay=1 halves the sketch first."""
+        conf = self._analytics_conf()
+        packed = self._to_dev(torch.as_tensor(packed, dtype=torch.int64))
+        words = self._to_dev(torch.as_tensor(words, dtype=torch.int64))
+        tenants = self._to_dev(torch.as_tensor(tenants, dtype=torch.int32))
+        out = []
+        for s in range(self.num_shards):
+            sk, stats = analytics.shard_stats(
+                self._an_sketch[s], packed[:, s], words[:, s], tenants[:, s],
+                self.state.expire[s], now, int(decay),
+                tenant_slots=conf.tenant_slots, topk=conf.topk,
+                over_weight=conf.over_weight)
+            self._an_sketch[s].copy_(sk)
+            out.append(stats)
+        return torch.stack(out)
+
+    def export_analytics(self) -> np.ndarray:
+        """The resident sketch as host i64[S, D, W]."""
+        self._analytics_conf()
+        return self._an_sketch.cpu().numpy().copy()
+
+    def import_analytics(self, sketch) -> None:
+        """Overwrite the resident sketch with host i64[S, D, W] (the JAX
+        engine's `np.asarray(eng._an_sketch)`)."""
+        self._analytics_conf()
+        src = np.asarray(sketch)
+        if src.shape != tuple(self._an_sketch.shape):
+            raise ValueError(f"sketch: want {tuple(self._an_sketch.shape)}, "
+                             f"got {src.shape}")
+        self._an_sketch.copy_(torch.from_numpy(np.array(src, np.int64)))
 
     def empty_drain_control(self):
         """(gbatch, gacc, upd) padding for a pipeline_dispatch_global that
@@ -481,8 +590,10 @@ class RateLimitEngine:
     def warmup(self, now: Optional[int] = None) -> None:
         """Build the kernels and launch each serving shape once on an empty
         window: the full format at full width, every compact lane bucket,
-        a one-window stacked drain and a GLOBAL window at full width.
-        Leaves both arenas as they were."""
+        a one-window stacked drain and a GLOBAL window at full width, and
+        with analytics enabled the composed drain with analytics (zero
+        tenants, no decay: the sketch stays as it was).  Leaves both arenas
+        as they were."""
         now = self._resolve_now(now)
         saved = self._compact_enabled
         self._compact_enabled = False
@@ -500,6 +611,12 @@ class RateLimitEngine:
         read = self._global_window(*self.empty_drain_control(), now)
         mism.cpu()
         read.cpu()
+        if self._an_conf is not None:
+            out = self.pipeline_dispatch_global(
+                packed, np.full(1, now, np.int64), *self.empty_drain_control(),
+                n_windows=0, analytics_args=(np.zeros(
+                    packed.shape[:3], np.int32), 0))
+            out[4].cpu()
 
     def process(self, requests: Sequence[RateLimitReq],
                 now: Optional[int] = None,

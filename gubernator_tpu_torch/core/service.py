@@ -6,8 +6,14 @@ reference's exact error strings (gubernator.go:102-110), the 1000-item RPC
 cap (:78-81), and local decisions through the WindowBatcher into the
 engine's kernel launches per window.  GLOBAL items are served standalone
 (every replica is this node's), on the token and leaky algorithms only,
-as in the JAX package.  Peers, leases, QoS and snapshots are not part of
-the port yet.
+as in the JAX package.  Traffic analytics and the SLO engine are wired as
+the JAX service wires them (core/service.py:108-127): off by default, on
+with an enabled AnalyticsConfig / SLOConfig.  Their feed (tenant ids staged
+per lane, `TrafficAnalytics.ingest` of each drain's stats) comes with the
+serving pipeline, as in the JAX package without its native router; until
+then `engine.pipeline_dispatch_global(..., analytics_args=...)` is the
+analytics path.  Peers, leases, QoS and snapshots are not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -24,11 +30,17 @@ from gubernator_tpu_torch.api.types import (
 )
 from gubernator_tpu_torch.config import (
     MAX_BATCH_SIZE,
+    AnalyticsConfig,
     BehaviorConfig,
     EngineConfig,
+    SLOConfig,
 )
 from gubernator_tpu_torch.core.batcher import WindowBatcher
 from gubernator_tpu_torch.core.engine import RateLimitEngine
+from gubernator_tpu_torch.observability.analytics import (
+    SLOEngine,
+    TrafficAnalytics,
+)
 
 HEALTHY = "healthy"
 
@@ -44,9 +56,14 @@ class Instance:
     def __init__(self, engine: Optional[RateLimitEngine] = None,
                  engine_config: Optional[EngineConfig] = None,
                  behaviors: Optional[BehaviorConfig] = None,
-                 device=None):
+                 device=None,
+                 analytics: Optional[AnalyticsConfig] = None,
+                 slo: Optional[SLOConfig] = None):
         """engine: a ready engine, else one is built from engine_config on
-        `device` (default `cuda`)."""
+        `device` (default `cuda`).  analytics / slo: when given and
+        enabled, the traffic analytics (the engine's resident sketch and
+        stats accumulator, and a TrafficAnalytics) and the SLO burn-rate
+        engine; otherwise `self.analytics` / `self.slo` are None."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -60,6 +77,14 @@ class Instance:
                 max_global_updates=e.max_global_updates,
                 replay_cap=e.replay_cap, device=device)
         self.engine = engine
+        self.analytics: Optional[TrafficAnalytics] = None
+        self.slo: Optional[SLOEngine] = None
+        if analytics is not None and analytics.enabled:
+            self.engine.enable_analytics(analytics)  # validates it
+            self.analytics = TrafficAnalytics(analytics)
+        if slo is not None and slo.enabled:
+            slo.validate()
+            self.slo = SLOEngine(slo)
         self.batcher = WindowBatcher(self.engine, self.behaviors)
         self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
 

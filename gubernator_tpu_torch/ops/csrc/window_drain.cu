@@ -49,6 +49,13 @@
 // segment's lanes need not wait for each other, but this kernel still walks
 // them in turn).
 //
+// A second entry point, guber_drain_compact_stats, runs the same drain and
+// also adds every window's traffic analytics into a per-shard accumulator
+// (the TPU drain kernel's stats fold; "analytics" below).  Its extra pass
+// per window re-reads the lanes, their response words and tenant ids and
+// touches one accumulator entry per run: a few more bytes per lane, and
+// the same serial parts.
+//
 // Pad lanes (slot field 0, so slot < 0) get response word 0 and limit 0;
 // the plain version does the same.  Slots >= C read row C-1 and commit
 // nothing, as in the oracle; the router never emits them.
@@ -418,14 +425,142 @@ __device__ void run_window(const Src& src, const Dst& dst, const Arena& arena,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads) drain_compact_kernel(const int64_t* __restrict__ packed,
-                                     const int64_t* __restrict__ nows, int K, int B,
-                                     int Bp, int lane_bits, Arena arena,
-                                     int64_t* words, int64_t* limits, uint8_t* mism) {
+// ---- analytics: the stats drain (drain_compact_stats) ---------------------
+//
+// Replaces _accumulate_window_stats (gubernator_tpu/ops/pallas_kernel.py:852),
+// the TPU drain kernel's in-kernel stats fold.  The TPU kernel sums hits in
+// 14-bit limbs into i32 lo/hi pair planes and zeroes [C]-wide planes every
+// drain; here the sums are int64 and live in a per-shard accumulator that
+// grows only by the rows a drain touches:
+//
+//   index   i32[S, C]     arena row -> its entry + 1 (0: untouched)
+//   entries i64[S, N, 4]  (row, occupied lanes, over-limit lanes, hits)
+//   count   i32[S]        entries in use
+//   tenant  i64[S, T, 3]  per tenant id: occupied lanes, hits, over
+//   header  i64[S, 4]     lanes, hits, over, inits
+//
+// The finisher (stats_finish.cu) reads and clears exactly what a drain
+// added, so no drain pays O(C) to zero anything.  The sums follow the
+// oracle (ops/analytics.py oracle_stats) on the drain's own wire arrays:
+// a lane's arena row is its request word's slot field with the AGG bit
+// stripped, clipped to C - 1; hits are the raw 28-bit field (a
+// CONCURRENCY release counts its two's-complement image, an AGG lane its
+// run's total); over-limit is the response word's status bit; tenant ids
+// clip to [0, T - 1].
+//
+// After a window's walk (and its barrier) each thread takes sorted
+// positions again.  Per lane it adds to the tenant rows (shared memory,
+// atomics) and to its own header sums (registers, reduced once per
+// drain).  The head of each slot's run sums the run and adds it to the
+// run's entry, appending the row first when the drain has not seen it:
+// one thread per row and window, barriers between windows, so the entries
+// need no atomics.  Rows below C - 1 are exactly the runs of the sort;
+// lanes the oracle clips to row C - 1 (slots >= C - 1, and wire words the
+// drain treats as padding) add into three shared counters that thread 0
+// commits after a barrier.
+struct StatsAcc {
+  const int32_t* tenants;  // [K, S, B]
+  int T;
+  int32_t* index;
+  int64_t* entries;
+  int32_t* count;
+  int64_t* tenant;
+  int64_t* header;
+  int64_t N;  // entries per shard
+};
+
+// row += (occ, over, hits), appending the row when the drain first sees it
+__device__ void commit_row(const StatsAcc& a, int s, int64_t C, int64_t row, uint64_t occ,
+                           uint64_t over, uint64_t hits, int* n_entries) {
+  int32_t* idx = a.index + static_cast<size_t>(s) * static_cast<size_t>(C) + row;
+  int64_t* e;
+  if (*idx == 0) {
+    const int k = atomicAdd(n_entries, 1);
+    *idx = k + 1;
+    e = a.entries + (static_cast<size_t>(s) * a.N + k) * 4;
+    e[0] = row;
+    e[1] = e[2] = e[3] = 0;
+  } else {
+    e = a.entries + (static_cast<size_t>(s) * a.N + (*idx - 1)) * 4;
+  }
+  e[1] = add(e[1], static_cast<int64_t>(occ));
+  e[2] = add(e[2], static_cast<int64_t>(over));
+  e[3] = add(e[3], static_cast<int64_t>(hits));
+}
+
+// One window's stats (kernel window k of shard s), after run_window.
+__device__ void window_stats(const StatsAcc& a, int s, int64_t C, const int64_t* packed,
+                             const int64_t* words, const int32_t* tenants, int B, int Bp,
+                             int lane_bits, const uint64_t* key, unsigned long long* trows,
+                             unsigned long long* clip_row, int* n_entries, uint64_t* hdr) {
+  const uint64_t lane_mask = (1ull << lane_bits) - 1;
+  auto lane_at = [&](int m) { return static_cast<int>(key[m] & lane_mask); };
+  for (int i = threadIdx.x; i < Bp; i += blockDim.x) {
+    const int lane = lane_at(i);
+    if (lane >= B) continue;
+    const int64_t w0 = packed[2 * lane];
+    const int64_t slot = (w0 & (0xFFFFFFFFll & ~static_cast<int64_t>(kAggSlotBit))) - 1;
+    if (slot < 0) continue;
+    const uint64_t hits = static_cast<uint64_t>((w0 >> 34) & (kCompactMaxHits - 1));
+    const uint64_t over = static_cast<uint64_t>((words[lane] >> 31) & 1);
+    hdr[0] += 1;
+    hdr[1] += hits;
+    hdr[2] += over;
+    hdr[3] += static_cast<uint64_t>((w0 >> 32) & 1);
+    const int t = static_cast<int>(clip(tenants[lane], 0, a.T - 1));
+    atomicAdd(&trows[3 * t], 1ull);
+    atomicAdd(&trows[3 * t + 1], static_cast<unsigned long long>(hits));
+    atomicAdd(&trows[3 * t + 2], static_cast<unsigned long long>(over));
+    if (slot >= C - 1) {
+      atomicAdd(&clip_row[0], 1ull);
+      atomicAdd(&clip_row[1], static_cast<unsigned long long>(over));
+      atomicAdd(&clip_row[2], static_cast<unsigned long long>(hits));
+      continue;
+    }
+    // a row below C - 1 is one run of the sort: its head sums it
+    const uint64_t skey = key[i] >> lane_bits;
+    if (i > 0 && (key[i - 1] >> lane_bits) == skey) continue;
+    uint64_t occ = 0, r_over = 0, r_hits = 0;
+    for (int m = i; m < Bp && (key[m] >> lane_bits) == skey && lane_at(m) < B; ++m) {
+      const int l = lane_at(m);
+      occ += 1;
+      r_over += static_cast<uint64_t>((words[l] >> 31) & 1);
+      r_hits += static_cast<uint64_t>((packed[2 * l] >> 34) & (kCompactMaxHits - 1));
+    }
+    commit_row(a, s, C, slot, occ, r_over, r_hits, n_entries);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && clip_row[0] != 0) {
+    commit_row(a, s, C, C - 1, clip_row[0], clip_row[1], clip_row[2], n_entries);
+    clip_row[0] = clip_row[1] = clip_row[2] = 0;
+  }
+  __syncthreads();
+}
+
+// The K-window drain of shard blockIdx.x; with kStats, also the stats of
+// every window into the shard's accumulator (the tenant rows in dynamic
+// shared memory after the Bp sort keys).
+template <bool kStats>
+__device__ void drain_body(const int64_t* __restrict__ packed, const int64_t* __restrict__ nows,
+                           int K, int B, int Bp, int lane_bits, const Arena& arena,
+                           int64_t* words, int64_t* limits, uint8_t* mism, const StatsAcc& acc) {
   extern __shared__ uint64_t key[];
   __shared__ int window_mism;
   const int s = blockIdx.x, S = gridDim.x;
   const Arena row = arena.shard(s);
+  __shared__ unsigned long long clip_row[3], hdr_sum[4];
+  __shared__ int n_entries;
+  unsigned long long* trows = reinterpret_cast<unsigned long long*>(key + Bp);
+  uint64_t hdr[4] = {0, 0, 0, 0};
+  if constexpr (kStats) {
+    for (int i = threadIdx.x; i < 3 * acc.T; i += blockDim.x) trows[i] = 0;
+    if (threadIdx.x == 0) {
+      clip_row[0] = clip_row[1] = clip_row[2] = 0;
+      hdr_sum[0] = hdr_sum[1] = hdr_sum[2] = hdr_sum[3] = 0;
+      n_entries = acc.count[s];
+    }
+    __syncthreads();
+  }
   for (int k = 0; k < K; ++k) {
     if (threadIdx.x == 0) window_mism = 0;
     // window k of shard s: [K, S, B] lane blocks, [K, S] flags
@@ -434,7 +569,36 @@ __global__ void __launch_bounds__(kThreads) drain_compact_kernel(const int64_t* 
     run_window(CompactSrc{packed + 2 * off}, CompactDst{words + off, limits + off},
                row, B, Bp, lane_bits, nows[k], key, &window_mism);
     if (threadIdx.x == 0) mism[ks] = static_cast<uint8_t>(window_mism);
+    if constexpr (kStats) {
+      window_stats(acc, s, row.capacity, packed + 2 * off, words + off, acc.tenants + off, B,
+                   Bp, lane_bits, key, trows, clip_row, &n_entries, hdr);
+    }
   }
+  if constexpr (kStats) {
+    for (int j = 0; j < 4; ++j) atomicAdd(&hdr_sum[j], static_cast<unsigned long long>(hdr[j]));
+    __syncthreads();
+    int64_t* tenant = acc.tenant + static_cast<size_t>(s) * 3 * acc.T;
+    for (int i = threadIdx.x; i < 3 * acc.T; i += blockDim.x) {
+      tenant[i] = add(tenant[i], static_cast<int64_t>(trows[i]));
+    }
+    for (int j = threadIdx.x; j < 4; j += blockDim.x) {
+      acc.header[4 * s + j] = add(acc.header[4 * s + j], static_cast<int64_t>(hdr_sum[j]));
+    }
+    if (threadIdx.x == 0) acc.count[s] = n_entries;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) drain_compact_kernel(const int64_t* __restrict__ packed,
+                                     const int64_t* __restrict__ nows, int K, int B,
+                                     int Bp, int lane_bits, Arena arena,
+                                     int64_t* words, int64_t* limits, uint8_t* mism) {
+  drain_body<false>(packed, nows, K, B, Bp, lane_bits, arena, words, limits, mism, StatsAcc{});
+}
+
+__global__ void __launch_bounds__(kThreads) drain_compact_stats_kernel(
+    const int64_t* __restrict__ packed, const int64_t* __restrict__ nows, int K, int B, int Bp,
+    int lane_bits, Arena arena, int64_t* words, int64_t* limits, uint8_t* mism, StatsAcc acc) {
+  drain_body<true>(packed, nows, K, B, Bp, lane_bits, arena, words, limits, mism, acc);
 }
 
 __global__ void __launch_bounds__(kThreads) window_full_kernel(FullSrc src, int64_t now, int B, int Bp,
@@ -503,6 +667,38 @@ int guber_drain_compact(const void* packed, const void* nows, int K, int S, int 
       make_arena(limit, duration, remaining, tstamp, expire, algo, capacity),
       static_cast<int64_t*>(words), static_cast<int64_t*>(limits),
       static_cast<uint8_t*>(mism));
+  return cudaGetLastError();
+}
+
+// drain_compact plus the analytics of every window (see StatsAcc): tenants
+// i32[K, S, B] with T tenant rows; the accumulator's index i32[S, C],
+// entries i64[S, N, 4], count i32[S], tenant i64[S, T, 3], header i64[S, 4],
+// added to in place.  The caller guarantees count + K * B <= N.  Returns
+// cudaGetLastError() after the launch.
+int guber_drain_compact_stats(const void* packed, const void* nows, int K, int S, int B,
+                              void* limit, void* duration, void* remaining, void* tstamp,
+                              void* expire, void* algo, long long capacity, void* words,
+                              void* limits, void* mism, const void* tenants, int T,
+                              void* index, void* entries, void* count, void* tenant,
+                              void* header, long long N, void* stream) {
+  if (K < 1 || S < 1 || B < 1 || B > kMaxLanes || capacity < 1 || T < 1 || N < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const Geometry g = geometry(B);
+  const size_t smem = g.smem + static_cast<size_t>(3 * T) * sizeof(unsigned long long);
+  cudaError_t err = cudaFuncSetAttribute(drain_compact_stats_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const StatsAcc acc{static_cast<const int32_t*>(tenants), T, static_cast<int32_t*>(index),
+                     static_cast<int64_t*>(entries),  static_cast<int32_t*>(count),
+                     static_cast<int64_t*>(tenant),   static_cast<int64_t*>(header),
+                     static_cast<int64_t>(N)};
+  drain_compact_stats_kernel<<<S, g.threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(packed), static_cast<const int64_t*>(nows), K, B, g.Bp,
+      g.lane_bits, make_arena(limit, duration, remaining, tstamp, expire, algo, capacity),
+      static_cast<int64_t*>(words), static_cast<int64_t*>(limits), static_cast<uint8_t*>(mism),
+      acc);
   return cudaGetLastError();
 }
 

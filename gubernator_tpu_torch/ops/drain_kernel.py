@@ -7,6 +7,11 @@ arena of S shards (planes [S, C], one CTA per shard):
     words in one launch (the JAX package's window_drain_fused_planes and,
     at K=1, window_step_fused_planes).  Returns response words, stored
     limits and per-window, per-shard limit-mismatch flags.
+  * `drain_compact_stats(arena, packed, nows, tenants, acc)` - the same
+    drain, also adding every window's analytics sums into a
+    StatsAccumulator (ops/stats_kernel.py): the TPU drain kernel's
+    in-kernel stats fold (pallas_kernel.py:852).  A second entry point of
+    the same source; the stats-off kernel is unchanged.
   * `window_full(arena, batch, now)` - one window of decoded int64 columns
     (the engine's full-format path for windows outside the compact caps).
 
@@ -27,17 +32,22 @@ import threading
 
 import torch
 
-from gubernator_tpu_torch.ops import build, kernel
+from gubernator_tpu_torch.ops import analytics, build, kernel
 from gubernator_tpu_torch.ops.build import check_tensor
 from gubernator_tpu_torch.ops.kernel import BucketState, WindowBatch, WindowOutput
+from gubernator_tpu_torch.ops.stats_kernel import StatsAccumulator
 
 SOURCE = "window_drain"
 
 # lanes per window the kernel's shared-memory sort takes (window_drain.cu)
 MAX_LANES = 16384
+# dynamic shared memory a block can opt into on Hopper: the sort keys plus,
+# in the stats drain, three u64 tenant sums per tenant id
+MAX_SHARED_BYTES = 232448
 
-launches = {"drain_compact": 0, "window_full": 0}
-plain_calls = {"drain_compact": 0, "window_full": 0}
+launches = {"drain_compact": 0, "drain_compact_stats": 0, "window_full": 0}
+plain_calls = {"drain_compact": 0, "drain_compact_stats": 0,
+               "window_full": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,6 +71,10 @@ def load_library() -> ctypes.CDLL:
         lib.guber_drain_compact.argtypes = [p, p, i, i, i, p, p, p, p, p, p,
                                             ll, p, p, p, p]
         lib.guber_drain_compact.restype = i
+        lib.guber_drain_compact_stats.argtypes = (
+            [p, p, i, i, i, p, p, p, p, p, p, ll, p, p, p, p, i, p, p, p, p,
+             p, ll, p])
+        lib.guber_drain_compact_stats.restype = i
         lib.guber_window_full.argtypes = [p, p, p, p, p, p, ll, i, i, p, p, p,
                                           p, p, p, ll, p, p, p, p, p]
         lib.guber_window_full.restype = i
@@ -119,18 +133,7 @@ def drain_compact(arena: BucketState, packed: torch.Tensor, nows: torch.Tensor):
     lane of that window and shard got a stored limit other than its
     request's."""
     dev = packed.device
-    if packed.dim() != 4:
-        raise ValueError(f"packed: want [K, S, B, 2], got "
-                         f"{tuple(packed.shape)}")
-    K, S, B = packed.shape[0], packed.shape[1], packed.shape[2]
-    if K < 1:
-        raise ValueError("drain of zero windows")
-    _check_lanes(B)
-    check_tensor(packed, "packed", torch.int64, (K, S, B, 2), dev)
-    check_tensor(nows, "nows", torch.int64, (K,), dev)
-    S_arena, C = _check_arena(arena, dev)
-    if S_arena != S:
-        raise ValueError(f"packed has {S} shards, the arena {S_arena}")
+    K, S, B, C = _check_drain(arena, packed, nows)
     if dev.type == "cpu":
         return drain_compact_plain(arena, packed, nows)
     if dev.type != "cuda":
@@ -152,6 +155,11 @@ def drain_compact_plain(arena: BucketState, packed: torch.Tensor,
     window, decode_batch -> window_step -> encode_output_word, pads
     zeroed."""
     plain_calls["drain_compact"] += 1
+    return _drain_plain(arena, packed, nows)
+
+
+def _drain_plain(arena: BucketState, packed: torch.Tensor,
+                 nows: torch.Tensor):
     words, limits, mism = [], [], []
     for s in range(packed.shape[1]):
         st = BucketState(*[p[s] for p in arena])
@@ -172,6 +180,84 @@ def drain_compact_plain(arena: BucketState, packed: torch.Tensor,
         mism.append(torch.stack(sm))
     return (torch.stack(words, 1), torch.stack(limits, 1),
             torch.stack(mism, 1))
+
+
+def _check_drain(arena: BucketState, packed: torch.Tensor,
+                 nows: torch.Tensor) -> tuple:
+    """(K, S, B, C) of a compact drain's inputs."""
+    dev = packed.device
+    if packed.dim() != 4:
+        raise ValueError(f"packed: want [K, S, B, 2], got "
+                         f"{tuple(packed.shape)}")
+    K, S, B = packed.shape[0], packed.shape[1], packed.shape[2]
+    if K < 1:
+        raise ValueError("drain of zero windows")
+    _check_lanes(B)
+    check_tensor(packed, "packed", torch.int64, (K, S, B, 2), dev)
+    check_tensor(nows, "nows", torch.int64, (K,), dev)
+    S_arena, C = _check_arena(arena, dev)
+    if S_arena != S:
+        raise ValueError(f"packed has {S} shards, the arena {S_arena}")
+    return K, S, B, C
+
+
+def drain_compact_stats(arena: BucketState, packed: torch.Tensor,
+                        nows: torch.Tensor, tenants: torch.Tensor,
+                        acc: StatsAccumulator):
+    """drain_compact, plus every window's analytics sums added into `acc`
+    (ops/analytics.py semantics: rows clipped to C - 1, the raw 28-bit
+    hits, the response's status bit, tenant ids clipped to [0, T - 1]).
+
+    tenants i32[K, S, B]: each lane's tenant id.  Returns what
+    drain_compact returns; ops/stats_kernel.py stats_finish turns `acc`
+    into the stats vectors."""
+    dev = packed.device
+    K, S, B, C = _check_drain(arena, packed, nows)
+    check_tensor(tenants, "tenants", torch.int32, (K, S, B), dev)
+    S_acc, C_acc, T = acc.shape
+    if (S_acc, C_acc) != (S, C) or acc.device != dev:
+        raise ValueError(f"accumulator [{S_acc}, {C_acc}] on {acc.device}, "
+                         f"arena [{S}, {C}] on {dev}")
+    if C > 1 << 30:
+        raise ValueError(f"the stats drain takes arenas of up to 2^30 rows "
+                         f"per shard, not {C}")
+    Bp = 1 << max(1, (B - 1).bit_length())
+    if Bp * 8 + 3 * T * 8 > MAX_SHARED_BYTES:
+        raise ValueError(f"{T} tenant rows beside {B} lanes exceed the "
+                         f"kernel's shared memory")
+    if dev.type == "cpu":
+        return drain_compact_stats_plain(arena, packed, nows, tenants, acc)
+    if dev.type != "cuda":
+        raise ValueError(f"drain_compact_stats runs on cuda or cpu, not {dev}")
+    acc.reserve(K * B)
+    lib = load_library()
+    words = torch.empty((K, S, B), dtype=torch.int64, device=dev)
+    limits = torch.empty((K, S, B), dtype=torch.int64, device=dev)
+    mism = torch.empty((K, S), dtype=torch.bool, device=dev)
+    _launch(lib.guber_drain_compact_stats, packed.data_ptr(), nows.data_ptr(),
+            K, S, B, *_ptrs(arena), C, words.data_ptr(), limits.data_ptr(),
+            mism.data_ptr(), tenants.data_ptr(), T, acc.index.data_ptr(),
+            acc.entries.data_ptr(), acc.count.data_ptr(),
+            acc.tenant.data_ptr(), acc.header.data_ptr(), acc.entry_capacity,
+            _cuda_stream(dev))
+    launches["drain_compact_stats"] += 1
+    return words, limits, mism
+
+
+def drain_compact_stats_plain(arena: BucketState, packed: torch.Tensor,
+                              nows: torch.Tensor, tenants: torch.Tensor,
+                              acc: StatsAccumulator):
+    """The plain version of drain_compact_stats on any device:
+    drain_compact_plain, then each shard's analytics.drain_stats added into
+    `acc`."""
+    plain_calls["drain_compact_stats"] += 1
+    acc.reserve(packed.shape[0] * packed.shape[2])
+    words, limits, mism = _drain_plain(arena, packed, nows)
+    _, C, T = acc.shape
+    for s in range(packed.shape[1]):
+        acc.add(s, analytics.drain_stats(packed[:, s], words[:, s],
+                                         tenants[:, s], C, T))
+    return words, limits, mism
 
 
 def window_full(arena: BucketState, batch: WindowBatch, now: int) -> WindowOutput:

@@ -267,8 +267,10 @@ def test_cpu_calls_run_plain_and_never_count_launches():
     again = tk.decode_batch(packed[0])
     dk.window_full(arena, again._replace(
         is_init=torch.zeros_like(again.is_init)), T0 + 1)
-    assert dk.launches == {"drain_compact": 0, "window_full": 0}
-    assert dk.plain_calls == {"drain_compact": 1, "window_full": 1}
+    assert dk.launches == {"drain_compact": 0, "drain_compact_stats": 0,
+                           "window_full": 0}
+    assert dk.plain_calls == {"drain_compact": 1, "drain_compact_stats": 0,
+                              "window_full": 1}
     assert arena.remaining[0, :B].tolist() == [3, 3, 3, 3]
 
 

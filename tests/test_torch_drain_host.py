@@ -1,17 +1,19 @@
 """The port's CUDA kernel sources, built for the host, against the JAX
 package's int64 oracle.
 
-ops/csrc/window_drain.cu and ops/csrc/global_window.cu run only on the
-card, where chip_smoke.py holds them against their plain versions.  Their
-device code (and the ladder.cuh both include) is plain C++ over integers,
-so these tests compile the same sources with the host C++ compiler behind a
-small shim (one thread per CTA, the grid's CTAs run in turn, shared memory
-as a static buffer, the C entry points that launch on a stream left out)
-and run them on the CPU, on numpy-seeded inputs that also go through the
-JAX oracle.  With one thread the bitonic sort and every slot's walk run in
-turn, so what is checked is the kernels' arithmetic, the drain's segment
-classification and commits and the S-shard indexing, not their thread
-layout.
+ops/csrc/window_drain.cu, global_window.cu and stats_finish.cu run only on
+the card, where chip_smoke.py holds them against their plain versions.
+Their device code (and the ladder.cuh two of them include) is plain C++
+over integers, so these tests compile the same sources with the host C++
+compiler behind a small shim (one thread per CTA, the grid's CTAs run in
+turn, shared memory as a static buffer, atomics as plain read-modify-
+writes, a warp's shuffles and reductions over its one thread, the C entry
+points that launch on a stream left out) and run them on the CPU, on
+numpy-seeded inputs that also go through the JAX oracle.  With one thread
+the bitonic sort and every slot's walk run in turn, so what is checked is
+the kernels' arithmetic, the drain's segment classification and commits,
+the S-shard indexing and the analytics' sums, ranking and clears, not
+their thread layout.
 
 Compared exactly: for the drain (decode_batch -> window_step ->
 encode_output_word, as in tests/test_torch_drain.py), every valid lane's
@@ -19,7 +21,11 @@ word and limit, zero pad lanes, the mismatch flags and every arena plane,
 over one shard and over several; `window_full` on int64 columns outside
 the compact caps against kernel.window_step; for the GLOBAL kernel, the new
 arena and every valid read lane against kernel.global_combined on the
-inputs of tests/test_torch_global.py, zero pad lanes.
+inputs of tests/test_torch_global.py, zero pad lanes; for the stats drain
+and the finisher, the sketch and every stats vector against
+analytics.oracle_stats over the drain's own words, on every wire edge
+(CONCURRENCY releases, AGG lanes, slots past the arena, tenant ids past
+both ends, hits near 2^28 - 1), and the accumulator left empty.
 """
 
 import ctypes
@@ -34,6 +40,7 @@ import gubernator_tpu  # noqa: F401  (enables x64)
 import jax
 import jax.numpy as jnp
 
+from gubernator_tpu.ops import analytics as ja
 from gubernator_tpu.ops import kernel as jk
 
 from .test_fold_fuzz import T0
@@ -57,11 +64,18 @@ _SHIM = r"""
 #define __restrict__
 #define __launch_bounds__(x)
 #define __shared__ static
-struct HostDim3 { unsigned x; };
-static const HostDim3 threadIdx{0}, blockDim{1};
-static HostDim3 blockIdx{0}, gridDim{1};
+#define __constant__
+struct HostDim3 { unsigned x, y; };
+static const HostDim3 threadIdx{0, 0}, blockDim{1, 1};
+static HostDim3 blockIdx{0, 0}, gridDim{1, 1};
 inline void __syncthreads() {}
-static uint64_t host_keys[16384];
+inline void __threadfence() {}
+template <class T> inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
+template <class T> inline T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+// the sort keys, then the stats drain's tenant sums (up to 4096 tenants)
+static uint64_t host_keys[16384 + 3 * 4096];
 """
 
 _DRAIN_ENTRY = r"""
@@ -93,6 +107,50 @@ extern "C" void host_window_full(
                        g.Bp, g.lane_bits,
                        make_arena(limit, duration, remaining, tstamp, expire, algo, C),
                        FullDst{status_out, limit_out, remaining_out, reset_out});
+  }
+}
+"""
+
+_DRAIN_STATS_ENTRY = r"""
+extern "C" void host_drain_compact_stats(
+    const int64_t* packed, const int64_t* nows, int K, int S, int B, int64_t* limit,
+    int64_t* duration, int64_t* remaining, int64_t* tstamp, int64_t* expire,
+    int32_t* algo, long long C, int64_t* words, int64_t* limits, uint8_t* mism,
+    const int32_t* tenants, int T, int32_t* index, int64_t* entries, int32_t* count,
+    int64_t* tenant, int64_t* header, long long N) {
+  const Geometry g = geometry(B);
+  const StatsAcc acc{tenants, T, index, entries, count, tenant, header, N};
+  gridDim.x = S;
+  for (int s = 0; s < S; ++s) {
+    blockIdx.x = s;
+    drain_compact_stats_kernel(packed, nows, K, B, g.Bp, g.lane_bits,
+                               make_arena(limit, duration, remaining, tstamp, expire, algo, C),
+                               words, limits, mism, acc);
+  }
+}
+"""
+
+_FINISH_ENTRY = r"""
+extern "C" void host_stats_finish(
+    int64_t* sketch, int D, long long W, int32_t* index, const int64_t* entries,
+    int32_t* count, int64_t* tenant, int64_t* header, int64_t* est, long long N, int T,
+    const int64_t* expire, long long C, int S, long long now, int decay,
+    long long over_weight, int topk, unsigned long long* ecount, unsigned* edone,
+    int64_t* stats, int X) {
+  const Args a{sketch, D, W, index, entries, count, tenant, header, est, N, T, expire, C,
+               now, decay, over_weight, topk, ecount, edone, stats, 8 + 3 * T + 4 * topk};
+  gridDim.x = 1 + X;
+  gridDim.y = S;
+  for (int s = 0; s < S; ++s) {
+    blockIdx.y = s;
+    // the expiry slices first, then the finisher: the two write disjoint
+    // fields, so any order must give the same vector
+    for (int x = 1; x <= X; ++x) {
+      blockIdx.x = x;
+      stats_finish_kernel(a);
+    }
+    blockIdx.x = 0;
+    stats_finish_kernel(a);
   }
 }
 """
@@ -152,6 +210,14 @@ def host_kernel(tmp_path_factory):
 @pytest.fixture(scope="module")
 def host_global(tmp_path_factory):
     return _host_build(tmp_path_factory, "global_window", _GLOBAL_ENTRY)
+
+
+@pytest.fixture(scope="module")
+def host_stats(tmp_path_factory):
+    """(stats drain, finisher) host builds."""
+    return (_host_build(tmp_path_factory, "window_drain",
+                        _DRAIN_ENTRY + _DRAIN_STATS_ENTRY),
+            _host_build(tmp_path_factory, "stats_finish", _FINISH_ENTRY))
 
 
 def _ptr(a):
@@ -377,3 +443,129 @@ def test_host_global_kernel_matches_oracle(host_global, case, seed):
             read[valid, i], np.asarray(w_out[i]).astype(np.int64)[valid],
             err_msg=f"{case} read.{f}")
     assert not read[~valid].any()
+
+
+# ---------------------------------------------------------------------------
+# analytics: the stats drain (window_drain.cu) and the finisher
+# (stats_finish.cu)
+
+
+def _release_drain(rng, K, B, C, T):
+    """An adversarial K-window drain (tests/test_torch_drain.py) with
+    CONCURRENCY release lanes, hits near 2^28 - 1, a slot past the arena,
+    a wire word with slot bit 31 set (the drain pads it, the oracle clips
+    it to row C - 1), and tenant ids past both ends."""
+    st0, packed, nows = _adversarial_drain(rng, K, B, C, 5)
+    packed = packed.copy()
+    w0 = packed[..., 0]
+    big = (rng.random(w0.shape) < 0.1) & (w0 != 0)
+    w0[big] = (w0[big] & ~(((1 << 28) - 1) << 34)) | (((1 << 28) - 2) << 34)
+    w0[0, 0] = (w0[0, 0] & ~0xFFFFFFFF) | (C + 4)
+    w0[0, 1] = (w0[0, 1] & ~0xFFFFFFFF) | (1 << 31) | 5
+    tenants = rng.integers(-2, T + 2, (K, B)).astype(np.int32)
+    return st0, packed, nows, tenants
+
+
+def _host_stats_drain(lib, arena, packed, nows, tenants, acc):
+    """One host stats drain over S shards: arena [S, C] numpy planes,
+    packed [K, S, B, 2], tenants [K, S, B]; acc a dict of the
+    accumulator's numpy arrays, added to in place."""
+    K, S, B = packed.shape[:3]
+    words = np.zeros((K, S, B), np.int64)
+    limits = np.zeros((K, S, B), np.int64)
+    mism = np.zeros((K, S), np.uint8)
+    packed = np.ascontiguousarray(packed, np.int64)
+    lib.host_drain_compact_stats(
+        _ptr(packed), _ptr(np.ascontiguousarray(nows, np.int64)), K, S, B,
+        *[_ptr(a) for a in arena], ctypes.c_longlong(arena[0].shape[1]),
+        _ptr(words), _ptr(limits), _ptr(mism),
+        _ptr(np.ascontiguousarray(tenants, np.int32)),
+        acc["tenant"].shape[1], _ptr(acc["index"]), _ptr(acc["entries"]),
+        _ptr(acc["count"]), _ptr(acc["tenant"]), _ptr(acc["header"]),
+        ctypes.c_longlong(acc["entries"].shape[1]))
+    return words
+
+
+def _host_finish(lib, sketch, acc, expire, now, decay, topk, ow, X):
+    S, D, W = sketch.shape
+    T = acc["tenant"].shape[1]
+    stats = np.full((S, ja.stats_len(T, topk)), -7, np.int64)
+    lib.host_stats_finish(
+        _ptr(sketch), D, ctypes.c_longlong(W), _ptr(acc["index"]),
+        _ptr(acc["entries"]), _ptr(acc["count"]), _ptr(acc["tenant"]),
+        _ptr(acc["header"]), _ptr(acc["est"]),
+        ctypes.c_longlong(acc["entries"].shape[1]), T, _ptr(expire),
+        ctypes.c_longlong(expire.shape[1]), S, ctypes.c_longlong(now), decay,
+        ctypes.c_longlong(ow), topk, _ptr(acc["ecount"]), _ptr(acc["edone"]),
+        _ptr(stats), X)
+    return stats
+
+
+def _acc(S, C, T, N):
+    return dict(index=np.zeros((S, C), np.int32),
+                entries=np.full((S, N, 4), -7, np.int64),
+                count=np.zeros(S, np.int32),
+                tenant=np.zeros((S, T, 3), np.int64),
+                header=np.zeros((S, 4), np.int64),
+                est=np.zeros((S, N), np.int64),
+                ecount=np.zeros((S, 2), np.uint64),
+                edone=np.zeros(S, np.uint32))
+
+
+@pytest.mark.parametrize("X", [1, 3])
+def test_host_stats_kernels_match_oracle(host_stats, X):
+    """Three carried drains over S = 3 shards (shard 1 all padding on the
+    second), a decay drain, a non-zero starting sketch, X expiry slices per
+    shard: the host stats drain's words, limits, flags and arena equal the
+    plain drain's oracle, and the host finisher's sketch and stats equal
+    oracle_stats over those words, shard by shard; every accumulator array
+    is zero again after each finish."""
+    drain_lib, finish_lib = host_stats
+    rng = np.random.default_rng(880 + X)
+    S, K, B, C, T, topk, D, W = 3, 3, 32, 24, 5, 6, 4, 16
+    kw = dict(tenant_slots=T, topk=topk, over_weight=4)
+    shards = [_release_drain(rng, K, B, C, T) for _ in range(S)]
+    arena = [np.ascontiguousarray(np.stack(p))
+             for p in zip(*[_planes(d[0]) for d in shards])]
+    states = [d[0] for d in shards]
+    acc = _acc(S, C, T, K * B)
+    sketch = rng.integers(0, 100, (S, D, W)).astype(np.int64)
+    want_sk = sketch.copy()
+    for d, decay in enumerate((0, 1, 0)):
+        drains = [_release_drain(rng, K, B, C, T) for _ in range(S)]
+        packed = np.stack([x[1] for x in drains], axis=1)
+        tenants = np.stack([x[3] for x in drains], axis=1)
+        if d == 1:
+            packed[:, 1] = 0
+        nows = drains[0][2] + 10**9 * d
+        words = _host_stats_drain(drain_lib, arena, packed, nows, tenants,
+                                  acc)
+        stats = _host_finish(finish_lib, sketch, acc, arena[4], int(nows[0]),
+                             decay, topk, 4, X)
+        for s in range(S):
+            st, want_words, _, _ = _host_oracle(states[s], packed[:, s],
+                                                nows)
+            states[s] = st
+            # a lane is served when its slot field decodes to >= 0; the
+            # lane past the arena reads row C - 1, which the oracle reads
+            # before the window and the drain whenever its thread gets
+            # there, so only the stats (over the drain's own words) hold it
+            low = packed[:, s, :, 0] & 0xFFFFFFFF
+            served = (low != 0) & (low < 1 << 31)
+            inside = served & ((low & ~jk.AGG_SLOT_BIT) <= C)
+            np.testing.assert_array_equal(words[:, s][inside],
+                                          want_words[inside])
+            assert not words[:, s][~served].any()
+            for f, a, b in zip(jk.BucketState._fields, arena, st):
+                np.testing.assert_array_equal(a[s], np.asarray(b),
+                                              err_msg=f"d{d} s{s} {f}")
+            want_sk[s], want = ja.oracle_stats(
+                want_sk[s], packed[:, s], words[:, s], tenants[:, s],
+                arena[4][s], int(nows[0]), decay, **kw)
+            np.testing.assert_array_equal(sketch[s], want_sk[s],
+                                          err_msg=f"d{d} s{s} sketch")
+            np.testing.assert_array_equal(stats[s], want,
+                                          err_msg=f"d{d} s{s} stats")
+        for name in ("index", "count", "tenant", "header", "ecount",
+                     "edone"):
+            assert not acc[name].any(), f"d{d} {name} left set"

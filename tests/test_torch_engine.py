@@ -203,10 +203,11 @@ def test_warmup_leaves_the_arena_untouched(engines):
     port.warmup(now=T0)
     assert all(not a.any() for a in port.export_arena().values())
     assert port.windows_processed == 2  # full + one compact bucket
-    assert dk.launches == {"drain_compact": 0, "window_full": 0}
+    assert dk.launches == {"drain_compact": 0, "drain_compact_stats": 0,
+                           "window_full": 0}
 
 
-def test_global_requests_are_not_served(engines):
+def test_global_refuses_algorithms_2_to_4(engines):
     """GLOBAL requests on GCRA, sliding window and concurrency are not
     served: the Instance answers each with the JAX service's per-item error
     and runs no window.  (GLOBAL on token and leaky is served:

@@ -303,9 +303,11 @@ def test_warmup_launches_every_shape_and_leaves_the_arenas(engines):
     port.warmup(now=T0)
     assert all(not a.any() for a in port.export_arena().values())
     assert port.windows_processed == 2  # full + one compact bucket
-    assert dk.plain_calls == {"drain_compact": 2, "window_full": 1}
+    assert dk.plain_calls == {"drain_compact": 2, "drain_compact_stats": 0,
+                              "window_full": 1}
     assert gk.plain_calls == {"global_combined": 1}
-    assert dk.launches == {"drain_compact": 0, "window_full": 0}
+    assert dk.launches == {"drain_compact": 0, "drain_compact_stats": 0,
+                           "window_full": 0}
     assert gk.launches == {"global_combined": 0}
 
 

@@ -2,6 +2,7 @@
 JAX package, and neither grpc nor protobuf; its wire enums equal the JAX
 package's; its entry points refuse a CUDA device that is not there."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -23,7 +24,10 @@ pytestmark = pytest.mark.torch_port
 _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.core.engine",
                   "gubernator_tpu_torch.ops.drain_kernel",
-                  "gubernator_tpu_torch.ops.global_kernel")
+                  "gubernator_tpu_torch.ops.global_kernel",
+                  "gubernator_tpu_torch.ops.stats_kernel",
+                  "gubernator_tpu_torch.ops.analytics",
+                  "gubernator_tpu_torch.observability.analytics")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
@@ -40,6 +44,20 @@ def test_import_loads_no_jax_grpc_or_protobuf(module):
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", f"{module} pulled in {res.stdout}"
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """chip_smoke.py exits at once without a card, so its imports are read
+    from its source: torch, numpy, the standard library and the port."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    roots = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert "gubernator_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "gubernator_tpu", "grpc", "google"}
 
 
 @pytest.mark.parametrize("name", ["Algorithm", "Behavior", "Status"])
