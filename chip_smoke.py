@@ -5,8 +5,9 @@
 Phases (one line each; any mismatch raises and exits non-zero):
 
   1. device: the card (nvidia-smi name and power limit) and the nvcc builds
-     of gubernator_tpu_torch/ops/csrc/window_drain.cu and global_window.cu,
-     one nvcc each, started together;
+     of gubernator_tpu_torch/ops/csrc/window_drain.cu, global_window.cu,
+     stats_finish.cu, window_math.cu and global_apply.cu, one nvcc each,
+     started together;
   2. kernel vs plain: drain_compact on seeded windows (hot duplicates, AGG
      lanes, recycle inits, zero reads, cap edges, all five algorithms,
      negative CONCURRENCY hits; K in {1, 4}), on uniform runs that fold
@@ -63,16 +64,36 @@ Phases (one line each; any mismatch raises and exits non-zero):
      drain, the plain drain and the finisher).  After the counts are read,
      the first drain is held against the plain versions on the card
      (arena, responses, sketch, stats) and against oracle_stats on the
-     host.
+     host;
+  7. the per-op lowering (GUBER_PALLAS=1).  7a: window_math (window_math.cu)
+     against its plain version on the preps of chained edge windows (all
+     five algorithms and values past 4, releases, AGG runs, inits, pads, a
+     mixed-config hot run longer than the replay cap, a folding hot run,
+     lanes on row C - 1 and past the arena, int64 windows, a clock that
+     steps back), and window_step_per_op against kernel.window_step; global_apply
+     (global_apply.cu) against its plain version on phase 5a's edge
+     inputs at G = 4096 and G = 3000.  7b: per-op twins of phase 3's
+     one-shard engine and of phase 5c's 8-shard engine (with analytics at
+     phase 6b's geometry), holding the same arenas as default engines:
+     two pipeline_dispatch drains and a 1000-request process on one
+     shard; pipeline_dispatch_global with the GLOBAL window, twice more
+     with analytics (decay on the second) and a 1000-request process with
+     20% GLOBAL on eight; then the two dispatch calls timed (CUDA events)
+     and the new kernels' device time read (profiler).  7c, after the
+     counts are read: the default engines take the same calls, and every
+     output, response, arena plane and sketch must equal the per-op
+     engines'; their calls timed the same way.
 
-Three main paths are counted, each from 0: the one-shard path (phases 3b
-and 4), the GLOBAL path over 8 shards (phases 5c and 5d) and the analytics
-path (phase 6b); each must launch its kernels and never run a plain
-version.  The kernel table's launch counts are drain_compact's and
-window_full's on the first path, global_combined's on the second and
-drain_compact_stats' and stats_finish's on the third; calls of a wrapper
-made only to check or time it against its plain version come before the
-counts start or after they are read.  The third-to-last line is the kernel
+Four main paths are counted, each from 0: the one-shard path (phases 3b
+and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
+path (phase 6b) and the per-op path (phase 7b); each must launch its
+kernels and never run a plain version, and the per-op path must launch no
+kernel but window_math and global_apply.  The kernel table's launch counts
+are drain_compact's and window_full's on the first path, global_combined's
+on the second, drain_compact_stats' and stats_finish's on the third and
+window_math's and global_apply's on the fourth; calls of a wrapper made
+only to check or time it against its plain version come before the counts
+start or after they are read.  The third-to-last line is the kernel
 table as JSON, the next the card's nvidia-smi name and power limit; the
 last line is {"ok": true, "device": {...}}.  Tolerance everywhere is exact
 equality: every quantity is an integer.
@@ -80,6 +101,7 @@ equality: every quantity is an integer.
 
 import asyncio
 import json
+import os
 import subprocess
 import sys
 import time
@@ -108,6 +130,7 @@ from gubernator_tpu_torch.ops import global_kernel as gk  # noqa: E402
 from gubernator_tpu_torch.ops import analytics as ta  # noqa: E402
 from gubernator_tpu_torch.ops import kernel as tk  # noqa: E402
 from gubernator_tpu_torch.ops import stats_kernel as sk  # noqa: E402
+from gubernator_tpu_torch.ops import window_math_kernel as wm  # noqa: E402
 from gubernator_tpu_torch.observability.analytics import (  # noqa: E402
     TrafficAnalytics,
 )
@@ -124,6 +147,8 @@ PLANES = 6
 SOURCE = "gubernator_tpu_torch/ops/csrc/window_drain.cu"
 GLOBAL_SOURCE = "gubernator_tpu_torch/ops/csrc/global_window.cu"
 STATS_SOURCE = "gubernator_tpu_torch/ops/csrc/stats_finish.cu"
+MATH_SOURCE = "gubernator_tpu_torch/ops/csrc/window_math.cu"
+APPLY_SOURCE = "gubernator_tpu_torch/ops/csrc/global_apply.cu"
 # phase 3: the survey's 100M keys over 8 chips (12.5M a chip), rounded up to
 # a power of two; the top of the JAX engine's stacked-drain depths
 # (PIPELINE_K_BUCKETS, gubernator_tpu/core/engine.py:68-84); the engine's
@@ -246,6 +271,12 @@ def bound_ms(lanes, in_bytes, out_bytes, slots, ops_per_lane=400):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def lane_bytes(*planes):
+    """Bytes a lane (or row) of these [N] planes holds: the sum of their
+    element sizes."""
+    return sum(t.element_size() for t in planes)
+
+
 def cuda_ms(fn, n):
     """Mean device ms per call over n calls (the caller warms up)."""
     torch.cuda.synchronize()
@@ -301,15 +332,18 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    # both sources at once, one nvcc each
+    # every source at once, one nvcc each
+    sources = (dk.SOURCE, gk.SOURCE, sk.SOURCE, wm.SOURCE, gk.APPLY_SOURCE)
     t0 = time.perf_counter()
-    build.build([dk.SOURCE, gk.SOURCE, sk.SOURCE])
+    build.build(sources)
     dk.load_library()
     gk.load_library()
     sk.load_library()
+    wm.load_library()
+    gk.load_apply_library()
     load_s = time.perf_counter() - t0
     builds = []
-    for name in (dk.SOURCE, gk.SOURCE, sk.SOURCE):
+    for name in sources:
         secs, out = build.build_info.get(name, (0.0, ""))
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         builds.append(f"{name}.cu {secs:.1f} s, ptxas: {' | '.join(regs)}")
@@ -568,17 +602,19 @@ def moved(before, after):
 
 
 def launch_counts():
-    return {**dk.launches, **gk.launches, **sk.launches}
+    return {**dk.launches, **gk.launches, **sk.launches, **wm.launches}
 
 
 def plain_counts():
-    return {**dk.plain_calls, **gk.plain_calls, **sk.plain_calls}
+    return {**dk.plain_calls, **gk.plain_calls, **sk.plain_calls,
+            **wm.plain_calls}
 
 
 def reset_counts():
     dk.reset_counts()
     gk.reset_counts()
     sk.reset_counts()
+    wm.reset_counts()
 
 
 def only(**moved_by):
@@ -1155,18 +1191,18 @@ def phase_global_serving():
 def stats_edge_inputs(rng, K, S, B, C, T, kind):
     """A drain for the stats kernels: random_windows traffic on each shard
     (all five algorithms, CONCURRENCY releases, AGG runs, inits, pads,
-    duplicates), with 2% of the lanes on slots past the arena and 1% with
-    slot bit 31 set (the drain pads them, the oracle clips them to row
-    C - 1), no lane on row C - 1 itself (a past-the-arena lane reads that
-    row, which a same-window commit would race), and tenant ids past both
-    ends.  kind "empty": every lane a pad; "few": three valid lanes in all.
-    Returns device tensors (packed i64[K, S, B, 2], tenants i32[K, S, B])."""
+    duplicates), with 1% of the lanes on row C - 1, 2% on slots past the
+    arena (they read row C - 1 as the window found it) and 1% with slot
+    bit 31 set (the drain pads them, the oracle clips them to row C - 1),
+    and tenant ids past both ends.  kind "empty": every lane a pad; "few":
+    three valid lanes in all.  Returns device tensors (packed
+    i64[K, S, B, 2], tenants i32[K, S, B])."""
     packed = np.stack([random_windows(rng, K, B, C) for _ in range(S)],
                       axis=1)
     w0 = packed[..., 0]
     low = w0 & 0xFFFFFFFF
-    clean = (low - 1) & ~tk.AGG_SLOT_BIT
-    w0[(low != 0) & (clean == C - 1)] -= 1
+    last = (rng.random(w0.shape) < 0.01) & (low != 0)
+    w0[last] = (w0[last] & ~0xFFFFFFFF) | C
     past = (rng.random(w0.shape) < 0.02) & (low != 0)
     w0[past] = (w0[past] & ~0xFFFFFFFF) | (C + 1 + rng.integers(0, 5, int(
         past.sum())))
@@ -1444,6 +1480,358 @@ def report_analytics(r, chk, counts):
     return dict(stats_bound=(sbms, sby), finish_bound=(fbms, fby))
 
 
+# ---------------------------------------------------------------- per-op
+
+REPLAY_CAP = 128            # the engine's default replay_cap
+
+
+def per_op_edge_window(rng, B, C, wide):
+    """One window of decoded lanes (numpy) for the per-op kernel: phase 2's
+    random_windows traffic (all five algorithms, CONCURRENCY releases, AGG
+    runs, inits, pads, duplicates), plus a hot run longer than the replay
+    cap with configs that change inside it (it replays), a uniform hot run
+    (it folds), 3% of the lanes on row C - 1 and 3% past the arena; `wide`
+    puts limits, durations and hits far outside the compact caps and
+    algorithm values past 4 on some lanes."""
+    bt = [np.asarray(a).copy() for a in tk.decode_batch(torch.from_numpy(
+        random_windows(rng, 1, B, C, cap_edges=not wide)[0]))]
+    slot, hits, limit, duration, algo, is_init = bt
+    valid = slot >= 0
+    run = valid & (rng.random(B) < 0.3)
+    slot[run] = 11                       # > REPLAY_CAP lanes at B >= 1024
+    limit[run] = rng.choice([50, 60], int(run.sum()))
+    uni = valid & ~run & (rng.random(B) < 0.15)
+    slot[uni] = 12
+    hits[uni] = np.where(rng.random(int(uni.sum())) < 0.3, 0, 2)
+    limit[uni], duration[uni], algo[uni], is_init[uni] = 40, 60_000, 1, False
+    last = valid & ~run & ~uni & (rng.random(B) < 0.03)
+    slot[last] = C - 1
+    past = valid & ~run & ~uni & ~last & (rng.random(B) < 0.03)
+    slot[past] = C + rng.integers(0, 7, int(past.sum()))
+    if wide:
+        big = rng.random(B) < 0.5
+        limit[big] = rng.integers(2**31, 2**45, int(big.sum()))
+        duration[big] = rng.integers(2**31, 2**40, int(big.sum()))
+        h = rng.random(B) < 0.2
+        hits[h] = rng.integers(-5, 2**33, int(h.sum()))
+        algo[rng.random(B) < 0.1] = 9
+    return tk.WindowBatch(slot, hits, limit, duration, algo, is_init), \
+        int(run.sum())
+
+
+def prep_args(prep):
+    """window_math's arguments after now and max_pos, from a prep."""
+    return (prep.s_valid, prep.s_hits, prep.s_limit, prep.s_duration,
+            prep.s_algo, prep.s_init, prep.s_agg, prep.pos, prep.seg_len,
+            prep.seg_start_idx, prep.seg_fold, prep.h0, prep.l0, prep.d0,
+            prep.a0, prep.fresh_seg, prep.nz, prep.n_lead, prep.hstar,
+            prep.cur)
+
+
+def phase_per_op_vs_plain():
+    """Phase 7a: window_math against window_math_plain on the preps of edge
+    windows (kernel.window_prep on the card, chained windows whose clock
+    steps back once); window_step_per_op's committed window against
+    kernel.window_step on the same arena; global_apply against global_apply_plain on phase
+    5a's edge inputs at G = 4096 and G = 3000 (no multiple of the TPU
+    kernel's 1024-row block)."""
+    rng = np.random.default_rng(7070)
+    gen = torch.Generator(device=DEV).manual_seed(7070)
+    C, B = 4096, 1024
+    errs, windows, longest = [], 0, 0
+    arena = random_arena(gen, C, T0, DEV)
+    st = tk.BucketState(*[t[0] for t in arena])
+    oracle = clone(st)
+    nows = T0 + np.cumsum([0, 900, 1700, -5000, 300, 100_000, 20, 7])
+    for i, now in enumerate(nows):
+        now = int(now)
+        bt, run = per_op_edge_window(rng, B, C, wide=i in (5, 6))
+        longest = max(longest, run)
+        bt = tk.WindowBatch(*[torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+                              for a in bt])
+        prep = tk.window_prep(st, bt, torch.tensor(now, device=DEV))
+        got = wm.window_math(now, prep.max_pos, *prep_args(prep))
+        want = wm.window_math_plain(now, prep.max_pos, *prep_args(prep))
+        torch.cuda.synchronize()
+        assert_same(got[0], want[0], f"window_math {i} responses")
+        assert_same(got[1], want[1], f"window_math {i} fin")
+        errs += list(zip(got[0], want[0])) + list(zip(got[1], want[1]))
+        st, out = wm.window_step_per_op(st, bt, now)
+        oracle, out_o = tk.window_step(oracle, bt, now)
+        valid = bt.slot >= 0
+        for name, a, b in zip(tk.WindowOutput._fields, out, out_o):
+            check(torch.equal(a[valid], b[valid]) and not a[~valid].any(),
+                  f"window_step_per_op {i} {name} differs from window_step")
+        assert_same(st, oracle, f"window_step_per_op {i} arena")
+        windows += 1
+    math_err = max_abs_err(errs)
+
+    errs = []
+    n = SHARDS * BG_FULL
+    cases = [(range(7), False), ((0, 1), False), (range(7), True),
+             ((2, 3, 4), True)]
+    for G in (G_FULL, 3000):
+        for i, (algos, wrap) in enumerate(cases):
+            gst, cfg, _, summed = global_edge_inputs(rng, G, n, algos, wrap)
+            before = clone(gst)
+            got = gk.global_apply(gst, cfg, summed, T0 + i)
+            want = gk.global_apply_plain(gst, cfg, summed, T0 + i)
+            torch.cuda.synchronize()
+            assert_same(got, want, f"global_apply G={G} case {i}")
+            assert_same(gst, before, f"global_apply G={G} case {i} input")
+            errs += list(zip(got, want))
+    apply_err = max_abs_err(errs)
+    log(f"phase 7a per-op kernels vs plain: window_math on {windows} chained "
+        f"edge windows of B={B} over C={C} (all five algorithms and values "
+        f"past 4, releases, AGG runs, inits, pads, a mixed-config hot run of "
+        f"up to {longest} lanes > replay cap {REPLAY_CAP}, a folding hot run, "
+        f"lanes on row C - 1 and past the arena, two int64 windows outside "
+        f"the compact caps, a clock that steps back 5 s), bit-exact "
+        f"(max_abs_err {math_err}); "
+        f"window_step_per_op = kernel.window_step window after window; "
+        f"global_apply on {2 * len(cases)} edge arenas at G = {G_FULL} and "
+        f"3000, bit-exact (max_abs_err {apply_err})")
+    return math_err, apply_err
+
+
+def per_op_engine(like):
+    """An engine of `like`'s geometry built under GUBER_PALLAS=1 (the
+    per-op lowering), holding `like`'s arenas."""
+    old = os.environ.get("GUBER_PALLAS")
+    os.environ["GUBER_PALLAS"] = "1"
+    try:
+        eng = RateLimitEngine(
+            capacity_per_shard=like.capacity_per_shard,
+            batch_per_shard=like.batch_per_shard, num_shards=like.num_shards,
+            global_capacity=like.global_capacity,
+            global_batch_per_shard=like.global_batch_per_shard,
+            max_global_updates=like.max_global_updates)
+    finally:
+        if old is None:
+            del os.environ["GUBER_PALLAS"]
+        else:
+            os.environ["GUBER_PALLAS"] = old
+    check(eng.per_op and not like.per_op, "GUBER_PALLAS did not take")
+    eng.import_arena(like.export_arena())
+    return eng
+
+
+def snapshot(eng, out):
+    """A call's outputs and every plane of the engine after it."""
+    return ([t.clone() for t in out] if isinstance(out, tuple) else out,
+            [t.clone() for t in eng._planes().values()],
+            None if eng._an_sketch is None else eng._an_sketch.clone())
+
+
+def mixed_window(rng, n, glob_share):
+    """n requests: regular keys of all five algorithms over 400 keys with
+    Zipf skew, and a share of GLOBAL token/leaky keys over 50."""
+    reqs = []
+    for _ in range(n):
+        if rng.random() < glob_share:
+            reqs.append(RateLimitReq(
+                name="pg", unique_key=f"g{int(rng.zipf(1.3)) % 50}",
+                hits=int(rng.integers(0, 3)), limit=30, duration=60_000,
+                algorithm=int(rng.integers(0, 2)), behavior=Behavior.GLOBAL))
+        else:
+            reqs.append(RateLimitReq(
+                name="pr", unique_key=f"k{int(rng.zipf(1.3)) % 400}",
+                hits=int(rng.integers(0, 3)), limit=20, duration=60_000,
+                algorithm=int(rng.integers(0, 5))))
+    return reqs
+
+
+def per_op_script(gen, rng):
+    """Phase 7b's calls and 7c's engines: the one-shard engine of phase 3
+    and the 8-shard engine of phase 5c with analytics at phase 6b's
+    geometry, each as a default engine and a per-op twin on the same
+    arenas, and the calls both take, in order: (label, engine index, fn)
+    with fn(eng) making one call."""
+    one = full_size_engine(gen)
+    eight = sharded_engine(gen)
+    conf = AnalyticsConfig(enabled=True, **ANALYTICS)
+    eight.enable_analytics(conf)
+    pairs = [(one, per_op_engine(one)), (eight, per_op_engine(eight))]
+    pairs[1][1].enable_analytics(conf)
+    packed1 = [torch.from_numpy(full_size_traffic(
+        rng, FULL_K, FULL_LANES, FULL_CAPACITY)[:, None]).to(DEV)
+        for _ in range(2)]
+    nows1 = [torch.tensor([T0 + 1000 * d + 5 * k for k in range(FULL_K)],
+                          dtype=torch.int64, device=DEV) for d in range(2)]
+    C8 = eight.capacity_per_shard
+    packed8 = [torch.from_numpy(np.stack(
+        [full_size_traffic(rng, FULL_K, FULL_LANES, C8)
+         for _ in range(SHARDS)], axis=1)).to(DEV) for _ in range(3)]
+    nows8 = [torch.tensor([T0 + 2000 * d + 7 * k for k in range(FULL_K)],
+                          dtype=torch.int64, device=DEV) for d in range(3)]
+    gctl = [global_traffic(rng, eight) for _ in range(3)]
+    tenants = [torch.from_numpy(analytics_tenants(
+        rng, FULL_K, SHARDS, FULL_LANES, conf.tenant_slots)).to(DEV)
+        for _ in range(2)]
+    win1 = mixed_window(rng, 1000, 0.0)
+    win8 = mixed_window(rng, 1000, 0.2)
+    calls = [
+        ("1-shard pipeline_dispatch 1", 0,
+         lambda e: e.pipeline_dispatch(packed1[0], nows1[0])),
+        ("1-shard pipeline_dispatch 2", 0,
+         lambda e: e.pipeline_dispatch(packed1[1], nows1[1])),
+        ("1-shard process", 0,
+         lambda e: e.process(win1, now=T0 + 5000)),
+        ("8-shard pipeline_dispatch_global", 1,
+         lambda e: e.pipeline_dispatch_global(packed8[0], nows8[0],
+                                              *gctl[0])),
+        ("8-shard pipeline_dispatch_global + analytics", 1,
+         lambda e: e.pipeline_dispatch_global(
+             packed8[1], nows8[1], *gctl[1],
+             analytics_args=(tenants[0], 0))),
+        ("8-shard pipeline_dispatch_global + analytics, decay", 1,
+         lambda e: e.pipeline_dispatch_global(
+             packed8[2], nows8[2], *gctl[2],
+             analytics_args=(tenants[1], 1))),
+        ("8-shard process, 20% GLOBAL", 1,
+         lambda e: e.process(win8, now=T0 + 9000)),
+    ]
+    timed = {
+        "pipeline_dispatch, 1 shard": (0, lambda e: e.pipeline_dispatch(
+            packed1[0], nows1[0])),
+        "pipeline_dispatch_global, 8 shards": (
+            1, lambda e: e.pipeline_dispatch_global(packed8[0], nows8[0],
+                                                    *gctl[0])),
+    }
+    return dict(pairs=pairs, calls=calls, timed=timed, packed1=packed1,
+                nows1=nows1, gctl=gctl, nows8=nows8)
+
+
+def phase_per_op_path(script):
+    """Phase 7b, the counted per-op path: each call of the script on the
+    per-op engines (snapshots of outputs and every plane kept for 7c),
+    then the calls timed (CUDA events) and each new kernel's device time
+    in them (profiler).  The caller reads the counts when it returns."""
+    pairs, calls = script["pairs"], script["calls"]
+    snaps = []
+    for label, i, fn in calls:
+        eng = pairs[i][1]
+        snaps.append(snapshot(eng, fn(eng)))
+    torch.cuda.synchronize()
+    times = {}
+    for label, (i, fn) in script["timed"].items():
+        eng = pairs[i][1]
+        fn(eng)
+        times[label] = cuda_ms(lambda: fn(eng), 3)
+    e1, e8 = pairs[0][1], pairs[1][1]
+    fn1 = script["timed"]["pipeline_dispatch, 1 shard"][1]
+    fn8 = script["timed"]["pipeline_dispatch_global, 8 shards"][1]
+    math_ms = device_ms(lambda: fn1(e1), 2, "window_math_kernel")
+    apply_ms = device_ms(lambda: fn8(e8), 3, "global_apply_kernel")
+    return dict(snaps=snaps, times=times, math_ms=math_ms, apply_ms=apply_ms)
+
+
+def check_per_op_against_default(script, r):
+    """Phase 7c, after the counts are read: the default engines take the
+    same calls; every output and every plane (and the sketch) after each
+    call must equal the per-op engine's; then the default calls timed."""
+    pairs, calls = script["pairs"], script["calls"]
+    errs = []
+    for (label, i, fn), (out_p, planes_p, sk_p) in zip(calls, r["snaps"]):
+        eng = pairs[i][0]
+        out_d, planes_d, sk_d = snapshot(eng, fn(eng))
+        torch.cuda.synchronize()
+        if isinstance(out_d, list) and out_d and isinstance(out_d[0],
+                                                            torch.Tensor):
+            assert_same(out_p, out_d, f"{label} outputs")
+            errs += list(zip(out_p, out_d))
+        else:
+            check([(x.status, x.limit, x.remaining, x.reset_time, x.error)
+                   for x in out_p]
+                  == [(x.status, x.limit, x.remaining, x.reset_time, x.error)
+                      for x in out_d], f"{label} responses differ")
+        assert_same(planes_p, planes_d, f"{label} arena planes")
+        errs += list(zip(planes_p, planes_d))
+        if sk_p is not None or sk_d is not None:
+            assert_same((sk_p,), (sk_d,), f"{label} sketch")
+            errs.append((sk_p, sk_d))
+    err = max_abs_err(errs)
+    times = {}
+    for label, (i, fn) in script["timed"].items():
+        eng = pairs[i][0]
+        fn(eng)
+        times[label] = cuda_ms(lambda: fn(eng), 3)
+    return dict(err=err, times=times)
+
+
+def per_op_bounds_and_plain(script):
+    """The new kernels at the per-op path's shapes: window_math's plain
+    time and bound on the first window of the 1-shard drain (B = 1024
+    lanes, one shard), global_apply's on the 8-shard GLOBAL window
+    (G = 4096), from the default engines' arenas after 7c."""
+    one, eight = script["pairs"][0][0], script["pairs"][1][0]
+    now = int(script["nows1"][0][0])
+    bt = tk.decode_batch(script["packed1"][0][0, 0])
+    prep = tk.window_prep(tk.BucketState(*[t[0] for t in one.state]), bt,
+                          torch.tensor(now, device=DEV))
+    wm.window_math_plain(now, prep.max_pos, *prep_args(prep))  # warm-up
+    math_plain = cuda_ms(lambda: wm.window_math_plain(
+        now, prep.max_pos, *prep_args(prep)), 3)
+    B = bt.slot.shape[0]
+    # each of the 19 lane inputs and the gathered register read, the
+    # responses and the final register written, at their element sizes in
+    # this run; the fold and the ladder ~400 32-bit operations a lane
+    out_sorted, fin = wm.window_math(now, prep.max_pos, *prep_args(prep))
+    math_in = lane_bytes(*prep_args(prep)[:-1], *prep.cur)
+    math_out = lane_bytes(*out_sorted, *fin)
+    math_bound = bound_ms(B, math_in, math_out, 0, ops_per_lane=400)
+    G = eight.global_capacity
+    summed = torch.zeros(G, dtype=torch.int64, device=DEV)
+    gb, gacc, _ = script["gctl"][0]
+    flat = tk.WindowBatch(*[torch.from_numpy(a).to(DEV).reshape(-1)
+                            for a in gb])
+    summed = tk.global_accumulate(summed, flat._replace(
+        hits=torch.from_numpy(gacc).to(DEV).reshape(-1)))
+    g_now = int(script["nows8"][0][0])
+    apply_plain = cuda_ms(lambda: gk.global_apply_plain(
+        eight.gstate, eight.gcfg, summed, g_now), 3)
+    # the kernels alone, per launch back to back (CUDA events): where the
+    # profiler shows no device time, these stand in
+    math_events = cuda_ms(lambda: wm.window_math(
+        now, prep.max_pos, *prep_args(prep)), 20)
+    apply_events = cuda_ms(lambda: gk.global_apply(
+        eight.gstate, eight.gcfg, summed, g_now), 20)
+    # the state and config rows and the sums read, the new state written
+    new_g = gk.global_apply(eight.gstate, eight.gcfg, summed, g_now)
+    row_bytes = lane_bytes(*eight.gstate, *eight.gcfg, summed, *new_g)
+    t_bytes = G * row_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = G * 200 / SCALAR_OPS_PER_S * 1e3
+    apply_bound = (max(t_bytes, t_ops),
+                   "bytes" if t_bytes >= t_ops else "operations")
+    return dict(math_plain=math_plain, math_bound=math_bound,
+                math_bytes=(math_in, math_out), apply_bytes=row_bytes,
+                apply_plain=apply_plain, apply_bound=apply_bound,
+                math_events=math_events, apply_events=apply_events)
+
+
+def report_per_op(script, po, cmp, pb):
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+    times = "; ".join(
+        f"{label}: per-op {po['times'][label]:.4f} ms/call, default "
+        f"{cmp['times'][label]:.4f} ms/call"
+        for label in script["timed"])
+    log(f"phase 7b/7c per-op lowering at full size: {len(script['calls'])} "
+        f"calls ({', '.join(c[0] for c in script['calls'])}) on the per-op "
+        f"engines and then on the default engines from the same arenas: "
+        f"every output, response, arena plane and sketch identical "
+        f"(max_abs_err {cmp['err']}); {times} (CUDA events, 3 calls each); "
+        f"device (profiler): window_math {fmt(po['math_ms'])} per 1024-lane "
+        f"launch, global_apply {fmt(po['apply_ms'])} per G=4096 launch; "
+        f"alone back to back (CUDA events): window_math "
+        f"{pb['math_events']:.4f} ms, global_apply {pb['apply_events']:.4f} "
+        f"ms; plain window_math {pb['math_plain']:.2f} ms, plain "
+        f"global_apply {pb['apply_plain']:.2f} ms; bounds: window_math "
+        f"{pb['math_bound'][0] * 1e3:.3f} us ({pb['math_bound'][1]}; "
+        f"{pb['math_bytes'][0]} B in, {pb['math_bytes'][1]} B out a lane), "
+        f"global_apply {pb['apply_bound'][0] * 1e3:.3f} us "
+        f"({pb['apply_bound'][1]}; {pb['apply_bytes']} B a row)")
+
+
 def main():
     smi = phase_device()
     drain_err, full_err = phase_kernel_vs_plain()
@@ -1488,6 +1876,26 @@ def main():
         f"{path3}, plain calls {plain3}")
     chk = check_analytics_full_size(an)
     bounds = report_analytics(an, chk, path3)
+    math_err, apply_err = phase_per_op_vs_plain()
+    # the per-op path (GUBER_PALLAS=1): counts from 0 again, after the
+    # engines and inputs are built
+    script = per_op_script(gen, rng)
+    reset_counts()
+    po = phase_per_op_path(script)
+    path4, plain4 = launch_counts(), plain_counts()
+    check(path4["window_math"] > 0 and path4["global_apply"] > 0,
+          f"a kernel of the per-op path never launched: {path4}")
+    others = {k: v for k, v in path4.items()
+              if k not in ("window_math", "global_apply")}
+    check(not any(others.values()),
+          f"the per-op path launched another kernel: {others}")
+    check(not any(plain4.values()),
+          f"the plain versions ran on the per-op path: {plain4}")
+    log(f"main path, per-op lowering (phase 7b): launches {path4}, plain "
+        f"calls {plain4}")
+    cmp = check_per_op_against_default(script, po)
+    pb = per_op_bounds_and_plain(script)
+    report_per_op(script, po, cmp, pb)
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
@@ -1529,6 +1937,22 @@ def main():
              plain_ms=sig4(chk["finish_plain_ms"]),
              bound_ms=bounds["finish_bound"][0],
              bound_by=bounds["finish_bound"][1], library_ms=None),
+        dict(name="window_math", route="cuda", source=MATH_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:239",
+             launches=path4["window_math"],
+             max_abs_err=max(math_err, cmp["err"]),
+             ms=sig4(po["math_ms"] if po["math_ms"] is not None
+                     else pb["math_events"]),
+             plain_ms=sig4(pb["math_plain"]), bound_ms=pb["math_bound"][0],
+             bound_by=pb["math_bound"][1], library_ms=None),
+        dict(name="global_apply", route="cuda", source=APPLY_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:165",
+             launches=path4["global_apply"],
+             max_abs_err=max(apply_err, cmp["err"]),
+             ms=sig4(po["apply_ms"] if po["apply_ms"] is not None
+                     else pb["apply_events"]),
+             plain_ms=sig4(pb["apply_plain"]), bound_ms=pb["apply_bound"][0],
+             bound_by=pb["apply_bound"][1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,7 +3,14 @@
 The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
 item cap, the batching behaviors (reference config.go:43-66), the
 dimensions of the regular and GLOBAL arenas, the traffic-analytics and SLO
-knobs (GUBER_ANALYTICS_*, GUBER_SLO_*) and the env readers they use.
+knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the engine's lowering
+(GUBER_PALLAS) and the env readers they use.
+
+Environment read by the engine itself, once, when it is built:
+
+  GUBER_PALLAS=1   the per-op lowering (per_op_lowering below).  Default:
+                   the hand-written drain, which answers to the JAX
+                   package's fused and staged lowerings.
 """
 
 from __future__ import annotations
@@ -197,3 +204,19 @@ def env_bool(name: str, default: bool = False) -> bool:
             "unrecognized boolean value %r for %s (expected 0/1/true/false); "
             "using default %s", v, name, default)
     return default
+
+
+def per_op_lowering() -> bool:
+    """GUBER_PALLAS: does the engine take the per-op lowering?
+
+    In the JAX package GUBER_PALLAS=1 selects its per-op Pallas kernels
+    (gubernator_tpu/config.py:40): XLA sorts, segments and gathers each
+    window, window_step_pallas runs the window math and global_apply_pallas
+    the GLOBAL apply.  In the port it selects the same split: torch ops
+    around the window-math kernel (ops/window_math_kernel.py) and the
+    GLOBAL apply kernel (ops/global_kernel.py global_apply), with the
+    drain's analytics as torch ops (ops/analytics.py shard_stats).  Off
+    (the default), every window runs in the hand-written drain
+    (ops/drain_kernel.py) and the GLOBAL window in global_combined.  The
+    engine reads it once, at construction."""
+    return env_bool("GUBER_PALLAS", False)

@@ -32,6 +32,18 @@ stages the window's lanes; the device applies them:
     `analytics_dispatch` is the same reduction in torch ops over a
     drain's wire arrays.
 
+With GUBER_PALLAS=1 in the environment when the engine is built
+(config.per_op_lowering) it takes the per-op lowering instead, the JAX
+engine's GUBER_PALLAS=1 route: every regular window, compact or full,
+sorts, segments and gathers in torch ops, runs the window-math kernel
+(ops/window_math_kernel.py) and commits in torch ops, one shard at a time;
+the GLOBAL window reads the replica in torch ops (kernel.global_read) and
+applies the summed hits with the GLOBAL apply kernel (global_kernel.
+global_apply); the composed drain's analytics are the torch reduction of
+`analytics_dispatch`.  The drain, global_combined and the stats kernels
+are not launched then.  Both lowerings answer every request alike and
+leave the same arenas.
+
 Mesh-mode registration (several processes) and upserts from an owner's
 broadcast are not part of this single-process engine.
 """
@@ -44,6 +56,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from gubernator_tpu_torch import config
 from gubernator_tpu_torch.api.types import (
     Behavior,
     RateLimitReq,
@@ -56,6 +69,7 @@ from gubernator_tpu_torch.ops import (
     global_kernel,
     kernel,
     stats_kernel,
+    window_math_kernel,
 )
 from gubernator_tpu_torch.ops.kernel import (
     BucketState,
@@ -174,6 +188,9 @@ class RateLimitEngine:
         window cuts, so the differential tests see the same windows.  It
         can go once parity no longer depends on it.
     device: where the arenas live and the kernels run (default `cuda`).
+
+    GUBER_PALLAS=1 in the environment at construction selects the per-op
+    lowering (`per_op`; see the module docstring).
     """
 
     def __init__(
@@ -188,6 +205,7 @@ class RateLimitEngine:
         device=None,
     ):
         self.device = resolve_device(device)
+        self.per_op = config.per_op_lowering()
         if num_shards < 1:
             raise ValueError("num_shards must be >= 1")
         self.num_shards = num_shards
@@ -396,16 +414,24 @@ class RateLimitEngine:
                 buf.slot[:, :lanes], buf.hits[:, :lanes],
                 buf.limit[:, :lanes], buf.duration[:, :lanes],
                 buf.algo[:, :lanes], buf.is_init[:, :lanes])
-            words, limits, _ = drain_kernel.drain_compact(
-                self.state, self._to_dev(packed[None]),
-                torch.tensor([now], dtype=torch.int64, device=self.device))
-            wire = torch.stack([words[0], limits[0]], dim=-1)
+            if self.per_op:
+                wire = kernel.encode_output_compact(self._step_per_op(
+                    kernel.decode_batch(self._to_dev(packed)), now), now)
+            else:
+                words, limits, _ = drain_kernel.drain_compact(
+                    self.state, self._to_dev(packed[None]),
+                    torch.tensor([now], dtype=torch.int64,
+                                 device=self.device))
+                wire = torch.stack([words[0], limits[0]], dim=-1)
         else:
             batch = WindowBatch(*[
                 self._to_dev(a[:, :lanes])
                 for a in (buf.slot, buf.hits, buf.limit, buf.duration,
                           buf.algo, buf.is_init)])
-            fout = drain_kernel.window_full(self.state, batch, now)
+            if self.per_op:
+                fout = self._step_per_op(batch, now)
+            else:
+                fout = drain_kernel.window_full(self.state, batch, now)
         self.windows_processed += 1
         gout = None
         if _control_live(buf.gslot, buf.upd(), self.global_capacity):
@@ -418,15 +444,31 @@ class RateLimitEngine:
             out = WindowOutput(*[f.cpu().numpy() for f in fout])
         return out, (None if gout is None else gout.cpu().numpy())
 
+    def _step_per_op(self, batch: WindowBatch, now: int) -> WindowOutput:
+        """One window of [S, B] decoded lanes through the per-op lowering:
+        window_step_per_op (torch prep, the window-math kernel, torch
+        commit) on each shard in turn, the touched rows scattered into the
+        shard's planes in place.  Returns the responses [S, B], pad lanes
+        0."""
+        outs = []
+        for s in range(self.num_shards):
+            _, out = window_math_kernel.window_step_per_op(
+                BucketState(*[p[s] for p in self.state]),
+                WindowBatch(*[t[s] for t in batch]), now, in_place=True)
+            outs.append(out)
+        return WindowOutput(*[torch.stack(f) for f in zip(*outs)])
+
     def _global_window(self, gbatch: WindowBatch, gacc, upd,
                        now) -> torch.Tensor:
         """One GLOBAL window (JAX engine.py:2665): the config writes and
         resets of `upd` (apply_config), the lanes' contributed hits summed
         per slot over every shard (the mesh psum), then one launch of the
         GLOBAL kernel over all S x Bg lanes and the G rows; the new arena
-        replaces `gstate`.  gbatch/gacc: [S, Bg] lanes, upd: Kg lanes
-        (numpy or tensors).  Returns the read block i64[S, Bg, 4] on the
-        device."""
+        replaces `gstate`.  Under the per-op lowering the replica reads are
+        torch ops (kernel.global_read) on the arena before the apply, and
+        the apply one launch of global_apply after them in stream order.
+        gbatch/gacc: [S, Bg] lanes, upd: Kg lanes (numpy or tensors).
+        Returns the read block i64[S, Bg, 4] on the device, pad lanes 0."""
         apply_config(self.gstate, self.gcfg,
                      tuple(self._to_dev(a) for a in upd))
         flat = WindowBatch(*[self._to_dev(a).reshape(-1) for a in gbatch])
@@ -434,8 +476,16 @@ class RateLimitEngine:
             torch.zeros(self.global_capacity, dtype=torch.int64,
                         device=self.device),
             flat._replace(hits=self._to_dev(gacc).reshape(-1)))
-        self.gstate, read = global_kernel.global_combined(
-            self.gstate, self.gcfg, flat, summed, now)
+        if self.per_op:
+            out = kernel.global_read(self.gstate, flat, now)
+            read = torch.stack([out.status.to(torch.int64), out.limit,
+                                out.remaining, out.reset_time], dim=-1)
+            read = torch.where((flat.slot >= 0)[:, None], read, 0)
+            self.gstate = global_kernel.global_apply(self.gstate, self.gcfg,
+                                                     summed, now)
+        else:
+            self.gstate, read = global_kernel.global_combined(
+                self.gstate, self.gcfg, flat, summed, now)
         return read.reshape(*gbatch.slot.shape, 4)
 
     def pipeline_dispatch(self, packed, nows, n_windows: Optional[int] = None):
@@ -450,19 +500,42 @@ class RateLimitEngine:
     def _drain(self, packed, nows, n_windows: Optional[int],
                tenants=None):
         """One launch of the compact drain, or with `tenants` (lane tenant
-        ids [K, S, B]) of the stats drain into the analytics accumulator."""
+        ids [K, S, B]) of the stats drain into the analytics accumulator.
+        Under the per-op lowering the windows run one at a time through
+        _drain_per_op, and `tenants` is not read (the caller reduces the
+        stats in torch ops)."""
         packed = self._to_dev(torch.as_tensor(packed, dtype=torch.int64))
-        nows = self._to_dev(torch.as_tensor(nows, dtype=torch.int64))
-        if tenants is None:
-            out = drain_kernel.drain_compact(self.state, packed, nows)
+        if self.per_op:
+            out = self._drain_per_op(packed, nows)
         else:
-            out = drain_kernel.drain_compact_stats(
-                self.state, packed, nows,
-                self._to_dev(torch.as_tensor(tenants, dtype=torch.int32)),
-                self._an_acc)
+            nows = self._to_dev(torch.as_tensor(nows, dtype=torch.int64))
+            if tenants is None:
+                out = drain_kernel.drain_compact(self.state, packed, nows)
+            else:
+                out = drain_kernel.drain_compact_stats(
+                    self.state, packed, nows,
+                    self._to_dev(torch.as_tensor(tenants, dtype=torch.int32)),
+                    self._an_acc)
         self.windows_processed += (int(packed.shape[0]) if n_windows is None
                                    else n_windows)
         return out
+
+    def _drain_per_op(self, packed: torch.Tensor, nows):
+        """The per-op lowering of a K-window compact drain (the JAX
+        _drain_scan body, engine.py:2971): per window in order, decode the
+        words, run each shard through window_step_per_op, encode the
+        response words.  Returns what drain_compact returns: words and
+        limits i64[K, S, B] (pad lanes 0) and mism bool[K, S]."""
+        host_nows = torch.as_tensor(nows, dtype=torch.int64).cpu()
+        words, limits, mism = [], [], []
+        for k in range(packed.shape[0]):
+            now = int(host_nows[k])
+            bt = kernel.decode_batch(packed[k])
+            out = self._step_per_op(bt, now)
+            words.append(kernel.encode_output_word(out, now))
+            limits.append(out.limit)
+            mism.append(((out.limit != bt.limit) & (bt.slot >= 0)).any(-1))
+        return torch.stack(words), torch.stack(limits), torch.stack(mism)
 
     def pipeline_dispatch_global(self, packed, nows, gbatch, gacc, upd,
                                  n_windows: Optional[int] = None,
@@ -483,7 +556,10 @@ class RateLimitEngine:
         GLOBAL window the finisher kernel turns its sums into stats
         i64[S, V] against the post-drain expiry plane at nows[0], updating
         the resident sketch in place; the call returns (words, limits,
-        mism, gfused, stats)."""
+        mism, gfused, stats).  Under the per-op lowering the drain runs
+        without tenants and the stats are analytics_dispatch's torch
+        reduction over its words (the JAX engine's route without the
+        staged kernels, engine.py:3136)."""
         # read before the drain launches, so the host does not wait on it
         now0 = int(torch.as_tensor(nows).reshape(-1)[0])
         tenants = decay = None
@@ -498,6 +574,10 @@ class RateLimitEngine:
                                  dtype=torch.int64, device=self.device)
         if analytics_args is None:
             return words, limits, mism, gfused
+        if self.per_op:
+            stats = self.analytics_dispatch(packed, words, tenants, now0,
+                                            decay)
+            return words, limits, mism, gfused, stats
         stats = stats_kernel.stats_finish(
             self._an_sketch, self._an_acc, self.state.expire, now0,
             int(decay), topk=conf.topk, over_weight=conf.over_weight)
@@ -519,8 +599,9 @@ class RateLimitEngine:
         self._an_sketch = torch.zeros(
             (S, conf.sketch_depth, conf.sketch_width), dtype=torch.int64,
             device=self.device)
-        self._an_acc = stats_kernel.StatsAccumulator(
-            S, self.capacity_per_shard, conf.tenant_slots, self.device)
+        if not self.per_op:  # the per-op lowering reduces in torch ops
+            self._an_acc = stats_kernel.StatsAccumulator(
+                S, self.capacity_per_shard, conf.tenant_slots, self.device)
 
     def _analytics_conf(self):
         if self._an_conf is None:

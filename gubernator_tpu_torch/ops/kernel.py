@@ -639,20 +639,19 @@ def window_prep(state: BucketState, batch: WindowBatch, now) -> WindowPrep:
 
 
 def window_commit(state: BucketState, prep: WindowPrep, fin: _Reg,
-                  outs_sorted: WindowOutput
+                  outs_sorted: WindowOutput, in_place: bool = False
                   ) -> tuple[BucketState, WindowOutput]:
     """One write per touched slot (commit_mask; slots >= C drop), and the
-    responses un-sorted to arrival order (JAX ops/kernel.py:947)."""
+    responses un-sorted to arrival order (JAX ops/kernel.py:947).  The
+    writes go into copies of the planes, or with `in_place` into `state`'s
+    own planes, which are then returned."""
     C = state.limit.shape[0]
     m = prep.commit_mask & (prep.s_slot < C)
     w = prep.s_slot[m].long()
-
-    def put(plane, vals):
-        plane = plane.clone()
+    new_state = state if in_place else BucketState(*[p.clone()
+                                                     for p in state])
+    for plane, vals in zip(new_state, fin):
         plane[w] = vals[m]
-        return plane
-
-    new_state = BucketState(*[put(p, v) for p, v in zip(state, fin)])
     unsorted = []
     for v in outs_sorted:
         u = torch.zeros_like(v)

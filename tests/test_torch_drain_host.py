@@ -1,9 +1,10 @@
 """The port's CUDA kernel sources, built for the host, against the JAX
 package's int64 oracle.
 
-ops/csrc/window_drain.cu, global_window.cu and stats_finish.cu run only on
-the card, where chip_smoke.py holds them against their plain versions.
-Their device code (and the ladder.cuh two of them include) is plain C++
+ops/csrc/window_drain.cu, global_window.cu, stats_finish.cu,
+window_math.cu and global_apply.cu run only on the card, where
+chip_smoke.py holds them against their plain versions.  Their device code
+(and the ladder.cuh and fold.cuh they include) is plain C++
 over integers, so these tests compile the same sources with the host C++
 compiler behind a small shim (one thread per CTA, the grid's CTAs run in
 turn, shared memory as a static buffer, atomics as plain read-modify-
@@ -12,14 +13,20 @@ points that launch on a stream left out) and run them on the CPU, on
 numpy-seeded inputs that also go through the JAX oracle.  With one thread
 the bitonic sort and every slot's walk run in turn, so what is checked is
 the kernels' arithmetic, the drain's segment classification and commits,
-the S-shard indexing and the analytics' sums, ranking and clears, not
-their thread layout.
+the S-shard indexing, the analytics' sums, ranking and clears and the
+per-op kernels' two passes, not their thread layout.
 
 Compared exactly: for the drain (decode_batch -> window_step ->
 encode_output_word, as in tests/test_torch_drain.py), every valid lane's
 word and limit, zero pad lanes, the mismatch flags and every arena plane,
-over one shard and over several; `window_full` on int64 columns outside
-the compact caps against kernel.window_step; for the GLOBAL kernel, the new
+over one shard and over several, and a lane past the arena beside a
+same-window commit of row C - 1 (it reads the row as the window found it);
+`window_full` on int64 columns outside the compact caps against
+kernel.window_step; for the per-op window math, every valid lane's
+responses and final register against kernel.window_math on the port's
+prep, and the committed window against kernel.window_step, over chained
+windows at full int64 range; for the per-op GLOBAL apply, the new arena
+against kernel.global_apply, in place and out of place; for the GLOBAL kernel, the new
 arena and every valid read lane against kernel.global_combined on the
 inputs of tests/test_torch_global.py, zero pad lanes; for the stats drain
 and the finisher, the sketch and every stats vector against
@@ -35,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import gubernator_tpu  # noqa: F401  (enables x64)
 import jax
@@ -42,10 +50,12 @@ import jax.numpy as jnp
 
 from gubernator_tpu.ops import analytics as ja
 from gubernator_tpu.ops import kernel as jk
+from gubernator_tpu_torch.ops import kernel as tk
 
 from .test_fold_fuzz import T0
-from .test_torch_drain import _adversarial_drain, _host_oracle
+from .test_torch_drain import _adversarial_drain, _host_oracle, _jstep
 from .test_torch_global import CASES, G, global_inputs
+from .test_torch_per_op import per_op_clock, per_op_state, per_op_window
 
 pytestmark = pytest.mark.torch_port
 
@@ -155,6 +165,51 @@ extern "C" void host_stats_finish(
 }
 """
 
+_MATH_ENTRY = r"""
+extern "C" void host_window_math(
+    long long now, long long max_pos, int B, const uint8_t* s_valid,
+    const int64_t* s_hits, const int64_t* s_limit, const int64_t* s_duration,
+    const int32_t* s_algo, const uint8_t* s_init, const uint8_t* s_agg,
+    const int32_t* pos, const int32_t* seg_len, const int32_t* seg_start_idx,
+    const uint8_t* seg_fold, const int64_t* h0, const int64_t* l0, const int64_t* d0,
+    const int32_t* a0, const uint8_t* fresh_seg, const int32_t* nz, const int32_t* n_lead,
+    const int64_t* hstar, const int64_t* r_limit, const int64_t* r_duration,
+    const int64_t* r_remaining, const int64_t* r_tstamp, const int64_t* r_expire,
+    const int32_t* r_algo, int32_t* status, int64_t* limit, int64_t* remaining,
+    int64_t* reset, int64_t* f_limit, int64_t* f_duration, int64_t* f_remaining,
+    int64_t* f_tstamp, int64_t* f_expire, int32_t* f_algo) {
+  const Lanes lanes{s_valid, s_hits, s_limit, s_duration, s_algo, s_init, s_agg, pos,
+                    seg_len, seg_start_idx, seg_fold, h0, l0, d0, a0, fresh_seg, nz,
+                    n_lead, hstar, r_limit, r_duration, r_remaining, r_tstamp, r_expire,
+                    r_algo};
+  const MathOut outs{status, limit, remaining, reset, f_limit, f_duration, f_remaining,
+                     f_tstamp, f_expire, f_algo};
+  window_math_kernel(lanes, outs, B, now, max_pos);
+}
+"""
+
+_APPLY_ENTRY = r"""
+extern "C" void host_global_apply(
+    const int64_t* limit, const int64_t* duration, const int64_t* remaining,
+    const int64_t* tstamp, const int64_t* expire, const int32_t* algo,
+    const int64_t* cfg_limit, const int64_t* cfg_duration, const int32_t* cfg_algo,
+    const int64_t* summed, long long G, long long now, int64_t* out_limit,
+    int64_t* out_duration, int64_t* out_remaining, int64_t* out_tstamp,
+    int64_t* out_expire, int32_t* out_algo) {
+  // one thread a row: the shim's one-thread CTAs, one per row
+  gridDim.x = static_cast<unsigned>(G);
+  for (long long j = 0; j < G; ++j) {
+    blockIdx.x = static_cast<unsigned>(j);
+    global_apply_kernel(
+        Planes<const int64_t, const int32_t>{limit, duration, remaining, tstamp, expire,
+                                             algo},
+        cfg_limit, cfg_duration, cfg_algo, summed, G, now,
+        Planes<int64_t, int32_t>{out_limit, out_duration, out_remaining, out_tstamp,
+                                 out_expire, out_algo});
+  }
+}
+"""
+
 _GLOBAL_ENTRY = r"""
 extern "C" void host_global_combined(
     const int64_t* limit, const int64_t* duration, const int64_t* remaining,
@@ -210,6 +265,16 @@ def host_kernel(tmp_path_factory):
 @pytest.fixture(scope="module")
 def host_global(tmp_path_factory):
     return _host_build(tmp_path_factory, "global_window", _GLOBAL_ENTRY)
+
+
+@pytest.fixture(scope="module")
+def host_math(tmp_path_factory):
+    return _host_build(tmp_path_factory, "window_math", _MATH_ENTRY)
+
+
+@pytest.fixture(scope="module")
+def host_apply(tmp_path_factory):
+    return _host_build(tmp_path_factory, "global_apply", _APPLY_ENTRY)
 
 
 @pytest.fixture(scope="module")
@@ -445,6 +510,164 @@ def test_host_global_kernel_matches_oracle(host_global, case, seed):
     assert not read[~valid].any()
 
 
+@pytest.mark.parametrize("entry", ["drain_compact", "window_full"])
+def test_host_drain_past_the_arena_reads_row_c_minus_1_before_the_window(
+        host_kernel, entry):
+    """The smallest window that showed the drain's row C - 1 race: a lane on
+    slot C - 1 (one hit) and a lane on slot C + 4.  The second lane reads
+    row C - 1 and commits nothing; the oracle gathers the row before the
+    window, so it must answer from the row as the window found it, not
+    after the first lane's commit (the host build walks the runs in slot
+    order, so the commit always comes first here)."""
+    C = 8
+    st0 = jk.BucketState(
+        limit=jnp.full(C, 5, jnp.int64), duration=jnp.full(C, 60_000, jnp.int64),
+        remaining=jnp.full(C, 5, jnp.int64), tstamp=jnp.full(C, T0 + 60_000,
+                                                            jnp.int64),
+        expire=jnp.full(C, T0 + 60_000, jnp.int64),
+        algo=jnp.zeros(C, jnp.int32))
+    cols = [np.asarray([C - 1, C + 4], np.int32), np.asarray([1, 1]),
+            np.asarray([5, 5]), np.asarray([60_000, 60_000]),
+            np.zeros(2, np.int32), np.zeros(2, np.uint8)]
+    want_st, want = _jstep(st0, jk.WindowBatch(
+        *[jnp.asarray(c) for c in cols[:5]], jnp.asarray(cols[5] != 0)),
+        jnp.int64(T0))
+    assert [int(x) for x in want.remaining] == [4, 4]
+    arena = _planes(st0)
+    if entry == "drain_compact":
+        packed = np.asarray(jk.encode_batch_host(*cols[:5], cols[5] != 0))
+        got_st, words, limits, _ = _host_drain(host_kernel, st0, packed[None],
+                                               np.asarray([T0]))
+        want_words = np.asarray(jk.encode_output_word(want, jnp.int64(T0)))
+        np.testing.assert_array_equal(words[0], want_words)
+        np.testing.assert_array_equal(limits[0], np.asarray(want.limit))
+    else:
+        status = np.zeros(2, np.int32)
+        outs = [np.zeros(2, np.int64) for _ in range(3)]
+        host_kernel.host_window_full(
+            *[_ptr(np.ascontiguousarray(c)) for c in cols],
+            ctypes.c_longlong(T0), 1, 2, *[_ptr(a) for a in arena],
+            ctypes.c_longlong(C), _ptr(status), *[_ptr(o) for o in outs])
+        for name, got, exp in zip(jk.WindowOutput._fields, [status] + outs,
+                                  want):
+            np.testing.assert_array_equal(got, np.asarray(exp), err_msg=name)
+        got_st = arena
+    for f, a, b in zip(jk.BucketState._fields, got_st, want_st):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=f"state.{f}")
+
+
+_PREP_LANES = ("s_valid", "s_hits", "s_limit", "s_duration", "s_algo",
+               "s_init", "s_agg", "pos", "seg_len", "seg_start_idx",
+               "seg_fold", "h0", "l0", "d0", "a0", "fresh_seg", "nz",
+               "n_lead", "hstar")
+
+
+def _tt(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _host_window_math(lib, prep, now):
+    """window_math.cu's kernel on one window's port prep ([B] lanes)."""
+    lanes = [np.ascontiguousarray(getattr(prep, f).numpy()) for f in
+             _PREP_LANES]
+    lanes = [a.astype(np.uint8) if a.dtype == bool else a for a in lanes]
+    reg = [np.ascontiguousarray(r.numpy()) for r in prep.cur]
+    B = lanes[0].shape[0]
+    # outputs start as garbage, as torch.empty leaves them on the card
+    out = [np.full(B, -7, np.int32)] + [np.full(B, -7, np.int64)
+                                        for _ in range(3)]
+    fin = [np.full(B, -7, np.int64) for _ in range(5)] + [
+        np.full(B, -7, np.int32)]
+    lib.host_window_math(ctypes.c_longlong(now),
+                         ctypes.c_longlong(prep.max_pos), B,
+                         *[_ptr(a) for a in lanes + reg + out + fin])
+    return out, fin
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["compact", "int64"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_host_window_math_matches_oracle(host_math, seed, wide):
+    """window_math.cu's device code over eight chained windows of 64 lanes
+    (all five algorithms and out-of-range values, hot runs that fold and
+    runs that replay, AGG lanes, inits, pads, slots past the arena beside
+    row C - 1, a clock that steps backwards; `int64` at full int64 range):
+    its responses and final registers equal kernel.window_math on the same
+    prep at every valid lane (pads 0, fin their register), and committed
+    with kernel.window_commit the window equals kernel.window_step."""
+    rng = np.random.default_rng(450 + seed + 10 * wide)
+    C, B = 32, 64
+    jst = per_op_state(rng, C, T0, wide)
+    tst = tk.BucketState(*[_tt(a) for a in jst])
+    for w, now in enumerate(per_op_clock(rng, 8)):
+        now = int(now)
+        bt = per_op_window(rng, B, C, wide)
+        tbt = tk.WindowBatch(*[_tt(a) for a in bt])
+        prep = tk.window_prep(tst, tbt, _tt(np.int64(now)))
+        out, fin = _host_window_math(host_math, prep, now)
+        want_out, want_fin = tk.window_math(
+            _tt(np.int64(now)), prep.max_pos, prep.s_valid, prep.s_hits,
+            prep.s_limit, prep.s_duration, prep.s_algo, prep.s_agg, prep.pos,
+            prep.seg_len, prep.seg_start_idx, prep.seg_fold, prep.h0,
+            prep.l0, prep.d0, prep.a0, prep.fresh_seg, prep.cur, prep.nz,
+            prep.n_lead, prep.hstar)
+        v = prep.s_valid.numpy()
+        for name, g, x in zip(jk.WindowOutput._fields, out, want_out):
+            np.testing.assert_array_equal(g[v], x.numpy()[v],
+                                          err_msg=f"w{w} out.{name}")
+            assert not g[~v].any(), f"w{w} out.{name} pad lanes"
+        for name, g, x, r in zip(jk.BucketState._fields, fin, want_fin,
+                                 prep.cur):
+            np.testing.assert_array_equal(g[v], x.numpy()[v],
+                                          err_msg=f"w{w} fin.{name}")
+            np.testing.assert_array_equal(g[~v], r.numpy()[~v])
+        tst, got = tk.window_commit(
+            tst, prep, tk._Reg(*[_tt(a) for a in fin]),
+            tk.WindowOutput(*[_tt(a) for a in out]))
+        jst, want = _jstep(jst, jk.WindowBatch(*[jnp.asarray(a) for a in bt]),
+                           jnp.int64(now))
+        valid = np.asarray(bt.slot) >= 0
+        for name, g, x in zip(jk.WindowOutput._fields, got, want):
+            np.testing.assert_array_equal(g.numpy()[valid],
+                                          np.asarray(x)[valid],
+                                          err_msg=f"w{w} step out.{name}")
+        for name, g, x in zip(jk.BucketState._fields, tst, jst):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x),
+                                          err_msg=f"w{w} state.{name}")
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["out", "in_place"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_host_global_apply_matches_oracle(host_apply, case, in_place):
+    """global_apply.cu's device code on tests/test_torch_global.py's edge
+    inputs (all five algorithms and out-of-range values, int64 wrapped at
+    both ends, expired rows, switches, zero sums) at G = 64 and at 37 rows
+    (no block shape to fill): the new arena equals kernel.global_apply,
+    written out of place (the input untouched) or in place."""
+    algos, wrap = CASES[case]
+    for g in (G, 37):
+        state, cfg, _, summed = global_inputs(
+            np.random.default_rng(300 + g), algos, wrap, G=g)
+        names = jk.BucketState._fields
+        planes = [np.ascontiguousarray(state[f]) for f in names]
+        before = [p.copy() for p in planes]
+        cfgs = [np.ascontiguousarray(cfg[f]) for f in jk.GlobalConfig._fields]
+        new = planes if in_place else [np.full_like(p, -7) for p in planes]
+        host_apply.host_global_apply(
+            *[_ptr(p) for p in planes], *[_ptr(c) for c in cfgs],
+            _ptr(summed), ctypes.c_longlong(g), ctypes.c_longlong(T0),
+            *[_ptr(p) for p in new])
+        want = jk.global_apply(
+            jk.BucketState(*[jnp.asarray(p) for p in before]),
+            jk.GlobalConfig(*[jnp.asarray(c) for c in cfgs]),
+            jnp.asarray(summed), jnp.int64(T0))
+        for f, a, b in zip(names, new, want):
+            np.testing.assert_array_equal(a, np.asarray(b),
+                                          err_msg=f"{case} G={g} {f}")
+        if not in_place:
+            for a, b in zip(planes, before):
+                np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # analytics: the stats drain (window_drain.cu) and the finisher
 # (stats_finish.cu)
@@ -546,15 +769,12 @@ def test_host_stats_kernels_match_oracle(host_stats, X):
             st, want_words, _, _ = _host_oracle(states[s], packed[:, s],
                                                 nows)
             states[s] = st
-            # a lane is served when its slot field decodes to >= 0; the
-            # lane past the arena reads row C - 1, which the oracle reads
-            # before the window and the drain whenever its thread gets
-            # there, so only the stats (over the drain's own words) hold it
+            # a lane is served when its slot field decodes to >= 0; a
+            # lane past the arena reads row C - 1 as the window found it
             low = packed[:, s, :, 0] & 0xFFFFFFFF
             served = (low != 0) & (low < 1 << 31)
-            inside = served & ((low & ~jk.AGG_SLOT_BIT) <= C)
-            np.testing.assert_array_equal(words[:, s][inside],
-                                          want_words[inside])
+            np.testing.assert_array_equal(words[:, s][served],
+                                          want_words[served])
             assert not words[:, s][~served].any()
             for f, a, b in zip(jk.BucketState._fields, arena, st):
                 np.testing.assert_array_equal(a[s], np.asarray(b),

@@ -195,8 +195,8 @@ def test_wrapper_runs_plain_on_cpu_and_zeroes_pads(case):
     before = {k: t.clone() for k, t in zip(ts._fields, ts)}
     gk.reset_counts()
     new, read = gk.global_combined(ts, tc, tb, torch.from_numpy(summed), T0)
-    assert gk.launches == {"global_combined": 0}
-    assert gk.plain_calls == {"global_combined": 1}
+    assert gk.launches == {"global_combined": 0, "global_apply": 0}
+    assert gk.plain_calls == {"global_combined": 1, "global_apply": 0}
     _eq(new, w_state, f"{case} state")
     for k, t in zip(ts._fields, ts):  # the input arena is not written
         assert torch.equal(t, before[k]), k

@@ -26,6 +26,8 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.ops.drain_kernel",
                   "gubernator_tpu_torch.ops.global_kernel",
                   "gubernator_tpu_torch.ops.stats_kernel",
+                  "gubernator_tpu_torch.ops.window_math_kernel",
+                  "gubernator_tpu_torch.config",
                   "gubernator_tpu_torch.ops.analytics",
                   "gubernator_tpu_torch.observability.analytics")
 
