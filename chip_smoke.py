@@ -13,13 +13,18 @@ Phases (one line each; any mismatch raises and exits non-zero):
      negative CONCURRENCY hits; K in {1, 4}), on uniform runs that fold
      over an arena whose clock is often ahead, and window_full on int64
      values outside the compact caps, each bit for bit against the plain
-     torch version (ops/kernel.py) on copies of the same arena, on the card;
+     torch version (ops/kernel.py) on copies of the same arena, on the card,
+     at the chosen partitions P and at P = 1 (the C entry point called
+     directly, uncounted); one more drain holds the grid's edges (many
+     virtual segments on one slot, a 64-lane folded run, row C - 1 beside
+     slots past the arena, a clock that steps back); a line before it
+     gives the chosen P, the CTAs and the shared memory per CTA;
   3. full size, one shard: a RateLimitEngine with a 2^24-slot arena (a
      random arena brought in with import_arena) and K=8 windows of B=1024
      lanes (half to 64 hot slots).  3a calls the kernel's wrappers
      directly: one window per launch, the same drain shape with no hot
-     slots and with every lane on one key (the serial walk's hot-key
-     cost), and window_full.  3b drives the engine's pipeline_dispatch: one
+     slots and with every lane on one key (the hot-key cost), the drain at
+     P = 1 beside the chosen P, and window_full.  3b drives the engine's pipeline_dispatch: one
      drain compared with the plain version including the whole arena, then
      50 drains timed with CUDA events and 50 with the profiler (device time);
   4. the serving path end to end, one shard: RateLimitEngine() on its
@@ -32,8 +37,8 @@ Phases (one line each; any mismatch raises and exits non-zero):
      plain version at G = 4096 and 8 x 256 read lanes on edge inputs (all
      five algorithms and out-of-range values, int64 wrapped at both ends,
      expired rows, algorithm switches, is_init, zero sums, pad and
-     out-of-range slots).  5b: drain_compact with 8 CTAs against its plain
-     version.  5c: a [8, 2^21] arena and a 4096-slot GLOBAL arena; K = 8
+     out-of-range slots).  5b: drain_compact over 8 shards against its
+     plain version, at the chosen P and at P = 1.  5c: a [8, 2^21] arena and a 4096-slot GLOBAL arena; K = 8
      windows x 8 shards x 1024 lanes plus one GLOBAL window of 8 x 256
      lanes (half on 16 hot keys, at most 256 keys, 70% token / 30% leaky)
      through pipeline_dispatch_global, compared with the plain versions
@@ -53,7 +58,9 @@ Phases (one line each; any mismatch raises and exits non-zero):
      drains chained over one accumulator and sketch: CONCURRENCY releases,
      AGG lanes, slots past the arena, slot fields the drain pads and the
      oracle clips, tenant ids past both ends, ties in a narrow sketch,
-     decay, an empty drain, K in {1, 4}, S in {1, 8}.  6b: the phase-5c
+     decay, an empty drain, K in {1, 4}, S in {1, 8}; the stats drain at
+     the chosen P and at P = 1, accumulators compared whatever the order
+     of their entries.  6b: the phase-5c
      shape on a fresh engine with analytics enabled at the JAX package's
      defaults (D = 4, W = 2048, T = 64, topk = 32): 8 drains of K = 8 x 8 x
      1024 lanes plus the GLOBAL window through pipeline_dispatch_global
@@ -369,7 +376,7 @@ def phase_kernel_vs_plain():
               (4, 100, 6, "mixed"), (1, 37, 6, "mixed"),
               (4, 3000, 64, "mixed"), (1, dk.MAX_LANES, 2048, "mixed"),
               (4, 256, 8, "uniform"), (1, 1024, 64, "uniform"),
-              (4, 1024, 4, "uniform")]
+              (4, 1024, 4, "uniform"), (4, 1024, 0, "grid edges")]
     for i, (K, lanes, hot, traffic) in enumerate(shapes):
         arena = random_arena(gen, C, T0, DEV)
         if traffic == "uniform":
@@ -379,21 +386,26 @@ def phase_kernel_vs_plain():
             arena = arena._replace(
                 algo=algo, limit=limit, duration=duration,
                 remaining=torch.remainder(arena.remaining, limit + 1))
-        plain_arena = clone(arena)
+        nows = torch.tensor([T0 + 997 * (k + 1) * (i + 1) for k in range(K)],
+                            dtype=torch.int64, device=DEV)
         if traffic == "mixed":
             packed = random_windows(rng, K, lanes, C, hot=hot,
                                     cap_edges=(i % 2 == 1))
-        else:
+        elif traffic == "uniform":
             packed = full_size_traffic(rng, K, lanes, C, 0.5, hot)
+        else:
+            packed = grid_edge_windows(rng, K, lanes, C)
+            nows[1] = nows[0] - 300      # the clock steps back
+        plain_arena, one_arena = clone(arena), clone(arena)
         packed = torch.from_numpy(packed[:, None]).to(DEV)
-        nows = torch.tensor([T0 + 997 * (k + 1) * (i + 1) for k in range(K)],
-                            dtype=torch.int64, device=DEV)
         got = dk.drain_compact(arena, packed, nows)
+        one = dk.launch_compact(one_arena, packed, nows, P=1)
         want = dk.drain_compact_plain(plain_arena, packed, nows)
         torch.cuda.synchronize()
-        assert_same(got, want, f"drain {i} (K={K}) outputs")
-        assert_same(arena, plain_arena, f"drain {i} (K={K}) arena")
-        errs += list(zip(got, want)) + list(zip(arena, plain_arena))
+        for what, g, a in (("chosen P", got, arena), ("P = 1", one, one_arena)):
+            assert_same(g, want, f"drain {i} (K={K}, {what}) outputs")
+            assert_same(a, plain_arena, f"drain {i} (K={K}, {what}) arena")
+            errs += list(zip(g, want)) + list(zip(a, plain_arena))
         n_windows += K
     drain_err = max_abs_err(errs)
 
@@ -418,19 +430,104 @@ def phase_kernel_vs_plain():
                              torch.tensor(9, dtype=torch.int32), bt.algo))
         bt = tk.WindowBatch(*[t.contiguous().to(DEV)[None] for t in bt])
         now = T0 + 10**9 * (i + 1)
+        one_arena = clone(arena)
         got = dk.window_full(arena, bt, now)
+        one = dk.launch_full(one_arena, bt, now, P=1)
         want = dk.window_full_plain(plain_arena, bt, now)
         torch.cuda.synchronize()
-        assert_same(got, want, f"full window {i} outputs")
-        assert_same(arena, plain_arena, f"full window {i} arena")
-        errs += list(zip(got, want)) + list(zip(arena, plain_arena))
+        for what, g, a in (("chosen P", got, arena), ("P = 1", one, one_arena)):
+            assert_same(g, want, f"full window {i} ({what}) outputs")
+            assert_same(a, plain_arena, f"full window {i} ({what}) arena")
+            errs += list(zip(g, want)) + list(zip(a, plain_arena))
     full_err = max_abs_err(errs)
     log(f"phase 2 kernel vs plain: drain_compact {n_windows} windows "
         f"(K in 1,4; B in {sorted({sh[1] for sh in shapes})}; C={C}; mixed "
-        f"and uniform runs) and "
+        f"and uniform runs, and grid edges: many virtual segments on one "
+        f"slot, a 64-lane folded run, row C - 1 beside slots past the "
+        f"arena, a clock that steps back) and "
         f"window_full 4 int64 windows (B in {sorted(set(full_lanes))}), "
+        f"each at the chosen P and at P = 1, "
         f"bit-exact (max_abs_err {drain_err}, {full_err})")
     return drain_err, full_err
+
+
+def grid_plans():
+    """Log how the drain's entry points lay out on this card: P, CTAs,
+    threads, shared memory per CTA and workspace, at the main paths'
+    shapes and at the phase-2 widths that take a workspace."""
+    rows = []
+    for kind, B, S, T in (
+            ("drain_compact", FULL_LANES, 1, 0),
+            ("window_full", FULL_LANES, 1, 0),
+            ("drain_compact", FULL_LANES, SHARDS, 0),
+            ("drain_compact_stats", FULL_LANES, SHARDS,
+             ANALYTICS["tenant_slots"]),
+            ("drain_compact", 3000, 1, 0),
+            ("drain_compact", dk.MAX_LANES, 1, 0)):
+        pl = dk.plan(kind, B, S, T)
+        rows.append(f"{kind} B={B} S={S}: P={pl['P']}, {pl['P'] * S} CTAs of "
+                    f"{pl['threads']} threads, {pl['smem']} B shared memory "
+                    f"each, workspace {pl['workspace']} B")
+    log(f"phase 2 grid: {'; '.join(rows)}")
+
+
+def grid_edge_windows(rng, K, B, C):
+    """K compact windows (numpy i64[K, B, 2]) shaped like the host build's
+    grid tests (tests/test_torch_drain_host.py): 200 lanes on one hot slot
+    cut into many virtual segments by is_init lanes, uniform segments
+    (they fold) between mixed ones (they replay), algorithm values 0..7; a
+    64-lane run on a second slot with the row's own config (token) and
+    three leading zero-hit lanes; 16 lanes on slot C - 1 and 24 on slots
+    past the arena; the rest random, pads among them."""
+    out = np.zeros((K, B, 2), np.int64)
+    for k in range(K):
+        slot = rng.integers(0, C - 1, B).astype(np.int32)
+        algo = rng.integers(0, 5, B).astype(np.int32)
+        hits = rng.integers(0, 4, B).astype(np.int64)
+        limit = rng.integers(1, 1000, B).astype(np.int64)
+        duration = rng.integers(10, 600_000, B).astype(np.int64)
+        is_init = rng.random(B) < 0.05
+        agg = np.zeros(B, bool)
+        pos = rng.permutation(B)
+        seg, fold, edge = np.sort(pos[:200]), np.sort(pos[200:264]), pos[264:304]
+        hot = int(rng.integers(0, C - 1))
+        slot[seg] = hot
+        i = 0
+        while i < len(seg):
+            m = min(len(seg) - i, int(rng.integers(1, 12)))
+            at = seg[i:i + m]
+            is_init[at] = False
+            is_init[at[0]] = rng.random() < 0.9
+            if rng.random() < 0.5:
+                a = int(rng.integers(0, 8))
+                h = int(rng.integers(1, 4))
+                if a == tk.CONCURRENCY and rng.random() < 0.5:
+                    h = -h
+                algo[at], limit[at] = a, int(rng.integers(1, 1000))
+                duration[at] = int(rng.integers(10, 600_000))
+                hits[at] = np.where(rng.random(m) < 0.3, 0, h)
+            else:
+                algo[at] = rng.integers(0, 8, m)
+                conc = algo[at] == tk.CONCURRENCY
+                hits[at] = np.where(conc & (rng.random(m) < 0.4),
+                                    -rng.integers(1, 6, m),
+                                    rng.integers(0, 6, m))
+                agg[at] = (algo[at] <= 1) & (hits[at] > 0) & (
+                    rng.random(m) < 0.3)
+            i += m
+        two = (hot + 1) % (C - 1)
+        slot[fold], algo[fold], is_init[fold] = two, 0, False
+        limit[fold], duration[fold] = 1000, 60_000
+        hits[fold] = np.where(rng.random(64) < 0.2, 0, 1)
+        hits[fold[:3]] = 0
+        slot[edge[:16]] = C - 1
+        slot[edge[16:]] = C + rng.integers(0, 50, 24)
+        slot[rng.random(B) < 0.05] = tk.PAD_SLOT
+        eslot = np.where(agg & (slot >= 0), slot | tk.AGG_SLOT_BIT,
+                         slot).astype(np.int32)
+        out[k] = tk.encode_batch_host(eslot, hits, limit, duration, algo,
+                                      is_init)
+    return out
 
 
 def slot_config(slot):
@@ -469,6 +566,24 @@ def full_size_traffic(rng, K, B, C, hot_share=0.5, n_hot=64):
     return out
 
 
+def longest_segments(packed):
+    """Per window of compact words (numpy i64[K, B, 2]), the most lanes of
+    one virtual segment (a slot's run, cut at is_init lanes): the longest
+    chain a replayed segment walks on one thread."""
+    out = []
+    for w0 in packed[..., 0]:
+        raw = ((w0 & 0xFFFFFFFF) - 1).astype(np.int64)
+        keep = (raw >= 0) & (raw < 1 << 31)
+        slot = raw[keep] & ~tk.AGG_SLOT_BIT
+        init = ((w0[keep] >> 32) & 1).astype(bool)
+        order = np.argsort(slot, kind="stable")
+        slot, init = slot[order], init[order]
+        start = np.r_[True, slot[1:] != slot[:-1]] | init
+        edges = np.r_[np.flatnonzero(start), slot.size]
+        out.append(int(np.diff(edges).max()) if slot.size else 0)
+    return out
+
+
 def full_size_engine(gen):
     """The phase-3 engine: a 2^24-slot arena on the card holding a random
     arena, imported the way a state transfer would bring it in."""
@@ -484,7 +599,8 @@ def full_size_engine(gen):
 def phase_kernel_full_size(eng, packed, nows):
     """Phase 3a: the kernel's wrappers called directly on the full-size
     arena: one window per launch (the engine's single-window compact step),
-    the serial walk's hot-key cost, and window_full at the engine's width."""
+    the hot-key cost, the phase-3b drain at P = 1 and at the chosen P, and
+    window_full at the engine's width."""
     arena = eng.state
     plain_arena = clone(arena)
     B = packed.shape[2]
@@ -515,9 +631,23 @@ def phase_kernel_full_size(eng, packed, nows):
                       "drain_compact_kernel")
         if t is None:
             t = cuda_ms(lambda: dk.drain_compact(arena, pk, nows), 10)
-        costs.append(f"{label} {t:.4f} ms")
+        costs.append(f"{label} {t:.4f} ms (longest virtual segment a "
+                     f"window {longest_segments(pk[:, 0].cpu().numpy())})")
     log(f"phase 3a hot-key cost, device ms per {FULL_K} x {B} drain: "
         f"{costs[0]}, {costs[1]} (half on 64 hot slots: phase 3b)")
+
+    # the grid: the phase-3b drain at P = 1 (S CTAs, as before the
+    # partitions) beside the chosen P
+    parts = {}
+    for P in (1, dk.plan("drain_compact", B, 1)["P"]):
+        def run(P=P):
+            return dk.launch_compact(arena, packed, nows, P)
+        run()  # warm-up
+        t = device_ms(run, 10, "drain_compact_kernel")
+        parts[P] = cuda_ms(run, 10) if t is None else t
+    log(f"phase 3a partitions, device ms per {FULL_K} x {B} drain (half on "
+        f"64 hot slots): "
+        f"{', '.join(f'P={P} {t:.4f} ms' for P, t in parts.items())}")
 
     # window_full at the engine's full-format width on the same arena
     bt = tk.decode_batch(packed[0])
@@ -835,7 +965,7 @@ def phase_global_vs_plain():
 
 
 def phase_sharded_drain_vs_plain():
-    """Phase 5b: drain_compact with S = 8 CTAs against its plain version:
+    """Phase 5b: drain_compact over S = 8 shards against its plain version:
     eight shards' arenas and windows in one launch, shard 5 all padding."""
     rng = np.random.default_rng(2025)
     gen = torch.Generator(device=DEV).manual_seed(2025)
@@ -848,14 +978,21 @@ def phase_sharded_drain_vs_plain():
     packed = torch.from_numpy(packed).to(DEV)
     nows = torch.tensor([T0 + 1009 * (k + 1) for k in range(K)],
                         dtype=torch.int64, device=DEV)
+    one_arena = clone(arena)
     got = dk.drain_compact(arena, packed, nows)
+    one = dk.launch_compact(one_arena, packed, nows, P=1)
     want = dk.drain_compact_plain(plain_arena, packed, nows)
     torch.cuda.synchronize()
-    assert_same(got, want, "S=8 drain outputs")
-    assert_same(arena, plain_arena, "S=8 drain arena")
-    err = max_abs_err(list(zip(got, want)) + list(zip(arena, plain_arena)))
-    log(f"phase 5b drain_compact with {SHARDS} CTAs vs plain: K={K} x "
-        f"S={SHARDS} x B={B} over [{SHARDS}, {C}] (shard 5 idle), "
+    errs = []
+    for what, g, a in (("chosen P", got, arena), ("P = 1", one, one_arena)):
+        assert_same(g, want, f"S=8 drain ({what}) outputs")
+        assert_same(a, plain_arena, f"S=8 drain ({what}) arena")
+        errs += list(zip(g, want)) + list(zip(a, plain_arena))
+    err = max_abs_err(errs)
+    P = dk.plan("drain_compact", B, SHARDS)["P"]
+    log(f"phase 5b drain_compact with {SHARDS} shards vs plain: K={K} x "
+        f"S={SHARDS} x B={B} over [{SHARDS}, {C}] (shard 5 idle), at the "
+        f"chosen P = {P} ({P * SHARDS} CTAs) and at P = 1 ({SHARDS} CTAs), "
         f"bit-exact (max_abs_err {err})")
     return err
 
@@ -1246,9 +1383,10 @@ def phase_stats_vs_plain():
     errs, drains = [], 0
     for label, K, S, B, C, T, D, W, topk, decay0, start, kind in cases:
         arena = random_arena(gen, C, T0, DEV, S=S)
-        plain_arena = clone(arena)
+        plain_arena, one_arena = clone(arena), clone(arena)
         acc = sk.StatsAccumulator(S, C, T, DEV)
         plain_acc = sk.StatsAccumulator(S, C, T, DEV)
+        one_acc = sk.StatsAccumulator(S, C, T, DEV)
         sketch = {"zero": torch.zeros((S, D, W), dtype=torch.int64),
                   "flat": torch.full((S, D, W), 6, dtype=torch.int64),
                   "random": torch.from_numpy(rng.integers(
@@ -1260,14 +1398,24 @@ def phase_stats_vs_plain():
                                 dtype=torch.int64, device=DEV)
             decay = decay0 ^ d
             got = dk.drain_compact_stats(arena, packed, nows, tenants, acc)
+            one = dk.launch_compact_stats(one_arena, packed, nows, tenants,
+                                          one_acc, P=1)
             want = dk.drain_compact_stats_plain(plain_arena, packed, nows,
                                                 tenants, plain_acc)
             torch.cuda.synchronize()
             what = f"stats drain {label} d{d}"
-            assert_same(got, want, f"{what} outputs")
-            assert_same(arena, plain_arena, f"{what} arena")
-            got_acc, want_acc = acc_state(acc), acc_state(plain_acc)
-            assert_same(got_acc, want_acc, f"{what} accumulator")
+            want_acc = acc_state(plain_acc)
+            for how, g, a, ac in (("chosen P", got, arena, acc),
+                                  ("P = 1", one, one_arena, one_acc)):
+                assert_same(g, want, f"{what} ({how}) outputs")
+                assert_same(a, plain_arena, f"{what} ({how}) arena")
+                assert_same(acc_state(ac), want_acc,
+                            f"{what} ({how}) accumulator")
+                errs += list(zip(acc_state(ac), want_acc))
+            errs += list(zip(one, want)) + list(zip(one_arena, plain_arena))
+            got_acc = acc_state(acc)
+            # the P = 1 accumulator is held; empty it as a finish would
+            one_acc.clear()
             got_st = sk.stats_finish(sketch, acc, arena.expire, int(nows[0]),
                                      decay, topk=topk, over_weight=4)
             want_st = sk.stats_finish_plain(plain_sketch, plain_acc,
@@ -1834,6 +1982,7 @@ def report_per_op(script, po, cmp, pb):
 
 def main():
     smi = phase_device()
+    grid_plans()
     drain_err, full_err = phase_kernel_vs_plain()
     rng = np.random.default_rng(7)
     gen = torch.Generator(device=DEV).manual_seed(7)

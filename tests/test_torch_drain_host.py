@@ -8,19 +8,26 @@ chip_smoke.py holds them against their plain versions.  Their device code
 over integers, so these tests compile the same sources with the host C++
 compiler behind a small shim (one thread per CTA, the grid's CTAs run in
 turn, shared memory as a static buffer, atomics as plain read-modify-
-writes, a warp's shuffles and reductions over its one thread, the C entry
-points that launch on a stream left out) and run them on the CPU, on
-numpy-seeded inputs that also go through the JAX oracle.  With one thread
-the bitonic sort and every slot's walk run in turn, so what is checked is
-the kernels' arithmetic, the drain's segment classification and commits,
-the S-shard indexing, the analytics' sums, ranking and clears and the
-per-op kernels' two passes, not their thread layout.
+writes, a warp's shuffles and reductions over its one thread,
+the drain's async staging copies as plain copies, the C entry points that
+launch on a stream left out) and run them on the CPU, on numpy-seeded
+inputs that also go through the JAX oracle.  With one thread the block
+scans, the bitonic sort (all of it through its shared-memory stages) and
+every segment run in turn, so what is checked is the kernels'
+arithmetic, the drain's routing of rows to partitions, its segment
+structure, classification and commits, the P x S grid's indexing, the
+analytics' sums, ranking and clears and the per-op kernels' two passes,
+not their thread layout (chip_smoke.py holds that on the card).
 
 Compared exactly: for the drain (decode_batch -> window_step ->
 encode_output_word, as in tests/test_torch_drain.py), every valid lane's
 word and limit, zero pad lanes, the mismatch flags and every arena plane,
 over one shard and over several, and a lane past the arena beside a
 same-window commit of row C - 1 (it reads the row as the window found it);
+over P partitions (P = 1, a few, more than the distinct rows): a run cut
+into many virtual segments, a 64-lane folded hot run, row C - 1 beside
+slots past the arena, and the stats drain's accumulator filled by several
+CTAs, compared whatever the order of its entries;
 `window_full` on int64 columns outside the compact caps against
 kernel.window_step; for the per-op window math, every valid lane's
 responses and final register against kernel.window_math on the port's
@@ -66,8 +73,13 @@ _CSRC = (Path(__file__).resolve().parent.parent / "gubernator_tpu_torch"
 # grid's CTAs run one after another (the entries below set blockIdx), and
 # the dynamic shared-memory key buffer as a static array of MAX_LANES keys
 _SHIM = r"""
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <vector>
+using std::min;
+#define GUBER_HOST_SHIM
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -75,6 +87,7 @@ _SHIM = r"""
 #define __launch_bounds__(x)
 #define __shared__ static
 #define __constant__
+#define __align__(x)
 struct HostDim3 { unsigned x, y; };
 static const HostDim3 threadIdx{0, 0}, blockDim{1, 1};
 static HostDim3 blockIdx{0, 0}, gridDim{1, 1};
@@ -82,25 +95,49 @@ inline void __syncthreads() {}
 inline void __threadfence() {}
 template <class T> inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
 template <class T> inline T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
+template <class T> inline T atomicOr(T* p, T v) { T o = *p; *p |= v; return o; }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+template <class T> inline T __shfl_up_sync(unsigned, T v, int) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
-// the sort keys, then the stats drain's tenant sums (up to 4096 tenants)
-static uint64_t host_keys[16384 + 3 * 4096];
+// the async staging copies as plain copies, done when issued
+inline void stage_copy16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void stage_commit() {}
+inline void stage_wait_prior() {}
+// the dynamic shared memory of the CTA that runs: the drain entries point
+// it at a buffer of the launch's size
+static unsigned char* host_smem = nullptr;
 """
 
 _DRAIN_ENTRY = r"""
+// the drain's P x S grid, CTA (p, s) at blockIdx (p, s), run in turn over
+// one shared-memory buffer, and the workspace slices when the launch needs
+// them
+template <class Run>
+static void host_grid(int kind, int B, int S, int T, int P, Run run) {
+  const Layout g = kind_layout(kind, B, T);
+  std::vector<unsigned char> smem(g.smem + 16);
+  std::vector<unsigned char> ws(g.global ? g.array_bytes * P * S : 16);
+  host_smem = smem.data();
+  gridDim.x = P;
+  gridDim.y = S;
+  for (int s = 0; s < S; ++s) {
+    for (int p = 0; p < P; ++p) {
+      blockIdx.x = p;
+      blockIdx.y = s;
+      run(g, ws.data());
+    }
+  }
+}
 extern "C" void host_drain_compact(
     const int64_t* packed, const int64_t* nows, int K, int S, int B, int64_t* limit,
     int64_t* duration, int64_t* remaining, int64_t* tstamp, int64_t* expire,
-    int32_t* algo, long long C, int64_t* words, int64_t* limits, uint8_t* mism) {
-  const Geometry g = geometry(B);
-  gridDim.x = S;
-  for (int s = 0; s < S; ++s) {
-    blockIdx.x = s;
-    drain_compact_kernel(packed, nows, K, B, g.Bp, g.lane_bits,
+    int32_t* algo, long long C, int64_t* words, int64_t* limits, uint8_t* mism, int P) {
+  std::memset(mism, 0, static_cast<size_t>(K) * S);
+  host_grid(kDrain, B, S, 0, P, [&](const Layout& g, unsigned char* ws) {
+    drain_compact_kernel(packed, nows, K, B, g,
                          make_arena(limit, duration, remaining, tstamp, expire, algo, C),
-                         words, limits, mism);
-  }
+                         words, limits, mism, ws);
+  });
 }
 extern "C" void host_window_full(
     const int32_t* slot, const int64_t* hits, const int64_t* limit_in,
@@ -108,16 +145,12 @@ extern "C" void host_window_full(
     long long now, int S, int B, int64_t* limit, int64_t* duration, int64_t* remaining,
     int64_t* tstamp, int64_t* expire, int32_t* algo, long long C,
     int32_t* status_out, int64_t* limit_out, int64_t* remaining_out,
-    int64_t* reset_out) {
-  const Geometry g = geometry(B);
-  gridDim.x = S;
-  for (int s = 0; s < S; ++s) {
-    blockIdx.x = s;
-    window_full_kernel(FullSrc{slot, hits, limit_in, duration_in, algo_in, init}, now, B,
-                       g.Bp, g.lane_bits,
+    int64_t* reset_out, int P) {
+  host_grid(kFull, B, S, 0, P, [&](const Layout& g, unsigned char* ws) {
+    window_full_kernel(FullSrc{slot, hits, limit_in, duration_in, algo_in, init}, now, B, g,
                        make_arena(limit, duration, remaining, tstamp, expire, algo, C),
-                       FullDst{status_out, limit_out, remaining_out, reset_out});
-  }
+                       FullDst{status_out, limit_out, remaining_out, reset_out}, ws);
+  });
 }
 """
 
@@ -127,16 +160,14 @@ extern "C" void host_drain_compact_stats(
     int64_t* duration, int64_t* remaining, int64_t* tstamp, int64_t* expire,
     int32_t* algo, long long C, int64_t* words, int64_t* limits, uint8_t* mism,
     const int32_t* tenants, int T, int32_t* index, int64_t* entries, int32_t* count,
-    int64_t* tenant, int64_t* header, long long N) {
-  const Geometry g = geometry(B);
+    int64_t* tenant, int64_t* header, long long N, int P) {
   const StatsAcc acc{tenants, T, index, entries, count, tenant, header, N};
-  gridDim.x = S;
-  for (int s = 0; s < S; ++s) {
-    blockIdx.x = s;
-    drain_compact_stats_kernel(packed, nows, K, B, g.Bp, g.lane_bits,
+  std::memset(mism, 0, static_cast<size_t>(K) * S);
+  host_grid(kDrainStats, B, S, T, P, [&](const Layout& g, unsigned char* ws) {
+    drain_compact_stats_kernel(packed, nows, K, B, g,
                                make_arena(limit, duration, remaining, tstamp, expire, algo, C),
-                               words, limits, mism, acc);
-  }
+                               words, limits, mism, acc, ws);
+  });
 }
 """
 
@@ -244,8 +275,9 @@ def _host_build(tmp_path_factory, name, entry):
     src = (_CSRC / f"{name}.cu").read_text()
     device_code = src[:src.index('extern "C" {')]
     device_code = device_code.replace("#include <cuda_runtime.h>", "")
-    device_code = device_code.replace("extern __shared__ uint64_t key[];",
-                                      "uint64_t* key = host_keys;")
+    device_code = device_code.replace(
+        "extern __shared__ __align__(16) unsigned char smem[];",
+        "unsigned char* smem = host_smem;")
     out = tmp_path_factory.mktemp(f"host_{name}")
     cpp = out / f"{name}_host.cpp"
     cpp.write_text(_SHIM + device_code + entry)
@@ -293,31 +325,40 @@ def _planes(st):
     return [np.ascontiguousarray(np.asarray(a)).copy() for a in st]
 
 
-def _host_drain(lib, st0, packed, nows):
+def _host_drain(lib, st0, packed, nows, P=1):
     """One shard: st0 [C] planes, packed [K, B, 2]."""
     arena, words, limits, mism = _host_drain_s(
-        lib, [_planes(st0)], packed[:, None], nows)
+        lib, [_planes(st0)], packed[:, None], nows, P)
     return ([a[0] for a in arena], words[:, 0], limits[:, 0], mism[:, 0])
 
 
-def _host_drain_s(lib, states, packed, nows):
-    """S shards: states S lists of [C] planes, packed [K, S, B, 2]."""
+def _flags(K, S):
+    """u8[K, S] mismatch flags; the kernel sets one through an atomic on
+    its 4-byte word, so the buffer runs on to a whole word."""
+    return np.zeros(K * S + 4, np.uint8)[:K * S].reshape(K, S)
+
+
+def _host_drain_s(lib, states, packed, nows, P=1):
+    """S shards over a P x S grid: states S lists of [C] planes, packed
+    [K, S, B, 2]."""
     arena = [np.ascontiguousarray(np.stack(p)) for p in zip(*states)]
     K, S, B = packed.shape[:3]
-    words = np.zeros((K, S, B), np.int64)
-    limits = np.zeros((K, S, B), np.int64)
-    mism = np.zeros((K, S), np.uint8)
+    # outputs start as garbage, as torch.empty leaves them on the card
+    words = np.full((K, S, B), -7, np.int64)
+    limits = np.full((K, S, B), -7, np.int64)
+    mism = _flags(K, S)
+    mism[:] = 7
     packed = np.ascontiguousarray(packed, np.int64)
     nows = np.ascontiguousarray(nows, np.int64)
     lib.host_drain_compact(_ptr(packed), _ptr(nows), K, S, B,
                            *[_ptr(a) for a in arena],
                            ctypes.c_longlong(arena[0].shape[1]), _ptr(words),
-                           _ptr(limits), _ptr(mism))
+                           _ptr(limits), _ptr(mism), P)
     return arena, words, limits, mism.astype(bool)
 
 
-def _assert_host_drain(lib, st0, packed, nows, tag):
-    arena, words, limits, mism = _host_drain(lib, st0, packed, nows)
+def _assert_host_drain(lib, st0, packed, nows, tag, P=1):
+    arena, words, limits, mism = _host_drain(lib, st0, packed, nows, P)
     want_st, want_words, want_limits, want_mism = _host_oracle(
         st0, packed, nows)
     valid = (packed[..., 0] & 0xFFFFFFFF) != 0
@@ -422,7 +463,7 @@ def test_host_kernel_window_full_matches_oracle(host_kernel):
         host_kernel.host_window_full(
             *[_ptr(c) for c in cols], ctypes.c_longlong(now), 1, B,
             *[_ptr(a) for a in arena], ctypes.c_longlong(C), _ptr(status),
-            *[_ptr(o) for o in outs])
+            *[_ptr(o) for o in outs], 1)
         st, want = step(st, jk.WindowBatch(
             *[jnp.asarray(c) for c in cols[:5]],
             jnp.asarray(cols[5].astype(bool))), jnp.int64(now))
@@ -547,7 +588,7 @@ def test_host_drain_past_the_arena_reads_row_c_minus_1_before_the_window(
         host_kernel.host_window_full(
             *[_ptr(np.ascontiguousarray(c)) for c in cols],
             ctypes.c_longlong(T0), 1, 2, *[_ptr(a) for a in arena],
-            ctypes.c_longlong(C), _ptr(status), *[_ptr(o) for o in outs])
+            ctypes.c_longlong(C), _ptr(status), *[_ptr(o) for o in outs], 1)
         for name, got, exp in zip(jk.WindowOutput._fields, [status] + outs,
                                   want):
             np.testing.assert_array_equal(got, np.asarray(exp), err_msg=name)
@@ -689,14 +730,14 @@ def _release_drain(rng, K, B, C, T):
     return st0, packed, nows, tenants
 
 
-def _host_stats_drain(lib, arena, packed, nows, tenants, acc):
-    """One host stats drain over S shards: arena [S, C] numpy planes,
-    packed [K, S, B, 2], tenants [K, S, B]; acc a dict of the
-    accumulator's numpy arrays, added to in place."""
+def _host_stats_drain(lib, arena, packed, nows, tenants, acc, P=1):
+    """One host stats drain over S shards and P partitions: arena [S, C]
+    numpy planes, packed [K, S, B, 2], tenants [K, S, B]; acc a dict of
+    the accumulator's numpy arrays, added to in place."""
     K, S, B = packed.shape[:3]
     words = np.zeros((K, S, B), np.int64)
     limits = np.zeros((K, S, B), np.int64)
-    mism = np.zeros((K, S), np.uint8)
+    mism = _flags(K, S)
     packed = np.ascontiguousarray(packed, np.int64)
     lib.host_drain_compact_stats(
         _ptr(packed), _ptr(np.ascontiguousarray(nows, np.int64)), K, S, B,
@@ -705,7 +746,7 @@ def _host_stats_drain(lib, arena, packed, nows, tenants, acc):
         _ptr(np.ascontiguousarray(tenants, np.int32)),
         acc["tenant"].shape[1], _ptr(acc["index"]), _ptr(acc["entries"]),
         _ptr(acc["count"]), _ptr(acc["tenant"]), _ptr(acc["header"]),
-        ctypes.c_longlong(acc["entries"].shape[1]))
+        ctypes.c_longlong(acc["entries"].shape[1]), P)
     return words
 
 
@@ -789,3 +830,272 @@ def test_host_stats_kernels_match_oracle(host_stats, X):
         for name in ("index", "count", "tenant", "header", "ecount",
                      "edone"):
             assert not acc[name].any(), f"d{d} {name} left set"
+
+
+# ---------------------------------------------------------------------------
+# the slot-partitioned grid: P CTAs a shard, each owning the rows that hash
+# to it (the host build runs the P x S CTAs in turn)
+
+# P = 1; a few partitions; more partitions than the windows' distinct rows
+GRID_P = [1, 2, 5, 40]
+
+
+def _segment_lanes(rng, n, hot):
+    """n lanes on slot `hot`, in arrival order, cut into virtual segments
+    by is_init lanes: each segment either uniform (one config, every
+    nonzero hit equal: it folds) or mixed (configs, hits and AGG lanes
+    drawn per lane: it replays), algorithms 0..7 (5..7 take the token
+    ladder)."""
+    cols = dict(slot=[], hits=[], limit=[], duration=[], algo=[], init=[])
+    while len(cols["slot"]) < n:
+        m = min(n - len(cols["slot"]), int(rng.integers(1, 9)))
+        a = int(rng.integers(0, 8))
+        lim, dur = int(rng.integers(1, 40)), int(rng.integers(10, 3000))
+        uniform = rng.random() < 0.5
+        h = int(rng.integers(1, 4))
+        if a == jk.CONCURRENCY and rng.random() < 0.5:
+            h = -h
+        for i in range(m):
+            if not uniform:
+                a = int(rng.integers(0, 8))
+                lim, dur = int(rng.integers(1, 40)), int(rng.integers(10, 3000))
+                h = int(rng.integers(1, 6))
+                if a == jk.CONCURRENCY and rng.random() < 0.4:
+                    h = -h
+            hits = 0 if rng.random() < 0.3 else h
+            agg = (not uniform and a <= 1 and hits > 0
+                   and rng.random() < 0.3)
+            cols["slot"].append(hot | (jk.AGG_SLOT_BIT if agg else 0))
+            cols["hits"].append(hits)
+            cols["limit"].append(lim)
+            cols["duration"].append(dur)
+            cols["algo"].append(a)
+            cols["init"].append(i == 0 and rng.random() < 0.9)
+    return cols
+
+
+def _segmented_drain(rng, K, B, C, n_hot=56):
+    """K windows of B lanes: n_hot lanes on one hot slot cut into many
+    virtual segments (_segment_lanes), the rest on other slots or
+    padding; arena rows under all eight wire algorithms with clocks
+    around the windows', and a window clock that steps back."""
+    st0 = jk.BucketState(
+        limit=jnp.asarray(rng.integers(1, 40, C).astype(np.int64)),
+        duration=jnp.asarray(rng.integers(10, 3000, C).astype(np.int64)),
+        remaining=jnp.asarray(rng.integers(0, 45, C).astype(np.int64)),
+        tstamp=jnp.asarray(T0 + rng.integers(-3_000, 3_000, C)),
+        expire=jnp.asarray(T0 + rng.integers(-500, 3_000, C)),
+        algo=jnp.asarray(rng.integers(0, 8, C).astype(np.int32)))
+    packs = []
+    for _ in range(K):
+        hot = int(rng.integers(0, C))
+        seg = _segment_lanes(rng, n_hot, hot)
+        slot = rng.integers(0, C, B).astype(np.int32)
+        slot[rng.random(B) < 0.1] = jk.PAD_SLOT
+        algo = rng.integers(0, 5, B).astype(np.int32)
+        hits = rng.integers(0, 4, B).astype(np.int64)
+        limit = rng.integers(1, 40, B).astype(np.int64)
+        duration = rng.integers(10, 3000, B).astype(np.int64)
+        is_init = rng.random(B) < 0.05
+        at = np.sort(rng.choice(B, n_hot, replace=False))
+        slot[at] = seg["slot"]
+        hits[at] = seg["hits"]
+        limit[at] = seg["limit"]
+        duration[at] = seg["duration"]
+        algo[at] = seg["algo"]
+        is_init[at] = seg["init"]
+        packs.append(np.asarray(jk.encode_batch_host(
+            slot, hits, limit, duration, algo, is_init)))
+    nows = np.asarray([T0 + 500, T0 + 200, T0 + 900][:K], np.int64)
+    return st0, np.stack(packs), nows
+
+
+@pytest.mark.parametrize("P", GRID_P)
+def test_host_drain_many_virtual_segments_over_partitions(host_kernel, P):
+    """A hot run cut into many virtual segments by is_init lanes, folded
+    and replayed segments mixed, algorithm values past 4, a clock that
+    steps back, over P partitions: every output, flag and plane equals
+    the oracle's, whose every segment enters from the row as the window
+    found it."""
+    rng = np.random.default_rng(900)
+    for rep in range(4):
+        st0, packed, nows = _segmented_drain(rng, 3, 96, 16)
+        _assert_host_drain(host_kernel, st0, packed, nows, f"P{P} r{rep}", P)
+
+
+def _hot_fold_drain(rng, C, hot):
+    """Five windows, one an algorithm (token, leaky, GCRA, sliding,
+    concurrency releases), each with a 64-lane run on slot `hot` under
+    the row's own config, three leading zero-hit lanes, every other hit
+    equal, beside 32 lanes elsewhere; the row's clock is behind every
+    window's, and its balance lets most of the run through, so a lane's
+    count of earlier hits moves its answer."""
+    limit = np.full(C, 1000, np.int64)
+    duration = np.full(C, 60_000, np.int64)
+    st0 = jk.BucketState(
+        limit=jnp.asarray(limit), duration=jnp.asarray(duration),
+        remaining=jnp.asarray(np.full(C, 100, np.int64)),
+        tstamp=jnp.asarray(np.full(C, T0 - 1_000, np.int64)),
+        expire=jnp.asarray(np.full(C, T0 + 50_000, np.int64)),
+        algo=jnp.asarray(np.zeros(C, np.int32)))
+    packs, B = [], 96
+    for a, h in [(0, 1), (1, 2), (2, 1), (3, 1), (4, -2)]:
+        slot = np.full(B, hot, np.int32)
+        other = np.zeros(B, bool)
+        other[rng.choice(B, 32, replace=False)] = True
+        slot[other] = rng.integers(0, C, 32)
+        slot[other & (slot == hot)] = (hot + 1) % C
+        run = np.flatnonzero(~other)
+        hits = np.where(rng.random(B) < 0.2, 0, h).astype(np.int64)
+        hits[run[:3]] = 0
+        algo = np.full(B, a, np.int32)
+        hits[other] = rng.integers(0, 3, 32)
+        algo[other] = rng.integers(0, 4, 32)
+        packs.append(np.asarray(jk.encode_batch_host(
+            slot, hits, np.full(B, 1000, np.int64), np.full(B, 60_000, np.int64),
+            algo, np.zeros(B, bool))))
+    return st0, np.stack(packs), np.asarray(
+        [T0 + 10 * (k + 1) for k in range(5)], np.int64)
+
+
+@pytest.mark.parametrize("P", GRID_P)
+def test_host_drain_folds_a_64_lane_hot_run(host_kernel, P):
+    """A 64-lane run that folds in every window (the port's prep says
+    so), three leading zero-hit lanes, and CONCURRENCY releases in the
+    last: each lane answers from its own closed-form entering register,
+    bit for bit the oracle's, over P partitions."""
+    C, hot = 16, 5
+    st0, packed, nows = _hot_fold_drain(np.random.default_rng(901), C, hot)
+    # the hot run folds in every window of the chained oracle
+    st = tk.BucketState(*[_tt(a) for a in st0])
+    for k in range(packed.shape[0]):
+        bt = tk.decode_batch(_tt(packed[k]))
+        prep = tk.window_prep(st, bt, _tt(np.int64(nows[k])))
+        on_hot = (prep.s_slot == hot).numpy()
+        assert on_hot.sum() == 64
+        assert prep.seg_fold.numpy()[on_hot].all(), f"window {k} replays"
+        st, _ = tk.window_step(st, bt, _tt(np.int64(nows[k])))
+    _assert_host_drain(host_kernel, st0, packed, nows, f"P{P}", P)
+
+
+@pytest.mark.parametrize("P", [2, 3, 8, 40])
+@pytest.mark.parametrize("entry", ["drain_compact", "window_full"])
+def test_host_drain_routes_row_c_minus_1_and_past_the_arena_together(
+        host_kernel, entry, P):
+    """Lanes on slot C - 1 (hits, so the row is committed) and lanes on
+    ten slots past the arena (they read row C - 1 as the window found
+    it) in one window, over P > 1 partitions: all of them route to the
+    partition of row C - 1, so no read sees the window's commit however
+    the CTAs are ordered; a routing on the raw slot would put some past
+    the arena in a later CTA than the commit."""
+    C, B = 8, 40
+    rng = np.random.default_rng(902)
+    st0 = jk.BucketState(
+        limit=jnp.full(C, 5, jnp.int64), duration=jnp.full(C, 60_000, jnp.int64),
+        remaining=jnp.full(C, 5, jnp.int64),
+        tstamp=jnp.full(C, T0 + 60_000, jnp.int64),
+        expire=jnp.full(C, T0 + 60_000, jnp.int64),
+        algo=jnp.zeros(C, jnp.int32))
+    slot = np.full(B, C - 1, np.int32)
+    slot[10:20] = C + np.arange(10) * 7
+    slot[20:30] = rng.integers(0, C - 1, 10)
+    slot[30:] = jk.PAD_SLOT
+    rng.shuffle(slot)
+    cols = [slot, np.ones(B, np.int64), np.full(B, 5, np.int64),
+            np.full(B, 60_000, np.int64), np.zeros(B, np.int32),
+            np.zeros(B, np.uint8)]
+    want_st, want = _jstep(st0, jk.WindowBatch(
+        *[jnp.asarray(c) for c in cols[:5]], jnp.asarray(cols[5] != 0)),
+        jnp.int64(T0))
+    past = slot >= C
+    # every lane past the arena sees the row before the window: 5 - 1
+    assert (np.asarray(want.remaining)[past] == 4).all()
+    if entry == "drain_compact":
+        packed = np.asarray(jk.encode_batch_host(*cols[:5], cols[5] != 0))
+        got_st, words, limits, _ = _host_drain(host_kernel, st0, packed[None],
+                                               np.asarray([T0]), P)
+        valid = slot >= 0
+        want_words = np.asarray(jk.encode_output_word(want, jnp.int64(T0)))
+        np.testing.assert_array_equal(words[0][valid], want_words[valid])
+        np.testing.assert_array_equal(limits[0][valid],
+                                      np.asarray(want.limit)[valid])
+        assert not words[0][~valid].any()
+    else:
+        got_st = _planes(st0)
+        status = np.full(B, -7, np.int32)
+        outs = [np.full(B, -7, np.int64) for _ in range(3)]
+        host_kernel.host_window_full(
+            *[_ptr(np.ascontiguousarray(c)) for c in cols],
+            ctypes.c_longlong(T0), 1, B, *[_ptr(a) for a in got_st],
+            ctypes.c_longlong(C), _ptr(status), *[_ptr(o) for o in outs], P)
+        valid = slot >= 0
+        for name, got, exp in zip(jk.WindowOutput._fields, [status] + outs,
+                                  want):
+            np.testing.assert_array_equal(got[valid], np.asarray(exp)[valid],
+                                          err_msg=name)
+            assert not got[~valid].any(), f"{name} pad lanes"
+    for f, a, b in zip(jk.BucketState._fields, got_st, want_st):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=f"state.{f}")
+
+
+def _acc_dense(acc, C):
+    """An accumulator's content whatever the order of its entries: per
+    shard, {row: (lanes, over, hits)}, and the count, tenant and header
+    arrays; every index entry must point at its row's entry."""
+    rows = []
+    for s in range(acc["count"].shape[0]):
+        n = int(acc["count"][s])
+        ent = acc["entries"][s, :n]
+        d = {int(e[0]): tuple(int(x) for x in e[1:]) for e in ent}
+        assert len(d) == n, f"shard {s}: a row has two entries"
+        idx = acc["index"][s]
+        for k, e in enumerate(ent):
+            assert idx[e[0]] == k + 1, f"shard {s} row {e[0]} index"
+        assert (idx != 0).sum() == n
+        rows.append(d)
+    return rows, acc["count"].copy(), acc["tenant"].copy(), \
+        acc["header"].copy()
+
+
+@pytest.mark.parametrize("P", [2, 5, 24])
+def test_host_stats_drain_entries_from_several_ctas(host_stats, P):
+    """The stats drain over P partitions, so several CTAs append entries
+    to one shard's accumulator and add into its tenant rows and header:
+    its words and arena equal the P = 1 drain's, its accumulator holds
+    the same sums whatever the order of the entries, and the finisher
+    turns it into oracle_stats' vector on every shard."""
+    drain_lib, finish_lib = host_stats
+    rng = np.random.default_rng(903)
+    S, K, B, C, T, topk, D, W = 3, 3, 48, 24, 5, 6, 4, 16
+    shards = [_release_drain(rng, K, B, C, T) for _ in range(S)]
+    packed = np.stack([d[1] for d in shards], axis=1)
+    tenants = np.stack([d[3] for d in shards], axis=1)
+    nows = shards[0][2]
+    base = [np.ascontiguousarray(np.stack(p))
+            for p in zip(*[_planes(d[0]) for d in shards])]
+    runs = {}
+    for p in (1, P):
+        arena = [a.copy() for a in base]
+        acc = _acc(S, C, T, K * B)
+        words = _host_stats_drain(drain_lib, arena, packed, nows, tenants,
+                                  acc, p)
+        runs[p] = (arena, acc, words)
+    (a1, acc1, w1), (ap, accp, wp) = runs[1], runs[P]
+    np.testing.assert_array_equal(wp, w1)
+    for f, x, y in zip(jk.BucketState._fields, ap, a1):
+        np.testing.assert_array_equal(x, y, err_msg=f"state.{f}")
+    for got, want in zip(_acc_dense(accp, C), _acc_dense(acc1, C)):
+        if isinstance(got, list):
+            assert got == want
+        else:
+            np.testing.assert_array_equal(got, want)
+    sketch = rng.integers(0, 100, (S, D, W)).astype(np.int64)
+    want_sk = sketch.copy()
+    stats = _host_finish(finish_lib, sketch, accp, ap[4], int(nows[0]), 0,
+                         topk, 4, 2)
+    for s in range(S):
+        want_sk[s], want = ja.oracle_stats(
+            want_sk[s], packed[:, s], wp[:, s], tenants[:, s], ap[4][s],
+            int(nows[0]), 0, tenant_slots=T, topk=topk, over_weight=4)
+        np.testing.assert_array_equal(stats[s], want, err_msg=f"s{s} stats")
+        np.testing.assert_array_equal(sketch[s], want_sk[s])
