@@ -60,7 +60,9 @@ Phases (one line each; any mismatch raises and exits non-zero):
      oracle clips, tenant ids past both ends, ties in a narrow sketch,
      decay, an empty drain, K in {1, 4}, S in {1, 8}; the stats drain at
      the chosen P and at P = 1, accumulators compared whatever the order
-     of their entries.  6b: the phase-5c
+     of their entries; the finisher at its chosen expiry slices a shard
+     (its sketch and rank keys in shared memory) and at another count
+     (the sketch in place, the keys rebuilt every pass).  6b: the phase-5c
      shape on a fresh engine with analytics enabled at the JAX package's
      defaults (D = 4, W = 2048, T = 64, topk = 32): 8 drains of K = 8 x 8 x
      1024 lanes plus the GLOBAL window through pipeline_dispatch_global
@@ -71,13 +73,16 @@ Phases (one line each; any mismatch raises and exits non-zero):
      drain, the plain drain and the finisher).  After the counts are read,
      the first drain is held against the plain versions on the card
      (arena, responses, sketch, stats) and against oracle_stats on the
-     host;
+     host.  Then the finisher's split at the same shape: its device time
+     after a stats drain with topk 32 and 1 and over an empty
+     accumulator, and its phases from globaltimer stamps;
   7. the per-op lowering (GUBER_PALLAS=1).  7a: window_math (window_math.cu)
      against its plain version on the preps of chained edge windows (all
      five algorithms and values past 4, releases, AGG runs, inits, pads, a
      mixed-config hot run longer than the replay cap, a folding hot run,
      lanes on row C - 1 and past the arena, int64 windows, a clock that
-     steps back), and window_step_per_op against kernel.window_step; global_apply
+     steps back) at the default tile width and at 7 and 1024 lanes a
+     CTA, and window_step_per_op against kernel.window_step; global_apply
      (global_apply.cu) against its plain version on phase 5a's edge
      inputs at G = 4096 and G = 3000.  7b: per-op twins of phase 3's
      one-shard engine and of phase 5c's 8-shard engine (with analytics at
@@ -89,7 +94,11 @@ Phases (one line each; any mismatch raises and exits non-zero):
      and the new kernels' device time read (profiler).  7c, after the
      counts are read: the default engines take the same calls, and every
      output, response, arena plane and sketch must equal the per-op
-     engines'; their calls timed the same way.
+     engines'; their calls timed the same way.  Then window_math alone on
+     three 1024-lane windows built as phase 3a builds its drains (half on
+     64 hot slots, no hot slots, every lane on one key), each against its
+     plain version, its device time beside its longest residual segment
+     and its bound, at the default tile width and at 64 and 1024.
 
 Four main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
@@ -144,11 +153,25 @@ from gubernator_tpu_torch.observability.analytics import (  # noqa: E402
 
 DEV = torch.device("cuda")
 T0 = 1_754_000_000_000
-# NVIDIA's H100 SXM data sheet: device memory rate, and the float32 rate
-# outside the tensor cores (the nearest published rate for scalar integer
-# work); both assume the full 700 W power limit
+# NVIDIA's H100 SXM data sheet: device memory rate, at the full 700 W
+# power limit
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+# scalar integer work issues at the INT32 rate: 64 lanes an SM a clock
+# (the SM's INT32 units, NVIDIA H100 Tensor Core GPU Architecture white
+# paper) x 132 SMs x the 1.98 GHz boost clock (the SXM data sheet)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit instructions an int64 floor division (ladder.cuh fdiv) issues at
+# least, counted in the SASS of window_math.cu's sm_90a build (cuobjdump
+# -sass build/libwindow_math.so): a test of the operands' high words, a
+# 32-bit reciprocal division of 23 instructions and the floor's
+# correction; operands past 32 bits call an 83-instruction routine
+# instead, which the bounds do not count
+FDIV_OPS = 30
+# the int64 divisions a transition (ladder.cuh: the leak rate and the
+# leaked balance) and a Fold (fold.cuh: Rt_q, rate0, Kf, the GCRA raw
+# capacity and its quotient, the sliding roll's window count, position
+# and estimate, s_q) issue whatever the algorithm
+TRANSITION_DIVS, FOLD_DIVS = 2, 9
 SECTOR = 32                 # bytes per scattered arena access
 PLANES = 6
 SOURCE = "gubernator_tpu_torch/ops/csrc/window_drain.cu"
@@ -265,16 +288,18 @@ def touched_slots(packed):
     return int(torch.unique(s).numel())
 
 
-def bound_ms(lanes, in_bytes, out_bytes, slots, ops_per_lane=400):
+def bound_ms(lanes, in_bytes, out_bytes, slots,
+             ops_per_lane=400 + TRANSITION_DIVS * FDIV_OPS):
     """The least time for one launch: bytes each input read once, each
     output written once, each touched arena row read and written on six
-    planes at sector granularity; or the scalar integer work, whichever
-    is larger.  `ops_per_lane` counts that work: about 2 x 55 operations
-    of the sort's compare-exchanges at 1024 lanes, the decode and encode,
-    and ~100 int64 operations (~200 in 32-bit units) of the ladder."""
+    planes at sector granularity; or the scalar integer work at the INT32
+    rate, whichever is larger.  `ops_per_lane` counts that work in 32-bit
+    operations: about 2 x 55 of the sort's compare-exchanges at 1024
+    lanes, the decode and encode, ~100 int64 operations (~200 in 32-bit
+    units) of the ladder, and its transition's divisions."""
     nbytes = lanes * (in_bytes + out_bytes) + slots * PLANES * SECTOR * 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = lanes * ops_per_lane / SCALAR_OPS_PER_S * 1e3
+    t_ops = lanes * ops_per_lane / INT32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1043,7 +1068,8 @@ def global_bound_ms(G, n):
     the scalar rate; whichever is larger."""
     nbytes = G * (44 + 20 + 8 + 44) + n * (33 + 32)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (G + n) * 200 / SCALAR_OPS_PER_S * 1e3
+    t_ops = ((G + n) * (200 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S
+             * 1e3)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1391,7 +1417,10 @@ def phase_stats_vs_plain():
                   "flat": torch.full((S, D, W), 6, dtype=torch.int64),
                   "random": torch.from_numpy(rng.integers(
                       0, 1 << 40, (S, D, W)))}[start].to(DEV)
-        plain_sketch = sketch.clone()
+        plain_sketch, one_sketch = sketch.clone(), sketch.clone()
+        # the finisher at the kernel's expiry slices and at another count
+        X = sk.expiry_ctas(C, S)
+        X_other = 3 if X != 3 else 1
         for d in range(2):
             packed, tenants = stats_edge_inputs(rng, K, S, B, C, T, kind)
             nows = torch.tensor([T0 + 1000 * d + 3 * k for k in range(K)],
@@ -1414,29 +1443,44 @@ def phase_stats_vs_plain():
                 errs += list(zip(acc_state(ac), want_acc))
             errs += list(zip(one, want)) + list(zip(one_arena, plain_arena))
             got_acc = acc_state(acc)
-            # the P = 1 accumulator is held; empty it as a finish would
-            one_acc.clear()
             got_st = sk.stats_finish(sketch, acc, arena.expire, int(nows[0]),
                                      decay, topk=topk, over_weight=4)
+            # the P = 1 accumulator through the finisher at X_other slices,
+            # its sketch worked on in place and its rank keys rebuilt from
+            # the entries on every pass
+            one_st = sk.launch_finish(one_sketch, one_acc, one_arena.expire,
+                                      int(nows[0]), decay, topk=topk,
+                                      over_weight=4, X=X_other, key_cap=0,
+                                      sketch_smem=0)
             want_st = sk.stats_finish_plain(plain_sketch, plain_acc,
                                             plain_arena.expire, int(nows[0]),
                                             decay, topk=topk, over_weight=4)
             torch.cuda.synchronize()
-            assert_same((got_st, sketch), (want_st, plain_sketch),
-                        f"finisher {label} d{d} stats, sketch")
-            for name in ("index", "count", "tenant", "header", "ecount",
-                         "edone"):
-                check(not getattr(acc, name).any(),
-                      f"finisher {label} d{d} left acc.{name} set")
+            for how, st, skt, ac in (
+                    (f"X = {X}", got_st, sketch, acc),
+                    (f"X = {X_other}, in place", one_st, one_sketch,
+                     one_acc)):
+                assert_same((st, skt), (want_st, plain_sketch),
+                            f"finisher {label} d{d} ({how}) stats, sketch")
+                for name in ("index", "count", "tenant", "header", "ecount",
+                             "edone"):
+                    check(not getattr(ac, name).any(),
+                          f"finisher {label} d{d} ({how}) left acc.{name} "
+                          f"set")
             errs += (list(zip(got, want)) + list(zip(arena, plain_arena))
                      + list(zip(got_acc, want_acc))
-                     + [(got_st, want_st), (sketch, plain_sketch)])
+                     + [(got_st, want_st), (sketch, plain_sketch),
+                        (one_st, want_st), (one_sketch, plain_sketch)])
             drains += 1
     err = max_abs_err(errs)
     log(f"phase 6a stats drain + finisher vs plain: {drains} drains over "
         f"{len(cases)} cases ({', '.join(c[0] for c in cases)}; K in 1,2,4, "
         f"S in 1,2,8, B in 37..3000, T in 8,64, sketch 2x16 and 4x2048, "
-        f"decay both ways, chained over one accumulator), bit-exact "
+        f"decay both ways, chained over one accumulator; the stats drain "
+        f"at the chosen P and at P = 1, the finisher at the chosen expiry "
+        f"slices a shard with its sketch and rank keys in shared memory "
+        f"and at another count with the sketch in place and the keys "
+        f"rebuilt), bit-exact "
         f"(max_abs_err {err}); the accumulator empty after every finish")
     return err
 
@@ -1457,7 +1501,7 @@ def stats_drain_bound_ms(lanes, slots):
     t_drain, _ = bound_ms(lanes, 16, 16, slots)
     extra = (lanes * 4 + slots * 3 * SECTOR) / HBM_BYTES_PER_S * 1e3
     t_bytes = t_drain + extra
-    t_ops = lanes * 420 / SCALAR_OPS_PER_S * 1e3
+    t_ops = lanes * (420 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1631,6 +1675,9 @@ def report_analytics(r, chk, counts):
 # ---------------------------------------------------------------- per-op
 
 REPLAY_CAP = 128            # the engine's default replay_cap
+# window_math's other tile widths in phase 7a: one no segment lines up
+# with, and the whole 1024-lane window on one CTA
+MATH_TILES = (7, FULL_LANES)
 
 
 def per_op_edge_window(rng, B, C, wide):
@@ -1700,10 +1747,15 @@ def phase_per_op_vs_plain():
         prep = tk.window_prep(st, bt, torch.tensor(now, device=DEV))
         got = wm.window_math(now, prep.max_pos, *prep_args(prep))
         want = wm.window_math_plain(now, prep.max_pos, *prep_args(prep))
+        # the same window in CTAs of other widths: a width no segment
+        # lines up with, and the whole window on one CTA
+        others = [(t, wm.launch_math(now, prep.max_pos, *prep_args(prep),
+                                     tile=t)) for t in MATH_TILES]
         torch.cuda.synchronize()
-        assert_same(got[0], want[0], f"window_math {i} responses")
-        assert_same(got[1], want[1], f"window_math {i} fin")
-        errs += list(zip(got[0], want[0])) + list(zip(got[1], want[1]))
+        for t, g in [("default", got)] + others:
+            assert_same(g[0], want[0], f"window_math {i} tile {t} responses")
+            assert_same(g[1], want[1], f"window_math {i} tile {t} fin")
+            errs += list(zip(g[0], want[0])) + list(zip(g[1], want[1]))
         st, out = wm.window_step_per_op(st, bt, now)
         oracle, out_o = tk.window_step(oracle, bt, now)
         valid = bt.slot >= 0
@@ -1734,8 +1786,9 @@ def phase_per_op_vs_plain():
         f"past 4, releases, AGG runs, inits, pads, a mixed-config hot run of "
         f"up to {longest} lanes > replay cap {REPLAY_CAP}, a folding hot run, "
         f"lanes on row C - 1 and past the arena, two int64 windows outside "
-        f"the compact caps, a clock that steps back 5 s), bit-exact "
-        f"(max_abs_err {math_err}); "
+        f"the compact caps, a clock that steps back 5 s) in CTAs of the "
+        f"default {wm.default_tile()} lanes and of {MATH_TILES} lanes, "
+        f"bit-exact (max_abs_err {math_err}); "
         f"window_step_per_op = kernel.window_step window after window; "
         f"global_apply on {2 * len(cases)} edge arenas at G = {G_FULL} and "
         f"3000, bit-exact (max_abs_err {apply_err})")
@@ -1907,6 +1960,22 @@ def check_per_op_against_default(script, r):
     return dict(err=err, times=times)
 
 
+def math_divisions(prep):
+    """The int64 divisions window_math.cu issues on a prep: a covered lane
+    takes its transition, and its segment's last lane's too where that is
+    another lane, with a Fold where either sits past position 0; each lane
+    of a residual segment up to max_pos is one transition of its walk."""
+    v = prep.s_valid
+    B = v.shape[0]
+    covered = v & (prep.seg_fold | (prep.seg_len == 1))
+    last = torch.clamp(prep.seg_start_idx + prep.seg_len - 1, 0, B - 1)
+    other = covered & (last != torch.arange(B, device=v.device))
+    folds = covered & ((prep.pos > 0) | other)
+    walked = v & ~covered & (prep.pos <= prep.max_pos)
+    transitions = int(covered.sum()) + int(other.sum()) + int(walked.sum())
+    return int(folds.sum()) * FOLD_DIVS + transitions * TRANSITION_DIVS
+
+
 def per_op_bounds_and_plain(script):
     """The new kernels at the per-op path's shapes: window_math's plain
     time and bound on the first window of the 1-shard drain (B = 1024
@@ -1923,11 +1992,14 @@ def per_op_bounds_and_plain(script):
     B = bt.slot.shape[0]
     # each of the 19 lane inputs and the gathered register read, the
     # responses and the final register written, at their element sizes in
-    # this run; the fold and the ladder ~400 32-bit operations a lane
+    # this run; ~400 32-bit operations a lane besides the divisions this
+    # window's lanes take (math_divisions)
     out_sorted, fin = wm.window_math(now, prep.max_pos, *prep_args(prep))
     math_in = lane_bytes(*prep_args(prep)[:-1], *prep.cur)
     math_out = lane_bytes(*out_sorted, *fin)
-    math_bound = bound_ms(B, math_in, math_out, 0, ops_per_lane=400)
+    divs = math_divisions(prep)
+    math_bound = bound_ms(B, math_in, math_out, 0,
+                          ops_per_lane=400 + divs * FDIV_OPS / B)
     G = eight.global_capacity
     summed = torch.zeros(G, dtype=torch.int64, device=DEV)
     gb, gacc, _ = script["gctl"][0]
@@ -1948,13 +2020,141 @@ def per_op_bounds_and_plain(script):
     new_g = gk.global_apply(eight.gstate, eight.gcfg, summed, g_now)
     row_bytes = lane_bytes(*eight.gstate, *eight.gcfg, summed, *new_g)
     t_bytes = G * row_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = G * 200 / SCALAR_OPS_PER_S * 1e3
+    t_ops = G * (200 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S * 1e3
     apply_bound = (max(t_bytes, t_ops),
                    "bytes" if t_bytes >= t_ops else "operations")
     return dict(math_plain=math_plain, math_bound=math_bound,
                 math_bytes=(math_in, math_out), apply_bytes=row_bytes,
                 apply_plain=apply_plain, apply_bound=apply_bound,
                 math_events=math_events, apply_events=apply_events)
+
+
+# window_math alone on 1024-lane windows built as phase 3a builds its
+# drains: (label, share of lanes on hot slots, hot slots)
+MATH_WINDOWS = (("half on 64 hot slots", 0.5, 64), ("no hot slots", 0.0, 1),
+                ("one key", 1.0, 1))
+
+
+def longest_residual(prep):
+    """The most lanes of one residual segment of a prep (a segment that
+    neither folds nor is a single lane): the longest walk a window takes."""
+    resid = prep.s_valid & ~prep.seg_fold & (prep.seg_len > 1)
+    return int(prep.seg_len[resid].max()) if bool(resid.any()) else 0
+
+
+def math_windows(st, now):
+    """window_math on MATH_WINDOWS over a one-shard arena `st` ([C]
+    planes): each window checked against the plain version, then its
+    device time (profiler, 20 launches) beside its longest residual
+    segment, and, where the wrapper has launch_math, at two other tile
+    widths.  Launches through the counted wrapper: call it where no
+    path's counts run."""
+    rows = []
+    for label, share, n_hot in MATH_WINDOWS:
+        packed = full_size_traffic(np.random.default_rng(8), 1, FULL_LANES,
+                                   st.limit.shape[0], share, n_hot)
+        bt = tk.decode_batch(torch.from_numpy(packed[0]).to(DEV))
+        prep = tk.window_prep(st, bt, torch.tensor(now, device=DEV))
+        args = (now, prep.max_pos, *prep_args(prep))
+        got = wm.window_math(*args)
+        want = wm.window_math_plain(*args)
+        torch.cuda.synchronize()
+        assert_same(got[0], want[0], f"window_math {label} responses")
+        assert_same(got[1], want[1], f"window_math {label} fin")
+        in_b = lane_bytes(*prep_args(prep)[:-1], *prep.cur)
+        out_b = lane_bytes(*got[0], *got[1])
+        bound = bound_ms(FULL_LANES, in_b, out_b, 0, ops_per_lane=(
+            400 + math_divisions(prep) * FDIV_OPS / FULL_LANES))
+        row = dict(label=label, longest=longest_residual(prep),
+                   ms=device_ms(lambda: wm.window_math(*args), 20,
+                                "window_math_kernel"), tiles={},
+                   bound=bound)
+        if hasattr(wm, "launch_math"):
+            for t in (64, FULL_LANES):
+                row["tiles"][t] = device_ms(
+                    lambda: wm.launch_math(*args, tile=t), 20,
+                    "window_math_kernel")
+        rows.append(row)
+    fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
+    log(f"window_math alone, device (profiler, 20 launches) per "
+        f"{FULL_LANES}-lane window, bit-exact vs plain: " + "; ".join(
+            f"{r['label']} {fmt(r['ms'])} (longest residual segment "
+            f"{r['longest']} lanes; bound {r['bound'][0] * 1e3:.4f} us, "
+            f"{r['bound'][1]}"
+            + "".join(f"; tile {t} {fmt(v)}" for t, v in r["tiles"].items())
+            + ")" for r in rows))
+    return rows
+
+
+def finisher_split(seed=61):
+    """stats_finish at phase 6b's shape (8 shards of 2^21 rows, sketch
+    4 x 2048, T = 64) after one stats drain of phase 6b's traffic, device
+    time (profiler, 10 finishes, each after its drain) with topk = 32 (the
+    path's), with topk = 1 (one rank entry), and over an empty accumulator
+    (n = 0: the decay, the header and the expiry count): how the
+    finisher's time splits between the rank and the rest.  Its inputs
+    come from its own seed, so that it draws nothing from the main
+    script's generators.  Launches through the counted wrappers: call it
+    where no path's counts run."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    S, C, B, T = SHARDS, FULL_CAPACITY // SHARDS, FULL_LANES, 64
+    arena = random_arena(gen, C, T0, DEV, S=S)
+    acc = sk.StatsAccumulator(S, C, T, DEV)
+    sketch = torch.zeros((S, ANALYTICS["sketch_depth"],
+                          ANALYTICS["sketch_width"]), dtype=torch.int64,
+                         device=DEV)
+    packed = torch.from_numpy(np.stack(
+        [full_size_traffic(rng, FULL_K, B, C) for _ in range(S)],
+        axis=1)).to(DEV)
+    nows = torch.tensor([T0 + k for k in range(FULL_K)], dtype=torch.int64,
+                        device=DEV)
+    tenants = torch.from_numpy(analytics_tenants(rng, FULL_K, S, B, T)).to(
+        DEV)
+    ow = ANALYTICS["over_weight"]
+
+    def drain_and_finish(topk):
+        dk.drain_compact_stats(arena, packed, nows, tenants, acc)
+        return sk.stats_finish(sketch, acc, arena.expire, T0, 0, topk=topk,
+                               over_weight=ow)
+
+    drain_and_finish(32)
+    entries = int(acc.entries.shape[1])
+    dk.drain_compact_stats(arena, packed, nows, tenants, acc)
+    touched = [int(c) for c in acc.count.cpu()]
+    sk.stats_finish(sketch, acc, arena.expire, T0, 0, topk=32,
+                    over_weight=ow)
+    out = {}
+    for label, fn in (
+            ("topk 32", lambda: drain_and_finish(32)),
+            ("topk 1", lambda: drain_and_finish(1)),
+            ("n 0", lambda: sk.stats_finish(sketch, acc, arena.expire, T0, 0,
+                                            topk=32, over_weight=ow))):
+        fn()
+        out[label] = device_ms(fn, 10, "stats_finish_kernel")
+    torch.cuda.synchronize()
+    fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
+    stamps = ""
+    if hasattr(sk, "debug_stamps"):
+        # the phases from globaltimer stamps, the mean of 10 finishes
+        splits = []
+        for _ in range(10):
+            dk.drain_compact_stats(arena, packed, nows, tenants, acc)
+            buf = sk.debug_stamps(S, DEV)
+            sk.launch_finish(sketch, acc, arena.expire, T0, 0, topk=32,
+                             over_weight=ow, stamps=buf)
+            torch.cuda.synchronize()
+            splits.append(sk.stamp_split(buf, S))
+        out["stamps_us"] = {k: float(np.mean([x[k] for x in splits]))
+                            for k in splits[0]}
+        stamps = "; globaltimer stamps, us (mean of 10 finishes, topk 32): " \
+            + ", ".join(f"{k} {v:.2f}" for k, v in out["stamps_us"].items())
+    log(f"stats_finish split at phase 6b's shape ([{S}, {C}] arena, "
+        f"{touched} touched rows a shard of {entries} entries), device "
+        f"(profiler, 10 finishes): "
+        + ", ".join(f"{k} {fmt(v)}" for k, v in out.items()
+                    if k != "stamps_us") + stamps)
+    return out
 
 
 def report_per_op(script, po, cmp, pb):
@@ -2025,6 +2225,7 @@ def main():
         f"{path3}, plain calls {plain3}")
     chk = check_analytics_full_size(an)
     bounds = report_analytics(an, chk, path3)
+    finisher_split()
     math_err, apply_err = phase_per_op_vs_plain()
     # the per-op path (GUBER_PALLAS=1): counts from 0 again, after the
     # engines and inputs are built
@@ -2045,6 +2246,9 @@ def main():
     cmp = check_per_op_against_default(script, po)
     pb = per_op_bounds_and_plain(script)
     report_per_op(script, po, cmp, pb)
+    one = script["pairs"][0][0]
+    math_windows(tk.BucketState(*[t[0] for t in one.state]),
+                 int(script["nows1"][0][0]))
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,

@@ -206,6 +206,23 @@ def env_bool(name: str, default: bool = False) -> bool:
     return default
 
 
+def replay_cap_override():
+    """GUBER_REPLAY_CAP: the replay-bound guard's cap in lanes, or None
+    when the variable is unset.  As in the JAX engine
+    (gubernator_tpu/core/engine.py:281-294), a set value overrides the
+    engine's argument and the config whatever they say, 0 disables the
+    guard, and a value that is not an integer raises."""
+    v = os.environ.get("GUBER_REPLAY_CAP")
+    if v is None:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(
+            f"GUBER_REPLAY_CAP must be an integer (lanes; 0 "
+            f"disables the replay-bound guard), got {v!r}") from None
+
+
 def per_op_lowering() -> bool:
     """GUBER_PALLAS: does the engine take the per-op lowering?
 

@@ -183,10 +183,12 @@ class RateLimitEngine:
     global_batch_per_shard: max GLOBAL lanes per shard per window.
     max_global_updates: max distinct GLOBAL keys per window.
     replay_cap: max lanes of a non-uniform duplicate-key run per window
-        (0 disables).  The kernel walks a slot's run serially and has no
-        replay rounds to bound; the cap only mirrors the JAX engine's
-        window cuts, so the differential tests see the same windows.  It
-        can go once parity no longer depends on it.
+        (0 disables); GUBER_REPLAY_CAP in the environment at
+        construction overrides it (config.replay_cap_override).  The
+        kernel walks a slot's run serially and has no replay rounds to
+        bound; the cap only mirrors the JAX engine's window cuts, so the
+        differential tests see the same windows.  It can go once parity
+        no longer depends on it.
     device: where the arenas live and the kernels run (default `cuda`).
 
     GUBER_PALLAS=1 in the environment at construction selects the per-op
@@ -243,7 +245,9 @@ class RateLimitEngine:
         B = batch_per_shard
         self._lane_bucket_list = sorted(
             {b for b in (max(64, B // 16), max(64, B // 4)) if b < B} | {B})
-        self.replay_cap = 128 if replay_cap is None else replay_cap
+        env_cap = config.replay_cap_override()
+        self.replay_cap = (env_cap if env_cap is not None
+                           else 128 if replay_cap is None else replay_cap)
 
     # ------------------------------------------------------------ serving
 

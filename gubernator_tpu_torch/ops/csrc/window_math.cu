@@ -31,25 +31,38 @@
 // oracle's values there are a function of the padding, which no caller
 // reads.
 //
-// Design.  One CTA over the window's B sorted lanes (the per-op engine
-// steps one shard's window at a time, as the JAX package's shard_map body
-// does).  Each thread takes lanes i, i + blockDim, ...:
-// first the shared transition of every valid lane (the fold's shared terms
-// are recomputed per lane from segment-wide inputs: a few divisions a lane,
-// against no shared memory); after a barrier, each covered lane copies its
-// segment's last lane's register, and the thread of each residual
-// segment's first lane walks that segment.  No thread writes what another
-// reads across the barrier: the last lane of a covered segment is only
-// read in the second pass, and a residual segment's lanes only by its
-// walker.
+// Design.  One launch a window, over ceil(B / tile) CTAs of lane tiles
+// (the per-op engine steps one shard's window at a time, as the JAX
+// package's shard_map body does).  The tile width is a launch parameter
+// apart from blockDim: at B = 1024 the default 32-lane tiles put each lane
+// on its own thread, one warp a CTA, over 32 SMs, and the host build's
+// one-thread CTAs run any width.  No lane waits for another, so there is
+// no barrier, and nothing depends on the tile:
+//
+//   * a covered lane builds its segment's Fold (the shared terms, with
+//     every division among them) from its own segment-wide inputs, enters
+//     at its position and takes its transition; it then takes its
+//     segment's last lane e's transition too, from e's position and
+//     request and the same Fold (every lane of a segment carries the same
+//     h0, l0, d0, a0, fresh_seg, n_lead, hstar and gathered register), so
+//     its fin needs no lane of another CTA.  That doubles a covered lane's
+//     enter and transition, not its Fold;
+//   * the thread of a residual segment's first lane walks the segment
+//     lane by lane, on its own, the next lane's request loaded while the
+//     current one transitions; the segment's other lanes are left to it;
+//   * a residual lane past max_pos (none, with the prep's max_pos) takes
+//     the shared ladder's answer on its own thread.
 //
 // Bounds on this card.  Per lane the kernel reads 19 inputs and a gathered
-// 44 B register (about 150 B) and writes 4 responses and 6 fin planes
-// (about 80 B); at 1024 lanes that is a fraction of a microsecond at 3.35
-// TB/s, and the ladder's few hundred integer operations a lane are less
-// still, so the launch and the one CTA set its time.  The torch
-// ops around it (the sort, the segment scans, the gathers, the scatter)
-// are many launches each and cost far more than the kernel.
+// 44 B register (133 B) and writes 4 responses and 6 fin planes (72 B); at
+// 1024 lanes that is 0.06 us at 3.35 TB/s.  The arithmetic is a covered
+// lane's Fold (about 13 int64 floor divisions) and two transitions, every
+// int64 division a few dozen 32-bit instructions, spread over one thread a
+// lane; a window's time is the latency of its longest chain: the longest
+// residual segment's walk, a transition per lane with the dependent
+// divisions of its ladder.  The torch ops around it (the sort, the segment
+// scans, the gathers, the scatter) are many launches each and cost far
+// more than the kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,7 +72,9 @@
 
 namespace {
 
+// threads a CTA at most, and the default tile: lanes a CTA
 constexpr int kMathThreads = 256;
+constexpr int kMathTile = 32;
 
 // The sorted-lane inputs (kernel.window_prep's outputs that window_math
 // takes, in window_step_pallas's order) and the gathered registers.
@@ -149,54 +164,77 @@ __device__ __forceinline__ int seg_end(const Lanes& in, int i, int B) {
                                B - 1));
 }
 
-__global__ void __launch_bounds__(kMathThreads)
-    window_math_kernel(Lanes in, MathOut out, int B, int64_t now, int64_t max_pos) {
-  // ---- every valid lane through the shared ladder ----
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    const Reg reg = in.reg(i);
-    if (!in.valid[i]) {
-      out.store(i, Out{0, 0, 0, 0});
-      out.store_fin(i, reg);
-      continue;
-    }
-    const Req q = in.req(i);
-    const int64_t pos = in.pos[i];
-    Reg ent = reg;
-    bool fresh = false;
-    if (pos == 0) {
-      fresh = in.fresh_seg[i] != 0 || q.algo != reg.algo;
-    } else {
-      const bool fresh0 = in.fresh_seg[i] != 0 || in.a0[i] != reg.algo;
-      const Fold f(reg, fresh0, in.h0[i], in.l0[i], in.d0[i], in.a0[i], in.n_lead[i],
-                   in.hstar[i], now);
-      ent = f.enter(pos, in.nz[i]);
-    }
-    out.store(i, transition(ent, q, now, fresh));
-    if (covered(in, i)) out.store_fin(i, ent);
-  }
-  __syncthreads();
+// the closed-form fold of lane i's segment, from its segment-wide inputs
+__device__ __forceinline__ Fold seg_fold(const Lanes& in, int i, const Reg& reg, int64_t now) {
+  const bool fresh0 = in.fresh_seg[i] != 0 || in.a0[i] != reg.algo;
+  return Fold(reg, fresh0, in.h0[i], in.l0[i], in.d0[i], in.a0[i], in.n_lead[i], in.hstar[i],
+              now);
+}
 
-  // ---- covered lanes take their segment's last register; residual
-  // segments replay from their first lane ----
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    if (!in.valid[i]) continue;
-    if (covered(in, i)) {
-      const int e = seg_end(in, i, B);
-      if (e != i) out.store_fin(i, out.fin(e));
-      continue;
-    }
-    if (in.pos[i] != 0) continue;
-    Reg r = in.reg(i);
-    bool fr = in.fresh_seg[i] != 0 || in.a0[i] != r.algo;
-    const int len = static_cast<int>(imin(in.seg_len[i], B - i));
-    for (int m = 0; m < len && m <= max_pos; ++m) {
-      const Req q = in.req(i + m);
-      const bool fresh = fr || q.algo != r.algo;
-      out.store(i + m, transition(r, q, now, fresh));
-      fr = false;
-    }
-    for (int m = 0; m < len; ++m) out.store_fin(i + m, r);
+// the register lane e (a later lane of a folded segment) leaves: its
+// entering register from the fold, then its transition
+__device__ Reg leaves(const Fold& f, const Lanes& in, int e, int64_t now) {
+  Reg r = f.enter(in.pos[e], in.nz[e]);
+  transition(r, in.req(e), now, false);
+  return r;
+}
+
+// a residual segment from its first lane i: the oracle's replay rounds,
+// lane after lane, up to position max_pos; then every lane of the segment
+// carries the last register as fin
+__device__ void walk(const Lanes& in, const MathOut& out, int i, int B, int64_t now,
+                     int64_t max_pos, Reg r) {
+  bool fr = in.fresh_seg[i] != 0 || in.a0[i] != r.algo;
+  const int len = static_cast<int>(imin(in.seg_len[i], B - i));
+  const int stop = static_cast<int>(imin(len, imax(max_pos + 1, 0)));
+  Req q = in.req(i);
+  for (int m = 0; m < stop; ++m) {
+    const Req next = in.req(i + imin(m + 1, stop - 1));
+    const bool fresh = fr || q.algo != r.algo;
+    out.store(i + m, transition(r, q, now, fresh));
+    fr = false;
+    q = next;
   }
+  for (int m = 0; m < len; ++m) out.store_fin(i + m, r);
+}
+
+__device__ void math_lane(const Lanes& in, const MathOut& out, int i, int B, int64_t now,
+                          int64_t max_pos) {
+  const Reg reg = in.reg(i);
+  if (!in.valid[i]) {
+    out.store(i, Out{0, 0, 0, 0});
+    out.store_fin(i, reg);
+    return;
+  }
+  const int64_t pos = in.pos[i];
+  if (!covered(in, i)) {
+    if (pos == 0) {
+      walk(in, out, i, B, now, max_pos, reg);
+    } else if (pos > max_pos) {
+      Reg ent = seg_fold(in, i, reg, now).enter(pos, in.nz[i]);
+      out.store(i, transition(ent, in.req(i), now, false));
+    }
+    return;
+  }
+  const Req q = in.req(i);
+  const int e = seg_end(in, i, B);
+  if (pos == 0) {
+    Reg ent = reg;
+    out.store(i, transition(ent, q, now, in.fresh_seg[i] != 0 || q.algo != reg.algo));
+    out.store_fin(i, e == i ? ent : leaves(seg_fold(in, i, reg, now), in, e, now));
+    return;
+  }
+  const Fold f = seg_fold(in, i, reg, now);
+  Reg ent = f.enter(pos, in.nz[i]);
+  out.store(i, transition(ent, q, now, false));
+  out.store_fin(i, e == i ? ent : leaves(f, in, e, now));
+}
+
+__global__ void __launch_bounds__(kMathThreads)
+    window_math_kernel(Lanes in, MathOut out, int B, int tile, int64_t now, int64_t max_pos) {
+  const int lo = blockIdx.x * tile;
+  const int hi = static_cast<int>(imin(static_cast<int64_t>(lo) + tile, B));
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) math_lane(in, out, i, B, now, max_pos);
 }
 
 }  // namespace
@@ -207,7 +245,11 @@ const char* guber_math_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// kernel.window_math over one sorted window of B lanes.  Inputs, all [B]
+// the default lanes a CTA (the wrapper's tile when it names none)
+int guber_math_default_tile() { return kMathTile; }
+
+// kernel.window_math over one sorted window of B lanes, in CTAs of `tile`
+// lanes (tile >= 1; ceil(B / tile) CTAs).  Inputs, all [B]
 // (bool as u8): s_valid, s_hits i64, s_limit
 // i64, s_duration i64, s_algo i32, s_init, s_agg, pos i32, seg_len i32,
 // seg_start_idx i32, seg_fold, h0 i64, l0 i64, d0 i64, a0 i32, fresh_seg,
@@ -216,7 +258,7 @@ const char* guber_math_error_string(int code) {
 // (status i32, limit, remaining, reset i64) and the final registers (five
 // i64 planes and algo i32), all [B].  Returns cudaGetLastError() after
 // the launch.
-int guber_window_math(long long now, long long max_pos, int B, const void* s_valid,
+int guber_window_math(long long now, long long max_pos, int B, int tile, const void* s_valid,
                       const void* s_hits, const void* s_limit, const void* s_duration,
                       const void* s_algo, const void* s_init, const void* s_agg,
                       const void* pos, const void* seg_len, const void* seg_start_idx,
@@ -228,7 +270,7 @@ int guber_window_math(long long now, long long max_pos, int B, const void* s_val
                       void* remaining, void* reset, void* f_limit, void* f_duration,
                       void* f_remaining, void* f_tstamp, void* f_expire, void* f_algo,
                       void* stream) {
-  if (B < 1) return cudaErrorInvalidValue;
+  if (B < 1 || tile < 1) return cudaErrorInvalidValue;
   const Lanes lanes{
       static_cast<const uint8_t*>(s_valid),    static_cast<const int64_t*>(s_hits),
       static_cast<const int64_t*>(s_limit),    static_cast<const int64_t*>(s_duration),
@@ -248,9 +290,11 @@ int guber_window_math(long long now, long long max_pos, int B, const void* s_val
                      static_cast<int64_t*>(f_limit),   static_cast<int64_t*>(f_duration),
                      static_cast<int64_t*>(f_remaining), static_cast<int64_t*>(f_tstamp),
                      static_cast<int64_t*>(f_expire),  static_cast<int32_t*>(f_algo)};
-  const int threads = B < kMathThreads ? ((B + 31) / 32) * 32 : kMathThreads;
-  window_math_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lanes, outs, B, static_cast<int64_t>(now), static_cast<int64_t>(max_pos));
+  const int width = tile < B ? tile : B;
+  const int threads = width < kMathThreads ? ((width + 31) / 32) * 32 : kMathThreads;
+  const int ctas = (B + width - 1) / width;
+  window_math_kernel<<<ctas, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      lanes, outs, B, width, static_cast<int64_t>(now), static_cast<int64_t>(max_pos));
   return cudaGetLastError();
 }
 

@@ -16,6 +16,11 @@ tensors it runs the plain version, `stats_finish_plain`:
 ops/analytics.py staged_stats_tail per shard over the accumulator's dense
 sums.  chip_smoke.py and the tests hold the kernel against it.
 
+`launch_finish` launches the kernel uncounted at a chosen geometry (the
+expiry slices a shard, the rank keys and the sketch in shared memory or
+not) and, with `debug_stamps`, records the finisher's phases
+(`stamp_split`).
+
 `launches` counts kernel launches and `plain_calls` plain-version runs.
 """
 
@@ -55,8 +60,11 @@ def load_library() -> ctypes.CDLL:
         lib = build.load(SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.guber_stats_finish.argtypes = [p, i, ll, p, p, p, p, p, p, ll, i,
-                                           p, ll, i, ll, i, ll, i, p, p, p, p]
+                                           p, ll, i, ll, i, ll, i, p, p, p, i,
+                                           i, i, p, p]
         lib.guber_stats_finish.restype = i
+        lib.guber_stats_expiry_ctas.argtypes = [ll, i]
+        lib.guber_stats_expiry_ctas.restype = i
         lib.guber_stats_error_string.argtypes = [i]
         lib.guber_stats_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -202,6 +210,43 @@ def stats_finish(sketch: torch.Tensor, acc: StatsAccumulator,
                                   over_weight=over_weight)
     if dev.type != "cuda":
         raise ValueError(f"stats_finish runs on cuda or cpu, not {dev}")
+    stats = launch_finish(sketch, acc, expire, now, decay, topk=topk,
+                          over_weight=over_weight)
+    launches["stats_finish"] += 1
+    return stats
+
+
+def expiry_ctas(C: int, S: int) -> int:
+    """The expiry slices a shard the kernel chooses for [S, C] arenas on
+    the current card."""
+    x = load_library().guber_stats_expiry_ctas(C, S)
+    if x < 0:
+        raise RuntimeError(
+            f"stats_finish: {load_library().guber_stats_error_string(-x)}")
+    return x
+
+
+# the debug stamps a shard (stats_finish.cu kStamps): the finisher's
+# start and the ends of its decay, adds, estimates, select, places and
+# clears, then the select's passes
+STAMPS = 8
+
+
+def launch_finish(sketch: torch.Tensor, acc: StatsAccumulator,
+                  expire: torch.Tensor, now: int, decay: int, *, topk: int,
+                  over_weight: int, X: int = 0, key_cap: int = -1,
+                  sketch_smem: int = -1,
+                  stamps: torch.Tensor = None) -> torch.Tensor:
+    """guber_stats_finish on checked CUDA inputs, uncounted: stats_finish
+    launches through here, and a check may launch with another geometry
+    (chip_smoke.py).  X: expiry slices a shard (0: the kernel's choice);
+    key_cap: rank keys held in shared memory (-1: the kernel's choice, 0:
+    none); sketch_smem: 1 works on the sketch in shared memory, 0 in
+    place (-1: the kernel's choice); stamps: None, or a u64 tensor of
+    S * STAMPS + 2 that takes the
+    globaltimer stamps of each finisher's phases and the expiry slices'
+    first start and last end (debug_stamps)."""
+    dev = sketch.device
     lib = load_library()
     S, D, W = sketch.shape
     _, C, T = acc.shape
@@ -212,14 +257,39 @@ def stats_finish(sketch: torch.Tensor, acc: StatsAccumulator,
         acc.count.data_ptr(), acc.tenant.data_ptr(), acc.header.data_ptr(),
         acc.est.data_ptr(), acc.entry_capacity, T, expire.data_ptr(), C, S,
         int(now), int(decay), int(over_weight), topk, acc.ecount.data_ptr(),
-        acc.edone.data_ptr(), stats.data_ptr(),
+        acc.edone.data_ptr(), stats.data_ptr(), int(X), int(key_cap),
+        int(sketch_smem), None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.guber_stats_error_string(rc).decode()
         raise RuntimeError(f"stats_finish launch failed: {msg} ({rc})")
-    launches["stats_finish"] += 1
     acc.pending = 0
     return stats
+
+
+def debug_stamps(S: int, device) -> torch.Tensor:
+    """A stamps buffer for launch_finish: the expiry slices' first start
+    takes a minimum, their last end a maximum."""
+    t = torch.zeros(S * STAMPS + 2, dtype=torch.int64, device=device)
+    t[S * STAMPS] = -1   # u64 max
+    return t
+
+
+def stamp_split(stamps: torch.Tensor, S: int) -> dict:
+    """Microseconds of each finisher phase (the mean over shards), each
+    finisher's whole span and the expiry slices' span, and the select's
+    passes, from one launch's stamps."""
+    v = stamps.cpu().numpy().astype("uint64")
+    ph = v[:S * STAMPS].reshape(S, STAMPS).astype("int64")
+    names = ("decay", "adds", "estimates", "select", "places", "clears")
+    out = {n: float((ph[:, k + 1] - ph[:, k]).mean()) / 1e3
+           for k, n in enumerate(names)}
+    out["finisher"] = float((ph[:, 6] - ph[:, 0]).mean()) / 1e3
+    out["expiry"] = float(int(v[S * STAMPS + 1]) - int(v[S * STAMPS])) / 1e3
+    out["finisher_start_after_expiry_us"] = float(
+        (ph[:, 0] - int(v[S * STAMPS])).mean()) / 1e3
+    out["select_passes"] = float(ph[:, 7].mean())
+    return out
 
 
 def stats_finish_plain(sketch: torch.Tensor, acc: StatsAccumulator,

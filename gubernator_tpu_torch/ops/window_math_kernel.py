@@ -9,9 +9,11 @@ and the scatter back to the arena and the un-sort run in XLA again
 (kernel.window_commit).  This module is that split on PyTorch:
 
   * `window_math(now, max_pos, <19 sorted-lane tensors>, reg)` - the
-    kernel, over one window's [B] sorted lanes, returning (out_sorted,
-    fin) equal to kernel.window_math at every valid lane; invalid lanes
-    answer 0 and carry their gathered register as fin;
+    kernel, over one window's [B] sorted lanes in CTAs of
+    `default_tile()` lanes, returning (out_sorted, fin) equal to
+    kernel.window_math at every valid lane; invalid lanes answer 0 and
+    carry their gathered register as fin (`launch_math` launches it at
+    another tile width, uncounted);
   * `window_step_per_op(state, batch, now, in_place=False)` - one
     shard's window:
     kernel.window_prep, window_math, kernel.window_commit.  It is the
@@ -77,12 +79,19 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = build.load(SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.guber_window_math.argtypes = [ll, ll, i] + [p] * 36
+        lib.guber_window_math.argtypes = [ll, ll, i, i] + [p] * 36
         lib.guber_window_math.restype = i
+        lib.guber_math_default_tile.argtypes = []
+        lib.guber_math_default_tile.restype = i
         lib.guber_math_error_string.argtypes = [i]
         lib.guber_math_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def default_tile() -> int:
+    """The lanes a CTA window_math launches with."""
+    return load_library().guber_math_default_tile()
 
 
 def window_math(now, max_pos, s_valid, s_hits, s_limit, s_duration, s_algo,
@@ -111,19 +120,33 @@ def window_math(now, max_pos, s_valid, s_hits, s_limit, s_duration, s_algo,
         return window_math_plain(now, max_pos, *lanes, reg)
     if dev.type != "cuda":
         raise ValueError(f"window_math runs on cuda or cpu, not {dev}")
+    got = launch_math(now, max_pos, *lanes, reg)
+    launches["window_math"] += 1
+    return got
+
+
+def launch_math(now, max_pos, *args, tile: int = 0):
+    """guber_window_math on checked CUDA inputs (window_math's arguments
+    after max_pos) in CTAs of `tile` lanes (0: the kernel's default),
+    uncounted: window_math launches through here, and a check may launch
+    at another tile width (chip_smoke.py)."""
+    *lanes, reg = args
+    dev = lanes[0].device
+    shape = tuple(lanes[0].shape)
     lib = load_library()
+    tile = tile or default_tile()
     out = WindowOutput(torch.empty(shape, dtype=_I32, device=dev),
                        *[torch.empty(shape, dtype=_I64, device=dev)
                          for _ in range(3)])
     fin = _Reg(*[torch.empty_like(t) for t in reg])
     rc = lib.guber_window_math(
-        int(now), int(max_pos), shape[0], *[t.data_ptr() for t in lanes],
-        *[t.data_ptr() for t in reg], *[t.data_ptr() for t in out],
-        *[t.data_ptr() for t in fin], torch.cuda.current_stream(dev).cuda_stream)
+        int(now), int(max_pos), shape[0], int(tile),
+        *[t.data_ptr() for t in lanes], *[t.data_ptr() for t in reg],
+        *[t.data_ptr() for t in out], *[t.data_ptr() for t in fin],
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.guber_math_error_string(rc).decode()
         raise RuntimeError(f"window_math launch failed: {msg} ({rc})")
-    launches["window_math"] += 1
     return out, fin
 
 

@@ -81,6 +81,7 @@ _SHIM = r"""
 using std::min;
 #define GUBER_HOST_SHIM
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
@@ -96,9 +97,19 @@ inline void __threadfence() {}
 template <class T> inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
 template <class T> inline T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
 template <class T> inline T atomicOr(T* p, T v) { T o = *p; *p |= v; return o; }
+template <class T> inline T atomicMax(T* p, T v) { T o = *p; if (v > o) *p = v; return o; }
+template <class T> inline T atomicMin(T* p, T v) { T o = *p; if (v < o) *p = v; return o; }
+struct longlong2 { long long x, y; };
+// the card's clock for debug stamps: none here
+inline unsigned long long global_ns() { return 0; }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <class T> inline T __shfl_up_sync(unsigned, T v, int) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+// a warp's votes over its one thread: lane 0 alone
+inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+inline unsigned __match_any_sync(unsigned, unsigned) { return 1u; }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // the async staging copies as plain copies, done when issued
 inline void stage_copy16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
 inline void stage_commit() {}
@@ -177,20 +188,23 @@ extern "C" void host_stats_finish(
     int32_t* count, int64_t* tenant, int64_t* header, int64_t* est, long long N, int T,
     const int64_t* expire, long long C, int S, long long now, int decay,
     long long over_weight, int topk, unsigned long long* ecount, unsigned* edone,
-    int64_t* stats, int X) {
+    int64_t* stats, int X, int key_cap, int sketch_smem) {
   const Args a{sketch, D, W, index, entries, count, tenant, header, est, N, T, expire, C,
-               now, decay, over_weight, topk, ecount, edone, stats, 8 + 3 * T + 4 * topk};
-  gridDim.x = 1 + X;
-  gridDim.y = S;
-  for (int s = 0; s < S; ++s) {
-    blockIdx.y = s;
-    // the expiry slices first, then the finisher: the two write disjoint
-    // fields, so any order must give the same vector
-    for (int x = 1; x <= X; ++x) {
-      blockIdx.x = x;
-      stats_finish_kernel(a);
-    }
-    blockIdx.x = 0;
+               now, decay, over_weight, topk, ecount, edone, stats, 8 + 3 * T + 4 * topk,
+               S, X, key_cap, sketch_smem, nullptr};
+  // the dynamic shared memory: the sketch's copy and the rank keys
+  std::vector<unsigned char> smem_buf(
+      static_cast<size_t>(key_cap) * 16 + (sketch_smem ? sketch_bytes(D, W) : 0) + 16);
+  host_smem = smem_buf.data();
+  // the S finishers and the S X expiry slices; the slices first: the two
+  // write disjoint fields, so any order must give the same vector
+  gridDim.x = S + S * X;
+  for (int b = S; b < S + S * X; ++b) {
+    blockIdx.x = b;
+    stats_finish_kernel(a);
+  }
+  for (int b = 0; b < S; ++b) {
+    blockIdx.x = b;
     stats_finish_kernel(a);
   }
 }
@@ -208,14 +222,20 @@ extern "C" void host_window_math(
     const int64_t* r_remaining, const int64_t* r_tstamp, const int64_t* r_expire,
     const int32_t* r_algo, int32_t* status, int64_t* limit, int64_t* remaining,
     int64_t* reset, int64_t* f_limit, int64_t* f_duration, int64_t* f_remaining,
-    int64_t* f_tstamp, int64_t* f_expire, int32_t* f_algo) {
+    int64_t* f_tstamp, int64_t* f_expire, int32_t* f_algo, int tile) {
   const Lanes lanes{s_valid, s_hits, s_limit, s_duration, s_algo, s_init, s_agg, pos,
                     seg_len, seg_start_idx, seg_fold, h0, l0, d0, a0, fresh_seg, nz,
                     n_lead, hstar, r_limit, r_duration, r_remaining, r_tstamp, r_expire,
                     r_algo};
   const MathOut outs{status, limit, remaining, reset, f_limit, f_duration, f_remaining,
                      f_tstamp, f_expire, f_algo};
-  window_math_kernel(lanes, outs, B, now, max_pos);
+  // ceil(B / tile) one-thread CTAs, the last first: no CTA may depend on
+  // another having run
+  gridDim.x = static_cast<unsigned>((B + tile - 1) / tile);
+  for (int c = static_cast<int>(gridDim.x) - 1; c >= 0; --c) {
+    blockIdx.x = static_cast<unsigned>(c);
+    window_math_kernel(lanes, outs, B, tile, now, max_pos);
+  }
 }
 """
 
@@ -607,8 +627,9 @@ def _tt(a):
     return torch.from_numpy(np.array(a))
 
 
-def _host_window_math(lib, prep, now):
-    """window_math.cu's kernel on one window's port prep ([B] lanes)."""
+def _host_window_math(lib, prep, now, tile):
+    """window_math.cu's kernel on one window's port prep ([B] lanes), in
+    CTAs of `tile` lanes."""
     lanes = [np.ascontiguousarray(getattr(prep, f).numpy()) for f in
              _PREP_LANES]
     lanes = [a.astype(np.uint8) if a.dtype == bool else a for a in lanes]
@@ -621,30 +642,90 @@ def _host_window_math(lib, prep, now):
         np.full(B, -7, np.int32)]
     lib.host_window_math(ctypes.c_longlong(now),
                          ctypes.c_longlong(prep.max_pos), B,
-                         *[_ptr(a) for a in lanes + reg + out + fin])
+                         *[_ptr(a) for a in lanes + reg + out + fin], tile)
     return out, fin
 
 
+def _tile_edge_window(B, C):
+    """numpy WindowBatch fields of one window whose segments sit across
+    the tiles: sorted, a 3-lane replayed run (lanes 0-2), a 10-lane folded
+    run (3-12, across the 7-lane tiles' edge at 7), a 9-lane replayed run
+    (13-21, across 14), eight 3-lane replayed runs (22-45, eight walkers in
+    one 64-lane tile), a lone lane (46), a 6-lane folded run of reads on
+    row 12 (47-52, across 49), and pads; the lanes arrive in sorted
+    order."""
+    runs = ([(0, [1, 2, 3])], [(1, [1] * 10)], [(2, [2, 1, 1, 0, 3, 1, 1, 2, 1])],
+            [(3 + j, [1, 2, 1]) for j in range(8)], [(11, [1])], [(12, [0] * 6)])
+    slot, hits = [], []
+    for group in runs:
+        for sl, hs in group:
+            slot += [sl] * len(hs)
+            hits += hs
+    n = len(slot)
+    slot = np.asarray(slot + [-1] * (B - n), np.int32)
+    hits = np.asarray(hits + [0] * (B - n), np.int64)
+    algo = np.where(slot % 3 == 0, jk.LEAKY_BUCKET, jk.TOKEN_BUCKET)
+    limit = np.where(slot == 12, 100, 7)
+    # the first folded run starts fresh, so it folds whatever its row
+    # holds; the second reads a live leaky row (LEAKY_ROW)
+    is_init = np.zeros(B, bool)
+    is_init[3] = True
+    return jk.WindowBatch(slot=slot, hits=hits, limit=limit.astype(np.int64),
+                          duration=np.full(B, 60_000, np.int64),
+                          algo=algo.astype(np.int32), is_init=is_init)
+
+
+def _leaky_row(now):
+    """Row 12 before _tile_edge_window: a live leaky bucket that leaks 2 a
+    window of reads and is 90 short of its limit, so each read of the
+    run enters with its own balance."""
+    return dict(limit=100, duration=60_000, remaining=10, tstamp=now - 1200,
+                expire=now + 50_000, algo=jk.LEAKY_BUCKET)
+
+
+# lanes a CTA of the host build: one lane, a width no segment lines up
+# with, part of the window, the whole window (MATH_B)
+MATH_B = 96
+MATH_TILES = [1, 7, 64, MATH_B]
+
+
+@pytest.mark.parametrize("tile", MATH_TILES)
 @pytest.mark.parametrize("wide", [False, True], ids=["compact", "int64"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_host_window_math_matches_oracle(host_math, seed, wide):
-    """window_math.cu's device code over eight chained windows of 64 lanes
-    (all five algorithms and out-of-range values, hot runs that fold and
-    runs that replay, AGG lanes, inits, pads, slots past the arena beside
-    row C - 1, a clock that steps backwards; `int64` at full int64 range):
-    its responses and final registers equal kernel.window_math on the same
-    prep at every valid lane (pads 0, fin their register), and committed
-    with kernel.window_commit the window equals kernel.window_step."""
+def test_host_window_math_matches_oracle(host_math, seed, wide, tile):
+    """window_math.cu's device code in CTAs of `tile` lanes, run last CTA
+    first, over eight chained windows of 96 lanes (all five algorithms and
+    out-of-range values, hot runs that fold and runs that replay, AGG
+    lanes, inits, pads, slots past the arena beside row C - 1, a clock that
+    steps backwards; `int64` at full int64 range) and a ninth whose folded
+    and replayed runs cross the tiles' edges, with eight walkers in one
+    tile: its responses and final registers equal kernel.window_math on
+    the same prep at every valid lane (pads 0, fin their register), and
+    committed with kernel.window_commit the window equals
+    kernel.window_step."""
     rng = np.random.default_rng(450 + seed + 10 * wide)
-    C, B = 32, 64
+    C, B = 32, MATH_B
     jst = per_op_state(rng, C, T0, wide)
     tst = tk.BucketState(*[_tt(a) for a in jst])
-    for w, now in enumerate(per_op_clock(rng, 8)):
+    clock = per_op_clock(rng, 8)
+    clock = np.append(clock, clock[-1] + 1000)
+    for w, now in enumerate(clock):
         now = int(now)
-        bt = per_op_window(rng, B, C, wide)
+        if w < len(clock) - 1:
+            bt = per_op_window(rng, B, C, wide)
+        else:
+            bt = _tile_edge_window(B, C)
+            for f, v in _leaky_row(now).items():
+                getattr(tst, f)[12] = v
+                jst = jst._replace(**{f: getattr(jst, f).at[12].set(v)})
         tbt = tk.WindowBatch(*[_tt(a) for a in bt])
         prep = tk.window_prep(tst, tbt, _tt(np.int64(now)))
-        out, fin = _host_window_math(host_math, prep, now)
+        if w == len(clock) - 1:
+            fold = prep.seg_fold.numpy()
+            assert fold[3:13].all() and not fold[:3].any()
+            assert fold[47:53].all()
+            assert not fold[13:46].any() and prep.max_pos == 8
+        out, fin = _host_window_math(host_math, prep, now, tile)
         want_out, want_fin = tk.window_math(
             _tt(np.int64(now)), prep.max_pos, prep.s_valid, prep.s_hits,
             prep.s_limit, prep.s_duration, prep.s_algo, prep.s_agg, prep.pos,
@@ -750,7 +831,11 @@ def _host_stats_drain(lib, arena, packed, nows, tenants, acc, P=1):
     return words
 
 
-def _host_finish(lib, sketch, acc, expire, now, decay, topk, ow, X):
+def _host_finish(lib, sketch, acc, expire, now, decay, topk, ow, X,
+                 key_cap=None, sketch_smem=1):
+    """The host finisher, with `key_cap` rank keys in shared memory (None:
+    the entry capacity, as the card's default) and the sketch worked on
+    in shared memory (sketch_smem 1) or in place (0)."""
     S, D, W = sketch.shape
     T = acc["tenant"].shape[1]
     stats = np.full((S, ja.stats_len(T, topk)), -7, np.int64)
@@ -761,7 +846,8 @@ def _host_finish(lib, sketch, acc, expire, now, decay, topk, ow, X):
         ctypes.c_longlong(acc["entries"].shape[1]), T, _ptr(expire),
         ctypes.c_longlong(expire.shape[1]), S, ctypes.c_longlong(now), decay,
         ctypes.c_longlong(ow), topk, _ptr(acc["ecount"]), _ptr(acc["edone"]),
-        _ptr(stats), X)
+        _ptr(stats), X,
+        acc["entries"].shape[1] if key_cap is None else key_cap, sketch_smem)
     return stats
 
 
@@ -776,15 +862,146 @@ def _acc(S, C, T, N):
                 edone=np.zeros(S, np.uint32))
 
 
+# accumulators filled directly, for the finisher's rank:
+# (entries a shard, topk, C, sketch width, sketch start, weights[, rank
+# keys in shared memory, sketch in shared memory])
+FINISH_CASES = {
+    # more entries than the shared memory's keys: rebuilt every pass, the
+    # sketch worked on in place
+    "keys_past_shared": (70, 8, 128, 16, "flat", "few", 32, 0),
+    # many entries share the topk-th estimate: ties to the lower row
+    "ties": (40, 6, 64, 16, "flat", "few"),
+    # more candidates in the topk-th key's first byte than the shared list
+    # holds: the select goes on into the rows' bytes
+    "deep_select": (1500, 20, 4096, 64, "flat", "few"),
+    "empty": (0, 6, 64, 32, "random", "few"),
+    "topk_over_n": (5, 9, 64, 32, "random", "few"),
+    # more chosen entries than the shared list holds (kSelCap = 256),
+    # beside entries whose estimate is below 0
+    "past_shared_list": (400, 280, 512, 64, "few_negative", "spread"),
+    # estimates below 0 (a negative sketch start) never rank
+    "negative": (30, 20, 64, 32, "negative", "few"),
+    # estimates near 2^62: the select runs over eight bytes of them
+    "wide": (50, 7, 1 << 17, 48, "huge", "spread"),
+}
+
+
+def _filled_acc(rng, S, C, T, n, weights):
+    """An accumulator (numpy, _acc's arrays) holding n touched rows a shard,
+    as the stats drain leaves it."""
+    acc = _acc(S, C, T, max(n, 1))
+    for s in range(S):
+        rows = rng.choice(C, n, replace=False)
+        if weights == "few":
+            hits = rng.choice([3, 3, 3, 7], n)
+            over = rng.choice([0, 0, 1], n)
+        else:
+            hits = rng.integers(0, 1 << 20, n)
+            over = rng.integers(0, 4, n)
+        acc["entries"][s, :n] = np.stack(
+            [rows, rng.integers(1, 4, n), over, hits], axis=-1)
+        acc["index"][s, rows] = np.arange(1, n + 1)
+        acc["count"][s] = n
+        acc["tenant"][s] = rng.integers(0, 50, (T, 3))
+        acc["header"][s] = [n + 9, 400, 3, 2]
+    return acc
+
+
+def _jax_finish(sketch, acc, s, expire, now, decay, topk, ow):
+    """The JAX package's staged_stats_tail over shard s of a filled
+    accumulator, from the dense i32 planes (hits as lo/hi pairs) its TPU
+    drain kernel leaves."""
+    C = acc["index"].shape[1]
+    T = acc["tenant"].shape[1]
+    n = int(acc["count"][s])
+    rows, occ, over, hits = acc["entries"][s, :n].T
+    d = {k: np.zeros(C, np.int64) for k in ("occ", "over", "hits")}
+    d["occ"][rows], d["over"][rows], d["hits"][rows] = occ, over, hits
+
+    def pair(x):
+        p = np.ascontiguousarray(x, np.int64).view(np.int32).reshape(-1, 2)
+        return jnp.asarray(p[:, 0]), jnp.asarray(p[:, 1])
+
+    t = acc["tenant"][s]
+    lanes, h, o, inits = acc["header"][s]
+    hdr = np.zeros(8, np.int32)
+    hdr[0], hdr[3], hdr[4] = lanes, o, inits
+    hdr[1:3] = np.asarray([h], np.int64).view(np.int32)
+    planes = (jnp.asarray(d["occ"].astype(np.int32)),
+              jnp.asarray(d["over"].astype(np.int32)), *pair(d["hits"]),
+              jnp.asarray(t[:, 0].astype(np.int32)),
+              jnp.asarray(t[:, 2].astype(np.int32)), *pair(t[:, 1]),
+              jnp.asarray(hdr))
+    return ja.staged_stats_tail(
+        jnp.asarray(sketch[s]), planes, jnp.asarray(expire[s]), now, decay,
+        tenant_slots=T, topk=topk, over_weight=ow)
+
+
+def _host_finish_matches_jax(finish_lib, case, X):
+    """The host finisher on a filled accumulator against the JAX package's
+    staged_stats_tail, shard by shard; the case's shape checked on the
+    JAX side's estimates."""
+    n, topk, C, W, start, weights, *layout = FINISH_CASES[case]
+    rng = np.random.default_rng(990 + X + 7 * len(case))
+    S, T, D, ow, now = 2, 4, 3, 4, T0
+    acc = _filled_acc(rng, S, C, T, n, weights)
+    lo, hi = {"flat": (6, 7), "random": (0, 100), "few_negative": (0, 1),
+              "negative": (-(1 << 40), 1 << 40),
+              "huge": (0, 1 << 62)}[start]
+    sketch = rng.integers(lo, hi, (S, D, W)).astype(np.int64)
+    if start == "few_negative":
+        sketch[rng.random((S, D, W)) < 0.05] = -(1 << 40)
+    expire = now + rng.integers(-5000, 5000, (S, C))
+    expire[rng.random((S, C)) < 0.2] = 0
+    want = [_jax_finish(sketch, acc, s, expire, now, 1, topk, ow)
+            for s in range(S)]
+    stats = _host_finish(finish_lib, sketch, acc, expire, now, 1, topk, ow,
+                         X, *layout)
+    for s, (want_sk, want_st) in enumerate(want):
+        np.testing.assert_array_equal(sketch[s], np.asarray(want_sk),
+                                      err_msg=f"{case} s{s} sketch")
+        np.testing.assert_array_equal(stats[s], np.asarray(want_st),
+                                      err_msg=f"{case} s{s} stats")
+        rows = acc["entries"][s, :n, 0]
+        est = np.min([np.asarray(want_sk)[r][ja.hash_slots(np, rows, r, W)]
+                      for r in range(D)], axis=0) if n else np.zeros(0)
+        ranked = np.sort(est[est >= 0])[::-1]
+        if case == "ties":
+            assert ranked[topk] == ranked[topk - 1]
+        elif case == "deep_select":
+            assert (ranked >> 8 == ranked[topk - 1] >> 8).sum() > 256
+        elif case == "keys_past_shared":
+            assert n > layout[0] and ranked.size > topk
+        elif case == "topk_over_n" or case == "empty":
+            assert ranked.size < topk
+        elif case == "past_shared_list":
+            assert ranked.size > topk > 256 and (est < 0).any()
+        elif case == "negative":
+            assert (est < 0).any() and ranked.size < topk
+        elif case == "wide":
+            assert ranked[0] >= 1 << 56
+    for name in ("index", "count", "tenant", "header", "ecount", "edone"):
+        assert not acc[name].any(), f"{case} {name} left set"
+
+
+@pytest.mark.parametrize("case", ["drains", *FINISH_CASES])
 @pytest.mark.parametrize("X", [1, 3])
-def test_host_stats_kernels_match_oracle(host_stats, X):
-    """Three carried drains over S = 3 shards (shard 1 all padding on the
-    second), a decay drain, a non-zero starting sketch, X expiry slices per
-    shard: the host stats drain's words, limits, flags and arena equal the
-    plain drain's oracle, and the host finisher's sketch and stats equal
-    oracle_stats over those words, shard by shard; every accumulator array
-    is zero again after each finish."""
+def test_host_stats_kernels_match_oracle(host_stats, X, case):
+    """`drains`: three carried drains over S = 3 shards (shard 1 all
+    padding on the second), a decay drain, a non-zero starting sketch, X
+    expiry slices per shard: the host stats drain's words, limits, flags
+    and arena equal the plain drain's oracle, and the host finisher's
+    sketch and stats equal oracle_stats over those words, shard by shard;
+    every accumulator array is zero again after each finish.  The other
+    cases fill the accumulator directly (FINISH_CASES: ties at the topk-th
+    estimate, with the rank keys and the sketch in shared memory and
+    both past it, a select that needs the rows' bytes, no entries, topk past the entries, more chosen entries
+    than the shared list holds, estimates below 0, estimates near 2^62)
+    and hold the finisher against the JAX package's staged_stats_tail."""
     drain_lib, finish_lib = host_stats
+    if case != "drains":
+        _host_finish_matches_jax(finish_lib, case, X)
+        return
     rng = np.random.default_rng(880 + X)
     S, K, B, C, T, topk, D, W = 3, 3, 32, 24, 5, 6, 4, 16
     kw = dict(tenant_slots=T, topk=topk, over_weight=4)

@@ -54,13 +54,14 @@ def engines(monkeypatch):
     # cached for it are only ever built here
     mesh = make_mesh(jax.devices("cpu")[4:5])
 
-    def make(C=64, B=64):
+    def make(C=64, B=64, replay_cap=None):
         ref = jengine.RateLimitEngine(
             mesh=mesh, capacity_per_shard=C, batch_per_shard=B,
             global_capacity=8, global_batch_per_shard=8,
-            max_global_updates=8, use_native=False, skip_global=True)
+            max_global_updates=8, use_native=False, skip_global=True,
+            replay_cap=replay_cap)
         port = RateLimitEngine(capacity_per_shard=C, batch_per_shard=B,
-                               device="cpu")
+                               replay_cap=replay_cap, device="cpu")
         return ref, port
     return make
 
@@ -177,6 +178,60 @@ def test_random_stream_all_algorithms(engines):
     _drive(ref, port, windows)
     for f in ("size", "hits", "misses", "live", "expired"):
         assert port.cache_stats(now)[f] == ref.cache_stats(now)[f], f
+
+
+# request lists for the replay-bound guard: (requests, window prefix the
+# guard allows at GUBER_REPLAY_CAP=2)
+def _replay_lists():
+    mixed = [_req("m", hits=h, algo=1) for h in (1, 1, 0, 2, 1)]
+    return {
+        "three lanes, hits 1 2 3": ([_req("k", hits=h) for h in (1, 2, 3)],
+                                    2),
+        "uniform run of 7": ([_req("u") for _ in range(7)], 7),
+        "uniform then zero": ([_req("z") for _ in range(4)]
+                              + [_req("z", hits=0)] * 2, 4),
+        "two keys interleaved": ([_req(f"i{j % 2}", hits=1 + j // 2)
+                                  for j in range(8)], 4),
+        "mixed leaky run": (mixed, 2),
+    }
+
+
+@pytest.mark.parametrize("cap", ["2", "0", None], ids=["2", "0", "unset"])
+def test_replay_cap_env_matches_jax_engine(engines, monkeypatch, cap):
+    """GUBER_REPLAY_CAP overrides the engine's argument in both engines
+    (2: a non-uniform run is cut after two lanes, a uniform run is not;
+    0: no guard; unset: the argument, here 64): the same
+    max_window_prefix on every list, and `process` of all the lists in
+    one call gives the same responses, arena and windows_processed."""
+    if cap is None:
+        monkeypatch.delenv("GUBER_REPLAY_CAP", raising=False)
+    else:
+        monkeypatch.setenv("GUBER_REPLAY_CAP", cap)
+    ref, port = engines(replay_cap=64)
+    want_cap = 64 if cap is None else int(cap)
+    assert port.replay_cap == ref.replay_cap == want_cap
+    lists = _replay_lists()
+    for name, (reqs, at_two) in lists.items():
+        got = port.max_window_prefix(reqs)
+        assert got == ref.max_window_prefix(_jreqs(reqs)), name
+        assert got == (at_two if cap == "2" else len(reqs)), name
+    stream = [r for reqs, _ in lists.values() for r in reqs]
+    _drive(ref, port, [(stream, T0), (stream, T0 + 40)])
+    assert port.windows_processed == ref.windows_processed
+    assert port.windows_processed == (12 if cap == "2" else 2)
+
+
+def test_replay_cap_env_not_an_integer_raises_in_both(engines, monkeypatch):
+    """A GUBER_REPLAY_CAP that is not an integer stops both engines at
+    construction with the same ValueError."""
+    monkeypatch.setenv("GUBER_REPLAY_CAP", "x")
+    with pytest.raises(ValueError) as port_err:
+        RateLimitEngine(capacity_per_shard=64, batch_per_shard=64,
+                        device="cpu")
+    with pytest.raises(ValueError) as ref_err:
+        engines()
+    assert str(port_err.value) == str(ref_err.value)
+    assert "GUBER_REPLAY_CAP must be an integer" in str(port_err.value)
 
 
 def test_pipeline_dispatch_k4(engines):
