@@ -33,25 +33,38 @@ Phases (one line each; any mismatch raises and exits non-zero):
      Instance.get_rate_limits under asyncio and a 4-window
      pipeline_dispatch; the kernels' launch counters must move by what
      each entry point launches and the plain versions must not run;
-  5. GLOBAL over 8 shards.  5a: global_combined bit for bit against its
-     plain version at G = 4096 and 8 x 256 read lanes on edge inputs (all
-     five algorithms and out-of-range values, int64 wrapped at both ends,
-     expired rows, algorithm switches, is_init, zero sums, pad and
-     out-of-range slots).  5b: drain_compact over 8 shards against its
-     plain version, at the chosen P and at P = 1.  5c: a [8, 2^21] arena and a 4096-slot GLOBAL arena; K = 8
-     windows x 8 shards x 1024 lanes plus one GLOBAL window of 8 x 256
-     lanes (half on 16 hot keys, at most 256 keys, 70% token / 30% leaky)
-     through pipeline_dispatch_global, compared with the plain versions
-     including every plane of both arenas and the config, then timed (CUDA
-     events, profiler device time of each kernel in the call); before
-     that, and before the GLOBAL path's counts start, global_combined is
-     called directly on the same window, checked and timed alone.  5d:
-     serving on
-     RateLimitEngine(num_shards=8): warmup, a 1000-request window mixing
-     regular and GLOBAL keys against the CPU plain engine, scripted GLOBAL
-     sequences (stale then consistent, a limit raise, leaky) against
-     closed-form answers, Instance RPCs carrying GLOBAL items and the
-     GLOBAL+GCRA refusal;
+  5. GLOBAL over 8 shards.  5a: global_window (one cluster launch per
+     GLOBAL window) bit for bit against its plain version at G = 4096, 8 x
+     256 lanes and 256 config lanes on edge windows (all five algorithms
+     and out-of-range values, int64 wrapped at both ends, expired rows,
+     algorithm switches, is_init, sums that cancel, rows read and reset in
+     one window, config writes by negative index, pads below 0 and at G
+     and past it in every lane kind), through the wrapper (the cluster
+     size the kernel picks) and in clusters of 8 and 16 CTAs: the
+     read block, every gstate and gcfg plane, and the scratch back at 0.
+     5b: drain_compact over 8 shards against its plain version, at the
+     chosen P and at P = 1.  5c: a [8, 2^21] arena and a 4096-slot GLOBAL
+     arena; K = 8 windows x 8 shards x 1024 lanes plus one GLOBAL window
+     of 8 x 256 lanes (half on 16 hot keys, at most 256 keys, 70% token /
+     30% leaky) through pipeline_dispatch_global with nows and the GLOBAL
+     control as host arrays, compared with the plain versions including
+     every plane of both arenas, the config and the scratch; one call
+     under torch.cuda.set_sync_debug_mode("error") (any host sync before
+     the fetch fails the run); then timed (CUDA events, profiler device
+     time of each kernel in the call, the card's busy time); before that,
+     and before the GLOBAL path's counts start, global_window is called
+     directly on the same window, checked and timed alone at 8 and 16
+     CTAs.  5d: serving on RateLimitEngine(num_shards=8): warmup, a
+     1000-request window mixing regular and GLOBAL keys against the CPU
+     plain engine (responses and every plane), scripted GLOBAL sequences
+     (stale then consistent, a limit raise, leaky) against closed-form
+     answers, Instance RPCs carrying GLOBAL items and the GLOBAL+GCRA
+     refusal, the host wall per window.  5e, after the counts are read:
+     the GLOBAL window alone at G = 4096 and G = 2^20 with the same 2048
+     lanes over 256 keys, checked against its plain version and timed,
+     and its phases read from the kernel's debug stamps; the time at 2^20
+     must stay within twice the time at 4096 (nothing in the window reads
+     or writes all G rows);
   6. traffic analytics over 8 shards.  6a: the stats drain
      (drain_compact_stats, window_drain.cu) and the finisher (stats_finish,
      stats_finish.cu) bit for bit against their plain versions on edge
@@ -72,8 +85,8 @@ Phases (one line each; any mismatch raises and exits non-zero):
      (CUDA events, card busy share, profiler device time of the stats
      drain, the plain drain and the finisher).  After the counts are read,
      the first drain is held against the plain versions on the card
-     (arena, responses, sketch, stats) and against oracle_stats on the
-     host.  Then the finisher's split at the same shape: its device time
+     (arena, responses, sketch, stats, and its GLOBAL window's read block,
+     gstate and gcfg) and against oracle_stats on the host.  Then the finisher's split at the same shape: its device time
      after a stats drain with topk 32 and 1 and over an empty
      accumulator, and its phases from globaltimer stamps;
   7. the per-op lowering (GUBER_PALLAS=1).  7a: window_math (window_math.cu)
@@ -82,19 +95,22 @@ Phases (one line each; any mismatch raises and exits non-zero):
      mixed-config hot run longer than the replay cap, a folding hot run,
      lanes on row C - 1 and past the arena, int64 windows, a clock that
      steps back) at the default tile width and at 7 and 1024 lanes a
-     CTA, and window_step_per_op against kernel.window_step; global_apply
-     (global_apply.cu) against its plain version on phase 5a's edge
-     inputs at G = 4096 and G = 3000.  7b: per-op twins of phase 3's
-     one-shard engine and of phase 5c's 8-shard engine (with analytics at
-     phase 6b's geometry), holding the same arenas as default engines:
-     two pipeline_dispatch drains and a 1000-request process on one
-     shard; pipeline_dispatch_global with the GLOBAL window, twice more
-     with analytics (decay on the second) and a 1000-request process with
-     20% GLOBAL on eight; then the two dispatch calls timed (CUDA events)
+     CTA, and window_step_per_op against kernel.window_step; global_stage,
+     the torch replica reads and global_apply (global_apply.cu) against
+     their plain versions on phase 5a's edge windows at G = 4096 and
+     G = 3000 (read block, gstate, gcfg, scratch back at 0).  7b: per-op
+     twins of phase 3's one-shard engine and of phase 5c's 8-shard engine
+     (with analytics at phase 6b's geometry), holding the same arenas as
+     default engines: two pipeline_dispatch drains and a 1000-request
+     process on one shard; pipeline_dispatch_global with the GLOBAL
+     window, twice more with analytics (decay on the second) and a
+     1000-request process with 20% GLOBAL on eight; then the two dispatch
+     calls timed (CUDA events)
      and the new kernels' device time read (profiler).  7c, after the
      counts are read: the default engines take the same calls, and every
      output, response, arena plane and sketch must equal the per-op
-     engines'; their calls timed the same way.  Then window_math alone on
+     engines', both engines' GLOBAL scratch back at 0; their calls timed
+     the same way.  Then window_math alone on
      three 1024-lane windows built as phase 3a builds its drains (half on
      64 hot slots, no hot slots, every lane on one key), each against its
      plain version, its device time beside its longest residual segment
@@ -104,11 +120,12 @@ Four main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b) and the per-op path (phase 7b); each must launch its
 kernels and never run a plain version, and the per-op path must launch no
-kernel but window_math and global_apply.  The kernel table's launch counts
-are drain_compact's and window_full's on the first path, global_combined's
-on the second, drain_compact_stats' and stats_finish's on the third and
-window_math's and global_apply's on the fourth; calls of a wrapper made
-only to check or time it against its plain version come before the counts
+kernel but window_math, global_stage and global_apply.  The kernel table's
+launch counts are drain_compact's and window_full's on the first path,
+global_window's on the second, drain_compact_stats' and stats_finish's on
+the third and window_math's, global_stage's and global_apply's on the
+fourth; calls of a wrapper made only to check or time it against its
+plain version come before the counts
 start or after they are read.  The third-to-last line is the kernel
 table as JSON, the next the card's nvidia-smi name and power limit; the
 last line is {"ok": true, "device": {...}}.  Tolerance everywhere is exact
@@ -135,10 +152,7 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
     millisecond_now,
 )
 from gubernator_tpu_torch.config import AnalyticsConfig  # noqa: E402
-from gubernator_tpu_torch.core.engine import (  # noqa: E402
-    RateLimitEngine,
-    apply_config,
-)
+from gubernator_tpu_torch.core.engine import RateLimitEngine  # noqa: E402
 from gubernator_tpu_torch.core.service import Instance  # noqa: E402
 from gubernator_tpu_torch.ops import build  # noqa: E402
 from gubernator_tpu_torch.ops import drain_kernel as dk  # noqa: E402
@@ -343,18 +357,26 @@ def device_ms(fn, n, kernel_name):
     """Mean device time (ms) of the kernel named `kernel_name` per launch
     over n calls, from a torch.profiler CUDA trace; None when the trace
     shows no device time for it (CUDA events then stand in)."""
+    return device_ms_each(fn, n, (kernel_name,))[kernel_name]
+
+
+def device_ms_each(fn, n, kernel_names):
+    """device_ms of each of several kernels from one trace of n calls."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = count = 0
-    for e in prof.key_averages():
-        if kernel_name in e.key:
-            total_us += (getattr(e, "device_time_total", None)
-                         or getattr(e, "cuda_time_total", 0) or 0)
-            count += e.count
-    return total_us / count / 1e3 if count and total_us else None
+    out = {}
+    for name in kernel_names:
+        total_us = count = 0
+        for e in prof.key_averages():
+            if name in e.key:
+                total_us += (getattr(e, "device_time_total", None)
+                             or getattr(e, "cuda_time_total", 0) or 0)
+                count += e.count
+        out[name] = total_us / count / 1e3 if count and total_us else None
+    return out
 
 
 # ---------------------------------------------------------------- phases
@@ -789,7 +811,7 @@ def phase_serving():
     before = launch_counts()
     eng.warmup(now=t0)
     want_warm = only(drain_compact=len(eng._lane_bucket_list) + 1,
-                     window_full=1, global_combined=1)
+                     window_full=1, global_window=1)
     check(moved(before, launch_counts()) == want_warm,
           f"warmup launches {moved(before, launch_counts())}, "
           f"want {want_warm}")
@@ -962,30 +984,98 @@ def global_edge_inputs(rng, G, n, algos, wrap):
             torch.from_numpy(summed.astype(np.int64)).to(DEV))
 
 
+def edge_control(rng, G, bt, Kg, wrap):
+    """A GLOBAL window's host control (gbatch [S, Bg], gacc [S, Bg], upd
+    [Kg] x 5) over edge lanes `bt` (global_edge_inputs' batch, n = S x Bg
+    lanes): 80% of the lanes contribute their hits (with `wrap`, a fifth
+    of those int64 extremes); config writes on distinct rows, a third of
+    them named by their negative index, half of them on rows the lanes
+    read, switching algorithm on a third; resets on rows the lanes read,
+    some negative, so a window reads rows it resets; write and reset pads
+    below -G, at G and past it."""
+    slot = bt.slot.cpu().numpy()
+    n = slot.size
+    gacc = np.where(rng.random(n) < 0.8, bt.hits.cpu().numpy(), 0)
+    if wrap:
+        ends = np.asarray([I64_MAX, I64_MIN, 2**62, -2**62], np.int64)
+        m = rng.random(n) < 0.2
+        gacc[m] = rng.choice(ends, int(m.sum()))
+    read = np.unique(slot[(slot >= 0) & (slot < G)])
+    others = np.setdiff1d(np.arange(G), read)
+    k = min(Kg - 6, 2 * read.size, G)
+    rows = np.concatenate([rng.permutation(read)[:k // 2],
+                           rng.choice(others, k - min(k // 2, read.size),
+                                      replace=False)])[:k]
+    upd = (np.full(Kg, G, np.int32), np.zeros(Kg, np.int64),
+           np.zeros(Kg, np.int64), np.zeros(Kg, np.int32),
+           np.full(Kg, G, np.int32))
+    k = rows.size
+    upd[0][:k] = np.where(rng.random(k) < 0.3, rows - G, rows)
+    upd[1][:k] = rng.integers(0, 200, k)
+    upd[2][:k] = rng.integers(0, 120_000, k)
+    upd[3][:k] = rng.integers(0, 5, k)
+    reset = rng.permutation(read)[:k // 3]
+    upd[4][:reset.size] = np.where(rng.random(reset.size) < 0.3, reset - G,
+                                   reset)
+    upd[0][k:k + 3] = (-G - 1, G, G + 2)
+    upd[4][reset.size:reset.size + 3] = (-G - 2, G, G + 9)
+    S = SHARDS
+    gbatch = tk.WindowBatch(*[t.cpu().numpy().reshape(S, n // S) for t in bt])
+    return gbatch, gacc.astype(np.int64).reshape(S, n // S), upd
+
+
+def global_window_vs_plain(st, cfg, ctl, now, what, ctas=None):
+    """global_window (or, with ctas, the uncounted launch at that cluster
+    size) against global_window_plain on copies of one arena and config:
+    the read block, every gstate and gcfg plane, and the scratch back at
+    zero.  Returns the (got, want) pairs compared and the plain version's
+    (read block, gstate, gcfg)."""
+    G = st.limit.shape[0]
+    k_st, k_cfg, p_st, p_cfg = clone(st), clone(cfg), clone(st), clone(cfg)
+    scratch = torch.zeros(G, dtype=torch.int64, device=DEV)
+    if ctas is None:
+        got = gk.global_window(k_st, k_cfg, ctl, scratch, now)
+    else:
+        got = gk.launch_window(k_st, k_cfg, ctl, scratch, now, ctas=ctas)
+    want = gk.global_window_plain(p_st, p_cfg, ctl,
+                                  torch.zeros_like(scratch), now)
+    torch.cuda.synchronize()
+    assert_same((got,), (want,), f"{what} read block")
+    assert_same(k_st, p_st, f"{what} gstate")
+    assert_same(k_cfg, p_cfg, f"{what} gcfg")
+    check(not scratch.any(), f"{what}: the scratch is not back at zero")
+    pairs = [(got, want)] + list(zip(k_st, p_st)) + list(zip(k_cfg, p_cfg))
+    return pairs, (want, p_st, p_cfg)
+
+
 def phase_global_vs_plain():
-    """Phase 5a: global_combined against its plain version on seeded edge
-    inputs at the JAX engine's GLOBAL shape (G = 4096, 8 x 256 lanes)."""
+    """Phase 5a: global_window against its plain version on seeded edge
+    windows at the JAX engine's GLOBAL shape (G = 4096, 8 x 256 lanes,
+    256 config lanes), through the wrapper (the cluster size the kernel
+    chooses) and in clusters of 8 and 16 CTAs."""
     rng = np.random.default_rng(5150)
     n = SHARDS * BG_FULL
     errs = []
     cases = [(range(7), False), ((0, 1), False), (range(7), True),
              ((0, 1), True), ((2, 3, 4), False)]
     for i, (algos, wrap) in enumerate(cases):
-        st, cfg, bt, summed = global_edge_inputs(rng, G_FULL, n, algos, wrap)
-        before = clone(st)
-        got = gk.global_combined(st, cfg, bt, summed, T0 + i)
-        want = gk.global_combined_plain(st, cfg, bt, summed, T0 + i)
-        torch.cuda.synchronize()
-        assert_same(got[0], want[0], f"global case {i} arena")
-        assert_same(got[1:], want[1:], f"global case {i} read block")
-        assert_same(st, before, f"global case {i} wrote its input arena")
-        errs += list(zip(got[0], want[0])) + [(got[1], want[1])]
+        st, cfg, bt, _ = global_edge_inputs(rng, G_FULL, n, algos, wrap)
+        ctl = gk.make_control(*edge_control(rng, G_FULL, bt, KG_FULL, wrap),
+                              DEV)
+        for ctas in (None, 8, 16):
+            errs += global_window_vs_plain(st, cfg, ctl, T0 + i,
+                                           f"global case {i} ctas {ctas}",
+                                           ctas)[0]
     err = max_abs_err(errs)
-    log(f"phase 5a global_combined vs plain: {len(cases)} windows of "
-        f"{n} lanes over G={G_FULL} (all five algorithms and out-of-range "
-        f"values, int64 wrapped at both ends, expired rows, switches, "
-        f"is_init, zero sums, pad and out-of-range slots), bit-exact "
-        f"(max_abs_err {err})")
+    log(f"phase 5a global_window vs plain: {len(cases)} windows of "
+        f"{n} lanes and {KG_FULL} config lanes over G={G_FULL} (all five "
+        f"algorithms and out-of-range values, int64 wrapped at both ends, "
+        f"expired rows, switches, is_init, sums that cancel, rows read and "
+        f"reset in one window, config writes by negative index, pad and "
+        f"out-of-range slots in every lane kind), through the wrapper "
+        f"({gk.cluster_ctas(n)} CTAs) and in clusters of 8 and 16 CTAs; "
+        f"read block, gstate, gcfg "
+        f"bit-exact, scratch back at 0 (max_abs_err {err})")
     return err
 
 
@@ -1060,17 +1150,50 @@ def global_traffic(rng, eng, n_hot=16):
     return gbatch, rr(hits), upd
 
 
-def global_bound_ms(G, n):
-    """The least time of one GLOBAL window: each input read once (the
-    arena's six planes 44 B a row, its config 20 B, the summed hits 8 B;
-    33 B a read lane) and each output written once (44 B a row, 32 B a
-    lane); or ~200 32-bit operations of the ladder per lane and row, at
-    the scalar rate; whichever is larger."""
-    nbytes = G * (44 + 20 + 8 + 44) + n * (33 + 32)
+def window_counts(gbatch, gacc, upd, G):
+    """What a GLOBAL window's host control asks of the card: (lanes, config
+    lanes, config writes that land, resets that land, contributing lanes,
+    touched rows), by the kernels' index rules."""
+    slot = np.asarray(gbatch.slot).reshape(-1)
+    acc = np.asarray(gacc).reshape(-1)
+
+    def lands(idx):
+        idx = np.asarray(idx).astype(np.int64)
+        return int(((idx >= -G) & (idx < G)).sum())
+    contrib = (slot >= 0) & (slot < G) & (acc != 0)
+    return (slot.size, np.size(upd[0]), lands(upd[0]), lands(upd[4]),
+            int(contrib.sum()), np.unique(slot[contrib]).size)
+
+
+def global_window_bound_ms(gbatch, gacc, upd, G):
+    """The least time of one GLOBAL window, from what this window needs:
+    its control read once (56 B a lane, 40 B a config lane); each config
+    write (20 B) and reset (8 B) that lands written once; each lane's row
+    gathered (44 B) and its answer written (32 B); each contributing
+    lane's atomic on its slot's sum (8 B); each touched row's state and
+    config read (64 B) and state written (44 B), its sum exchanged (8 B);
+    or the ladder's ~200 32-bit operations and two int64 divisions per
+    lane and per touched row at the scalar rate; whichever is larger.
+    Returns (ms, bound_by, the old G-row formula's ms)."""
+    n, kg, writes, resets, contrib, touched = window_counts(gbatch, gacc,
+                                                            upd, G)
+    nbytes = (n * 56 + kg * 40 + writes * 20 + resets * 8 + n * (44 + 32)
+              + contrib * 8 + touched * (64 + 44 + 8))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((n + touched) * (200 + TRANSITION_DIVS * FDIV_OPS)
+             / INT32_OPS_PER_S * 1e3)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            old_global_bound_ms(G, n))
+
+
+def old_global_bound_ms(G, n):
+    """The bound of the earlier G-row design (PR 2's formula): every arena
+    row read (44 + 20 + 8 B) and written (44 B) and every lane's 65 B, or
+    ~260 32-bit operations per lane and row; whichever is larger."""
+    nbytes = G * (44 + 20 + 8 + 44) + n * (33 + 32)
     t_ops = ((G + n) * (200 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S
              * 1e3)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return max(nbytes / HBM_BYTES_PER_S * 1e3, t_ops)
 
 
 def sharded_engine(gen):
@@ -1098,70 +1221,76 @@ def sharded_engine(gen):
 def global_full_size_inputs(gen, rng):
     """The phase-5c engine and its window: K = 8 windows x 8 shards x 1024
     lanes over a [8, 2^21] arena plus one GLOBAL window of 8 x 256 lanes
-    over G = 4096; and the plain versions' inputs, taken before the engine
-    runs: copies of the regular arena, and of the GLOBAL arena and config
-    with the window's config writes applied, its lanes flattened over the
-    shards and its summed hits."""
+    over G = 4096; the host arrays the serving path passes (nows, the
+    GLOBAL control), and the plain versions' inputs, taken before the
+    engine runs: copies of the regular arena, the GLOBAL arena and config,
+    and the window's packed control on the card."""
     eng = sharded_engine(gen)
     S, B = SHARDS, FULL_LANES
     packed = torch.from_numpy(np.stack(
         [full_size_traffic(rng, FULL_K, B, eng.capacity_per_shard)
          for _ in range(S)], axis=1)).to(DEV)
-    nows = torch.tensor([T0 + 7 * k for k in range(FULL_K)],
-                        dtype=torch.int64, device=DEV)
+    nows = np.asarray([T0 + 7 * k for k in range(FULL_K)], np.int64)
     gbatch, gacc, upd = global_traffic(rng, eng)
-    arena0, gstate0, gcfg0 = clone(eng.state), clone(eng.gstate), \
-        clone(eng.gcfg)
-    apply_config(gstate0, gcfg0, tuple(torch.from_numpy(a).to(DEV)
-                                       for a in upd))
-    flat = tk.WindowBatch(*[torch.from_numpy(a).to(DEV).reshape(-1)
-                            for a in gbatch])
-    summed = tk.global_accumulate(
-        torch.zeros(G_FULL, dtype=torch.int64, device=DEV),
-        flat._replace(hits=torch.from_numpy(gacc).to(DEV).reshape(-1)))
     return dict(eng=eng, packed=packed, nows=nows, gbatch=gbatch, gacc=gacc,
-                upd=upd, arena0=arena0, gstate0=gstate0, gcfg0=gcfg0,
-                flat=flat, summed=summed)
+                upd=upd, arena0=clone(eng.state), gstate0=clone(eng.gstate),
+                gcfg0=clone(eng.gcfg),
+                ctl=gk.make_control(gbatch, gacc, upd, DEV))
 
 
 def phase_global_alone(w):
     """Phase 5c, first part, before the GLOBAL path's counts start: the
-    wrapper called directly on the full-size GLOBAL window's inputs (its
-    config writes applied), against its plain version, then 100 launches
-    timed with CUDA events and 100 with the profiler, and the plain version
-    timed.  It writes out of place, so every call sees the same arena.
-    Leaves the plain version's outputs in `w` for the engine's check."""
-    args = (w["gstate0"], w["gcfg0"], w["flat"], w["summed"],
-            int(w["nows"][0]))
-    got = gk.global_combined(*args)
-    want = gk.global_combined_plain(*args)
-    torch.cuda.synchronize()
-    assert_same(got[0], want[0], "full-size GLOBAL window arena")
-    assert_same(got[1:], want[1:], "full-size GLOBAL window read block")
-    err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
-    w["gwant"], w["gread"] = want
+    wrapper called directly on the full-size GLOBAL window, against its
+    plain version (read block, gstate, gcfg, scratch); then 100 launches
+    timed with CUDA events and 100 with the profiler on a working copy
+    (in place: each call applies the window again), the same in clusters
+    of 8 and 16 CTAs, and the plain version timed.  Leaves the plain version's
+    outputs in `w` for the engine's check."""
+    now = int(w["nows"][0])
+    ctl = w["ctl"]
+    errs, (w["gread"], w["gwant"], w["gcfg_want"]) = global_window_vs_plain(
+        w["gstate0"], w["gcfg0"], ctl, now, "full-size GLOBAL window")
+    err = max_abs_err(errs)
+    st, cfg = clone(w["gstate0"]), clone(w["gcfg0"])
+    scratch = torch.zeros(G_FULL, dtype=torch.int64, device=DEV)
 
     def gone():
-        return gk.global_combined(*args)
+        return gk.global_window(st, cfg, ctl, scratch, now)
+
+    def sized(ctas):
+        return lambda: gk.launch_window(st, cfg, ctl, scratch, now, ctas=ctas)
 
     gone()  # warm-up
     events = cuda_ms(gone, 100)
-    device = device_ms(gone, 100, "global_combined_kernel")
-    plain = cuda_ms(lambda: gk.global_combined_plain(*args), 5)
-    log(f"phase 5c global_combined alone (direct calls, outside the counted "
-        f"path): bit-exact vs plain on the full-size window; "
-        f"{'not measured' if device is None else f'{device:.4f} ms'} device "
-        f"(profiler, 100 launches), {events:.4f} ms/call (CUDA events, 100 "
-        f"calls back to back); plain {plain:.2f} ms")
+    device = device_ms(gone, 100, "global_window_kernel")
+    by_size = {}
+    for ctas in (8, 16):
+        sized(ctas)()
+        by_size[ctas] = (device_ms(sized(ctas), 100, "global_window_kernel"),
+                         cuda_ms(sized(ctas), 100))
+    check(not scratch.any(), "timed GLOBAL windows left the scratch nonzero")
+    plain = cuda_ms(lambda: gk.global_window_plain(
+        clone(w["gstate0"]), clone(w["gcfg0"]), ctl, scratch, now), 5)
+    fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
+    sizes = "; ".join(f"cluster of {c}: {fmt(d)} device, {e:.5f} ms/call"
+                      for c, (d, e) in by_size.items())
+    log(f"phase 5c global_window alone (direct calls, outside the counted "
+        f"path): bit-exact vs plain on the full-size window (read block, "
+        f"gstate, gcfg, scratch 0); the wrapper ({gk.cluster_ctas(ctl.n)} "
+        f"CTAs): {fmt(device)} device (profiler, 100 launches), {events:.5f} "
+        f"ms/call (CUDA events, 100 back to back); {sizes}; plain "
+        f"{plain:.2f} ms")
     return dict(err=err, ms=device, events_ms=events, plain_ms=plain)
 
 
 def phase_global_full_size(w, alone, s1_drain_ms):
     """Phase 5c, on the counted GLOBAL path: the GLOBAL-composed drain at
-    full size through pipeline_dispatch_global.  One call compared with the
-    plain versions including every arena plane, then 20 calls timed with
-    CUDA events and 20 with the profiler (device time of each kernel in the
-    call, and the card's busy time)."""
+    full size through pipeline_dispatch_global, nows and the GLOBAL
+    control as host arrays.  One call compared with the plain versions
+    including every arena plane and the scratch; one call under
+    torch.cuda.set_sync_debug_mode("error") (its fetch outside); then 20
+    calls timed with CUDA events and 20 with the profiler (device time of
+    each kernel in the call, and the card's busy time)."""
     eng, packed, nows = w["eng"], w["packed"], w["nows"]
     gbatch, gacc, upd = w["gbatch"], w["gacc"], w["upd"]
     S, B = SHARDS, FULL_LANES
@@ -1172,13 +1301,14 @@ def phase_global_full_size(w, alone, s1_drain_ms):
         packed, nows, gbatch, gacc, upd)
     torch.cuda.synchronize()
     check(moved(before, launch_counts()) == only(drain_compact=1,
-                                                 global_combined=1),
+                                                 global_window=1),
           f"pipeline_dispatch_global launches "
           f"{moved(before, launch_counts())}")
     # the plain drain on the copy; the GLOBAL window's plain outputs came
     # from phase_global_alone on the same inputs
+    nows_dev = torch.from_numpy(nows).to(DEV)
     t0 = time.perf_counter()
-    want = dk.drain_compact_plain(arena0, packed, nows)
+    want = dk.drain_compact_plain(arena0, packed, nows_dev)
     torch.cuda.synchronize()
     drain_plain_ms = (time.perf_counter() - t0) * 1e3
     gwant, gread = w["gwant"], w["gread"]
@@ -1186,22 +1316,33 @@ def phase_global_full_size(w, alone, s1_drain_ms):
     assert_same((gfused.reshape(n, 4),), (gread,), "GLOBAL response block")
     assert_same(eng.state, arena0, "S=8 composed drain arena")
     assert_same(eng.gstate, gwant, "GLOBAL arena")
-    assert_same(eng.gcfg, w["gcfg0"], "GLOBAL config")
+    assert_same(eng.gcfg, w["gcfg_want"], "GLOBAL config")
+    check(not eng._gsums.any(), "the engine's GLOBAL scratch is not 0")
     drain_err = max_abs_err(list(zip((words, limits, mism), want))
                             + list(zip(eng.state, arena0)))
     global_err = max_abs_err([(gfused.reshape(n, 4), gread)]
-                             + list(zip(eng.gstate, gwant)))
+                             + list(zip(eng.gstate, gwant))
+                             + list(zip(eng.gcfg, w["gcfg_want"])))
     valid = int(((packed[..., 0] & 0xFFFFFFFF) != 0).sum())
-    gvalid = int((w["flat"].slot >= 0).sum())
+    gvalid = int((gbatch.slot >= 0).sum())
 
     def call():
         return eng.pipeline_dispatch_global(packed, nows, gbatch, gacc, upd)
 
+    # no host sync between the call and its fetch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out[3].cpu()
     call()  # warm-up
     call_ms = cuda_ms(call, 20)
     drain_ms = device_ms(call, 20, "drain_compact_kernel")
-    gcall_ms = device_ms(call, 20, "global_combined_kernel")
+    gcall_ms = device_ms(call, 20, "global_window_kernel")
     busy_ms = device_busy_ms(call, 20)
+    check(not eng._gsums.any(), "the engine's GLOBAL scratch is not 0")
     idle = ("not measured" if busy_ms is None else
             f"{busy_ms:.4f} ms busy, idle share {1 - busy_ms / call_ms:.3f}")
     timer = "profiler"
@@ -1212,7 +1353,7 @@ def phase_global_full_size(w, alone, s1_drain_ms):
     g_ms, g_timer = gcall_ms, "device in the call (profiler, 20 launches)"
     if g_ms is None:
         g_ms, g_timer = alone["events_ms"], "alone per call (CUDA events)"
-    gbms, gby = global_bound_ms(G_FULL, n)
+    gbms, gby, gold = global_window_bound_ms(gbatch, gacc, upd, G_FULL)
     slots = sum(touched_slots(packed[:, s]) for s in range(S))
     dbms, dby = bound_ms(FULL_K * S * B, 16, 16, slots)
     drain_ms = drain_ms if drain_ms is not None else call_ms
@@ -1221,17 +1362,92 @@ def phase_global_full_size(w, alone, s1_drain_ms):
         f"({valid} valid lanes, {slots} distinct slots) + GLOBAL {S} x "
         f"{eng.global_batch_per_shard} lanes ({gvalid} valid, "
         f"{int((upd[0] < G_FULL).sum())} keys) over G={G_FULL}; bit-exact "
-        f"vs plain incl. every arena plane, gstate and gcfg; "
+        f"vs plain incl. every arena plane, gstate, gcfg and the scratch; "
+        f"no host sync under set_sync_debug_mode('error'); "
         f"{call_ms:.4f} ms/call over 20 calls (CUDA events), device "
         f"{idle} per call; device "
         f"({timer}): drain_compact S=8 {drain_ms:.4f} ms per "
         f"{FULL_K} x {S} x {B} drain = {valid / drain_ms * 1e3:.3e} "
         f"decisions/s, beside S=1 {s1_drain_ms:.4f} ms per {FULL_K} x {B} "
-        f"(phase 3b); global_combined {g_ms:.4g} ms ({g_timer}); plain "
+        f"(phase 3b); global_window {g_ms:.5g} ms ({g_timer}); plain "
         f"S=8 drain {drain_plain_ms:.2f} ms; byte bound {dbms * 1e3:.3f} us;"
-        f" GLOBAL bound {gbms * 1e3:.3f} us ({gby})")
+        f" GLOBAL bound {gbms * 1e3:.3f} us ({gby}; the G-row design's "
+        f"{gold * 1e3:.3f} us)")
     return dict(drain_err=drain_err, global_err=global_err, ms=g_ms,
                 bound_ms=gbms, bound_by=gby, drain_s8_ms=drain_ms)
+
+
+def phase_global_scaling(seed=1717):
+    """The GLOBAL window alone at G = 4096 and at G = 2^20: a random arena
+    holding its configs (70% token, 30% leaky) and one window of 2048
+    lanes over 256 keys with their config writes and resets (global_traffic
+    on an engine of that G), checked once against the plain version, then
+    its device time (profiler, 100 launches), CUDA-event time per call,
+    and its phases from the kernel's debug stamps (the mean of 10 stamped
+    launches, through the uncounted launch_window).  Its own generators,
+    so the later phases' traffic does not depend on it."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    out = {}
+    for G in (G_FULL, 1 << 20):
+        eng = RateLimitEngine(capacity_per_shard=64, batch_per_shard=64,
+                              num_shards=SHARDS, global_capacity=G)
+        g = random_arena(gen, G, T0, DEV)
+        galgo = (torch.rand(G, generator=gen, device=DEV) < 0.3).to(
+            torch.int32)
+        st = tk.BucketState(*[t[0] for t in g[:5]], galgo)
+        cfg = tk.GlobalConfig(st.limit.clone(), st.duration.clone(),
+                              galgo.clone())
+        for dst, src in zip((*eng.gstate, *eng.gcfg), (*st, *cfg)):
+            dst.copy_(src)
+        gbatch, gacc, upd = global_traffic(rng, eng)
+        del eng
+        ctl = gk.make_control(gbatch, gacc, upd, DEV)
+        global_window_vs_plain(st, cfg, ctl, T0, f"G={G} window")
+        scratch = torch.zeros(G, dtype=torch.int64, device=DEV)
+
+        def fn():
+            return gk.global_window(st, cfg, ctl, scratch, T0)
+        fn()
+        events = cuda_ms(fn, 100)
+        device = device_ms(fn, 100, "global_window_kernel")
+        out[G] = dict(ms=device, events_ms=events,
+                      bound=global_window_bound_ms(gbatch, gacc, upd, G),
+                      stamps=window_stamps(st, cfg, ctl, scratch, T0))
+        check(not scratch.any(), f"G={G}: the GLOBAL scratch is not 0")
+        del st, cfg
+        torch.cuda.empty_cache()
+    a, b = out[G_FULL], out[1 << 20]
+    fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
+    split = lambda d: ", ".join(f"{k} {v:.5g}"  # noqa: E731
+                                for k, v in d["stamps"].items())
+    log(f"phase 5e GLOBAL window alone vs G: 2048 lanes over 256 "
+        f"keys; G={G_FULL}: {fmt(a['ms'])} device (profiler, 100 launches), "
+        f"{a['events_ms']:.5f} ms/call (CUDA events); G=2^20: "
+        f"{fmt(b['ms'])} device, {b['events_ms']:.5f} ms/call; bounds "
+        f"{a['bound'][0] * 1e3:.3f} / {b['bound'][0] * 1e3:.3f} us (the "
+        f"G-row design's {a['bound'][2] * 1e3:.3f} / "
+        f"{b['bound'][2] * 1e3:.3f} us); debug stamps ({gk.cluster_ctas(2048)}"
+        f" CTAs, mean of 10 launches; us since the first CTA's start, the "
+        f"latest CTA; cycles since each CTA's start, the mean CTA): "
+        f"G={G_FULL}: {split(a)}; G=2^20: {split(b)}")
+    ta_, tb_ = (a["ms"] or a["events_ms"]), (b["ms"] or b["events_ms"])
+    check(tb_ <= 2 * ta_, f"global_window at G=2^20 takes {tb_:.5f} ms, "
+          f"more than twice its {ta_:.5f} ms at G={G_FULL}")
+    return out
+
+
+def window_stamps(st, cfg, ctl, scratch, now, n=10):
+    """The mean over n stamped launches of global_window's phases
+    (gk.stamp_split), each launch checked to leave the scratch at 0."""
+    ctas = gk.cluster_ctas(ctl.n)
+    splits = []
+    for _ in range(n):
+        buf = gk.debug_stamps(ctas, DEV)
+        gk.launch_window(st, cfg, ctl, scratch, now, stamps=buf)
+        torch.cuda.synchronize()
+        splits.append(gk.stamp_split(buf))
+    return {k: float(np.mean([x[k] for x in splits])) for k in splits[0]}
 
 
 def phase_global_serving():
@@ -1245,7 +1461,7 @@ def phase_global_serving():
     t0 = millisecond_now()
     before = launch_counts()
     eng.warmup(now=t0)
-    check(moved(before, launch_counts())["global_combined"] == 1,
+    check(moved(before, launch_counts())["global_window"] == 1,
           "warmup did not launch the GLOBAL kernel once")
 
     rng = np.random.default_rng(13)
@@ -1262,6 +1478,8 @@ def phase_global_serving():
                 hits=int(rng.integers(0, 3)), limit=20, duration=60_000,
                 algorithm=int(rng.integers(0, 5))))
     big = eng.process(window, now=t0)
+    big_planes = eng.export_arena()
+    check(not eng._gsums.any(), "the engine's GLOBAL scratch is not 0")
     walls = []
     for i in range(10):
         w0 = time.perf_counter()
@@ -1331,8 +1549,9 @@ def phase_global_serving():
 
     launches = moved(launch0, launch_counts())
     plain = moved(plain0, plain_counts())
-    check(launches["drain_compact"] > 0 and launches["global_combined"] > 0,
+    check(launches["drain_compact"] > 0 and launches["global_window"] > 0,
           f"a kernel of the GLOBAL serving path never launched: {launches}")
+    check(not eng._gsums.any(), "the engine's GLOBAL scratch is not 0")
     check(not any(plain.values()),
           f"the plain versions ran on the serving path: {plain}")
     # the same mixed window on a CPU engine (the plain versions) agrees
@@ -1341,9 +1560,14 @@ def phase_global_serving():
     check([(r.status, r.limit, r.remaining, r.reset_time) for r in big]
           == [(r.status, r.limit, r.remaining, r.reset_time) for r in want],
           "mixed 1000-request window differs from the CPU plain engine")
+    for name, plane in ref.export_arena().items():
+        check(np.array_equal(big_planes[name], plane),
+              f"plane {name} after the mixed window differs from the CPU "
+              f"plain engine's")
     log(f"phase 5d GLOBAL serving on {SHARDS} shards: warmup, a mixed "
         f"1000-request window (20% GLOBAL) = CPU plain engine "
-        f"({wall_ms:.3f} ms median host wall over 10, "
+        f"(responses and every plane of both arenas; {wall_ms:.3f} ms "
+        f"median host wall over 10, "
         f"{1000 / wall_ms * 1e3:.3e} decisions/s), stale-then-consistent, "
         f"limit raise, leaky, 3 Instance RPCs with GLOBAL, GLOBAL+GCRA "
         f"refused; launches {launches}, plain calls {plain}")
@@ -1530,13 +1754,14 @@ def phase_analytics_full_size(gen, rng):
         packed = torch.from_numpy(np.stack(
             [full_size_traffic(rng, FULL_K, B, C) for _ in range(S)],
             axis=1)).to(DEV)
-        nows = torch.tensor([T0 + 50 * i + k for k in range(FULL_K)],
-                            dtype=torch.int64, device=DEV)
+        nows = np.asarray([T0 + 50 * i + k for k in range(FULL_K)],
+                          np.int64)
         tenants = torch.from_numpy(analytics_tenants(rng, FULL_K, S, B,
                                                      T)).to(DEV)
         drains.append((packed, nows, tenants, int(i % 4 == 3)))
     gbatch, gacc, upd = global_traffic(rng, eng)
-    first = dict(arena0=clone(eng.state),
+    first = dict(arena0=clone(eng.state), gstate0=clone(eng.gstate),
+                 gcfg0=clone(eng.gcfg),
                  sketch0=torch.from_numpy(eng.export_analytics()).to(DEV))
     an = TrafficAnalytics(conf)
 
@@ -1546,6 +1771,7 @@ def phase_analytics_full_size(gen, rng):
                                            analytics_args=(tenants, decay))
         if i == 0:
             first.update(out=[t.clone() for t in out], arena=clone(eng.state),
+                         gstate=clone(eng.gstate), gcfg=clone(eng.gcfg),
                          sketch=torch.from_numpy(eng.export_analytics()).to(
                              DEV))
         an.ingest(out[4].cpu().numpy(), decay)
@@ -1572,6 +1798,7 @@ def phase_analytics_full_size(gen, rng):
     finish_ms = device_ms(with_an, 20, "stats_finish_kernel")
     drain_ms = device_ms(without, 20, "drain_compact_kernel")
     torch.cuda.synchronize()
+    check(not eng._gsums.any(), "the engine's GLOBAL scratch is not 0")
     return dict(eng=eng, conf=conf, drains=drains, first=first, an=an,
                 call_ms=((a1 + a2) / 2, (w1 + w2) / 2), busy=(busy_an, busy_wo),
                 stats_drain_ms=stats_drain_ms, finish_ms=finish_ms,
@@ -1589,6 +1816,20 @@ def check_analytics_full_size(r):
     arena, sketch = first["arena0"], first["sketch0"]
     sketch0 = sketch.cpu().numpy().copy()
     acc = sk.StatsAccumulator(S, C, T, DEV)
+    nows = torch.from_numpy(nows).to(DEV)
+    # the first drain's GLOBAL window against global_window_plain
+    gstate, gcfg = first["gstate0"], first["gcfg0"]
+    gread = gk.global_window_plain(
+        gstate, gcfg, gk.make_control(r["gbatch"], r["gacc"], r["upd"], DEV),
+        torch.zeros_like(gstate.limit), int(nows[0]))
+    gfused = first["out"][3]
+    assert_same((gfused.reshape(gread.shape),), (gread,),
+                "analytics drain GLOBAL response block")
+    assert_same(first["gstate"], gstate, "analytics drain gstate")
+    assert_same(first["gcfg"], gcfg, "analytics drain gcfg")
+    gerr = max_abs_err([(gfused.reshape(gread.shape), gread)]
+                       + list(zip(first["gstate"], gstate))
+                       + list(zip(first["gcfg"], gcfg)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = dk.drain_compact_stats_plain(arena, packed, nows, tenants, acc)
@@ -1630,7 +1871,7 @@ def check_analytics_full_size(r):
     top = an.topk_snapshot(3)
     check(len(top) == 3 and top[0]["score"] >= top[1]["score"] > 0,
           f"TrafficAnalytics top-K {top}")
-    return dict(err=err, stats_plain_ms=(t1 - t0) * 1e3,
+    return dict(err=err, global_err=gerr, stats_plain_ms=(t1 - t0) * 1e3,
                 finish_plain_ms=(t2 - t1) * 1e3, oracle_s=oracle_s,
                 totals=totals, top=top)
 
@@ -1657,7 +1898,8 @@ def report_analytics(r, chk, counts):
         f"{conf.tenant_slots}, topk={conf.topk}; {ANALYTICS_DRAINS} drains "
         f"(decay on every 4th) ingested: totals {chk['totals']}, top key "
         f"{chk['top'][0]['key']} score {chk['top'][0]['score']}; first drain "
-        f"bit-exact vs plain (arena, responses, sketch, stats) and vs "
+        f"bit-exact vs plain (arena, responses, sketch, stats, and the "
+        f"GLOBAL window's read block, gstate and gcfg) and vs "
         f"oracle_stats on all {S} shards ({chk['oracle_s']:.1f} s host); "
         f"pipeline_dispatch_global with analytics {a_ms:.4f} ms/call, "
         f"without {w_ms:.4f} ms/call (CUDA events, 2 x 20 calls each, in "
@@ -1772,14 +2014,11 @@ def phase_per_op_vs_plain():
              ((2, 3, 4), True)]
     for G in (G_FULL, 3000):
         for i, (algos, wrap) in enumerate(cases):
-            gst, cfg, _, summed = global_edge_inputs(rng, G, n, algos, wrap)
-            before = clone(gst)
-            got = gk.global_apply(gst, cfg, summed, T0 + i)
-            want = gk.global_apply_plain(gst, cfg, summed, T0 + i)
-            torch.cuda.synchronize()
-            assert_same(got, want, f"global_apply G={G} case {i}")
-            assert_same(gst, before, f"global_apply G={G} case {i} input")
-            errs += list(zip(got, want))
+            gst, cfg, bt, _ = global_edge_inputs(rng, G, n, algos, wrap)
+            ctl = gk.make_control(*edge_control(rng, G, bt, KG_FULL, wrap),
+                                  DEV)
+            errs += per_op_global_vs_plain(gst, cfg, ctl, T0 + i,
+                                           f"per-op GLOBAL G={G} case {i}")
     apply_err = max_abs_err(errs)
     log(f"phase 7a per-op kernels vs plain: window_math on {windows} chained "
         f"edge windows of B={B} over C={C} (all five algorithms and values "
@@ -1790,9 +2029,34 @@ def phase_per_op_vs_plain():
         f"default {wm.default_tile()} lanes and of {MATH_TILES} lanes, "
         f"bit-exact (max_abs_err {math_err}); "
         f"window_step_per_op = kernel.window_step window after window; "
-        f"global_apply on {2 * len(cases)} edge arenas at G = {G_FULL} and "
-        f"3000, bit-exact (max_abs_err {apply_err})")
+        f"global_stage, the torch reads and global_apply on "
+        f"{2 * len(cases)} edge windows of {n} lanes and {KG_FULL} config "
+        f"lanes at G = {G_FULL} and 3000: read block, gstate, gcfg "
+        f"bit-exact, scratch back at 0 (max_abs_err {apply_err})")
     return math_err, apply_err
+
+
+def per_op_global_vs_plain(st, cfg, ctl, now, what):
+    """global_stage, the per-op torch reads and global_apply against
+    global_stage_plain, the same reads and global_apply_plain on copies of
+    one arena and config: the read block, every gstate and gcfg plane, and
+    the scratch back at zero.  Returns the (got, want) pairs compared."""
+    G = st.limit.shape[0]
+    k_st, k_cfg, p_st, p_cfg = clone(st), clone(cfg), clone(st), clone(cfg)
+    k_sc = torch.zeros(G, dtype=torch.int64, device=DEV)
+    p_sc = torch.zeros_like(k_sc)
+    gk.global_stage(k_st, k_cfg, ctl, k_sc)
+    got = gk.global_read_block(k_st, ctl, now)
+    gk.global_apply(k_st, k_cfg, ctl, k_sc, now)
+    gk.global_stage_plain(p_st, p_cfg, ctl, p_sc)
+    want = gk.global_read_block(p_st, ctl, now)
+    gk.global_apply_plain(p_st, p_cfg, ctl, p_sc, now)
+    torch.cuda.synchronize()
+    assert_same((got,), (want,), f"{what} read block")
+    assert_same(k_st, p_st, f"{what} gstate")
+    assert_same(k_cfg, p_cfg, f"{what} gcfg")
+    check(not k_sc.any(), f"{what}: the scratch is not back at zero")
+    return [(got, want)] + list(zip(k_st, p_st)) + list(zip(k_cfg, p_cfg))
 
 
 def per_op_engine(like):
@@ -1863,8 +2127,8 @@ def per_op_script(gen, rng):
     packed8 = [torch.from_numpy(np.stack(
         [full_size_traffic(rng, FULL_K, FULL_LANES, C8)
          for _ in range(SHARDS)], axis=1)).to(DEV) for _ in range(3)]
-    nows8 = [torch.tensor([T0 + 2000 * d + 7 * k for k in range(FULL_K)],
-                          dtype=torch.int64, device=DEV) for d in range(3)]
+    nows8 = [np.asarray([T0 + 2000 * d + 7 * k for k in range(FULL_K)],
+                        np.int64) for d in range(3)]
     gctl = [global_traffic(rng, eight) for _ in range(3)]
     tenants = [torch.from_numpy(analytics_tenants(
         rng, FULL_K, SHARDS, FULL_LANES, conf.tenant_slots)).to(DEV)
@@ -1923,8 +2187,13 @@ def phase_per_op_path(script):
     fn1 = script["timed"]["pipeline_dispatch, 1 shard"][1]
     fn8 = script["timed"]["pipeline_dispatch_global, 8 shards"][1]
     math_ms = device_ms(lambda: fn1(e1), 2, "window_math_kernel")
-    apply_ms = device_ms(lambda: fn8(e8), 3, "global_apply_kernel")
-    return dict(snaps=snaps, times=times, math_ms=math_ms, apply_ms=apply_ms)
+    g_ms = device_ms_each(lambda: fn8(e8), 3, ("global_stage_kernel",
+                                               "global_apply_kernel"))
+    stage_ms = g_ms["global_stage_kernel"]
+    apply_ms = g_ms["global_apply_kernel"]
+    check(not e8._gsums.any(), "the per-op engine's GLOBAL scratch is not 0")
+    return dict(snaps=snaps, times=times, math_ms=math_ms, apply_ms=apply_ms,
+                stage_ms=stage_ms)
 
 
 def check_per_op_against_default(script, r):
@@ -1947,6 +2216,8 @@ def check_per_op_against_default(script, r):
                   == [(x.status, x.limit, x.remaining, x.reset_time, x.error)
                       for x in out_d], f"{label} responses differ")
         assert_same(planes_p, planes_d, f"{label} arena planes")
+        check(not eng._gsums.any() and not pairs[i][1]._gsums.any(),
+              f"{label}: a GLOBAL scratch is not back at 0")
         errs += list(zip(planes_p, planes_d))
         if sk_p is not None or sk_d is not None:
             assert_same((sk_p,), (sk_d,), f"{label} sketch")
@@ -1979,8 +2250,8 @@ def math_divisions(prep):
 def per_op_bounds_and_plain(script):
     """The new kernels at the per-op path's shapes: window_math's plain
     time and bound on the first window of the 1-shard drain (B = 1024
-    lanes, one shard), global_apply's on the 8-shard GLOBAL window
-    (G = 4096), from the default engines' arenas after 7c."""
+    lanes, one shard), global_stage's and global_apply's on the 8-shard
+    GLOBAL window (G = 4096), from the default engines' arenas after 7c."""
     one, eight = script["pairs"][0][0], script["pairs"][1][0]
     now = int(script["nows1"][0][0])
     bt = tk.decode_batch(script["packed1"][0][0, 0])
@@ -2001,32 +2272,66 @@ def per_op_bounds_and_plain(script):
     math_bound = bound_ms(B, math_in, math_out, 0,
                           ops_per_lane=400 + divs * FDIV_OPS / B)
     G = eight.global_capacity
-    summed = torch.zeros(G, dtype=torch.int64, device=DEV)
-    gb, gacc, _ = script["gctl"][0]
-    flat = tk.WindowBatch(*[torch.from_numpy(a).to(DEV).reshape(-1)
-                            for a in gb])
-    summed = tk.global_accumulate(summed, flat._replace(
-        hits=torch.from_numpy(gacc).to(DEV).reshape(-1)))
+    gb, gacc, upd = script["gctl"][0]
+    ctl = gk.make_control(gb, gacc, upd, DEV)
     g_now = int(script["nows8"][0][0])
-    apply_plain = cuda_ms(lambda: gk.global_apply_plain(
-        eight.gstate, eight.gcfg, summed, g_now), 3)
+    st, cfg = clone(eight.gstate), clone(eight.gcfg)
+    scratch = torch.zeros(G, dtype=torch.int64, device=DEV)
+
+    def plain_pair():
+        gk.global_stage_plain(st, cfg, ctl, scratch)
+        gk.global_apply_plain(st, cfg, ctl, scratch, g_now)
+
+    plain_pair()  # warm-up
+    # each plain version timed alone (CUDA events, mean of 3): the apply
+    # after an untimed stage has filled the sums
+    stage_plain, apply_plain = [], []
+    for _ in range(3):
+        stage_plain.append(cuda_ms(
+            lambda: gk.global_stage_plain(st, cfg, ctl, scratch), 1))
+        apply_plain.append(cuda_ms(
+            lambda: gk.global_apply_plain(st, cfg, ctl, scratch, g_now), 1))
+    stage_plain = float(np.mean(stage_plain))
+    apply_plain = float(np.mean(apply_plain))
     # the kernels alone, per launch back to back (CUDA events): where the
     # profiler shows no device time, these stand in
     math_events = cuda_ms(lambda: wm.window_math(
         now, prep.max_pos, *prep_args(prep)), 20)
-    apply_events = cuda_ms(lambda: gk.global_apply(
-        eight.gstate, eight.gcfg, summed, g_now), 20)
-    # the state and config rows and the sums read, the new state written
-    new_g = gk.global_apply(eight.gstate, eight.gcfg, summed, g_now)
-    row_bytes = lane_bytes(*eight.gstate, *eight.gcfg, summed, *new_g)
-    t_bytes = G * row_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = G * (200 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S * 1e3
-    apply_bound = (max(t_bytes, t_ops),
-                   "bytes" if t_bytes >= t_ops else "operations")
+
+    def pair():
+        gk.global_stage(st, cfg, ctl, scratch)
+        gk.global_apply(st, cfg, ctl, scratch, g_now)
+
+    pair_events = cuda_ms(pair, 20)
+    check(not scratch.any(), "the per-op GLOBAL pair left its scratch nonzero")
+    stage_bound, apply_bound = per_op_global_bounds(gb, gacc, upd, G)
     return dict(math_plain=math_plain, math_bound=math_bound,
-                math_bytes=(math_in, math_out), apply_bytes=row_bytes,
+                math_bytes=(math_in, math_out), stage_plain=stage_plain,
                 apply_plain=apply_plain, apply_bound=apply_bound,
-                math_events=math_events, apply_events=apply_events)
+                stage_bound=stage_bound,
+                math_events=math_events, pair_events=pair_events)
+
+
+def per_op_global_bounds(gbatch, gacc, upd, G):
+    """The least times of global_stage and global_apply on one window
+    (global_window_bound_ms's accounting, split): global_stage reads each
+    lane's slot and gacc (16 B) and each config lane (40 B), writes each
+    config write (20 B) and reset (8 B) that lands and each contributing
+    lane's atomic (8 B); the lanes' other 40 B are the torch reads' to
+    read.  global_apply reads each lane's slot and gacc (16 B) and each
+    touched row's state, config and sum (72 B) and writes its state and
+    sum (52 B), with the ladder's operations per touched row.  Each
+    (ms, bound_by)."""
+    n, kg, writes, resets, contrib, touched = window_counts(gbatch, gacc,
+                                                            upd, G)
+    stage = (n * 16 + kg * 40 + writes * 20 + resets * 8
+             + contrib * 8) / HBM_BYTES_PER_S * 1e3
+    a_bytes = (n * 16 + touched * (72 + 52)) / HBM_BYTES_PER_S * 1e3
+    a_ops = (touched * (200 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S
+             * 1e3)
+    return ((stage, "bytes"),
+            (max(a_bytes, a_ops), "bytes" if a_bytes >= a_ops else
+             "operations"))
 
 
 # window_math alone on 1024-lane windows built as phase 3a builds its
@@ -2169,15 +2474,19 @@ def report_per_op(script, po, cmp, pb):
         f"every output, response, arena plane and sketch identical "
         f"(max_abs_err {cmp['err']}); {times} (CUDA events, 3 calls each); "
         f"device (profiler): window_math {fmt(po['math_ms'])} per 1024-lane "
-        f"launch, global_apply {fmt(po['apply_ms'])} per G=4096 launch; "
-        f"alone back to back (CUDA events): window_math "
-        f"{pb['math_events']:.4f} ms, global_apply {pb['apply_events']:.4f} "
-        f"ms; plain window_math {pb['math_plain']:.2f} ms, plain "
-        f"global_apply {pb['apply_plain']:.2f} ms; bounds: window_math "
+        f"launch, global_stage {fmt(po['stage_ms'])} and global_apply "
+        f"{fmt(po['apply_ms'])} per 2048-lane window at G=4096; alone back "
+        f"to back (CUDA events): window_math {pb['math_events']:.4f} ms, "
+        f"global_stage + global_apply {pb['pair_events']:.5f} ms a pair; "
+        f"plain window_math "
+        f"{pb['math_plain']:.2f} ms, plain global_stage "
+        f"{pb['stage_plain']:.2f} ms and global_apply "
+        f"{pb['apply_plain']:.2f} ms alone; bounds: window_math "
         f"{pb['math_bound'][0] * 1e3:.3f} us ({pb['math_bound'][1]}; "
         f"{pb['math_bytes'][0]} B in, {pb['math_bytes'][1]} B out a lane), "
-        f"global_apply {pb['apply_bound'][0] * 1e3:.3f} us "
-        f"({pb['apply_bound'][1]}; {pb['apply_bytes']} B a row)")
+        f"global_stage {pb['stage_bound'][0] * 1e3:.3f} us "
+        f"({pb['stage_bound'][1]}), global_apply "
+        f"{pb['apply_bound'][0] * 1e3:.3f} us ({pb['apply_bound'][1]})")
 
 
 def main():
@@ -2212,6 +2521,7 @@ def main():
     path2 = launch_counts()
     log(f"main path, {SHARDS} shards with GLOBAL (phases 5c + 5d): "
         f"launches {path2}")
+    phase_global_scaling()
     stats_err = phase_stats_vs_plain()
     # the analytics path over 8 shards: counts from 0 again (inside, just
     # before its first drain)
@@ -2233,10 +2543,10 @@ def main():
     reset_counts()
     po = phase_per_op_path(script)
     path4, plain4 = launch_counts(), plain_counts()
-    check(path4["window_math"] > 0 and path4["global_apply"] > 0,
+    per_op_kernels = ("window_math", "global_stage", "global_apply")
+    check(all(path4[k] > 0 for k in per_op_kernels),
           f"a kernel of the per-op path never launched: {path4}")
-    others = {k: v for k, v in path4.items()
-              if k not in ("window_math", "global_apply")}
+    others = {k: v for k, v in path4.items() if k not in per_op_kernels}
     check(not any(others.values()),
           f"the per-op path launched another kernel: {others}")
     check(not any(plain4.values()),
@@ -2265,10 +2575,11 @@ def main():
              ms=sig4(full["ms"]), plain_ms=sig4(full["plain_ms"]),
              bound_ms=full["bound_ms"], bound_by=full["bound_by"],
              library_ms=None),
-        dict(name="global_combined", route="cuda", source=GLOBAL_SOURCE,
+        dict(name="global_window", route="cuda", source=GLOBAL_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
-             launches=path2["global_combined"],
-             max_abs_err=max(global_err, alone["err"], glob["global_err"]),
+             launches=path2["global_window"],
+             max_abs_err=max(global_err, alone["err"], glob["global_err"],
+                             chk["global_err"], cmp["err"]),
              ms=sig4(glob["ms"]), plain_ms=sig4(alone["plain_ms"]),
              bound_ms=glob["bound_ms"], bound_by=glob["bound_by"],
              library_ms=None),
@@ -2298,12 +2609,20 @@ def main():
                      else pb["math_events"]),
              plain_ms=sig4(pb["math_plain"]), bound_ms=pb["math_bound"][0],
              bound_by=pb["math_bound"][1], library_ms=None),
+        dict(name="global_stage", route="cuda", source=APPLY_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:165",
+             launches=path4["global_stage"],
+             max_abs_err=max(apply_err, cmp["err"]),
+             ms=sig4(po["stage_ms"] if po["stage_ms"] is not None
+                     else pb["pair_events"]),
+             plain_ms=sig4(pb["stage_plain"]), bound_ms=pb["stage_bound"][0],
+             bound_by=pb["stage_bound"][1], library_ms=None),
         dict(name="global_apply", route="cuda", source=APPLY_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:165",
              launches=path4["global_apply"],
              max_abs_err=max(apply_err, cmp["err"]),
              ms=sig4(po["apply_ms"] if po["apply_ms"] is not None
-                     else pb["apply_events"]),
+                     else pb["pair_events"]),
              plain_ms=sig4(pb["apply_plain"]), bound_ms=pb["apply_bound"][0],
              bound_by=pb["apply_bound"][1], library_ms=None),
     ]

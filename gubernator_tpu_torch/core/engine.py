@@ -16,13 +16,17 @@ stages the window's lanes; the device applies them:
     duration switches compact dispatch off for the engine's life, exactly
     like the JAX engine's `_compact_sound` latch, so both engines choose
     the same path for the same stream;
-  * the GLOBAL lanes, spread round-robin over the shards, with one launch
-    of the GLOBAL kernel (ops/global_kernel.py) after the host's config
-    writes: every lane reads the replicated arena as it was before the
-    window, and the hits of all shards' lanes, summed per slot on the
-    device (the mesh psum of the JAX package), apply once under each
-    slot's config.  A window with no GLOBAL lane and no config write
-    launches nothing there: it would read nothing and apply nothing;
+  * the GLOBAL lanes, spread round-robin over the shards, and the
+    window's config writes and resets, packed into one pinned control
+    block (ops/global_kernel.py), with one non-blocking copy and one
+    launch of the GLOBAL window kernel: the config writes land, every lane
+    reads the replicated arena as they left it, and the hits of all
+    shards' lanes, summed per slot on the device (the mesh psum of the
+    JAX package), apply once under each slot's config, in place, on the
+    touched rows only.  A window with no GLOBAL lane and no config write
+    launches nothing there: it would read nothing and apply nothing.
+    Host arrays reach the device through pinned buffers the engine owns,
+    so a dispatch never waits for the device before its fetch;
   * `pipeline_dispatch` runs K pre-packed windows in one launch, and
     `pipeline_dispatch_global` adds one GLOBAL window to them;
   * with analytics enabled (`enable_analytics`), `pipeline_dispatch_global
@@ -37,12 +41,12 @@ With GUBER_PALLAS=1 in the environment when the engine is built
 engine's GUBER_PALLAS=1 route: every regular window, compact or full,
 sorts, segments and gathers in torch ops, runs the window-math kernel
 (ops/window_math_kernel.py) and commits in torch ops, one shard at a time;
-the GLOBAL window reads the replica in torch ops (kernel.global_read) and
-applies the summed hits with the GLOBAL apply kernel (global_kernel.
-global_apply); the composed drain's analytics are the torch reduction of
-`analytics_dispatch`.  The drain, global_combined and the stats kernels
-are not launched then.  Both lowerings answer every request alike and
-leave the same arenas.
+the GLOBAL window stages its config writes and sums with global_stage,
+reads the replica in torch ops (kernel.global_read) and applies the sums
+with global_apply (both global_kernel); the composed drain's analytics are
+the torch reduction of `analytics_dispatch`.  The drain, global_window and
+the stats kernels are not launched then.  Both lowerings answer every
+request alike and leave the same arenas.
 
 Mesh-mode registration (several processes) and upserts from an owner's
 broadcast are not part of this single-process engine.
@@ -149,27 +153,78 @@ class _PackedWindow:
 
 def _control_live(gslot, upd, G: int) -> bool:
     """Does a GLOBAL window stage a lane or a config write?  Without either
-    it is exact to skip it: every lane pads and every summed hit is 0."""
+    it is exact to skip it: every lane pads and every summed hit is 0.
+    Decided on the host arrays, before anything crosses to the device."""
     uslot, rslot = upd[0], upd[4]
     return bool((gslot >= 0).any()) or bool((uslot < G).any()) \
         or bool((rslot < G).any())
 
 
-def apply_config(gstate: BucketState, gcfg: GlobalConfig, upd) -> None:
-    """Host-issued GLOBAL slot (re)configuration, in place (JAX
-    engine.py:2645): config writes refresh limit/duration/algorithm from a
-    window's latest request per slot; state resets (expire = 0 reads as
-    never initialized) hit only the slots the host just (re)allocated.
-    Lanes at G or past it are padding and drop."""
-    uslot, ulimit, uduration, ualgo, rslot = upd
-    G = gcfg.limit.shape[0]
-    u = (uslot >= 0) & (uslot < G)
-    idx = uslot[u].long()
-    gcfg.limit[idx] = ulimit[u]
-    gcfg.duration[idx] = uduration[u]
-    gcfg.algo[idx] = ualgo[u]
-    r = (rslot >= 0) & (rslot < G)
-    gstate.expire[rslot[r].long()] = 0
+def _host(a) -> np.ndarray:
+    """A host array (numpy, or a CPU tensor) as numpy.  Raises on a device
+    tensor: fetching it would wait for the device, and the serving path
+    stages these arrays on the host."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise TypeError(f"want a host array, got a tensor on {a.device}")
+        return a.numpy()
+    return np.asarray(a)
+
+
+class _Staging:
+    """Host arrays to the device through buffers the engine owns and reuses.
+    Each named transfer has two pinned host buffers used in turn and one
+    device buffer; a host buffer is written only once the event recorded
+    behind its last copy has passed: the host waits for that copy, issued
+    two stages of the name earlier, when it is still in flight, and never
+    otherwise.  Every copy is one non-blocking copy_ on the current stream.
+    On a CPU engine the buffers are plain host tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._slots: dict = {}
+
+    def stage(self, name: str, numel: int, fill,
+              dtype=torch.int64) -> torch.Tensor:
+        """fill(view) writes numel elements into a numpy view of a host
+        buffer; returns the device tensor [numel] they were copied into
+        (valid until the next stage of `name`)."""
+        cuda = self.device.type == "cuda"
+        slot = self._slots.get(name)
+        if slot is None or slot["dev"].numel() < numel:
+            slot = self._slots[name] = dict(
+                host=[torch.empty(numel, dtype=dtype, pin_memory=cuda)
+                      for _ in range(2)],
+                events=[torch.cuda.Event() if cuda else None
+                        for _ in range(2)],
+                turn=0, dev=torch.empty(numel, dtype=dtype,
+                                        device=self.device))
+        i = slot["turn"]
+        slot["turn"] = 1 - i
+        ev = slot["events"][i]
+        # an event not yet recorded has passed
+        if ev is not None and not ev.query():
+            ev.synchronize()
+        host = slot["host"][i][:numel]
+        fill(host.numpy())
+        dev = slot["dev"][:numel]
+        dev.copy_(host, non_blocking=True)
+        if ev is not None:
+            ev.record()
+        return dev
+
+    def array(self, name: str, a, dtype=None) -> torch.Tensor:
+        """A host array on the device as `dtype` (default: its own), with
+        its shape; a tensor goes to the device as it would with .to()."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype).contiguous()
+        a = np.asarray(a)
+        if dtype is None:
+            dtype = torch.from_numpy(a[:0].reshape(-1)).dtype
+
+        def fill(view):
+            view[:] = a.reshape(-1)
+        return self.stage(name, a.size, fill, dtype).reshape(a.shape)
 
 
 class RateLimitEngine:
@@ -223,6 +278,10 @@ class RateLimitEngine:
         self.gstate = BucketState(*[z((G,), torch.int64) for _ in range(5)],
                                   z((G,), torch.int32))
         self.gcfg = GlobalConfig.zeros(G, self.device)
+        # the GLOBAL window's per-slot sums, all zero between windows (the
+        # kernels clear what they add)
+        self._gsums = torch.zeros(G, dtype=torch.int64, device=self.device)
+        self._staging = _Staging(self.device)
         self.tables = [SlotTable(C) for _ in range(S)]
         self.gtable = SlotTable(G)
         self._buf = _PackedWindow(S, batch_per_shard, global_batch_per_shard,
@@ -393,12 +452,6 @@ class RateLimitEngine:
                 return b
         return self.batch_per_shard
 
-    def _to_dev(self, a) -> torch.Tensor:
-        """A numpy array or tensor as a contiguous tensor on the device."""
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device).contiguous()
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def _dispatch(self, now: int, reg_fill: Optional[int] = None):
         """Run the staged buffers through the kernels; returns host copies
         of the responses: the regular window as a WindowOutput of [S, lanes]
@@ -413,6 +466,7 @@ class RateLimitEngine:
         lanes = (self._lane_bucket(reg_fill)
                  if compact and reg_fill is not None
                  else self.batch_per_shard)
+        stage = self._staging.array
         if compact:
             packed = kernel.encode_batch_host(
                 buf.slot[:, :lanes], buf.hits[:, :lanes],
@@ -420,18 +474,18 @@ class RateLimitEngine:
                 buf.algo[:, :lanes], buf.is_init[:, :lanes])
             if self.per_op:
                 wire = kernel.encode_output_compact(self._step_per_op(
-                    kernel.decode_batch(self._to_dev(packed)), now), now)
+                    kernel.decode_batch(stage("packed", packed)), now), now)
             else:
                 words, limits, _ = drain_kernel.drain_compact(
-                    self.state, self._to_dev(packed[None]),
-                    torch.tensor([now], dtype=torch.int64,
-                                 device=self.device))
+                    self.state, stage("packed", packed[None]),
+                    stage("nows", np.full(1, now, np.int64)))
                 wire = torch.stack([words[0], limits[0]], dim=-1)
         else:
             batch = WindowBatch(*[
-                self._to_dev(a[:, :lanes])
-                for a in (buf.slot, buf.hits, buf.limit, buf.duration,
-                          buf.algo, buf.is_init)])
+                stage(f"full.{name}", a[:, :lanes])
+                for name, a in zip(WindowBatch._fields,
+                                   (buf.slot, buf.hits, buf.limit,
+                                    buf.duration, buf.algo, buf.is_init))])
             if self.per_op:
                 fout = self._step_per_op(batch, now)
             else:
@@ -463,34 +517,37 @@ class RateLimitEngine:
         return WindowOutput(*[torch.stack(f) for f in zip(*outs)])
 
     def _global_window(self, gbatch: WindowBatch, gacc, upd,
-                       now) -> torch.Tensor:
-        """One GLOBAL window (JAX engine.py:2665): the config writes and
-        resets of `upd` (apply_config), the lanes' contributed hits summed
-        per slot over every shard (the mesh psum), then one launch of the
-        GLOBAL kernel over all S x Bg lanes and the G rows; the new arena
-        replaces `gstate`.  Under the per-op lowering the replica reads are
-        torch ops (kernel.global_read) on the arena before the apply, and
-        the apply one launch of global_apply after them in stream order.
-        gbatch/gacc: [S, Bg] lanes, upd: Kg lanes (numpy or tensors).
-        Returns the read block i64[S, Bg, 4] on the device, pad lanes 0."""
-        apply_config(self.gstate, self.gcfg,
-                     tuple(self._to_dev(a) for a in upd))
-        flat = WindowBatch(*[self._to_dev(a).reshape(-1) for a in gbatch])
-        summed = kernel.global_accumulate(
-            torch.zeros(self.global_capacity, dtype=torch.int64,
-                        device=self.device),
-            flat._replace(hits=self._to_dev(gacc).reshape(-1)))
+                       now: int) -> torch.Tensor:
+        """One GLOBAL window (JAX engine.py:2645-2700, _apply_config and
+        _global_window): gbatch/gacc [S, Bg] lanes and upd's Kg config-write
+        and reset lanes (host arrays) packed into the engine's pinned
+        control block, one non-blocking copy to the device, then one launch
+        of global_window: the config writes and resets, every lane's read,
+        and the hits summed per slot over every shard (the mesh psum)
+        applied to the touched rows, in place.  Under the per-op lowering
+        global_stage writes the config and sums the hits, the replica reads
+        are torch ops (kernel.global_read) on the staged arena, and
+        global_apply applies the sums after them in stream order.  Nothing
+        here waits for the device.  Returns the read block i64[S, Bg, 4] on
+        the device, pad lanes 0."""
+        n, kg = int(np.size(gacc)), int(np.size(upd[0]))
+        block = self._staging.stage(
+            "control", global_kernel.control_words(n, kg),
+            lambda view: global_kernel.pack_control(view, gbatch, gacc, upd))
+        ctl = global_kernel.Control(block, n, kg)
         if self.per_op:
-            out = kernel.global_read(self.gstate, flat, now)
-            read = torch.stack([out.status.to(torch.int64), out.limit,
-                                out.remaining, out.reset_time], dim=-1)
-            read = torch.where((flat.slot >= 0)[:, None], read, 0)
-            self.gstate = global_kernel.global_apply(self.gstate, self.gcfg,
-                                                     summed, now)
+            global_kernel.global_stage(self.gstate, self.gcfg, ctl,
+                                       self._gsums)
+            # a 0-d tensor filled on the device: torch.as_tensor(now,
+            # device=cuda) would copy from pageable memory and wait
+            now_t = torch.full((), now, dtype=torch.int64, device=self.device)
+            read = global_kernel.global_read_block(self.gstate, ctl, now_t)
+            global_kernel.global_apply(self.gstate, self.gcfg, ctl,
+                                       self._gsums, now)
         else:
-            self.gstate, read = global_kernel.global_combined(
-                self.gstate, self.gcfg, flat, summed, now)
-        return read.reshape(*gbatch.slot.shape, 4)
+            read = global_kernel.global_window(self.gstate, self.gcfg, ctl,
+                                               self._gsums, now)
+        return read.reshape(*np.shape(gbatch.slot), 4)
 
     def pipeline_dispatch(self, packed, nows, n_windows: Optional[int] = None):
         """Dispatch a stacked compact drain WITHOUT fetching: K windows over
@@ -508,18 +565,18 @@ class RateLimitEngine:
         Under the per-op lowering the windows run one at a time through
         _drain_per_op, and `tenants` is not read (the caller reduces the
         stats in torch ops)."""
-        packed = self._to_dev(torch.as_tensor(packed, dtype=torch.int64))
+        stage = self._staging.array
+        packed = stage("packed", packed, torch.int64)
         if self.per_op:
             out = self._drain_per_op(packed, nows)
         else:
-            nows = self._to_dev(torch.as_tensor(nows, dtype=torch.int64))
+            nows = stage("nows", nows, torch.int64)
             if tenants is None:
                 out = drain_kernel.drain_compact(self.state, packed, nows)
             else:
                 out = drain_kernel.drain_compact_stats(
                     self.state, packed, nows,
-                    self._to_dev(torch.as_tensor(tenants, dtype=torch.int32)),
-                    self._an_acc)
+                    stage("tenants", tenants, torch.int32), self._an_acc)
         self.windows_processed += (int(packed.shape[0]) if n_windows is None
                                    else n_windows)
         return out
@@ -550,9 +607,12 @@ class RateLimitEngine:
         WindowBatch [S, Bg] (PAD_SLOT lanes drop); gacc: the lanes'
         contributed hits i64[S, Bg]; upd: the 5-tuple of config-write and
         reset lanes (empty_drain_control gives inert padding for all
-        three).  Returns device tensors (words, limits, mism, gfused) with
-        gfused i64[S, Bg, 4] the GLOBAL responses (status, limit,
-        remaining, reset_time).
+        three).  nows and the GLOBAL control are host arrays, numpy or CPU
+        tensors, as the serving path stages them (a device tensor raises):
+        now0 is read on the host and the control crosses in one pinned
+        copy.  Returns device tensors (words, limits,
+        mism, gfused) with gfused i64[S, Bg, 4] the GLOBAL responses
+        (status, limit, remaining, reset_time).
 
         `analytics_args=(tenants, decay)` (analytics enabled): tenants
         i32[K, S, B] each lane's tenant id, decay 0 or 1 (halve the sketch
@@ -564,13 +624,15 @@ class RateLimitEngine:
         without tenants and the stats are analytics_dispatch's torch
         reduction over its words (the JAX engine's route without the
         staged kernels, engine.py:3136)."""
-        # read before the drain launches, so the host does not wait on it
-        now0 = int(torch.as_tensor(nows).reshape(-1)[0])
+        nows = _host(nows).astype(np.int64)
+        now0 = int(nows.reshape(-1)[0])
         tenants = decay = None
         if analytics_args is not None:
             conf = self._analytics_conf()
             tenants, decay = analytics_args
         words, limits, mism = self._drain(packed, nows, n_windows, tenants)
+        gbatch = WindowBatch(*[_host(a) for a in gbatch])
+        gacc, upd = _host(gacc), tuple(_host(a) for a in upd)
         if _control_live(gbatch.slot, upd, self.global_capacity):
             gfused = self._global_window(gbatch, gacc, upd, now0)
         else:
@@ -622,9 +684,10 @@ class RateLimitEngine:
         plane; updates the resident sketch in place and returns stats
         i64[S, V] on the device.  decay=1 halves the sketch first."""
         conf = self._analytics_conf()
-        packed = self._to_dev(torch.as_tensor(packed, dtype=torch.int64))
-        words = self._to_dev(torch.as_tensor(words, dtype=torch.int64))
-        tenants = self._to_dev(torch.as_tensor(tenants, dtype=torch.int32))
+        stage = self._staging.array
+        packed = stage("packed", packed, torch.int64)
+        words = stage("words", words, torch.int64)
+        tenants = stage("tenants", tenants, torch.int32)
         out = []
         for s in range(self.num_shards):
             sk, stats = analytics.shard_stats(

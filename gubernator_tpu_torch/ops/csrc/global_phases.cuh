@@ -1,0 +1,227 @@
+// The three phases of a GLOBAL window, as device functions over an item
+// index (sm_90a).  global_window.cu runs them in one launch of one thread
+// block cluster with a cluster barrier between them; global_apply.cu runs
+// phase A alone (global_stage) and phase C alone (global_apply) for the
+// per-op lowering, which reads the replica in torch ops between them.
+//
+// A window's control crosses as one packed int64 block (ops/global_kernel.py
+// pack_control), n lanes and kg config-write / reset lanes:
+//
+//   [0, 7n)        slot, hits, limit, duration, algo, is_init, gacc  (n each)
+//   [7n, 7n + 5kg) uslot, ulimit, uduration, ualgo, rslot            (kg each)
+//
+// gacc is a lane's hits contributed to its slot's sum (0 for a lane whose
+// hits reconcile elsewhere).  The sums live in an engine-owned scratch
+// i64[G] that is all zero between windows: phase A adds into it, phase C
+// exchanges each touched slot's sum for 0.
+//
+//   A (stage), items [0, kg + n): item k < kg writes config lane k into
+//     gcfg and resets row rslot[k] (expire = 0), by the JAX package's
+//     scatter rule (.at[idx].set(mode="drop")): an index in [-G, 0) writes
+//     row G + idx, one outside [-G, G) drops.  Item kg + i adds lane i's
+//     gacc into its slot's sum when the slot is in [0, G) and gacc != 0
+//     (kernel.global_accumulate drops slots < 0 and >= G).
+//   B (read), items [0, n): lane i answers from row min(slot, G - 1) as
+//     phase A left it (config written, no hits applied), with fresh =
+//     is_init | expire < now | algo != row algo and its hits only when
+//     fresh (kernel.global_read); the answer goes to read[i] = (status,
+//     limit, remaining, reset).  Pad lanes (slot < 0) answer 0.
+//   C (apply), items [0, n): a contributing lane (slot in [0, G), gacc !=
+//     0) exchanges its slot's sum for 0; the one lane that gets a nonzero
+//     sum applies it to the row under the row's config, with fresh =
+//     expire < now | config algo != row algo (kernel.global_apply).  A sum
+//     that cancels to 0 leaves the row as it is, as in the oracle.  The
+//     touched rows are the contributing lanes' slots, so the phase needs
+//     no list and no count, and which lane of a slot wins does not matter.
+//
+// Nothing reads or writes rows that no lane or config lane names.
+
+#pragma once
+
+#include <cstdint>
+
+#include "ladder.cuh"
+
+namespace {
+
+// number of int64 fields of a lane and of a config lane in the block
+constexpr int64_t kLaneFields = 7;
+constexpr int64_t kUpdFields = 5;
+
+struct Control {
+  const int64_t* base;
+  int64_t n, kg;
+
+  __device__ int64_t lane(int field, int64_t i) const { return base[field * n + i]; }
+  __device__ int64_t upd(int field, int64_t k) const {
+    return base[kLaneFields * n + field * kg + k];
+  }
+};
+
+// the GLOBAL arena and its config, written in place (no __restrict__: phase
+// B reads rows phase A wrote, so the loads must not take the read-only path)
+struct GArena {
+  int64_t* limit;
+  int64_t* duration;
+  int64_t* remaining;
+  int64_t* tstamp;
+  int64_t* expire;
+  int32_t* algo;
+  int64_t G;
+
+  // the row's planes but expire, which phase A may reset: a lane takes them
+  // before phase A ends and expire after it
+  __device__ Reg load_but_expire(int64_t row) const {
+    return Reg{limit[row], duration[row], remaining[row], tstamp[row], 0, algo[row]};
+  }
+  __device__ void store(int64_t row, const Reg& r) const {
+    limit[row] = r.limit;
+    duration[row] = r.duration;
+    remaining[row] = r.remaining;
+    tstamp[row] = r.tstamp;
+    expire[row] = r.expire;
+    algo[row] = r.algo;
+  }
+};
+
+struct GConfig {
+  int64_t* limit;
+  int64_t* duration;
+  int32_t* algo;
+};
+
+// the row a JAX scatter with mode="drop" writes for index idx, or -1
+__device__ __forceinline__ int64_t scatter_row(int64_t idx, int64_t G) {
+  const int64_t row = idx < 0 ? idx + G : idx;
+  return (row >= 0 && row < G) ? row : -1;
+}
+
+// a lane's slot when it contributes to the sums, else -1
+__device__ __forceinline__ int64_t contributing_slot(const Control& c, int64_t i, int64_t G) {
+  const int64_t slot = c.lane(0, i);
+  return (slot >= 0 && slot < G && c.lane(6, i) != 0) ? slot : -1;
+}
+
+__device__ __forceinline__ int64_t stage_items(const Control& c) { return c.kg + c.n; }
+
+__device__ void stage_item(const GArena& a, const GConfig& cfg, const Control& c,
+                           int64_t* sums, int64_t item) {
+  if (item < c.kg) {
+    const int64_t u = scatter_row(c.upd(0, item), a.G);
+    if (u >= 0) {
+      cfg.limit[u] = c.upd(1, item);
+      cfg.duration[u] = c.upd(2, item);
+      cfg.algo[u] = static_cast<int32_t>(c.upd(3, item));
+    }
+    const int64_t r = scatter_row(c.upd(4, item), a.G);
+    if (r >= 0) a.expire[r] = 0;
+    return;
+  }
+  const int64_t i = item - c.kg;
+  const int64_t slot = contributing_slot(c, i, a.G);
+  if (slot >= 0) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(sums + slot),
+              static_cast<unsigned long long>(c.lane(6, i)));
+  }
+}
+
+// A lane's read or apply, split so that a thread can issue its loads
+// before phase A ends: the lane's control and the row planes phase A
+// never writes (all but expire) are taken first (*_prefetch); expire, the
+// config and the sum only after the barrier.
+struct ReadLane {
+  int64_t i;     // the lane
+  int64_t row;   // min(slot, G - 1), or -1 on a pad lane
+  Reg r;         // the row, expire excepted until read_finish
+  Req q;
+};
+
+struct ApplyLane {
+  int64_t row;   // the lane's slot when it contributes, else -1
+  bool live;     // apply_prepare took a nonzero sum: r is the new row
+  Reg r;
+};
+
+__device__ ReadLane read_prefetch(const GArena& a, const Control& c, int64_t i) {
+  ReadLane l;
+  l.i = i;
+  const int64_t slot = c.lane(0, i);
+  l.row = slot < 0 ? -1 : imin(slot, a.G - 1);
+  if (l.row < 0) return l;
+  l.r = a.load_but_expire(l.row);
+  l.q.slot = static_cast<int32_t>(slot);
+  l.q.valid = true;
+  l.q.agg = false;
+  l.q.init = c.lane(5, i) != 0;
+  l.q.hits = c.lane(1, i);
+  l.q.limit = c.lane(2, i);
+  l.q.duration = c.lane(3, i);
+  l.q.algo = static_cast<int32_t>(c.lane(4, i));
+  return l;
+}
+
+// phase B for one lane: its answer from the row as phase A left it
+__device__ void read_finish(const GArena& a, int64_t now, int64_t* read, ReadLane& l) {
+  int64_t* o = read + 4 * l.i;
+  if (l.row < 0) {
+    o[0] = o[1] = o[2] = o[3] = 0;
+    return;
+  }
+  l.r.expire = a.expire[l.row];
+  const bool fresh = l.q.init || l.r.expire < now || l.q.algo != l.r.algo;
+  if (!fresh) l.q.hits = 0;
+  const Out res = transition(l.r, l.q, now, fresh);
+  o[0] = res.status;
+  o[1] = res.limit;
+  o[2] = res.remaining;
+  o[3] = res.reset;
+}
+
+__device__ void read_lane(const GArena& a, const Control& c, int64_t now, int64_t* read,
+                          int64_t i) {
+  ReadLane l = read_prefetch(a, c, i);
+  read_finish(a, now, read, l);
+}
+
+__device__ ApplyLane apply_prefetch(const GArena& a, const Control& c, int64_t i) {
+  ApplyLane l;
+  l.row = contributing_slot(c, i, a.G);
+  l.live = false;
+  if (l.row >= 0) l.r = a.load_but_expire(l.row);
+  return l;
+}
+
+// phase C for one lane, up to the store: exchange the slot's sum for 0;
+// the lane that gets a nonzero sum computes the row's transition
+__device__ void apply_prepare(const GArena& a, const GConfig& cfg, int64_t* sums, int64_t now,
+                              ApplyLane& l) {
+  if (l.row < 0) return;
+  const int64_t h = static_cast<int64_t>(
+      atomicExch(reinterpret_cast<unsigned long long*>(sums + l.row), 0ull));
+  if (h == 0) return;
+  l.r.expire = a.expire[l.row];
+  Req q;
+  q.slot = static_cast<int32_t>(l.row);
+  q.valid = true;
+  q.agg = false;
+  q.init = false;
+  q.hits = h;
+  q.limit = cfg.limit[l.row];
+  q.duration = cfg.duration[l.row];
+  q.algo = cfg.algo[l.row];
+  transition(l.r, q, now, l.r.expire < now || q.algo != l.r.algo);
+  l.live = true;
+}
+
+__device__ void apply_store(const GArena& a, const ApplyLane& l) {
+  if (l.live) a.store(l.row, l.r);
+}
+
+__device__ void apply_lane(const GArena& a, const GConfig& cfg, const Control& c,
+                           int64_t* sums, int64_t now, int64_t i) {
+  ApplyLane l = apply_prefetch(a, c, i);
+  apply_prepare(a, cfg, sums, now, l);
+  apply_store(a, l);
+}
+
+}  // namespace

@@ -57,11 +57,13 @@ import jax.numpy as jnp
 
 from gubernator_tpu.ops import analytics as ja
 from gubernator_tpu.ops import kernel as jk
+from gubernator_tpu_torch.ops import global_kernel as gk
 from gubernator_tpu_torch.ops import kernel as tk
 
 from .test_fold_fuzz import T0
 from .test_torch_drain import _adversarial_drain, _host_oracle, _jstep
-from .test_torch_global import CASES, G, global_inputs
+from .test_torch_global import CASES, G, global_inputs, summed_control
+from .test_torch_global_window import assert_window, jax_window
 from .test_torch_per_op import per_op_clock, per_op_state, per_op_window
 
 pytestmark = pytest.mark.torch_port
@@ -239,49 +241,51 @@ extern "C" void host_window_math(
 }
 """
 
-_APPLY_ENTRY = r"""
-extern "C" void host_global_apply(
-    const int64_t* limit, const int64_t* duration, const int64_t* remaining,
-    const int64_t* tstamp, const int64_t* expire, const int32_t* algo,
-    const int64_t* cfg_limit, const int64_t* cfg_duration, const int32_t* cfg_algo,
-    const int64_t* summed, long long G, long long now, int64_t* out_limit,
-    int64_t* out_duration, int64_t* out_remaining, int64_t* out_tstamp,
-    int64_t* out_expire, int32_t* out_algo) {
-  // one thread a row: the shim's one-thread CTAs, one per row
-  gridDim.x = static_cast<unsigned>(G);
-  for (long long j = 0; j < G; ++j) {
-    blockIdx.x = static_cast<unsigned>(j);
-    global_apply_kernel(
-        Planes<const int64_t, const int32_t>{limit, duration, remaining, tstamp, expire,
-                                             algo},
-        cfg_limit, cfg_duration, cfg_algo, summed, G, now,
-        Planes<int64_t, int32_t>{out_limit, out_duration, out_remaining, out_tstamp,
-                                 out_expire, out_algo});
-  }
+_PHASES = r"""
+// the entries' arguments: the arena, its config, the control, the sums
+#define HOST_ARENA_ARGS                                                              \
+  int64_t *limit, int64_t *duration, int64_t *remaining, int64_t *tstamp,            \
+      int64_t *expire, int32_t *algo, int64_t *cfg_limit, int64_t *cfg_duration,     \
+      int32_t *cfg_algo, long long G, const int64_t *control, long long n, long long kg, \
+      int64_t *sums
+#define HOST_ARENA                                                                   \
+  const GArena a{limit, duration, remaining, tstamp, expire, algo, G};              \
+  const GConfig cfg{cfg_limit, cfg_duration, cfg_algo};                             \
+  const Control c{control, n, kg}
+"""
+
+_APPLY_ENTRY = _PHASES + r"""
+// global_stage's and global_apply's items in turn, the apply's lanes
+// forward or backward (which lane of a slot wins must not matter)
+extern "C" void host_global_stage(HOST_ARENA_ARGS) {
+  HOST_ARENA;
+  for (int64_t i = 0; i < stage_items(c); ++i) stage_item(a, cfg, c, sums, i);
+}
+extern "C" void host_global_apply(HOST_ARENA_ARGS, long long now, int backward) {
+  HOST_ARENA;
+  for (int64_t k = 0; k < n; ++k) apply_lane(a, cfg, c, sums, now, backward ? n - 1 - k : k);
 }
 """
 
-_GLOBAL_ENTRY = r"""
-extern "C" void host_global_combined(
-    const int64_t* limit, const int64_t* duration, const int64_t* remaining,
-    const int64_t* tstamp, const int64_t* expire, const int32_t* algo,
-    const int64_t* cfg_limit, const int64_t* cfg_duration, const int32_t* cfg_algo,
-    long long G, const int32_t* slot, const int64_t* hits, const int64_t* limit_in,
-    const int64_t* duration_in, const int32_t* algo_in, const uint8_t* init,
-    long long n, const int64_t* summed, long long now, int64_t* out_limit,
-    int64_t* out_duration, int64_t* out_remaining, int64_t* out_tstamp,
-    int64_t* out_expire, int32_t* out_algo, int64_t* read) {
-  gridDim.x = static_cast<unsigned>(n + G);
-  for (long long i = 0; i < n + G; ++i) {
-    blockIdx.x = static_cast<unsigned>(i);
-    global_combined_kernel(
-        GArena{limit, duration, remaining, tstamp, expire, algo},
-        GConfig{cfg_limit, cfg_duration, cfg_algo}, G,
-        GLanes{slot, hits, limit_in, duration_in, algo_in, init}, n, summed, now,
-        GArenaOut{out_limit, out_duration, out_remaining, out_tstamp, out_expire,
-                  out_algo},
-        read);
+_GLOBAL_ENTRY = _PHASES + r"""
+// the cluster kernel's segments as `threads` threads would run them, each
+// segment over every thread (first t, stride threads) before the next, as
+// the cluster barriers order them; the threads of a segment in turn,
+// forward or backward (no thread may depend on another's order)
+extern "C" void host_global_window(HOST_ARENA_ARGS, long long now, int64_t* read,
+                                   int backward, long long threads) {
+  HOST_ARENA;
+  std::vector<WindowThread> ts(static_cast<size_t>(threads));
+  for (long long t = 0; t < threads; ++t) {
+    ts[t].first = t;
+    ts[t].stride = threads;
   }
+  auto each = [&](auto seg) {
+    for (long long k = 0; k < threads; ++k) seg(ts[backward ? threads - 1 - k : k]);
+  };
+  each([&](WindowThread& t) { window_seg_a(a, cfg, c, sums, t); });
+  each([&](WindowThread& t) { window_seg_b(a, cfg, c, sums, now, read, t); });
+  each([&](WindowThread& t) { window_seg_c(a, cfg, c, sums, now, t); });
 }
 """
 
@@ -526,49 +530,93 @@ def test_host_kernel_drain_s_shards_match_per_shard_oracle(host_kernel):
                                           err_msg=f"shard {s} state.{f}")
 
 
+def _arena_copies(state, cfg):
+    """Copies of numpy (state, cfg) dicts as lists of planes, and an
+    all-zero scratch of sums."""
+    planes = [np.ascontiguousarray(state[f]).copy()
+              for f in jk.BucketState._fields]
+    cfgs = [np.ascontiguousarray(cfg[f]).copy()
+            for f in jk.GlobalConfig._fields]
+    return planes, cfgs, np.zeros(planes[0].shape[0], np.int64)
+
+
+def _host_global(lib, entry, planes, cfgs, sums, ctl, *tail):
+    """Call a host GLOBAL entry on lists of numpy planes, a scratch and the
+    packed control `ctl` (ops/global_kernel.py Control on the CPU), all
+    written in place; `tail` the entry's further arguments (arrays by
+    pointer)."""
+    block = np.ascontiguousarray(ctl.block.numpy())
+    getattr(lib, entry)(
+        *[_ptr(p) for p in planes], *[_ptr(c) for c in cfgs],
+        ctypes.c_longlong(sums.shape[0]), _ptr(block),
+        ctypes.c_longlong(ctl.n), ctypes.c_longlong(ctl.kg), _ptr(sums),
+        *[_ptr(a) if isinstance(a, np.ndarray) else a for a in tail])
+
+
+def _host_window(lib, state, cfg, ctl, now, backward=0, threads=None):
+    """global_window.cu's three segments as `threads` threads run them
+    (default 2n: a thread per read lane and per apply lane, as the card
+    launches it), each segment over every thread in turn, on copies:
+    (state, cfg, read, scratches)."""
+    planes, cfgs, sums = _arena_copies(state, cfg)
+    read = np.full((ctl.n, 4), -7, np.int64)
+    _host_global(lib, "host_global_window", planes, cfgs, sums, ctl,
+                 ctypes.c_longlong(now), read, ctypes.c_int(backward),
+                 ctypes.c_longlong(2 * ctl.n if threads is None else threads))
+    return planes, cfgs, read, (sums,)
+
+
+def _host_per_op(lib, state, cfg, ctl, now, backward=0):
+    """global_apply.cu's global_stage, the torch replica reads on the staged
+    arena, then its global_apply, on copies: (state, cfg, read,
+    scratches)."""
+    planes, cfgs, sums = _arena_copies(state, cfg)
+    _host_global(lib, "host_global_stage", planes, cfgs, sums, ctl)
+    read = gk.global_read_block(
+        tk.BucketState(*[torch.from_numpy(p) for p in planes]), ctl,
+        now).numpy()
+    _host_global(lib, "host_global_apply", planes, cfgs, sums, ctl,
+                 ctypes.c_longlong(now), ctypes.c_int(backward))
+    return planes, cfgs, read, (sums,)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("case", list(CASES))
 def test_host_global_kernel_matches_oracle(host_global, case, seed):
     """global_window.cu's device code on the inputs of
     tests/test_torch_global.py (all five algorithms and out-of-range
     values, int64 values wrapped at both ends, expired rows, algorithm
-    switches, is_init, zero sums, pad and out-of-range slots): the new
-    arena and every valid read lane equal kernel.global_combined, pads
-    answer 0, and the input arena is not written."""
+    switches, is_init, zero sums, pad and out-of-range slots), the sums
+    carried as one contributing lane per row: the arena, updated in place,
+    and every valid read lane equal kernel.global_combined, pads answer 0,
+    and the scratch comes back all zero."""
     algos, wrap = CASES[case]
     state, cfg, batch, summed = global_inputs(
         np.random.default_rng(100 + seed), algos, wrap)
-    names = jk.BucketState._fields
-    planes = [np.ascontiguousarray(state[f]) for f in names]
-    before = [p.copy() for p in planes]
-    cfgs = [np.ascontiguousarray(cfg[f]) for f in jk.GlobalConfig._fields]
-    lanes = [np.ascontiguousarray(batch[f]) for f in jk.WindowBatch._fields]
-    lanes[-1] = lanes[-1].astype(np.uint8)
-    n = lanes[0].shape[0]
-    # outputs start as garbage, as torch.empty leaves them on the card
-    new = [np.full_like(p, -7) for p in planes]
-    read = np.full((n, 4), -7, np.int64)
-    host_global.host_global_combined(
-        *[_ptr(p) for p in planes], *[_ptr(c) for c in cfgs],
-        ctypes.c_longlong(G), *[_ptr(x) for x in lanes], ctypes.c_longlong(n),
-        _ptr(summed), ctypes.c_longlong(T0), *[_ptr(p) for p in new],
-        _ptr(read))
+    ctl = summed_control(batch, summed)
     js = jk.BucketState(**{k: jnp.asarray(v) for k, v in state.items()})
     jc = jk.GlobalConfig(**{k: jnp.asarray(v) for k, v in cfg.items()})
     jb = jk.WindowBatch(**{k: jnp.asarray(v) for k, v in batch.items()})
     w_state, w_out = jk.global_combined(js, jc, jb, jnp.asarray(summed),
                                         jnp.int64(T0))
-    for f, a, b in zip(names, new, w_state):
-        np.testing.assert_array_equal(a, np.asarray(b),
-                                      err_msg=f"{case} state.{f}")
-    for a, b in zip(planes, before):
-        np.testing.assert_array_equal(a, b)
+    n = batch["slot"].shape[0]
     valid = batch["slot"] >= 0
-    for i, f in enumerate(jk.WindowOutput._fields):
-        np.testing.assert_array_equal(
-            read[valid, i], np.asarray(w_out[i]).astype(np.int64)[valid],
-            err_msg=f"{case} read.{f}")
-    assert not read[~valid].any()
+    for backward in (0, 1):
+        new, cfgs, read, (sums,) = _host_window(host_global, state, cfg, ctl,
+                                                T0, backward)
+        tag = f"{case} backward={backward}"
+        for f, a, b in zip(jk.BucketState._fields, new, w_state):
+            np.testing.assert_array_equal(a, np.asarray(b),
+                                          err_msg=f"{tag} state.{f}")
+        for f, a in zip(jk.GlobalConfig._fields, cfgs):
+            np.testing.assert_array_equal(a, cfg[f], err_msg=f"{tag} cfg.{f}")
+        assert not sums.any(), "the scratch is not back at zero"
+        read = read[:n]
+        for i, f in enumerate(jk.WindowOutput._fields):
+            np.testing.assert_array_equal(
+                read[valid, i], np.asarray(w_out[i]).astype(np.int64)[valid],
+                err_msg=f"{tag} read.{f}")
+        assert not read[~valid].any()
 
 
 @pytest.mark.parametrize("entry", ["drain_compact", "window_full"])
@@ -757,37 +805,193 @@ def test_host_window_math_matches_oracle(host_math, seed, wide, tile):
                                           err_msg=f"w{w} state.{name}")
 
 
-@pytest.mark.parametrize("in_place", [False, True], ids=["out", "in_place"])
+@pytest.mark.parametrize("backward", [0, 1], ids=["forward", "backward"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_host_global_apply_matches_oracle(host_apply, case, in_place):
-    """global_apply.cu's device code on tests/test_torch_global.py's edge
-    inputs (all five algorithms and out-of-range values, int64 wrapped at
-    both ends, expired rows, switches, zero sums) at G = 64 and at 37 rows
-    (no block shape to fill): the new arena equals kernel.global_apply,
-    written out of place (the input untouched) or in place."""
+def test_host_global_apply_matches_oracle(host_apply, case, backward):
+    """global_apply.cu's device code (global_stage, then global_apply) on
+    tests/test_torch_global.py's edge inputs (all five algorithms and
+    out-of-range values, int64 wrapped at both ends, expired rows,
+    switches, zero sums) at G = 64 and at 37 rows, each row's sum split
+    over three lanes (three shards, wrapping at int64's ends): the arena,
+    updated in place, equals kernel.global_apply whichever lane of a slot
+    applies it (phase C's lanes run forward or backward), and the scratch
+    comes back all zero."""
     algos, wrap = CASES[case]
     for g in (G, 37):
-        state, cfg, _, summed = global_inputs(
-            np.random.default_rng(300 + g), algos, wrap, G=g)
-        names = jk.BucketState._fields
-        planes = [np.ascontiguousarray(state[f]) for f in names]
-        before = [p.copy() for p in planes]
-        cfgs = [np.ascontiguousarray(cfg[f]) for f in jk.GlobalConfig._fields]
-        new = planes if in_place else [np.full_like(p, -7) for p in planes]
-        host_apply.host_global_apply(
-            *[_ptr(p) for p in planes], *[_ptr(c) for c in cfgs],
-            _ptr(summed), ctypes.c_longlong(g), ctypes.c_longlong(T0),
-            *[_ptr(p) for p in new])
+        rng = np.random.default_rng(300 + g)
+        state, cfg, _, summed = global_inputs(rng, algos, wrap, G=g)
+        parts = rng.integers(-2**62, 2**62, (2, g))
+        lanes = np.concatenate([parts[0], parts[1], summed - parts[0]
+                                - parts[1]])
+        rows = np.tile(np.arange(g, dtype=np.int32), 3)
+        batch = dict(slot=rows, hits=np.zeros(3 * g, np.int64),
+                     limit=np.zeros(3 * g, np.int64),
+                     duration=np.zeros(3 * g, np.int64),
+                     algo=np.zeros(3 * g, np.int32),
+                     is_init=np.zeros(3 * g, bool))
+        ctl = gk.make_control(
+            tk.WindowBatch(*[batch[f] for f in tk.WindowBatch._fields]),
+            lanes, (np.full(1, g, np.int32), np.zeros(1, np.int64),
+                    np.zeros(1, np.int64), np.zeros(1, np.int32),
+                    np.full(1, g, np.int32)), "cpu")
+        st, cfgs, sums = _arena_copies(state, cfg)
+        _host_global(host_apply, "host_global_stage", st, cfgs, sums, ctl)
+        np.testing.assert_array_equal(sums, summed)
+        _host_global(host_apply, "host_global_apply", st, cfgs, sums, ctl,
+                     ctypes.c_longlong(T0), ctypes.c_int(backward))
         want = jk.global_apply(
-            jk.BucketState(*[jnp.asarray(p) for p in before]),
-            jk.GlobalConfig(*[jnp.asarray(c) for c in cfgs]),
+            jk.BucketState(**{k: jnp.asarray(v) for k, v in state.items()}),
+            jk.GlobalConfig(**{k: jnp.asarray(v) for k, v in cfg.items()}),
             jnp.asarray(summed), jnp.int64(T0))
-        for f, a, b in zip(names, new, want):
+        for f, a, b in zip(jk.BucketState._fields, st, want):
             np.testing.assert_array_equal(a, np.asarray(b),
                                           err_msg=f"{case} G={g} {f}")
-        if not in_place:
-            for a, b in zip(planes, before):
-                np.testing.assert_array_equal(a, b)
+        assert not sums.any(), "the scratch is not back at zero"
+
+
+def _edge_lanes(G, S, Bg, entries):
+    """numpy (gbatch [S, Bg], gacc [S, Bg]): pads (slot -1) but for
+    entries (shard, lane, slot, hits, gacc, limit, duration, algo,
+    is_init)."""
+    gb = dict(slot=np.full((S, Bg), -1, np.int32),
+              hits=np.zeros((S, Bg), np.int64),
+              limit=np.zeros((S, Bg), np.int64),
+              duration=np.zeros((S, Bg), np.int64),
+              algo=np.zeros((S, Bg), np.int32),
+              is_init=np.zeros((S, Bg), bool))
+    gacc = np.zeros((S, Bg), np.int64)
+    for s_, ln, slot, hits, acc, limit, dur, algo, init in entries:
+        for k, v in (("slot", slot), ("hits", hits), ("limit", limit),
+                     ("duration", dur), ("algo", algo), ("is_init", init)):
+            gb[k][s_, ln] = v
+        gacc[s_, ln] = acc
+    return tk.WindowBatch(*[gb[f] for f in tk.WindowBatch._fields]), gacc
+
+
+def _edge_upd(G, Kg, writes=(), resets=()):
+    upd = (np.full(Kg, G, np.int32), np.zeros(Kg, np.int64),
+           np.zeros(Kg, np.int64), np.zeros(Kg, np.int32),
+           np.full(Kg, G, np.int32))
+    for i, (slot, limit, dur, algo) in enumerate(writes):
+        upd[0][i], upd[1][i], upd[2][i], upd[3][i] = slot, limit, dur, algo
+    for i, slot in enumerate(resets):
+        upd[4][i] = slot
+    return upd
+
+
+def _live_arena(G, now):
+    """numpy (state, cfg): every row live until now + 30 s, token bucket,
+    limit 10, 4 remaining; the config the rows' own."""
+    state = dict(limit=np.full(G, 10, np.int64),
+                 duration=np.full(G, 60_000, np.int64),
+                 remaining=np.full(G, 4, np.int64),
+                 tstamp=np.full(G, now + 30_000, np.int64),
+                 expire=np.full(G, now + 30_000, np.int64),
+                 algo=np.zeros(G, np.int32))
+    cfg = dict(limit=state["limit"].copy(), duration=state["duration"].copy(),
+               algo=state["algo"].copy())
+    return state, cfg
+
+
+def _edge_window(kind, now):
+    """(state, cfg, (gbatch, gacc, upd)) of one GLOBAL edge window."""
+    G, S, Bg, Kg = (1, 2, 3, 3) if kind == "g1" else (16, 4, 4, 6)
+    state, cfg = _live_arena(G, now)
+    lane = lambda s_, ln, slot, hits, acc=None, limit=10, algo=0, init=False: (  # noqa: E731
+        s_, ln, slot, hits, hits if acc is None else acc, limit, 60_000,
+        algo, init)
+    if kind == "reset_and_read":
+        # row 3 is reset and rewritten in the window its lanes read, from
+        # three shards (the reads take the init path: expire is 0)
+        lanes = [lane(0, 0, 3, 2), lane(1, 0, 3, 1), lane(3, 2, 3, 0),
+                 lane(2, 1, 5, 1)]
+        upd = _edge_upd(G, Kg, [(3, 7, 9_000, 0)], [3])
+    elif kind == "algo_switch":
+        # a config write turns live token row 6 leaky; its lanes still ask
+        # token (read: algo matches the row, no init) and leaky
+        lanes = [lane(0, 0, 6, 1), lane(1, 0, 6, 2, algo=1),
+                 lane(2, 3, 6, 0, algo=1)]
+        upd = _edge_upd(G, Kg, [(6, 20, 4_000, 1), (-G + 9, 3, 5_000, 1)])
+    elif kind == "expired_refresh":
+        # rows 8 and 9 expired before the window: their reads take the init
+        # path while their sums refresh them (the apply moves expire past
+        # now, so a read after it would answer otherwise)
+        state["expire"][[8, 9]] = now - 5
+        lanes = [lane(0, 0, 8, 1), lane(1, 1, 8, 2), lane(2, 2, 9, 3),
+                 lane(3, 3, 9, 0, acc=1)]
+        upd = _edge_upd(G, Kg)
+    elif kind == "cancel":
+        # a CONCURRENCY release beside a hit on row 2 sums to 0 (the row
+        # stays as it is); row 4's sum cancels then grows again
+        state["algo"][[2, 4]] = 4
+        cfg["algo"][[2, 4]] = 4
+        lanes = [lane(0, 0, 2, 3, algo=4), lane(1, 0, 2, -3, algo=4),
+                 lane(0, 1, 4, 2, algo=4), lane(2, 0, 4, -2, algo=4),
+                 lane(3, 0, 4, 1, algo=4), lane(3, 1, 4, 5, acc=0, algo=4)]
+        upd = _edge_upd(G, Kg)
+    elif kind == "shards_one_slot":
+        # every shard's lanes on row 5, most contributing
+        lanes = [lane(s_, ln, 5, (s_ + ln) % 3, acc=(s_ * ln) % 2)
+                 for s_ in range(S) for ln in range(Bg)]
+        upd = _edge_upd(G, Kg, [(5, 12, 60_000, 0)], [])
+    elif kind == "pads":
+        # read lanes below 0 and at G and past it, contributing or not;
+        # config writes and resets below -G, at G and past it
+        lanes = [lane(0, 0, -1, 2), lane(0, 1, -5, 1), lane(1, 0, G, 3),
+                 lane(1, 1, G + 4, 1), lane(2, 0, -G - 1, 1),
+                 lane(2, 1, 7, 1), lane(3, 3, G - 1, 2)]
+        upd = _edge_upd(G, Kg, [(-G - 1, 1, 1, 1), (G, 2, 2, 1),
+                                (G + 3, 3, 3, 1), (-1, 9, 6_000, 0)],
+                        [-G - 2, G, G + 9, -G])
+    else:  # g1: one row; lanes on it, below it and past it
+        lanes = [lane(0, 0, 0, 1), lane(1, 0, -1, 1), lane(0, 1, 1, 2),
+                 lane(1, 2, 0, 3)]
+        upd = _edge_upd(G, Kg, [(-1, 5, 2_000, 0)], [-2, 1])
+    gbatch, gacc = _edge_lanes(G, S, Bg, lanes)
+    return state, cfg, (gbatch, gacc, upd)
+
+
+EDGE_WINDOWS = ("reset_and_read", "algo_switch", "expired_refresh", "cancel",
+                "shards_one_slot", "pads", "g1")
+
+
+@pytest.mark.parametrize("path", ["window", "per_op"])
+@pytest.mark.parametrize("kind", EDGE_WINDOWS)
+def test_host_global_phases_match_oracle_on_edge_windows(host_global,
+                                                         host_apply, kind,
+                                                         path):
+    """global_window.cu's three segments (path "window") as a launch of 2n
+    threads, of 1 and of 5 runs them (a thread per read and per apply
+    lane; every item on one thread; threads taking several items), the
+    threads of a segment forward and backward, and global_apply.cu's
+    global_stage, the torch reads and global_apply ("per_op"), phase C's
+    lanes forward and backward, against the JAX
+    engine's composition (_apply_config, global_accumulate summed over the
+    shards, global_combined or global_read + global_apply) on edge
+    windows: a slot reset and read in the same window, a config write that
+    switches a live row's algorithm, expired rows read and refreshed in
+    one window, sums that cancel to 0, lanes from
+    every shard on one slot, pads below 0 and at G or above in every lane
+    kind, and G = 1.  Bit for bit on every plane and read; the scratch is
+    all zero after every call."""
+    now = T0 + 77
+    state, cfg, ctl_np = _edge_window(kind, now)
+    want = jax_window(state, cfg, *ctl_np, now, per_op=path == "per_op")
+    ctl = gk.make_control(*ctl_np, "cpu")
+    runs = ([(backward, threads) for backward in (0, 1)
+             for threads in (None, 1, 5)] if path == "window"
+            else [(0, None), (1, None)])
+    for backward, threads in runs:
+        if path == "window":
+            st, cf, read, sums = _host_window(host_global, state, cfg, ctl,
+                                              now, backward, threads)
+        else:
+            st, cf, read, sums = _host_per_op(host_apply, state, cfg, ctl,
+                                              now, backward)
+        tag = f"{kind} {path} backward={backward} threads={threads}"
+        assert_window(st, cf, read, want, tag)
+        for sm in sums:
+            assert not sm.any(), f"{tag}: the scratch is not back at zero"
 
 
 # ---------------------------------------------------------------------------

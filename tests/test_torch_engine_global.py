@@ -305,10 +305,12 @@ def test_warmup_launches_every_shape_and_leaves_the_arenas(engines):
     assert port.windows_processed == 2  # full + one compact bucket
     assert dk.plain_calls == {"drain_compact": 2, "drain_compact_stats": 0,
                               "window_full": 1}
-    assert gk.plain_calls == {"global_combined": 1, "global_apply": 0}
+    assert gk.plain_calls == {"global_window": 1, "global_stage": 0,
+                              "global_apply": 0}
     assert dk.launches == {"drain_compact": 0, "drain_compact_stats": 0,
                            "window_full": 0}
-    assert gk.launches == {"global_combined": 0, "global_apply": 0}
+    assert gk.launches == {"global_window": 0, "global_stage": 0,
+                           "global_apply": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -177,12 +177,13 @@ def test_process_matches_jax_per_op_engine(engines):
         launches, plain = _counts()
         assert _tuples(got) == _tuples(want), f"window {w}"
         _assert_same_state(ref, port, f"window {w}")
-        # one window_math per shard and step, one global_apply at most
+        # one window_math per shard and step, one global_stage and one
+        # global_apply at most
         assert not any(launches.values())
         assert plain["window_math"] == S * steps
-        assert plain["global_apply"] <= steps
+        assert plain["global_apply"] == plain["global_stage"] <= steps
         assert plain["drain_compact"] == plain["window_full"] == 0
-        assert plain["global_combined"] == 0
+        assert plain["global_window"] == 0
         assert _tuples(default.process(reqs, now=now)) == _tuples(got)
         _same_engines(default, port, f"window {w}")
     assert not port._compact_sound
@@ -259,7 +260,8 @@ def test_pipeline_dispatch_global_matches_jax_per_op(engines, analytics):
         launches, plain = _counts()
         assert not any(launches.values())
         assert plain["global_apply"] == (1 if d < 2 else 0)
-        assert plain["global_combined"] == plain["drain_compact"] == 0
+        assert plain["global_stage"] == plain["global_apply"]
+        assert plain["global_window"] == plain["drain_compact"] == 0
         assert plain["drain_compact_stats"] == plain["stats_finish"] == 0
         valid = (stack[..., 0] & 0xFFFFFFFF) != 0
         gvalid = gb.slot >= 0
@@ -292,8 +294,8 @@ def test_per_op_engine_matches_default_engine(engines):
     """The two lowerings of the port on one stream (process windows with
     GLOBAL keys, a drain, a composed drain with analytics): identical
     responses, outputs, arenas and sketches; the default engine ran only
-    the drain, global_combined and stats kernels' plain versions, the
-    per-op engine only window_math's and global_apply's."""
+    the drain, global_window and stats kernels' plain versions, the
+    per-op engine only window_math's, global_stage's and global_apply's."""
     _, port, default = engines()
     rng = np.random.default_rng(74)
     for e in (port, default):
@@ -321,15 +323,16 @@ def test_per_op_engine_matches_default_engine(engines):
         np.testing.assert_array_equal(pa[name], da[name], err_msg=name)
     np.testing.assert_array_equal(ps, ds)
     assert not any(pl.values()) and not any(dl.values())
-    assert {k for k, v in pp.items() if v} == {"window_math", "global_apply"}
+    assert {k for k, v in pp.items() if v} == {"window_math", "global_stage",
+                                               "global_apply"}
     assert {k for k, v in dp.items() if v} == {
-        "drain_compact", "global_combined", "drain_compact_stats",
+        "drain_compact", "global_window", "drain_compact_stats",
         "stats_finish"}
 
 
 def test_per_op_warmup_leaves_the_arenas(engines):
-    """warmup goes through the per-op lowering (window_math and
-    global_apply's plain versions here, no drain kernel) and leaves the
+    """warmup goes through the per-op lowering (window_math, global_stage
+    and global_apply's plain versions here, no drain kernel) and leaves the
     arenas and the sketch as they were."""
     _, port, _ = engines()
     port.enable_analytics(AnalyticsConfig(enabled=True, **GEOMETRY))
@@ -337,6 +340,7 @@ def test_per_op_warmup_leaves_the_arenas(engines):
     port.warmup(now=T0)
     launches, plain = _counts()
     assert {k for k, v in plain.items() if v} == {"window_math",
+                                                  "global_stage",
                                                   "global_apply"}
     assert not any(launches.values())
     assert all(not a.any() for a in port.export_arena().values())

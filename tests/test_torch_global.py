@@ -1,6 +1,6 @@
 """The port's GLOBAL math (gubernator_tpu_torch/ops/kernel.py global_*) and
-its kernel wrapper (ops/global_kernel.py) on CPU tensors against the JAX
-package's int64 oracle and its GLOBAL TPU kernel.
+its kernel wrapper (ops/global_kernel.py global_window) on CPU tensors
+against the JAX package's int64 oracle and its GLOBAL TPU kernel.
 
 The same numpy-seeded inputs go through:
 
@@ -17,8 +17,11 @@ The same numpy-seeded inputs go through:
     parts from the oracle on GCRA, sliding-window and concurrency rows,
     where the port follows the oracle.
 
-Tolerance: exact equality (every quantity is an integer).  Pad read lanes
-answer 0 from the wrapper; the oracle leaves the transition of row 0 there.
+The wrapper takes a window's packed control rather than per-slot sums: an
+arbitrary `summed` travels as one contributing lane per row beside the
+read lanes (`summed_control`).  Tolerance: exact equality (every quantity
+is an integer).  Pad read lanes answer 0 from the wrapper; the oracle
+leaves the transition of row 0 there.
 """
 
 import numpy as np
@@ -179,12 +182,31 @@ def test_global_accumulate_drops_pads_and_out_of_range_slots():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def summed_control(batch, summed):
+    """A window's packed control (ops/global_kernel.py) that reads `batch`
+    and applies the arbitrary per-slot sums `summed`: the n read lanes
+    contribute nothing, then one contributing lane per row j with gacc =
+    summed[j]; no config writes (one pad lane each)."""
+    G = summed.shape[0]
+    rows = dict(slot=np.arange(G, dtype=np.int32), hits=np.zeros(G, np.int64),
+                limit=np.zeros(G, np.int64), duration=np.zeros(G, np.int64),
+                algo=np.zeros(G, np.int32), is_init=np.zeros(G, bool))
+    lanes = tk.WindowBatch(*[np.concatenate([batch[f], rows[f]])
+                             for f in tk.WindowBatch._fields])
+    gacc = np.concatenate([np.zeros(batch["slot"].shape[0], np.int64),
+                           summed])
+    upd = (np.full(1, G, np.int32), np.zeros(1, np.int64),
+           np.zeros(1, np.int64), np.zeros(1, np.int32),
+           np.full(1, G, np.int32))
+    return gk.make_control(lanes, gacc, upd, "cpu")
+
+
 @pytest.mark.parametrize("case", ["all_algorithms", "wrapped_i64"])
 def test_wrapper_runs_plain_on_cpu_and_zeroes_pads(case):
-    """global_kernel.global_combined on CPU tensors: the plain version
-    (counted, no launch), new planes out of place, the read block
-    [n, 4] = (status, limit, remaining, reset) equal to the oracle's on
-    valid lanes and 0 on pads."""
+    """global_kernel.global_window on CPU tensors: the plain version
+    (counted, no launch), the arena updated in place to the oracle's, the
+    read block [n, 4] = (status, limit, remaining, reset) equal to the
+    oracle's on valid lanes and 0 on pads, and the scratch left zero."""
     algos, wrap = CASES[case]
     state, cfg, batch, summed = global_inputs(np.random.default_rng(7),
                                               algos, wrap)
@@ -192,40 +214,48 @@ def test_wrapper_runs_plain_on_cpu_and_zeroes_pads(case):
     ts, tc, tb = _torch(state, cfg, batch)
     w_state, w_out = jk.global_combined(js, jc, jb, jnp.asarray(summed),
                                         jnp.int64(T0))
-    before = {k: t.clone() for k, t in zip(ts._fields, ts)}
+    scratch = torch.zeros(G, dtype=torch.int64)
     gk.reset_counts()
-    new, read = gk.global_combined(ts, tc, tb, torch.from_numpy(summed), T0)
-    assert gk.launches == {"global_combined": 0, "global_apply": 0}
-    assert gk.plain_calls == {"global_combined": 1, "global_apply": 0}
-    _eq(new, w_state, f"{case} state")
-    for k, t in zip(ts._fields, ts):  # the input arena is not written
-        assert torch.equal(t, before[k]), k
+    read = gk.global_window(ts, tc, summed_control(batch, summed), scratch,
+                            T0)
+    assert gk.launches == {"global_window": 0, "global_stage": 0,
+                           "global_apply": 0}
+    assert gk.plain_calls == {"global_window": 1, "global_stage": 0,
+                              "global_apply": 0}
+    _eq(ts, w_state, f"{case} state")  # in place
+    _eq(tc, jc, f"{case} cfg")
+    assert not scratch.any()
+    n = batch["slot"].shape[0]
+    read = read.numpy()[:n]
     valid = batch["slot"] >= 0
     want = np.stack([np.asarray(w_out.status).astype(np.int64),
                      np.asarray(w_out.limit), np.asarray(w_out.remaining),
                      np.asarray(w_out.reset_time)], axis=-1)
-    np.testing.assert_array_equal(read.numpy()[valid], want[valid])
-    assert not read.numpy()[~valid].any()
+    np.testing.assert_array_equal(read[valid], want[valid])
+    assert not read[~valid].any()
 
 
 def test_wrapper_rejects_malformed_inputs():
     state, cfg, batch, summed = global_inputs(np.random.default_rng(8),
                                               (0, 1), False)
-    ts, tc, tb = _torch(state, cfg, batch)
-    sm = torch.from_numpy(summed)
-    with pytest.raises(ValueError, match="summed"):
-        gk.global_combined(ts, tc, tb, sm.to(torch.int32), T0)
-    with pytest.raises(ValueError, match="state.algo"):
-        gk.global_combined(ts._replace(algo=ts.limit), tc, tb, sm, T0)
-    with pytest.raises(ValueError, match="cfg.limit"):
-        gk.global_combined(ts, tc._replace(limit=tc.limit[:-1]), tb, sm, T0)
-    with pytest.raises(ValueError, match="batch.hits"):
-        gk.global_combined(ts, tc, tb._replace(hits=tb.hits[:-1]), sm, T0)
-    with pytest.raises(ValueError, match="batch.slot"):
-        gk.global_combined(ts, tc, tb._replace(slot=tb.slot[None]), sm, T0)
+    ts, tc, _ = _torch(state, cfg, batch)
+    ctl = summed_control(batch, summed)
+    sc = torch.zeros(G, dtype=torch.int64)
+    with pytest.raises(ValueError, match="scratch"):
+        gk.global_window(ts, tc, ctl, sc.to(torch.int32), T0)
+    with pytest.raises(ValueError, match="gstate.algo"):
+        gk.global_window(ts._replace(algo=ts.limit), tc, ctl, sc, T0)
+    with pytest.raises(ValueError, match="gcfg.limit"):
+        gk.global_window(ts, tc._replace(limit=tc.limit[:-1]), ctl, sc, T0)
+    with pytest.raises(ValueError, match="control.block"):
+        gk.global_window(ts, tc, ctl._replace(kg=ctl.kg + 1), sc, T0)
+    with pytest.raises(ValueError, match="scratch"):
+        gk.global_window(ts, tc, ctl, sc[None], T0)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        gk.global_combined(*[type(x)(*[t.to("meta") for t in x])
-                             for x in (ts, tc, tb)], sm.to("meta"), T0)
+        gk.global_window(*[type(x)(*[t.to("meta") for t in x])
+                           for x in (ts, tc)],
+                         ctl._replace(block=ctl.block.to("meta")),
+                         sc.to("meta"), T0)
 
 
 def _staged(state, cfg, batch, summed):
@@ -243,9 +273,11 @@ def test_staged_tpu_kernel_matches_port_on_token_leaky(case):
     state, cfg, batch, summed = global_inputs(np.random.default_rng(11),
                                               algos, wrap)
     s_state, s_out = _staged(state, cfg, batch, summed)
-    new, read = gk.global_combined(*_torch(state, cfg, batch),
-                                   torch.from_numpy(summed), T0)
+    new, tc, _ = _torch(state, cfg, batch)
+    read = gk.global_window(new, tc, summed_control(batch, summed),
+                            torch.zeros(G, dtype=torch.int64), T0)
     _eq(new, s_state, f"{case} state")
+    read = read[:batch["slot"].shape[0]]
     valid = batch["slot"] >= 0
     for i, f in enumerate(s_out._fields):
         np.testing.assert_array_equal(

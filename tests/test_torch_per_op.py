@@ -5,8 +5,10 @@ The port's GUBER_PALLAS=1 lowering has two kernels:
 ops/window_math_kernel.py `window_math` (ops/csrc/window_math.cu, the
 counterpart of pallas_kernel.window_step_pallas) inside
 `window_step_per_op` (torch prep, the kernel, torch commit), and
-ops/global_kernel.py `global_apply` (ops/csrc/global_apply.cu, the
-counterpart of pallas_kernel.global_apply_pallas).  On the CPU the
+ops/global_kernel.py `global_stage` then `global_apply`
+(ops/csrc/global_apply.cu, the counterpart of
+pallas_kernel.global_apply_pallas), which take a window's packed control:
+an arbitrary per-slot sum travels as one contributing lane per row.  On the CPU the
 wrappers run their plain versions; the CUDA kernels are held against those
 on the card by chip_smoke.py phase 7, and as host-built source against the
 oracle by tests/test_torch_drain_host.py.  References, on the same
@@ -50,7 +52,7 @@ from gubernator_tpu_torch.ops import kernel as tk
 from gubernator_tpu_torch.ops import window_math_kernel as wm
 
 from .test_pallas import _random_state, _random_window
-from .test_torch_global import CASES, global_inputs
+from .test_torch_global import CASES, global_inputs, summed_control
 
 pytestmark = pytest.mark.torch_port
 
@@ -199,17 +201,32 @@ def test_global_apply_matches_oracle_and_tpu_kernel(kind):
     want = jk.global_apply(state, cfg, summed, now)
     tpu = global_apply_pallas(state, cfg, summed, now, interpret=True)
     t_state = _tstate(state)
-    before = [t.clone() for t in t_state]
     gk.reset_counts()
-    got = gk.global_apply(t_state, tk.GlobalConfig(*[_t(a) for a in cfg]),
-                          _t(summed), now)
-    assert gk.plain_calls == {"global_combined": 0, "global_apply": 1}
-    assert gk.launches == {"global_combined": 0, "global_apply": 0}
-    for name, g, w, p in zip(jk.BucketState._fields, got, want, tpu):
+    _stage_apply(t_state, tk.GlobalConfig(*[_t(a) for a in cfg]),
+                 np.asarray(summed), now)
+    assert gk.plain_calls == {"global_window": 0, "global_stage": 1,
+                              "global_apply": 1}
+    assert gk.launches == {"global_window": 0, "global_stage": 0,
+                           "global_apply": 0}
+    for name, g, w, p in zip(jk.BucketState._fields, t_state, want, tpu):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
         np.testing.assert_array_equal(g.numpy(), np.asarray(p), err_msg=name)
-    for a, b in zip(t_state, before):
-        assert torch.equal(a, b), "global_apply wrote its input arena"
+
+
+_NO_LANES = {f: np.zeros(0, np.int32 if f in ("slot", "algo") else
+                         bool if f == "is_init" else np.int64)
+             for f in tk.WindowBatch._fields}
+
+
+def _stage_apply(state, cfg, summed, now):
+    """global_stage then global_apply, in place, on a control of one
+    contributing lane per row carrying the arbitrary sums `summed`; the
+    scratch must come back all zero."""
+    scratch = torch.zeros(summed.shape[0], dtype=torch.int64)
+    ctl = summed_control(_NO_LANES, summed)
+    gk.global_stage(state, cfg, ctl, scratch)
+    gk.global_apply(state, cfg, ctl, scratch, now)
+    assert not scratch.any(), "the scratch is not back at zero"
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -218,8 +235,8 @@ def test_global_apply_matches_oracle_on_edge_inputs(case, seed):
     """tests/test_torch_global.py's edge inputs (all five algorithms and
     out-of-range values, int64 wrapped at both ends, expired and
     never-initialized rows, algorithm switches, zero sums) at G = 64:
-    the wrapper equals kernel.global_apply and, where the TPU kernel runs
-    one 64-row block, global_apply_pallas."""
+    global_stage then global_apply equal kernel.global_apply and, where the
+    TPU kernel runs one 64-row block, global_apply_pallas."""
     algos, wrap = CASES[case]
     state, cfg, _, summed = global_inputs(np.random.default_rng(200 + seed),
                                           algos, wrap)
@@ -227,9 +244,9 @@ def test_global_apply_matches_oracle_on_edge_inputs(case, seed):
     jc = jk.GlobalConfig(**{k: jnp.asarray(v) for k, v in cfg.items()})
     want = jk.global_apply(js, jc, jnp.asarray(summed), T0)
     tpu = global_apply_pallas(js, jc, jnp.asarray(summed), T0, interpret=True)
-    got = gk.global_apply(tk.BucketState(**{k: _t(v) for k, v in state.items()}),
-                          tk.GlobalConfig(**{k: _t(v) for k, v in cfg.items()}),
-                          _t(summed), T0)
+    got = tk.BucketState(**{k: _t(v) for k, v in state.items()})
+    _stage_apply(got, tk.GlobalConfig(**{k: _t(v) for k, v in cfg.items()}),
+                 summed, T0)
     for name, g, w, p in zip(jk.BucketState._fields, got, want, tpu):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
                                       err_msg=f"{case} {name}")
@@ -241,14 +258,16 @@ def test_global_apply_checks_its_inputs():
     G = 8
     st = tk.BucketState.zeros(G, "cpu")
     cfg = tk.GlobalConfig.zeros(G, "cpu")
-    with pytest.raises(ValueError, match="summed"):
-        gk.global_apply(st, cfg, torch.zeros(G, dtype=torch.int32), T0)
-    with pytest.raises(ValueError, match="cfg.algo"):
+    ctl = summed_control(_NO_LANES, np.zeros(G, np.int64))
+    sc = torch.zeros(G, dtype=torch.int64)
+    with pytest.raises(ValueError, match="scratch"):
+        gk.global_apply(st, cfg, ctl, sc.to(torch.int32), T0)
+    with pytest.raises(ValueError, match="gcfg.algo"):
         gk.global_apply(st, cfg._replace(algo=torch.zeros(G, dtype=torch.int64)),
-                        torch.zeros(G, dtype=torch.int64), T0)
-    with pytest.raises(ValueError, match="state.limit"):
-        gk.global_apply(st._replace(limit=torch.zeros(G + 1, dtype=torch.int64)),
-                        cfg, torch.zeros(G, dtype=torch.int64), T0)
+                        ctl, sc, T0)
+    with pytest.raises(ValueError, match="gstate.limit"):
+        gk.global_stage(st._replace(limit=torch.zeros(G + 1, dtype=torch.int64)),
+                        cfg, ctl, sc)
 
 
 # ---------------------------------------------------------------------------
