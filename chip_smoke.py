@@ -114,19 +114,44 @@ Phases (one line each; any mismatch raises and exits non-zero):
      three 1024-lane windows built as phase 3a builds its drains (half on
      64 hot slots, no hot slots, every lane on one key), each against its
      plain version, its device time beside its longest residual segment
-     and its bound, at the default tile width and at 64 and 1024.
+     and its bound, at the default tile width and at 64 and 1024;
+  8. the pipelined serving lane: Instance(engine_config=EngineConfig(
+     capacity_per_shard=2^21, num_shards=8, batch_per_shard=1024,
+     use_native="on")), the native router (g++, built at first use) and the
+     DispatchPipeline, with Zipf (a = 1.1) keys over 2^20 keys in RPCs of
+     100 items.  One drain's engine-thread path (router packing, the
+     pinned copy in, the launch, the copies out, the event) under
+     torch.cuda.set_sync_debug_mode("error"); 64 clients at saturation
+     (decisions/s; again under the profiler for the card's idle share);
+     open-loop offered rates of 25, 50 and 100% of that rate (p50/p99 call
+     latency); phase 4's 1000-request window through engine.process on the
+     router; two ~50k-decision bursts on a pinned clock at pipeline depth 1
+     and 3 (70% token and leaky in the compact range, the rest GCRA,
+     sliding window, concurrency and NO_BATCHING), then five configs past
+     the compact caps; 8d, an Instance with analytics at phase 6b's
+     geometry serving a compact burst (and one drain under sync debug
+     mode).  After the counts are read: every burst response against a
+     Python-table engine on the card running process() over the same
+     stream, the analytics' hits total against the burst's and its top-K
+     against the burst's hottest keys, and a small Instance (256 slots a
+     shard) on the card against the same Instance on the CPU, responses
+     and arena, and a K = 8 stack of the serving shape dispatched from a
+     pinned tensor (the pipeline's route) and from a numpy array (the
+     engine's staging buffers), timed; then one line of the end-to-end
+     figures beside the card's name and power limit.
 
-Four main paths are counted, each from 0: the one-shard path (phases 3b
+Five main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
-path (phase 6b) and the per-op path (phase 7b); each must launch its
-kernels and never run a plain version, and the per-op path must launch no
-kernel but window_math, global_stage and global_apply.  The kernel table's
-launch counts are drain_compact's and window_full's on the first path,
-global_window's on the second, drain_compact_stats' and stats_finish's on
-the third and window_math's, global_stage's and global_apply's on the
-fourth; calls of a wrapper made only to check or time it against its
-plain version come before the counts
-start or after they are read.  The third-to-last line is the kernel
+path (phase 6b), the per-op path (phase 7b) and the pipelined serving
+path (phase 8, from requests); each must launch its kernels and never run
+a plain version, and the per-op path must launch no kernel but
+window_math, global_stage and global_apply.  The kernel table's launch
+counts are drain_compact's (the first path's and the fifth's) and
+window_full's on the first path, global_window's on the second,
+drain_compact_stats' and stats_finish's on the third and the fifth, and
+window_math's, global_stage's and global_apply's on the fourth; calls of
+a wrapper made only to check or time it against its plain version come
+before the counts start or after they are read.  The third-to-last line is the kernel
 table as JSON, the next the card's nvidia-smi name and power limit; the
 last line is {"ok": true, "device": {...}}.  Tolerance everywhere is exact
 equality: every quantity is an integer.
@@ -151,7 +176,10 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
     RateLimitReq,
     millisecond_now,
 )
-from gubernator_tpu_torch.config import AnalyticsConfig  # noqa: E402
+from gubernator_tpu_torch.config import (  # noqa: E402
+    AnalyticsConfig,
+    EngineConfig,
+)
 from gubernator_tpu_torch.core.engine import RateLimitEngine  # noqa: E402
 from gubernator_tpu_torch.core.service import Instance  # noqa: E402
 from gubernator_tpu_torch.ops import build  # noqa: E402
@@ -922,6 +950,7 @@ def phase_serving():
         f"over 10, {1000 / wall_ms * 1e3:.3e} decisions/s), token/leaky/"
         f"burst/int64 sequences, 3 Instance RPCs x 100, a 4-window "
         f"pipeline_dispatch = plain; launches {launches}, plain calls {plain}")
+    return wall_ms
 
 
 # ---------------------------------------------------------------- GLOBAL
@@ -2489,6 +2518,489 @@ def report_per_op(script, po, cmp, pb):
         f"{pb['apply_bound'][0] * 1e3:.3f} us ({pb['apply_bound'][1]})")
 
 
+# ---------------------------------------------------------------- serving
+
+# phase 8: the pipelined serving lane at the JAX package's 8-device mesh as
+# 8 shards on the card (2^24 slots), a million keys, RPCs of 100 items,
+# 64 clients at saturation
+SERVE_KEYS = 1 << 20
+SERVE_DECISIONS = 50_000
+SERVE_RPC = 100
+SERVE_CLIENTS = 64
+SERVE_SECONDS = 3.0
+RATE_SECONDS = 2.0
+RATE_SHARES = (0.25, 0.5, 1.0)
+# one job's items at most (a scratch block: the RPC item cap)
+SERVE_ITEMS_MAX = 1000
+# the CPU twin's geometry: the port tests' sizes, 8 shards
+SMALL_TWIN = dict(capacity_per_shard=256, batch_per_shard=64,
+                  num_shards=SHARDS, global_capacity=64,
+                  global_batch_per_shard=16, max_global_updates=16)
+
+
+def serving_engine_config(**kw):
+    return EngineConfig(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                        num_shards=SHARDS, batch_per_shard=FULL_LANES,
+                        use_native="on", **kw)
+
+
+def serving_request(idx, prefix, hits, compact_only=False):
+    """Key idx's request: 70 of every 100 keys token or leaky in the
+    compact range (the pipelined lane), 8 GCRA, 8 sliding window, 8
+    concurrency (hits +1 or -1) and 6 NO_BATCHING token.  A key keeps its
+    algorithm and behavior, so its requests stay on one lane, in order.
+    compact_only maps every key to a token or leaky one."""
+    c = idx % 100
+    if compact_only:
+        c %= 70
+    algo, behavior = int(idx & 1), Behavior.BATCHING
+    if 70 <= c < 78:
+        algo = Algorithm.GCRA
+    elif 78 <= c < 86:
+        algo = Algorithm.SLIDING_WINDOW
+    elif 86 <= c < 94:
+        algo, hits = Algorithm.CONCURRENCY, 1 if hits else -1
+    elif c >= 94:
+        algo, behavior = Algorithm.TOKEN_BUCKET, Behavior.NO_BATCHING
+    return RateLimitReq(name=f"t{idx % 80}", unique_key=f"{prefix}{idx}",
+                        hits=hits, limit=20 + idx % 50, duration=60_000,
+                        algorithm=algo, behavior=behavior)
+
+
+def serving_rpcs(rng, n, prefix, keys=SERVE_KEYS, compact_only=False):
+    """n decisions as RPCs of SERVE_RPC items: Zipf (a = 1.1) keys over
+    `keys`, hits 1 mostly (runs fold), 0 or 2 now and then."""
+    idx = (rng.zipf(1.1, n) - 1) % keys
+    hits = rng.choice([0, 1, 1, 1, 1, 1, 1, 2], n)
+    reqs = [serving_request(int(i), prefix, int(h), compact_only)
+            for i, h in zip(idx, hits)]
+    return [reqs[i:i + SERVE_RPC] for i in range(0, n, SERVE_RPC)]
+
+
+def pin_clock(inst, now):
+    """Serve on a pinned clock (now ms), or on the wall clock (None)."""
+    pipe = inst.batcher.pipeline
+    inst.batcher.now_fn = None if now is None else (lambda: now)
+    pipe.now_fn = millisecond_now if now is None else (lambda: now)
+
+
+async def serve_all(inst, rpcs):
+    """Every RPC submitted at once; the responses per RPC."""
+    return await asyncio.gather(*(inst.get_rate_limits(r) for r in rpcs))
+
+
+def sync_checked_drain(inst, reqs, now):
+    """One drain of `reqs` through the pipeline's engine-thread path under
+    torch.cuda.set_sync_debug_mode("error"): packing, the copy in, the
+    launches, the copies out and the event must not wait for the device.
+    The drain joins no fetch (a chain member); its fetch and decode run
+    after the mode is reset.  Runs on the engine thread."""
+    from gubernator_tpu_torch.core.pipeline import ListJob
+    pipe = inst.batcher.pipeline
+    job = ListJob(reqs)
+    stride = pipe.fetch_stride
+    pipe.fetch_stride = 2
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = pipe._drain_sync([job], now)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        pipe.fetch_stride = stride
+    check(res.error is None and res.deferred and res.staged == [job],
+          f"sync-checked drain: error {res.error}, staged {len(res.staged)}")
+    _, outs = pipe._complete_sync_one(res)
+    pipe._arena_ring.release(res.arena)
+    return outs[0]
+
+
+async def saturate(inst, rpcs, seconds):
+    """SERVE_CLIENTS clients, each sending its next RPC when the last one
+    answered, for `seconds`; returns (decisions, wall seconds)."""
+    done = [0]
+    stop = time.perf_counter() + seconds
+
+    async def client(c):
+        i = c
+        while time.perf_counter() < stop:
+            rpc = rpcs[i % len(rpcs)]
+            await inst.get_rate_limits(rpc)
+            done[0] += len(rpc)
+            i += SERVE_CLIENTS
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(client(c) for c in range(SERVE_CLIENTS)))
+    return done[0], time.perf_counter() - t0
+
+
+async def offered_rate(inst, rpcs, rate, seconds):
+    """Open loop: RPCs of SERVE_RPC items sent at `rate` decisions/s for
+    `seconds`, each on its own schedule; returns the call latencies (ms,
+    answer time minus scheduled send time) and the achieved rate."""
+    loop = asyncio.get_running_loop()
+    period = SERVE_RPC / rate
+    n = max(1, int(seconds / period))
+    lat = []
+
+    async def one(i, at):
+        await inst.get_rate_limits(rpcs[i % len(rpcs)])
+        lat.append((loop.time() - at) * 1e3)
+
+    t0 = loop.time()
+    tasks = []
+    for i in range(n):
+        at = t0 + i * period
+        delay = at - loop.time()
+        if delay > 0:
+            await asyncio.sleep(delay)
+        tasks.append(asyncio.ensure_future(one(i, at)))
+    await asyncio.gather(*tasks)
+    return lat, n * SERVE_RPC / (loop.time() - t0)
+
+
+def busy_share(prof, wall_s):
+    """The card's busy share of a profiled wall time: every kernel, copy
+    and fill it ran (torch.profiler), over the wall; None when the trace
+    shows no device time."""
+    from torch.autograd import DeviceType
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / (wall_s * 1e6) if busy_us else None
+
+
+def pipeline_counters(pipe):
+    snap = pipe.overlap_snapshot()
+    wall = snap["active_wall_seconds"]
+    return dict(drains=pipe.drains, windows=pipe.windows_staged,
+                decisions=pipe.decisions_staged, lanes=pipe.lanes_staged,
+                gate_holds=snap["gate_holds"],
+                chain_flushes=snap["chain_flushes"],
+                fetch_elided=snap["fetch_elided"], active_s=wall,
+                depth_s=snap["mean_inflight"] * wall,
+                busy=dict(snap["stage_busy_seconds"]))
+
+
+COUNTERS = ("drains", "windows", "decisions", "lanes", "gate_holds",
+            "chain_flushes", "fetch_elided", "active_s", "depth_s")
+
+
+def counter_delta(a, b):
+    """The counters' change from a to b, with the mean number of drains in
+    flight while any was (mean_inflight) over that span."""
+    out = {k: b[k] - a[k] for k in COUNTERS}
+    out["busy"] = {k: b["busy"][k] - a["busy"][k] for k in a["busy"]}
+    out["mean_inflight"] = (out["depth_s"] / out["active_s"]
+                            if out["active_s"] > 0 else 0.0)
+    return out
+
+
+def phase_serving_pipeline(window_rng_seed=11):
+    """Phase 8, the counted part: the pipelined serving lane on an
+    Instance at full width.  A drain's engine-thread path under sync debug
+    mode; 64 clients at saturation (unprofiled, then profiled for the
+    card's idle share); open-loop offered rates at 25, 50 and 100% of the
+    saturating rate; phase 4's 1000-request window through engine.process
+    on the router; the saturating load again with the occupancy gate off,
+    and with the gate off and two drains a fetch (the deferred-fetch
+    chain); then three ~50k-decision bursts on a pinned clock, at depth 1,
+    at depth 3, and at depth 3 with the gate off and the chain on (all
+    five algorithms, NO_BATCHING), and a few configs past the compact caps
+    last (they latch the full path).  Then the analytics Instance (phase
+    6b's geometry) serves a compact burst.  Both Instances are built and
+    warmed before the counts start.  The caller reads the counts when it
+    returns and compares afterwards."""
+    rng = np.random.default_rng(83)
+    inst = Instance(engine_config=serving_engine_config())
+    eng, pipe = inst.engine, inst.batcher.pipeline
+    check(eng.native is not None and pipe is not None and pipe.enabled,
+          "the router or the pipelined lane is missing")
+    check(eng.device.type == DEV.type, f"engine on {eng.device}")
+    eng.warmup()
+    an_inst = Instance(engine_config=serving_engine_config(),
+                       analytics=AnalyticsConfig(enabled=True, **ANALYTICS))
+    an_pipe = an_inst.batcher.pipeline
+    check(an_pipe is not None and an_pipe.analytics is an_inst.analytics,
+          "the analytics Instance has no pipelined lane with analytics")
+    an_inst.engine.warmup()
+    torch.cuda.synchronize()
+    sat_rpcs = serving_rpcs(rng, 512 * SERVE_RPC, "s", compact_only=True)
+    bursts = [serving_rpcs(rng, SERVE_DECISIONS, "b") for _ in range(3)]
+    an_rpcs = serving_rpcs(rng, SERVE_DECISIONS, "a", compact_only=True)
+    tail = [RateLimitReq(name="t0", unique_key=f"oor{i}", hits=1 + i,
+                         limit=2**40 + i, duration=2**35)
+            for i in range(5)]
+    p4_rng = np.random.default_rng(window_rng_seed)
+    window = [RateLimitReq(name="smoke",
+                           unique_key=f"k{int(p4_rng.zipf(1.3)) % 400}",
+                           hits=int(p4_rng.integers(0, 3)), limit=20,
+                           duration=60_000,
+                           algorithm=int(p4_rng.integers(0, 5)))
+              for _ in range(1000)]
+    tb = millisecond_now()
+    out = dict(bursts=bursts, tail=tail, tb=tb)
+    reset_counts()
+
+    def window_walls():
+        walls = []
+        for i in range(10):
+            w0 = time.perf_counter()
+            eng.process(window, now=tb + i)
+            walls.append((time.perf_counter() - w0) * 1e3)
+        return float(np.median(walls))
+
+    async def script():
+        loop = asyncio.get_running_loop()
+        ex = inst.batcher._executor
+        pin_clock(inst, None)
+        # warm the lane (its arenas and pinned buffers exist afterwards)
+        await saturate(inst, sat_rpcs, 0.5)
+        sync_reqs = [serving_request(i, "y", 1, compact_only=True)
+                     for i in range(SERVE_ITEMS_MAX)]
+        out["sync"] = await loop.run_in_executor(ex, sync_checked_drain,
+                                                 inst, sync_reqs, tb)
+        c0 = pipeline_counters(pipe)
+        n, wall = await saturate(inst, sat_rpcs, SERVE_SECONDS)
+        out["sat"] = (n, wall, counter_delta(c0, pipeline_counters(pipe)))
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            n2, wall2 = await saturate(inst, sat_rpcs, SERVE_SECONDS)
+            torch.cuda.synchronize()
+        out["sat_prof"] = (n2, wall2, busy_share(prof, wall2))
+        rate = n / wall
+        out["rates"] = []
+        for share in RATE_SHARES:
+            lat, achieved = await offered_rate(inst, sat_rpcs, share * rate,
+                                               RATE_SECONDS)
+            out["rates"].append((share, share * rate, achieved,
+                                 float(np.percentile(lat, 50)),
+                                 float(np.percentile(lat, 99))))
+        out["window_ms"] = await loop.run_in_executor(ex, window_walls)
+        out["variants"] = {}
+        for name, stride in (("gate_off", 1), ("gate_off_stride2", 2)):
+            pipe.gate_enabled, pipe.fetch_stride = False, stride
+            c = pipeline_counters(pipe)
+            nv, wallv = await saturate(inst, sat_rpcs, SERVE_SECONDS)
+            out["variants"][name] = (nv, wallv, counter_delta(
+                c, pipeline_counters(pipe)))
+        pipe.gate_enabled, pipe.fetch_stride = True, 1
+        pin_clock(inst, tb)
+        pipe.depth = 1
+        c1 = pipeline_counters(pipe)
+        out["burst1"] = await serve_all(inst, bursts[0])
+        pipe.depth = 3
+        out["burst3"] = await serve_all(inst, bursts[1])
+        pipe.gate_enabled, pipe.fetch_stride = False, 2
+        c2 = pipeline_counters(pipe)
+        out["burst3c"] = await serve_all(inst, bursts[2])
+        out["chain_counts"] = counter_delta(c2, pipeline_counters(pipe))
+        pipe.gate_enabled, pipe.fetch_stride = True, 1
+        out["burst_counts"] = counter_delta(c1, pipeline_counters(pipe))
+        out["tail_resp"] = await inst.get_rate_limits(tail)
+
+    try:
+        asyncio.run(script())
+    finally:
+        inst.close()
+    check(not eng._compact_enabled, "the configs past the caps did not "
+          "latch the full path")
+    out["eng"] = eng
+    out["pipe_drains"] = pipe.drains
+    out["an"] = phase_serving_analytics(an_inst, an_rpcs, tb)
+    return out
+
+
+def staging_paths(eng, seed=89, n=20):
+    """Phase 8, after the counts are read: a K = 8 drain stack of the
+    serving engine's shape crossing to the card the two ways the engine
+    takes host arrays, timed: a pinned tensor (the pipeline's arena: one
+    non-blocking copy_ into the engine's device buffer) and a numpy array
+    (copied into one of the engine's two pinned staging buffers first).
+    Returns {path: (host ms a call, card ms a call)}: the host wall of
+    issuing pipeline_dispatch, and the CUDA-event time of n calls."""
+    rng = np.random.default_rng(seed)
+    C = eng.capacity_per_shard
+    stack = np.stack([full_size_traffic(rng, FULL_K, FULL_LANES, C)
+                      for _ in range(SHARDS)], axis=1)
+    pinned = torch.from_numpy(stack).pin_memory()
+    nows = torch.full((FULL_K,), T0, dtype=torch.int64).pin_memory()
+    out = {}
+    for name, packed, nw in (("pinned", pinned, nows),
+                             ("numpy", stack, nows.numpy())):
+        call = lambda: eng.pipeline_dispatch(packed, nw)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(n):
+            w0 = time.perf_counter()
+            call()
+            walls.append((time.perf_counter() - w0) * 1e3)
+        torch.cuda.synchronize()
+        out[name] = (float(np.median(walls)), cuda_ms(call, n))
+    return out
+
+
+def phase_serving_analytics(inst, rpcs, tb):
+    """Phase 8d: the Instance with analytics at the JAX defaults (phase
+    6b's geometry, built and warmed before the counts start) serves a
+    compact ~50k-decision burst on a pinned clock at depth 3, and one drain
+    under sync debug mode: every drain runs the stats drain and the
+    finisher, and TrafficAnalytics ingests it.  Returns the pipeline's
+    drain and decision counts beside the answers."""
+    pipe = inst.batcher.pipeline
+    pin_clock(inst, tb)
+
+    async def script():
+        loop = asyncio.get_running_loop()
+        got = await serve_all(inst, rpcs)
+        sync_reqs = [serving_request(i, "z", 1, compact_only=True)
+                     for i in range(SERVE_ITEMS_MAX)]
+        await loop.run_in_executor(inst.batcher._executor,
+                                   sync_checked_drain, inst, sync_reqs, tb)
+        return got
+
+    try:
+        got = asyncio.run(script())
+    finally:
+        inst.close()
+    return dict(inst=inst, rpcs=rpcs, got=got,
+                snapshot=inst.analytics.snapshot(), drains=pipe.drains,
+                decisions=pipe.decisions_staged)
+
+
+def check_serving(r):
+    """Phase 8, after the counts are read: every burst response against a
+    Python-table engine on the card running process() over the same
+    stream in submission order; the sync-checked drain's answers; the
+    analytics totals and top-K; then a small Instance on the card against
+    the same Instance on the CPU (router both), responses and arena."""
+    tb = r["tb"]
+    twin = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                           num_shards=SHARDS, batch_per_shard=FULL_LANES)
+    check(twin.native is None, "the twin engine has the router")
+    flat = lambda rpcs: [q for rpc in rpcs for q in rpc]  # noqa: E731
+    tup = lambda rs: [(r.status, r.limit, r.remaining, r.reset_time,  # noqa: E731
+                       r.error) for r in rs]
+    for name, rpcs in (("burst1", r["bursts"][0]),
+                       ("burst3", r["bursts"][1]),
+                       ("burst3c", r["bursts"][2]),
+                       ("tail_resp", [r["tail"]])):
+        got = flat(r[name]) if name != "tail_resp" else r[name]
+        want = twin.process(flat(rpcs), now=tb)
+        check(tup(got) == tup(want),
+              f"{name}: the pipelined Instance differs from the Python-table "
+              f"engine")
+    check(all(x.status in (0, 1) and x.limit >= 20 for x in r["sync"]),
+          "the sync-checked drain's answers")
+    del twin
+    an = r["an"]
+    snap = an["snapshot"]
+    items = flat(an["rpcs"])
+    check(snap["totals"]["hits"] == sum(q.hits for q in items),
+          f"analytics hits {snap['totals']['hits']} != the burst's "
+          f"{sum(q.hits for q in items)}")
+    per_key = {}
+    for q in items:
+        per_key[q.hash_key()] = per_key.get(q.hash_key(), 0) + q.hits
+    hot = sorted(per_key, key=per_key.get, reverse=True)[:3]
+    top = [row["key"] for row in snap["topk"][:10]]
+    check(all(k in top for k in hot),
+          f"the burst's hottest keys {hot} are not in the top-K {top}")
+    # the CPU twin at the port tests' geometry: ~640 keys over 2048 slots
+    # (no eviction), RPCs one after another, depth 3
+    rng = np.random.default_rng(97)
+    rpcs = serving_rpcs(rng, 3_000, "c", keys=640)
+    outs, arenas = [], []
+    for dev in (DEV, torch.device("cpu")):
+        inst = Instance(engine_config=EngineConfig(**SMALL_TWIN,
+                                                   use_native="on"),
+                        device=dev)
+        pin_clock(inst, tb)
+        inst.batcher.pipeline.depth = 3
+
+        async def serial():
+            return [await inst.get_rate_limits(rpc) for rpc in rpcs]
+
+        try:
+            outs.append(flat(asyncio.run(serial())))
+        finally:
+            inst.close()
+        arenas.append(inst.engine.export_arena())
+    check(tup(outs[0]) == tup(outs[1]), "the card's small Instance differs "
+          "from the CPU twin")
+    for name, plane in arenas[1].items():
+        check(np.array_equal(arenas[0][name], plane),
+              f"plane {name} of the small Instance differs from the CPU "
+              f"twin's")
+    return dict(hot=hot, top=top[:5], small=len(outs[0]),
+                staging=staging_paths(r["eng"]))
+
+
+def report_serving(r, chk, counts, p4_ms, smi):
+    n, wall, d = r["sat"]
+    n2, wall2, share = r["sat_prof"]
+    b = r["burst_counts"]
+    rates = "; ".join(
+        f"{int(s * 100)}% ({off:.0f}/s offered, {ach:.0f}/s achieved): "
+        f"p50 {p50:.3f} ms p99 {p99:.3f} ms"
+        for s, off, ach, p50, p99 in r["rates"])
+    busy = ", ".join(f"{k} {v:.4f} s" for k, v in d["busy"].items())
+    variants = {}
+    for name, (nv, wallv, dv) in r["variants"].items():
+        variants[name] = dict(
+            decisions_per_s=nv / wallv, drains=dv["drains"],
+            mean_k_used=dv["windows"] / max(1, dv["drains"]),
+            mean_inflight=dv["mean_inflight"], gate_holds=dv["gate_holds"],
+            chain_flushes=dv["chain_flushes"],
+            fetch_elided=dv["fetch_elided"], stage_busy_s=dv["busy"])
+    cc = r["chain_counts"]
+    fig = dict(
+        decisions_per_s=n / wall,
+        decisions_per_s_profiled=n2 / wall2,
+        idle_share=None if share is None else 1 - share,
+        latency_ms={f"{int(s * 100)}%": dict(offered=off, achieved=ach,
+                                             p50=p50, p99=p99)
+                    for s, off, ach, p50, p99 in r["rates"]},
+        drains=d["drains"], mean_k_used=d["windows"] / max(1, d["drains"]),
+        fold=d["decisions"] / max(1, d["lanes"]),
+        mean_inflight=d["mean_inflight"], gate_holds=d["gate_holds"],
+        stage_busy_s=d["busy"], window_ms_router=r["window_ms"],
+        window_ms_tables=p4_ms, saturated=variants,
+        chained_burst=dict(drains=cc["drains"],
+                           chain_flushes=cc["chain_flushes"],
+                           fetch_elided=cc["fetch_elided"],
+                           mean_inflight=cc["mean_inflight"]))
+    var = "; ".join(
+        f"{k}: {v['decisions_per_s']:.1f} decisions/s, {v['drains']} drains, "
+        f"mean k_used {v['mean_k_used']:.3f}, mean in flight "
+        f"{v['mean_inflight']:.3f}, {v['fetch_elided']} fetches elided"
+        for k, v in variants.items())
+    log(f"phase 8 pipelined serving ({SHARDS} x {FULL_CAPACITY // SHARDS} "
+        f"slots, router + pipeline, {SERVE_CLIENTS} clients x "
+        f"{SERVE_RPC}-item RPCs, compact token/leaky over {SERVE_KEYS} Zipf "
+        f"keys): {n} decisions in {wall:.3f} s = {n / wall:.1f} decisions/s "
+        f"({n2 / wall2:.1f}/s under the profiler, card idle share "
+        f"{fig['idle_share']}); {d['drains']} drains, mean k_used "
+        f"{fig['mean_k_used']:.3f}, fold {fig['fold']:.3f}, mean in flight "
+        f"{fig['mean_inflight']:.3f}, gate holds {fig['gate_holds']}; stage "
+        f"busy {busy}; saturated again {var}; offered rates: {rates}; "
+        f"1000-request window through "
+        f"engine.process {r['window_ms']:.3f} ms on the router, "
+        f"{p4_ms:.3f} ms on the Python tables (phase 4); bursts at depth 1, "
+        f"3, and 3 with the gate off and two drains a fetch: {b['drains']} "
+        f"drains ({cc['drains']} in the last, {cc['chain_flushes']} chain "
+        f"fetches), {b['decisions']} decisions on {b['lanes']} lanes, every "
+        f"response = the Python-table engine; "
+        f"sync debug mode: no host sync on the drain's dispatch path; "
+        f"analytics from requests ({r['an']['drains']} drains, "
+        f"{r['an']['decisions']} decisions): hottest keys {chk['hot']} in "
+        f"the top-K "
+        f"{chk['top']}; small Instance ({chk['small']} decisions) = the CPU "
+        f"twin, arena included; launches {counts}; {smi}")
+    fig["staging_ms"] = {k: dict(host=h, card=c)
+                         for k, (h, c) in chk["staging"].items()}
+    log("serving figures: " + json.dumps(dict(card=smi, **fig)))
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -2506,7 +3018,7 @@ def main():
     reset_counts()
     drain = phase_engine_full_size(eng, packed, nows)
     del eng
-    phase_serving()
+    p4_ms = phase_serving()
     path1 = launch_counts()
     log(f"main path, one shard (phases 3b + 4): launches {path1}")
     global_err = phase_global_vs_plain()
@@ -2559,11 +3071,38 @@ def main():
     one = script["pairs"][0][0]
     math_windows(tk.BucketState(*[t[0] for t in one.state]),
                  int(script["nows1"][0][0]))
+    del script, one
+    # the pipelined serving path: counts from 0 again, after its inputs
+    # are built (inside, before the Instance serves)
+    serve = phase_serving_pipeline()
+    path5, plain5 = launch_counts(), plain_counts()
+    check(all(path5[k] > 0 for k in ("drain_compact", "drain_compact_stats",
+                                     "stats_finish")),
+          f"a kernel of the pipelined serving path never launched: {path5}")
+    check(not any(plain5.values()),
+          f"the plain versions ran on the pipelined serving path: {plain5}")
+    # every drain of each pipeline is one launch; the first Instance's
+    # engine.process windows add drain_compact launches of their own
+    an8 = serve["an"]
+    check(an8["drains"] > 0 and an8["decisions"] >= SERVE_DECISIONS,
+          f"the analytics pipeline served {an8['decisions']} decisions in "
+          f"{an8['drains']} drains")
+    check(path5["drain_compact_stats"] == an8["drains"]
+          and path5["stats_finish"] == an8["drains"],
+          f"stats launches {path5} != the analytics pipeline's "
+          f"{an8['drains']} drains")
+    check(path5["drain_compact"] >= serve["pipe_drains"] > 0,
+          f"drain_compact launches {path5['drain_compact']} < the "
+          f"pipeline's {serve['pipe_drains']} drains")
+    check(serve["chain_counts"]["chain_flushes"] > 0,
+          f"the chained burst flushed no chain: {serve['chain_counts']}")
+    chk8 = check_serving(serve)
+    report_serving(serve, chk8, path5, p4_ms, smi)
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
-             launches=path1["drain_compact"],
+             launches=path1["drain_compact"] + path5["drain_compact"],
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -2585,7 +3124,8 @@ def main():
              library_ms=None),
         dict(name="drain_compact_stats", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:852",
-             launches=path3["drain_compact_stats"],
+             launches=(path3["drain_compact_stats"]
+                       + path5["drain_compact_stats"]),
              max_abs_err=max(stats_err, chk["err"]),
              ms=sig4(an["stats_drain_ms"] if an["stats_drain_ms"] is not None
                      else an["call_ms"][0]),
@@ -2594,7 +3134,7 @@ def main():
              bound_by=bounds["stats_bound"][1], library_ms=None),
         dict(name="stats_finish", route="cuda", source=STATS_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1168",
-             launches=path3["stats_finish"],
+             launches=path3["stats_finish"] + path5["stats_finish"],
              max_abs_err=max(stats_err, chk["err"]),
              ms=sig4(an["finish_ms"] if an["finish_ms"] is not None
                      else an["call_ms"][0]),

@@ -2,15 +2,34 @@
 
 The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
 item cap, the batching behaviors (reference config.go:43-66), the
-dimensions of the regular and GLOBAL arenas, the traffic-analytics and SLO
-knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the engine's lowering
-(GUBER_PALLAS) and the env readers they use.
+dimensions of the regular and GLOBAL arenas and their key routing, the
+traffic-analytics and SLO knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the
+engine's lowering (GUBER_PALLAS), the serving pipeline's knobs and the env
+readers they use.
 
 Environment read by the engine itself, once, when it is built:
 
-  GUBER_PALLAS=1   the per-op lowering (per_op_lowering below).  Default:
-                   the hand-written drain, which answers to the JAX
-                   package's fused and staged lowerings.
+  GUBER_PALLAS=1        the per-op lowering (per_op_lowering below).
+                        Default: the hand-written drain, which answers to
+                        the JAX package's fused and staged lowerings.
+  GUBER_EXACT_KEYS=1    the native router's exact-key guard
+                        (exact_keys_env below).
+  GUBER_REPLAY_CAP      the replay-bound guard (replay_cap_override).
+  GUBER_PIPELINE_KMAX   the deepest stacked drain (core/engine.py
+                        PIPELINE_K_BUCKETS), read when the engine module
+                        is imported.
+
+Read by the serving pipeline (core/pipeline.py) when it is built:
+
+  GUBER_PIPELINE_DEPTH      drains in flight at once (default 3);
+  GUBER_PIPELINE_GATE       the occupancy gate on/off (default on);
+  GUBER_PIPELINE_GATE_FRAC  the share of one window's lanes the gate
+                            waits for (default 1.0);
+  GUBER_FETCH_WORKERS       fetch threads (default 2);
+  GUBER_FETCH_STRIDE        drains that share one fetch (default
+                            FETCH_STRIDE_DEFAULT);
+  GUBER_CHAIN_LINGER_MS     how long a chained drain waits for companions
+                            (CHAIN_LINGER_MS_DEFAULT).
 """
 
 from __future__ import annotations
@@ -22,6 +41,12 @@ from typing import List
 
 # Hard cap on items per RPC (reference gubernator.go:34).
 MAX_BATCH_SIZE = 1000
+
+# The serving pipeline's deferred-fetch chain (core/pipeline.py): how
+# many drains share one fetch task (1 = fetch every drain), and how long
+# a chained drain waits for companions before the pipeline fetches anyway.
+FETCH_STRIDE_DEFAULT = 1
+CHAIN_LINGER_MS_DEFAULT = 2.0
 
 
 @dataclass
@@ -56,6 +81,14 @@ class EngineConfig:
     global_capacity: int = 4096
     global_batch_per_shard: int = 256
     max_global_updates: int = 256
+    # Regular-key routing: "auto" uses the native C++ router
+    # (gubernator_tpu_torch/native) when it builds and the Python slot
+    # tables otherwise; "on" requires the router; False forces the tables.
+    use_native: object = "auto"
+    # Opt-in exact-key collision guard in the native router (env:
+    # GUBER_EXACT_KEYS=1): stores full key bytes so a 64-bit fingerprint
+    # collision probes onward instead of merging two keys' counters.
+    exact_keys: bool = False
     # Replay-bound guard: max lanes of a NON-uniform duplicate-key run per
     # window before the window is cut there; 0 disables.
     replay_cap: int = 128
@@ -221,6 +254,14 @@ def replay_cap_override():
         raise ValueError(
             f"GUBER_REPLAY_CAP must be an integer (lanes; 0 "
             f"disables the replay-bound guard), got {v!r}") from None
+
+
+def exact_keys_env() -> bool:
+    """GUBER_EXACT_KEYS=1: turn the native router's exact-key guard on
+    whatever the engine's argument says (the JAX engine's test,
+    gubernator_tpu/core/engine.py:303-309: the value "1" and nothing
+    else)."""
+    return os.environ.get("GUBER_EXACT_KEYS") == "1"
 
 
 def per_op_lowering() -> bool:

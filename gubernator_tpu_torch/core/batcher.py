@@ -1,13 +1,20 @@
 """Window batcher: accumulates decisions into device windows.
 
-The classic window path of `gubernator_tpu/core/batcher.py` (the analog of
-the reference's per-peer batching loop, peers.go:143-172): requests queue
-until `batch_limit` items or `batch_wait` elapses, then the whole window
-ships as one `engine.process` call.  Responses resolve back to awaiting
-callers by position.
+The single-node window paths of `gubernator_tpu/core/batcher.py` (the
+analog of the reference's per-peer batching loop, peers.go:143-172):
 
-The engine is not thread-safe, so all device work funnels through a
-single-thread executor; NO_BATCHING requests jump the window (submit_now)
+  * the pipelined lane (core/pipeline.py), built when the engine has the
+    native router: token and leaky requests in the compact ranges, not
+    GLOBAL, ride stacked compact drains (`submit` sends them to
+    `pipeline.submit_one`, `submit_now` whole lists to
+    `pipeline.submit_many`);
+  * the classic lane for everything else: requests queue until
+    `batch_limit` items or `batch_wait` elapses, then the whole window
+    ships as one `engine.process` call.
+
+Responses resolve back to awaiting callers by position.  The engine is not
+thread-safe, so all device work funnels through a single-thread executor
+that the pipeline shares; NO_BATCHING requests jump the window (submit_now)
 but share that serialization.
 """
 
@@ -21,11 +28,15 @@ from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp
 from gubernator_tpu_torch.config import BehaviorConfig
 from gubernator_tpu_torch.core.engine import RateLimitEngine
 from gubernator_tpu_torch.core.interval import ArmedInterval
+from gubernator_tpu_torch.core.pipeline import DispatchPipeline
 
 
 class WindowBatcher:
     def __init__(self, engine: RateLimitEngine,
-                 behaviors: Optional[BehaviorConfig] = None):
+                 behaviors: Optional[BehaviorConfig] = None,
+                 analytics=None, slo=None):
+        """analytics / slo: the TrafficAnalytics and SLOEngine the
+        pipeline feeds each drain's stats and wall time to, or None."""
         self.engine = engine
         self.behaviors = behaviors or BehaviorConfig()
         self._pending: List[tuple] = []  # (req, accumulate, future)
@@ -35,14 +46,34 @@ class WindowBatcher:
         # one thread == one device stream; serializes all engine access
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix="guber-device")
-        # Injectable clock (ms epoch) for the window path; None = wall time.
+        # Injectable clock (ms epoch) for the classic lane; None = wall
+        # time.  Tests pin it beside pipeline.now_fn.
         self.now_fn = None
+        self.pipeline: Optional[DispatchPipeline] = DispatchPipeline(
+            engine, self._executor, analytics=analytics, slo=slo)
+        if not self.pipeline.enabled:
+            self.pipeline = None
+        else:
+            # the submit-side coalescing window is the configured BatchWait
+            self.pipeline.coalesce_wait = self.behaviors.batch_wait
+
+    async def _legacy_process(self, reqs: Sequence[RateLimitReq]
+                              ) -> List[RateLimitResp]:
+        """One engine.process call on the engine thread, on the batcher's
+        clock."""
+        loop = asyncio.get_running_loop()
+        now = self.now_fn() if self.now_fn is not None else None
+        return await loop.run_in_executor(
+            self._executor, lambda: self.engine.process(reqs, now))
 
     async def submit(self, req: RateLimitReq,
                      accumulate: bool = True) -> RateLimitResp:
         """Queue into the current window; resolves when the window executes.
         accumulate=False keeps a GLOBAL request's hits out of the window's
         per-slot sum (engine.step)."""
+        if (self.pipeline is not None and accumulate
+                and self.pipeline.eligible(req)):
+            return await self.pipeline.submit_one(req)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._pending.append((req, accumulate, fut))
         if len(self._pending) >= max(1, self.behaviors.batch_limit):
@@ -88,13 +119,17 @@ class WindowBatcher:
 
     async def submit_now(self, reqs: Sequence[RateLimitReq]
                          ) -> List[RateLimitResp]:
-        """Run a ready-made window immediately (the NO_BATCHING lane)."""
-        loop = asyncio.get_running_loop()
-        now = self.now_fn() if self.now_fn is not None else None
-        return await loop.run_in_executor(
-            self._executor, lambda: self.engine.process(reqs, now))
+        """Run a ready-made window immediately (the NO_BATCHING lane): as
+        one pipeline job when every request is eligible, else one
+        engine.process call."""
+        if (self.pipeline is not None and reqs
+                and all(self.pipeline.eligible(r) for r in reqs)):
+            return await self.pipeline.submit_many(reqs)
+        return await self._legacy_process(reqs)
 
     def close(self) -> None:
+        if self.pipeline is not None:
+            self.pipeline.close()
         if self._interval is not None:
             self._interval.stop()
         self._executor.shutdown(wait=False)

@@ -6,7 +6,13 @@ package's mesh shard axis is the leading dimension of the arena: regular
 keys live in [S, C] planes, a key's shard given by `shard_of`, and GLOBAL
 keys live in one replicated [G] arena.  The host maps each key to a slot
 (state/arena.py SlotTable, the JAX engine's use_native=False path) and
-stages the window's lanes; the device applies them:
+stages the window's lanes; the device applies them.  With the native
+router (`use_native`, gubernator_tpu_torch/native: the JAX engine's C++
+router, copied) one C call hashes, routes and slot-allocates a whole
+window of regular keys instead (`_process_native`, the JAX engine's
+use_native path), GLOBAL keys staying on the Python table, and the serving
+pipeline (core/pipeline.py) packs K-window compact stacks with it for
+`pipeline_dispatch`:
 
   * the regular lanes with one launch of the window-drain kernel
     (ops/drain_kernel.py), one CTA per shard.  Windows inside the compact
@@ -48,8 +54,9 @@ the torch reduction of `analytics_dispatch`.  The drain, global_window and
 the stats kernels are not launched then.  Both lowerings answer every
 request alike and leave the same arenas.
 
-Mesh-mode registration (several processes) and upserts from an owner's
-broadcast are not part of this single-process engine.
+Mesh-mode registration (several processes), upserts from an owner's
+broadcast and the stacked legacy step (`step_stacked`) are not part of
+this single-process engine.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch import config
+from gubernator_tpu_torch import native as native_mod
 from gubernator_tpu_torch.api.types import (
     Behavior,
     RateLimitReq,
@@ -88,6 +96,22 @@ from gubernator_tpu_torch.state.arena import SlotTable
 ARENA_FIELDS = BucketState._fields
 GSTATE_FIELDS = tuple(f"gstate.{f}" for f in BucketState._fields)
 GCFG_FIELDS = tuple(f"gcfg.{f}" for f in GlobalConfig._fields)
+
+
+def _k_buckets_from_env():
+    """The serving pipeline's stacked-drain depths (JAX engine.py:68-84):
+    a drain of k windows dispatches padded up to the nearest bucket, and
+    warmup launches exactly these shapes.  Dense through 8, then 32, 128
+    and 512 below GUBER_PIPELINE_KMAX, and KMAX itself."""
+    kmax = config.env_int("GUBER_PIPELINE_KMAX", 8)
+    buckets = list(range(1, min(kmax, 8) + 1))
+    buckets += [b for b in (32, 128, 512) if buckets[-1] < b < kmax]
+    if kmax > buckets[-1]:
+        buckets.append(kmax)
+    return tuple(buckets)
+
+
+PIPELINE_K_BUCKETS = _k_buckets_from_env()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -177,12 +201,15 @@ class _Staging:
     device buffer; a host buffer is written only once the event recorded
     behind its last copy has passed: the host waits for that copy, issued
     two stages of the name earlier, when it is still in flight, and never
-    otherwise.  Every copy is one non-blocking copy_ on the current stream.
-    On a CPU engine the buffers are plain host tensors."""
+    otherwise.  A pinned host tensor the caller owns (the serving
+    pipeline's arenas) skips the host buffers: it crosses straight into the
+    device buffer.  Every copy is one non-blocking copy_ on the current
+    stream.  On a CPU engine the buffers are plain host tensors."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._slots: dict = {}
+        self._dev: dict = {}
 
     def stage(self, name: str, numel: int, fill,
               dtype=torch.int64) -> torch.Tensor:
@@ -213,11 +240,33 @@ class _Staging:
             ev.record()
         return dev
 
+    def copy_in(self, name: str, a: torch.Tensor) -> torch.Tensor:
+        """A pinned host tensor in the device buffer of `name`, through one
+        non-blocking copy (valid until the next copy_in of `name`).  The
+        caller leaves `a` unchanged until an event recorded after the work
+        that reads the copy has passed."""
+        n = a.numel()
+        dev = self._dev.get(name)
+        if dev is None or dev.numel() < n or dev.dtype != a.dtype:
+            dev = self._dev[name] = torch.empty(n, dtype=a.dtype,
+                                                device=self.device)
+        out = dev[:n].view(a.shape)
+        out.copy_(a, non_blocking=True)
+        return out
+
     def array(self, name: str, a, dtype=None) -> torch.Tensor:
         """A host array on the device as `dtype` (default: its own), with
-        its shape; a tensor goes to the device as it would with .to()."""
+        its shape.  A tensor already on the device is used as it is (cast
+        to `dtype`); on a CUDA engine a pinned host tensor of that dtype
+        crosses with copy_in and any other host tensor through the pinned
+        buffers, so no copy here waits for the device."""
         if isinstance(a, torch.Tensor):
-            return a.to(self.device, dtype).contiguous()
+            if a.device.type != "cpu" or self.device.type != "cuda":
+                return a.to(self.device, dtype).contiguous()
+            if a.is_pinned() and a.is_contiguous() and dtype in (None,
+                                                                 a.dtype):
+                return self.copy_in(name, a)
+            a = a.numpy()
         a = np.asarray(a)
         if dtype is None:
             dtype = torch.from_numpy(a[:0].reshape(-1)).dtype
@@ -245,6 +294,13 @@ class RateLimitEngine:
         differential tests see the same windows.  It can go once parity
         no longer depends on it.
     device: where the arenas live and the kernels run (default `cuda`).
+    use_native: regular-key routing.  False (the default here; Instance
+        passes EngineConfig.use_native, "auto") keeps the Python slot
+        tables; "auto" or True builds the native router when it is
+        available and logs a warning and keeps the tables when it is not;
+        "on" requires it and raises with g++'s output when it cannot be
+        built.  `self.native` is the router or None.
+    exact_keys: the router's exact-key guard (also GUBER_EXACT_KEYS=1).
 
     GUBER_PALLAS=1 in the environment at construction selects the per-op
     lowering (`per_op`; see the module docstring).
@@ -260,6 +316,8 @@ class RateLimitEngine:
         max_global_updates: int = 256,
         replay_cap: Optional[int] = None,
         device=None,
+        use_native=False,
+        exact_keys: bool = False,
     ):
         self.device = resolve_device(device)
         self.per_op = config.per_op_lowering()
@@ -307,6 +365,18 @@ class RateLimitEngine:
         env_cap = config.replay_cap_override()
         self.replay_cap = (env_cap if env_cap is not None
                            else 128 if replay_cap is None else replay_cap)
+        # the native C++ router (JAX engine.py:296-312): regular-key
+        # routing state lives in exactly one of it and self.tables
+        self.native = None
+        if use_native in ("auto", True, "on"):
+            if native_mod.available():
+                self.native = native_mod.NativeRouter(S, C)
+                if exact_keys or config.exact_keys_env():
+                    self.native.set_exact_keys()
+                self.native.set_replay_cap(self.replay_cap)
+            elif use_native != "auto":
+                raise RuntimeError("native router requested but unavailable: "
+                                   f"{native_mod.build_error()}")
 
     # ------------------------------------------------------------ serving
 
@@ -322,7 +392,10 @@ class RateLimitEngine:
         caps (use `process` for auto-chunking): per-shard regular lanes <=
         batch_per_shard, GLOBAL lanes <= num_shards *
         global_batch_per_shard, distinct GLOBAL keys <= max_global_updates.
+        With the native router it is `_process_native`, which chunks.
         """
+        if self.native is not None:
+            return self._process_native(requests, now, accumulate)
         now = self._resolve_now(now)
         buf = self._buf
         buf.reset(self.global_capacity)
@@ -411,6 +484,144 @@ class RateLimitEngine:
                 buf.is_init[s, lane] = is_init
                 lanes.append((s, lane, False))
         return lanes, gcfg_upd, greset, max(reg_fill, default=0), g_count
+
+    def _process_native(
+        self,
+        requests: Sequence[RateLimitReq],
+        now: Optional[int] = None,
+        accumulate: Optional[Sequence[bool]] = None,
+    ) -> List[RateLimitResp]:
+        """Window processing with the C++ router resolving regular keys
+        (JAX engine.py:721-928).
+
+        One `router_pack` call hashes, routes and slot-allocates a window's
+        regular requests straight into the staging buffers; on lane
+        overflow it packs what fits and the loop ships that window and
+        packs the rest (built-in chunking).  GLOBAL keys keep the Python
+        gtable, spread round-robin over the shards in the same dispatch.
+        Like step(), a call always dispatches at least one window, even for
+        no requests."""
+        now = self._resolve_now(now)
+        S = self.num_shards
+        B = self.batch_per_shard
+        buf = self._buf
+        responses: List[Optional[RateLimitResp]] = [None] * len(requests)
+
+        glob: List[tuple] = []
+        reg_idx: List[int] = []
+        keys_b: List[bytes] = []
+        rhits: List[int] = []
+        rlim: List[int] = []
+        rdur: List[int] = []
+        ralgo: List[int] = []
+        for i, r in enumerate(requests):
+            if r.behavior == Behavior.GLOBAL:
+                glob.append((i, r, accumulate is None or accumulate[i]))
+            else:
+                reg_idx.append(i)
+                keys_b.append(r.hash_key().encode("utf-8"))
+                rhits.append(r.hits)
+                rlim.append(r.limit)
+                rdur.append(r.duration)
+                ralgo.append(r.algorithm)
+        nreg = len(reg_idx)
+        if nreg:
+            key_bytes = np.frombuffer(b"".join(keys_b), dtype=np.uint8)
+            key_ends = np.cumsum([len(k) for k in keys_b]).astype(np.int64)
+            c_hits = np.asarray(rhits, dtype=np.int64)
+            c_lim = np.asarray(rlim, dtype=np.int64)
+            c_dur = np.asarray(rdur, dtype=np.int64)
+            c_algo = np.asarray(ralgo, dtype=np.int32)
+        if nreg:
+            out_shard = np.zeros(nreg, np.int32)
+            out_lane = np.zeros(nreg, np.int32)
+        shard_fill = np.zeros(S, np.int32)
+
+        pos = 0
+        gpos = 0
+        first = True
+        while first or pos < nreg or gpos < len(glob):
+            first = False
+            buf.reset(self.global_capacity)
+            shard_fill[:] = 0
+            self.gtable.begin_window()
+
+            packed = 0
+            if pos < nreg:
+                base = 0 if pos == 0 else int(key_ends[pos - 1])
+                packed = self.native.pack(
+                    key_bytes[base:], key_ends[pos:] - base,
+                    c_hits[pos:], c_lim[pos:], c_dur[pos:], c_algo[pos:],
+                    now, B,
+                    buf.slot, buf.hits, buf.limit, buf.duration, buf.algo,
+                    buf.is_init.view(np.uint8),
+                    out_shard[pos:], out_lane[pos:], shard_fill,
+                )
+
+            # GLOBAL lanes (Python table) up to the caps, round-robin over
+            # the shards (the per-slot sum covers every shard)
+            glanes: List[tuple] = []
+            g_count = 0
+            gcfg_upd: dict = {}
+            greset: List[int] = []
+            while gpos + len(glanes) < len(glob):
+                i, r, contribute = glob[gpos + len(glanes)]
+                if g_count + 1 > S * self.global_batch_per_shard:
+                    break
+                if len(gcfg_upd) + 1 > self.max_global_updates:
+                    break
+                slot, is_init = self.gtable.lookup(r.hash_key(), now,
+                                                   r.duration)
+                if contribute:
+                    gcfg_upd[slot] = (r.limit, r.duration, r.algorithm)
+                    if is_init:
+                        greset.append(slot)
+                s = g_count % S
+                lane = g_count // S
+                g_count += 1
+                buf.gslot[s, lane] = slot
+                buf.ghits[s, lane] = r.hits
+                buf.ghits_acc[s, lane] = r.hits if contribute else 0
+                buf.glimit[s, lane] = r.limit
+                buf.gduration[s, lane] = r.duration
+                buf.galgo[s, lane] = r.algorithm
+                buf.gis_init[s, lane] = is_init
+                glanes.append((i, s, lane))
+            for j, (slot, cfg) in enumerate(gcfg_upd.items()):
+                buf.uslot[j] = slot
+                buf.ulimit[j], buf.uduration[j], buf.ualgo[j] = cfg
+            for j, slot in enumerate(greset):
+                buf.rslot[j] = slot
+
+            if (packed == 0 and not glanes
+                    and (pos < nreg or gpos < len(glob))):
+                raise RuntimeError("window packing made no progress")
+
+            out, gout = self._dispatch(
+                now, reg_fill=int(shard_fill.max()) if packed else 0)
+            self.native.commit()
+            self.gtable.commit_window()
+            if packed:
+                # vectorized demux: one fancy-indexed gather per field
+                sh = out_shard[pos:pos + packed]
+                ln = out_lane[pos:pos + packed]
+                sts = out.status[sh, ln].tolist()
+                lims = out.limit[sh, ln].tolist()
+                rems = out.remaining[sh, ln].tolist()
+                rsts = out.reset_time[sh, ln].tolist()
+                for j, i in enumerate(reg_idx[pos:pos + packed]):
+                    responses[i] = RateLimitResp(
+                        status=sts[j], limit=lims[j],
+                        remaining=rems[j], reset_time=rsts[j])
+            for i, s, lane in glanes:
+                st, lim, rem, rst = gout[s, lane].tolist()
+                responses[i] = RateLimitResp(status=st, limit=lim,
+                                             remaining=rem, reset_time=rst)
+            pos += packed
+            gpos += len(glanes)
+            self.decisions_processed += packed + len(glanes)
+
+        return responses  # type: ignore[return-value]
 
     def _resolve_now(self, now: Optional[int]) -> int:
         return millisecond_now() if now is None else now
@@ -555,8 +766,26 @@ class RateLimitEngine:
         request stack (numpy or tensor); nows: i64[K] per-window
         timestamps.  Returns device tensors (words i64[K, S, B], limits
         i64[K, S, B], mism bool[K, S]).  The caller guarantees compact
-        eligibility."""
+        eligibility.  A pinned host tensor (the serving pipeline's arena)
+        crosses in one non-blocking copy and must stay unchanged until
+        the drain's outputs have been fetched (fetch_async's event)."""
         return self._drain(packed, nows, n_windows)
+
+    def fetch_async(self, pairs) -> Optional["torch.cuda.Event"]:
+        """Start copying each (device tensor, host tensor) pair of `pairs`
+        into its host tensor - pinned, on a CUDA engine - without waiting,
+        and return an event recorded behind the copies: once it has passed
+        the host tensors hold the values, and everything queued before it
+        on the stream (the drain that made them, the copies that fed it)
+        is done.  On a CPU engine the copies are done on return and the
+        event is None."""
+        for src, dst in pairs:
+            dst.copy_(src, non_blocking=True)
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
 
     def _drain(self, packed, nows, n_windows: Optional[int],
                tenants=None):
@@ -624,8 +853,7 @@ class RateLimitEngine:
         without tenants and the stats are analytics_dispatch's torch
         reduction over its words (the JAX engine's route without the
         staged kernels, engine.py:3136)."""
-        nows = _host(nows).astype(np.int64)
-        now0 = int(nows.reshape(-1)[0])
+        now0 = int(_host(nows).reshape(-1)[0])
         tenants = decay = None
         if analytics_args is not None:
             conf = self._analytics_conf()
@@ -738,10 +966,11 @@ class RateLimitEngine:
     def warmup(self, now: Optional[int] = None) -> None:
         """Build the kernels and launch each serving shape once on an empty
         window: the full format at full width, every compact lane bucket,
-        a one-window stacked drain and a GLOBAL window at full width, and
-        with analytics enabled the composed drain with analytics (zero
-        tenants, no decay: the sketch stays as it was).  Leaves both arenas
-        as they were."""
+        a one-window stacked drain (with the native router one stacked
+        drain per PIPELINE_K_BUCKETS depth, the serving pipeline's shapes)
+        and a GLOBAL window at full width, and with analytics enabled the
+        composed drain with analytics (zero tenants, no decay: the sketch
+        stays as it was).  Leaves both arenas as they were."""
         now = self._resolve_now(now)
         saved = self._compact_enabled
         self._compact_enabled = False
@@ -752,10 +981,12 @@ class RateLimitEngine:
             for lanes in self._lane_bucket_list:
                 self._buf.reset(self.global_capacity)
                 self._dispatch(now, reg_fill=lanes)
-        packed = np.zeros((1, self.num_shards, self.batch_per_shard, 2),
-                          np.int64)
-        _, _, mism = self.pipeline_dispatch(packed, np.full(1, now, np.int64),
-                                            n_windows=0)
+        for kb in PIPELINE_K_BUCKETS if self.native is not None else (1,):
+            packed = np.zeros((kb, self.num_shards, self.batch_per_shard, 2),
+                              np.int64)
+            _, _, mism = self.pipeline_dispatch(
+                packed, np.full(kb, now, np.int64), n_windows=0)
+        packed = packed[:1]
         read = self._global_window(*self.empty_drain_control(), now)
         mism.cpu()
         read.cpu()
@@ -770,7 +1001,10 @@ class RateLimitEngine:
                 now: Optional[int] = None,
                 accumulate: Optional[Sequence[bool]] = None
                 ) -> List[RateLimitResp]:
-        """step() with automatic chunking when a window overflows the caps."""
+        """step() with automatic chunking when a window overflows the caps
+        (with the native router, `_process_native` chunks itself)."""
+        if self.native is not None:
+            return self._process_native(requests, now, accumulate)
         out: List[RateLimitResp] = []
         acc = (list(accumulate) if accumulate is not None
                else [True] * len(requests))
@@ -831,36 +1065,46 @@ class RateLimitEngine:
 
     @property
     def cache_size(self) -> int:
-        return sum(len(t) for t in self.tables) + len(self.gtable)
+        reg = (self.native.size if self.native is not None
+               else sum(len(t) for t in self.tables))
+        return reg + len(self.gtable)
 
     @property
     def cache_hits(self) -> int:
-        return sum(t.hits for t in self.tables) + self.gtable.hits
+        reg = (self.native.hits if self.native is not None
+               else sum(t.hits for t in self.tables))
+        return reg + self.gtable.hits
 
     @property
     def cache_misses(self) -> int:
-        return sum(t.misses for t in self.tables) + self.gtable.misses
+        reg = (self.native.misses if self.native is not None
+               else sum(t.misses for t in self.tables))
+        return reg + self.gtable.misses
 
     def cache_stats(self, now: Optional[int] = None) -> dict:
         """Hit/miss counters plus free/live/expired slot occupancy (by the
-        host expiry estimates) of the regular tables and the GLOBAL
-        table."""
+        host expiry estimates) of the regular keys (the router's or the
+        tables') and the GLOBAL table."""
         now = int(now) if now is not None else millisecond_now()
-        live = expired = free = 0
-        for t in self.tables + [self.gtable]:
-            st = t.stats(now)
-            free += st["free"]
-            live += st["live"]
-            expired += st["expired"]
+        if self.native is not None:
+            live, expired, free = self.native.occupancy(now)
+        else:
+            live = expired = free = 0
+            for t in self.tables:
+                st = t.stats(now)
+                free += st["free"]
+                live += st["live"]
+                expired += st["expired"]
+        g = self.gtable.stats(now)
         return {
             "size": self.cache_size,
             "capacity": (self.num_shards * self.capacity_per_shard
                          + self.global_capacity),
             "hits": self.cache_hits,
             "misses": self.cache_misses,
-            "free": free,
-            "live": live,
-            "expired": expired,
+            "free": free + g["free"],
+            "live": live + g["live"],
+            "expired": expired + g["expired"],
         }
 
     # ------------------------------------------------------- state transfer

@@ -6,14 +6,19 @@ reference's exact error strings (gubernator.go:102-110), the 1000-item RPC
 cap (:78-81), and local decisions through the WindowBatcher into the
 engine's kernel launches per window.  GLOBAL items are served standalone
 (every replica is this node's), on the token and leaky algorithms only,
-as in the JAX package.  Traffic analytics and the SLO engine are wired as
-the JAX service wires them (core/service.py:108-127): off by default, on
-with an enabled AnalyticsConfig / SLOConfig.  Their feed (tenant ids staged
-per lane, `TrafficAnalytics.ingest` of each drain's stats) comes with the
-serving pipeline, as in the JAX package without its native router; until
-then `engine.pipeline_dispatch_global(..., analytics_args=...)` is the
-analytics path.  Peers, leases, QoS and snapshots are not part of the port
-yet.
+as in the JAX package.  The engine is built with the native router when it
+builds (EngineConfig.use_native, "auto"), and then the batcher serves
+token and leaky requests in the compact ranges through the pipelined lane
+(core/pipeline.py: router-packed K-window stacks, one drain-kernel launch
+each, an asynchronous fetch) and everything else through engine.process on
+the router.  Traffic analytics and the SLO engine are wired as the JAX
+service wires them (core/service.py:108-127): off by default, on with an
+enabled AnalyticsConfig / SLOConfig; the pipeline stages each lane's tenant
+id, drains through the stats drain and the finisher, and hands every
+drain's stats to `TrafficAnalytics.ingest` and its wall time to
+`SLOEngine.observe_drain` (requests on the legacy lane feed neither, as in
+the JAX package).  Peers, leases, QoS and snapshots are not part of the
+port yet.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ class Instance:
                 global_capacity=e.global_capacity,
                 global_batch_per_shard=e.global_batch_per_shard,
                 max_global_updates=e.max_global_updates,
-                replay_cap=e.replay_cap, device=device)
+                replay_cap=e.replay_cap, device=device,
+                use_native=e.use_native, exact_keys=e.exact_keys)
         self.engine = engine
         self.analytics: Optional[TrafficAnalytics] = None
         self.slo: Optional[SLOEngine] = None
@@ -85,7 +91,8 @@ class Instance:
         if slo is not None and slo.enabled:
             slo.validate()
             self.slo = SLOEngine(slo)
-        self.batcher = WindowBatcher(self.engine, self.behaviors)
+        self.batcher = WindowBatcher(self.engine, self.behaviors,
+                                     analytics=self.analytics, slo=self.slo)
         self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
 
     async def get_rate_limits(self, requests: Sequence[RateLimitReq]

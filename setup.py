@@ -8,7 +8,8 @@ setup(
                                     "gubernator_tpu_torch",
                                     "gubernator_tpu_torch.*"]),
     package_data={"gubernator_tpu.api": ["proto/*.proto", "proto/*.py"],
-                  "gubernator_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "gubernator_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
+                  "gubernator_tpu_torch.native": ["host_router.cc"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

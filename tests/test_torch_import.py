@@ -29,7 +29,11 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.ops.window_math_kernel",
                   "gubernator_tpu_torch.config",
                   "gubernator_tpu_torch.ops.analytics",
-                  "gubernator_tpu_torch.observability.analytics")
+                  "gubernator_tpu_torch.observability.analytics",
+                  "gubernator_tpu_torch.native",
+                  "gubernator_tpu_torch.core.window_buffers",
+                  "gubernator_tpu_torch.core.pipeline",
+                  "gubernator_tpu_torch.qos.fairness")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
