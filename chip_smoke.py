@@ -138,15 +138,32 @@ Phases (one line each; any mismatch raises and exits non-zero):
      and arena, and a K = 8 stack of the serving shape dispatched from a
      pinned tensor (the pipeline's route) and from a numpy array (the
      engine's staging buffers), timed; then one line of the end-to-end
-     figures beside the card's name and power limit.
+     figures beside the card's name and power limit;
+  9. the raw-bytes RPC lane: an Instance of phase 8's geometry served
+     through gubernator_tpu_torch.server.serve_get_rate_limits with
+     serialized 100-item GetRateLimitsReq of about 3.2 KB (Zipf keys over
+     2^20, compact token and leaky), encoded and decoded by this script's
+     small proto3 codec (the machine has no protobuf): C parse into the
+     K-window stack, one drain_compact launch a drain, a CUDA event, C
+     encode.  Two ~50k-decision bursts from 64 concurrent callers on a
+     pinned clock, at depth 1 and at depth 3 with the occupancy gate off;
+     saturation (gate on and off, each also profiled for the card's idle
+     share), open-loop rates at 25/50/100%, and a run with the parse and
+     the encode timed.  After the counts are read: every RPC staged once
+     and none refused, every response decoded and held field for field
+     against a Python-table engine on the card replaying the RPCs in the
+     router's staging order, the first burst's arena shard by shard
+     against that engine's; then one line of figures beside phase 8's.
 
-Five main paths are counted, each from 0: the one-shard path (phases 3b
+Six main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
-path (phase 6b), the per-op path (phase 7b) and the pipelined serving
-path (phase 8, from requests); each must launch its kernels and never run
-a plain version, and the per-op path must launch no kernel but
-window_math, global_stage and global_apply.  The kernel table's launch
-counts are drain_compact's (the first path's and the fifth's) and
+path (phase 6b), the per-op path (phase 7b), the pipelined serving path
+(phase 8, from requests) and the raw-RPC lane (phase 9, from wire bytes);
+each must launch its kernels and never run a plain version, the per-op
+path must launch no kernel but window_math, global_stage and
+global_apply, and the raw-RPC lane none but drain_compact, once a drain.
+The kernel table's launch counts are drain_compact's (the first path's,
+the fifth's and the sixth's) and
 window_full's on the first path, global_window's on the second,
 drain_compact_stats' and stats_finish's on the third and the fifth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
@@ -191,6 +208,10 @@ from gubernator_tpu_torch.ops import stats_kernel as sk  # noqa: E402
 from gubernator_tpu_torch.ops import window_math_kernel as wm  # noqa: E402
 from gubernator_tpu_torch.observability.analytics import (  # noqa: E402
     TrafficAnalytics,
+)
+from gubernator_tpu_torch.server import (  # noqa: E402
+    FASTPATH_MIN_BYTES,
+    serve_get_rate_limits,
 )
 
 DEV = torch.device("cuda")
@@ -2567,12 +2588,14 @@ def serving_request(idx, prefix, hits, compact_only=False):
                         algorithm=algo, behavior=behavior)
 
 
-def serving_rpcs(rng, n, prefix, keys=SERVE_KEYS, compact_only=False):
+def serving_rpcs(rng, n, prefix, keys=SERVE_KEYS, compact_only=False,
+                 request=serving_request):
     """n decisions as RPCs of SERVE_RPC items: Zipf (a = 1.1) keys over
-    `keys`, hits 1 mostly (runs fold), 0 or 2 now and then."""
+    `keys`, hits 1 mostly (runs fold), 0 or 2 now and then; `request`
+    builds key idx's request."""
     idx = (rng.zipf(1.1, n) - 1) % keys
     hits = rng.choice([0, 1, 1, 1, 1, 1, 1, 2], n)
-    reqs = [serving_request(int(i), prefix, int(h), compact_only)
+    reqs = [request(int(i), prefix, int(h), compact_only)
             for i, h in zip(idx, hits)]
     return [reqs[i:i + SERVE_RPC] for i in range(0, n, SERVE_RPC)]
 
@@ -2613,18 +2636,18 @@ def sync_checked_drain(inst, reqs, now):
     return outs[0]
 
 
-async def saturate(inst, rpcs, seconds):
-    """SERVE_CLIENTS clients, each sending its next RPC when the last one
-    answered, for `seconds`; returns (decisions, wall seconds)."""
+async def saturate(serve, rpcs, seconds):
+    """SERVE_CLIENTS clients, each sending its next RPC (SERVE_RPC items)
+    through `serve` when the last one answered, for `seconds`; returns
+    (decisions, wall seconds)."""
     done = [0]
     stop = time.perf_counter() + seconds
 
     async def client(c):
         i = c
         while time.perf_counter() < stop:
-            rpc = rpcs[i % len(rpcs)]
-            await inst.get_rate_limits(rpc)
-            done[0] += len(rpc)
+            await serve(rpcs[i % len(rpcs)])
+            done[0] += SERVE_RPC
             i += SERVE_CLIENTS
 
     t0 = time.perf_counter()
@@ -2632,17 +2655,18 @@ async def saturate(inst, rpcs, seconds):
     return done[0], time.perf_counter() - t0
 
 
-async def offered_rate(inst, rpcs, rate, seconds):
-    """Open loop: RPCs of SERVE_RPC items sent at `rate` decisions/s for
-    `seconds`, each on its own schedule; returns the call latencies (ms,
-    answer time minus scheduled send time) and the achieved rate."""
+async def offered_rate(serve, rpcs, rate, seconds):
+    """Open loop: RPCs of SERVE_RPC items sent through `serve` at `rate`
+    decisions/s for `seconds`, each on its own schedule; returns the call
+    latencies (ms, answer time minus scheduled send time) and the achieved
+    rate."""
     loop = asyncio.get_running_loop()
     period = SERVE_RPC / rate
     n = max(1, int(seconds / period))
     lat = []
 
     async def one(i, at):
-        await inst.get_rate_limits(rpcs[i % len(rpcs)])
+        await serve(rpcs[i % len(rpcs)])
         lat.append((loop.time() - at) * 1e3)
 
     t0 = loop.time()
@@ -2723,6 +2747,7 @@ def phase_serving_pipeline(window_rng_seed=11):
     an_inst.engine.warmup()
     torch.cuda.synchronize()
     sat_rpcs = serving_rpcs(rng, 512 * SERVE_RPC, "s", compact_only=True)
+    serve = inst.get_rate_limits
     bursts = [serving_rpcs(rng, SERVE_DECISIONS, "b") for _ in range(3)]
     an_rpcs = serving_rpcs(rng, SERVE_DECISIONS, "a", compact_only=True)
     tail = [RateLimitReq(name="t0", unique_key=f"oor{i}", hits=1 + i,
@@ -2752,24 +2777,25 @@ def phase_serving_pipeline(window_rng_seed=11):
         ex = inst.batcher._executor
         pin_clock(inst, None)
         # warm the lane (its arenas and pinned buffers exist afterwards)
-        await saturate(inst, sat_rpcs, 0.5)
+        await saturate(serve, sat_rpcs, 0.5)
         sync_reqs = [serving_request(i, "y", 1, compact_only=True)
                      for i in range(SERVE_ITEMS_MAX)]
         out["sync"] = await loop.run_in_executor(ex, sync_checked_drain,
                                                  inst, sync_reqs, tb)
         c0 = pipeline_counters(pipe)
-        n, wall = await saturate(inst, sat_rpcs, SERVE_SECONDS)
+        n, wall = await saturate(serve, sat_rpcs, SERVE_SECONDS)
         out["sat"] = (n, wall, counter_delta(c0, pipeline_counters(pipe)))
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            n2, wall2 = await saturate(inst, sat_rpcs, SERVE_SECONDS)
+            n2, wall2 = await saturate(serve, sat_rpcs,
+                                        SERVE_SECONDS)
             torch.cuda.synchronize()
         out["sat_prof"] = (n2, wall2, busy_share(prof, wall2))
         rate = n / wall
         out["rates"] = []
         for share in RATE_SHARES:
-            lat, achieved = await offered_rate(inst, sat_rpcs, share * rate,
+            lat, achieved = await offered_rate(serve, sat_rpcs, share * rate,
                                                RATE_SECONDS)
             out["rates"].append((share, share * rate, achieved,
                                  float(np.percentile(lat, 50)),
@@ -2779,7 +2805,7 @@ def phase_serving_pipeline(window_rng_seed=11):
         for name, stride in (("gate_off", 1), ("gate_off_stride2", 2)):
             pipe.gate_enabled, pipe.fetch_stride = False, stride
             c = pipeline_counters(pipe)
-            nv, wallv = await saturate(inst, sat_rpcs, SERVE_SECONDS)
+            nv, wallv = await saturate(serve, sat_rpcs, SERVE_SECONDS)
             out["variants"][name] = (nv, wallv, counter_delta(
                 c, pipeline_counters(pipe)))
         pipe.gate_enabled, pipe.fetch_stride = True, 1
@@ -3001,6 +3027,423 @@ def report_serving(r, chk, counts, p4_ms, smi):
     log("serving figures: " + json.dumps(dict(card=smi, **fig)))
 
 
+# ---------------------------------------------------------------- the wire
+
+# phase 9: the raw-bytes RPC lane (server.py serve_get_rate_limits: C
+# parse -> the pipeline's K-window stack -> one drain_compact launch -> a
+# CUDA event -> C encode) on phase 8's geometry.  This machine has no
+# protobuf, so the script encodes requests and decodes responses itself:
+# varint and length-delimited fields only, zero fields omitted, field
+# numbers from gubernator_tpu_torch/api/proto/gubernator.proto
+# (tests/test_torch_server.py holds this codec against gubernator_pb2).
+REQ_FIELDS = (("name", 1, "s"), ("unique_key", 2, "s"), ("hits", 3, "i"),
+              ("limit", 4, "i"), ("duration", 5, "i"),
+              ("algorithm", 6, "i"), ("behavior", 7, "i"))
+RESP_FIELDS = (("status", 1, "i"), ("limit", 2, "i"), ("remaining", 3, "i"),
+               ("reset_time", 4, "i"), ("error", 5, "s"),
+               ("metadata", 6, "m"))
+U64 = (1 << 64) - 1
+
+
+def _varint(v):
+    v &= U64  # negatives as 64-bit two's complement (ten bytes)
+    out = bytearray()
+    while v > 0x7F:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _delimited(num, b):
+    return _varint(num << 3 | 2) + _varint(len(b)) + b
+
+
+def encode_msg(values, fields):
+    """One message from a dict of field values (proto3: zero values and
+    empty strings omitted; a map's entries in key order, each with its key
+    and value fields written even when empty, as protobuf writes them)."""
+    out = bytearray()
+    for name, num, kind in fields:
+        v = values.get(name)
+        if not v:
+            continue
+        if kind == "i":
+            out += _varint(num << 3) + _varint(int(v))
+        elif kind == "s":
+            out += _delimited(num, v.encode("utf-8"))
+        else:
+            for k in sorted(v):
+                entry = (_delimited(1, k.encode("utf-8"))
+                         + _delimited(2, v[k].encode("utf-8")))
+                out += _delimited(num, entry)
+    return bytes(out)
+
+
+def encode_list(items, fields):
+    """A GetRateLimitsReq / GetRateLimitsResp: repeated field 1."""
+    return b"".join(_delimited(1, encode_msg(v, fields)) for v in items)
+
+
+def _read_varint(buf, i):
+    v = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        if b < 0x80:
+            return v, i
+        shift += 7
+
+
+def _wire_fields(buf):
+    i = 0
+    while i < len(buf):
+        key, i = _read_varint(buf, i)
+        if key & 7 == 0:
+            v, i = _read_varint(buf, i)
+        elif key & 7 == 2:
+            n, i = _read_varint(buf, i)
+            v, i = bytes(buf[i:i + n]), i + n
+        else:
+            raise ValueError(f"wire type {key & 7}")
+        yield key >> 3, v
+
+
+def decode_msg(buf, fields):
+    """One message's fields as a dict, every field present (proto3
+    defaults); unknown fields skipped."""
+    by_num = {num: (name, kind) for name, num, kind in fields}
+    out = {name: ({} if kind == "m" else "" if kind == "s" else 0)
+           for name, _, kind in fields}
+    for num, v in _wire_fields(buf):
+        if num not in by_num:
+            continue
+        name, kind = by_num[num]
+        if kind == "i":
+            out[name] = v - (1 << 64) if v >> 63 else v
+        elif kind == "s":
+            out[name] = v.decode("utf-8")
+        else:
+            e = decode_msg(v, (("key", 1, "s"), ("value", 2, "s")))
+            out[name][e["key"]] = e["value"]
+    return out
+
+
+def decode_list(buf, fields):
+    return [decode_msg(v, fields) for num, v in _wire_fields(buf)
+            if num == 1]
+
+
+class WireContext:
+    """The least a serve_* body needs of its transport: a deadline (none)
+    and an abort that raises."""
+
+    def time_remaining(self):
+        return None
+
+    async def abort(self, code, details):
+        raise AssertionError(f"serve_get_rate_limits aborted: {details}")
+
+
+def wire_request(idx, prefix, hits, compact_only=True):
+    """Key idx's request: always token or leaky by parity, in the compact
+    range, its key zero-padded so a 100-item RPC is about 3.2 KB."""
+    return RateLimitReq(name=f"t{idx % 80}", unique_key=f"{prefix}{idx:07d}",
+                        hits=hits, limit=20 + idx % 50, duration=60_000,
+                        algorithm=int(idx & 1))
+
+
+def wire_rpcs(rng, n):
+    """serving_rpcs of wire_request keys: (requests per RPC, serialized
+    GetRateLimitsReq per RPC)."""
+    rpcs = serving_rpcs(rng, n, "wire", request=wire_request)
+    return rpcs, [encode_list([vars(r) for r in rpc], REQ_FIELDS)
+                  for rpc in rpcs]
+
+
+async def wire_burst(serve, datas):
+    """SERVE_CLIENTS concurrent callers, caller c sending datas[c],
+    datas[c + SERVE_CLIENTS], ... back to back; the response bytes by
+    index."""
+    outs = [None] * len(datas)
+
+    async def caller(c):
+        for i in range(c, len(datas), SERVE_CLIENTS):
+            outs[i] = await serve(datas[i])
+
+    await asyncio.gather(*(caller(c) for c in range(SERVE_CLIENTS)))
+    return outs
+
+
+class StagingLog:
+    """Wraps the router's RPC parse on one Instance: the RPCs it staged,
+    in staging order (the order the drains apply them), and the host time
+    the parse and the response encode took.  Engine and fetch threads
+    call it; remove() puts the router's own methods back."""
+
+    def __init__(self, nat):
+        import threading
+        self.nat, self.lock = nat, threading.Lock()
+        self.order, self.parse_s, self.encode_s = [], 0.0, 0.0
+        parse, encode = nat.parse_stack_fast, nat.fastpath_encode_w
+
+        def logged_parse(data, *a, **kw):
+            t0 = time.perf_counter()
+            n = parse(data, *a, **kw)
+            dt = time.perf_counter() - t0
+            with self.lock:
+                self.parse_s += dt
+                if n >= 0:
+                    self.order.append(data)
+            return n
+
+        def timed_encode(*a, **kw):
+            t0 = time.perf_counter()
+            m = encode(*a, **kw)
+            dt = time.perf_counter() - t0
+            with self.lock:
+                self.encode_s += dt
+            return m
+
+        nat.parse_stack_fast = logged_parse
+        nat.fastpath_encode_w = timed_encode
+
+    def remove(self):
+        del self.nat.parse_stack_fast
+        del self.nat.fastpath_encode_w
+
+
+def rpc_counters(pipe):
+    return dict(staged=pipe.rpc_staged, leftover=pipe.rpc_leftover,
+                refused=pipe.rpc_refused, **pipeline_counters(pipe))
+
+
+def rpc_delta(a, b):
+    out = counter_delta(a, b)
+    out.update({k: b[k] - a[k] for k in ("staged", "leftover", "refused")})
+    return out
+
+
+def phase_wire():
+    """Phase 9, the counted part: the raw-bytes RPC lane on an Instance
+    at phase 8's width (8 x 2^21 slots, B = 1024, the router and the
+    pipeline at the JAX defaults), every RPC a serialized 100-item
+    GetRateLimitsReq of about 3.2 KB through server.serve_get_rate_limits.
+    Two ~50k-decision bursts from 64 concurrent callers on a pinned clock,
+    at depth 1 and at depth 3 with the occupancy gate off, with the
+    router's parse logged (the staging order the checks replay) and the
+    arena exported after the first; then on the wall clock: 64 callers at
+    saturation with the gate on, unprofiled and profiled (the card's idle
+    share), open-loop rates at 25/50/100% of that, the same saturating
+    load with the gate off (unprofiled and profiled), and a saturating run
+    with the parse and the encode timed (the host's time per RPC).  The
+    Instance is built and warmed before the counts start; the caller reads
+    them when this returns and checks afterwards."""
+    rng = np.random.default_rng(91)
+    inst = Instance(engine_config=serving_engine_config())
+    eng, pipe = inst.engine, inst.batcher.pipeline
+    check(eng.native is not None and pipe is not None,
+          "the router or the raw-RPC lane is missing")
+    eng.warmup()
+    torch.cuda.synchronize()
+    bursts = [wire_rpcs(rng, SERVE_DECISIONS) for _ in range(2)]
+    sat_rpcs, sat = wire_rpcs(rng, 512 * SERVE_RPC)
+    sizes = [len(d) for b in bursts for d in b[1]] + [len(d) for d in sat]
+    check(min(sizes) >= FASTPATH_MIN_BYTES,
+          f"an RPC of {min(sizes)} bytes would miss the lane "
+          f"({FASTPATH_MIN_BYTES})")
+    ctx = WireContext()
+    calls = [0]
+
+    async def serve(data):
+        calls[0] += 1
+        return await serve_get_rate_limits(inst, data, ctx)
+
+    tb = millisecond_now()
+    out = dict(bursts=bursts, tb=tb, bytes=(min(sizes), max(sizes),
+                                            float(np.mean(sizes))))
+    reset_counts()
+
+    async def script():
+        from torch.profiler import ProfilerActivity, profile
+        loop = asyncio.get_running_loop()
+        pin_clock(inst, tb)
+        c0 = rpc_counters(pipe)
+        slog = StagingLog(eng.native)
+        try:
+            pipe.depth = 1
+            out["burst1"] = await wire_burst(serve, bursts[0][1])
+            out["order1"] = list(slog.order)
+            out["arena1"] = await loop.run_in_executor(
+                inst.batcher._executor, eng.export_arena)
+            del slog.order[:]
+            pipe.depth, pipe.gate_enabled = 3, False
+            out["burst3"] = await wire_burst(serve, bursts[1][1])
+            out["order3"] = list(slog.order)
+        finally:
+            slog.remove()
+            pipe.depth, pipe.gate_enabled = 3, True
+        out["burst_counts"] = rpc_delta(c0, rpc_counters(pipe))
+        pin_clock(inst, None)
+        await saturate(serve, sat, 0.5)  # the lane warm on the wall clock
+        out["runs"] = {}
+        for gate in (True, False):
+            pipe.gate_enabled = gate
+            c = rpc_counters(pipe)
+            n, wall = await saturate(serve, sat, SERVE_SECONDS)
+            d = rpc_delta(c, rpc_counters(pipe))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                n2, wall2 = await saturate(serve, sat, SERVE_SECONDS)
+                torch.cuda.synchronize()
+            out["runs"][gate] = (n, wall, d, n2 / wall2,
+                                 busy_share(prof, wall2))
+            if gate:
+                rate = n / wall
+                out["rates"] = []
+                for share in RATE_SHARES:
+                    lat, achieved = await offered_rate(
+                        serve, sat, share * rate, RATE_SECONDS)
+                    out["rates"].append((
+                        share, share * rate, achieved,
+                        float(np.percentile(lat, 50)),
+                        float(np.percentile(lat, 99))))
+        pipe.gate_enabled = True
+        c = rpc_counters(pipe)
+        slog = StagingLog(eng.native)
+        try:
+            n, wall = await saturate(serve, sat, RATE_SECONDS)
+        finally:
+            slog.remove()
+        out["split"] = (n, wall, rpc_delta(c, rpc_counters(pipe)),
+                        slog.parse_s, slog.encode_s)
+
+    try:
+        asyncio.run(script())
+    finally:
+        inst.close()
+    out["eng"], out["calls"] = eng, calls[0]
+    out["pipe"] = rpc_counters(pipe)
+    return out
+
+
+def arena_rows(arena):
+    """Each shard's touched rows of the regular arena as a sorted
+    i64[n, 6] (limit, duration, remaining, tstamp, expire, algo): the
+    per-key state whatever slot the key got."""
+    names = ("limit", "duration", "remaining", "tstamp", "expire", "algo")
+    planes = [np.asarray(arena[n], np.int64) for n in names]
+    rows = []
+    for s in range(planes[0].shape[0]):
+        touched = (planes[3][s] != 0) | (planes[4][s] != 0)
+        m = np.stack([p[s][touched] for p in planes], axis=1)
+        rows.append(m[np.lexsort(m.T[::-1])])
+    return rows
+
+
+def check_wire(r):
+    """Phase 9, after the counts are read: every burst RPC's response,
+    decoded, field for field against a Python-table engine on the card
+    running process() over the RPCs in the order the router staged them;
+    the first burst's arena, shard by shard (each key's row, whatever its
+    slot), against that engine's; every RPC staged once."""
+    tb = r["tb"]
+    twin = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                           num_shards=SHARDS, batch_per_shard=FULL_LANES)
+    check(twin.native is None, "the twin engine has the router")
+    keys = ("status", "limit", "remaining", "reset_time", "error")
+    for b, (name, oname) in enumerate((("burst1", "order1"),
+                                       ("burst3", "order3"))):
+        rpcs, datas = r["bursts"][b]
+        index = {id(d): i for i, d in enumerate(datas)}
+        order = [index.get(id(d)) for d in r[oname]]
+        check(sorted(i for i in order if i is not None)
+              == list(range(len(datas))) and None not in order,
+              f"{name}: the router staged {len(order)} RPCs, not each of "
+              f"the {len(datas)} once")
+        want = twin.process([q for i in order for q in rpcs[i]], now=tb)
+        at = 0
+        for i in order:
+            got = [tuple(x[k] for k in keys) + (x["metadata"],)
+                   for x in decode_list(r[name][i], RESP_FIELDS)]
+            exp = [(int(w.status), w.limit, w.remaining, w.reset_time,
+                    w.error, {}) for w in want[at:at + len(rpcs[i])]]
+            check(got == exp, f"{name}: RPC {i}'s response differs from the "
+                  f"Python-table engine")
+            at += len(rpcs[i])
+        if b == 0:
+            for s, (a, t) in enumerate(zip(arena_rows(r["arena1"]),
+                                           arena_rows(twin.export_arena()))):
+                check(np.array_equal(a, t), f"burst1: shard {s}'s rows "
+                      f"differ from the Python-table engine's")
+    del twin
+
+
+def report_wire(r, counts, serve, smi):
+    """Phase 9's line and its figures line, beside phase 8's per-item
+    path from the same run."""
+    b = r["burst_counts"]
+    runs = {}
+    for gate, (n, wall, d, prof_rate, share) in r["runs"].items():
+        runs["gate_on" if gate else "gate_off"] = dict(
+            decisions_per_s=n / wall, decisions_per_s_profiled=prof_rate,
+            idle_share=None if share is None else 1 - share,
+            drains=d["drains"],
+            mean_k_used=d["windows"] / max(1, d["drains"]),
+            mean_inflight=d["mean_inflight"], gate_holds=d["gate_holds"],
+            rpcs_staged=d["staged"], rpcs_left_over=d["leftover"])
+    n, wall, d, parse_s, encode_s = r["split"]
+    rpcs = max(1, d["staged"])
+    busy = d["busy"]
+    host_us = dict(
+        c_parse=parse_s / rpcs * 1e6,
+        pack_besides_parse=(busy["host_encode"] - parse_s) / rpcs * 1e6,
+        dispatch=busy["device_dispatch"] / rpcs * 1e6,
+        fetch_wait=(busy["fetch_decode"] - encode_s) / rpcs * 1e6,
+        c_encode=encode_s / rpcs * 1e6)
+    pn, pwall, pd = serve["sat"]
+    p8 = dict(decisions_per_s=pn / pwall,
+              idle_share=(None if serve["sat_prof"][2] is None
+                          else 1 - serve["sat_prof"][2]),
+              mean_inflight=pd["mean_inflight"],
+              gate_off_decisions_per_s=(
+                  serve["variants"]["gate_off"][0]
+                  / serve["variants"]["gate_off"][1]))
+    fig = dict(
+        rpc_bytes=dict(zip(("min", "max", "mean"), r["bytes"])),
+        saturated=runs,
+        latency_ms={f"{int(s * 100)}%": dict(offered=off, achieved=ach,
+                                             p50=p50, p99=p99)
+                    for s, off, ach, p50, p99 in r["rates"]},
+        host_us_per_rpc=host_us, host_split_decisions_per_s=n / wall,
+        per_item_path_phase8=p8,
+        rpcs=dict(calls=r["calls"], staged=r["pipe"]["staged"],
+                  left_over=r["pipe"]["leftover"],
+                  refused=r["pipe"]["refused"]))
+    on, off = runs["gate_on"], runs["gate_off"]
+    rates = "; ".join(
+        f"{int(s * 100)}% ({ach:.0f}/s achieved): p50 {p50:.3f} ms p99 "
+        f"{p99:.3f} ms" for s, off_, ach, p50, p99 in r["rates"])
+    log(f"phase 9 raw-RPC lane ({SHARDS} x {FULL_CAPACITY // SHARDS} slots, "
+        f"{SERVE_CLIENTS} callers x {SERVE_RPC}-item GetRateLimitsReq of "
+        f"{r['bytes'][0]}-{r['bytes'][1]} bytes through "
+        f"serve_get_rate_limits): gate on {on['decisions_per_s']:.1f} "
+        f"decisions/s (idle share {on['idle_share']}, mean in flight "
+        f"{on['mean_inflight']:.3f}), gate off "
+        f"{off['decisions_per_s']:.1f} (idle share {off['idle_share']}, "
+        f"mean in flight {off['mean_inflight']:.3f}); phase 8's per-item "
+        f"path {p8['decisions_per_s']:.1f}; offered rates: {rates}; host "
+        f"us per RPC: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                    host_us.items())
+        + f"; bursts at depth 1 and at depth 3 with the gate off: "
+        f"{b['drains']} drains, {b['staged']} RPCs staged, {b['leftover']} "
+        f"left over, every response = the Python-table engine, the first "
+        f"burst's arena too; {r['calls']} RPCs served, {r['pipe']['staged']} "
+        f"staged, {r['pipe']['refused']} refused; launches {counts}; {smi}")
+    log("wire figures: " + json.dumps(dict(card=smi, **fig)))
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -3098,11 +3541,31 @@ def main():
           f"the chained burst flushed no chain: {serve['chain_counts']}")
     chk8 = check_serving(serve)
     report_serving(serve, chk8, path5, p4_ms, smi)
+    # the raw-RPC lane: counts from 0 again (inside, after its Instance is
+    # warmed and its RPCs are encoded)
+    wire = phase_wire()
+    path6, plain6 = launch_counts(), plain_counts()
+    others6 = {k: v for k, v in path6.items() if k != "drain_compact"}
+    check(path6["drain_compact"] == wire["pipe"]["drains"] > 0,
+          f"drain_compact launches {path6['drain_compact']} != the raw-RPC "
+          f"lane's {wire['pipe']['drains']} drains")
+    check(not any(others6.values()),
+          f"the raw-RPC lane launched another kernel: {others6}")
+    check(not any(plain6.values()),
+          f"the plain versions ran on the raw-RPC lane: {plain6}")
+    check(wire["pipe"]["refused"] == 0
+          and wire["pipe"]["staged"] == wire["calls"],
+          f"of {wire['calls']} RPCs {wire['pipe']['staged']} were staged and "
+          f"{wire['pipe']['refused']} refused")
+    check_wire(wire)
+    report_wire(wire, path6, serve, smi)
+    del wire
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
-             launches=path1["drain_compact"] + path5["drain_compact"],
+             launches=(path1["drain_compact"] + path5["drain_compact"]
+                       + path6["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),

@@ -12,9 +12,13 @@ replica and applies their hits, summed over the shards, once per slot.
 ops/kernel.py holds the same math as plain tensor code: it is what the
 kernels are tested against, and what runs for tensors on the CPU.
 
-This package imports neither JAX nor `gubernator_tpu`, and needs neither
-grpcio nor protobuf.  Entry points default to the `cuda` device and raise
-when none is present; pass `device="cpu"` to run the plain versions.
+This package imports neither JAX nor `gubernator_tpu`.  Its serving core,
+the RPC bodies of server.py and their raw-bytes lane need neither grpcio,
+protobuf, aiohttp nor prometheus_client; the transport modules that do
+(api/pb.py, api/grpc_api.py, api/http_gateway.py, client.py, daemon.py,
+observability/metrics.py) import them, and importing this package loads
+none of them.  Entry points default to the `cuda` device and raise when
+none is present; pass `device="cpu"` to run the plain versions.
 """
 
 from gubernator_tpu_torch.api.types import (

@@ -1,11 +1,21 @@
-"""Configuration read by the one-node serving path.
+"""Configuration read by the one-node serving path and its daemon.
 
 The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
 item cap, the batching behaviors (reference config.go:43-66), the
 dimensions of the regular and GLOBAL arenas and their key routing, the
 traffic-analytics and SLO knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the
-engine's lowering (GUBER_PALLAS), the serving pipeline's knobs and the env
-readers they use.
+engine's lowering (GUBER_PALLAS), the serving pipeline's knobs, the env
+readers they use, and the daemon's env config (DaemonConfig,
+load_env_file, config_from_env: reference cmd/gubernator/config.go:59-147,
+the same GUBER_* names and values as the JAX package's for every knob the
+port serves).  GUBER_TORCH_DEVICE names the daemon's device (default
+`cuda`; `cpu` runs the plain versions), the port's counterpart of the JAX
+daemon's GUBER_JAX_PLATFORM.  A knob of a subsystem the port has not
+ported yet raises ValueError, naming its ROADMAP item, when it is set to
+anything but its default (_UNPORTED); it is never ignored.  One departure
+at the defaults: the JAX daemon runs its QoS layer unless
+GUBER_QOS_ENABLED=0, and the port has none, so GUBER_QOS_ENABLED may only
+be unset or false here.
 
 Environment read by the engine itself, once, when it is built:
 
@@ -37,7 +47,7 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 # Hard cap on items per RPC (reference gubernator.go:34).
 MAX_BATCH_SIZE = 1000
@@ -56,7 +66,6 @@ class BehaviorConfig:
     Durations are seconds (float); 0.0005 is the reference's 500us default.
     """
 
-    batch_timeout: float = 0.5
     batch_wait: float = 0.0005
     batch_limit: int = MAX_BATCH_SIZE
 
@@ -191,6 +200,27 @@ class SLOConfig:
             raise ValueError("SLO.availability must be in (0, 1)")
 
 
+@dataclass
+class DaemonConfig:
+    """Daemon env config (reference cmd/gubernator/config.go:42-57): the
+    knobs the port serves, with the JAX package's defaults."""
+
+    grpc_listen_address: str = "localhost:81"
+    http_listen_address: str = "localhost:80"
+    cache_size: int = 50000  # reference default, example.conf:11
+    debug: bool = False
+    # the device the engine runs on (GUBER_TORCH_DEVICE)
+    device: str = "cuda"
+    # ceiling on the graceful stop's drain phase, seconds (the JAX
+    # package's HealthConfig.drain_timeout, GUBER_DRAIN_TIMEOUT_MS)
+    drain_timeout: float = 5.0
+
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    engine: EngineConfig = field(default_factory=EngineConfig)
+    analytics: AnalyticsConfig = field(default_factory=AnalyticsConfig)
+    slo: SLOConfig = field(default_factory=SLOConfig)
+
+
 def _env(name: str, default: str = "") -> str:
     v = os.environ.get(name)
     return v if v not in (None, "") else default
@@ -278,3 +308,160 @@ def per_op_lowering() -> bool:
     (ops/drain_kernel.py) and the GLOBAL window in global_combined.  The
     engine reads it once, at construction."""
     return env_bool("GUBER_PALLAS", False)
+
+
+# Knobs of subsystems the port has not ported yet: (variable, or a prefix
+# ending in "_", its default (None: any value), ROADMAP Queue 1 item).
+# config_from_env raises when one is set to anything but its default.
+_UNPORTED = (
+    # peer discovery and the address peers know this node by, the peer
+    # forwarding timeout, the heartbeat detector and hinted handoff, QoS,
+    # leases, the GLOBAL manager's peer broadcast, fault injection
+    ("GUBER_ADVERTISE_ADDRESS", None, 6),
+    ("GUBER_BATCH_TIMEOUT", 0.5, 6),
+    ("GUBER_K8S_NAMESPACE", "", 6),
+    ("GUBER_K8S_POD_IP", "", 6),
+    ("GUBER_K8S_POD_PORT", "", 6),
+    ("GUBER_K8S_ENDPOINTS_SELECTOR", "", 6),
+    ("GUBER_ETCD_ENDPOINTS", "", 6),
+    ("GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/", 6),
+    ("GUBER_ETCD_DIAL_TIMEOUT", 5.0, 6),
+    ("GUBER_ETCD_USER", "", 6),
+    ("GUBER_ETCD_PASSWORD", "", 6),
+    ("GUBER_ETCD_TLS_", None, 6),
+    ("GUBER_STATIC_PEERS", "", 6),
+    ("GUBER_HEARTBEAT_", None, 6),
+    ("GUBER_HINT_", None, 6),
+    ("GUBER_QOS_ENABLED", False, 6),
+    ("GUBER_QOS_", None, 6),
+    ("GUBER_LEASE_SWEEP_MS", 5000, 6),
+    ("GUBER_LEASE_RELEASE_ON_CLOSE", True, 6),
+    ("GUBER_LEASE_MAX_PER_CLIENT", 0, 6),
+    ("GUBER_GLOBAL_SYNC_WAIT", 0.0005, 6),
+    ("GUBER_GLOBAL_TIMEOUT", 0.5, 6),
+    ("GUBER_GLOBAL_BATCH_LIMIT", MAX_BATCH_SIZE, 6),
+    ("GUBER_FAULTS", "", 6),
+    ("GUBER_FAULTS_SEED", 0, 6),
+    # the state lifecycle: snapshots and tiers
+    ("GUBER_SNAPSHOT_DIR", "", 5),
+    ("GUBER_SNAPSHOT_INTERVAL_MS", 60000, 5),
+    ("GUBER_TIER_WARM", 0, 5),
+    ("GUBER_TIER_", None, 5),
+    # the front door, tracing and device profiling
+    ("GUBER_FRONTDOOR_WORKERS", 0, 7),
+    ("GUBER_FRONTDOOR_", None, 7),
+    ("GUBER_SHM_", None, 7),
+    ("GUBER_TRACE_SAMPLE", 0.0, 7),
+    ("GUBER_TRACE_EXPORT", "", 7),
+    ("GUBER_DEVPROF", "", 7),
+    ("GUBER_DEVPROF_", None, 7),
+    # mesh serving and GLOBAL across processes
+    ("GUBER_MESH_", None, 8),
+    ("GUBER_GLOBAL_KEYS_FILE", "", 8),
+    ("GUBER_LOCKSTEP_STACK", 1, 8),
+    ("GUBER_SKIP_GLOBAL", False, 8),
+)
+_UNPORTED_EXACT = {n: (d, i) for n, d, i in _UNPORTED if not n.endswith("_")}
+_UNPORTED_PREFIX = tuple((n, d, i) for n, d, i in _UNPORTED if n.endswith("_"))
+
+
+def _at_default(value: str, default) -> bool:
+    v = value.strip()
+    if isinstance(default, bool):
+        s = v.lower()
+        return s in (_TRUTHY if default else _FALSY)
+    if isinstance(default, (int, float)):
+        try:
+            return float(v) == float(default)
+        except ValueError:
+            return False
+    return v == default
+
+
+def check_unported() -> None:
+    """Raise ValueError for the first knob of an unported subsystem set to
+    anything but its default (an empty value counts as unset, as _env
+    reads it)."""
+    for name in sorted(os.environ):
+        value = os.environ[name]
+        if not name.startswith("GUBER_") or value == "":
+            continue
+        if name in _UNPORTED_EXACT:
+            default, item = _UNPORTED_EXACT[name]
+        else:
+            hit = next(((d, i) for p, d, i in _UNPORTED_PREFIX
+                        if name.startswith(p)), None)
+            if hit is None:
+                continue
+            default, item = hit
+        if default is None or not _at_default(value, default):
+            raise ValueError(
+                f"{name}={value!r}: this knob's subsystem is not ported to "
+                f"gubernator_tpu_torch yet (ROADMAP.md Queue 1 item {item})")
+
+
+def load_env_file(path: str) -> None:
+    """Load a KEY=value file into the process env (reference
+    cmd/gubernator/config.go:239-267): '#' comments, blank lines skipped,
+    malformed lines rejected."""
+    with open(path) as f:
+        for ln, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            if "=" not in line:
+                raise ValueError(f"malformed key=value on line '{ln}'")
+            k, _, v = line.partition("=")
+            os.environ[k.strip()] = v.strip()
+
+
+def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
+    """Assemble DaemonConfig from GUBER_* env vars (reference
+    cmd/gubernator/config.go:59-147), as the JAX package's config_from_env
+    does for the knobs the port serves; a knob of an unported subsystem
+    raises (check_unported)."""
+    if env_file:
+        load_env_file(env_file)
+    check_unported()
+
+    c = DaemonConfig()
+    c.grpc_listen_address = _env("GUBER_GRPC_ADDRESS", c.grpc_listen_address)
+    c.http_listen_address = _env("GUBER_HTTP_ADDRESS", c.http_listen_address)
+    c.cache_size = int(_env("GUBER_CACHE_SIZE", str(c.cache_size)))
+    c.debug = _env("GUBER_DEBUG") in ("true", "1", "yes")
+    c.device = _env("GUBER_TORCH_DEVICE", c.device)
+    c.drain_timeout = env_float("GUBER_DRAIN_TIMEOUT_MS",
+                                c.drain_timeout * 1000.0,
+                                minimum=0.0) / 1000.0
+
+    b = c.behaviors
+    if _env("GUBER_BATCH_WAIT"):
+        b.batch_wait = float(_env("GUBER_BATCH_WAIT"))
+    if _env("GUBER_BATCH_LIMIT"):
+        b.batch_limit = int(_env("GUBER_BATCH_LIMIT"))
+    b.validate()
+
+    e = c.engine
+    if _env("GUBER_TPU_CAPACITY_PER_SHARD"):
+        e.capacity_per_shard = int(_env("GUBER_TPU_CAPACITY_PER_SHARD"))
+    elif c.cache_size:
+        # honor the reference knob
+        e.capacity_per_shard = max(1024, c.cache_size)
+    if _env("GUBER_TPU_BATCH_PER_SHARD"):
+        e.batch_per_shard = int(_env("GUBER_TPU_BATCH_PER_SHARD"))
+    if _env("GUBER_TPU_GLOBAL_CAPACITY"):
+        e.global_capacity = int(_env("GUBER_TPU_GLOBAL_CAPACITY"))
+    if os.environ.get("GUBER_NATIVE") is not None:
+        e.use_native = "auto" if env_bool("GUBER_NATIVE", True) else False
+    if _env("GUBER_EXACT_KEYS"):
+        e.exact_keys = _env("GUBER_EXACT_KEYS") == "1"
+    if _env("GUBER_REPLAY_CAP"):
+        e.replay_cap = int(_env("GUBER_REPLAY_CAP"))
+
+    # the default_factory fields read GUBER_ANALYTICS_* / GUBER_SLO_*:
+    # rebuilt after load_env_file so an env-file sets them too
+    c.analytics = AnalyticsConfig()
+    c.analytics.validate()
+    c.slo = SLOConfig()
+    c.slo.validate()
+    return c

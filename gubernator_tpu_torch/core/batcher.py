@@ -12,6 +12,8 @@ analog of the reference's per-peer batching loop, peers.go:143-172):
     `batch_limit` items or `batch_wait` elapses, then the whole window
     ships as one `engine.process` call.
 
+`submit_rpc` hands whole serialized RPCs to the pipeline's raw-RPC lane.
+
 Responses resolve back to awaiting callers by position.  The engine is not
 thread-safe, so all device work funnels through a single-thread executor
 that the pipeline shares; NO_BATCHING requests jump the window (submit_now)
@@ -126,6 +128,21 @@ class WindowBatcher:
                 and all(self.pipeline.eligible(r) for r in reqs)):
             return await self.pipeline.submit_many(reqs)
         return await self._legacy_process(reqs)
+
+    async def submit_rpc(self, data: bytes, peer_mode: bool = False):
+        """Serve a whole serialized GetRateLimitsReq (or, with peer_mode,
+        an authoritative GetPeerRateLimitsReq) through the pipeline's
+        raw-RPC lane; None means the caller must take the protobuf path
+        (always so without a pipeline)."""
+        if self.pipeline is None:
+            return None
+        return await self.pipeline.submit_rpc(data, peer_mode=peer_mode)
+
+    def busy(self) -> bool:
+        """Is any request queued or in flight (either lane)?"""
+        p = self.pipeline
+        return bool(self._pending or self._windows
+                    or (p is not None and p.busy()))
 
     def close(self) -> None:
         if self.pipeline is not None:

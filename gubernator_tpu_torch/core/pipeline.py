@@ -44,9 +44,21 @@ one fetch task.
 
 Requests outside the compact ranges, GLOBAL requests and every other
 algorithm than token and leaky take the batcher's legacy lane
-(engine.process on the router).  Not ported here: the raw-RPC lane, the
-front door's column jobs, the cluster ring and its forwards, lockstep
-(mesh) serving, the QoS hooks, tracing and device profiling.
+(engine.process on the router).
+
+The raw-RPC lane (`submit_rpc`, RpcJob) serves a whole serialized
+GetRateLimitsReq (or GetPeerRateLimitsReq, the same wire shape) with no
+Python object per item: the router's C parser stages its items straight
+into the drain's stack (fastpath_parse_stack), and the fetch thread
+encodes the response bytes from the fetched words in C
+(fastpath_encode_w), into a per-fetch-thread buffer.  An RPC the parser
+refuses (malformed, GLOBAL, CONCURRENCY, an empty name or key, a value
+outside the compact ranges, more than 1000 items, or one that cannot fit
+even an empty stack) resolves to None, and the caller answers it through
+the protobuf path after the drain.  Standalone only: every item is local
+(no ring is installed in the parser).  Not ported here: the cluster ring
+and its forwards, the front door's column jobs, lockstep (mesh) serving,
+the QoS hooks, tracing and device profiling.
 
 Two departures from the JAX pipeline keep each key's requests in
 submission order, which the JAX pipeline loses once one drain's jobs
@@ -56,13 +68,20 @@ drain (the JAX pipeline requeues them behind singles taken meanwhile), and
 a job no stack can take runs through engine.process on the engine thread
 in its turn, with the jobs after it waiting for the next drain (the JAX
 pipeline hands it to the legacy lane, whose process call can run after
-later drains).
+later drains).  The order holds for every job the pipeline decides.  An
+RPC the parser refuses leaves it instead, as in the JAX pipeline: it
+resolves to None at its drain's dispatch, and the caller's protobuf path
+submits its items again behind everything submitted meanwhile, RPCs
+staged later in the same drain included, so a key it shares with such an
+RPC is decided after it (tests/test_torch_rpc_lane.py pins this).  Only
+concurrent RPCs can meet so, and the reference orders those no more.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
@@ -165,6 +184,45 @@ class ListJob:
         ]
 
 
+class RpcJob:
+    """A whole serialized GetRateLimitsReq served natively: C parse ->
+    stacked lanes -> C proto encode.  Resolves to the response BYTES, or
+    None when the RPC needs the protobuf path.  peer_mode marks the
+    authoritative peer-plane lane (GetPeerRateLimits): the parser ignores
+    any ring and takes every item as local."""
+
+    __slots__ = ("data", "fut", "futs", "n", "row", "lane", "pos", "limit",
+                 "peer_mode")
+
+    def __init__(self, data: bytes, fut: asyncio.Future,
+                 peer_mode: bool = False):
+        self.data = data
+        self.fut = fut
+        self.futs = None
+        self.peer_mode = peer_mode
+        self.n = 0
+        self.row = None
+        self.lane = None
+        self.pos = None
+        self.limit = None
+
+    def finish(self, pipeline, wflat, clflat, now) -> bytes:
+        # the encode target is a per-fetch-thread scratch buffer: bytes()
+        # copies out before this thread touches another job
+        resp_buf = pipeline._resp_buf(self.n * 64 + 64)
+        m = pipeline.engine.native.fastpath_encode_w(
+            wflat, self.limit, now, wflat.shape[-1], self.n,
+            self.row, self.lane, self.pos, resp_buf, climit=clflat)
+        return bytes(resp_buf[:m])
+
+
+def _pending_items(job) -> int:
+    """A queued job's decisions; an RpcJob is unparsed until its drain,
+    so its items are estimated from the wire size (at least ~16 bytes an
+    item, so this overestimates, as in the JAX pipeline)."""
+    return len(job.data) // 16 if isinstance(job, RpcJob) else job.n
+
+
 class _DrainResult:
     __slots__ = ("words", "limits", "event", "stats", "stats_host",
                  "an_decay", "staged", "fallback", "leftover", "now",
@@ -242,8 +300,16 @@ class DispatchPipeline:
         self._k_buckets = tuple(
             b for b in PIPELINE_K_BUCKETS if b < k_max) + (k_max,)
         self._closed = False
+        # RPC jobs (engine thread): staged, left over to the next drain by
+        # a full stack, and refused by the parser (answered by the
+        # protobuf path)
+        self.rpc_staged = 0
+        self.rpc_leftover = 0
+        self.rpc_refused = 0
         if not self.enabled:
             return
+        # per-fetch-thread response encode buffer (RpcJob.finish)
+        self._tls = threading.local()
         self._fetch_executor = ThreadPoolExecutor(
             max_workers=env_int("GUBER_FETCH_WORKERS", 2),
             thread_name_prefix="guber-fetch")
@@ -263,12 +329,12 @@ class DispatchPipeline:
         self.inflight_seconds = 0.0
         self._inflight_at = 0.0
         self._singles: List[tuple] = []   # (req, fut, col_idx)
-        self._jobs: List[ListJob] = []
+        self._jobs: List[object] = []     # ListJob / RpcJob, FIFO
         # jobs a full stack left over: the engine thread keeps them in
         # _carry and packs them first in its next drain, ahead of anything
         # taken since; the loop's copy (_carried) knows they still wait
-        self._carry: List[ListJob] = []
-        self._carried: List[ListJob] = []
+        self._carry: List[object] = []
+        self._carried: List[object] = []
         self._in_flight = 0
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         # duplicate-run folding (engine thread): decisions_staged /
@@ -295,6 +361,15 @@ class DispatchPipeline:
         self._predispatch = 0
         self.fetch_elided = 0
         self.chain_flushes = 0
+
+    def _resp_buf(self, size: int) -> np.ndarray:
+        """This fetch thread's reusable proto-encode buffer (grown to
+        fit; callers bytes()-copy out before returning)."""
+        buf = getattr(self._tls, "buf", None)
+        if buf is None or buf.nbytes < size:
+            buf = self._tls.buf = np.empty(
+                max(size, MAX_BATCH_SIZE * 64 + 64), np.uint8)
+        return buf
 
     def _note_inflight(self, delta: int) -> None:
         """Every in-flight transition (event loop only): keeps the count
@@ -356,6 +431,19 @@ class DispatchPipeline:
         self._pump()
         return await fut
 
+    async def submit_rpc(self, data: bytes,
+                         peer_mode: bool = False) -> Optional[bytes]:
+        """Serve a whole serialized GetRateLimitsReq (or, with peer_mode,
+        a GetPeerRateLimitsReq, the same wire shape) authoritatively; None
+        means the caller must run the protobuf path."""
+        if not (self.enabled and self.engine._compact_enabled) or self._closed:
+            return None
+        self._loop = asyncio.get_running_loop()
+        fut = self._loop.create_future()
+        self._jobs.append(RpcJob(data, fut, peer_mode=peer_mode))
+        self._pump()
+        return await fut
+
     def eligible(self, req: RateLimitReq) -> bool:
         """May this request ride the pipeline?  Mirrors the router's range
         checks exactly, so a pipeline job never range-falls-back."""
@@ -372,15 +460,16 @@ class DispatchPipeline:
     # ------------------------------------------------------------ pump
 
     def _pending_decisions(self) -> int:
-        return (len(self._singles) + sum(j.n for j in self._jobs)
-                + sum(j.n for j in self._carried))
+        return (len(self._singles)
+                + sum(_pending_items(j) for j in self._jobs)
+                + sum(_pending_items(j) for j in self._carried))
 
     def _take_jobs(self) -> tuple:
         """Snapshot pending work into drain jobs (loop thread).  Returns
         (jobs, cols_owner): cols_owner is the detached RequestColumns the
         singles chunks slice from; it belongs to THIS drain until its
         completion returns it to the pool."""
-        jobs: List[ListJob] = []
+        jobs: List[object] = []
         cols_owner = None
         if self._singles:
             singles, self._singles = self._singles, []
@@ -614,7 +703,7 @@ class DispatchPipeline:
             self.slo.observe_drain(drain_wall, res.n_decisions)
         self._pump(force=True)
 
-    def _resolve(self, job: ListJob, out: List[RateLimitResp]) -> None:
+    def _resolve(self, job, out) -> None:
         if job.futs is not None:
             for f, r in zip(job.futs, out):
                 if not f.done():
@@ -622,7 +711,7 @@ class DispatchPipeline:
         elif not job.fut.done():
             job.fut.set_result(out)
 
-    def _resolve_error(self, job: ListJob, err: Exception) -> None:
+    def _resolve_error(self, job, err: Exception) -> None:
         futs = [job.fut] if job.futs is None else job.futs
         for f in futs:
             if f is not None and not f.done():
@@ -631,7 +720,7 @@ class DispatchPipeline:
 
     # ------------------------------------------------------------ engine side
 
-    def _drain_sync(self, jobs: List[ListJob], now: Optional[int] = None,
+    def _drain_sync(self, jobs: List[object], now: Optional[int] = None,
                     cols: Optional[RequestColumns] = None) -> _DrainResult:
         """Pack every job into one stacked compact dispatch (engine
         thread).
@@ -668,6 +757,31 @@ class DispatchPipeline:
         native.drain_begin()
         stack_empty = True
         for idx, job in enumerate(jobs):
+            if isinstance(job, RpcJob):
+                n = -1
+                if list_ok:
+                    scr = arena.acquire_scratch()
+                    job.row, job.lane, job.pos = scr.row, scr.lane, scr.pos
+                    job.limit = scr.limit
+                    n = native.parse_stack_fast(
+                        job.data, now, B, K, MAX_BATCH_SIZE, arena, scr,
+                        use_ring=not job.peer_mode)
+                if n >= 0:
+                    job.n = n
+                    res.staged.append(job)
+                    self.rpc_staged += 1
+                    if n:
+                        stack_empty = False
+                elif n == -6 and not stack_empty:
+                    self.rpc_leftover += 1
+                    self._leave_over(res, jobs[idx:])
+                    break
+                else:
+                    # refused before staging anything (the parser's pass
+                    # 1 has no side effects): the caller's protobuf path
+                    self.rpc_refused += 1
+                    res.fallback.append((job, None))
+                continue
             rc = -1
             if list_ok and job.n <= MAX_BATCH_SIZE:
                 jcols = job.columns()
@@ -689,17 +803,7 @@ class DispatchPipeline:
                     (job, self._legacy_process(job, now)))
                 native.drain_begin()
             else:
-                # the rest waits for the next drain, in order, ahead of
-                # whatever that drain is given.  A singles chunk views this
-                # drain's columns, which go back to the pool at its
-                # completion, so it keeps copies.
-                res.leftover = jobs[idx:]
-                for job in res.leftover:
-                    cols = job._cols
-                    if cols is not None:
-                        job._cols = cols[:2] + tuple(np.array(c)
-                                                     for c in cols[2:])
-                self._carry = list(res.leftover)
+                self._leave_over(res, jobs[idx:])
                 break
 
         res.pack_done = time.monotonic()
@@ -750,6 +854,18 @@ class DispatchPipeline:
         res.cfut = self._fetch_executor.submit(self._complete_sync_one, res)
         return res
 
+    def _leave_over(self, res: _DrainResult, rest: List[object]) -> None:
+        """The jobs a full stack cannot take wait for the next drain, in
+        order, ahead of whatever that drain is given (engine thread).  A
+        singles chunk views this drain's columns, which go back to the pool
+        at its completion, so it keeps copies."""
+        res.leftover = rest
+        for job in rest:
+            cols = getattr(job, "_cols", None)
+            if cols is not None:
+                job._cols = cols[:2] + tuple(np.array(c) for c in cols[2:])
+        self._carry = list(rest)
+
     def _legacy_process(self, job: ListJob, now: int):
         """engine.process over a job's requests (engine thread): their
         responses, or the exception that failed them."""
@@ -760,10 +876,13 @@ class DispatchPipeline:
 
     def _analytics_stage(self, res: _DrainResult, arena, kd: int, now: int):
         """The drain's tenant lanes i32[kd, S, B] (in the arena's buffer)
-        and decay flag, staged before the dispatch: each staged lane's
-        tenant id (qos/fairness.tenant_of of its request), each touched
-        slot labelled with its key for the top-K.  Any failure degrades to
-        zero tenants and no decay: analytics never fails a drain."""
+        and decay flag, staged before the dispatch: each staged ListJob
+        lane's tenant id (qos/fairness.tenant_of of its request), each
+        slot it touches labelled with its key for the top-K.  RpcJob lanes
+        stay tenant 0 ("other") and label nothing, as in the JAX pipeline:
+        the bytes lane never builds a request on the host.  Any failure
+        degrades to zero tenants and no decay: analytics never fails a
+        drain."""
         eng = self.engine
         S = eng.num_shards
         t = arena.host("tenants", (arena.K, S, eng.batch_per_shard),
@@ -775,6 +894,8 @@ class DispatchPipeline:
         try:
             an = self.analytics
             for job in res.staged:
+                if isinstance(job, RpcJob):
+                    continue
                 rows = job.row
                 for i in range(job.n):
                     row = int(rows[i])
@@ -821,9 +942,17 @@ class DispatchPipeline:
                 clflat = res.limits.cpu().numpy().reshape(-1, B)
         if res.stats is not None:
             res.stats_host = res.stats.numpy().copy()
-        outs = [job.finish(wflat, clflat, res.now) for job in res.staged]
+        outs = [job.finish(self, wflat, clflat, res.now)
+                if isinstance(job, RpcJob)
+                else job.finish(wflat, clflat, res.now)
+                for job in res.staged]
         res.fetch_done = time.monotonic()
         return res, outs
+
+    def busy(self) -> bool:
+        """Is any job queued, left over or in flight?"""
+        return bool(self._in_flight or self._singles or self._jobs
+                    or self._carried)
 
     def close(self) -> None:
         if not self.enabled:

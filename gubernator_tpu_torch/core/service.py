@@ -17,13 +17,23 @@ enabled AnalyticsConfig / SLOConfig; the pipeline stages each lane's tenant
 id, drains through the stats drain and the finisher, and hands every
 drain's stats to `TrafficAnalytics.ingest` and its wall time to
 `SLOEngine.observe_drain` (requests on the legacy lane feed neither, as in
-the JAX package).  Peers, leases, QoS and snapshots are not part of the
-port yet.
+the JAX package).
+
+The transport (server.py, api/http_gateway.py) calls `get_rate_limits`,
+`get_peer_rate_limits` (the peer plane's relay: standalone, every item is
+this node's), `health_check`, `batcher.submit_rpc` (the raw-RPC lane) and
+`add_to_server`, and observes RPCs into `metrics` when it is set: a
+`observability.metrics.Metrics` (prometheus_client), None by default
+because the serving core needs no metrics library.  `qos` and
+`mesh_mode` stay None / False until QoS and mesh serving are ported, so
+the transport's checks on them read as in the JAX package.
+Peers, leases, QoS and snapshots are not part of the port yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import List, Optional, Sequence
 
 from gubernator_tpu_torch.api.types import (
@@ -63,12 +73,15 @@ class Instance:
                  behaviors: Optional[BehaviorConfig] = None,
                  device=None,
                  analytics: Optional[AnalyticsConfig] = None,
-                 slo: Optional[SLOConfig] = None):
+                 slo: Optional[SLOConfig] = None,
+                 metrics=None):
         """engine: a ready engine, else one is built from engine_config on
         `device` (default `cuda`).  analytics / slo: when given and
         enabled, the traffic analytics (the engine's resident sketch and
         stats accumulator, and a TrafficAnalytics) and the SLO burn-rate
-        engine; otherwise `self.analytics` / `self.slo` are None."""
+        engine; otherwise `self.analytics` / `self.slo` are None.
+        metrics: an `observability.metrics.Metrics` to observe RPCs and
+        the router's cache into, or None for no registry."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -94,6 +107,30 @@ class Instance:
         self.batcher = WindowBatcher(self.engine, self.behaviors,
                                      analytics=self.analytics, slo=self.slo)
         self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
+        self.metrics = metrics
+        if metrics is not None:
+            metrics.watch_engine(self.engine)
+        # subsystems not ported yet (ROADMAP Queue 1 items 6-8)
+        self.qos = None
+        self.mesh_mode = False
+
+    def add_to_server(self, server, *, v1: bool = True,
+                      peers: bool = True) -> None:
+        """Register this instance's pb.gubernator.V1 and/or
+        pb.gubernator.PeersV1 handlers on a caller-owned grpc.aio.Server
+        (the reference's GRPCServers embedding hook, config.go:30-31).
+        gRPC generic handlers match in registration order, so mounting the
+        same service from two instances leaves the first one serving it."""
+        # deferred imports: server.py imports this module, and the
+        # serving core never loads grpc
+        from gubernator_tpu_torch.api.grpc_api import (add_peers_servicer,
+                                                       add_v1_servicer)
+        from gubernator_tpu_torch.server import _PeersServicer, _V1Servicer
+
+        if v1:
+            add_v1_servicer(server, _V1Servicer(self))
+        if peers:
+            add_peers_servicer(server, _PeersServicer(self))
 
     async def get_rate_limits(self, requests: Sequence[RateLimitReq]
                               ) -> List[RateLimitResp]:
@@ -138,8 +175,44 @@ class Instance:
             return (await self.batcher.submit_now([r]))[0]
         return await self.batcher.submit(r)
 
+    async def get_peer_rate_limits(self, requests: Sequence[RateLimitReq]
+                                   ) -> List[RateLimitResp]:
+        """Batch relay from a peer; this node is authoritative for every
+        key (gubernator.go:210-227).  Standalone there is no GLOBAL owner
+        to notify, so GLOBAL items are decided locally like the rest."""
+        if len(requests) > MAX_BATCH_SIZE:
+            raise BatchTooLargeError(
+                f"'PeerRequest.rate_limits' list too large; max size is "
+                f"'{MAX_BATCH_SIZE}'")
+        valid: List[RateLimitReq] = []
+        slots: List[int] = []
+        out: List[Optional[RateLimitResp]] = [None] * len(requests)
+        for i, r in enumerate(requests):
+            if r.algorithm not in _ALGORITHMS:
+                out[i] = RateLimitResp(
+                    error=f"invalid rate limit algorithm '{r.algorithm}'")
+                continue
+            valid.append(r)
+            slots.append(i)
+        if valid:
+            resps = await self.batcher.submit_now(valid)
+            for i, resp in zip(slots, resps):
+                out[i] = resp
+        return [o if o is not None else RateLimitResp() for o in out]
+
     async def health_check(self) -> HealthCheckResp:
         return self.health
+
+    async def drain(self, timeout: float = 5.0) -> bool:
+        """Graceful-departure phase: wait, at most `timeout` seconds, until
+        no request is queued or in flight in the pipeline or the classic
+        lane.  True when it emptied in time."""
+        deadline = time.monotonic() + timeout
+        while self.batcher.busy():
+            if time.monotonic() >= deadline:
+                return False
+            await asyncio.sleep(0.01)
+        return True
 
     def close(self) -> None:
         self.batcher.close()

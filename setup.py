@@ -8,6 +8,7 @@ setup(
                                     "gubernator_tpu_torch",
                                     "gubernator_tpu_torch.*"]),
     package_data={"gubernator_tpu.api": ["proto/*.proto", "proto/*.py"],
+                  "gubernator_tpu_torch.api": ["proto/*.proto", "proto/*.py"],
                   "gubernator_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
                   "gubernator_tpu_torch.native": ["host_router.cc"]},
     python_requires=">=3.10",

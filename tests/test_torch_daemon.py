@@ -1,0 +1,298 @@
+"""The port's daemon config and composition root (config.py
+DaemonConfig / config_from_env / load_env_file, daemon.py, __main__.py).
+
+config_from_env must give the JAX package's values for every knob the
+port serves, on defaults, overrides and an env-file, and raise where the
+JAX function raises; a knob of a subsystem the port has not ported raises
+ValueError naming its ROADMAP item unless it is at its default.  A daemon
+on GUBER_TORCH_DEVICE=cpu serves the port's client over loopback gRPC and
+its HTTP gateway, a real SIGTERM walks its graceful stop in the JAX
+daemon's phase order, and `python -m gubernator_tpu_torch.daemon --config
+FILE` boots, answers and exits 0 on SIGTERM.
+"""
+
+import asyncio
+import dataclasses
+import os
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import aiohttp
+import pytest
+import torch
+
+import gubernator_tpu  # noqa: F401
+import gubernator_tpu.config as jconfig
+import gubernator_tpu_torch.daemon as daemon_mod
+from gubernator_tpu_torch import config as pconfig
+from gubernator_tpu_torch.api.types import RateLimitReq, Second
+from gubernator_tpu_torch.client import AsyncClient, Client
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = {"GUBER_TORCH_DEVICE": "cpu", "GUBER_GRPC_ADDRESS": "127.0.0.1:0",
+         "GUBER_HTTP_ADDRESS": "127.0.0.1:0",
+         "GUBER_TPU_CAPACITY_PER_SHARD": "256",
+         "GUBER_TPU_BATCH_PER_SHARD": "64",
+         "GUBER_TPU_GLOBAL_CAPACITY": "16"}
+# the JAX daemon's stop phases, in its order (gubernator_tpu/daemon.py)
+JAX_PHASES = ["monitor_stop", "drain", "global_flush", "handoff",
+              "handoff_skipped", "snapshot", "teardown"]
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    """No GUBER_* variable set; everything an env-file loads is undone."""
+    saved = dict(os.environ)
+    for k in list(os.environ):
+        if k.startswith("GUBER_"):
+            monkeypatch.delenv(k)
+    yield monkeypatch
+    os.environ.clear()
+    os.environ.update(saved)
+
+
+def _served(c, jax_side):
+    """The knobs the port serves, from either package's DaemonConfig."""
+    e, b = c.engine, c.behaviors
+    return {
+        "grpc": c.grpc_listen_address, "http": c.http_listen_address,
+        "cache_size": c.cache_size, "debug": c.debug,
+        "batch_wait": b.batch_wait, "batch_limit": b.batch_limit,
+        "capacity": e.capacity_per_shard, "lanes": e.batch_per_shard,
+        "global_capacity": e.global_capacity, "use_native": e.use_native,
+        "exact_keys": e.exact_keys, "replay_cap": e.replay_cap,
+        "analytics": dataclasses.asdict(c.analytics),
+        "slo": dataclasses.asdict(c.slo),
+        "drain_timeout": (c.health.drain_timeout if jax_side
+                          else c.drain_timeout),
+    }
+
+
+def _both(env_file=None):
+    got = []
+    for mod, jax_side in ((jconfig, True), (pconfig, False)):
+        try:
+            got.append(_served(mod.config_from_env(env_file), jax_side))
+        except ValueError as e:
+            got.append(("ValueError", str(e)))
+    return got
+
+
+OVERRIDES = {
+    "GUBER_GRPC_ADDRESS": "0.0.0.0:9999", "GUBER_HTTP_ADDRESS": "h:8080",
+    "GUBER_CACHE_SIZE": "777", "GUBER_DEBUG": "yes",
+    "GUBER_BATCH_WAIT": "0.002",
+    "GUBER_BATCH_LIMIT": "500", "GUBER_TPU_BATCH_PER_SHARD": "128",
+    "GUBER_TPU_GLOBAL_CAPACITY": "64", "GUBER_NATIVE": "0",
+    "GUBER_EXACT_KEYS": "1", "GUBER_REPLAY_CAP": "7",
+    "GUBER_ANALYTICS": "1", "GUBER_ANALYTICS_TOPK": "5",
+    "GUBER_ANALYTICS_DECAY_MS": "0", "GUBER_SLO": "true",
+    "GUBER_SLO_DRAIN_P99_MS": "50", "GUBER_DRAIN_TIMEOUT_MS": "1500",
+}
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    OVERRIDES,
+    {"GUBER_TPU_CAPACITY_PER_SHARD": "4096", "GUBER_CACHE_SIZE": "10",
+     "GUBER_NATIVE": "true",
+     "GUBER_ANALYTICS_TENANTS": "1", "GUBER_DRAIN_TIMEOUT_MS": "junk"},
+    {"GUBER_BATCH_LIMIT": "5000"},
+    {"GUBER_CACHE_SIZE": "not-a-number"},
+    {"GUBER_ANALYTICS_SKETCH_DEPTH": "99"},
+], ids=["defaults", "overrides", "capacity", "batch_limit_cap",
+        "bad_cache_size", "bad_sketch_depth"])
+def test_config_from_env_equals_the_jax_function(clean_env, env):
+    for k, v in env.items():
+        clean_env.setenv(k, v)
+    got_j, got_p = _both()
+    assert got_p == got_j
+
+
+def test_env_file_equals_the_jax_function(clean_env, tmp_path):
+    f = tmp_path / "guber.conf"
+    f.write_text("# comment\n\n" + "".join(
+        f"{k} = {v}\n" for k, v in OVERRIDES.items()))
+    got = []
+    for mod, jax_side in ((jconfig, True), (pconfig, False)):
+        for k in [k for k in os.environ if k.startswith("GUBER_")]:
+            del os.environ[k]  # each function reads the file itself
+        got.append(_served(mod.config_from_env(str(f)), jax_side))
+    got_j, got_p = got
+    assert got_p == got_j and got_p["cache_size"] == 777
+
+
+def test_malformed_env_file_raises_in_both(clean_env, tmp_path):
+    f = tmp_path / "bad.conf"
+    f.write_text("GUBER_DEBUG=1\nNOT A KEY VALUE LINE\n")
+    for mod in (jconfig, pconfig):
+        with pytest.raises(ValueError, match="line '2'"):
+            mod.config_from_env(str(f))
+
+
+@pytest.mark.parametrize("name,value,item", [
+    ("GUBER_K8S_NAMESPACE", "default", 6),
+    ("GUBER_ETCD_ENDPOINTS", "http://e1:2379", 6),
+    ("GUBER_ETCD_TLS_CA", "/etc/ca.pem", 6),
+    ("GUBER_STATIC_PEERS", "127.0.0.1:1,127.0.0.1:2", 6),
+    ("GUBER_ADVERTISE_ADDRESS", "10.0.0.5:81", 6),
+    ("GUBER_BATCH_TIMEOUT", "0.25", 6),
+    ("GUBER_HEARTBEAT_ENABLED", "0", 6),
+    ("GUBER_QOS_ENABLED", "1", 6),
+    ("GUBER_QOS_MAX_PENDING", "10", 6),
+    ("GUBER_LEASE_SWEEP_MS", "0", 6),
+    ("GUBER_LEASE_MAX_PER_CLIENT", "3", 6),
+    ("GUBER_GLOBAL_SYNC_WAIT", "0.01", 6),
+    ("GUBER_FAULTS", "peer_drop:0.5", 6),
+    ("GUBER_SNAPSHOT_DIR", "/tmp/snaps", 5),
+    ("GUBER_TIER_WARM", "64", 5),
+    ("GUBER_FRONTDOOR_WORKERS", "2", 7),
+    ("GUBER_TRACE_SAMPLE", "0.5", 7),
+    ("GUBER_DEVPROF", "periodic", 7),
+    ("GUBER_MESH_PEERS", "127.0.0.1:1", 8),
+    ("GUBER_MESH_COORDINATOR", "127.0.0.1:2", 8),
+    ("GUBER_LOCKSTEP_STACK", "2", 8),
+    ("GUBER_SKIP_GLOBAL", "1", 8),
+])
+def test_unported_knob_raises_naming_its_roadmap_item(clean_env, name,
+                                                      value, item):
+    clean_env.setenv(name, value)
+    with pytest.raises(ValueError,
+                       match=f"{name}=.*ROADMAP.md Queue 1 item {item}"):
+        pconfig.config_from_env()
+
+
+@pytest.mark.parametrize("name,value", [
+    ("GUBER_FRONTDOOR_WORKERS", "0"), ("GUBER_LEASE_SWEEP_MS", "5000"),
+    ("GUBER_LEASE_RELEASE_ON_CLOSE", "true"), ("GUBER_QOS_ENABLED", "0"),
+    ("GUBER_LOCKSTEP_STACK", "1"), ("GUBER_SNAPSHOT_DIR", ""),
+    ("GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/"),
+    ("GUBER_BATCH_TIMEOUT", "0.5")])
+def test_unported_knob_at_its_default_is_accepted(clean_env, name, value):
+    clean_env.setenv(name, value)
+    pconfig.config_from_env()
+
+
+def _reqs(n=120):
+    return [RateLimitReq(name="dmn", unique_key=f"k{i % 30}", hits=1,
+                         limit=3, duration=Second) for i in range(n)]
+
+
+def test_sigterm_stops_a_serving_daemon_in_order(clean_env, monkeypatch):
+    """A daemon on the CPU answers the port's client over gRPC (a 120-item
+    RPC on the bytes lane) and its HTTP gateway; then a real SIGTERM walks
+    _amain into Daemon.stop(): drain, then teardown, in the JAX daemon's
+    order, and the instance is closed."""
+    for k, v in SMALL.items():
+        clean_env.setenv(k, v)
+    built = []
+
+    class Recorded(daemon_mod.Daemon):
+        async def start(self):
+            await super().start()
+            built.append(self)
+
+    monkeypatch.setattr(daemon_mod, "Daemon", Recorded)
+
+    async def body():
+        loop = asyncio.get_running_loop()
+        task = loop.create_task(daemon_mod._amain(pconfig.config_from_env()))
+        try:
+            for _ in range(600):
+                if built or task.done():
+                    break
+                await asyncio.sleep(0.05)
+            d = built[0]
+            client = AsyncClient(d.grpc.address)
+            rs = await client.get_rate_limits(_reqs())
+            health = await client.health_check()
+            await client.close()
+            base = f"http://127.0.0.1:{d.http.port}"
+            async with aiohttp.ClientSession() as s:
+                async with s.get(base + "/v1/HealthCheck") as r:
+                    hjson = await r.json()
+                async with s.get(base + "/metrics") as r:
+                    text = await r.text()
+            os.kill(os.getpid(), signal.SIGTERM)
+            await asyncio.wait_for(task, timeout=30)
+            return d, rs, health, hjson, text
+        finally:
+            task.cancel()
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                try:
+                    loop.remove_signal_handler(sig)
+                except (ValueError, RuntimeError):
+                    pass
+
+    d, rs, health, hjson, text = asyncio.run(body())
+    assert [r.remaining for r in rs[:30]] == [2] * 30
+    assert [int(r.status) for r in rs[90:]] == [1] * 30
+    assert health.status == hjson["status"] == "healthy"
+    assert "grpc_request_counts_total" in text and "cache_size 30.0" in text
+    assert d.instance.batcher.pipeline.rpc_staged == 1
+    assert d.shutdown_phases == ["drain", "teardown"]
+    assert d.shutdown_phases == [p for p in JAX_PHASES
+                                 if p in d.shutdown_phases]
+    assert d.instance.batcher.pipeline._closed
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+def test_daemon_on_the_default_device_raises_without_a_card(clean_env):
+    conf = pconfig.config_from_env()
+    assert conf.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(daemon_mod.Daemon(conf).start())
+
+
+def _read_until(proc, marker, seconds):
+    """Lines of the daemon's output up to the first holding `marker`
+    (waiting at most `seconds`); fails if the daemon exits first."""
+    import selectors
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    deadline, lines = time.monotonic() + seconds, []
+    while time.monotonic() < deadline:
+        if not sel.select(timeout=max(0.0, deadline - time.monotonic())):
+            break
+        line = proc.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        if marker in line:
+            return lines
+    raise AssertionError(f"no {marker!r} from the daemon:\n{''.join(lines)}")
+
+
+def test_python_m_daemon_serves_and_exits_on_sigterm(clean_env, tmp_path):
+    """`python -m gubernator_tpu_torch.daemon --config FILE --debug` boots
+    on the CPU from an env-file (port 0: it logs the port it bound),
+    answers the synchronous client, and exits 0 on SIGTERM."""
+    f = tmp_path / "daemon.conf"
+    f.write_text("".join(f"{k}={v}\n" for k, v in SMALL.items()))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GUBER_")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gubernator_tpu_torch.daemon", "--config",
+         str(f), "--debug"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = _read_until(proc, "gRPC listening on ", 120)
+        address = lines[-1].rsplit("gRPC listening on ", 1)[1].strip()
+        client = Client(address)
+        health = client.health_check(timeout=10)
+        rs = client.get_rate_limits(_reqs(3), timeout=10)
+        client.close()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert health.status == "healthy"
+    assert [r.remaining for r in rs] == [2, 2, 2]
+    assert proc.returncode == 0, out
+    assert "caught signal; shutting down" in out

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it loads no JAX, nothing of the
-JAX package, and neither grpc nor protobuf; its wire enums equal the JAX
+JAX package, and none of grpc, protobuf, aiohttp and prometheus_client
+(only the transport modules import those); its wire enums equal the JAX
 package's; its entry points refuse a CUDA device that is not there."""
 
 import ast
@@ -33,7 +34,9 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.native",
                   "gubernator_tpu_torch.core.window_buffers",
                   "gubernator_tpu_torch.core.pipeline",
-                  "gubernator_tpu_torch.qos.fairness")
+                  "gubernator_tpu_torch.qos.fairness",
+                  "gubernator_tpu_torch.core.batcher",
+                  "gubernator_tpu_torch.server")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
@@ -42,7 +45,8 @@ def test_import_loads_no_jax_grpc_or_protobuf(module):
         "import sys, importlib\n"
         f"importlib.import_module({module!r})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'gubernator_tpu', 'grpc') "
+        "('jax', 'jaxlib', 'gubernator_tpu', 'grpc', 'aiohttp', "
+        "'prometheus_client') "
         "or m.startswith('google.protobuf')]\n"
         "print(','.join(bad))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -63,7 +67,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
         elif isinstance(node, ast.ImportFrom):
             roots.add((node.module or "").split(".")[0])
     assert "gubernator_tpu_torch" in roots
-    assert not roots & {"jax", "jaxlib", "gubernator_tpu", "grpc", "google"}
+    assert not roots & {"jax", "jaxlib", "gubernator_tpu", "grpc", "google",
+                        "aiohttp", "prometheus_client"}
 
 
 @pytest.mark.parametrize("name", ["Algorithm", "Behavior", "Status"])
