@@ -153,18 +153,40 @@ Phases (one line each; any mismatch raises and exits non-zero):
      and none refused, every response decoded and held field for field
      against a Python-table engine on the card replaying the RPCs in the
      router's staging order, the first burst's arena shard by shard
-     against that engine's; then one line of figures beside phase 8's.
+     against that engine's; then one line of figures beside phase 8's;
+ 10. the state lifecycle (state/snapshot.py, state/tiers.py).  10a: an
+     Instance at phase 8's geometry (8 x 2^21 slots, G = 4096, B = 1024,
+     the router, depth 3, K up to 8) serves load A, ~100k decisions on the
+     raw-bytes lane from 64 callers and ~2k GLOBAL items through
+     get_rate_limits; it saves in each layout (int64, compact32) into a
+     temporary directory, each step timed (the export on the engine
+     thread, dumps, the write with fsync); each file is loaded and
+     imported into a fresh Instance, timed, and the restored planes,
+     GLOBAL planes and config, router tables and GLOBAL table are held
+     against the export, shard by shard, on the card; then load B, ~50k
+     decisions with GLOBAL items, one RPC at a time at the same pinned
+     clocks on the uninterrupted Instance and on both restored ones: every
+     response and both arenas must be equal; a file with one payload byte
+     flipped gives restore_engine None and a cold Instance that serves.
+     10b: the warm tier on the card: a Python-table engine with 8 x 2^9
+     hot slots and a 2^20-row warm store, in each layout, against an
+     8 x 2^18 twin without tiers (it never evicts) over 200 windows of up
+     to 1000 requests (Zipf s = 1.2 over 2^20 keys, tests/test_tiers.py's
+     law), every response bit for bit; the tier counters, the fences with
+     work and their median wall time, the tiered engines' drain launches.
 
-Six main paths are counted, each from 0: the one-shard path (phases 3b
+Seven main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b), the per-op path (phase 7b), the pipelined serving path
-(phase 8, from requests) and the raw-RPC lane (phase 9, from wire bytes);
-each must launch its kernels and never run a plain version, the per-op
-path must launch no kernel but window_math, global_stage and
-global_apply, and the raw-RPC lane none but drain_compact, once a drain.
-The kernel table's launch counts are drain_compact's (the first path's,
-the fifth's and the sixth's) and
-window_full's on the first path, global_window's on the second,
+(phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes) and
+the state lifecycle (phase 10); each must launch its kernels and never
+run a plain version, the per-op path must launch no kernel but
+window_math, global_stage and global_apply, the raw-RPC lane none but
+drain_compact, once a drain, and the lifecycle none but drain_compact and
+global_window.  The kernel table's launch counts are drain_compact's (the
+first path's, the fifth's, the sixth's and the seventh's) and
+window_full's on the first path, global_window's on the second and the
+seventh,
 drain_compact_stats' and stats_finish's on the third and the fifth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
 a wrapper made only to check or time it against its plain version come
@@ -177,8 +199,10 @@ equality: every quantity is an integer.
 import asyncio
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -196,6 +220,7 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
 from gubernator_tpu_torch.config import (  # noqa: E402
     AnalyticsConfig,
     EngineConfig,
+    TierConfig,
 )
 from gubernator_tpu_torch.core.engine import RateLimitEngine  # noqa: E402
 from gubernator_tpu_torch.core.service import Instance  # noqa: E402
@@ -213,6 +238,7 @@ from gubernator_tpu_torch.server import (  # noqa: E402
     FASTPATH_MIN_BYTES,
     serve_get_rate_limits,
 )
+from gubernator_tpu_torch.state import snapshot as snapmod  # noqa: E402
 
 DEV = torch.device("cuda")
 T0 = 1_754_000_000_000
@@ -3444,6 +3470,384 @@ def report_wire(r, counts, serve, smi):
     log("wire figures: " + json.dumps(dict(card=smi, **fig)))
 
 
+# ------------------------------------------------ phase 10: the lifecycle
+
+LIFE_DECISIONS_A = 100_000
+LIFE_DECISIONS_B = 50_000
+LIFE_GLOBAL_A = 2_000
+LIFE_GLOBAL_B = 1_000
+LIFE_GLOBAL_RPC = 50        # GLOBAL items a get_rate_limits call
+LIFE_GLOBAL_KEYS = 256
+LAYOUTS = ("int64", "compact32")
+# 10b: the warm tier on Python tables.  A hot arena of 8 x 2^9 slots: the
+# traffic below touches ~26k keys in 200 windows, far below 8 x 2^15, so
+# only an arena smaller than its live set makes the tier demote
+TIER_CAPACITY = 1 << 9
+TIER_TWIN_CAPACITY = 1 << 18
+TIER_WARM_ROWS = 1 << 20
+TIER_KEYS = 1 << 20
+TIER_WINDOWS = 200
+TIER_WINDOW_MAX = 1000
+
+
+def global_calls(rng, n, prefix="glob"):
+    """n GLOBAL decisions as get_rate_limits calls of LIFE_GLOBAL_RPC
+    items: Zipf (a = 1.3) keys over LIFE_GLOBAL_KEYS, token or leaky by
+    parity, in the compact ranges."""
+    idx = (rng.zipf(1.3, n) - 1) % LIFE_GLOBAL_KEYS
+    hits = rng.choice([0, 1, 1, 2], n)
+    reqs = [RateLimitReq(name="g", unique_key=f"{prefix}{int(i)}",
+                         hits=int(h), limit=40 + int(i) % 30,
+                         duration=60_000, algorithm=int(i) & 1,
+                         behavior=Behavior.GLOBAL)
+            for i, h in zip(idx, hits)]
+    return [reqs[i:i + LIFE_GLOBAL_RPC] for i in range(0, n, LIFE_GLOBAL_RPC)]
+
+
+def lifecycle_load(rng, decisions, global_decisions):
+    """A load as (kind, payload) steps: serialized 100-item RPCs (phase
+    9's keys, the raw-bytes lane) with a GLOBAL call after every
+    len(wire) / len(glob) of them."""
+    _, wire = wire_rpcs(rng, decisions)
+    glob = global_calls(rng, global_decisions)
+    every = max(1, len(wire) // len(glob))
+    steps = []
+    for i, data in enumerate(wire):
+        steps.append(("wire", data))
+        if i % every == every - 1 and glob:
+            steps.append(("glob", glob.pop(0)))
+    steps += [("glob", g) for g in glob]
+    return steps
+
+
+async def serve_step(inst, ctx, kind, payload):
+    """One step's responses as tuples: a wire RPC decoded, a GLOBAL call's
+    responses."""
+    if kind == "wire":
+        out = await serve_get_rate_limits(inst, payload, ctx)
+        return [(x["status"], x["limit"], x["remaining"], x["reset_time"],
+                 x["error"]) for x in decode_list(out, RESP_FIELDS)]
+    return [(int(r.status), r.limit, r.remaining, r.reset_time, r.error)
+            for r in await inst.get_rate_limits(payload)]
+
+
+async def serve_in_order(inst, ctx, steps, t0):
+    """Every step to its end before the next, step i at the pinned clock
+    t0 + i: one order, whatever the instance."""
+    out = []
+    for i, (kind, payload) in enumerate(steps):
+        pin_clock(inst, t0 + i)
+        out.append(await serve_step(inst, ctx, kind, payload))
+    return out
+
+
+async def on_engine_thread(inst, fn):
+    """fn on the Instance's engine thread (its quiesce point): (result,
+    seconds it held the thread, seconds the caller waited)."""
+    held = [0.0]
+
+    def run():
+        t = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            held[0] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    out = await inst._quiesced(run)
+    return out, held[0], time.perf_counter() - t0
+
+
+def lifecycle_instance():
+    inst = Instance(engine_config=serving_engine_config())
+    check(inst.engine.native is not None and inst.batcher.pipeline,
+          "the router or the pipeline is missing")
+    inst.engine.warmup()
+    return inst
+
+
+def same_state(a, b, what):
+    """Two engines' arenas plane for plane and shard by shard on the card,
+    and their key tables (the router's per shard, the GLOBAL table)."""
+    for name, pa, pb in zip(tk.BucketState._fields, a.state, b.state):
+        for s in range(SHARDS):
+            check(torch.equal(pa[s], pb[s]), f"{what}: {name} shard {s}")
+    for name, pa, pb in zip(tk.BucketState._fields + tk.GlobalConfig._fields,
+                            (*a.gstate, *a.gcfg), (*b.gstate, *b.gcfg)):
+        check(torch.equal(pa, pb), f"{what}: GLOBAL {name}")
+    for s in range(SHARDS):
+        for x, y in zip(a.native.export_keys(s), b.native.export_keys(s)):
+            check(np.array_equal(x, y), f"{what}: router shard {s}")
+    check(a.gtable.export_entries() == b.gtable.export_entries(),
+          f"{what}: GLOBAL table")
+
+
+def restored_as_exported(eng, snap, what):
+    """A restored engine holds the snapshot: each plane shard by shard on
+    the card against the snapshot's host planes, the router's tables per
+    shard and the GLOBAL table."""
+    for name, plane in zip(tk.BucketState._fields, eng.state):
+        for s in range(SHARDS):
+            want = torch.from_numpy(snap.planes[name][s]).to(DEV)
+            check(torch.equal(plane[s], want), f"{what}: {name} shard {s}")
+    for name, plane in zip(tk.BucketState._fields, eng.gstate):
+        check(torch.equal(plane, torch.from_numpy(snap.gplanes[name]).to(DEV)),
+              f"{what}: gstate {name}")
+    for name, plane in zip(tk.GlobalConfig._fields, eng.gcfg):
+        check(torch.equal(plane, torch.from_numpy(snap.gcfg[name]).to(DEV)),
+              f"{what}: gcfg {name}")
+    for s in range(SHARDS):
+        for x, y in zip(eng.native.export_keys(s), snap.native_tables[s]):
+            check(np.array_equal(x, y), f"{what}: router shard {s}")
+    keys, slots, exps = snap.gtable
+    check(eng.gtable.export_entries() == list(zip(keys, slots.tolist(),
+                                                   exps.tolist())),
+          f"{what}: GLOBAL table")
+
+
+def phase_lifecycle_snapshots(tmp):
+    """Phase 10a, counted: load A (~100k decisions on the raw-bytes lane
+    from 64 callers, ~2k GLOBAL through get_rate_limits) on an Instance at
+    phase 8's geometry; save in each layout into `tmp` (the export on the
+    engine thread, dumps, the atomic write with fsync), each timed; load
+    and import each file into a fresh Instance (built and warmed before
+    the counts start, like the cold one), each timed, and the restored
+    state held against the export on the card; then load B (~50k
+    decisions, GLOBAL items in it) on the original and on both restored
+    Instances, one step at a time at the same pinned clocks; last, a file
+    with one payload byte flipped gives a cold Instance that serves."""
+    rng = np.random.default_rng(101)
+    orig, r64, r32, cold = (lifecycle_instance() for _ in range(4))
+    load_a = lifecycle_load(rng, LIFE_DECISIONS_A, LIFE_GLOBAL_A)
+    load_b = lifecycle_load(rng, LIFE_DECISIONS_B, LIFE_GLOBAL_B)
+    cold_rpc = encode_list([vars(wire_request(i, "cold", 1))
+                            for i in range(SERVE_RPC)], REQ_FIELDS)
+    ctx = WireContext()
+    tb = millisecond_now()
+    out = dict(layouts={}, decisions_a=LIFE_DECISIONS_A + LIFE_GLOBAL_A,
+               decisions_b=LIFE_DECISIONS_B + LIFE_GLOBAL_B)
+    reset_counts()
+
+    async def script():
+        pin_clock(orig, tb)
+        wire = [p for k, p in load_a if k == "wire"]
+        glob = [p for k, p in load_a if k == "glob"]
+        await wire_burst(lambda d: serve_get_rate_limits(orig, d, ctx), wire)
+        for g in glob:
+            await orig.get_rate_limits(g)
+        snaps = {}
+        for layout in LAYOUTS:
+            row = out["layouts"][layout] = {}
+            snap, held, wait = await on_engine_thread(
+                orig, lambda: orig.engine.export_state(layout=layout))
+            row.update(export_ms=wait * 1e3, engine_thread_ms=held * 1e3)
+            t = time.perf_counter()
+            blob = snapmod.dumps(snap)
+            row["dumps_ms"] = (time.perf_counter() - t) * 1e3
+            path = os.path.join(tmp, f"arena-{layout}.snap")
+            t = time.perf_counter()
+            row["bytes"] = snapmod.write_bytes(blob, path)
+            row["write_fsync_ms"] = (time.perf_counter() - t) * 1e3
+            snaps[layout] = (snap, path)
+            del blob
+        for layout, inst in zip(LAYOUTS, (r64, r32)):
+            row = out["layouts"][layout]
+            snap, path = snaps[layout]
+            t = time.perf_counter()
+            loaded = snapmod.load(path)
+            row["load_ms"] = (time.perf_counter() - t) * 1e3
+            check(loaded.layout == layout, f"{layout}: the file holds "
+                  f"{loaded.layout}")
+            if layout == "int64":
+                os.remove(path)  # the compact32 file serves the flip
+            _, held, wait = await on_engine_thread(
+                inst, lambda: inst.restore_snapshot(loaded))
+            row.update(import_ms=wait * 1e3, import_thread_ms=held * 1e3,
+                       keys=loaded.total_keys())
+            restored_as_exported(inst.engine, snap, f"restored {layout}")
+        out["global_keys"] = len(snaps["int64"][0].gtable[0])
+        del snaps
+        for name, inst in (("orig", orig), ("int64", r64),
+                           ("compact32", r32)):
+            t = time.perf_counter()
+            out[f"b_{name}"] = await serve_in_order(inst, ctx, load_b,
+                                                    tb + 1_000)
+            out[f"b_{name}_s"] = time.perf_counter() - t
+        # one flipped payload byte: a cold start that serves
+        good = open(os.path.join(tmp, "arena-compact32.snap"), "rb").read()
+        bad = bytearray(good)
+        bad[len(snapmod.MAGIC) + 8 + len(good) // 2] ^= 0x01
+        bad_path = os.path.join(tmp, "arena-bad.snap")
+        snapmod.write_bytes(bytes(bad), bad_path)
+        del good, bad
+        got, _, _ = await on_engine_thread(
+            cold, lambda: snapmod.restore_engine(cold.engine, bad_path))
+        out["corrupt_restored"] = got
+        out["cold_size"] = cold.engine.cache_size
+        out["cold_live"] = int(torch.count_nonzero(cold.engine.state.expire))
+        pin_clock(cold, tb + 5_000)
+        out["cold_resp"] = decode_list(await serve_get_rate_limits(
+            cold, cold_rpc, ctx), RESP_FIELDS)
+
+    try:
+        asyncio.run(script())
+        same_state(orig.engine, r64.engine, "after load B: int64 restore")
+        same_state(orig.engine, r32.engine, "after load B: compact32 restore")
+    finally:
+        for inst in (orig, r64, r32, cold):
+            inst.close()
+    out["pipe_drains"] = sum(i.batcher.pipeline.drains
+                             for i in (orig, r64, r32, cold))
+    del orig, r64, r32, cold
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_stream(seed):
+    """tests/test_tiers.py's law at phase size: Zipf (s = 1.2) keys over
+    2^20, token or leaky and a duration by key, hits 1 or 2, windows of up
+    to 1000 requests 1-60 ms apart."""
+    rng = np.random.default_rng(seed)
+    durations = (500, 2_000, 10_000)
+    now = T0
+    for _ in range(TIER_WINDOWS):
+        now += int(rng.integers(1, 60))
+        ks = (rng.zipf(1.2, int(rng.integers(1, TIER_WINDOW_MAX + 1)))
+              % TIER_KEYS).tolist()
+        yield now, [RateLimitReq(
+            name="r", unique_key=f"big:{k}", hits=1 + k % 2, limit=5 + k % 7,
+            duration=durations[k % 3],
+            algorithm=Algorithm.TOKEN_BUCKET if k % 3 else
+            Algorithm.LEAKY_BUCKET) for k in ks]
+
+
+def phase_tiers():
+    """Phase 10b: the warm tier on the card.  A Python-table engine of
+    [8, 2^9] hot slots with a warm store of 2^20 rows, in each layout,
+    against a [8, 2^18] twin without tiers (it never evicts) over the same
+    200 windows through process(), every response bit for bit; each
+    fence's wall time, and the drain launches of the tiered engines."""
+    stream = list(tier_stream(211))
+    twin = RateLimitEngine(capacity_per_shard=TIER_TWIN_CAPACITY,
+                           num_shards=SHARDS, batch_per_shard=FULL_LANES)
+    want = [[(int(r.status), r.limit, r.remaining, r.reset_time)
+             for r in twin.process(reqs, now=now)] for now, reqs in stream]
+    out = dict(requests=sum(len(r) for _, r in stream),
+               twin_max_keys=max(len(t) for t in twin.tables), runs={})
+    del twin
+    for layout in LAYOUTS:
+        eng = RateLimitEngine(capacity_per_shard=TIER_CAPACITY,
+                              num_shards=SHARDS, batch_per_shard=FULL_LANES)
+        check(eng.native is None, "the tiered engine has the router")
+        eng.enable_tiers(TierConfig(warm_rows=TIER_WARM_ROWS, layout=layout),
+                         epoch=T0)
+        fences = []
+        fence = eng._tier_fence
+
+        def timed_fence(now, t=eng._tiers, fence=fence, fences=fences):
+            work = bool(t.pending_spills or t.pending_promos)
+            t0 = time.perf_counter()
+            fence(now)
+            fences.append((work, time.perf_counter() - t0))
+
+        eng._tier_fence = timed_fence
+        d0 = dk.launches["drain_compact"]
+        t0 = time.perf_counter()
+        got = []
+        for i, (now, reqs) in enumerate(stream):
+            got.append([(int(r.status), r.limit, r.remaining, r.reset_time)
+                        for r in eng.process(reqs, now=now)])
+            if i % 37 == 36:
+                eng.tier_maintain(now)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = [s for w, s in fences if w]
+        out["runs"][layout] = dict(
+            equal=got == want, stats=eng.tier_stats(), wall_s=wall,
+            fences=len(fences), fences_with_work=len(busy),
+            fence_ms_median=(float(np.median(busy)) * 1e3 if busy else None),
+            fence_ms_max=(max(busy) * 1e3 if busy else None),
+            drain_launches=dk.launches["drain_compact"] - d0)
+        del eng
+    return out
+
+
+def check_lifecycle(life, tiers):
+    for layout in LAYOUTS:
+        check(life[f"b_{layout}"] == life["b_orig"],
+              f"load B on the {layout} restore differs from the "
+              f"uninterrupted Instance")
+        check(life["layouts"][layout]["keys"] > 0, f"{layout}: no keys")
+    flat = [r for step in life["b_orig"] for r in step]
+    check(len(flat) == life["decisions_b"] and not any(r[4] for r in flat),
+          f"load B answered {len(flat)} decisions, some with errors")
+    check(life["global_keys"] > 0, "no GLOBAL key in the snapshot")
+    check(life["corrupt_restored"] is None, "the corrupt file restored")
+    check(life["cold_size"] == 0 and life["cold_live"] == 0,
+          "the corrupt restore left state behind")
+    check([(r["status"], r["remaining"]) for r in life["cold_resp"]]
+          == [(0, r.limit - 1) for r in (wire_request(i, "cold", 1)
+                                         for i in range(SERVE_RPC))],
+          "the cold Instance did not serve fresh buckets")
+    check(tiers["twin_max_keys"] < TIER_TWIN_CAPACITY,
+          f"the twin filled a shard ({tiers['twin_max_keys']} keys)")
+    for layout, run in tiers["runs"].items():
+        st = run["stats"]
+        check(run["equal"], f"tiers {layout}: a response differs from the "
+              f"twin that never evicts")
+        check(st["demotions"] > 0 and st["promotions"] > 0,
+              f"tiers {layout}: demotions {st['demotions']}, promotions "
+              f"{st['promotions']}")
+        check(st["pending_spills"] == 0 and st["pending_promotions"] == 0,
+              f"tiers {layout}: work left pending")
+        check(run["drain_launches"] > 0, f"tiers {layout}: no drain launch")
+
+
+def report_lifecycle(life, tiers, counts, smi):
+    rows = {}
+    for layout, row in life["layouts"].items():
+        rows[layout] = {k: (round(v, 3) if isinstance(v, float) else v)
+                        for k, v in row.items()}
+    runs = {}
+    for layout, run in tiers["runs"].items():
+        st = run["stats"]
+        runs[layout] = dict(
+            {k: st[k] for k in ("promotions", "promotions_from_spill",
+                                "demotions", "demote_dropped_expired",
+                                "demote_dropped_stale", "warm_hits",
+                                "cold_misses", "warm_rows", "warm_bytes",
+                                "warm_evictions")},
+            fences=run["fences"], fences_with_work=run["fences_with_work"],
+            fence_ms_median=run["fence_ms_median"],
+            fence_ms_max=run["fence_ms_max"], wall_s=run["wall_s"],
+            drain_launches=run["drain_launches"])
+    fig = dict(card=smi, snapshot=rows, global_keys=life["global_keys"],
+               load_b_seconds={k: life[f"b_{k}_s"]
+                               for k in ("orig",) + LAYOUTS},
+               tiers=runs, tier_requests=tiers["requests"],
+               tier_twin_max_keys=tiers["twin_max_keys"])
+    log(f"phase 10 state lifecycle ({SHARDS} x {FULL_CAPACITY // SHARDS} "
+        f"slots, G = {G_FULL}): load A {life['decisions_a']} decisions, "
+        f"saved in both layouts (" + "; ".join(
+            f"{k} {v['bytes']} bytes, {v['keys']} keys, export "
+            f"{v['export_ms']:.1f} ms (engine thread {v['engine_thread_ms']:.1f}),"
+            f" dumps {v['dumps_ms']:.1f}, write+fsync "
+            f"{v['write_fsync_ms']:.1f}, load {v['load_ms']:.1f}, import "
+            f"{v['import_ms']:.1f}" for k, v in life["layouts"].items())
+        + f"); each restore = the export on the card, then load B "
+        f"({life['decisions_b']} decisions) = the uninterrupted Instance, "
+        f"every response and both arenas; a flipped payload byte starts "
+        f"cold and serves.  10b warm tier ({SHARDS} x {TIER_CAPACITY} hot "
+        f"slots, {TIER_WARM_ROWS} warm rows, {tiers['requests']} requests "
+        f"in {TIER_WINDOWS} windows) = the {SHARDS} x {TIER_TWIN_CAPACITY} "
+        f"twin in both layouts (" + "; ".join(
+            f"{k}: {v['demotions']} demotions, {v['promotions']} promotions, "
+            f"{v['fences_with_work']} fences with work, median "
+            f"{v['fence_ms_median']:.3f} ms" for k, v in runs.items())
+        + f"); launches {counts}; {smi}")
+    log("lifecycle figures: " + json.dumps(fig))
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -3560,12 +3964,32 @@ def main():
     check_wire(wire)
     report_wire(wire, path6, serve, smi)
     del wire
+    # the state lifecycle: counts from 0 again (inside 10a, after its
+    # Instances are built and warmed); 10b adds the tiered engines'
+    tmp = tempfile.mkdtemp(prefix="guber-snapshots-")
+    try:
+        life = phase_lifecycle_snapshots(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tiers = phase_tiers()
+    path7, plain7 = launch_counts(), plain_counts()
+    check(path7["drain_compact"] > 0 and path7["global_window"] > 0,
+          f"a kernel of the lifecycle path never launched: {path7}")
+    others7 = {k: v for k, v in path7.items()
+               if k not in ("drain_compact", "global_window")}
+    check(not any(others7.values()),
+          f"the lifecycle path launched another kernel: {others7}")
+    check(not any(plain7.values()),
+          f"the plain versions ran on the lifecycle path: {plain7}")
+    check_lifecycle(life, tiers)
+    report_lifecycle(life, tiers, path7, smi)
+    del life, tiers
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
              launches=(path1["drain_compact"] + path5["drain_compact"]
-                       + path6["drain_compact"]),
+                       + path6["drain_compact"] + path7["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -3579,7 +4003,7 @@ def main():
              library_ms=None),
         dict(name="global_window", route="cuda", source=GLOBAL_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
-             launches=path2["global_window"],
+             launches=path2["global_window"] + path7["global_window"],
              max_abs_err=max(global_err, alone["err"], glob["global_err"],
                              chk["global_err"], cmp["err"]),
              ms=sig4(glob["ms"]), plain_ms=sig4(alone["plain_ms"]),

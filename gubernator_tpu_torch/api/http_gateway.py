@@ -10,14 +10,20 @@ google.protobuf.json_format, the conversion rules grpc-gateway uses):
   GET  /v1/HealthCheck
   GET  /metrics            prometheus text format (main.go:113-116)
   GET  /v1/admin/topk      traffic analytics: hot-key top-K + tenants (JSON)
+  GET  /v1/admin/snapshot  the state snapshot blob (?layout=int64 |
+                           compact32 | auto)
+  POST /v1/admin/restore   restore from a snapshot blob (?rebase_to=ms);
+                           {"restoredKeys": n}, or 400 {"error", "code": 3}
+                           for a bad blob
 
 The gateway calls the Instance in-process and observes its requests under
 the gRPC method names when the Instance has metrics.  An
 X-Guber-Timeout-Ms header that is not a number is refused with 400, as
 the JAX gateway refuses it with its QoS on (its default); the port has no
 admission control yet, so a valid header sets no deadline.  The debug,
-profile, kernels, snapshot and restore routes wait for the ports of
-introspection, device profiling and the state lifecycle.
+profile and kernels routes wait for the ports of introspection and device
+profiling.  The body cap is 1 GiB, as in the JAX gateway: a full arena's
+snapshot is far past aiohttp's 1 MiB default.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from google.protobuf import json_format
 from gubernator_tpu_torch.api import pb
 from gubernator_tpu_torch.core.service import BatchTooLargeError, Instance
 from gubernator_tpu_torch.observability.metrics import CONTENT_TYPE_LATEST
+from gubernator_tpu_torch.state.snapshot import SnapshotError
 
 
 def build_app(instance: Instance) -> web.Application:
@@ -109,10 +116,33 @@ def build_app(instance: Instance) -> web.Application:
         snap["topk"] = an.topk_snapshot(n)
         return web.json_response(snap)
 
-    app = web.Application()
+    # the state lifecycle's admin plane: the blob travels as it is (it is
+    # versioned and checksummed already)
+    async def admin_snapshot(request: web.Request) -> web.Response:
+        data = await instance.export_snapshot_bytes(
+            layout=request.query.get("layout", "auto"))
+        return web.Response(body=data,
+                            content_type="application/octet-stream")
+
+    async def admin_restore(request: web.Request) -> web.Response:
+        data = await request.read()
+        rebase = request.query.get("rebase_to")
+        try:
+            n = await instance.restore_snapshot_bytes(
+                data, rebase_to=int(rebase) if rebase else None)
+        except SnapshotError as e:
+            return web.json_response({"error": str(e), "code": 3},
+                                     status=400)
+        return web.json_response({"restoredKeys": n})
+
+    # a full arena's snapshot is hundreds of MB, far past aiohttp's 1 MiB
+    # default body cap, which would refuse every real admin restore
+    app = web.Application(client_max_size=1 << 30)
     app.router.add_post("/v1/GetRateLimits", get_rate_limits)
     app.router.add_get("/v1/HealthCheck", health_check)
     app.router.add_get("/metrics", metrics)
+    app.router.add_get("/v1/admin/snapshot", admin_snapshot)
+    app.router.add_post("/v1/admin/restore", admin_restore)
     app.router.add_get("/v1/admin/topk", admin_topk)
     return app
 

@@ -4,10 +4,11 @@ The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
 item cap, the batching behaviors (reference config.go:43-66), the
 dimensions of the regular and GLOBAL arenas and their key routing, the
 traffic-analytics and SLO knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the
-engine's lowering (GUBER_PALLAS), the serving pipeline's knobs, the env
-readers they use, and the daemon's env config (DaemonConfig,
-load_env_file, config_from_env: reference cmd/gubernator/config.go:59-147,
-the same GUBER_* names and values as the JAX package's for every knob the
+warm tier's (TierConfig, GUBER_TIER_*), the engine's lowering
+(GUBER_PALLAS), the serving pipeline's knobs, the env readers they use,
+and the daemon's env config (DaemonConfig with GUBER_SNAPSHOT_DIR and
+GUBER_SNAPSHOT_INTERVAL_MS, load_env_file, config_from_env: reference
+cmd/gubernator/config.go:59-147, the same GUBER_* names and values as the JAX package's for every knob the
 port serves).  GUBER_TORCH_DEVICE names the daemon's device (default
 `cuda`; `cpu` runs the plain versions), the port's counterpart of the JAX
 daemon's GUBER_JAX_PLATFORM.  A knob of a subsystem the port has not
@@ -147,6 +148,51 @@ class AnalyticsConfig:
 
 
 @dataclass
+class TierConfig:
+    """Tiered key state (state/tiers.py): a host warm store behind the
+    fixed arena on the device, turning slot exhaustion into a cache-miss
+    cost over an unbounded key space.  Off by default (warm_rows=0): the
+    engine's path is then the single-tier one.  Requires the Python
+    routing tables (config_from_env forces use_native=False when tiers are
+    on).  Defaults read GUBER_TIER_* at construction, as in the JAX
+    package.  No reference analog: the reference's LRU drops the coldest
+    bucket's counters."""
+
+    # Warm-store capacity in rows; 0 disables tiers.
+    warm_rows: int = field(
+        default_factory=lambda: env_int("GUBER_TIER_WARM", 0, minimum=0))
+    # Warm row layout: "int64" (absolute times) or "compact32" (int32
+    # values, times as int32 deltas from the store's epoch: half the
+    # bytes; rows outside that range keep an int64 side map, so the
+    # choice is never lossy).
+    layout: str = field(
+        default_factory=lambda: _env("GUBER_TIER_LAYOUT", "int64"))
+    # LRU-head candidates ranked by analytics heat when picking a live
+    # demotion victim (1 = strict LRU).
+    victim_sample: int = field(
+        default_factory=lambda: env_int("GUBER_TIER_VICTIM_SAMPLE", 8))
+    # Proactive demotion: tier_maintain spills cold entries once a shard's
+    # table runs above this occupancy fraction, demote_batch rows a pass.
+    demote_watermark: float = field(
+        default_factory=lambda: env_float("GUBER_TIER_DEMOTE_WATERMARK",
+                                          0.9, minimum=0.1))
+    demote_batch: int = field(
+        default_factory=lambda: env_int("GUBER_TIER_DEMOTE_BATCH", 64))
+
+    @property
+    def enabled(self) -> bool:
+        return self.warm_rows > 0
+
+    def validate(self) -> None:
+        if self.layout not in ("int64", "compact32"):
+            raise ValueError(
+                f"GUBER_TIER_LAYOUT must be int64 or compact32, "
+                f"got {self.layout!r}")
+        if not (0.1 <= self.demote_watermark <= 1.0):
+            raise ValueError("Tier.demote_watermark must be in [0.1, 1.0]")
+
+
+@dataclass
 class SLOConfig:
     """SLO burn-rate engine (observability/analytics.py SLOEngine):
     multi-window multi-burn-rate alerting over configured objectives.
@@ -214,11 +260,17 @@ class DaemonConfig:
     # ceiling on the graceful stop's drain phase, seconds (the JAX
     # package's HealthConfig.drain_timeout, GUBER_DRAIN_TIMEOUT_MS)
     drain_timeout: float = 5.0
+    # State lifecycle (state/snapshot.py): with snapshot_dir set, the
+    # daemon restores the arenas from it at boot, saves every
+    # snapshot_interval_ms and once more at a clean stop.
+    snapshot_dir: str = ""
+    snapshot_interval_ms: int = 60_000
 
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     analytics: AnalyticsConfig = field(default_factory=AnalyticsConfig)
     slo: SLOConfig = field(default_factory=SLOConfig)
+    tiers: TierConfig = field(default_factory=TierConfig)
 
 
 def _env(name: str, default: str = "") -> str:
@@ -342,11 +394,6 @@ _UNPORTED = (
     ("GUBER_GLOBAL_BATCH_LIMIT", MAX_BATCH_SIZE, 6),
     ("GUBER_FAULTS", "", 6),
     ("GUBER_FAULTS_SEED", 0, 6),
-    # the state lifecycle: snapshots and tiers
-    ("GUBER_SNAPSHOT_DIR", "", 5),
-    ("GUBER_SNAPSHOT_INTERVAL_MS", 60000, 5),
-    ("GUBER_TIER_WARM", 0, 5),
-    ("GUBER_TIER_", None, 5),
     # the front door, tracing and device profiling
     ("GUBER_FRONTDOOR_WORKERS", 0, 7),
     ("GUBER_FRONTDOOR_", None, 7),
@@ -433,6 +480,9 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
     c.drain_timeout = env_float("GUBER_DRAIN_TIMEOUT_MS",
                                 c.drain_timeout * 1000.0,
                                 minimum=0.0) / 1000.0
+    c.snapshot_dir = _env("GUBER_SNAPSHOT_DIR")
+    c.snapshot_interval_ms = env_int("GUBER_SNAPSHOT_INTERVAL_MS",
+                                     c.snapshot_interval_ms, minimum=100)
 
     b = c.behaviors
     if _env("GUBER_BATCH_WAIT"):
@@ -464,4 +514,14 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
     c.analytics.validate()
     c.slo = SLOConfig()
     c.slo.validate()
+    # tiers likewise; the warm tier lives in the Python routing tables
+    # (the native router keeps fingerprints, not key strings), so enabling
+    # it forces that backend, with a log line
+    c.tiers = TierConfig()
+    c.tiers.validate()
+    if c.tiers.enabled and e.use_native not in (False, "off"):
+        logging.getLogger("gubernator.config").info(
+            "GUBER_TIER_WARM=%d enables the warm tier; forcing the Python "
+            "routing backend (use_native=False)", c.tiers.warm_rows)
+        e.use_native = False
     return c

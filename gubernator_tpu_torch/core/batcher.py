@@ -10,7 +10,8 @@ analog of the reference's per-peer batching loop, peers.go:143-172):
     `pipeline.submit_many`);
   * the classic lane for everything else: requests queue until
     `batch_limit` items or `batch_wait` elapses, then the whole window
-    ships as one `engine.process` call.
+    ships as one `engine.process` call, followed, when the engine has the
+    warm tier, by its `tier_maintain` on the same thread.
 
 `submit_rpc` hands whole serialized RPCs to the pipeline's raw-RPC lane.
 
@@ -23,6 +24,7 @@ but share that serialization.
 from __future__ import annotations
 
 import asyncio
+import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
@@ -31,6 +33,8 @@ from gubernator_tpu_torch.config import BehaviorConfig
 from gubernator_tpu_torch.core.engine import RateLimitEngine
 from gubernator_tpu_torch.core.interval import ArmedInterval
 from gubernator_tpu_torch.core.pipeline import DispatchPipeline
+
+log = logging.getLogger("gubernator.batcher")
 
 
 class WindowBatcher:
@@ -106,7 +110,9 @@ class WindowBatcher:
 
         def run():
             now = self.now_fn() if self.now_fn is not None else None
-            return self.engine.process(reqs, now, accumulate)
+            resps = self.engine.process(reqs, now, accumulate)
+            self._tier_maintain(now)
+            return resps
 
         try:
             resps = await loop.run_in_executor(self._executor, run)
@@ -118,6 +124,19 @@ class WindowBatcher:
         for (_, _, fut), resp in zip(window, resps):
             if not fut.done():
                 fut.set_result(resp)
+
+    def _tier_maintain(self, now) -> None:
+        """Warm-tier demotion between windows (state/tiers.py; JAX
+        batcher.py:365), on the engine thread right after a window, where
+        the device rows are current; an attribute check when tiers are off.
+        It never fails the window: forced eviction inside staging keeps
+        the counts exact without it."""
+        if self.engine._tiers is None:
+            return
+        try:
+            self.engine.tier_maintain(now)
+        except Exception:
+            log.exception("warm-tier maintenance failed; continuing")
 
     async def submit_now(self, reqs: Sequence[RateLimitReq]
                          ) -> List[RateLimitResp]:

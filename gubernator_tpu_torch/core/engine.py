@@ -54,13 +54,22 @@ the torch reduction of `analytics_dispatch`.  The drain, global_window and
 the stats kernels are not launched then.  Both lowerings answer every
 request alike and leave the same arenas.
 
+The state lifecycle (JAX engine.py:1858-2043, 2268-2465): `export_state`
+/ `import_state` move the arenas, the key tables and the warm tier's rows
+as a state/snapshot.py ArenaSnapshot; `enable_tiers` puts the warm tier
+(state/tiers.py) behind the Python tables, its demotions and promotions
+resolved at a fence before each window's dispatch with one gather and one
+scatter on the device's planes.
+
 Mesh-mode registration (several processes), upserts from an owner's
-broadcast and the stacked legacy step (`step_stacked`) are not part of
-this single-process engine.
+broadcast, the stacked legacy step (`step_stacked`) and live key migration
+(`export_rows` / `import_rows`) are not part of this single-process
+engine.
 """
 
 from __future__ import annotations
 
+import logging
 import zlib
 from typing import Dict, List, Optional, Sequence
 
@@ -90,7 +99,10 @@ from gubernator_tpu_torch.ops.kernel import (
     WindowOutput,
 )
 from gubernator_tpu_torch.state.arena import SlotTable
+from gubernator_tpu_torch.state.snapshot import ArenaSnapshot, SnapshotError
+from gubernator_tpu_torch.state.tiers import ROW_FIELDS, TierManager, WarmStore
 
+log = logging.getLogger("gubernator.engine")
 
 # planes of the arenas, in BucketState / GlobalConfig order
 ARENA_FIELDS = BucketState._fields
@@ -354,6 +366,8 @@ class RateLimitEngine:
         self._compact_sound = True
         self.windows_processed = 0
         self.decisions_processed = 0
+        # the warm tier (enable_tiers): a state/tiers.py TierManager
+        self._tiers = None
         # traffic analytics (enable_analytics): the reduction's geometry,
         # the resident sketch i64[S, D, W] and the stats drain's accumulator
         self._an_conf = None
@@ -411,6 +425,8 @@ class RateLimitEngine:
             buf.ulimit[i], buf.uduration[i], buf.ualgo[i] = cfg
         for i, slot in enumerate(greset):
             buf.rslot[i] = slot
+        if self._tiers is not None:
+            self._tier_fence(now)
         out, gout = self._dispatch(now, reg_fill=max_fill)
         for t in self.tables:
             t.commit_window()
@@ -473,7 +489,17 @@ class RateLimitEngine:
                 lanes.append((s, lane, True))
             else:
                 s = shard_of(key, S)
-                slot, is_init = self.tables[s].lookup(key, now, r.duration)
+                slot = None
+                is_init = False
+                if self._tiers is not None and key not in self.tables[s]:
+                    # a demoted key comes back into the arena with its
+                    # live row (scattered at the fence before the
+                    # dispatch); a miss in warm too takes the cold lookup
+                    slot = self._tiers.stage_promote(
+                        s, self.tables[s], key, now, r.duration)
+                if slot is None:
+                    slot, is_init = self.tables[s].lookup(
+                        key, now, r.duration)
                 lane = reg_fill[s]
                 reg_fill[s] += 1
                 buf.slot[s, lane] = slot
@@ -1141,3 +1167,356 @@ class RateLimitEngine:
         names, [G] under "gstate.<field>" and "gcfg.<field>"."""
         return {name: t.cpu().numpy().copy()
                 for name, t in self._planes().items()}
+
+    # ------------------------------------------------------ state lifecycle
+
+    def export_state(self, now: Optional[int] = None, layout: str = "auto"):
+        """The arenas and key maps as a state/snapshot.py ArenaSnapshot
+        (JAX engine.py:1858): one device-to-host copy a plane, then the
+        key tables (the Python tables' entries, or the native router's
+        fingerprints, shard by shard) and the warm tier's rows when tiers
+        are on.  `layout` picks the file's time encoding ("int64",
+        "compact32", or "auto": compact32 while the compact latch holds);
+        dumps widens to int64 whenever compact32 cannot hold the data
+        exactly.  Call it where no window is half staged (the engine
+        thread, core/service.py)."""
+        now = self._resolve_now(now)
+        if self.native is not None and self.native.exact:
+            raise SnapshotError(
+                "exact-keys native router cannot export its key map "
+                "(key bytes are not part of the export format); disable "
+                "GUBER_EXACT_KEYS / EngineConfig.exact_keys to snapshot")
+        arena = self.export_arena()
+        planes = {n: arena[n] for n in ARENA_FIELDS}
+        gplanes = {n: arena[f"gstate.{n}"] for n in BucketState._fields}
+        gcfg = {n: arena[f"gcfg.{n}"] for n in GlobalConfig._fields}
+        tables, native_tables = [], []
+        if self.native is not None:
+            backend = "native"
+            native_tables = [self.native.export_keys(s)
+                             for s in range(self.num_shards)]
+        else:
+            backend = "python"
+            tables = [_table_columns(t) for t in self.tables]
+        warm = (None if self._tiers is None
+                else self._tiers.warm.export_rows())
+        if layout == "auto":
+            layout = "compact32" if self._compact_sound else "int64"
+        return ArenaSnapshot(
+            now=now, layout=layout, warm=warm,
+            num_shards=self.num_shards,
+            capacity_per_shard=self.capacity_per_shard,
+            global_capacity=self.global_capacity,
+            num_local_shards=self.num_shards, local_shard_offset=0,
+            compact_sound=self._compact_sound, backend=backend,
+            planes=planes, gplanes=gplanes, gcfg=gcfg,
+            tables=tables, native_tables=native_tables,
+            gtable=_table_columns(self.gtable), gpending=[])
+
+    def import_state(self, snap, rebase_to: Optional[int] = None) -> None:
+        """Replace the arenas and key maps with a snapshot's (JAX
+        engine.py:1932).  Times stay absolute by default: the downtime
+        counts against every TTL, as if the process had kept running.
+        `rebase_to` shifts every live time by (rebase_to - snap.now)
+        instead, keeping each bucket's remaining lifetime across a change
+        of clock domain.  Refuses (SnapshotError) another geometry, a mesh
+        snapshot (GLOBAL keys pending registration), a native snapshot
+        into Python tables (fingerprints cannot give back key strings) and
+        an exact-keys router.  A Python-table snapshot restores into the
+        native router with the fingerprints the router would assign."""
+        geometry = dict(num_shards=self.num_shards,
+                        capacity_per_shard=self.capacity_per_shard,
+                        global_capacity=self.global_capacity,
+                        num_local_shards=self.num_shards,
+                        local_shard_offset=0)
+        for attr, want in geometry.items():
+            if getattr(snap, attr) != want:
+                raise SnapshotError(
+                    f"snapshot geometry mismatch: {attr}={getattr(snap, attr)}"
+                    f" but engine has {want}")
+        if snap.gpending:
+            raise SnapshotError(
+                f"snapshot holds {len(snap.gpending)} GLOBAL keys pending "
+                "mesh registration; a single-process engine cannot restore "
+                "a mesh snapshot")
+        if snap.backend == "native" and self.native is None:
+            raise SnapshotError(
+                "snapshot holds a native fingerprint table but this engine "
+                "routes in Python; key strings cannot be recovered from "
+                "fingerprints")
+        if self.native is not None and self.native.exact:
+            raise SnapshotError(
+                "exact-keys native router cannot import a snapshot key map "
+                "(stored keys would stay empty and every lookup would "
+                "collide); disable exact_keys to restore")
+        shift = 0 if rebase_to is None else int(rebase_to) - snap.now
+
+        def shifted(planes):
+            if shift == 0:
+                return planes
+            out = dict(planes)
+            live = planes["expire"] != 0
+            for name in ("tstamp", "expire"):
+                a = planes[name].copy()
+                a[live] += shift
+                out[name] = a
+            return out
+
+        rp, gp = shifted(snap.planes), shifted(snap.gplanes)
+        self.import_arena({**rp, **{f"gstate.{n}": a for n, a in gp.items()},
+                           **{f"gcfg.{n}": a for n, a in snap.gcfg.items()}})
+        if snap.backend == "native":
+            for s in range(self.num_shards):
+                fp, slots, exps = snap.native_tables[s]
+                self.native.import_keys(
+                    s, np.asarray(fp, np.uint64), np.asarray(slots, np.int32),
+                    np.asarray(exps, np.int64) + shift)
+        elif self.native is not None:
+            # A Python-table snapshot into the router: the fingerprints the
+            # C router assigns (FNV-1a 64), and each key's expiry from the
+            # device plane, not the table.  The table's estimate may lag
+            # the kernel (leaky hits extend expire on the device only),
+            # which the Python tables never act on, but the router trusts
+            # its host expiry at lookup and would start a live bucket over.
+            for s, (keys, slots, exps) in enumerate(snap.tables):
+                fp = np.asarray([_fnv1a64(k.encode("utf-8")) for k in keys],
+                                np.uint64)
+                si = np.asarray(slots, np.int64)
+                dev = rp["expire"][s, si] if len(si) else \
+                    np.empty(0, np.int64)
+                self.native.import_keys(
+                    s, fp, np.asarray(slots, np.int32),
+                    np.maximum(np.asarray(exps, np.int64) + shift, dev))
+        else:
+            for t, (keys, slots, exps) in zip(self.tables, snap.tables):
+                t.restore_entries(zip(
+                    keys, np.asarray(slots, np.int64).tolist(),
+                    (np.asarray(exps, np.int64) + shift).tolist()))
+        gkeys, gslots, gexps = snap.gtable if snap.gtable else ([], [], [])
+        self.gtable.restore_entries(zip(
+            gkeys, np.asarray(gslots, np.int64).tolist(),
+            (np.asarray(gexps, np.int64) + shift).tolist()))
+        warm = snap.warm
+        if self._tiers is not None:
+            tm = self._tiers
+            now_r = self._resolve_now(rebase_to)
+            # an import replaces all key state: a fresh warm store (its
+            # epoch the restore clock) takes the snapshot's warm rows,
+            # shifted as the arenas are
+            tm.warm = WarmStore(tm.conf.warm_rows, tm.conf.layout,
+                                epoch=now_r)
+            tm.pending_spills.clear()
+            tm.pending_promos.clear()
+            if warm is not None:
+                tm.warm.restore_rows(warm[0], warm[1], now=now_r,
+                                     shift=shift)
+        elif warm is not None and len(warm[0]):
+            log.warning(
+                "snapshot carries %d warm-tier rows but tiers are disabled "
+                "on this engine; dropping them to cold (keys re-init from "
+                "request configs)", len(warm[0]))
+        if not snap.compact_sound:
+            # the snapshotted arena held out-of-range configs: the compact
+            # latch trips as it would have live
+            self._compact_sound = False
+            self._compact_enabled = False
+
+    # --------------------------------------------------------- tiered state
+    #
+    # The warm tier (state/tiers.py): the fixed arena becomes a managed
+    # cache over an unbounded key space.  Demotion rides SlotTable._reclaim
+    # through the spill hook, promotion happens in _stage_requests, and both
+    # resolve in ONE gather and ONE scatter at the fence before each
+    # dispatch: torch indexing on the device's planes (the JAX engine's
+    # _gather_rows_jit / _scatter_rows_jit), never a host copy of the arena.
+    # All of it runs on the dispatch thread.  A moved row is expired when the
+    # kernels read it so, expire < now; the JAX tier also drops expire ==
+    # now, which a later window at the same clock then starts cold (ROADMAP
+    # Queue 3), so the port departs from it there.
+
+    def enable_tiers(self, conf, analytics=None,
+                     epoch: Optional[int] = None):
+        """Install the warm tier (JAX engine.py:2268).  It needs the Python
+        routing tables (the native router keeps fingerprints, not key
+        strings) and warm capacity.  `epoch` anchors the store's compact32
+        rebase (default: now)."""
+        if self.native is not None:
+            raise RuntimeError(
+                "native router does not retain key strings; the warm tier "
+                "needs the Python tables (EngineConfig use_native=False)")
+        if conf.warm_rows <= 0:
+            raise ValueError(
+                "enable_tiers needs warm capacity (GUBER_TIER_WARM > 0); "
+                "warm_rows=0 means tiers stay off")
+        t = TierManager(conf, epoch=self._resolve_now(epoch),
+                        analytics=analytics)
+        self._tiers = t
+        for s, table in enumerate(self.tables):
+            table.spill_cb = (
+                lambda key, slot, expire, stale, _s=s:
+                t.on_spill(_s, key, slot, expire, stale))
+            table.heat_fn = t.heat
+            table.victim_sample = conf.victim_sample
+        return t
+
+    def tier_stats(self) -> Optional[dict]:
+        """The tier counters and warm occupancy, or None when tiers are
+        off."""
+        return None if self._tiers is None else self._tiers.stats()
+
+    def _gather_rows(self, where: List[tuple]) -> np.ndarray:
+        """Rows (shard, slot) of the regular arena as host int64 [6, n]
+        (BucketState order): one gather on the device, padded to a power
+        of two, and one copy to the host."""
+        n = len(where)
+        flat = np.zeros(_pad_pow2(n), np.int64)  # pads read row 0, dropped
+        flat[:n] = [s * self.capacity_per_shard + sl for s, sl in where]
+        idx = self._staging.array("tier.gather", flat)
+        got = torch.stack([p.reshape(-1).index_select(0, idx).to(torch.int64)
+                           for p in self.state])
+        return got.cpu().numpy()[:, :n]
+
+    def _scatter_rows(self, where: List[tuple], vals: np.ndarray) -> None:
+        """Write host rows vals int64 [6, n] (BucketState order) into
+        (shard, slot) of the regular arena, in place: one copy to the
+        device, padded to a power of two (pads repeat the first row, so a
+        pad writes what the first row writes), and one index_put_ a
+        plane."""
+        n = len(where)
+        m = _pad_pow2(n)
+        flat = np.empty(m, np.int64)
+        flat[:n] = [s * self.capacity_per_shard + sl for s, sl in where]
+        flat[n:] = flat[0]
+        block = np.empty((7, m), np.int64)
+        block[0] = flat
+        block[1:, :n] = vals
+        block[1:, n:] = vals[:, :1]
+        dev = self._staging.array("tier.scatter", block)
+        for f, plane in enumerate(self.state):
+            plane.view(-1).index_put_((dev[0],), dev[f + 1].to(plane.dtype))
+
+    def _tier_fence(self, now: int) -> None:
+        """Resolve every demotion and promotion pending since the last
+        dispatch (JAX engine.py:2297), before this window's dispatch: the
+        victims' device rows are still intact, and the promoted rows are
+        resident when the kernel reads them.  One gather and one scatter a
+        window however many keys moved; a spill row found dead or expired
+        on the device drops to cold (the kernel's lazy expiry reads it as
+        a miss, so an arena that never evicts starts it over too)."""
+        t = self._tiers
+        t.fences += 1
+        if t.analytics is not None and t.fences % 256 == 0:
+            t.refresh_heat()
+        spills, promos = t.drain_pending()
+        if not spills and not promos:
+            return
+        # one gather covers the spills AND the from-spill promotion sources
+        gather = [(sh, sl) for _, sh, sl in spills]
+        src_ix = {}
+        for key, p in promos:
+            if p[3] is not None:
+                src_ix[key] = len(gather)
+                gather.append(tuple(p[3]))
+        vals = self._gather_rows(gather) if gather else None
+        puts = []
+        for j, (key, _sh, _sl) in enumerate(spills):
+            # expired by the kernels' rule (expire < now; 0 is dead): a row
+            # with expire == now is live for a later window at this clock
+            if vals[4, j] < now:
+                t.counters["demote_dropped_expired"] += 1
+                continue
+            row = dict(zip(ROW_FIELDS, vals[:, j].tolist()))
+            row["key"] = key
+            puts.append(row)
+        if puts:
+            t.warm.put_batch(puts, now)
+            t.counters["demotions"] += len(puts)
+        if promos:
+            rows = []
+            for key, p in promos:
+                if p[3] is not None:
+                    row = dict(zip(ROW_FIELDS, vals[:, src_ix[key]].tolist()))
+                    row["rel"] = False
+                else:
+                    row = p[2]
+                rows.append(row)
+            t.decode_rows(rows)
+            self._scatter_rows(
+                [(p[0], p[1]) for _, p in promos],
+                np.asarray([[r[f] for r in rows] for f in ROW_FIELDS],
+                           np.int64))
+            t.counters["promotions"] += len(rows)
+
+    def tier_maintain(self, now: Optional[int] = None) -> int:
+        """Demotion ahead of need, between windows (JAX engine.py:2371):
+        shards above the demote watermark spill their coldest committed
+        entries to warm in one batch, so staging into a full arena pays
+        spills at the fence instead of forced evictions a lookup.  Also
+        refreshes the heat map.  Returns the entries demoted or dropped."""
+        if self._tiers is None:
+            return 0
+        t = self._tiers
+        now = self._resolve_now(now)
+        t.refresh_heat()
+        if t.pending_spills or t.pending_promos:
+            # a staging pass ended before its dispatch: resolve what it
+            # left first (those device rows are still the pre-dispatch ones)
+            self._tier_fence(now)
+        hi = int(t.conf.demote_watermark * self.capacity_per_shard)
+        picks = []
+        for s, table in enumerate(self.tables):
+            excess = len(table) - hi
+            if excess <= 0:
+                continue
+            take = min(excess, t.conf.demote_batch)
+            scanned = 0
+            for key in table.keys():              # LRU order, oldest first
+                if take <= 0 or scanned >= 4 * t.conf.demote_batch:
+                    break
+                scanned += 1
+                if table.is_pending(key) or t.heat(key) > 0.0:
+                    continue                      # hot by analytics: kept
+                picks.append((key, s, table.peek(key)))
+                take -= 1
+        if not picks:
+            return 0
+        vals = self._gather_rows([(s, slot) for _, s, slot in picks])
+        puts = []
+        for j, (key, s, _slot) in enumerate(picks):
+            self.tables[s].remove(key)
+            if vals[4, j] < now:
+                t.counters["demote_dropped_expired"] += 1
+                continue
+            row = dict(zip(ROW_FIELDS, vals[:, j].tolist()))
+            row["key"] = key
+            puts.append(row)
+        if puts:
+            t.warm.put_batch(puts, now)
+            t.counters["demotions"] += len(puts)
+        return len(picks)
+
+
+def _table_columns(table: SlotTable) -> tuple:
+    """A SlotTable's committed entries, oldest first, as (keys, slot
+    i32[n], expire i64[n])."""
+    ents = table.export_entries()
+    return ([e[0] for e in ents], np.asarray([e[1] for e in ents], np.int32),
+            np.asarray([e[2] for e in ents], np.int64))
+
+
+def _pad_pow2(n: int) -> int:
+    """The tier fence's index vectors padded to a power of two (>= 8), as
+    the JAX engine pads its gather and scatter."""
+    return max(8, 1 << (n - 1).bit_length())
+
+
+def _fnv1a64(data: bytes) -> int:
+    """FNV-1a 64 over key bytes, bit-identical to host_router.cc fnv1a64
+    (the router's literal seed, not the textbook offset basis), for
+    restoring a Python-table snapshot into the router.  0 maps to 1 (0
+    marks an empty table cell)."""
+    h = 1469598103934665603
+    for b in data:
+        h ^= b
+        h = (h * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+    return h if h else 1

@@ -27,12 +27,18 @@ this node's), `health_check`, `batcher.submit_rpc` (the raw-RPC lane) and
 because the serving core needs no metrics library.  `qos` and
 `mesh_mode` stay None / False until QoS and mesh serving are ported, so
 the transport's checks on them read as in the JAX package.
-Peers, leases, QoS and snapshots are not part of the port yet.
+
+The state lifecycle (JAX service.py:780-827): `export_snapshot`,
+`save_snapshot`, `export_snapshot_bytes` and `restore_snapshot_bytes` run
+the engine's export and import on the engine thread (`_quiesced`), and
+`tiers` (a TierConfig) puts the warm tier on the engine.  Peers, leases
+and QoS are not part of the port yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
 import time
 from typing import List, Optional, Sequence
 
@@ -49,6 +55,7 @@ from gubernator_tpu_torch.config import (
     BehaviorConfig,
     EngineConfig,
     SLOConfig,
+    TierConfig,
 )
 from gubernator_tpu_torch.core.batcher import WindowBatcher
 from gubernator_tpu_torch.core.engine import RateLimitEngine
@@ -56,6 +63,9 @@ from gubernator_tpu_torch.observability.analytics import (
     SLOEngine,
     TrafficAnalytics,
 )
+from gubernator_tpu_torch.state import snapshot as snapmod
+
+log = logging.getLogger("gubernator.service")
 
 HEALTHY = "healthy"
 
@@ -74,14 +84,18 @@ class Instance:
                  device=None,
                  analytics: Optional[AnalyticsConfig] = None,
                  slo: Optional[SLOConfig] = None,
-                 metrics=None):
+                 metrics=None,
+                 tiers: Optional[TierConfig] = None):
         """engine: a ready engine, else one is built from engine_config on
         `device` (default `cuda`).  analytics / slo: when given and
         enabled, the traffic analytics (the engine's resident sketch and
         stats accumulator, and a TrafficAnalytics) and the SLO burn-rate
         engine; otherwise `self.analytics` / `self.slo` are None.
-        metrics: an `observability.metrics.Metrics` to observe RPCs and
-        the router's cache into, or None for no registry."""
+        metrics: an `observability.metrics.Metrics` to observe RPCs,
+        the router's cache, snapshots and the warm tier into, or None for
+        no registry.  tiers: when given and enabled, the warm tier on the
+        engine's Python tables (JAX service.py:128-137), fed by the
+        analytics' heat when analytics is on too."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -104,12 +118,17 @@ class Instance:
         if slo is not None and slo.enabled:
             slo.validate()
             self.slo = SLOEngine(slo)
+        if tiers is not None and tiers.enabled:
+            tiers.validate()
+            self.engine.enable_tiers(tiers, analytics=self.analytics)
         self.batcher = WindowBatcher(self.engine, self.behaviors,
                                      analytics=self.analytics, slo=self.slo)
         self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
         self.metrics = metrics
         if metrics is not None:
             metrics.watch_engine(self.engine)
+            if self.engine.tier_stats() is not None:
+                metrics.watch_tiers(self.engine)
         # subsystems not ported yet (ROADMAP Queue 1 items 6-8)
         self.qos = None
         self.mesh_mode = False
@@ -213,6 +232,65 @@ class Instance:
                 return False
             await asyncio.sleep(0.01)
         return True
+
+    # ------------------------------------------------------ state lifecycle
+
+    async def _quiesced(self, fn):
+        """Run engine-mutating work on the batcher's one engine thread
+        (JAX service.py:780): serialized with every window of the classic
+        lane and every drain the pipeline packs and launches there, so it
+        sees the arenas and the router's tables at one drain boundary.  A
+        device read there waits, in stream order, for the drains already
+        launched; nothing the pipeline still holds (jobs left over to its
+        next drain, fetches in flight) names a slot."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(self.batcher._executor, fn)
+
+    async def export_snapshot(self, layout: str = "auto"):
+        """The engine's export (state/snapshot.py ArenaSnapshot) at the
+        quiesce point.  The port has no lease registry yet, so the
+        snapshot carries no lease rows."""
+        return await self._quiesced(
+            lambda: self.engine.export_state(layout=layout))
+
+    async def save_snapshot(self, path: str, layout: str = "auto") -> int:
+        """Export, then an atomic write; returns the bytes written.  The
+        quiesce covers only the export: serializing and writing run off
+        the engine thread."""
+        start = time.monotonic()
+        snap = await self.export_snapshot(layout)
+        size = snapmod.save(snap, path)
+        if self.metrics is not None:
+            self.metrics.observe_snapshot(time.monotonic() - start, size,
+                                          ok=True)
+        log.info("snapshot: %d keys, %d bytes -> %s", snap.total_keys(),
+                 size, path)
+        return size
+
+    async def export_snapshot_bytes(self, layout: str = "auto") -> bytes:
+        return snapmod.dumps(await self.export_snapshot(layout))
+
+    async def restore_snapshot_bytes(self, data: bytes,
+                                     rebase_to=None) -> int:
+        """Parse, then import at the quiesce point; returns the keys
+        restored.  Raises SnapshotError on a bad blob (a boot restore
+        degrades to a cold start; an admin restore reports the failure)."""
+        snap = snapmod.loads(data)
+        await self._quiesced(lambda: self.restore_snapshot(snap, rebase_to))
+        return snap.total_keys()
+
+    def restore_snapshot(self, snap, rebase_to=None) -> None:
+        """engine.import_state, then what the Instance keeps beside the
+        arena (engine thread).  Lease rows are logged and dropped: the
+        port has no lease registry yet.  The analytics' slot labels are
+        forgotten (the slots now hold the snapshot's keys)."""
+        self.engine.import_state(snap, rebase_to=rebase_to)
+        if snap.leases:
+            log.warning("snapshot carries %d concurrency-lease rows; the "
+                        "port has no lease registry yet, dropping them",
+                        len(snap.leases))
+        if self.analytics is not None:
+            self.analytics.forget_labels()
 
     def close(self) -> None:
         self.batcher.close()

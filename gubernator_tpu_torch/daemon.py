@@ -7,9 +7,15 @@ the gRPC server, the HTTP gateway with /metrics, and a graceful stop on
 SIGINT/SIGTERM.  Run as `python -m gubernator_tpu_torch.daemon` (flags:
 --config <env-file>, --debug, the reference's only two flags,
 cmd/gubernator/config.go:63-66).  It needs grpcio, protobuf, aiohttp and
-prometheus_client.  Peer discovery, snapshots, the front door, mesh
-serving, fault injection and the lease sweep are not ported yet: their
-knobs raise in config_from_env.
+prometheus_client.
+
+With GUBER_SNAPSHOT_DIR set it restores the arenas from
+`<dir>/arena.snap` before it serves (a missing or corrupt file is a logged
+cold start), saves every GUBER_SNAPSHOT_INTERVAL_MS, and saves once more
+in the stop sequence, after the drain.  GUBER_TIER_WARM > 0 puts the warm
+tier on the engine (and forces the Python routing tables).  Peer
+discovery, the front door, mesh serving, fault injection and the lease
+sweep are not ported yet: their knobs raise in config_from_env.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import signal
 from typing import Optional
 
@@ -25,6 +32,7 @@ from gubernator_tpu_torch.config import DaemonConfig, config_from_env
 from gubernator_tpu_torch.core.service import Instance
 from gubernator_tpu_torch.observability.metrics import Metrics
 from gubernator_tpu_torch.server import GrpcServer
+from gubernator_tpu_torch.state import snapshot as snapmod
 
 log = logging.getLogger("gubernator.daemon")
 
@@ -38,14 +46,48 @@ class Daemon:
         # phase names appended as stop() runs them, in order: the JAX
         # daemon's order for the phases the port has
         self.shutdown_phases: list = []
+        self._snapshot_task: Optional[asyncio.Task] = None
+
+    def _snapshot_file(self) -> str:
+        return snapmod.snapshot_path(self.conf.snapshot_dir)
+
+    async def _snapshot_once(self) -> None:
+        try:
+            await self.instance.save_snapshot(self._snapshot_file())
+        except Exception:
+            self.instance.metrics.observe_snapshot(0.0, 0, ok=False)
+            log.exception("periodic snapshot failed")
+
+    async def _snapshot_loop(self) -> None:
+        interval = self.conf.snapshot_interval_ms / 1000.0
+        while True:
+            await asyncio.sleep(interval)
+            await self._snapshot_once()
 
     async def start(self) -> None:
         c = self.conf
         self.instance = Instance(
             engine_config=c.engine, behaviors=c.behaviors, device=c.device,
-            analytics=c.analytics, slo=c.slo, metrics=Metrics())
+            analytics=c.analytics, slo=c.slo, metrics=Metrics(),
+            tiers=c.tiers)
         # launch every drain shape before accepting traffic
         self.instance.engine.warmup()
+        if c.snapshot_dir:
+            # restore BEFORE serving, on the engine thread; a missing or
+            # corrupt snapshot is a cold start, never a failed boot
+            os.makedirs(c.snapshot_dir, exist_ok=True)
+            inst = self.instance
+            snap = await inst._quiesced(
+                lambda: snapmod.restore_engine(inst.engine,
+                                               self._snapshot_file(),
+                                               metrics=inst.metrics))
+            if snap is not None and snap.leases:
+                log.warning("snapshot carries %d concurrency-lease rows; "
+                            "the port has no lease registry yet, dropping "
+                            "them", len(snap.leases))
+            self._snapshot_task = asyncio.create_task(self._snapshot_loop())
+            log.info("snapshots -> %s every %dms", c.snapshot_dir,
+                     c.snapshot_interval_ms)
         self.grpc = GrpcServer(self.instance, c.grpc_listen_address)
         await self.grpc.start()
         log.info("gRPC listening on %s", self.grpc.address)
@@ -57,11 +99,13 @@ class Daemon:
     async def stop(self) -> None:
         """Graceful departure, in the JAX daemon's order for the phases
         the port has: drain (wait, at most drain_timeout, for queued and
-        in-flight decisions), then teardown (http, grpc, instance;
-        main.go:127-139 order).  Standalone there is no detector to stop,
-        no GLOBAL manager to flush and no ring to hand keys to, and
-        snapshots are not ported."""
+        in-flight decisions), the final snapshot when GUBER_SNAPSHOT_DIR
+        is set (after the drain, so a clean stop loses no decision), then
+        teardown (http, grpc, instance; main.go:127-139 order).
+        Standalone there is no detector to stop, no GLOBAL manager to
+        flush and no ring to hand keys to."""
         await self._drain_requests()
+        await self._final_snapshot()
         await self._teardown()
 
     def _phase(self, name: str) -> None:
@@ -76,6 +120,17 @@ class Daemon:
                 log.warning("drain: decisions still pending at timeout")
         except Exception:
             log.exception("drain failed; continuing shutdown")
+
+    async def _final_snapshot(self) -> None:
+        if self._snapshot_task is None:
+            return
+        self._phase("snapshot")
+        self._snapshot_task.cancel()
+        try:
+            await self._snapshot_task
+        except asyncio.CancelledError:
+            pass
+        await self._snapshot_once()
 
     async def _teardown(self) -> None:
         self._phase("teardown")

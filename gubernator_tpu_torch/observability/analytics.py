@@ -93,6 +93,11 @@ class TrafficAnalytics:
             for k in list(labels)[:self._label_cap // 4]:
                 labels.pop(k, None)
 
+    def forget_labels(self) -> None:
+        """Drop every (shard, slot) -> key label (a snapshot restore put
+        other keys in the slots; staging labels them again)."""
+        self._labels.clear()
+
     def key_for(self, shard: int, slot: int) -> str:
         return self._labels.get((shard, slot)) or f"s{shard}:slot{slot}"
 

@@ -1,18 +1,23 @@
-"""Prometheus metrics with the reference's metric names: the wire's subset.
+"""Prometheus metrics with the reference's metric names: the port's subset.
 
-The part of `gubernator_tpu/observability/metrics.py` the transport needs,
+The part of `gubernator_tpu/observability/metrics.py` the port serves,
 with the same names and labels:
 
   cache_size, cache_access_count{type}          reference cache/lru.go:56-59
   grpc_request_counts{status,method},
   grpc_request_duration_milliseconds{method}    reference prometheus.go:52-59
+  guber_tpu_snapshot_duration_seconds, guber_tpu_snapshot_bytes,
+  guber_tpu_snapshots_total{status}, guber_tpu_restore_age_seconds
+                                                the state lifecycle
+  guber_tpu_tier_events_total{event}, guber_tpu_tier_warm_rows,
+  guber_tpu_tier_warm_bytes                     the warm tier (watch_tiers)
 
 The cache families are read from the native router (its resident key
 count, hits and misses) at scrape time.  This module imports
 prometheus_client, so the serving core never imports it: an Instance has
 no registry unless one is given (`Instance(metrics=Metrics())`, which the
 daemon always does).  The JAX package's other families (GLOBAL, pipeline,
-QoS, analytics, tiers, leases, devprof) are left for the observability
+QoS, analytics, leases, migration, devprof) are left for the observability
 item of the port's ROADMAP.
 """
 
@@ -62,6 +67,48 @@ class Metrics:
             ["method"],
             registry=self.registry,
         )
+        # the state lifecycle (state/snapshot.py)
+        self.snapshot_duration = Histogram(
+            "guber_tpu_snapshot_duration_seconds",
+            "Wall time of one arena snapshot (export + serialize + write).",
+            registry=self.registry,
+        )
+        self.snapshot_size = Gauge(
+            "guber_tpu_snapshot_bytes",
+            "Size of the last written snapshot in bytes.",
+            registry=self.registry,
+        )
+        self.snapshot_total = Counter(
+            "guber_tpu_snapshots_total",
+            "Snapshot attempts.",
+            ["status"],  # success | failed
+            registry=self.registry,
+        )
+        self.restore_age = Gauge(
+            "guber_tpu_restore_age_seconds",
+            "Age of the snapshot restored at boot (0 when cold-started).",
+            registry=self.registry,
+        )
+        # tiered key state (state/tiers.py): hot arena <-> warm store
+        self.tier_events = Counter(
+            "guber_tpu_tier_events_total",
+            "Tiered key-state events by kind: promote/demote row moves, "
+            "warm_hit/cold_miss on staging lookups behind a table miss, "
+            "warm_evict overflow drops, demote_drop dead-or-expired spills, "
+            "demote_stale same-drain victims dropped to cold.",
+            ["event"],
+            registry=self.registry,
+        )
+        self.tier_warm_rows = Gauge(
+            "guber_tpu_tier_warm_rows",
+            "Rows resident in the warm tier.",
+            registry=self.registry,
+        )
+        self.tier_warm_bytes = Gauge(
+            "guber_tpu_tier_warm_bytes",
+            "Host bytes allocated to the warm tier's SoA store.",
+            registry=self.registry,
+        )
 
     def watch_engine(self, engine) -> None:
         """Export the engine's cache counters at scrape time: the
@@ -79,6 +126,44 @@ class Metrics:
                     last[kind] = now
 
         self._scrape_hooks.append(refresh)
+
+    def watch_tiers(self, engine) -> None:
+        """Export the warm tier's occupancy and event counters at scrape
+        time from one engine.tier_stats read (the TierManager keeps plain
+        ints; the scrape advances the counters by their change)."""
+        events = {
+            "promote": "promotions",
+            "demote": "demotions",
+            "warm_hit": "warm_hits",
+            "cold_miss": "cold_misses",
+            "warm_evict": "warm_evictions",
+            "demote_drop": "demote_dropped_expired",
+            "demote_stale": "demote_dropped_stale",
+        }
+        last = {k: 0 for k in events}
+
+        def refresh():
+            st = engine.tier_stats()
+            if st is None:
+                return
+            self.tier_warm_rows.set(st["warm_rows"])
+            self.tier_warm_bytes.set(st["warm_bytes"])
+            for label, name in events.items():
+                cur = st[name]
+                if cur > last[label]:
+                    self.tier_events.labels(event=label).inc(
+                        cur - last[label])
+                    last[label] = cur
+
+        self._scrape_hooks.append(refresh)
+
+    def observe_snapshot(self, seconds: float, size_bytes: int,
+                         ok: bool) -> None:
+        self.snapshot_total.labels(
+            status="success" if ok else "failed").inc()
+        if ok:
+            self.snapshot_duration.observe(seconds)
+            self.snapshot_size.set(size_bytes)
 
     def expose(self) -> bytes:
         for fn in self._scrape_hooks:

@@ -12,8 +12,8 @@ only on the protobuf path (RPCs under FASTPATH_MIN_BYTES, or ones the
 parser refuses), which raises ImportError on a machine without it.
 
 Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits.  Not
-registered yet, so a caller gets UNIMPLEMENTED: TransferBuckets (state
-lifecycle) and RegisterGlobals, ApplyGlobalRegistration and
+registered yet, so a caller gets UNIMPLEMENTED: TransferBuckets (key
+migration, with the peer ring) and RegisterGlobals, ApplyGlobalRegistration and
 UpdatePeerGlobals (GLOBAL across processes).  The concurrency-lease
 stream-close hook and the tracing roots wait for the ports of leases and
 tracing.

@@ -8,7 +8,10 @@ ValueError naming its ROADMAP item unless it is at its default.  A daemon
 on GUBER_TORCH_DEVICE=cpu serves the port's client over loopback gRPC and
 its HTTP gateway, a real SIGTERM walks its graceful stop in the JAX
 daemon's phase order, and `python -m gubernator_tpu_torch.daemon --config
-FILE` boots, answers and exits 0 on SIGTERM.
+FILE` boots, answers and exits 0 on SIGTERM.  The state lifecycle's knobs
+(GUBER_SNAPSHOT_*, GUBER_TIER_*) are served since the port has snapshots
+and tiers: they are held against the JAX function like the rest
+(tests/test_torch_daemon_snapshot.py drives them).
 """
 
 import asyncio
@@ -70,6 +73,9 @@ def _served(c, jax_side):
         "slo": dataclasses.asdict(c.slo),
         "drain_timeout": (c.health.drain_timeout if jax_side
                           else c.drain_timeout),
+        "snapshot_dir": c.snapshot_dir,
+        "snapshot_interval_ms": c.snapshot_interval_ms,
+        "tiers": dataclasses.asdict(c.tiers),
     }
 
 
@@ -93,6 +99,9 @@ OVERRIDES = {
     "GUBER_ANALYTICS": "1", "GUBER_ANALYTICS_TOPK": "5",
     "GUBER_ANALYTICS_DECAY_MS": "0", "GUBER_SLO": "true",
     "GUBER_SLO_DRAIN_P99_MS": "50", "GUBER_DRAIN_TIMEOUT_MS": "1500",
+    "GUBER_SNAPSHOT_DIR": "/var/lib/guber", "GUBER_SNAPSHOT_INTERVAL_MS": "50",
+    "GUBER_TIER_WARM": "4096", "GUBER_TIER_LAYOUT": "compact32",
+    "GUBER_TIER_DEMOTE_BATCH": "16",
 }
 
 
@@ -105,8 +114,12 @@ OVERRIDES = {
     {"GUBER_BATCH_LIMIT": "5000"},
     {"GUBER_CACHE_SIZE": "not-a-number"},
     {"GUBER_ANALYTICS_SKETCH_DEPTH": "99"},
+    {"GUBER_TIER_WARM": "64", "GUBER_NATIVE": "1",
+     "GUBER_SNAPSHOT_INTERVAL_MS": "junk"},
+    {"GUBER_TIER_WARM": "64", "GUBER_TIER_LAYOUT": "int16"},
 ], ids=["defaults", "overrides", "capacity", "batch_limit_cap",
-        "bad_cache_size", "bad_sketch_depth"])
+        "bad_cache_size", "bad_sketch_depth", "tiers_force_python",
+        "bad_tier_layout"])
 def test_config_from_env_equals_the_jax_function(clean_env, env):
     for k, v in env.items():
         clean_env.setenv(k, v)
@@ -149,8 +162,8 @@ def test_malformed_env_file_raises_in_both(clean_env, tmp_path):
     ("GUBER_LEASE_MAX_PER_CLIENT", "3", 6),
     ("GUBER_GLOBAL_SYNC_WAIT", "0.01", 6),
     ("GUBER_FAULTS", "peer_drop:0.5", 6),
-    ("GUBER_SNAPSHOT_DIR", "/tmp/snaps", 5),
-    ("GUBER_TIER_WARM", "64", 5),
+    ("GUBER_HINT_TTL_MS", "1000", 6),
+    ("GUBER_TRACE_EXPORT", "stdout", 7),
     ("GUBER_FRONTDOOR_WORKERS", "2", 7),
     ("GUBER_TRACE_SAMPLE", "0.5", 7),
     ("GUBER_DEVPROF", "periodic", 7),

@@ -36,7 +36,9 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.core.pipeline",
                   "gubernator_tpu_torch.qos.fairness",
                   "gubernator_tpu_torch.core.batcher",
-                  "gubernator_tpu_torch.server")
+                  "gubernator_tpu_torch.server",
+                  "gubernator_tpu_torch.state.snapshot",
+                  "gubernator_tpu_torch.state.tiers")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
