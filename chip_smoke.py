@@ -173,21 +173,49 @@ Phases (one line each; any mismatch raises and exits non-zero):
      8 x 2^18 twin without tiers (it never evicts) over 200 windows of up
      to 1000 requests (Zipf s = 1.2 over 2^20 keys, tests/test_tiers.py's
      law), every response bit for bit; the tier counters, the fences with
-     work and their median wall time, the tiered engines' drain launches.
+     work and their median wall time, the tiered engines' drain launches;
+ 11. leases and QoS at the JAX package's defaults, on Instances of phase
+     8's geometry (QoS on, GUBER_FETCH_STRIDE_MAX=4; a twin with QoS off;
+     a small Instance with analytics and the SLO engine).  11a: 64 clients
+     acquire CONCURRENCY slots (limit 8, hits 1-3) over 2^16 keys through
+     get_rate_limits(client_id=), release some explicitly, and half vanish
+     through the server's stream-close hook (a fake context whose RPC was
+     cancelled); GUBER_LEASE_MAX_PER_CLIENT = 2 then answers an acquire on
+     the host, launching nothing.  11b: 64 callers of 100-item RPCs at an
+     admission bound of 2048, 8 of them with deadlines shorter than a
+     drain: sheds in-band with queue_full and deadline; the congestion
+     window, the effective depth and the fetch stride at every drain; the
+     health check sampled (saturated while the queue is full, healthy
+     after); saturation with QoS on and off; one drain of the analytics
+     Instance past its bound (its sheds reach the SLO engine); drain()
+     closes intake and a later request is shed with draining.  After the
+     counts are read: the serial oracles (algorithms/oracles.py) over the
+     logged lease stream give every lease answer; every lease key's row on
+     the card holds what the lease book says; a Python-table engine on the
+     card replaying everything the Instance's engine thread decided, in
+     its order, gives every admitted answer, and its arena holds the same
+     rows (no shed touched the arena); a snapshot restored into the twin
+     brings the lease book back equal.  Phases 8 and 8d submit their
+     ~50k-decision bursts in groups of at most the admission bound's
+     items (more at once would be shed; 11b drives the sheds), and phase
+     9 checks that the bytes lane never fills the queue (a saturated
+     queue sends RPCs to the protobuf path, which the card's machine
+     lacks).
 
-Seven main paths are counted, each from 0: the one-shard path (phases 3b
+Eight main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b), the per-op path (phase 7b), the pipelined serving path
-(phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes) and
-the state lifecycle (phase 10); each must launch its kernels and never
+(phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes),
+the state lifecycle (phase 10) and the lease and QoS path (phase 11,
+which must launch drain_compact); each must launch its kernels and never
 run a plain version, the per-op path must launch no kernel but
 window_math, global_stage and global_apply, the raw-RPC lane none but
 drain_compact, once a drain, and the lifecycle none but drain_compact and
 global_window.  The kernel table's launch counts are drain_compact's (the
-first path's, the fifth's, the sixth's and the seventh's) and
-window_full's on the first path, global_window's on the second and the
-seventh,
-drain_compact_stats' and stats_finish's on the third and the fifth, and
+first path's, the fifth's, the sixth's, the seventh's and the eighth's)
+and window_full's on the first and the eighth, global_window's on the
+second, the seventh and the eighth, drain_compact_stats' and
+stats_finish's on the third, the fifth and the eighth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
 a wrapper made only to check or time it against its plain version come
 before the counts start or after they are read.  The third-to-last line is the kernel
@@ -220,6 +248,7 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
 from gubernator_tpu_torch.config import (  # noqa: E402
     AnalyticsConfig,
     EngineConfig,
+    SLOConfig,
     TierConfig,
 )
 from gubernator_tpu_torch.core.engine import RateLimitEngine  # noqa: E402
@@ -2634,8 +2663,25 @@ def pin_clock(inst, now):
 
 
 async def serve_all(inst, rpcs):
-    """Every RPC submitted at once; the responses per RPC."""
-    return await asyncio.gather(*(inst.get_rate_limits(r) for r in rpcs))
+    """A burst of RPCs, as many at once as QoS admission holds (its
+    max_pending, 8192 at the JAX defaults; all at once without QoS): the
+    RPCs go in groups of at most that many items, each group submitted
+    together and answered before the next, so the order of submission is
+    the list's and no item is shed (phase 11b drives the sheds).  The
+    responses per RPC."""
+    cap = inst.qos.admission.max_pending if inst.qos is not None else 0
+    groups, n = [[]], 0
+    for rpc in rpcs:
+        if cap and groups[-1] and n + len(rpc) > cap:
+            groups.append([])
+            n = 0
+        groups[-1].append(rpc)
+        n += len(rpc)
+    out = []
+    for group in groups:
+        out += await asyncio.gather(*(inst.get_rate_limits(r)
+                                      for r in group))
+    return out
 
 
 def sync_checked_drain(inst, reqs, now):
@@ -2647,14 +2693,14 @@ def sync_checked_drain(inst, reqs, now):
     from gubernator_tpu_torch.core.pipeline import ListJob
     pipe = inst.batcher.pipeline
     job = ListJob(reqs)
-    stride = pipe.fetch_stride
-    pipe.fetch_stride = 2
+    stride = pipe._stride_target
+    pipe._stride_target = 2
     torch.cuda.set_sync_debug_mode("error")
     try:
         res = pipe._drain_sync([job], now)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        pipe.fetch_stride = stride
+        pipe._stride_target = stride
     check(res.error is None and res.deferred and res.staged == [job],
           f"sync-checked drain: error {res.error}, staged {len(res.staged)}")
     _, outs = pipe._complete_sync_one(res)
@@ -2857,6 +2903,7 @@ def phase_serving_pipeline(window_rng_seed=11):
           "latch the full path")
     out["eng"] = eng
     out["pipe_drains"] = pipe.drains
+    out["sheds"] = dict(inst.qos.admission.shed_counts)
     out["an"] = phase_serving_analytics(an_inst, an_rpcs, tb)
     return out
 
@@ -3020,7 +3067,8 @@ def report_serving(r, chk, counts, p4_ms, smi):
         chained_burst=dict(drains=cc["drains"],
                            chain_flushes=cc["chain_flushes"],
                            fetch_elided=cc["fetch_elided"],
-                           mean_inflight=cc["mean_inflight"]))
+                           mean_inflight=cc["mean_inflight"]),
+        qos_sheds=r["sheds"])
     var = "; ".join(
         f"{k}: {v['decisions_per_s']:.1f} decisions/s, {v['drains']} drains, "
         f"mean k_used {v['mean_k_used']:.3f}, mean in flight "
@@ -3351,6 +3399,10 @@ def phase_wire():
         inst.close()
     out["eng"], out["calls"] = eng, calls[0]
     out["pipe"] = rpc_counters(pipe)
+    # the bytes lane admits nothing item by item: the queue never fills,
+    # so no RPC is sent to the protobuf path (which this machine lacks)
+    out["adm"] = (inst.qos.admission.pending_peak,
+                  inst.qos.admission.max_pending)
     return out
 
 
@@ -3848,6 +3900,500 @@ def report_lifecycle(life, tiers, counts, smi):
     log("lifecycle figures: " + json.dumps(fig))
 
 
+# ----------------------------------------------- phase 11: leases and QoS
+
+LEASE_CLIENTS = 64
+LEASE_KEYS = 1 << 16
+LEASE_LIMIT = 8
+LEASE_CALLS = 8             # get_rate_limits calls a client makes
+LEASE_ITEMS = 40            # CONCURRENCY items a call
+QOS_MAX_PENDING = 2048
+QOS_RPCS = 6                # 100-item RPCs an overload caller sends
+QOS_DEADLINE_CALLERS = 8    # callers whose deadline is shorter than a drain
+QOS_DEADLINE_S = 50e-6
+QOS_STRIDE_MAX = 4          # GUBER_FETCH_STRIDE_MAX for the QoS Instance
+QOS_SMALL_PENDING = 64      # the analytics Instance's admission bound
+
+
+class ServeLog:
+    """Every request one Instance's engine thread decided, in its order:
+    each engine.process call (the classic lane: CONCURRENCY and lease
+    releases) and each drain's staged jobs (the pipelined lane), as
+    (requests, now).  The engine thread runs both, one at a time, so the
+    list is the order the arena saw.  A drain that sent a job through the
+    full path is flagged (its place in the order is not logged)."""
+
+    def __init__(self, inst):
+        self.entries, self.fallbacks = [], 0
+        eng, pipe = inst.engine, inst.batcher.pipeline
+        process, drain = eng.process, pipe._drain_sync
+
+        def logged_process(reqs, now=None, accumulate=None, **kw):
+            self.entries.append((list(reqs), now))
+            return process(reqs, now, accumulate, **kw)
+
+        def logged_drain(jobs, now=None, cols=None):
+            res = drain(jobs, now, cols)
+            self.fallbacks += len(res.fallback)
+            if res.staged and res.error is None:
+                self.entries.append(([q for j in res.staged for q in j.reqs],
+                                     res.now))
+            return res
+
+        eng.process, pipe._drain_sync = logged_process, logged_drain
+
+
+class LeaseContext:
+    """A gRPC context whose RPC was torn down before its response was
+    delivered: cancelled() is true, and its done callbacks are kept for
+    the caller to fire."""
+
+    def __init__(self):
+        self.callbacks = []
+
+    def cancelled(self):
+        return True
+
+    def add_done_callback(self, cb):
+        self.callbacks.append(cb)
+
+
+def lease_request(key, hits):
+    return RateLimitReq(name="lease", unique_key=f"l{key}", hits=hits,
+                        limit=LEASE_LIMIT, duration=60_000,
+                        algorithm=Algorithm.CONCURRENCY)
+
+
+def lease_calls(rng):
+    """Each client's calls: LEASE_ITEMS acquires (hits 1-3) over
+    LEASE_KEYS keys, uniform; releases are added while it runs, from what
+    it holds."""
+    keys = rng.integers(0, LEASE_KEYS, (LEASE_CLIENTS, LEASE_CALLS,
+                                        LEASE_ITEMS))
+    hits = rng.integers(1, 4, (LEASE_CLIENTS, LEASE_CALLS, LEASE_ITEMS))
+    return keys, hits
+
+
+def qos_instances():
+    """Phase 11's Instances, built and warmed before the counts start: A
+    at phase 8's geometry with QoS at the JAX defaults and
+    GUBER_FETCH_STRIDE_MAX=QOS_STRIDE_MAX, B the same with QoS off, and a
+    small Instance (the port tests' geometry on the card) with analytics,
+    the SLO engine and an admission bound of QOS_SMALL_PENDING.  (QoSConfig
+    is imported here: compare_serving.py loads this file against packages
+    from before it.)"""
+    from gubernator_tpu_torch.config import QoSConfig
+    os.environ["GUBER_FETCH_STRIDE_MAX"] = str(QOS_STRIDE_MAX)
+    try:
+        a = Instance(engine_config=serving_engine_config())
+    finally:
+        del os.environ["GUBER_FETCH_STRIDE_MAX"]
+    b = Instance(engine_config=serving_engine_config(),
+                 qos=QoSConfig(enabled=False))
+    small = Instance(engine_config=EngineConfig(**SMALL_TWIN,
+                                                use_native="on"),
+                     analytics=AnalyticsConfig(enabled=True, **ANALYTICS),
+                     slo=SLOConfig(enabled=True),
+                     qos=QoSConfig(max_pending=QOS_SMALL_PENDING))
+    check(a.qos is not None and b.qos is None and small.qos is not None,
+          "QoS is not on at the defaults, or not off when asked")
+    check(a.qos.conf.max_pending == 8192 and a.qos.fair_slotting
+          and a.lease_conf.release_on_stream_close
+          and a.batcher.pipeline.fetch_stride_max == QOS_STRIDE_MAX,
+          "the QoS Instance is not at the JAX defaults")
+    for inst in (a, b, small):
+        check(inst.engine.native is not None and inst.batcher.pipeline,
+              "the router or the pipeline is missing")
+        inst.engine.warmup()
+    torch.cuda.synchronize()
+    return a, b, small
+
+
+def phase_qos_leases(a, b, small):
+    """Phase 11, the counted part (the Instances are built and warmed
+    before the counts start).  11a on A: LEASE_CLIENTS clients acquire
+    CONCURRENCY slots through get_rate_limits(client_id=) and release some
+    of theirs explicitly; half of them vanish through the server's
+    stream-close hook; then GUBER_LEASE_MAX_PER_CLIENT = 2 answers an
+    acquire on the host.  11b: first (before 11a, on fresh controllers)
+    saturation at the default bound on A and with QoS off on B; then, after
+    11a, on A 64 callers of 100-item RPCs at an
+    admission bound of QOS_MAX_PENDING, QOS_DEADLINE_CALLERS of them with
+    a deadline shorter than a drain, the fetch stride's floor at 2 (its
+    cap QOS_STRIDE_MAX), the controllers recorded at every drain (from the
+    first lease window on) and the health check sampled; one drain on the
+    analytics Instance past its bound; A's drain() and a request after
+    it.  The caller reads the counts when
+    this returns and checks afterwards."""
+    from gubernator_tpu_torch.server import _arm_lease_stream_close
+    rng = np.random.default_rng(113)
+    keys, hits = lease_calls(rng)
+    q_rpcs = serving_rpcs(rng, SERVE_CLIENTS * QOS_RPCS * SERVE_RPC, "q",
+                          compact_only=True)
+    sat_rpcs = serving_rpcs(rng, 512 * SERVE_RPC, "w", compact_only=True)
+    small_reqs = [serving_request(i, "m", 1, compact_only=True)
+                  for i in range(SERVE_RPC)]
+    pipe, cong, adm = a.batcher.pipeline, a.qos.congestion, a.qos.admission
+    log_a = ServeLog(a)
+    resp = {}           # id(request) -> A's response
+    tl = millisecond_now()
+    out = dict(log=log_a, resp=resp, tl=tl)
+    released = []
+    orig_release = a.release_client_leases
+
+    async def tracked_release(*args, **kw):
+        n = await orig_release(*args, **kw)
+        released.append(n)
+        return n
+    a.release_client_leases = tracked_release
+    path = []
+    orig_observe = cong.observe_drain
+
+    def observe(wall, depth=1):
+        orig_observe(wall, depth)
+        path.append((cong.effective_window(),
+                     cong.effective_depth(pipe.depth), pipe._stride_target))
+    cong.observe_drain = observe
+    reset_counts()
+
+    async def leases():
+        pin_clock(a, tl)
+        first = len(log_a.entries)
+
+        async def client(c):
+            cid = f"client-{c}"
+            held = {}
+            for j in range(LEASE_CALLS):
+                reqs = [lease_request(int(k), int(h))
+                        for k, h in zip(keys[c, j], hits[c, j])
+                        if int(k) not in held]
+                # release a quarter of what this client holds, in full
+                for k in list(held)[: len(held) // 4]:
+                    reqs.append(lease_request(k, -held.pop(k)))
+                got = await a.get_rate_limits(reqs, client_id=cid)
+                for q, r in zip(reqs, got):
+                    resp[id(q)] = r
+                    if q.hits > 0 and r.status == 0 and not r.error:
+                        k = int(q.unique_key[1:])
+                        held[k] = held.get(k, 0) + q.hits
+
+        await asyncio.gather(*(client(c) for c in range(LEASE_CLIENTS)))
+        out["held_before_close"] = a.leases.stats()
+        vanish = [f"client-{c}" for c in range(0, LEASE_CLIENTS, 2)]
+        ctxs = []
+        for cid in vanish:
+            ctx = LeaseContext()
+            _arm_lease_stream_close(a, ctx, cid)
+            ctxs.append(ctx)
+        for ctx in ctxs:
+            check(len(ctx.callbacks) == 1, "the stream-close hook was not "
+                  "armed")
+            ctx.callbacks[0](ctx)
+        while len(released) < len(vanish):
+            await asyncio.sleep(0.001)
+        check(not any(a.leases.holds(cid) for cid in vanish),
+              "a vanished client still holds leases")
+        out["released"] = sum(released)
+        # GUBER_LEASE_MAX_PER_CLIENT = 2: a holder's acquire of 2 more is
+        # answered on the host, nothing launched for it
+        cid = "client-1"
+        rows = [k for k, c, n, _ in a.leases.export_rows() if c == cid]
+        check(rows, f"{cid} holds nothing")
+        q = RateLimitReq(name="lease", unique_key=rows[0].split("_", 1)[1],
+                         hits=2, limit=LEASE_LIMIT, duration=60_000,
+                         algorithm=Algorithm.CONCURRENCY)
+        a.lease_conf.max_per_client = 2
+        before, wins = launch_counts(), a.engine.windows_processed
+        try:
+            capped = (await a.get_rate_limits([q], client_id=cid))[0]
+        finally:
+            a.lease_conf.max_per_client = 0
+        check((capped.status, capped.remaining, capped.reset_time)
+              == (1, 0, 0) and launch_counts() == before
+              and a.engine.windows_processed == wins,
+              f"the per-client cap: {capped}, launches "
+              f"{moved(before, launch_counts())}")
+        out["lease_span"] = (first, len(log_a.entries))
+
+    async def overload():
+        tq = tl + 1
+        pin_clock(a, tq)
+        adm.max_pending = QOS_MAX_PENDING
+        adm.pending_peak = adm.pending
+        pipe.fetch_stride = 2
+        health = []
+        done = [False]
+        items = []      # (latency ms, admitted items of the RPC)
+
+        async def monitor():
+            while not done[0]:
+                h = await a.health_check()
+                health.append(h.message if h.status != "healthy" else "")
+                await asyncio.sleep(0.001)
+
+        async def caller(c):
+            for j in range(QOS_RPCS):
+                rpc = q_rpcs[c * QOS_RPCS + j]
+                dl = (time.monotonic() + QOS_DEADLINE_S
+                      if c < QOS_DEADLINE_CALLERS else None)
+                t = time.perf_counter()
+                got = await a.get_rate_limits(rpc, deadline=dl)
+                ms = (time.perf_counter() - t) * 1e3
+                n = 0
+                for q, r in zip(rpc, got):
+                    resp[id(q)] = r
+                    n += "shed_reason" not in r.metadata
+                items.append((ms, n))
+
+        sheds0 = dict(adm.shed_counts)
+        mon = asyncio.ensure_future(monitor())
+        t0 = time.perf_counter()
+        await asyncio.gather(*(caller(c) for c in range(SERVE_CLIENTS)))
+        wall = time.perf_counter() - t0
+        done[0] = True
+        await mon
+        pipe.fetch_stride = 1
+        adm.max_pending = 8192
+        while a.batcher.busy():
+            await asyncio.sleep(0.001)
+        lat = np.repeat([m for m, _ in items], [n for _, n in items])
+        sheds = {k: v - sheds0.get(k, 0) for k, v in adm.shed_counts.items()
+                 if v != sheds0.get(k, 0)}
+        out["overload"] = dict(
+            wall=wall, tq=tq, sheds=sheds,
+            admitted=int(lat.size),
+            p50=float(np.percentile(lat, 50)) if lat.size else None,
+            p99=float(np.percentile(lat, 99)) if lat.size else None,
+            saturated_samples=sum("saturated" in m for m in health),
+            samples=len(health), peak=adm.pending_peak,
+            healthy_after=(await a.health_check()).status)
+
+    async def saturation():
+        pin_clock(a, None)
+        pin_clock(b, None)
+        sheds0 = sum(a.qos.admission.shed_counts.values())
+        figs = {}
+        for name, inst in (("qos_on", a), ("qos_off", b)):
+            await saturate(inst.get_rate_limits, sat_rpcs, 0.5)
+            n, wall = await saturate(inst.get_rate_limits, sat_rpcs,
+                                     SERVE_SECONDS)
+            figs[name] = n / wall
+        figs["qos_on_sheds"] = sum(a.qos.admission.shed_counts.values()) \
+            - sheds0
+        out["saturation"] = figs
+
+    async def drain_a():
+        ok = await a.drain(5.0)
+        late = (await a.get_rate_limits([serving_request(
+            7, "d", 1, compact_only=True)]))[0]
+        out["drain"] = (ok, late.metadata.get("shed_reason"),
+                        (await a.health_check()).message)
+
+    async def script():
+        await saturation()
+        await leases()
+        await overload()
+        await drain_a()
+
+    try:
+        asyncio.run(script())
+    finally:
+        cong.observe_drain = orig_observe
+        a.release_client_leases = orig_release
+    out["path"] = path
+
+    # the analytics Instance: one RPC past its bound, one drain
+    an_pipe = small.batcher.pipeline
+    pin_clock(small, tl)
+    d0 = an_pipe.drains
+
+    async def one_rpc():
+        return await small.get_rate_limits(small_reqs)
+    got = asyncio.run(one_rpc())
+    out["small"] = dict(
+        got=got, drains=an_pipe.drains - d0,
+        shed=sum("shed_reason" in r.metadata for r in got),
+        slo_shed=sum(b_ for _, _, b_ in small.slo._buckets["shed_rate"]),
+        hits=small.analytics.snapshot()["totals"]["hits"])
+    small.close()
+    return out
+
+
+def lease_rows_on_card(inst, keys):
+    """Each lease key's row of the regular arena, found through the
+    router's tables (shard by crc32, slot by fingerprint): key -> held
+    slots (the limit less the row's free count)."""
+    from gubernator_tpu_torch.core.engine import _fnv1a64, shard_of
+    eng = inst.engine
+    slots = []
+    for s in range(eng.num_shards):
+        fp, slot, _ = eng.native.export_keys(s)
+        slots.append(dict(zip(fp.tolist(), slot.tolist())))
+    arena = eng.export_arena()
+    out = {}
+    for k in keys:
+        s = shard_of(k, eng.num_shards)
+        slot = slots[s].get(_fnv1a64(k.encode("utf-8")))
+        check(slot is not None, f"lease key {k} has no slot")
+        check(int(arena["algo"][s, slot]) == Algorithm.CONCURRENCY,
+              f"lease key {k}'s row is not a concurrency row")
+        out[k] = LEASE_LIMIT - int(arena["remaining"][s, slot])
+    return out, arena
+
+
+def check_qos_leases(r, a, b):
+    """Phase 11, after the counts are read.  11a: the serial oracles
+    (algorithms/oracles.py) over the logged lease stream give every
+    response A gave; every lease key's row on the card holds what the
+    lease book says; a snapshot of A restored into B brings the book's
+    rows back equal.  11b: a Python-table engine on the card replaying
+    everything A's engine thread decided, in its order, gives every
+    admitted answer A gave, and the two arenas hold the same rows (a shed
+    touched nothing); the sheds, the health samples, the drain."""
+    from gubernator_tpu_torch.algorithms import oracles
+    log_a, resp = r["log"], r["resp"]
+    check(log_a.fallbacks == 0, f"{log_a.fallbacks} jobs took the full path "
+          "(their place in the replay order is not logged)")
+    # 11a: the oracles
+    rows, n_checked = {}, 0
+    for reqs, now in log_a.entries[slice(*r["lease_span"])]:
+        for q in reqs:
+            check(q.algorithm == Algorithm.CONCURRENCY,
+                  f"a non-lease request in the lease stream: {q}")
+            key = q.hash_key()
+            rows[key], want = oracles.apply(rows.get(key), q.hits, q.limit,
+                                            q.duration, q.algorithm, now)
+            got = resp.get(id(q))
+            if got is not None:
+                check((got.status, got.limit, got.remaining, got.reset_time)
+                      == tuple(want), f"lease {key}: {got} != the oracle's "
+                      f"{want}")
+                n_checked += 1
+    held, arena_a = lease_rows_on_card(a, list(rows))
+    book = {k: a.leases.held(k) for k in rows}
+    diff = [k for k in rows if held[k] != book[k]]
+    check(not diff, f"{len(diff)} lease keys' rows differ from the book, "
+          f"e.g. {diff[:3]}: card {[held[k] for k in diff[:3]]}, book "
+          f"{[book[k] for k in diff[:3]]}")
+    oracle_held = {k: LEASE_LIMIT - rw.remaining for k, rw in rows.items()}
+    check(oracle_held == held, "the oracles' rows differ from the card's")
+    # 11b: the Python-table replay of everything A decided
+    twin = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                           num_shards=SHARDS, batch_per_shard=FULL_LANES)
+    check(twin.native is None, "the twin engine has the router")
+    decided, n_replayed = set(), 0
+    for reqs, now in log_a.entries:
+        want = twin.process(reqs, now=now)
+        for q, w in zip(reqs, want):
+            decided.add(id(q))
+            got = resp.get(id(q))
+            if got is None:
+                continue
+            check((got.status, got.limit, got.remaining, got.reset_time,
+                   got.error) == (w.status, w.limit, w.remaining,
+                                  w.reset_time, w.error),
+                  f"{q.hash_key()}: {got} != the Python-table engine's {w}")
+            n_replayed += 1
+    shed = [i for i, x in resp.items() if "shed_reason" in x.metadata]
+    check(not any(i in decided for i in shed),
+          "a shed request reached the engine")
+    admitted = [i for i, x in resp.items() if "shed_reason" not in x.metadata]
+    check(all(i in decided for i in admitted),
+          "an admitted request never reached the engine")
+    for s, (x, t) in enumerate(zip(arena_rows(arena_a),
+                                   arena_rows(twin.export_arena()))):
+        check(np.array_equal(x, t), f"shard {s}'s rows differ from the "
+              f"Python-table engine's")
+    del twin, arena_a
+    o = r["overload"]
+    check(o["sheds"].get("queue_full", 0) > 0
+          and o["sheds"].get("deadline", 0) > 0
+          and set(o["sheds"]) <= {"queue_full", "deadline"},
+          f"the overload's sheds: {o['sheds']}")
+    check(o["peak"] <= QOS_MAX_PENDING, f"admission held {o['peak']} > "
+          f"{QOS_MAX_PENDING}")
+    check(o["saturated_samples"] > 0 and o["healthy_after"] == "healthy",
+          f"health: {o['saturated_samples']} of {o['samples']} samples "
+          f"saturated, {o['healthy_after']} after")
+    ok, late, msg = r["drain"]
+    check(ok and late == "draining" and "draining" in msg,
+          f"drain(): {r['drain']}")
+    sm = r["small"]
+    check(sm["shed"] == SERVE_RPC - QOS_SMALL_PENDING
+          and sm["slo_shed"] == sm["shed"] and sm["drains"] >= 1
+          and sm["hits"] == QOS_SMALL_PENDING,
+          f"the analytics Instance: {sm['shed']} shed, {sm['slo_shed']} "
+          f"in the SLO engine, {sm['drains']} drains, {sm['hits']} hits")
+    # the lease book through a snapshot of A, restored into B
+
+    async def roundtrip():
+        blob = await a.export_snapshot_bytes()
+        await b.restore_snapshot_bytes(blob)
+        return len(blob)
+    t0 = time.perf_counter()
+    size = asyncio.run(roundtrip())
+    snap_s = time.perf_counter() - t0
+    check(sorted(b.leases.export_rows()) == sorted(a.leases.export_rows())
+          and b.leases.stats() == a.leases.stats(),
+          "the lease book did not come back equal from the snapshot")
+    return dict(oracle_checked=n_checked, replayed=n_replayed,
+                lease_keys=len(rows), book=a.leases.stats(),
+                snapshot=(size, snap_s), sheds=len(shed),
+                admitted=len(admitted))
+
+
+def report_qos_leases(r, chk, counts, smi):
+    o, sat = r["overload"], r["saturation"]
+    path = r["path"]
+    runs = []   # the controllers' path, run-length encoded
+    for p in path:
+        if runs and runs[-1][0] == p:
+            runs[-1][1] += 1
+        else:
+            runs.append([p, 1])
+    fig = dict(
+        card=smi,
+        leases=dict(clients=LEASE_CLIENTS, keys=chk["lease_keys"],
+                    book_keys_clients_held=chk["book"],
+                    held_before_close=r["held_before_close"],
+                    released_on_close=r["released"],
+                    oracle_checked=chk["oracle_checked"],
+                    snapshot_bytes=chk["snapshot"][0],
+                    snapshot_roundtrip_s=chk["snapshot"][1]),
+        overload=dict(max_pending=QOS_MAX_PENDING, wall_s=o["wall"],
+                      admitted=o["admitted"], sheds=o["sheds"],
+                      admitted_p50_ms=o["p50"], admitted_p99_ms=o["p99"],
+                      pending_peak=o["peak"],
+                      health_saturated_samples=o["saturated_samples"],
+                      health_samples=o["samples"]),
+        controllers=dict(drains=len(path), runs=len(runs), path=[
+            dict(cwnd=p[0], depth=p[1], stride=p[2], drains=n)
+            for p, n in (runs if len(runs) <= 40
+                         else runs[:20] + runs[-20:])],
+            cwnd_min=min((p[0] for p in path), default=None),
+            depth_min=min((p[1] for p in path), default=None),
+            stride_max=max((p[2] for p in path), default=None)),
+        saturation_decisions_per_s=dict(qos_on=sat["qos_on"],
+                                        qos_off=sat["qos_off"],
+                                        qos_on_sheds=sat["qos_on_sheds"]),
+        replayed=chk["replayed"], phase_wall_s=r["wall_s"])
+    log(f"phase 11 leases and QoS ({SHARDS} x {FULL_CAPACITY // SHARDS} "
+        f"slots, QoS at the JAX defaults): 11a {LEASE_CLIENTS} clients over "
+        f"{chk['lease_keys']} lease keys, book (keys, clients, held) "
+        f"{chk['book']} = every row on the card, {chk['oracle_checked']} "
+        f"answers = the serial oracles, {r['released']} slots released by "
+        f"the stream-close hook, the per-client cap answered on the host, "
+        f"the book back equal through a {chk['snapshot'][0]}-byte snapshot; "
+        f"11b overload at max_pending {QOS_MAX_PENDING}: {o['admitted']} "
+        f"admitted (p50 {o['p50']:.3f} ms, p99 {o['p99']:.3f} ms), sheds "
+        f"{o['sheds']}, {chk['replayed']} answers = the Python-table "
+        f"replay, arenas equal; saturation {sat['qos_on']:.1f} decisions/s "
+        f"QoS on, {sat['qos_off']:.1f} off; controllers over {len(path)} "
+        f"drains: {len(runs)} distinct (cwnd, depth, stride); drain() "
+        f"then shed with draining; {r['wall_s']:.1f} s; launches {counts}; "
+        f"{smi}")
+    log("qos figures: " + json.dumps(fig))
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -3961,6 +4507,9 @@ def main():
           and wire["pipe"]["staged"] == wire["calls"],
           f"of {wire['calls']} RPCs {wire['pipe']['staged']} were staged and "
           f"{wire['pipe']['refused']} refused")
+    check(wire["adm"][0] < wire["adm"][1],
+          f"admission reached {wire['adm'][0]} of its {wire['adm'][1]} on "
+          f"the raw-bytes lane (a saturated queue sends RPCs to protobuf)")
     check_wire(wire)
     report_wire(wire, path6, serve, smi)
     del wire
@@ -3984,12 +4533,31 @@ def main():
     check_lifecycle(life, tiers)
     report_lifecycle(life, tiers, path7, smi)
     del life, tiers
+    # leases and QoS: counts from 0 again (inside, after the Instances are
+    # built and warmed)
+    t11 = time.perf_counter()
+    qa, qb, qsmall = qos_instances()
+    qos = phase_qos_leases(qa, qb, qsmall)
+    path8, plain8 = launch_counts(), plain_counts()
+    check(path8["drain_compact"] > 0,
+          f"drain_compact never launched on the lease and QoS path: {path8}")
+    check(not any(plain8.values()),
+          f"the plain versions ran on the lease and QoS path: {plain8}")
+    try:
+        chk11 = check_qos_leases(qos, qa, qb)
+    finally:
+        qa.close()
+        qb.close()
+    qos["wall_s"] = time.perf_counter() - t11
+    report_qos_leases(qos, chk11, path8, smi)
+    del qos, qa, qb, qsmall
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
              launches=(path1["drain_compact"] + path5["drain_compact"]
-                       + path6["drain_compact"] + path7["drain_compact"]),
+                       + path6["drain_compact"] + path7["drain_compact"]
+                       + path8["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -3997,13 +4565,15 @@ def main():
              library_ms=None),
         dict(name="window_full", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/kernel.py:1084",
-             launches=path1["window_full"], max_abs_err=full_err,
+             launches=path1["window_full"] + path8["window_full"],
+             max_abs_err=full_err,
              ms=sig4(full["ms"]), plain_ms=sig4(full["plain_ms"]),
              bound_ms=full["bound_ms"], bound_by=full["bound_by"],
              library_ms=None),
         dict(name="global_window", route="cuda", source=GLOBAL_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
-             launches=path2["global_window"] + path7["global_window"],
+             launches=(path2["global_window"] + path7["global_window"]
+                       + path8["global_window"]),
              max_abs_err=max(global_err, alone["err"], glob["global_err"],
                              chk["global_err"], cmp["err"]),
              ms=sig4(glob["ms"]), plain_ms=sig4(alone["plain_ms"]),
@@ -4012,7 +4582,8 @@ def main():
         dict(name="drain_compact_stats", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:852",
              launches=(path3["drain_compact_stats"]
-                       + path5["drain_compact_stats"]),
+                       + path5["drain_compact_stats"]
+                       + path8["drain_compact_stats"]),
              max_abs_err=max(stats_err, chk["err"]),
              ms=sig4(an["stats_drain_ms"] if an["stats_drain_ms"] is not None
                      else an["call_ms"][0]),
@@ -4021,7 +4592,8 @@ def main():
              bound_by=bounds["stats_bound"][1], library_ms=None),
         dict(name="stats_finish", route="cuda", source=STATS_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1168",
-             launches=path3["stats_finish"] + path5["stats_finish"],
+             launches=(path3["stats_finish"] + path5["stats_finish"]
+                       + path8["stats_finish"]),
              max_abs_err=max(stats_err, chk["err"]),
              ms=sig4(an["finish_ms"] if an["finish_ms"] is not None
                      else an["call_ms"][0]),

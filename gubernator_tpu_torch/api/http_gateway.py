@@ -17,10 +17,10 @@ google.protobuf.json_format, the conversion rules grpc-gateway uses):
                            for a bad blob
 
 The gateway calls the Instance in-process and observes its requests under
-the gRPC method names when the Instance has metrics.  An
-X-Guber-Timeout-Ms header that is not a number is refused with 400, as
-the JAX gateway refuses it with its QoS on (its default); the port has no
-admission control yet, so a valid header sets no deadline.  The debug,
+the gRPC method names when the Instance has metrics.  With QoS on (the
+default) an X-Guber-Timeout-Ms header carries the client's remaining
+budget into admission as the request's deadline, and one that is not a
+number is refused with 400, as in the JAX gateway.  The debug,
 profile and kernels routes wait for the ports of introspection and device
 profiling.  The body cap is 1 GiB, as in the JAX gateway: a full arena's
 snapshot is far past aiohttp's 1 MiB default.
@@ -54,17 +54,25 @@ def build_app(instance: Instance) -> web.Application:
             except json_format.ParseError as e:
                 return web.json_response({"error": str(e), "code": 3},
                                          status=400)
-            timeout_ms = request.headers.get("X-Guber-Timeout-Ms")
-            if timeout_ms:
-                try:
-                    float(timeout_ms)
-                except ValueError:
-                    return web.json_response(
-                        {"error": "invalid X-Guber-Timeout-Ms header",
-                         "code": 3}, status=400)
+            # QoS deadline propagation: X-Guber-Timeout-Ms carries the
+            # client's remaining budget (grpc-gateway's grpc-timeout
+            # analog); admission sheds what cannot be served in time
+            deadline = None
+            if instance.qos is not None:
+                timeout_ms = request.headers.get("X-Guber-Timeout-Ms")
+                timeout_s = None
+                if timeout_ms:
+                    try:
+                        timeout_s = float(timeout_ms) / 1000.0
+                    except ValueError:
+                        return web.json_response(
+                            {"error": "invalid X-Guber-Timeout-Ms header",
+                             "code": 3}, status=400)
+                deadline = instance.qos.deadline_from_timeout(timeout_s)
             try:
                 resps = await instance.get_rate_limits(
-                    [pb.req_from_pb(r) for r in msg.requests])
+                    [pb.req_from_pb(r) for r in msg.requests],
+                    deadline=deadline)
             except BatchTooLargeError as e:
                 return web.json_response({"error": str(e), "code": 11},
                                          status=400)

@@ -4,7 +4,9 @@ The subset of `gubernator_tpu/config.py` the port needs so far: the RPC
 item cap, the batching behaviors (reference config.go:43-66), the
 dimensions of the regular and GLOBAL arenas and their key routing, the
 traffic-analytics and SLO knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the
-warm tier's (TierConfig, GUBER_TIER_*), the engine's lowering
+warm tier's (TierConfig, GUBER_TIER_*), QoS (QoSConfig, GUBER_QOS_*:
+admission, the congestion window, fair slotting, the breaker knobs), the
+concurrency-lease book (LeaseConfig, GUBER_LEASE_*), the engine's lowering
 (GUBER_PALLAS), the serving pipeline's knobs, the env readers they use,
 and the daemon's env config (DaemonConfig with GUBER_SNAPSHOT_DIR and
 GUBER_SNAPSHOT_INTERVAL_MS, load_env_file, config_from_env: reference
@@ -13,10 +15,10 @@ port serves).  GUBER_TORCH_DEVICE names the daemon's device (default
 `cuda`; `cpu` runs the plain versions), the port's counterpart of the JAX
 daemon's GUBER_JAX_PLATFORM.  A knob of a subsystem the port has not
 ported yet raises ValueError, naming its ROADMAP item, when it is set to
-anything but its default (_UNPORTED); it is never ignored.  One departure
-at the defaults: the JAX daemon runs its QoS layer unless
-GUBER_QOS_ENABLED=0, and the port has none, so GUBER_QOS_ENABLED may only
-be unset or false here.
+anything but its default (_UNPORTED); it is never ignored.  QoS is on at
+the defaults, as in the JAX package (GUBER_QOS_ENABLED=0 turns it off);
+its peer-lane knobs (retries, breaker) are read and validated but act only
+once the peer ring is ported.
 
 Environment read by the engine itself, once, when it is built:
 
@@ -37,8 +39,10 @@ Read by the serving pipeline (core/pipeline.py) when it is built:
   GUBER_PIPELINE_GATE_FRAC  the share of one window's lanes the gate
                             waits for (default 1.0);
   GUBER_FETCH_WORKERS       fetch threads (default 2);
-  GUBER_FETCH_STRIDE        drains that share one fetch (default
-                            FETCH_STRIDE_DEFAULT);
+  GUBER_FETCH_STRIDE        drains that share one fetch at least
+                            (default FETCH_STRIDE_DEFAULT);
+  GUBER_FETCH_STRIDE_MAX    how far the QoS stride controller may grow
+                            it (FETCH_STRIDE_MAX_DEFAULT);
   GUBER_CHAIN_LINGER_MS     how long a chained drain waits for companions
                             (CHAIN_LINGER_MS_DEFAULT).
 """
@@ -54,9 +58,12 @@ from typing import List, Optional
 MAX_BATCH_SIZE = 1000
 
 # The serving pipeline's deferred-fetch chain (core/pipeline.py): how
-# many drains share one fetch task (1 = fetch every drain), and how long
-# a chained drain waits for companions before the pipeline fetches anyway.
+# many drains share one fetch task at least (1 = fetch every drain), how
+# far the QoS stride controller (qos/congestion.py observe_chain) may grow
+# that as the backlog deepens, and how long a chained drain waits for
+# companions before the pipeline fetches anyway.
 FETCH_STRIDE_DEFAULT = 1
+FETCH_STRIDE_MAX_DEFAULT = 8
 CHAIN_LINGER_MS_DEFAULT = 2.0
 
 
@@ -102,6 +109,92 @@ class EngineConfig:
     # Replay-bound guard: max lanes of a NON-uniform duplicate-key run per
     # window before the window is cut there; 0 disables.
     replay_cap: int = 128
+
+
+@dataclass
+class QoSConfig:
+    """QoS / overload-control knobs (qos/): admission control, the AIMD
+    congestion window, per-tenant fair slotting, and the peer-lane
+    resilience layer.  No reference analog: the reference queues
+    unboundedly and surfaces peer failures as raw gRPC errors."""
+
+    enabled: bool = True
+    # ---- admission (qos/admission.py)
+    # Bounded pending queue, in decisions; 0 disables the bound.
+    max_pending: int = 8192
+    # Implicit per-request deadline (seconds) when the client sends none;
+    # 0 = requests without a deadline never deadline-shed.
+    default_deadline: float = 0.0
+    # ---- congestion window (qos/congestion.py)
+    min_window: int = 64
+    max_window: int = 8192
+    # Drain-latency target the AIMD tracks (seconds).  Above it: cwnd *=
+    # aimd_decrease (once per cooldown); below: cwnd += aimd_increase.
+    target_drain_latency: float = 0.1
+    aimd_increase: float = 64.0
+    aimd_decrease: float = 0.5
+    latency_ewma_alpha: float = 0.3
+    # ---- fair slotting (qos/fairness.py)
+    fair_slotting: bool = True
+    # ---- peer lane (qos/breaker.py; acts with the peer ring)
+    peer_retries: int = 2          # retries after the first attempt
+    retry_base: float = 0.025      # seconds; doubles per attempt, jittered
+    retry_cap: float = 0.25
+    breaker_fail_threshold: int = 5
+    breaker_open_duration: float = 2.0
+    breaker_half_open_probes: int = 1
+    # While a peer's breaker is open: True = fail open (answer locally,
+    # non-authoritative, flagged in metadata); False = fail closed
+    # (in-band shed with reason breaker_open).
+    fail_open: bool = True
+
+    def validate(self) -> None:
+        if self.max_pending < 0:
+            raise ValueError("QoS.max_pending must be >= 0")
+        if self.min_window < 1 or self.max_window < self.min_window:
+            raise ValueError(
+                "QoS window bounds need 1 <= min_window <= max_window")
+        if not (0.0 < self.aimd_decrease < 1.0):
+            raise ValueError("QoS.aimd_decrease must be in (0, 1)")
+        if not (0.0 < self.latency_ewma_alpha <= 1.0):
+            raise ValueError("QoS.latency_ewma_alpha must be in (0, 1]")
+        if self.target_drain_latency <= 0:
+            raise ValueError("QoS.target_drain_latency must be > 0")
+        if self.peer_retries < 0:
+            raise ValueError("QoS.peer_retries must be >= 0")
+
+
+@dataclass
+class LeaseConfig:
+    """Concurrency-lease book knobs (algorithms/leases.py).  The device
+    free-slot counters stay authoritative regardless; these govern the
+    host-side book that attributes held slots to clients.  Defaults read
+    GUBER_LEASE_* at construction, as in the JAX package."""
+
+    # Release a vanished client's held slots when the RPC that carried its
+    # acquires is torn down before the response is delivered (server.py
+    # stream-close hook).  Off leaves reclaim to bucket expiry alone.
+    release_on_stream_close: bool = field(
+        default_factory=lambda: env_bool("GUBER_LEASE_RELEASE_ON_CLOSE",
+                                         True))
+    # Periodic sweep of expired grants out of the book, ms (0 disables;
+    # the device already expired those buckets, the sweep only keeps the
+    # lease gauges honest).
+    sweep_interval_ms: int = field(
+        default_factory=lambda: env_int("GUBER_LEASE_SWEEP_MS", 5000,
+                                        minimum=0))
+    # Cap on slots one client may hold per key (0 = unlimited): an acquire
+    # that would exceed it is answered OVER_LIMIT on the host, before the
+    # device sees it.
+    max_per_client: int = field(
+        default_factory=lambda: env_int("GUBER_LEASE_MAX_PER_CLIENT", 0,
+                                        minimum=0))
+
+    def validate(self) -> None:
+        if self.sweep_interval_ms < 0:
+            raise ValueError("Lease.sweep_interval_ms must be >= 0")
+        if self.max_per_client < 0:
+            raise ValueError("Lease.max_per_client must be >= 0")
 
 
 @dataclass
@@ -268,9 +361,11 @@ class DaemonConfig:
 
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    qos: QoSConfig = field(default_factory=QoSConfig)
     analytics: AnalyticsConfig = field(default_factory=AnalyticsConfig)
     slo: SLOConfig = field(default_factory=SLOConfig)
     tiers: TierConfig = field(default_factory=TierConfig)
+    leases: LeaseConfig = field(default_factory=LeaseConfig)
 
 
 def _env(name: str, default: str = "") -> str:
@@ -367,8 +462,8 @@ def per_op_lowering() -> bool:
 # config_from_env raises when one is set to anything but its default.
 _UNPORTED = (
     # peer discovery and the address peers know this node by, the peer
-    # forwarding timeout, the heartbeat detector and hinted handoff, QoS,
-    # leases, the GLOBAL manager's peer broadcast, fault injection
+    # forwarding timeout, the heartbeat detector and hinted handoff, the
+    # GLOBAL manager's peer broadcast, fault injection
     ("GUBER_ADVERTISE_ADDRESS", None, 6),
     ("GUBER_BATCH_TIMEOUT", 0.5, 6),
     ("GUBER_K8S_NAMESPACE", "", 6),
@@ -384,11 +479,6 @@ _UNPORTED = (
     ("GUBER_STATIC_PEERS", "", 6),
     ("GUBER_HEARTBEAT_", None, 6),
     ("GUBER_HINT_", None, 6),
-    ("GUBER_QOS_ENABLED", False, 6),
-    ("GUBER_QOS_", None, 6),
-    ("GUBER_LEASE_SWEEP_MS", 5000, 6),
-    ("GUBER_LEASE_RELEASE_ON_CLOSE", True, 6),
-    ("GUBER_LEASE_MAX_PER_CLIENT", 0, 6),
     ("GUBER_GLOBAL_SYNC_WAIT", 0.0005, 6),
     ("GUBER_GLOBAL_TIMEOUT", 0.5, 6),
     ("GUBER_GLOBAL_BATCH_LIMIT", MAX_BATCH_SIZE, 6),
@@ -508,8 +598,42 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
     if _env("GUBER_REPLAY_CAP"):
         e.replay_cap = int(_env("GUBER_REPLAY_CAP"))
 
-    # the default_factory fields read GUBER_ANALYTICS_* / GUBER_SLO_*:
-    # rebuilt after load_env_file so an env-file sets them too
+    # QoS / overload control (qos/), read as the JAX package reads it
+    q = c.qos
+    q.enabled = env_bool("GUBER_QOS_ENABLED", q.enabled)
+    q.max_pending = env_int("GUBER_QOS_MAX_PENDING", q.max_pending,
+                            minimum=0)
+    q.default_deadline = env_float("GUBER_QOS_DEFAULT_DEADLINE_MS",
+                                   q.default_deadline * 1000.0) / 1000.0
+    q.min_window = env_int("GUBER_QOS_MIN_WINDOW", q.min_window)
+    q.max_window = env_int("GUBER_QOS_MAX_WINDOW", q.max_window)
+    q.target_drain_latency = env_float(
+        "GUBER_QOS_TARGET_DRAIN_MS",
+        q.target_drain_latency * 1000.0, minimum=1e-3) / 1000.0
+    q.aimd_increase = env_float("GUBER_QOS_AIMD_INCREASE", q.aimd_increase,
+                                minimum=1.0)
+    if _env("GUBER_QOS_AIMD_DECREASE"):
+        q.aimd_decrease = float(_env("GUBER_QOS_AIMD_DECREASE"))
+    q.fair_slotting = env_bool("GUBER_QOS_FAIR_SLOTTING", q.fair_slotting)
+    q.peer_retries = env_int("GUBER_QOS_PEER_RETRIES", q.peer_retries,
+                             minimum=0)
+    q.retry_base = env_float("GUBER_QOS_RETRY_BASE_MS",
+                             q.retry_base * 1000.0, minimum=1.0) / 1000.0
+    q.retry_cap = env_float("GUBER_QOS_RETRY_CAP_MS",
+                            q.retry_cap * 1000.0, minimum=1.0) / 1000.0
+    q.breaker_fail_threshold = env_int("GUBER_QOS_BREAKER_FAILURES",
+                                       q.breaker_fail_threshold)
+    q.breaker_open_duration = env_float(
+        "GUBER_QOS_BREAKER_OPEN_MS",
+        q.breaker_open_duration * 1000.0, minimum=1.0) / 1000.0
+    q.breaker_half_open_probes = env_int("GUBER_QOS_BREAKER_PROBES",
+                                         q.breaker_half_open_probes)
+    q.fail_open = env_bool("GUBER_QOS_FAIL_OPEN", q.fail_open)
+    q.validate()
+
+    # the default_factory fields read GUBER_LEASE_* (at DaemonConfig()
+    # above, after load_env_file), GUBER_ANALYTICS_* and GUBER_SLO_*:
+    # the last two rebuilt after load_env_file so an env-file sets them too
     c.analytics = AnalyticsConfig()
     c.analytics.validate()
     c.slo = SLOConfig()

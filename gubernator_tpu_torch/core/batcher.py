@@ -15,6 +15,13 @@ analog of the reference's per-peer batching loop, peers.go:143-172):
 
 `submit_rpc` hands whole serialized RPCs to the pipeline's raw-RPC lane.
 
+With a QoS manager (qos/, JAX batcher.py:382-409) every `submit` first
+passes admission control: a full bounded queue, an unserviceable deadline
+or a draining node answers in-band (`shed_response`) without queueing, and
+an admitted request holds its slot until its decision resolves.  The
+classic window is interleaved across tenants (fair slotting) and cut to
+the congestion window, whose controller observes each window's wall time.
+
 Responses resolve back to awaiting callers by position.  The engine is not
 thread-safe, so all device work funnels through a single-thread executor
 that the pipeline shares; NO_BATCHING requests jump the window (submit_now)
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
@@ -33,6 +41,8 @@ from gubernator_tpu_torch.config import BehaviorConfig
 from gubernator_tpu_torch.core.engine import RateLimitEngine
 from gubernator_tpu_torch.core.interval import ArmedInterval
 from gubernator_tpu_torch.core.pipeline import DispatchPipeline
+from gubernator_tpu_torch.qos import interleave_by_tenant, shed_response
+from gubernator_tpu_torch.qos.fairness import tenant_of
 
 log = logging.getLogger("gubernator.batcher")
 
@@ -40,11 +50,13 @@ log = logging.getLogger("gubernator.batcher")
 class WindowBatcher:
     def __init__(self, engine: RateLimitEngine,
                  behaviors: Optional[BehaviorConfig] = None,
-                 analytics=None, slo=None):
+                 analytics=None, slo=None, qos=None):
         """analytics / slo: the TrafficAnalytics and SLOEngine the
-        pipeline feeds each drain's stats and wall time to, or None."""
+        pipeline feeds each drain's stats and wall time to, or None.
+        qos: the QoSManager shared with the pipeline, or None."""
         self.engine = engine
         self.behaviors = behaviors or BehaviorConfig()
+        self.qos = qos
         self._pending: List[tuple] = []  # (req, accumulate, future)
         self._interval: Optional[ArmedInterval] = None
         self._waiter: Optional[asyncio.Task] = None
@@ -56,7 +68,7 @@ class WindowBatcher:
         # time.  Tests pin it beside pipeline.now_fn.
         self.now_fn = None
         self.pipeline: Optional[DispatchPipeline] = DispatchPipeline(
-            engine, self._executor, analytics=analytics, slo=slo)
+            engine, self._executor, qos=qos, analytics=analytics, slo=slo)
         if not self.pipeline.enabled:
             self.pipeline = None
         else:
@@ -72,33 +84,75 @@ class WindowBatcher:
         return await loop.run_in_executor(
             self._executor, lambda: self.engine.process(reqs, now))
 
-    async def submit(self, req: RateLimitReq,
-                     accumulate: bool = True) -> RateLimitResp:
+    def _window_limit(self) -> int:
+        """Flush threshold: batch_limit, capped by the congestion window
+        when QoS is on."""
+        limit = self.behaviors.batch_limit
+        if self.qos is not None:
+            limit = min(limit, self.qos.congestion.effective_window())
+        return max(1, limit)
+
+    async def submit(self, req: RateLimitReq, accumulate: bool = True,
+                     deadline: Optional[float] = None,
+                     admit: bool = True) -> RateLimitResp:
         """Queue into the current window; resolves when the window executes.
         accumulate=False keeps a GLOBAL request's hits out of the window's
-        per-slot sum (engine.step)."""
-        if (self.pipeline is not None and accumulate
-                and self.pipeline.eligible(req)):
-            return await self.pipeline.submit_one(req)
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._pending.append((req, accumulate, fut))
-        if len(self._pending) >= max(1, self.behaviors.batch_limit):
-            self._flush()
-        elif len(self._pending) == 1:
-            if self._interval is None:
-                self._interval = ArmedInterval(self.behaviors.batch_wait)
-            self._interval.arm()
-            if self._waiter is None or self._waiter.done():
-                self._waiter = asyncio.create_task(self._wait_interval())
-        return await fut
+        per-slot sum (engine.step).  With QoS the request first passes
+        admission (`deadline`: absolute monotonic seconds, see
+        QoSManager.deadline_from_timeout); a shed is answered in-band.
+        admit=False queues it past admission, which cannot shed it."""
+        adm = self.qos.admission if (self.qos is not None and admit) else None
+        if adm is not None:
+            reason = adm.try_admit(1, deadline=deadline)
+            if reason is not None:
+                return shed_response(req, reason)
+        # an admitted request holds its slot until its decision resolves
+        try:
+            if (self.pipeline is not None and accumulate
+                    and self.pipeline.eligible(req)):
+                return await self.pipeline.submit_one(req)
+            fut: asyncio.Future = asyncio.get_running_loop().create_future()
+            self._pending.append((req, accumulate, fut))
+            if len(self._pending) >= self._window_limit():
+                self._flush()
+            elif len(self._pending) == 1:
+                self._arm()
+            return await fut
+        finally:
+            if adm is not None:
+                adm.release(1)
+
+    def _arm(self) -> None:
+        if self._interval is None:
+            self._interval = ArmedInterval(self.behaviors.batch_wait)
+        self._interval.arm()
+        if self._waiter is None or self._waiter.done():
+            self._waiter = asyncio.create_task(self._wait_interval())
 
     async def _wait_interval(self) -> None:
         await self._interval.wait()
-        if self._pending:
+        # a flush the congestion window cuts re-arms the interval, but
+        # from inside this task no new waiter starts, so this one waits
+        # for the re-armed tick and flushes the rest (the JAX batcher
+        # returns here and strands the rest until the window fills again)
+        while self._pending:
             self._flush()
+            if not self._pending:
+                break
+            await self._interval.wait()
 
     def _flush(self) -> None:
         window, self._pending = self._pending, []
+        if self.qos is not None:
+            if self.qos.fair_slotting:
+                window = interleave_by_tenant(window,
+                                              lambda t: tenant_of(t[0]))
+            # the congestion window caps decisions a dispatch: the rest
+            # stays queued for the next window, with the timer re-armed
+            limit = self._window_limit()
+            if len(window) > limit:
+                window, self._pending = window[:limit], window[limit:]
+                self._arm()
         task = asyncio.create_task(self._run_window(window))
         self._windows.add(task)
         task.add_done_callback(self._windows.discard)
@@ -107,6 +161,7 @@ class WindowBatcher:
         reqs = [w[0] for w in window]
         accumulate = [w[1] for w in window]
         loop = asyncio.get_running_loop()
+        start = time.monotonic()
 
         def run():
             now = self.now_fn() if self.now_fn is not None else None
@@ -121,6 +176,8 @@ class WindowBatcher:
                 if not fut.done():
                     fut.set_exception(e)
             return
+        if self.qos is not None:
+            self.qos.congestion.observe_drain(time.monotonic() - start)
         for (_, _, fut), resp in zip(window, resps):
             if not fut.done():
                 fut.set_result(resp)

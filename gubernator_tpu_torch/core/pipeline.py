@@ -40,7 +40,19 @@ time; `gate_holds` and the snapshot's `mean_inflight` show it.  When
 nothing is in flight, a small queue waits up to `coalesce_wait` (the
 batcher's batch_wait, the reference's 500 us) for more arrivals.
 GUBER_FETCH_STRIDE > 1 chains dispatched drains and completes them with
-one fetch task.
+one fetch task; with QoS, GUBER_FETCH_STRIDE_MAX caps how far the
+congestion controller's stride may grow it.
+
+With a QoS manager (qos/), each drain's singles are interleaved across
+tenants (fair slotting, stable within a tenant) and cut to the congestion
+window, the in-flight depth follows that window (effective_depth), the
+admission controller sees every in-flight change (note_inflight), and
+every completed drain feeds the controller its wall time and stage
+times.  The singles the cut defers go first in the next drain, and a job
+(submit_many, submit_rpc) submitted after the first of them waits with
+them, so it cannot overtake a deferred single on its key (a departure:
+the JAX pipeline stages such a job in the same drain, ahead of it;
+tests/test_torch_pipeline.py pins both).
 
 Requests outside the compact ranges, GLOBAL requests and every other
 algorithm than token and leaky take the batcher's legacy lane
@@ -58,9 +70,9 @@ even an empty stack) resolves to None, and the caller answers it through
 the protobuf path after the drain.  Standalone only: every item is local
 (no ring is installed in the parser).  Not ported here: the cluster ring
 and its forwards, the front door's column jobs, lockstep (mesh) serving,
-the QoS hooks, tracing and device profiling.
+tracing and device profiling.
 
-Two departures from the JAX pipeline keep each key's requests in
+Two other departures from the JAX pipeline keep each key's requests in
 submission order, which the JAX pipeline loses once one drain's jobs
 overflow the stack (tests/test_torch_pipeline.py pins both): the jobs a
 full stack leaves over stay on the engine thread and go first in its next
@@ -99,6 +111,7 @@ from gubernator_tpu_torch.api.types import (
 from gubernator_tpu_torch.config import (
     CHAIN_LINGER_MS_DEFAULT,
     FETCH_STRIDE_DEFAULT,
+    FETCH_STRIDE_MAX_DEFAULT,
     MAX_BATCH_SIZE,
     env_bool,
     env_float,
@@ -111,7 +124,7 @@ from gubernator_tpu_torch.core.window_buffers import (
 )
 from gubernator_tpu_torch.ops import kernel
 from gubernator_tpu_torch.ops.analytics import _SLOT_MASK
-from gubernator_tpu_torch.qos.fairness import tenant_of
+from gubernator_tpu_torch.qos.fairness import interleave_by_tenant, tenant_of
 
 log = logging.getLogger("gubernator.pipeline")
 
@@ -121,7 +134,8 @@ class ListJob:
     packed columnar through the stack.  Resolves each request's future
     (singles) or one future with the response list (batch)."""
 
-    __slots__ = ("reqs", "futs", "fut", "row", "lane", "pos", "n", "_cols")
+    __slots__ = ("reqs", "futs", "fut", "row", "lane", "pos", "n", "_cols",
+                 "after")
 
     def __init__(self, reqs: Sequence[RateLimitReq],
                  futs: Optional[List[asyncio.Future]] = None,
@@ -134,6 +148,8 @@ class ListJob:
         self.lane = None
         self.pos = None
         self._cols = None
+        # singles submitted before this job (DispatchPipeline._take_jobs)
+        self.after = 0
 
     def columns(self):
         if self._cols is None:
@@ -192,7 +208,7 @@ class RpcJob:
     any ring and takes every item as local."""
 
     __slots__ = ("data", "fut", "futs", "n", "row", "lane", "pos", "limit",
-                 "peer_mode")
+                 "peer_mode", "after")
 
     def __init__(self, data: bytes, fut: asyncio.Future,
                  peer_mode: bool = False):
@@ -205,6 +221,7 @@ class RpcJob:
         self.lane = None
         self.pos = None
         self.limit = None
+        self.after = 0
 
     def finish(self, pipeline, wflat, clflat, now) -> bytes:
         # the encode target is a per-fetch-thread scratch buffer: bytes()
@@ -228,7 +245,7 @@ class _DrainResult:
                  "an_decay", "staged", "fallback", "leftover", "now",
                  "n_decisions", "error", "started", "pack_done",
                  "dispatch_done", "fetch_start", "fetch_done", "arena",
-                 "cols_owner", "cfut", "deferred", "carried")
+                 "cols_owner", "cfut", "deferred", "carried", "k_used")
 
     def __init__(self):
         # the drain's response words and stored limits on the device, the
@@ -254,6 +271,7 @@ class _DrainResult:
         self.staged = []
         self.fallback = []
         self.leftover = []
+        self.k_used = 0
         self.now = 0
         self.n_decisions = 0
         self.error = None
@@ -277,9 +295,11 @@ class DispatchPipeline:
                  k_max: int = PIPELINE_K_BUCKETS[-1],
                  depth: Optional[int] = None, qos=None, analytics=None,
                  slo=None):
-        if qos is not None:
-            raise ValueError("the port's pipeline takes no QoS manager yet")
         self.engine = engine
+        # QoSManager (qos/) or None: tenant-fair slotting and the
+        # congestion window's budget of each drain, its in-flight depth
+        # and the fetch stride; None keeps every path as without QoS
+        self.qos = qos
         # TrafficAnalytics / SLOEngine (observability/analytics.py) or None
         self.analytics = analytics
         self.slo = slo
@@ -328,7 +348,8 @@ class DispatchPipeline:
         # over active_wall it is the mean depth the pipeline ran at
         self.inflight_seconds = 0.0
         self._inflight_at = 0.0
-        self._singles: List[tuple] = []   # (req, fut, col_idx)
+        self._singles: List[tuple] = []   # (req, fut, seq, col_idx)
+        self._singles_seen = 0            # the next single's seq
         self._jobs: List[object] = []     # ListJob / RpcJob, FIFO
         # jobs a full stack left over: the engine thread keeps them in
         # _carry and packs them first in its next drain, ahead of anything
@@ -348,10 +369,17 @@ class DispatchPipeline:
         self.coalesce_wait = 0.0005
         self.coalesce_min = MAX_BATCH_SIZE
         self._coalesce_handle = None
-        # deferred-fetch chain: up to `fetch_stride` dispatched drains
-        # complete through one fetch task, in dispatch order
+        # deferred-fetch chain: up to the stride target's dispatched drains
+        # complete through one fetch task, in dispatch order.
+        # GUBER_FETCH_STRIDE is the floor; GUBER_FETCH_STRIDE_MAX caps how
+        # far the QoS stride controller (qos/congestion.py observe_chain)
+        # may grow it as the backlog deepens
         self.fetch_stride = max(1, env_int("GUBER_FETCH_STRIDE",
                                            FETCH_STRIDE_DEFAULT))
+        self.fetch_stride_max = max(self.fetch_stride,
+                                    env_int("GUBER_FETCH_STRIDE_MAX",
+                                            FETCH_STRIDE_MAX_DEFAULT))
+        self._stride_target = self.fetch_stride
         self.chain_linger = env_float("GUBER_CHAIN_LINGER_MS",
                                       CHAIN_LINGER_MS_DEFAULT) / 1000.0
         self._chain: List[_DrainResult] = []
@@ -385,6 +413,8 @@ class DispatchPipeline:
         elif delta < 0 and self._in_flight == 0 and self._active_since:
             self.active_wall += now - self._active_since
             self._active_since = 0.0
+        if self.qos is not None:
+            self.qos.admission.note_inflight(self._in_flight)
 
     def overlap_snapshot(self) -> dict:
         """Per-stage busy seconds, pipeline-active wall seconds and their
@@ -409,6 +439,7 @@ class DispatchPipeline:
             "arena_reuse_events": self._arena_ring.reuse_events,
             "arena_alloc_events": self._arena_ring.alloc_events,
             "fetch_stride": self.fetch_stride,
+            "fetch_stride_target": self._stride_target,
             "chained_pending": len(self._chain),
             "fetch_elided": self.fetch_elided,
             "chain_flushes": self.chain_flushes,
@@ -419,7 +450,9 @@ class DispatchPipeline:
     async def submit_one(self, req: RateLimitReq) -> RateLimitResp:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
-        self._singles.append((req, fut, self._cols.append(req)))
+        self._singles.append((req, fut, self._singles_seen,
+                              self._cols.append(req)))
+        self._singles_seen += 1
         self._pump()
         return await fut
 
@@ -427,7 +460,9 @@ class DispatchPipeline:
                           ) -> List[RateLimitResp]:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
-        self._jobs.append(ListJob(reqs, fut=fut))
+        job = ListJob(reqs, fut=fut)
+        job.after = self._singles_seen
+        self._jobs.append(job)
         self._pump()
         return await fut
 
@@ -440,7 +475,9 @@ class DispatchPipeline:
             return None
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
-        self._jobs.append(RpcJob(data, fut, peer_mode=peer_mode))
+        job = RpcJob(data, fut, peer_mode=peer_mode)
+        job.after = self._singles_seen
+        self._jobs.append(job)
         self._pump()
         return await fut
 
@@ -471,21 +508,60 @@ class DispatchPipeline:
         completion returns it to the pool."""
         jobs: List[object] = []
         cols_owner = None
+        cut = None   # the first deferred single's seq
         if self._singles:
             singles, self._singles = self._singles, []
             cols_owner = self._cols
             self._cols = (self._cols_pool.pop() if self._cols_pool
                           else RequestColumns())
+            fair = self.qos is not None and self.qos.fair_slotting
+            if self.qos is not None:
+                if fair:
+                    # tenant-fair lane filling: a hot tenant's burst must
+                    # not occupy every lane of the drain (stable within a
+                    # tenant, so each key keeps its order)
+                    singles = interleave_by_tenant(
+                        singles, lambda t: tenant_of(t[0]))
+                # the congestion window caps decisions a drain; the rest
+                # stays queued for the next pump (completions re-pump)
+                budget = self.qos.congestion.effective_window()
+                if len(singles) > budget:
+                    singles, deferred = singles[:budget], singles[budget:]
+                    cut = min(t[2] for t in deferred)
+                    # the deferred tail goes into the NEW columns (its old
+                    # indices die with cols_owner), one gather a column
+                    base = self._cols.extend_from(
+                        cols_owner, [t[3] for t in deferred])
+                    self._singles = [(req, fut, seq, base + k)
+                                     for k, (req, fut, seq, _)
+                                     in enumerate(deferred)]
             for base in range(0, len(singles), MAX_BATCH_SIZE):
                 chunk = singles[base:base + MAX_BATCH_SIZE]
                 job = ListJob([t[0] for t in chunk],
                               futs=[t[1] for t in chunk])
-                # singles append in submission order: a chunk is the
-                # contiguous column range of its entries
-                job._cols = cols_owner.take(chunk[0][2], chunk[-1][2] + 1)
+                # a chunk in submission order is a contiguous column range
+                # (zero-copy); one that fair slotting reordered gathers
+                idx = None
+                if fair:
+                    idx = np.fromiter((t[3] for t in chunk), np.int64,
+                                      len(chunk))
+                    if len(idx) == 1 or bool((np.diff(idx) == 1).all()):
+                        idx = None
+                if idx is None:
+                    job._cols = cols_owner.take(chunk[0][3],
+                                                chunk[-1][3] + 1)
+                else:
+                    job._cols = cols_owner.take(0, len(idx), idx)
                 jobs.append(job)
-        jobs.extend(self._jobs)
-        self._jobs = []
+        # a job submitted after a deferred single waits behind it, so a
+        # key's later job cannot overtake it (jobs are FIFO in `after`)
+        n = len(self._jobs)
+        if cut is not None:
+            n = 0
+            while n < len(self._jobs) and self._jobs[n].after <= cut:
+                n += 1
+        jobs.extend(self._jobs[:n])
+        del self._jobs[:n]
         return jobs, cols_owner
 
     def _cols_release(self, cols) -> None:
@@ -499,11 +575,13 @@ class DispatchPipeline:
             self._cols_pool.append(cols)
 
     def _pump(self, force: bool = False) -> None:
-        depth = self.depth
-        if self.fetch_stride > 1:
+        depth = (self.depth if self.qos is None
+                 else self.qos.congestion.effective_depth(self.depth))
+        stride = self._stride_target = self._stride_current()
+        if stride > 1:
             # the chain needs stride drains pending fetch plus one being
             # packed, or it could never reach its stride
-            depth = max(depth, self.fetch_stride + 1)
+            depth = max(depth, stride + 1)
         if self._closed or self._in_flight >= depth:
             return
         if self.gate_enabled and self._in_flight >= 1 and self.gate_frac > 0:
@@ -550,6 +628,29 @@ class DispatchPipeline:
 
     # ------------------------------------------------------------ fetch chain
 
+    def _stride_current(self) -> int:
+        """Drains a fetch the chain targets now (loop thread).  The floor
+        is GUBER_FETCH_STRIDE; the QoS stride controller may grow it with
+        the backlog up to GUBER_FETCH_STRIDE_MAX, but never past the
+        admission deadline's bound, so a chain's oldest drain still
+        commits inside the default deadline."""
+        if self.fetch_stride_max <= 1 or self.qos is None:
+            return min(self.fetch_stride, self.fetch_stride_max)
+        cc = self.qos.congestion
+        stride = max(self.fetch_stride, cc.effective_stride())
+        bound = cc.stride_bound(self.qos.conf.default_deadline)
+        return max(1, min(stride, self.fetch_stride_max, bound))
+
+    def _backlog_windows(self) -> float:
+        """Queued decisions behind the pipeline, in windows (loop thread):
+        the stride controller's growth signal."""
+        fold = (self.decisions_staged / self.lanes_staged
+                if self.lanes_staged > MAX_BATCH_SIZE else 1.0)
+        eng = self.engine
+        lanes = eng.batch_per_shard * eng.num_shards
+        return ((self._pending_decisions() / max(fold, 1.0))
+                / max(lanes, 1))
+
     def _chain_add(self, res: _DrainResult) -> None:
         """Append a dispatched, unfetched drain to the chain (loop thread).
         Flush at the stride, or when nothing else is coming (an empty
@@ -557,7 +658,7 @@ class DispatchPipeline:
         timer bounds how late a chained commit can be."""
         self._chain.append(res)
         idle = not self._jobs and not self._singles and self._predispatch == 0
-        if len(self._chain) >= self.fetch_stride or idle or self._closed:
+        if len(self._chain) >= self._stride_target or idle or self._closed:
             self._chain_flush()
         elif self._chain_timer is None:
             self._chain_timer = self._loop.call_later(
@@ -574,6 +675,9 @@ class DispatchPipeline:
         group, self._chain = self._chain, []
         self.chain_flushes += 1
         self.fetch_elided += len(group) - 1
+        if self.qos is not None:
+            self.qos.congestion.observe_chain(self._backlog_windows(),
+                                              self.fetch_stride_max)
         cfut = self._loop.run_in_executor(self._fetch_executor,
                                           self._complete_chain_sync, group)
         cfut.add_done_callback(lambda f: self._on_chain_completed(f, group))
@@ -687,13 +791,20 @@ class DispatchPipeline:
         for job, out in zip(res.staged, outs):
             self._resolve(job, out)
         drain_wall = (res.fetch_done or time.monotonic()) - res.started
+        t_he = res.pack_done - res.started if res.pack_done else 0.0
+        t_disp = (res.dispatch_done - res.pack_done
+                  if res.dispatch_done and res.pack_done else 0.0)
+        t_fetch = (res.fetch_done - res.fetch_start
+                   if res.fetch_done and res.fetch_start else 0.0)
         sb = self.stage_busy
-        if res.pack_done:
-            sb["host_encode"] += res.pack_done - res.started
-        if res.dispatch_done and res.pack_done:
-            sb["device_dispatch"] += res.dispatch_done - res.pack_done
-        if res.fetch_done and res.fetch_start:
-            sb["fetch_decode"] += res.fetch_done - res.fetch_start
+        sb["host_encode"] += t_he
+        sb["device_dispatch"] += t_disp
+        sb["fetch_decode"] += t_fetch
+        if self.qos is not None and res.n_decisions:
+            self.qos.congestion.observe_drain(drain_wall,
+                                              depth=max(1, res.k_used))
+            self.qos.congestion.observe_stages(t_he, t_disp, t_fetch,
+                                               pipelined=self.depth > 1)
         if self.analytics is not None and res.stats_host is not None:
             try:
                 self.analytics.ingest(res.stats_host, res.an_decay)
@@ -809,7 +920,7 @@ class DispatchPipeline:
         res.pack_done = time.monotonic()
         if not res.staged:
             return res
-        k_used = int(fills.any(axis=1).sum())
+        k_used = res.k_used = int(fills.any(axis=1).sum())
         if k_used:
             kb = next(b for b in self._k_buckets if b >= k_used)
             packed = arena.packed_t[:kb]
@@ -848,7 +959,10 @@ class DispatchPipeline:
         eng.decisions_processed += res.n_decisions
         self.decisions_staged += res.n_decisions
         self.lanes_staged += int(fills.sum())
-        if self.fetch_stride > 1:
+        # a chain member submits no fetch: the loop chains it (the stride
+        # target is an int the loop refreshes every pump; a stale read
+        # moves only where the fetch is submitted)
+        if self._stride_target > 1:
             res.deferred = True
             return res
         res.cfut = self._fetch_executor.submit(self._complete_sync_one, res)

@@ -24,15 +24,27 @@ The transport (server.py, api/http_gateway.py) calls `get_rate_limits`,
 this node's), `health_check`, `batcher.submit_rpc` (the raw-RPC lane) and
 `add_to_server`, and observes RPCs into `metrics` when it is set: a
 `observability.metrics.Metrics` (prometheus_client), None by default
-because the serving core needs no metrics library.  `qos` and
-`mesh_mode` stay None / False until QoS and mesh serving are ported, so
-the transport's checks on them read as in the JAX package.
+because the serving core needs no metrics library.  `mesh_mode` stays
+False until mesh serving is ported.
+
+QoS (qos/, JAX service.py:92-99) is on unless `qos=QoSConfig(enabled=
+False)`: `get_rate_limits(deadline=)` carries the caller's deadline into
+admission, sheds answer in-band, `health_check` reports a draining or
+saturated node, and `drain` closes intake first.  The concurrency-lease
+book (algorithms/leases.py, JAX service.py:250-342) attributes every
+CONCURRENCY acquire to `client_id`; `release_client_leases` gives a
+vanished client's slots back through the device, the
+GUBER_LEASE_MAX_PER_CLIENT cap answers on the host, and a lease release
+or a holder's request is exempt from deadline sheds.  A lease expires at
+`millisecond_now() + duration`, the JAX package's clock, whatever clock
+the engine runs on.
 
 The state lifecycle (JAX service.py:780-827): `export_snapshot`,
 `save_snapshot`, `export_snapshot_bytes` and `restore_snapshot_bytes` run
 the engine's export and import on the engine thread (`_quiesced`), and
-`tiers` (a TierConfig) puts the warm tier on the engine.  Peers, leases
-and QoS are not part of the port yet.
+`tiers` (a TierConfig) puts the warm tier on the engine; a snapshot
+carries the lease book's rows.  Peers (with `release_peer_leases` and the
+breaker fallback) are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -40,20 +52,26 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+from gubernator_tpu_torch.algorithms.leases import LeaseBook
+from gubernator_tpu_torch.algorithms.oracles import ALGORITHM_NAMES
 from gubernator_tpu_torch.api.types import (
     Algorithm,
     Behavior,
     HealthCheckResp,
     RateLimitReq,
     RateLimitResp,
+    Status,
+    millisecond_now,
 )
 from gubernator_tpu_torch.config import (
     MAX_BATCH_SIZE,
     AnalyticsConfig,
     BehaviorConfig,
     EngineConfig,
+    LeaseConfig,
+    QoSConfig,
     SLOConfig,
     TierConfig,
 )
@@ -63,11 +81,13 @@ from gubernator_tpu_torch.observability.analytics import (
     SLOEngine,
     TrafficAnalytics,
 )
+from gubernator_tpu_torch.qos import QoSManager
 from gubernator_tpu_torch.state import snapshot as snapmod
 
 log = logging.getLogger("gubernator.service")
 
 HEALTHY = "healthy"
+UNHEALTHY = "unhealthy"
 
 _ALGORITHMS = (Algorithm.TOKEN_BUCKET, Algorithm.LEAKY_BUCKET, Algorithm.GCRA,
                Algorithm.SLIDING_WINDOW, Algorithm.CONCURRENCY)
@@ -85,7 +105,9 @@ class Instance:
                  analytics: Optional[AnalyticsConfig] = None,
                  slo: Optional[SLOConfig] = None,
                  metrics=None,
-                 tiers: Optional[TierConfig] = None):
+                 tiers: Optional[TierConfig] = None,
+                 qos: Optional[QoSConfig] = None,
+                 leases: Optional[LeaseConfig] = None):
         """engine: a ready engine, else one is built from engine_config on
         `device` (default `cuda`).  analytics / slo: when given and
         enabled, the traffic analytics (the engine's resident sketch and
@@ -95,7 +117,9 @@ class Instance:
         the router's cache, snapshots and the warm tier into, or None for
         no registry.  tiers: when given and enabled, the warm tier on the
         engine's Python tables (JAX service.py:128-137), fed by the
-        analytics' heat when analytics is on too."""
+        analytics' heat when analytics is on too.  qos / leases: the QoS
+        and lease-book knobs; None means the JAX package's defaults (QoS
+        on; LeaseConfig() reads GUBER_LEASE_*)."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -121,16 +145,36 @@ class Instance:
         if tiers is not None and tiers.enabled:
             tiers.validate()
             self.engine.enable_tiers(tiers, analytics=self.analytics)
-        self.batcher = WindowBatcher(self.engine, self.behaviors,
-                                     analytics=self.analytics, slo=self.slo)
-        self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
         self.metrics = metrics
+        # QoS control plane (qos/): admission, congestion window, fair
+        # slotting; None (QoSConfig(enabled=False)) keeps every path as
+        # without QoS
+        qconf = qos if qos is not None else QoSConfig()
+        self.qos: Optional[QoSManager] = None
+        if qconf.enabled:
+            self.qos = QoSManager(qconf, metrics=metrics)
+            # a shed is SLO evidence
+            self.qos.admission.slo = self.slo
+        # Concurrency-lease book (algorithms/leases.py): who holds which
+        # CONCURRENCY slots, so a vanished client's can be released.  The
+        # template map keeps how to rebuild a release request per key (the
+        # book stores only hash keys).
+        self.lease_conf = leases if leases is not None else LeaseConfig()
+        self.lease_conf.validate()
+        self.leases = LeaseBook()
+        self._lease_tmpl: Dict[str, RateLimitReq] = {}
+        self.batcher = WindowBatcher(self.engine, self.behaviors,
+                                     analytics=self.analytics, slo=self.slo,
+                                     qos=self.qos)
+        self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
         if metrics is not None:
             metrics.watch_engine(self.engine)
             if self.engine.tier_stats() is not None:
                 metrics.watch_tiers(self.engine)
-        # subsystems not ported yet (ROADMAP Queue 1 items 6-8)
-        self.qos = None
+            if self.qos is not None:
+                metrics.watch_qos(self.qos)
+            metrics.watch_leases(self.leases)
+        # mesh serving is not ported yet (ROADMAP Queue 1 item 8)
         self.mesh_mode = False
 
     def add_to_server(self, server, *, v1: bool = True,
@@ -151,16 +195,103 @@ class Instance:
         if peers:
             add_peers_servicer(server, _PeersServicer(self))
 
-    async def get_rate_limits(self, requests: Sequence[RateLimitReq]
+    async def get_rate_limits(self, requests: Sequence[RateLimitReq],
+                              deadline: Optional[float] = None,
+                              client_id: Optional[str] = None
                               ) -> List[RateLimitResp]:
+        """deadline: absolute monotonic deadline from the transport (gRPC
+        time_remaining(), the HTTP X-Guber-Timeout-Ms header); admission
+        sheds what it cannot serve in time.  client_id: the caller's
+        transport identity, to which the lease book attributes grants."""
         if len(requests) > MAX_BATCH_SIZE:
             raise BatchTooLargeError(
                 f"Requests.RateLimits list too large; max size is "
                 f"'{MAX_BATCH_SIZE}'")
         return list(await asyncio.gather(
-            *(self._route(r) for r in requests)))
+            *(self._route(r, deadline, client_id=client_id)
+              for r in requests)))
 
-    async def _route(self, r: RateLimitReq) -> RateLimitResp:
+    async def _route(self, r: RateLimitReq,
+                     deadline: Optional[float] = None,
+                     client_id: Optional[str] = None) -> RateLimitResp:
+        cap = self.lease_conf.max_per_client
+        if (cap and r.algorithm == Algorithm.CONCURRENCY and r.hits > 0
+                and self.leases.count(client_id or "anonymous",
+                                      r.hash_key()) + r.hits > cap):
+            # GUBER_LEASE_MAX_PER_CLIENT: answer on the host, before the
+            # device spends a slot this client is not allowed to hold
+            resp = RateLimitResp(status=Status.OVER_LIMIT, limit=r.limit,
+                                 remaining=0, reset_time=0)
+            self._account_decision(r, resp, client_id)
+            return resp
+        release = r.algorithm == Algorithm.CONCURRENCY and r.hits < 0
+        if (r.algorithm == Algorithm.CONCURRENCY and client_id is not None
+                and self.leases.holds(client_id, r.hash_key())):
+            # a holder's re-touch shed on deadline would strand its held
+            # slots until bucket expiry: undeadlined
+            deadline = None
+        # a lease release skips admission: shed, it would leave the slots
+        # held on the card after the book dropped them (the JAX service
+        # lifts only its deadline and sheds it when full or draining)
+        resp = self._refusal(r)
+        if resp is None:
+            resp = await self._local(r, deadline, admit=not release)
+        self._account_decision(r, resp, client_id)
+        return resp
+
+    def _account_decision(self, r: RateLimitReq, resp: RateLimitResp,
+                          client_id: Optional[str]) -> None:
+        """Post-decision bookkeeping: the per-algorithm decision counter
+        and the lease book."""
+        if resp.error:
+            return
+        if self.metrics is not None:
+            self.metrics.observe_algorithm(
+                ALGORITHM_NAMES.get(int(r.algorithm), "token_bucket"))
+        if r.algorithm != Algorithm.CONCURRENCY or r.hits == 0:
+            return
+        key = r.hash_key()
+        client = client_id or "anonymous"
+        if r.hits > 0:
+            if resp.status == Status.UNDER_LIMIT:
+                self._lease_tmpl[key] = r
+                self.leases.acquire(key, client, r.hits,
+                                    millisecond_now() + r.duration)
+        else:
+            self.leases.release(key, client, -r.hits)
+            if self.metrics is not None:
+                self.metrics.observe_lease_release("explicit", -r.hits)
+
+    async def release_client_leases(self, client_id: str,
+                                    reason: str = "stream_close") -> int:
+        """Release every lease a vanished client holds: drop its book rows
+        and push the matching negative-hits requests through the decision
+        path, so the device's free-slot counters recover.  Returns the
+        slots given back.  A key restored from a snapshot and not touched
+        since has no template: its slots are left to device expiry."""
+        rows = self.leases.release_client(client_id)
+        total = 0
+        for key, count in rows:
+            tmpl = self._lease_tmpl.get(key)
+            if tmpl is None:
+                continue
+            rel = RateLimitReq(
+                name=tmpl.name, unique_key=tmpl.unique_key, hits=-count,
+                limit=tmpl.limit, duration=tmpl.duration,
+                algorithm=Algorithm.CONCURRENCY, behavior=tmpl.behavior)
+            resp = self._refusal(rel)
+            if resp is None:
+                resp = await self._local(rel, None, admit=False)
+            if not resp.error:
+                total += count
+        if (total or rows) and self.metrics is not None:
+            self.metrics.observe_lease_release(
+                reason, sum(c for _, c in rows))
+        return total
+
+    def _refusal(self, r: RateLimitReq) -> Optional[RateLimitResp]:
+        """The error answer to a request the service refuses, else None
+        (a plain call, so an admitted item awaits one coroutine less)."""
         key = r.hash_key()
         # validation: exact reference strings and order (gubernator.go:102-110)
         if not r.unique_key:
@@ -185,16 +316,21 @@ class Instance:
         if err is not None:
             return RateLimitResp(
                 error=f"while applying rate limit for '{key}' - '{err}'")
-        return await self._local(r)
+        return None
 
-    async def _local(self, r: RateLimitReq) -> RateLimitResp:
+    async def _local(self, r: RateLimitReq,
+                     deadline: Optional[float] = None,
+                     admit: bool = True) -> RateLimitResp:
         """Owner-side decision through the device engine (the reference's
         getRateLimit under the cache mutex, gubernator.go:236-251)."""
         if r.behavior == Behavior.NO_BATCHING:
+            # not gated by admission: NO_BATCHING jumps the window and
+            # keeps working while the batched lane saturates
             return (await self.batcher.submit_now([r]))[0]
-        return await self.batcher.submit(r)
+        return await self.batcher.submit(r, deadline=deadline, admit=admit)
 
-    async def get_peer_rate_limits(self, requests: Sequence[RateLimitReq]
+    async def get_peer_rate_limits(self, requests: Sequence[RateLimitReq],
+                                   client_id: Optional[str] = None
                                    ) -> List[RateLimitResp]:
         """Batch relay from a peer; this node is authoritative for every
         key (gubernator.go:210-227).  Standalone there is no GLOBAL owner
@@ -217,20 +353,46 @@ class Instance:
             resps = await self.batcher.submit_now(valid)
             for i, resp in zip(slots, resps):
                 out[i] = resp
+                # leases acquired over the peer lane attribute to the
+                # forwarding peer
+                self._account_decision(requests[i], resp, client_id)
         return [o if o is not None else RateLimitResp() for o in out]
 
     async def health_check(self) -> HealthCheckResp:
+        """A draining node, or one whose admission queue is pinned at its
+        cap, cannot take work, whatever the ring looked like."""
+        if self.qos is not None and self.qos.admission.draining:
+            return HealthCheckResp(
+                status=UNHEALTHY,
+                message="draining: node is departing the ring",
+                peer_count=self.health.peer_count)
+        if self.qos is not None and self.qos.admission.saturated:
+            return HealthCheckResp(
+                status=UNHEALTHY,
+                message=(f"admission queue saturated "
+                         f"({self.qos.admission.pending} pending, "
+                         f"cap {self.qos.admission.max_pending})"),
+                peer_count=self.health.peer_count)
         return self.health
 
-    async def drain(self, timeout: float = 5.0) -> bool:
-        """Graceful-departure phase: wait, at most `timeout` seconds, until
-        no request is queued or in flight in the pipeline or the classic
-        lane.  True when it emptied in time."""
-        deadline = time.monotonic() + timeout
-        while self.batcher.busy():
-            if time.monotonic() >= deadline:
+    async def drain(self, timeout: float = 5.0,
+                    now_fn=time.monotonic, sleep=asyncio.sleep) -> bool:
+        """Graceful-departure phase: close admission intake (new work is
+        shed in-band with reason `draining`), then wait, at most `timeout`
+        seconds, until no admitted decision is pending and no request is
+        queued or in flight in the pipeline or the classic lane.  True
+        when it emptied in time."""
+        if self.qos is not None:
+            self.qos.admission.close_intake()
+        deadline = now_fn() + timeout
+        while ((self.qos is not None and self.qos.admission.pending > 0)
+               or self.batcher.busy()):
+            if now_fn() >= deadline:
+                if self.qos is not None:
+                    log.warning("drain: %d decisions still pending at "
+                                "timeout", self.qos.admission.pending)
                 return False
-            await asyncio.sleep(0.01)
+            await sleep(0.01)
         return True
 
     # ------------------------------------------------------ state lifecycle
@@ -246,12 +408,13 @@ class Instance:
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(self.batcher._executor, fn)
 
-    async def export_snapshot(self, layout: str = "auto"):
+    async def export_snapshot(self, layout: str = "auto", now=None):
         """The engine's export (state/snapshot.py ArenaSnapshot) at the
-        quiesce point.  The port has no lease registry yet, so the
-        snapshot carries no lease rows."""
-        return await self._quiesced(
-            lambda: self.engine.export_state(layout=layout))
+        quiesce point, with the lease book's rows."""
+        snap = await self._quiesced(
+            lambda: self.engine.export_state(now=now, layout=layout))
+        snap.leases = self.leases.export_rows()
+        return snap
 
     async def save_snapshot(self, path: str, layout: str = "auto") -> int:
         """Export, then an atomic write; returns the bytes written.  The
@@ -281,14 +444,14 @@ class Instance:
 
     def restore_snapshot(self, snap, rebase_to=None) -> None:
         """engine.import_state, then what the Instance keeps beside the
-        arena (engine thread).  Lease rows are logged and dropped: the
-        port has no lease registry yet.  The analytics' slot labels are
-        forgotten (the slots now hold the snapshot's keys)."""
+        arena (engine thread): the lease rows merge into the book (a
+        restored key has no release template until it is touched again,
+        so `release_client_leases` leaves its slots to device expiry), and
+        the analytics' slot labels are forgotten (the slots now hold the
+        snapshot's keys)."""
         self.engine.import_state(snap, rebase_to=rebase_to)
         if snap.leases:
-            log.warning("snapshot carries %d concurrency-lease rows; the "
-                        "port has no lease registry yet, dropping them",
-                        len(snap.leases))
+            self.leases.import_rows(snap.leases)
         if self.analytics is not None:
             self.analytics.forget_labels()
 

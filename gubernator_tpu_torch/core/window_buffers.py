@@ -227,14 +227,36 @@ class RequestColumns:
         self.n = i + 1
         return i
 
+    def extend_from(self, src: "RequestColumns", idx) -> int:
+        """Append the requests src holds at the indices `idx`, in that
+        order, in one gather per column; returns the first new index."""
+        sel = np.asarray(idx, np.int64)
+        first, m = self.n, len(sel)
+        while self.n + m > len(self.hits):
+            self._grow()
+        for name in ("hits", "limit", "duration", "algo", "klen"):
+            getattr(self, name)[first:first + m] = getattr(src, name)[sel]
+        self.keys.extend(src.keys[i] for i in sel)
+        self.n = first + m
+        return first
+
     def reset(self) -> None:
         self.n = 0
         self.keys.clear()
 
-    def take(self, start: int, stop: int):
+    def take(self, start: int, stop: int, idx=None):
         """The native-router columns of the requests appended in [start,
         stop): (key_bytes, key_ends, hits, limit, duration, algo), the
-        numeric columns as zero-copy slices."""
+        numeric columns as zero-copy slices.  With `idx` (a drain's
+        tenant-fair or budget-cut permutation) the chunk gathers the
+        requests idx[start:stop] instead."""
+        if idx is not None:
+            sel = np.asarray(idx[start:stop], np.int64)
+            ends = np.cumsum(self.klen[sel])
+            return (np.frombuffer(b"".join([self.keys[i] for i in sel]),
+                                  dtype=np.uint8), ends,
+                    self.hits[sel], self.limit[sel],
+                    self.duration[sel], self.algo[sel])
         keys = self.keys[start:stop]
         ends = np.cumsum(self.klen[start:stop])
         return (np.frombuffer(b"".join(keys), dtype=np.uint8), ends,

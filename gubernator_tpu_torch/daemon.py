@@ -12,10 +12,13 @@ prometheus_client.
 With GUBER_SNAPSHOT_DIR set it restores the arenas from
 `<dir>/arena.snap` before it serves (a missing or corrupt file is a logged
 cold start), saves every GUBER_SNAPSHOT_INTERVAL_MS, and saves once more
-in the stop sequence, after the drain.  GUBER_TIER_WARM > 0 puts the warm
-tier on the engine (and forces the Python routing tables).  Peer
-discovery, the front door, mesh serving, fault injection and the lease
-sweep are not ported yet: their knobs raise in config_from_env.
+in the stop sequence, after the drain; a restored snapshot's lease rows go
+back into the lease book.  GUBER_TIER_WARM > 0 puts the warm tier on the
+engine (and forces the Python routing tables).  QoS runs at the JAX
+package's defaults (GUBER_QOS_*), and every GUBER_LEASE_SWEEP_MS the
+lease sweep drops expired grants from the book.  Peer discovery, the
+front door, mesh serving and fault injection are not ported yet: their
+knobs raise in config_from_env.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import signal
 from typing import Optional
 
 from gubernator_tpu_torch.api.http_gateway import HttpGateway
+from gubernator_tpu_torch.api.types import millisecond_now
 from gubernator_tpu_torch.config import DaemonConfig, config_from_env
 from gubernator_tpu_torch.core.service import Instance
 from gubernator_tpu_torch.observability.metrics import Metrics
@@ -47,6 +51,7 @@ class Daemon:
         # daemon's order for the phases the port has
         self.shutdown_phases: list = []
         self._snapshot_task: Optional[asyncio.Task] = None
+        self._lease_sweep_task: Optional[asyncio.Task] = None
 
     def _snapshot_file(self) -> str:
         return snapmod.snapshot_path(self.conf.snapshot_dir)
@@ -64,12 +69,26 @@ class Daemon:
             await asyncio.sleep(interval)
             await self._snapshot_once()
 
+    async def _lease_sweep_loop(self, interval_ms: int) -> None:
+        """Drop expired grants from the lease book every interval
+        (GUBER_LEASE_SWEEP_MS).  The device buckets already expired, so
+        this only keeps the lease gauges and per-client holds honest."""
+        while True:
+            await asyncio.sleep(interval_ms / 1000.0)
+            try:
+                dropped = self.instance.leases.sweep(millisecond_now())
+                if dropped:
+                    self.instance.metrics.observe_lease_release(
+                        "expired", sum(c for _, _, c in dropped))
+            except Exception:
+                log.exception("lease sweep failed")
+
     async def start(self) -> None:
         c = self.conf
         self.instance = Instance(
             engine_config=c.engine, behaviors=c.behaviors, device=c.device,
             analytics=c.analytics, slo=c.slo, metrics=Metrics(),
-            tiers=c.tiers)
+            tiers=c.tiers, qos=c.qos, leases=c.leases)
         # launch every drain shape before accepting traffic
         self.instance.engine.warmup()
         if c.snapshot_dir:
@@ -82,12 +101,14 @@ class Daemon:
                                                self._snapshot_file(),
                                                metrics=inst.metrics))
             if snap is not None and snap.leases:
-                log.warning("snapshot carries %d concurrency-lease rows; "
-                            "the port has no lease registry yet, dropping "
-                            "them", len(snap.leases))
+                # the device free-slot counters came back with the planes
+                inst.leases.import_rows(snap.leases)
             self._snapshot_task = asyncio.create_task(self._snapshot_loop())
             log.info("snapshots -> %s every %dms", c.snapshot_dir,
                      c.snapshot_interval_ms)
+        if c.leases.sweep_interval_ms > 0:
+            self._lease_sweep_task = asyncio.create_task(
+                self._lease_sweep_loop(c.leases.sweep_interval_ms))
         self.grpc = GrpcServer(self.instance, c.grpc_listen_address)
         await self.grpc.start()
         log.info("gRPC listening on %s", self.grpc.address)
@@ -134,6 +155,12 @@ class Daemon:
 
     async def _teardown(self) -> None:
         self._phase("teardown")
+        if self._lease_sweep_task is not None:
+            self._lease_sweep_task.cancel()
+            try:
+                await self._lease_sweep_task
+            except asyncio.CancelledError:
+                pass
         if self.http is not None:
             await self.http.stop()
         if self.grpc is not None:

@@ -96,7 +96,7 @@ struct Shard {
   // would consume the flag, and a retry could inherit a recycled slot's
   // previous tenant's live device state.
   uint8_t* pending;
-  uint32_t* seq;  // pack sequence that last reported is_init for the entry
+  uint32_t* seq;  // pack sequence that last touched the entry
   // lazy expiry min-heap: lets a full shard reclaim an EXPIRED slot before
   // evicting a live LRU victim.  Nodes go stale when an entry is re-touched
   // (its expiry moved) or evicted; staleness is detected on pop against the
@@ -334,8 +334,11 @@ void table_delete_cell(Shard* s, uint32_t cell) {
 // a hint whose entry refreshed past `now` is RE-PUSHED at the entry's
 // current expiry (conserves hint coverage for hot-then-idle keys).  Work
 // per attempt is capped so an allocation never stalls on a stale-hint
-// burst (it falls back to LRU eviction instead).
-int32_t try_reclaim_expired(Shard* s, int64_t now) {
+// burst (it falls back to LRU eviction instead).  An entry the current
+// pack call touched (seq == cur_seq) is never reclaimed: a negative
+// duration puts its expiry behind `now` while its device row stays live
+// for this drain, so its hint is re-pushed for a later drain.
+int32_t try_reclaim_expired(Shard* s, int64_t now, uint32_t cur_seq) {
   HeapNode repush[32];
   int nr = 0;
   int32_t out = NIL;
@@ -354,13 +357,13 @@ int32_t try_reclaim_expired(Shard* s, int64_t now) {
     }
     HeapNode n = heap_pop_min(heap, len);
     if (!is_resident(s, n.e)) continue;  // dead hint
-    if (s->expire[n.e] < now) {
+    if (s->expire[n.e] < now && s->seq[n.e] != cur_seq) {
       lru_unlink(s, n.e);
       table_delete_cell(s, s->cell_of[n.e]);
       out = n.e;
       break;
     }
-    if (nr < 32) {  // refreshed entry: restore an exact hint
+    if (nr < 32) {  // refreshed or touched entry: restore an exact hint
       repush[nr].expire = s->expire[n.e];
       repush[nr++].e = n.e;
     }
@@ -408,11 +411,11 @@ int32_t shard_lookup(Shard* s, uint64_t fp, int64_t now, int64_t duration,
       lru_unlink(s, e);
       lru_push_front(s, e);
       if (s->pending[e] && s->seq[e] != cur_seq) {
-        s->seq[e] = cur_seq;
         *is_init = 1;  // allocated by an earlier pack that never dispatched
       } else {
         *is_init = 0;
       }
+      s->seq[e] = cur_seq;  // touched by this pack call (reclaim skips it)
       return e;
     }
     cell = (cell + 1) & s->mask;
@@ -425,8 +428,10 @@ int32_t shard_lookup(Shard* s, uint64_t fp, int64_t now, int64_t duration,
     e = s->free_list[--s->free_top];
     s->size++;
   } else {
-    e = try_reclaim_expired(s, now);
+    e = try_reclaim_expired(s, now, cur_seq);
     if (e == NIL) {
+      // the LRU tail is untouched by this pack call unless every resident
+      // entry was touched (each touch moves its entry to the front)
       e = s->lru_tail;
       lru_unlink(s, e);
       table_delete_cell(s, s->cell_of[e]);

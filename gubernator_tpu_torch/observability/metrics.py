@@ -11,14 +11,23 @@ with the same names and labels:
                                                 the state lifecycle
   guber_tpu_tier_events_total{event}, guber_tpu_tier_warm_rows,
   guber_tpu_tier_warm_bytes                     the warm tier (watch_tiers)
+  guber_qos_queue_depth, guber_qos_shed_total{reason},
+  guber_qos_effective_window, guber_qos_drain_latency_ewma_seconds,
+  guber_qos_drain_depth_ewma, guber_qos_breaker_state{peer}
+                                                QoS (watch_qos, observe_shed)
+  guber_tpu_decisions_total{algorithm}, guber_tpu_lease_held_slots,
+  guber_tpu_lease_clients, guber_tpu_lease_keys,
+  guber_tpu_lease_releases_total{reason}        the algorithm plane and the
+                                                lease book (watch_leases)
 
 The cache families are read from the native router (its resident key
 count, hits and misses) at scrape time.  This module imports
 prometheus_client, so the serving core never imports it: an Instance has
 no registry unless one is given (`Instance(metrics=Metrics())`, which the
 daemon always does).  The JAX package's other families (GLOBAL, pipeline,
-QoS, analytics, leases, migration, devprof) are left for the observability
-item of the port's ROADMAP.
+analytics, migration, devprof) are left for the observability item of the
+port's ROADMAP.  `observe_shed` only counts: the admission controller
+feeds each shed to the SLO engine itself.
 """
 
 from __future__ import annotations
@@ -109,6 +118,75 @@ class Metrics:
             "Host bytes allocated to the warm tier's SoA store.",
             registry=self.registry,
         )
+        # QoS (qos/): admission queue, sheds by reason, the AIMD window,
+        # and per-peer breaker state
+        self.qos_queue_depth = Gauge(
+            "guber_qos_queue_depth",
+            "Pending decisions held in the bounded admission queue.",
+            registry=self.registry,
+        )
+        self.qos_shed = Counter(
+            "guber_qos_shed_total",
+            "Requests shed by admission control, by reason.",
+            ["reason"],  # queue_full | deadline | breaker_open
+            registry=self.registry,
+        )
+        self.qos_effective_window = Gauge(
+            "guber_qos_effective_window",
+            "Congestion-adaptive window size (decisions per dispatch).",
+            registry=self.registry,
+        )
+        self.qos_drain_latency_ewma = Gauge(
+            "guber_qos_drain_latency_ewma_seconds",
+            "EWMA of observed drain wall time feeding the AIMD.",
+            registry=self.registry,
+        )
+        self.qos_drain_depth_ewma = Gauge(
+            "guber_qos_drain_depth_ewma",
+            "EWMA of occupied drain depth feeding the AIMD.",
+            registry=self.registry,
+        )
+        self.breaker_state = Gauge(
+            "guber_qos_breaker_state",
+            "Per-peer circuit breaker state "
+            "(0=closed, 1=half_open, 2=open).",
+            ["peer"],
+            registry=self.registry,
+        )
+        # the algorithm plane (algorithms/): per-algorithm decision mix,
+        # and the host-side concurrency-lease book
+        self.algo_decisions = Counter(
+            "guber_tpu_decisions_total",
+            "Rate-limit decisions served, by algorithm "
+            "(token_bucket | leaky_bucket | gcra | sliding_window | "
+            "concurrency).",
+            ["algorithm"],
+            registry=self.registry,
+        )
+        self.lease_held = Gauge(
+            "guber_tpu_lease_held_slots",
+            "Concurrency-lease slots currently held across all keys "
+            "(host lease book; the device free-slot counters are the "
+            "admission truth).",
+            registry=self.registry,
+        )
+        self.lease_clients = Gauge(
+            "guber_tpu_lease_clients",
+            "Distinct clients holding at least one concurrency lease.",
+            registry=self.registry,
+        )
+        self.lease_keys = Gauge(
+            "guber_tpu_lease_keys",
+            "Distinct keys with at least one live concurrency lease.",
+            registry=self.registry,
+        )
+        self.lease_releases = Counter(
+            "guber_tpu_lease_releases_total",
+            "Lease slots released on behalf of clients, by reason "
+            "(explicit | stream_close | peer_down | expired).",
+            ["reason"],
+            registry=self.registry,
+        )
 
     def watch_engine(self, engine) -> None:
         """Export the engine's cache counters at scrape time: the
@@ -156,6 +234,46 @@ class Metrics:
                     last[label] = cur
 
         self._scrape_hooks.append(refresh)
+
+    def watch_leases(self, book) -> None:
+        """Export the lease book's occupancy at scrape time from one
+        book.stats() read (keys, clients and held move together)."""
+
+        def refresh():
+            keys, clients, held = book.stats()
+            self.lease_keys.set(keys)
+            self.lease_clients.set(clients)
+            self.lease_held.set(held)
+
+        self._scrape_hooks.append(refresh)
+
+    def observe_algorithm(self, algorithm: str, n: int = 1) -> None:
+        self.algo_decisions.labels(algorithm=algorithm).inc(n)
+
+    def observe_lease_release(self, reason: str, n: int) -> None:
+        if n > 0:
+            self.lease_releases.labels(reason=reason).inc(n)
+
+    def watch_qos(self, qos) -> None:
+        """Export the QoS control state at scrape time: queue depth, the
+        adaptive window and the drain EWMAs from one QoSManager read."""
+
+        def refresh():
+            self.qos_queue_depth.set(qos.admission.pending)
+            self.qos_effective_window.set(qos.congestion.effective_window())
+            self.qos_drain_latency_ewma.set(qos.congestion.latency_ewma)
+            self.qos_drain_depth_ewma.set(qos.congestion.depth_ewma)
+
+        self._scrape_hooks.append(refresh)
+
+    def observe_shed(self, reason: str, n: int = 1) -> None:
+        self.qos_shed.labels(reason=reason).inc(n)
+
+    _BREAKER_STATES = {"closed": 0, "half_open": 1, "open": 2}
+
+    def observe_breaker(self, peer: str, state: str) -> None:
+        self.breaker_state.labels(peer=peer).set(
+            self._BREAKER_STATES.get(state, 0))
 
     def observe_snapshot(self, seconds: float, size_bytes: int,
                          ok: bool) -> None:

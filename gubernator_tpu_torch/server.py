@@ -14,16 +14,25 @@ parser refuses), which raises ImportError on a machine without it.
 Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits.  Not
 registered yet, so a caller gets UNIMPLEMENTED: TransferBuckets (key
 migration, with the peer ring) and RegisterGlobals, ApplyGlobalRegistration and
-UpdatePeerGlobals (GLOBAL across processes).  The concurrency-lease
-stream-close hook and the tracing roots wait for the ports of leases and
-tracing.
+UpdatePeerGlobals (GLOBAL across processes).  The tracing roots wait for
+the port of tracing.
+
+The protobuf path carries the caller's gRPC deadline
+(`context.time_remaining()`) into QoS admission and its source address
+into the lease book (`_client_id_from`); an RPC with CONCURRENCY items
+arms the stream-close hook (`_arm_lease_stream_close`), which releases
+the caller's leases when gRPC cancels the RPC before its response is
+delivered.  While the admission queue is saturated the bytes lane is
+bypassed, so every item is admitted or shed on the protobuf path.
 """
 
 from __future__ import annotations
 
+import asyncio
 import time
 from typing import Optional
 
+from gubernator_tpu_torch.api.types import Algorithm
 from gubernator_tpu_torch.core.service import BatchTooLargeError, Instance
 
 # Only RPCs at least this large take the native pipeline RPC lane; smaller
@@ -50,6 +59,56 @@ def _status(name: str):
 def _observe(inst: Instance, method: str, start: float, ok: bool) -> None:
     if inst.metrics is not None:
         inst.metrics.observe_rpc(method, start, ok=ok)
+
+
+def _client_id_from(context) -> Optional[str]:
+    """Caller identity for the lease book: the transport-level source
+    ADDRESS (ports are ephemeral per connection, so identity sticks across
+    reconnects; a forwarding peer's grants attribute to its host)."""
+    peer = getattr(context, "peer", None)
+    if not callable(peer):
+        return None
+    try:
+        p = peer()
+    except Exception:
+        return None
+    if not p:
+        return None
+    if p.startswith(("ipv4:", "ipv6:")):
+        p = p.split(":", 1)[1].rsplit(":", 1)[0]
+    return p or None
+
+
+def _arm_lease_stream_close(inst: Instance, context,
+                            client_id: Optional[str]) -> None:
+    """Release a client's concurrency leases when its RPC is torn down
+    before the response is delivered (gRPC cancel: the stream closed under
+    us): the grants this RPC made never reached the holder, and a vanished
+    holder cannot release them itself.  Off with
+    GUBER_LEASE_RELEASE_ON_CLOSE=0."""
+    if client_id is None or not inst.lease_conf.release_on_stream_close:
+        return
+    add_cb = getattr(context, "add_done_callback", None)
+    if not callable(add_cb):
+        return
+    loop = asyncio.get_running_loop()
+
+    def _on_done(ctx, cid=client_id, loop=loop):
+        cancelled = getattr(ctx, "cancelled", None)
+        try:
+            was = cancelled() if callable(cancelled) else False
+        except Exception:
+            was = False
+        if was and inst.leases.holds(cid):
+            loop.call_soon_threadsafe(
+                lambda: loop.create_task(
+                    inst.release_client_leases(cid,
+                                               reason="stream_close")))
+
+    try:
+        add_cb(_on_done)
+    except Exception:
+        pass
 
 
 async def serve_get_rate_limits(inst: Instance, data: bytes,
@@ -85,9 +144,20 @@ async def serve_get_rate_limits_inner(inst: Instance, data: bytes, context):
         _observe(inst, _GET_RATE_LIMITS, start, False)
         await context.abort(_status("INVALID_ARGUMENT"),
                             "malformed GetRateLimitsReq")
+    deadline = None
+    if inst.qos is not None:
+        remaining = None
+        tr = getattr(context, "time_remaining", None)
+        if callable(tr):
+            remaining = tr()
+        deadline = inst.qos.deadline_from_timeout(remaining)
     reqs = [pb.req_from_pb(r) for r in request.requests]
+    client_id = _client_id_from(context)
+    if any(r.algorithm == Algorithm.CONCURRENCY for r in reqs):
+        _arm_lease_stream_close(inst, context, client_id)
     try:
-        resps = await inst.get_rate_limits(reqs)
+        resps = await inst.get_rate_limits(
+            reqs, deadline=deadline, client_id=client_id)
     except BatchTooLargeError as e:
         _observe(inst, _GET_RATE_LIMITS, start, False)
         await context.abort(_status("OUT_OF_RANGE"), str(e))
@@ -115,7 +185,8 @@ async def serve_peer_rate_limits(inst: Instance, data: bytes,
                             "malformed GetPeerRateLimitsReq")
     try:
         resps = await inst.get_peer_rate_limits(
-            [pb.req_from_pb(r) for r in request.requests])
+            [pb.req_from_pb(r) for r in request.requests],
+            client_id=_client_id_from(context))
     except BatchTooLargeError as e:
         _observe(inst, _GET_PEER_RATE_LIMITS, start, False)
         await context.abort(_status("OUT_OF_RANGE"), str(e))

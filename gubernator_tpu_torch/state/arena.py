@@ -181,6 +181,12 @@ class SlotTable:
         heap = self._expiry_heap
         pool = self._expired_pool
         budget = 32
+        # An entry the current window touched is never reclaimed as
+        # expired: a negative duration makes its estimate lie behind `now`
+        # while its device row stays live for this window.  Its hint is
+        # kept (back in the pool, or re-pushed) for a later window.
+        touched = []
+        out = None
         # flagged-expired keys whose heap node was consumed by stats():
         # the pool keeps expired-preference intact after a lazy advance
         while pool and budget > 0:
@@ -194,9 +200,15 @@ class SlotTable:
                 # clock — still counted expired, just not reclaimable yet
                 pool.append(key)
                 break
-            return self._evict(key, ent)
+            if ent[5] == self._seq:
+                touched.append(key)
+                continue
+            out = self._evict(key, ent)
+            break
+        pool.extend(touched)
+        if out is not None:
+            return out
         repush = []
-        out = None
         for _ in range(budget):
             if not heap or heap[0][0] >= now:
                 break
@@ -204,7 +216,8 @@ class SlotTable:
             ent = self._entries.get(key)
             if ent is None:
                 continue  # dead hint
-            if ent[1] < now:  # truly expired (current expiry, not hint's)
+            # truly expired (current expiry, not hint's) and untouched
+            if ent[1] < now and ent[5] != self._seq:
                 out = self._evict(key, ent)
                 break
             repush.append((ent[1], key))

@@ -76,6 +76,8 @@ def _served(c, jax_side):
         "snapshot_dir": c.snapshot_dir,
         "snapshot_interval_ms": c.snapshot_interval_ms,
         "tiers": dataclasses.asdict(c.tiers),
+        "qos": dataclasses.asdict(c.qos),
+        "leases": dataclasses.asdict(c.leases),
     }
 
 
@@ -102,6 +104,10 @@ OVERRIDES = {
     "GUBER_SNAPSHOT_DIR": "/var/lib/guber", "GUBER_SNAPSHOT_INTERVAL_MS": "50",
     "GUBER_TIER_WARM": "4096", "GUBER_TIER_LAYOUT": "compact32",
     "GUBER_TIER_DEMOTE_BATCH": "16",
+    "GUBER_QOS_MAX_PENDING": "512", "GUBER_QOS_TARGET_DRAIN_MS": "25",
+    "GUBER_QOS_FAIR_SLOTTING": "off", "GUBER_QOS_DEFAULT_DEADLINE_MS": "900",
+    "GUBER_QOS_AIMD_DECREASE": "0.25", "GUBER_LEASE_SWEEP_MS": "250",
+    "GUBER_LEASE_RELEASE_ON_CLOSE": "0",
 }
 
 
@@ -156,10 +162,10 @@ def test_malformed_env_file_raises_in_both(clean_env, tmp_path):
     ("GUBER_ADVERTISE_ADDRESS", "10.0.0.5:81", 6),
     ("GUBER_BATCH_TIMEOUT", "0.25", 6),
     ("GUBER_HEARTBEAT_ENABLED", "0", 6),
-    ("GUBER_QOS_ENABLED", "1", 6),
-    ("GUBER_QOS_MAX_PENDING", "10", 6),
-    ("GUBER_LEASE_SWEEP_MS", "0", 6),
-    ("GUBER_LEASE_MAX_PER_CLIENT", "3", 6),
+    ("GUBER_GLOBAL_TIMEOUT", "0.25", 6),
+    ("GUBER_GLOBAL_BATCH_LIMIT", "100", 6),
+    ("GUBER_FAULTS_SEED", "7", 6),
+    ("GUBER_K8S_POD_IP", "10.0.0.7", 6),
     ("GUBER_GLOBAL_SYNC_WAIT", "0.01", 6),
     ("GUBER_FAULTS", "peer_drop:0.5", 6),
     ("GUBER_HINT_TTL_MS", "1000", 6),
@@ -178,6 +184,23 @@ def test_unported_knob_raises_naming_its_roadmap_item(clean_env, name,
     with pytest.raises(ValueError,
                        match=f"{name}=.*ROADMAP.md Queue 1 item {item}"):
         pconfig.config_from_env()
+
+
+@pytest.mark.parametrize("name,value,section,knob,want", [
+    ("GUBER_QOS_ENABLED", "1", "qos", "enabled", True),
+    ("GUBER_QOS_MAX_PENDING", "10", "qos", "max_pending", 10),
+    ("GUBER_LEASE_SWEEP_MS", "0", "leases", "sweep_interval_ms", 0),
+    ("GUBER_LEASE_MAX_PER_CLIENT", "3", "leases", "max_per_client", 3),
+])
+def test_qos_and_lease_knob_reads_as_the_jax_function(clean_env, name, value,
+                                                      section, knob, want):
+    """The QoS and lease knobs are served now (they raised while their
+    subsystems were unported): the port's config_from_env reads each as
+    the JAX function does."""
+    clean_env.setenv(name, value)
+    got_j, got_p = _both()
+    assert got_p == got_j
+    assert got_p[section][knob] == want
 
 
 @pytest.mark.parametrize("name,value", [

@@ -38,7 +38,14 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.core.batcher",
                   "gubernator_tpu_torch.server",
                   "gubernator_tpu_torch.state.snapshot",
-                  "gubernator_tpu_torch.state.tiers")
+                  "gubernator_tpu_torch.state.tiers",
+                  "gubernator_tpu_torch.algorithms",
+                  "gubernator_tpu_torch.algorithms.leases",
+                  "gubernator_tpu_torch.algorithms.oracles",
+                  "gubernator_tpu_torch.qos",
+                  "gubernator_tpu_torch.qos.admission",
+                  "gubernator_tpu_torch.qos.congestion",
+                  "gubernator_tpu_torch.qos.breaker")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)

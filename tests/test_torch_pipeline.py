@@ -826,3 +826,238 @@ def test_pipeline_keeps_key_order_where_the_jax_pipeline_does_not(
         assert (j_second[0].remaining, j_late.remaining) == (5, 7)
     else:                    # the second chunk went before the first's item
         assert (j_second[0].remaining, j_late.remaining) == (8, 5)
+
+
+def _deferred_scenario(b, fillers, single, job_req, warm):
+    """Drain 0 (`warm`) is held while the singles `fillers + [single]` and
+    then one submit_now job of `job_req` queue up; the congestion window
+    (4 decisions) defers `single` out of drain 1.  Returns the answers to
+    `single` and to the job."""
+    pipe = b.pipeline
+    taken, go = _hold_drains(pipe, (0,))
+
+    async def go_():
+        loop = asyncio.get_running_loop()
+        head = asyncio.ensure_future(b.submit(warm))
+        await loop.run_in_executor(None, taken[0].wait, 30)
+        early = [asyncio.ensure_future(b.submit(r))
+                 for r in fillers + [single]]
+        await _until(lambda: len(pipe._singles) == len(early))
+        job = asyncio.ensure_future(b.submit_now([job_req]))
+        await _until(lambda: len(pipe._jobs) == 1)
+        go[0].set()
+        got = await asyncio.gather(head, *early)
+        return got[-1], (await job)[0]
+
+    try:
+        return asyncio.run(go_())
+    finally:
+        b.close()
+
+
+def test_job_waits_behind_a_deferred_single_where_the_jax_pipeline_does_not(
+        jax_engine):
+    """With QoS the congestion window (min = max = 4) cuts drain 1 to the
+    four fillers and defers the single on key X; a submit_many job on X
+    submitted after it must be answered after it, as the serial engine
+    answers the submission order.  The JAX pipeline stages the job in
+    drain 1, ahead of the deferred single - a fact of the reference,
+    pinned here."""
+    from gubernator_tpu.config import QoSConfig as JQoSConfig
+    from gubernator_tpu.qos import QoSManager as JQoSManager
+    from gubernator_tpu_torch.config import QoSConfig
+    from gubernator_tpu_torch.qos import QoSManager
+    fillers = [_req2(f"f{i}") for i in range(4)]
+    single, job_req, warm = _req2("x"), _req2("x"), _req2("warm")
+    want = _serial([warm] + fillers + [single, job_req])
+    pb = _setup(WindowBatcher(_engine(), BehaviorConfig(), qos=QoSManager(
+        QoSConfig(min_window=4, max_window=4))), depth=1)
+    got = _deferred_scenario(pb, fillers, single, job_req, warm)
+    assert _tuples(got) == _tuples(want[-2:])
+    assert (got[0].remaining, got[1].remaining) == (8, 6)
+    jb = _setup(JBatcher(jax_engine(), JBehaviorConfig(), qos=JQoSManager(
+        JQoSConfig(min_window=4, max_window=4))), depth=1)
+    jb.pipeline.fetch_stride_max = max(jb.pipeline.fetch_stride,
+                                       jb.pipeline.fetch_stride_max)
+    j_single, j_job = _deferred_scenario(
+        jb, _jreqs(fillers), *_jreqs([single, job_req, warm]))
+    # the job went in drain 1, before the single it followed
+    assert (j_single.remaining, j_job.remaining) == (6, 8)
+
+
+# ------------------------------------------------- adaptive stride (QoS)
+# Mirrors tests/test_fetch_chain.py's adaptive-stride tests: the port's
+# congestion controller against the JAX one step for step, the pipeline's
+# stride policy (the GUBER_FETCH_STRIDE floor, the GUBER_FETCH_STRIDE_MAX
+# cap, the deadline bound) on both pipelines, and an idle chain flushing at
+# once.
+
+
+def _controllers(**over):
+    from gubernator_tpu.config import QoSConfig as JQoSConfig
+    from gubernator_tpu.qos.congestion import (
+        CongestionController as JCongestion,
+    )
+    from gubernator_tpu_torch.config import QoSConfig
+    from gubernator_tpu_torch.qos.congestion import CongestionController
+    clock = {"t": 0.0}
+    now = lambda: clock["t"]  # noqa: E731
+    return (CongestionController(QoSConfig(**over), now_fn=now),
+            JCongestion(JQoSConfig(**over), now_fn=now), clock)
+
+
+def _strides(pair):
+    p, j = pair
+    assert (p.effective_stride(), p.stride_increases, p.stride_decreases,
+            p._stride) == (j.effective_stride(), j.stride_increases,
+                           j.stride_decreases, j._stride)
+    return p.effective_stride()
+
+
+def test_adaptive_stride_grows_under_backlog_and_shrinks_idle():
+    p, j, _ = _controllers()
+    both = (p, j)
+    for c in both:
+        c.observe_drain(0.01)           # healthy latency: not congested
+    assert _strides(both) == 1
+    for i in range(3):
+        for c in both:
+            c.observe_chain(backlog_windows=2.0, cap=8)
+        assert _strides(both) == 2 + i  # unit additive growth
+    for _ in range(20):
+        for c in both:
+            c.observe_chain(backlog_windows=2.0, cap=8)
+    assert _strides(both) == 8          # capped at the operator max
+    shrinks = p.stride_decreases
+    while _strides(both) > 1:
+        for c in both:
+            c.observe_chain(backlog_windows=0.0, cap=8)
+    assert p.stride_decreases > shrinks
+    for c in both:
+        c.observe_chain(backlog_windows=0.0, cap=8)
+    assert _strides(both) == 1          # never under 1
+
+
+def test_adaptive_stride_backs_off_under_congestion():
+    p, j, clock = _controllers(target_drain_latency=0.05)
+    both = (p, j)
+    for c in both:
+        c.observe_drain(0.01)
+    for _ in range(4):
+        for c in both:
+            c.observe_chain(backlog_windows=3.0, cap=8)
+    grown = _strides(both)
+    assert grown == 5
+    clock["t"] += 1.0
+    for c in both:
+        c.observe_drain(10.0)           # latency past target: congested
+        c.observe_chain(backlog_windows=3.0, cap=8)
+    assert p.congested and j.congested
+    assert _strides(both) < grown
+
+
+def test_stride_bound_respects_deadline():
+    p, j, _ = _controllers()
+    for c in (p, j):
+        assert c.stride_bound(0.1) == 1 << 30   # unobserved stages
+        assert c.stride_bound(0.0) == 1 << 30   # no deadline configured
+        c.observe_stages(host=0.001, device=0.01, fetch=0.02)
+    assert [p.stride_bound(b) for b in (0.1, 0.015)] == \
+        [j.stride_bound(b) for b in (0.1, 0.015)] == [8, 1]
+
+
+def test_pipeline_stride_policy_composes_floor_cap_and_bound(jax_engine):
+    """_stride_current = clamp(max(floor, AIMD stride), cap, deadline
+    bound) on both pipelines; without a QoS manager the floor alone,
+    capped."""
+    import types
+    bs = [_batcher(_engine()), _jbatcher(jax_engine())]
+    try:
+        pipes = [b.pipeline for b in bs]
+        p, j, _ = _controllers()
+        for pipe, cc in zip(pipes, (p, j)):
+            pipe.fetch_stride, pipe.fetch_stride_max = 2, 6
+            assert pipe._stride_current() == 2
+            pipe.qos = types.SimpleNamespace(
+                congestion=cc,
+                conf=types.SimpleNamespace(default_deadline=0.0))
+            cc.observe_drain(0.01)
+        got = lambda: [q._stride_current() for q in pipes]  # noqa: E731
+        assert got() == [2, 2]          # the floor rules while AIMD is 1
+        for _ in range(10):
+            for cc in (p, j):
+                cc.observe_chain(backlog_windows=2.0, cap=8)
+        assert got() == [6, 6]          # AIMD grew; the operator cap
+        for pipe, cc in zip(pipes, (p, j)):
+            cc.observe_stages(host=0.001, device=0.01, fetch=0.02)
+            pipe.qos.conf.default_deadline = 0.05
+        assert got() == [3, 3]          # the bound: (0.05 - 0.02) / 0.01
+    finally:
+        for b in bs:
+            b.pipeline.qos = None
+            b.close()
+
+
+def test_single_drain_flushes_immediately_at_idle():
+    """Light load degenerates to stride 1: an isolated drain with nothing
+    queued behind it flushes its chain of one without waiting out the
+    stride or the linger timer."""
+    b = _batcher(_engine(), stride=8, linger=30.0)
+    pipe = b.pipeline
+    reqs = [RateLimitReq(name="id", unique_key=f"i{i}", hits=1, limit=10,
+                         duration=60_000) for i in range(6)]
+
+    async def run():
+        t0 = time.monotonic()
+        got = await asyncio.wait_for(b.submit_now(reqs), timeout=10)
+        return got, time.monotonic() - t0
+
+    try:
+        assert pipe._stride_current() == 8
+        got, wall = asyncio.run(run())
+    finally:
+        b.close()
+    for g in got:
+        assert g.error == "" and g.remaining == 9
+    assert wall < 5.0
+    assert pipe.chain_flushes >= 1 and pipe.fetch_elided == 0
+
+
+def test_qos_pipeline_grows_the_stride_under_backlog_and_answers_alike():
+    """With a QoS manager the pipeline's chain follows the controller:
+    under a held backlog the stride grows past the GUBER_FETCH_STRIDE
+    floor (up to GUBER_FETCH_STRIDE_MAX), the depth follows the window,
+    and every answer equals the serial engine's."""
+    from gubernator_tpu_torch.config import QoSConfig
+    from gubernator_tpu_torch.qos import QoSManager
+    rng = np.random.default_rng(11)
+    reqs = [RateLimitReq(name=f"t{int(rng.integers(0, 3))}",
+                         unique_key=f"k{int(rng.integers(0, 40))}",
+                         hits=int(rng.integers(0, 3)), limit=30,
+                         duration=60_000) for _ in range(600)]
+    mgr = QoSManager(QoSConfig())
+    b = WindowBatcher(_engine(), BehaviorConfig(), qos=mgr)
+    _setup(b, depth=3)
+    pipe = b.pipeline
+    pipe.fetch_stride_max = 4
+    mgr.congestion.observe_drain(0.001)
+    for _ in range(3):
+        mgr.congestion.observe_chain(backlog_windows=2.0, cap=4)
+    assert pipe._stride_current() == 4
+
+    async def run():
+        return await asyncio.gather(*(b.submit(r) for r in reqs))
+
+    try:
+        got = asyncio.run(run())
+    finally:
+        b.close()
+    assert pipe.overlap_snapshot()["fetch_stride_target"] >= 1
+    assert mgr.admission.pending == 0
+    # fair slotting reorders lanes across tenants only: each key keeps
+    # its submission order, so every key answers as in the serial engine
+    want = _serial(reqs)
+    per_key = lambda rs: {  # noqa: E731
+        k: _tuples([g for q, g in zip(reqs, rs) if q.hash_key() == k])
+        for k in {q.hash_key() for q in reqs}}
+    assert per_key(got) == per_key(want)

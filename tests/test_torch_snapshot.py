@@ -630,8 +630,9 @@ def test_instance_restore_then_serve_equals_twin():
 
 
 def test_instance_drops_lease_rows_with_a_warning(caplog):
-    """The port has no lease registry yet: restored lease rows are logged
-    and dropped; the arena restores."""
+    """A snapshot's lease rows restore into the Instance's lease book (the
+    JAX Instance's restore, service.py:822-823), with no warning that they
+    were dropped; the arena restores beside them."""
     eng = _mk_engine(num_shards=1)
     eng.process([RateLimitReq(name="l", unique_key="k", hits=1, limit=5,
                               duration=60_000)], now=T0)
@@ -643,7 +644,9 @@ def test_instance_drops_lease_rows_with_a_warning(caplog):
         with caplog.at_level(logging.WARNING, "gubernator.service"):
             n = asyncio.run(inst.restore_snapshot_bytes(blob))
         assert n == 1
-        assert any("lease" in r.getMessage() for r in caplog.records)
+        assert not any("lease" in r.getMessage() for r in caplog.records)
+        assert inst.leases.export_rows() == [("l_k", "client-a", 1,
+                                              T0 + 60_000)]
         out = inst.engine.process(
             [RateLimitReq(name="l", unique_key="k", hits=1, limit=5,
                           duration=60_000)], now=T0 + 2)
