@@ -41,8 +41,12 @@ Phases (one line each; any mismatch raises and exits non-zero):
      one window, config writes by negative index, pads below 0 and at G
      and past it in every lane kind), through the wrapper (the cluster
      size the kernel picks) and in clusters of 8 and 16 CTAs: the
-     read block, every gstate and gcfg plane, and the scratch back at 0.
-     5b: drain_compact over 8 shards against its plain version, at the
+     read block, every gstate and gcfg plane, and the scratch back at 0;
+     then three such windows carrying 256 upsert lanes too (an owner's
+     broadcast on a replica: rows also written or reset by config lanes,
+     rows the lanes read, negative indices, pads), through global_window
+     at each cluster size and through global_stage, the torch reads and
+     global_apply, each against its plain version.  5b: drain_compact over 8 shards against its plain version, at the
      chosen P and at P = 1.  5c: a [8, 2^21] arena and a 4096-slot GLOBAL
      arena; K = 8 windows x 8 shards x 1024 lanes plus one GLOBAL window
      of 8 x 256 lanes (half on 16 hot keys, at most 256 keys, 70% token /
@@ -64,7 +68,9 @@ Phases (one line each; any mismatch raises and exits non-zero):
      lanes over 256 keys, checked against its plain version and timed,
      and its phases read from the kernel's debug stamps; the time at 2^20
      must stay within twice the time at 4096 (nothing in the window reads
-     or writes all G rows);
+     or writes all G rows); beside 5c's window alone, the same window
+     with 256 upsert lanes added, checked and timed through global_window
+     and global_stage;
   6. traffic analytics over 8 shards.  6a: the stats drain
      (drain_compact_stats, window_drain.cu) and the finisher (stats_finish,
      stats_finish.cu) bit for bit against their plain versions on edge
@@ -200,21 +206,56 @@ Phases (one line each; any mismatch raises and exits non-zero):
      items (more at once would be shed; 11b drives the sheds), and phase
      9 checks that the bytes lane never fills the queue (a saturated
      queue sends RPCs to the protobuf path, which the card's machine
-     lacks).
+     lacks);
+ 12. the peer ring: three Instances at phase 8's geometry on the one card
+     (8 x 2^21 slots, G = 4096, B = 1024, QoS at the JAX defaults), each
+     advertising node<i>:81, joined by Instance.set_peers over an
+     in-process transport defined here (RingLoopback: GetPeerRateLimits
+     bytes into the owner's serve_peer_rate_limits, or, where protobuf
+     cannot be imported for a body the C parser refuses, this script's
+     codec and Instance.get_peer_rate_limits; UpdatePeerGlobals into
+     Instance.update_peer_globals); everything above the transport runs
+     as deployed: the ring, the C classification and splicing, the peer
+     clients' batching windows and breakers, the GLOBAL managers.
+     Traffic is phase 8's: Zipf (a = 1.1) keys over 2^20 in 100-item RPCs
+     of compact token and leaky, round-robin to the nodes.  12a, the
+     per-item path (Instance.get_rate_limits): 60 RPCs one at a time on a
+     pinned clock, a 20k-decision burst from 64 callers, saturation on
+     the wall clock (again under the profiler).  12b, the raw-bytes lane
+     (serve_get_rate_limits on serialized RPCs; mixed RPCs forward their
+     remote items as bytes): the same.  12c: 2k token and leaky GLOBAL
+     items over 256 keys from every node; the GLOBAL managers quiesced,
+     then every node flushes twice (the hits, then the broadcasts of what
+     they changed); a hits = 0 probe of every key on every node.  After
+     the counts are read: the sequential parts against a serial
+     standalone engine on the card replaying the same requests at the
+     same clock; every forwarded answer's owner against the ring; for
+     every key of the bursts, limit - remaining on its owner equals the
+     hits answered under the limit; no key has a row in a non-owner's
+     router (export_keys); the probes equal on every node, every
+     replica's GLOBAL row equal to its owner's (a key no item hit stays
+     unwritten on its owner: a zero sum writes no row) and the owner's to
+     the serial engine's; drain_compact launched on every node and
+     global_window ran owner windows, replica reads and upsert windows;
+     then one line of figures (decisions/s of 12a and 12b at saturation,
+     the share of items forwarded, the forward round trip's p50 and p99,
+     broadcasts and upserts, the card's idle share, the phase's wall).
 
-Eight main paths are counted, each from 0: the one-shard path (phases 3b
+Nine main paths are counted, each from 0: the one-shard path (phases 3b
 and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b), the per-op path (phase 7b), the pipelined serving path
 (phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes),
-the state lifecycle (phase 10) and the lease and QoS path (phase 11,
-which must launch drain_compact); each must launch its kernels and never
+the state lifecycle (phase 10), the lease and QoS path (phase 11,
+which must launch drain_compact) and the peer ring (phase 12, which must
+launch drain_compact and global_window and nothing else); each must
+launch its kernels and never
 run a plain version, the per-op path must launch no kernel but
 window_math, global_stage and global_apply, the raw-RPC lane none but
 drain_compact, once a drain, and the lifecycle none but drain_compact and
 global_window.  The kernel table's launch counts are drain_compact's (the
-first path's, the fifth's, the sixth's, the seventh's and the eighth's)
-and window_full's on the first and the eighth, global_window's on the
-second, the seventh and the eighth, drain_compact_stats' and
+first path's, the fifth's, the sixth's, the seventh's, the eighth's and
+the ninth's) and window_full's on the first and the eighth, global_window's
+on the second, the seventh, the eighth and the ninth, drain_compact_stats' and
 stats_finish's on the third, the fifth and the eighth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
 a wrapper made only to check or time it against its plain version come
@@ -1184,6 +1225,123 @@ def phase_global_vs_plain():
     return err
 
 
+def edge_upserts(rng, G, gbatch, upd, ku):
+    """Upsert lanes of [ku] (an owner's broadcast on this replica) on
+    distinct rows: a third on rows the config lanes write or reset (the
+    config lane's fields and the reset's expire = 0 must win there, as in
+    the JAX engine's _apply_control), a third on rows the lanes read (the
+    reads see the upserted rows), the rest elsewhere, some by their
+    negative index; pads below -G and at G and past it; token and leaky
+    values of a broadcast, int64 extremes among them."""
+    def rows_of(idx):
+        idx = np.asarray(idx).astype(np.int64)
+        idx = np.where(idx < 0, idx + G, idx)
+        return np.unique(idx[(idx >= 0) & (idx < G)])
+    named = np.union1d(rows_of(upd[0]), rows_of(upd[4]))
+    read = np.setdiff1d(rows_of(np.asarray(gbatch.slot).reshape(-1)), named)
+    rest = np.setdiff1d(np.arange(G), np.union1d(named, read))
+    k = ku - 3
+    rows = np.concatenate([rng.permutation(named)[:k // 3],
+                           rng.permutation(read)[:k // 3]])
+    rows = np.concatenate([rows, rng.choice(rest, k - rows.size,
+                                            replace=False)])
+    pslot = np.full(ku, G, np.int32)
+    pslot[:k] = np.where(rng.random(k) < 0.3, rows - G, rows)
+    pslot[k:] = (-G - 1, G, G + 5)
+    ends = np.asarray([I64_MAX, I64_MIN, 2**62, -1], np.int64)
+
+    def vals(lo, hi):
+        v = rng.integers(lo, hi, ku).astype(np.int64)
+        m = rng.random(ku) < 0.05
+        v[m] = rng.choice(ends, int(m.sum()))
+        return v
+    return (pslot, vals(0, 300), vals(1, 120_000), vals(-3, 300),
+            T0 + vals(-60_000, 60_000), T0 + vals(-60_000, 120_000),
+            rng.choice(np.asarray([0, 1, 0, 1, 4], np.int32), ku))
+
+
+def phase_upserts_vs_plain():
+    """Phase 5a, the upsert lanes: global_window (through the wrapper and
+    in clusters of 8 and 16 CTAs) and global_stage, the torch reads and
+    global_apply, each against its plain version, on edge windows at
+    G = 4096, 8 x 256 lanes and 256 config lanes that carry 256 upsert
+    lanes (rows also written or reset by config lanes, rows the lanes
+    read, negative indices, pads): read block, gstate, gcfg, scratch."""
+    rng = np.random.default_rng(5151)
+    n = SHARDS * BG_FULL
+    errs = []
+    cases = [((0, 1), False), (range(7), False), (range(7), True)]
+    for i, (algos, wrap) in enumerate(cases):
+        st, cfg, bt, _ = global_edge_inputs(rng, G_FULL, n, algos, wrap)
+        gbatch, gacc, upd = edge_control(rng, G_FULL, bt, KG_FULL, wrap)
+        ups = edge_upserts(rng, G_FULL, gbatch, upd, KG_FULL)
+        ctl = gk.make_control(gbatch, gacc, upd, DEV, ups)
+        for ctas in (None, 8, 16):
+            errs += global_window_vs_plain(
+                st, cfg, ctl, T0 + i, f"upsert case {i} ctas {ctas}",
+                ctas)[0]
+        errs += per_op_global_vs_plain(st, cfg, ctl, T0 + i,
+                                       f"per-op upsert case {i}")
+    err = max_abs_err(errs)
+    log(f"phase 5a upsert lanes: {len(cases)} windows of {n} lanes, "
+        f"{KG_FULL} config lanes and {KG_FULL} upsert lanes over "
+        f"G={G_FULL} (upserts on rows config lanes write or reset, on rows "
+        f"the lanes read, by negative index, pads), global_window through "
+        f"the wrapper and in clusters of 8 and 16 CTAs, and global_stage + "
+        f"reads + global_apply: read block, gstate, gcfg bit-exact, scratch "
+        f"back at 0 (max_abs_err {err})")
+    return err
+
+
+def phase_upsert_window_timing(w):
+    """The full-size GLOBAL window of phase 5c with KG_FULL upsert lanes
+    added (the control's new width), outside the counted paths: checked
+    once against the plain version, then global_window and global_stage
+    timed (CUDA events, 100 launches; profiler device time)."""
+    rng = np.random.default_rng(5152)
+    gbatch, gacc, upd = w["gbatch"], w["gacc"], w["upd"]
+    ups = edge_upserts(rng, G_FULL, gbatch, upd, KG_FULL)
+    ctl = gk.make_control(gbatch, gacc, upd, DEV, ups)
+    now = int(w["nows"][0])
+    errs, _ = global_window_vs_plain(w["gstate0"], w["gcfg0"], ctl, now,
+                                     "full-size window with upserts")
+    st, cfg = clone(w["gstate0"]), clone(w["gcfg0"])
+    scratch = torch.zeros(G_FULL, dtype=torch.int64, device=DEV)
+
+    def gone():
+        return gk.global_window(st, cfg, ctl, scratch, now)
+
+    def stage():
+        gk.global_stage(st, cfg, ctl, scratch)
+        scratch.zero_()
+
+    gone()
+    events = cuda_ms(gone, 100)
+    device = device_ms(gone, 100, "global_window_kernel")
+    stage()
+    stage_events = cuda_ms(stage, 100)
+    # global_stage with upserts is two launches: the upserts', the stage's
+    each = device_ms_each(stage, 100, ("global_upsert_kernel",
+                                       "global_stage_kernel"))
+    stage_device = (None if None in each.values()
+                    else sum(each.values()))
+    bound, by, _ = global_window_bound_ms(gbatch, gacc, upd, G_FULL,
+                                          ku=KG_FULL)
+    stage_bound = per_op_global_bounds(gbatch, gacc, upd, G_FULL,
+                                       ku=KG_FULL)[0][0]
+    fmt = lambda x: "not measured" if x is None else f"{x:.5f} ms"  # noqa: E731
+    log(f"phase 5c upsert window (outside the counted paths): the "
+        f"full-size window with {KG_FULL} upsert lanes bit-exact vs plain; "
+        f"global_window {fmt(device)} device, {events:.5f} ms/call; "
+        f"global_stage {fmt(stage_device)} device (its upsert launch and "
+        f"its stage launch: {each}), {stage_events:.5f} ms/call (with a "
+        f"scratch zero); bounds: global_window {bound:.6f} ms ({by}), "
+        f"global_stage {stage_bound:.6f} ms (bytes)")
+    return dict(err=max_abs_err(errs), ms=device, events_ms=events,
+                stage_ms=stage_device, stage_events_ms=stage_events,
+                bound_ms=bound, bound_by=by, stage_bound_ms=stage_bound)
+
+
 def phase_sharded_drain_vs_plain():
     """Phase 5b: drain_compact over S = 8 shards against its plain version:
     eight shards' arenas and windows in one launch, shard 5 all padding."""
@@ -1270,20 +1428,22 @@ def window_counts(gbatch, gacc, upd, G):
             int(contrib.sum()), np.unique(slot[contrib]).size)
 
 
-def global_window_bound_ms(gbatch, gacc, upd, G):
+def global_window_bound_ms(gbatch, gacc, upd, G, ku=0):
     """The least time of one GLOBAL window, from what this window needs:
     its control read once (56 B a lane, 40 B a config lane); each config
     write (20 B) and reset (8 B) that lands written once; each lane's row
     gathered (44 B) and its answer written (32 B); each contributing
     lane's atomic on its slot's sum (8 B); each touched row's state and
     config read (64 B) and state written (44 B), its sum exchanged (8 B);
-    or the ladder's ~200 32-bit operations and two int64 divisions per
-    lane and per touched row at the scalar rate; whichever is larger.
-    Returns (ms, bound_by, the old G-row formula's ms)."""
+    each of ku upsert lanes read once (56 B) and its row's state (44 B)
+    and config (20 B) written once; or the ladder's ~200 32-bit
+    operations and two int64 divisions per lane and per touched row at
+    the scalar rate; whichever is larger.  Returns (ms, bound_by, the old
+    G-row formula's ms)."""
     n, kg, writes, resets, contrib, touched = window_counts(gbatch, gacc,
                                                             upd, G)
     nbytes = (n * 56 + kg * 40 + writes * 20 + resets * 8 + n * (44 + 32)
-              + contrib * 8 + touched * (64 + 44 + 8))
+              + contrib * 8 + touched * (64 + 44 + 8) + ku * (56 + 44 + 20))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ((n + touched) * (200 + TRANSITION_DIVS * FDIV_OPS)
              / INT32_OPS_PER_S * 1e3)
@@ -2417,20 +2577,21 @@ def per_op_bounds_and_plain(script):
                 math_events=math_events, pair_events=pair_events)
 
 
-def per_op_global_bounds(gbatch, gacc, upd, G):
+def per_op_global_bounds(gbatch, gacc, upd, G, ku=0):
     """The least times of global_stage and global_apply on one window
     (global_window_bound_ms's accounting, split): global_stage reads each
-    lane's slot and gacc (16 B) and each config lane (40 B), writes each
-    config write (20 B) and reset (8 B) that lands and each contributing
-    lane's atomic (8 B); the lanes' other 40 B are the torch reads' to
-    read.  global_apply reads each lane's slot and gacc (16 B) and each
+    lane's slot and gacc (16 B), each config lane (40 B) and each of ku
+    upsert lanes (56 B), writes each config write (20 B) and reset (8 B)
+    that lands, each upserted row's state and config (64 B) and each
+    contributing lane's atomic (8 B); the lanes' other 40 B are the torch
+    reads' to read.  global_apply reads each lane's slot and gacc (16 B) and each
     touched row's state, config and sum (72 B) and writes its state and
     sum (52 B), with the ladder's operations per touched row.  Each
     (ms, bound_by)."""
     n, kg, writes, resets, contrib, touched = window_counts(gbatch, gacc,
                                                             upd, G)
-    stage = (n * 16 + kg * 40 + writes * 20 + resets * 8
-             + contrib * 8) / HBM_BYTES_PER_S * 1e3
+    stage = (n * 16 + kg * 40 + writes * 20 + resets * 8 + contrib * 8
+             + ku * (56 + 64)) / HBM_BYTES_PER_S * 1e3
     a_bytes = (n * 16 + touched * (72 + 52)) / HBM_BYTES_PER_S * 1e3
     a_ops = (touched * (200 + TRANSITION_DIVS * FDIV_OPS) / INT32_OPS_PER_S
              * 1e3)
@@ -4394,6 +4555,547 @@ def report_qos_leases(r, chk, counts, smi):
         f"{smi}")
     log("qos figures: " + json.dumps(fig))
 
+# ------------------------------------------------ phase 12: the peer ring
+
+RING_NODES = 3
+RING_SEQ_RPCS = 60          # RPCs of the sequential parts (one at a time)
+RING_BURST_A = 20_000       # decisions of 12a's concurrent part
+RING_BURST_B = 50_000       # decisions of 12b's concurrent part
+RING_GLOBAL = 2_000         # GLOBAL items of 12c
+RING_GLOBAL_KEYS = 256
+RING_GLOBAL_RPC = 50        # GLOBAL items a get_rate_limits call
+RING_GLOBAL_LIMIT = 100_000  # no GLOBAL key runs out: aggregation is exact
+
+
+class RingLoopback:
+    """The in-process transport of one PeerClient (net/peers.py's seam),
+    from node `caller` to the Instance `owner`: GetPeerRateLimits bytes go
+    to the owner's server.serve_peer_rate_limits (its bytes lane, or its
+    protobuf path for what the C parser refuses, such as a GLOBAL item);
+    on a machine where protobuf cannot be imported, the loopback does
+    what that path does: this script's proto3 codec decodes the request
+    and Instance.get_peer_rate_limits(reqs, client_id=caller) answers.
+    UpdatePeerGlobals goes to Instance.update_peer_globals.  `stats`
+    (shared by the ring) counts the calls, the items and each call's
+    round trip."""
+
+    errors = ()
+
+    def __init__(self, owner, caller, stats):
+        self.owner, self.caller, self.stats = owner, caller, stats
+
+    async def _peer_bytes(self, data):
+        from gubernator_tpu_torch.server import serve_peer_rate_limits
+        t0 = time.perf_counter()
+        try:
+            out = await serve_peer_rate_limits(self.owner, data,
+                                               WireContext())
+        except ImportError:
+            reqs = [RateLimitReq(**d) for d in decode_list(data, REQ_FIELDS)]
+            resps = await self.owner.get_peer_rate_limits(
+                reqs, client_id=self.caller)
+            out = encode_list([vars(r) for r in resps], RESP_FIELDS)
+            self.stats["codec_calls"] += 1
+        self.stats["rtt_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    async def get_peer_rate_limits(self, reqs, timeout, metadata=None):
+        from gubernator_tpu_torch.api.types import RateLimitResp
+        self.stats["item_calls"] += 1
+        self.stats["items"] += len(reqs)
+        out = await self._peer_bytes(encode_list([vars(r) for r in reqs],
+                                                 REQ_FIELDS))
+        return [RateLimitResp(**d) for d in decode_list(out, RESP_FIELDS)]
+
+    async def get_peer_rate_limits_raw(self, data, timeout):
+        self.stats["raw_calls"] += 1
+        return await self._peer_bytes(data)
+
+    async def update_peer_globals(self, globals_, timeout):
+        self.stats["broadcasts"] += 1
+        self.stats["upserts"] += len(globals_)
+        await self.owner.update_peer_globals(globals_)
+
+    async def health_check(self, timeout):
+        return await self.owner.health_check()
+
+    async def close(self):
+        pass
+
+
+class RingCounts:
+    """Per-node launch counts of phase 12, on top of the wrappers' own:
+    drain_compact launches by arena, and each node's GLOBAL windows by
+    what their host control carries: owner lanes (hits summed), replica
+    reads (hits kept out, accumulate=False), upsert lanes.  remove() puts
+    the wrapper and the engines' methods back."""
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+        self.by_ptr = {n.engine.state.limit.data_ptr(): i
+                       for i, n in enumerate(nodes)}
+        self.drains = [0] * len(nodes)
+        self.glob = [dict(owner=0, replica=0, upsert=0) for _ in nodes]
+        self.orig = dk.drain_compact
+
+        def drain(state, *a, **kw):
+            i = self.by_ptr.get(state.limit.data_ptr())
+            if i is not None:
+                self.drains[i] += 1
+            return self.orig(state, *a, **kw)
+        dk.drain_compact = drain
+        for i, n in enumerate(nodes):
+            n.engine._global_window = self._wrap(i, n.engine._global_window)
+
+    def _wrap(self, i, fn):
+        def window(gbatch, gacc, upd, now, ups=None):
+            slot = np.asarray(gbatch.slot).reshape(-1)
+            hits = np.asarray(gbatch.hits).reshape(-1)
+            acc = np.asarray(gacc).reshape(-1)
+            live = slot >= 0
+            g = self.glob[i]
+            g["owner"] += int(bool((live & (acc != 0)).any()))
+            g["replica"] += int(bool((live & (acc == 0) & (hits != 0)).any()))
+            g["upsert"] += int(ups is not None)
+            return fn(gbatch, gacc, upd, now, ups)
+        return window
+
+    def remove(self):
+        dk.drain_compact = self.orig
+        for n in self.nodes:
+            del n.engine._global_window
+
+
+def ring_nodes():
+    """Phase 12's three Instances at phase 8's geometry (8 x 2^21 slots,
+    G = 4096, B = 1024, the router, QoS at the JAX defaults), each
+    advertising node<i>:81 and reaching the others through RingLoopback,
+    warmed before the counts start.  Returns (nodes, addresses, stats)."""
+    addrs = [f"node{i}:81" for i in range(RING_NODES)]
+    stats = dict(item_calls=0, raw_calls=0, items=0, codec_calls=0,
+                 broadcasts=0, upserts=0, rtt_ms=[])
+    nodes = []
+    for addr in addrs:
+        nodes.append(Instance(
+            engine_config=serving_engine_config(), advertise_address=addr,
+            peer_transport=(lambda host, me=addr: RingLoopback(
+                nodes[addrs.index(host)], me, stats))))
+    for n in nodes:
+        check(n.engine.native is not None and n.batcher.pipeline is not None
+              and n.qos is not None, "a ring node lacks the router, the "
+              "pipeline or QoS")
+        n.engine.warmup()
+    torch.cuda.synchronize()
+    return nodes, addrs, stats
+
+
+async def ring_join(nodes, addrs):
+    from gubernator_tpu_torch.config import PeerInfo
+    for n, me in zip(nodes, addrs):
+        await n.set_peers([PeerInfo(address=a, is_owner=(a == me))
+                           for a in addrs])
+        check(n.batcher.pipeline.rpc_enabled and len(n.peer_list()) == 3,
+              "set_peers left the raw-RPC lane closed or the ring short")
+
+
+async def ring_quiesce(nodes):
+    """Wait until no GLOBAL manager holds a queued hit or update or runs a
+    sender, so nothing stale is in flight; then every node flushes (its
+    hits to the owners, its queued broadcasts) and every node flushes
+    again (the broadcasts of what the hits changed)."""
+    for _ in range(200):
+        busy = []
+        for n in nodes:
+            gm = n.global_mgr
+            tasks = list(gm._tasks) + [
+                t for t in (getattr(gm, "_hits_waiter_task", None),
+                            getattr(gm, "_bcast_waiter_task", None))
+                if t is not None and not t.done()]
+            busy += [t for t in tasks if not t.done()]
+        if not busy and not any(n.global_mgr._hits or n.global_mgr._updates
+                                for n in nodes):
+            break
+        if busy:
+            await asyncio.gather(*busy, return_exceptions=True)
+        else:
+            await asyncio.sleep(0.002)
+    for _ in range(2):
+        for n in nodes:
+            await n.global_mgr.flush()
+
+
+def ring_owner(nodes, key):
+    return nodes[0].get_peer(key).host
+
+
+def answer_fields(r):
+    if isinstance(r, dict):
+        return (int(r["status"]), r["limit"], r["remaining"],
+                r["reset_time"], r["error"])
+    return (int(r.status), r.limit, r.remaining, r.reset_time, r.error)
+
+
+def check_owner_metadata(nodes, addrs, node_of, rpcs, answers, what):
+    """Every answer forwarded to another node names that node, the key's
+    ring owner, in metadata['owner']; an answer decided where it arrived
+    names none.  Returns the items forwarded."""
+    fwd = 0
+    for i, (rpc, outs) in enumerate(zip(rpcs, answers)):
+        me = addrs[node_of(i)]
+        for r, a in zip(rpc, outs):
+            meta = a["metadata"] if isinstance(a, dict) else a.metadata
+            owner = ring_owner(nodes, r.hash_key())
+            if owner == me:
+                check("owner" not in (meta or {}),
+                      f"{what}: a local answer names an owner: {meta}")
+            else:
+                fwd += 1
+                check((meta or {}).get("owner") == owner,
+                      f"{what}: {r.hash_key()} answered with owner "
+                      f"{(meta or {}).get('owner')}, ring owner {owner}")
+    return fwd
+
+
+async def ring_probe_owners(nodes, reqs_by_key):
+    """Each key's state on its owner: a hits=0 request through the
+    owner's peer plane (its authoritative relay), in chunks of 1000."""
+    by_owner = {}
+    for key, r in reqs_by_key.items():
+        by_owner.setdefault(ring_owner(nodes, key), []).append(r)
+    out = {}
+    hosts = [n.advertise_address for n in nodes]
+    for host, reqs in by_owner.items():
+        inst = nodes[hosts.index(host)]
+        for base in range(0, len(reqs), 1000):
+            chunk = [RateLimitReq(name=r.name, unique_key=r.unique_key,
+                                  hits=0, limit=r.limit, duration=r.duration,
+                                  algorithm=r.algorithm)
+                     for r in reqs[base:base + 1000]]
+            for r, a in zip(chunk, await inst.get_peer_rate_limits(chunk)):
+                out[r.hash_key()] = a
+    return out
+
+
+def check_admitted(rpcs, answers, probes, what):
+    """For every key, limit - remaining on its owner = the hits of its
+    requests answered under the limit (a pinned clock: nothing leaks or
+    expires).  Returns the keys checked."""
+    admitted, req_of = {}, {}
+    for rpc, outs in zip(rpcs, answers):
+        for r, a in zip(rpc, outs):
+            status = a["status"] if isinstance(a, dict) else int(a.status)
+            k = r.hash_key()
+            req_of[k] = r
+            admitted[k] = admitted.get(k, 0) + (r.hits if status == 0 else 0)
+    for k, h in admitted.items():
+        p = probes[k]
+        check(p.error == "" and p.limit - p.remaining == h,
+              f"{what}: {k} on its owner: limit {p.limit} - remaining "
+              f"{p.remaining} != the {h} admitted hits")
+    return len(admitted)
+
+
+def ring_global_calls(rng):
+    """RING_GLOBAL token and leaky GLOBAL items over RING_GLOBAL_KEYS keys
+    (Zipf), RING_GLOBAL_RPC a call."""
+    idx = (rng.zipf(1.1, RING_GLOBAL) - 1) % RING_GLOBAL_KEYS
+    hits = rng.choice([0, 1, 1, 2], RING_GLOBAL)
+    reqs = [RateLimitReq(name="gring", unique_key=f"g{int(i)}", hits=int(h),
+                         limit=RING_GLOBAL_LIMIT, duration=600_000,
+                         algorithm=int(i) % 2, behavior=Behavior.GLOBAL)
+            for i, h in zip(idx, hits)]
+    return [reqs[i:i + RING_GLOBAL_RPC]
+            for i in range(0, len(reqs), RING_GLOBAL_RPC)]
+
+
+def phase_ring():
+    """Phase 12, the counted part: three Instances at phase 8's geometry on
+    the one card, joined by set_peers over RingLoopback.  12a: the
+    per-item path (Instance.get_rate_limits) with 100-item RPCs of
+    compact token and leaky, Zipf keys over 2^20, round-robin to the
+    nodes: RING_SEQ_RPCS one at a time on a pinned clock, then a
+    RING_BURST_A-decision burst from 64 callers, then saturation on the
+    wall clock (unprofiled and profiled).  12b: the same through
+    serve_get_rate_limits on serialized RPCs (the raw-bytes lane, mixed
+    RPCs forwarding their remote items as bytes).  12c: RING_GLOBAL
+    GLOBAL items over RING_GLOBAL_KEYS keys from every node, the GLOBAL
+    managers quiesced and flushed, then a hits=0 probe of every key on
+    every node.  Counts start after the nodes are built and warmed."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1212)
+    nodes, addrs, stats = ring_nodes()
+    seq_a = serving_rpcs(rng, RING_SEQ_RPCS * SERVE_RPC, "ra",
+                         compact_only=True)
+    burst_a = serving_rpcs(rng, RING_BURST_A, "rA", compact_only=True)
+    sat_a = serving_rpcs(rng, 512 * SERVE_RPC, "rS", compact_only=True)
+
+    def ring_wire(prefix, n):
+        def request(idx, _prefix, hits, compact_only=True):
+            return wire_request(idx, prefix, hits)
+        rpcs = serving_rpcs(rng, n, prefix, request=request)
+        return rpcs, [encode_list([vars(r) for r in rpc], REQ_FIELDS)
+                      for rpc in rpcs]
+    seq_b = ring_wire("rb", RING_SEQ_RPCS * SERVE_RPC)
+    burst_b = ring_wire("rB", RING_BURST_B)
+    sat_b = ring_wire("rT", 512 * SERVE_RPC)
+    glob = ring_global_calls(rng)
+    ctx = WireContext()
+    t_pin = millisecond_now()
+    out = dict(addrs=addrs, seq_a=seq_a, seq_b=seq_b[0], glob=glob,
+               t_pin=t_pin, burst_a=burst_a, burst_b=burst_b[0],
+               rpc_bytes=[len(d) for d in seq_b[1] + burst_b[1]])
+    rr = {"a": 0, "b": 0}
+
+    async def serve_a(rpc):
+        i = rr["a"]
+        rr["a"] += 1
+        return await nodes[i % RING_NODES].get_rate_limits(rpc)
+
+    async def serve_b(data):
+        i = rr["b"]
+        rr["b"] += 1
+        return await serve_get_rate_limits(nodes[i % RING_NODES], data, ctx)
+
+    def pin(now):
+        for n in nodes:
+            pin_clock(n, now)
+
+    async def script():
+        from torch.profiler import ProfilerActivity, profile
+        await ring_join(nodes, addrs)
+        counts = RingCounts(nodes)
+        out["counts"] = counts
+        reset_counts()
+        try:
+            pin(t_pin)
+            # 12a: sequential, then 64 callers
+            out["seq_a_out"] = [
+                await nodes[i % RING_NODES].get_rate_limits(rpc)
+                for i, rpc in enumerate(seq_a)]
+            done = [None] * len(burst_a)
+
+            async def caller_a(c):
+                for i in range(c, len(burst_a), SERVE_CLIENTS):
+                    done[i] = await nodes[i % RING_NODES].get_rate_limits(
+                        burst_a[i])
+            await asyncio.gather(*(caller_a(c) for c in range(SERVE_CLIENTS)))
+            out["burst_a_out"] = done
+            # 12b: sequential, then 64 callers
+            out["seq_b_out"] = [decode_list(
+                await serve_get_rate_limits(nodes[i % RING_NODES], d, ctx),
+                RESP_FIELDS) for i, d in enumerate(seq_b[1])]
+            datas, outs_b = burst_b[1], [None] * len(burst_b[1])
+
+            async def caller_b(c):
+                for i in range(c, len(datas), SERVE_CLIENTS):
+                    outs_b[i] = await serve_get_rate_limits(
+                        nodes[i % RING_NODES], datas[i], ctx)
+            await asyncio.gather(*(caller_b(c) for c in range(SERVE_CLIENTS)))
+            out["burst_b_out"] = [decode_list(o, RESP_FIELDS) for o in outs_b]
+            # 12c: GLOBAL from every node, then quiesce, flush and probe
+            g0 = dict(stats)
+            await asyncio.gather(*(
+                nodes[i % RING_NODES].get_rate_limits(rpc)
+                for i, rpc in enumerate(glob)))
+            await ring_quiesce(nodes)
+            keys = {}
+            for rpc in glob:
+                for r in rpc:
+                    keys.setdefault(r.hash_key(), r)
+            out["gkeys"] = keys
+            out["gprobe"] = []
+            for n in nodes:
+                probe = [RateLimitReq(
+                    name=r.name, unique_key=r.unique_key, hits=0,
+                    limit=r.limit, duration=r.duration,
+                    algorithm=r.algorithm, behavior=Behavior.GLOBAL)
+                    for r in keys.values()]
+                out["gprobe"].append([answer_fields(a) for a in
+                                      await n.get_rate_limits(probe)])
+            await ring_quiesce(nodes)
+            out["g_broadcasts"] = stats["broadcasts"] - g0["broadcasts"]
+            out["g_upserts"] = stats["upserts"] - g0["upserts"]
+            # owners' states for the concurrent parts' checks
+            ka = {r.hash_key(): r for rpc in burst_a for r in rpc}
+            kb = {r.hash_key(): r for rpc in burst_b[0] for r in rpc}
+            out["probe_a"] = await ring_probe_owners(nodes, ka)
+            out["probe_b"] = await ring_probe_owners(nodes, kb)
+            out["fwd_counts"] = dict(stats, rtt_ms=list(stats["rtt_ms"]))
+            # saturation on the wall clock: the per-item path and the
+            # bytes lane, each unprofiled then profiled (idle share)
+            pin(None)
+            await saturate(serve_a, sat_a, 0.5)
+            out["sat"] = {}
+            for lane, serve, rpcs in (("a", serve_a, sat_a),
+                                      ("b", serve_b, sat_b[1])):
+                n1, w1 = await saturate(serve, rpcs, SERVE_SECONDS)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    n2, w2 = await saturate(serve, rpcs, SERVE_SECONDS)
+                    torch.cuda.synchronize()
+                out["sat"][lane] = (n1 / w1, n2 / w2, busy_share(prof, w2))
+            out["cwnd"] = [n.qos.congestion.effective_window() for n in nodes]
+        finally:
+            counts.remove()
+            for n in nodes:
+                await n.aclose()
+
+    asyncio.run(script())
+    out["nodes"] = nodes
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_ring(r):
+    """Phase 12's checks, after its counts are read.  The sequential parts
+    against a serial standalone engine on the card replaying the same
+    requests at the same pinned clock (12a's RPCs, then 12b's, then 12c's
+    GLOBAL items); every forwarded answer's owner against the ring; the
+    concurrent parts' admitted hits against each key's state on its
+    owner; no key in a non-owner's router; 12c's probes equal on every
+    node, every replica's GLOBAL row equal to its owner's and the owner's
+    to the serial engine's; the per-node launch counts."""
+    from gubernator_tpu_torch.core.engine import _fnv1a64
+    nodes, addrs, t = r["nodes"], r["addrs"], r["t_pin"]
+    oracle = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                             num_shards=SHARDS, batch_per_shard=FULL_LANES,
+                             use_native="on")
+    for what, rpcs, outs in (("12a", r["seq_a"], r["seq_a_out"]),
+                             ("12b", r["seq_b"], r["seq_b_out"])):
+        n = 0
+        for i, (rpc, got) in enumerate(zip(rpcs, outs)):
+            want = oracle.process(rpc, now=t)
+            check([answer_fields(a) for a in got]
+                  == [answer_fields(a) for a in want],
+                  f"{what} sequential RPC {i} (node {i % RING_NODES}) "
+                  f"differs from the serial engine")
+            n += len(rpc)
+        log(f"phase 12 {what} sequential: {n} answers = the serial engine")
+    node_of = lambda i: i % RING_NODES  # noqa: E731
+    fwd = {}
+    for what, rpcs, outs in (("12a seq", r["seq_a"], r["seq_a_out"]),
+                             ("12a burst", r["burst_a"], r["burst_a_out"]),
+                             ("12b seq", r["seq_b"], r["seq_b_out"]),
+                             ("12b burst", r["burst_b"], r["burst_b_out"])):
+        fwd[what] = (check_owner_metadata(nodes, addrs, node_of, rpcs, outs,
+                                          what),
+                     sum(len(rpc) for rpc in rpcs))
+    keys_a = check_admitted(r["burst_a"], r["burst_a_out"], r["probe_a"],
+                            "12a burst")
+    keys_b = check_admitted(r["burst_b"], r["burst_b_out"], r["probe_b"],
+                            "12b burst")
+    # no regular key resident in a router but its owner's
+    keys = {q.hash_key() for part in ("seq_a", "burst_a", "seq_b",
+                                      "burst_b") for rpc in r[part]
+            for q in rpc}
+    owner = {k: ring_owner(nodes, k) for k in keys}
+    resident = 0
+    for i, n in enumerate(nodes):
+        fps = set()
+        for shard in range(SHARDS):
+            fps |= set(int(x) for x in n.engine.native.export_keys(shard)[0])
+        stray = [k for k in keys if owner[k] != addrs[i]
+                 and _fnv1a64(k.encode("utf-8")) in fps]
+        check(not stray, f"node {i} holds rows of keys it does not own: "
+              f"{stray[:5]}")
+        resident += len(fps)
+    # 12c: the probes agree; replica rows = owner rows = the serial replay
+    probes = r["gprobe"]
+    check(probes[0] == probes[1] == probes[2],
+          "12c: the nodes' GLOBAL probes differ")
+    hits = {}
+    for rpc in r["glob"]:
+        oracle.process(rpc, now=t)
+        for q in rpc:
+            hits[q.hash_key()] = hits.get(q.hash_key(), 0) + q.hits
+    gplanes = [[p.cpu().numpy() for p in n.engine.gstate] for n in nodes]
+    oplanes = [p.cpu().numpy() for p in oracle.gstate]
+    unwritten = 0
+    for k in r["gkeys"]:
+        host = ring_owner(nodes, k)
+        o = addrs.index(host)
+        row = lambda i, slot: [int(p[slot]) for p in gplanes[i]]  # noqa: E731
+        own = row(o, nodes[o].engine.gtable.peek(k))
+        want = [int(p[oracle.gtable.peek(k)]) for p in oplanes]
+        check(own == want, f"12c: the owner's row of {k} {own} != the "
+              f"serial replay's {want}")
+        if not hits[k]:
+            # no item of the key carried a hit: a zero sum writes no row
+            # (the JAX kernel's rule), so the owner's row stays as the
+            # reset left it and the replicas hold the broadcast's fresh
+            # status; the probes above agree on it
+            unwritten += 1
+            continue
+        for i, n in enumerate(nodes):
+            if i != o:
+                check(row(i, n.engine.gtable.peek(k)) == own,
+                      f"12c: node {i}'s replica row of {k} != its owner's")
+    c = r["counts"]
+    check(all(d > 0 for d in c.drains),
+          f"drain_compact did not launch on every node: {c.drains}")
+    check(sum(g["owner"] for g in c.glob) > 0
+          and sum(g["replica"] for g in c.glob) > 0
+          and sum(g["upsert"] for g in c.glob) > 0
+          and all(sum(g.values()) > 0 for g in c.glob),
+          f"global_window did not run owner windows, replica reads and "
+          f"upserts on every node: {c.glob}")
+    return dict(fwd=fwd, keys_a=keys_a, keys_b=keys_b, resident=resident,
+                gkeys=len(r["gkeys"]), unwritten=unwritten)
+
+
+def report_ring(r, chk, counts, smi):
+    """Phase 12's line and its figures line."""
+    st = r["fwd_counts"]
+    rtt = np.asarray(st["rtt_ms"]) if st["rtt_ms"] else np.zeros(1)
+    import importlib.util
+    sat = r["sat"]
+    share = {k: f / n for k, (f, n) in chk["fwd"].items()}
+
+    def importable(m):
+        try:
+            return importlib.util.find_spec(m) is not None
+        except ImportError:  # a missing parent package
+            return False
+    installed = {m: importable(m) for m in ("google.protobuf", "grpc")}
+    fig = dict(
+        decisions_per_s=dict(per_item=sat["a"][0], bytes_lane=sat["b"][0]),
+        decisions_per_s_profiled=dict(per_item=sat["a"][1],
+                                      bytes_lane=sat["b"][1]),
+        idle_share=dict(per_item=None if sat["a"][2] is None
+                        else 1 - sat["a"][2],
+                        bytes_lane=None if sat["b"][2] is None
+                        else 1 - sat["b"][2]),
+        forwarded_share=share,
+        forward_rtt_ms=dict(p50=float(np.percentile(rtt, 50)),
+                            p99=float(np.percentile(rtt, 99)),
+                            calls=len(st["rtt_ms"])),
+        peer_calls=dict(items=st["item_calls"], raw=st["raw_calls"],
+                        codec=st["codec_calls"], installed=installed),
+        global_=dict(broadcasts=r["g_broadcasts"], upserts=r["g_upserts"],
+                     keys=chk["gkeys"]),
+        per_node=dict(drains=r["counts"].drains, global_windows=r[
+            "counts"].glob, qos_window=r["cwnd"]),
+        rpc_bytes=[min(r["rpc_bytes"]), max(r["rpc_bytes"])],
+        phase_wall_s=r["wall_s"])
+    log(f"phase 12 the peer ring ({RING_NODES} Instances of {SHARDS} x "
+        f"{FULL_CAPACITY // SHARDS} slots on one card, QoS at the JAX "
+        f"defaults): 12a per-item {sat['a'][0]:.1f} decisions/s at "
+        f"saturation, 12b bytes lane {sat['b'][0]:.1f}; forwarded "
+        + ", ".join(f"{k} {v:.3f}" for k, v in share.items())
+        + f"; forward round trip p50 {fig['forward_rtt_ms']['p50']:.3f} ms "
+        f"p99 {fig['forward_rtt_ms']['p99']:.3f} ms over "
+        f"{len(st['rtt_ms'])} calls; sequential parts = the serial engine, "
+        f"owners = the ring, {chk['keys_a']} + {chk['keys_b']} burst keys' "
+        f"admitted hits = their owners' rows, no stray row in "
+        f"{chk['resident']} resident; 12c {RING_GLOBAL} GLOBAL items over "
+        f"{chk['gkeys']} keys: {r['g_broadcasts']} broadcasts, "
+        f"{r['g_upserts']} upserts, probes equal on every node, replica "
+        f"rows = owner rows = the serial replay ({chk['unwritten']} keys "
+        f"with no hit unwritten on their owners); {r['wall_s']:.1f} s; "
+        f"launches {counts}; {smi}")
+    log("ring figures: " + json.dumps(dict(card=smi, **fig)))
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -4415,9 +5117,11 @@ def main():
     path1 = launch_counts()
     log(f"main path, one shard (phases 3b + 4): launches {path1}")
     global_err = phase_global_vs_plain()
+    upsert_err = phase_upserts_vs_plain()
     s8_err = phase_sharded_drain_vs_plain()
     w = global_full_size_inputs(gen, rng)
     alone = phase_global_alone(w)
+    upw = phase_upsert_window_timing(w)
     # the GLOBAL main path over 8 shards: counts from 0 again
     reset_counts()
     glob = phase_global_full_size(w, alone, drain["ms"])
@@ -4551,13 +5255,28 @@ def main():
     qos["wall_s"] = time.perf_counter() - t11
     report_qos_leases(qos, chk11, path8, smi)
     del qos, qa, qb, qsmall
+    # the peer ring: counts from 0 again (inside, after its three
+    # Instances are built, warmed and joined)
+    ring = phase_ring()
+    path9, plain9 = launch_counts(), plain_counts()
+    check(path9["drain_compact"] > 0 and path9["global_window"] > 0,
+          f"a kernel of the peer ring's path never launched: {path9}")
+    others9 = {k: v for k, v in path9.items()
+               if k not in ("drain_compact", "global_window")}
+    check(not any(others9.values()),
+          f"the peer ring's path launched another kernel: {others9}")
+    check(not any(plain9.values()),
+          f"the plain versions ran on the peer ring's path: {plain9}")
+    chk12 = check_ring(ring)
+    report_ring(ring, chk12, path9, smi)
+    del ring
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
              launches=(path1["drain_compact"] + path5["drain_compact"]
                        + path6["drain_compact"] + path7["drain_compact"]
-                       + path8["drain_compact"]),
+                       + path8["drain_compact"] + path9["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -4573,9 +5292,10 @@ def main():
         dict(name="global_window", route="cuda", source=GLOBAL_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
              launches=(path2["global_window"] + path7["global_window"]
-                       + path8["global_window"]),
+                       + path8["global_window"] + path9["global_window"]),
              max_abs_err=max(global_err, alone["err"], glob["global_err"],
-                             chk["global_err"], cmp["err"]),
+                             chk["global_err"], cmp["err"], upsert_err,
+                             upw["err"]),
              ms=sig4(glob["ms"]), plain_ms=sig4(alone["plain_ms"]),
              bound_ms=glob["bound_ms"], bound_by=glob["bound_by"],
              library_ms=None),
@@ -4611,7 +5331,7 @@ def main():
         dict(name="global_stage", route="cuda", source=APPLY_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:165",
              launches=path4["global_stage"],
-             max_abs_err=max(apply_err, cmp["err"]),
+             max_abs_err=max(apply_err, cmp["err"], upsert_err),
              ms=sig4(po["stage_ms"] if po["stage_ms"] is not None
                      else pb["pair_events"]),
              plain_ms=sig4(pb["stage_plain"]), bound_ms=pb["stage_bound"][0],

@@ -1,4 +1,4 @@
-"""gubernator-tpu on PyTorch and CUDA: the one-node serving path.
+"""gubernator-tpu on PyTorch and CUDA: the serving path and the peer ring.
 
 A second implementation of the rate-limit engine beside `gubernator_tpu`
 (the JAX package, which stays the reference).  The arenas live as int64
@@ -10,7 +10,10 @@ through the five-algorithm transition ladder, and commits one write per
 touched slot; ops/csrc/global_window.cu answers the GLOBAL lanes from the
 replica and applies their hits, summed over the shards, once per slot.
 ops/kernel.py holds the same math as plain tensor code: it is what the
-kernels are tested against, and what runs for tensors on the CPU.
+kernels are tested against, and what runs for tensors on the CPU.  Nodes
+form a cluster over a consistent-hash ring (parallel/router.py,
+net/peers.py, core/global_sync.py): a key is decided by its owner, and
+GLOBAL limits sync through the owners' broadcasts.
 
 This package imports neither JAX nor `gubernator_tpu`.  Its serving core,
 the RPC bodies of server.py and their raw-bytes lane need neither grpcio,

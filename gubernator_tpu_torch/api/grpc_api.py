@@ -5,9 +5,10 @@ Service and method names match the reference exactly ("pb.gubernator.V1"
 and "pb.gubernator.PeersV1", reference gubernator.pb.go:419,
 peers.pb.go:164) so reference clients interoperate.  Method handlers are
 registered directly instead of through generated *_grpc.py stubs.  Of
-PeersV1 only GetPeerRateLimits is ported: TransferBuckets, RegisterGlobals,
-ApplyGlobalRegistration and UpdatePeerGlobals are not registered, so they
-answer UNIMPLEMENTED.
+PeersV1 GetPeerRateLimits and UpdatePeerGlobals are ported:
+TransferBuckets (key migration), RegisterGlobals and
+ApplyGlobalRegistration (mesh GLOBAL) are not registered, so they answer
+UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def add_v1_servicer(server: grpc.aio.Server, servicer) -> None:
 
 
 def add_peers_servicer(server: grpc.aio.Server, servicer) -> None:
-    """servicer: async GetPeerRateLimits(req, ctx)."""
+    """servicer: async GetPeerRateLimits(req, ctx), UpdatePeerGlobals(req,
+    ctx)."""
     handlers = {
         # bytes-level like V1.GetRateLimits: the servicer owns
         # decode/encode so authoritative relays can run the native
@@ -54,6 +56,11 @@ def add_peers_servicer(server: grpc.aio.Server, servicer) -> None:
             servicer.GetPeerRateLimits,
             request_deserializer=None,
             response_serializer=None,
+        ),
+        "UpdatePeerGlobals": grpc.unary_unary_rpc_method_handler(
+            servicer.UpdatePeerGlobals,
+            request_deserializer=pb.UpdatePeerGlobalsReq.FromString,
+            response_serializer=pb.UpdatePeerGlobalsResp.SerializeToString,
         ),
     }
     server.add_generic_rpc_handlers(
@@ -78,7 +85,7 @@ class V1Stub:
 
 
 class PeersV1Stub:
-    """Client stub for the peer plane's ported method (reference
+    """Client stub for the peer plane's ported methods (reference
     peers.pb.go:122-155)."""
 
     def __init__(self, channel):
@@ -86,4 +93,9 @@ class PeersV1Stub:
             f"/{PEERS_SERVICE}/GetPeerRateLimits",
             request_serializer=pb.GetPeerRateLimitsReq.SerializeToString,
             response_deserializer=pb.GetPeerRateLimitsResp.FromString,
+        )
+        self.UpdatePeerGlobals = channel.unary_unary(
+            f"/{PEERS_SERVICE}/UpdatePeerGlobals",
+            request_serializer=pb.UpdatePeerGlobalsReq.SerializeToString,
+            response_deserializer=pb.UpdatePeerGlobalsResp.FromString,
         )

@@ -20,7 +20,10 @@ The gateway calls the Instance in-process and observes its requests under
 the gRPC method names when the Instance has metrics.  With QoS on (the
 default) an X-Guber-Timeout-Ms header carries the client's remaining
 budget into admission as the request's deadline, and one that is not a
-number is refused with 400, as in the JAX gateway.  The debug,
+number is refused with 400, as in the JAX gateway.  A `traceparent`
+header continues the caller's trace (or the Instance's tracer samples a
+new `http` root) and the root's context is echoed back in the same
+header.  The debug,
 profile and kernels routes wait for the ports of introspection and device
 profiling.  The body cap is 1 GiB, as in the JAX gateway: a full arena's
 snapshot is far past aiohttp's 1 MiB default.
@@ -36,6 +39,7 @@ from google.protobuf import json_format
 from gubernator_tpu_torch.api import pb
 from gubernator_tpu_torch.core.service import BatchTooLargeError, Instance
 from gubernator_tpu_torch.observability.metrics import CONTENT_TYPE_LATEST
+from gubernator_tpu_torch.observability.tracing import TRACEPARENT
 from gubernator_tpu_torch.state.snapshot import SnapshotError
 
 
@@ -45,6 +49,19 @@ def build_app(instance: Instance) -> web.Application:
             instance.metrics.observe_rpc(method, start, ok=ok)
 
     async def get_rate_limits(request: web.Request) -> web.Response:
+        # the HTTP leg of trace propagation: continue an incoming
+        # traceparent (or sample a new root) and echo the context back
+        tracer = instance.tracer
+        if tracer is None or not tracer.enabled:
+            return await _get_rate_limits(request)
+        with tracer.start_trace(
+                "http", request.headers.get(TRACEPARENT)) as root:
+            resp = await _get_rate_limits(request)
+            if root.ctx is not None:
+                resp.headers[TRACEPARENT] = root.ctx.traceparent()
+            return resp
+
+    async def _get_rate_limits(request: web.Request) -> web.Response:
         start = time.monotonic()
         ok = False
         try:

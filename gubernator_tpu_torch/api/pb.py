@@ -22,6 +22,9 @@ from gubernator_tpu_torch.api.proto.gubernator_pb2 import (
 from gubernator_tpu_torch.api.proto.peers_pb2 import (
     GetPeerRateLimitsReq,
     GetPeerRateLimitsResp,
+    UpdatePeerGlobal,
+    UpdatePeerGlobalsReq,
+    UpdatePeerGlobalsResp,
 )
 
 
@@ -76,6 +79,7 @@ def resp_to_pb(r: types.RateLimitResp) -> RateLimitResp:
 __all__ = [
     "GetRateLimitsReq", "GetRateLimitsResp", "HealthCheckReq",
     "HealthCheckResp", "RateLimitReq", "RateLimitResp",
-    "GetPeerRateLimitsReq", "GetPeerRateLimitsResp",
+    "GetPeerRateLimitsReq", "GetPeerRateLimitsResp", "UpdatePeerGlobal",
+    "UpdatePeerGlobalsReq", "UpdatePeerGlobalsResp",
     "req_from_pb", "req_to_pb", "resp_from_pb", "resp_to_pb",
 ]

@@ -6,7 +6,11 @@ dimensions of the regular and GLOBAL arenas and their key routing, the
 traffic-analytics and SLO knobs (GUBER_ANALYTICS_*, GUBER_SLO_*), the
 warm tier's (TierConfig, GUBER_TIER_*), QoS (QoSConfig, GUBER_QOS_*:
 admission, the congestion window, fair slotting, the breaker knobs), the
-concurrency-lease book (LeaseConfig, GUBER_LEASE_*), the engine's lowering
+concurrency-lease book (LeaseConfig, GUBER_LEASE_*), the peer ring's
+(GUBER_STATIC_PEERS, GUBER_ADVERTISE_ADDRESS, GUBER_BATCH_TIMEOUT, the
+GLOBAL manager's GUBER_GLOBAL_SYNC_WAIT / _TIMEOUT / _BATCH_LIMIT, the
+hinted handoff's GUBER_HINT_*, tracing's GUBER_TRACE_*; GUBER_FAULTS is
+read by the daemon at boot, net/faults.py), the engine's lowering
 (GUBER_PALLAS), the serving pipeline's knobs, the env readers they use,
 and the daemon's env config (DaemonConfig with GUBER_SNAPSHOT_DIR and
 GUBER_SNAPSHOT_INTERVAL_MS, load_env_file, config_from_env: reference
@@ -17,8 +21,7 @@ daemon's GUBER_JAX_PLATFORM.  A knob of a subsystem the port has not
 ported yet raises ValueError, naming its ROADMAP item, when it is set to
 anything but its default (_UNPORTED); it is never ignored.  QoS is on at
 the defaults, as in the JAX package (GUBER_QOS_ENABLED=0 turns it off);
-its peer-lane knobs (retries, breaker) are read and validated but act only
-once the peer ring is ported.
+its peer-lane knobs (retries, breaker, fail-open) act on the peer ring.
 
 Environment read by the engine itself, once, when it is built:
 
@@ -69,13 +72,20 @@ CHAIN_LINGER_MS_DEFAULT = 2.0
 
 @dataclass
 class BehaviorConfig:
-    """Batching window (reference config.go:43-57, defaults :59-66).
+    """Batching and GLOBAL windows (reference config.go:43-57, defaults
+    :59-66): the peer lane's RPC timeout and batching window
+    (net/peers.py), the classic lane's window, and the GLOBAL manager's
+    sync interval, broadcast timeout and batch bound (core/global_sync.py).
 
     Durations are seconds (float); 0.0005 is the reference's 500us default.
     """
 
+    batch_timeout: float = 0.5
     batch_wait: float = 0.0005
     batch_limit: int = MAX_BATCH_SIZE
+    global_sync_wait: float = 0.0005
+    global_timeout: float = 0.5
+    global_batch_limit: int = MAX_BATCH_SIZE
 
     def validate(self) -> None:
         if self.batch_limit > MAX_BATCH_SIZE:
@@ -195,6 +205,30 @@ class LeaseConfig:
             raise ValueError("Lease.sweep_interval_ms must be >= 0")
         if self.max_per_client < 0:
             raise ValueError("Lease.max_per_client must be >= 0")
+
+
+@dataclass
+class HealthConfig:
+    """The hinted-handoff buffer of core/global_sync.py (GUBER_HINT_TTL_MS,
+    GUBER_HINT_MAX), the subset of the JAX package's HealthConfig the port
+    serves; its heartbeat detector knobs wait for ROADMAP item 6d."""
+
+    # how long a failed peer's GLOBAL hits/updates are buffered before
+    # being dropped as expired (seconds), and the per-peer entry bound
+    # (oldest evicted first, counted as expired)
+    hint_ttl: float = 30.0
+    hint_max: int = 1024
+
+    def validate(self) -> None:
+        if self.hint_ttl < 0 or self.hint_max < 0:
+            raise ValueError("Health hint_ttl/hint_max must be >= 0")
+
+
+@dataclass
+class PeerInfo:
+    # reference etcd.go:29-32
+    address: str = ""
+    is_owner: bool = False
 
 
 @dataclass
@@ -346,6 +380,11 @@ class DaemonConfig:
 
     grpc_listen_address: str = "localhost:81"
     http_listen_address: str = "localhost:80"
+    # the address the peer ring knows this node by (GUBER_ADVERTISE_ADDRESS,
+    # default the gRPC address) and the static peer list
+    # (GUBER_STATIC_PEERS, comma-separated; empty = standalone)
+    advertise_address: str = ""
+    static_peers: List[str] = field(default_factory=list)
     cache_size: int = 50000  # reference default, example.conf:11
     debug: bool = False
     # the device the engine runs on (GUBER_TORCH_DEVICE)
@@ -358,8 +397,15 @@ class DaemonConfig:
     # snapshot_interval_ms and once more at a clean stop.
     snapshot_dir: str = ""
     snapshot_interval_ms: int = 60_000
+    # request tracing (observability/tracing.py): the probability a
+    # request roots a trace (0 disables) and the OTLP/HTTP export endpoint
+    trace_sample: float = field(
+        default_factory=lambda: env_float("GUBER_TRACE_SAMPLE", 0.0))
+    trace_export: str = field(
+        default_factory=lambda: _env("GUBER_TRACE_EXPORT"))
 
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    health: HealthConfig = field(default_factory=HealthConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     qos: QoSConfig = field(default_factory=QoSConfig)
     analytics: AnalyticsConfig = field(default_factory=AnalyticsConfig)
@@ -461,35 +507,28 @@ def per_op_lowering() -> bool:
 # ending in "_", its default (None: any value), ROADMAP Queue 1 item).
 # config_from_env raises when one is set to anything but its default.
 _UNPORTED = (
-    # peer discovery and the address peers know this node by, the peer
-    # forwarding timeout, the heartbeat detector and hinted handoff, the
-    # GLOBAL manager's peer broadcast, fault injection
-    ("GUBER_ADVERTISE_ADDRESS", None, 6),
-    ("GUBER_BATCH_TIMEOUT", 0.5, 6),
-    ("GUBER_K8S_NAMESPACE", "", 6),
-    ("GUBER_K8S_POD_IP", "", 6),
-    ("GUBER_K8S_POD_PORT", "", 6),
-    ("GUBER_K8S_ENDPOINTS_SELECTOR", "", 6),
-    ("GUBER_ETCD_ENDPOINTS", "", 6),
-    ("GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/", 6),
-    ("GUBER_ETCD_DIAL_TIMEOUT", 5.0, 6),
-    ("GUBER_ETCD_USER", "", 6),
-    ("GUBER_ETCD_PASSWORD", "", 6),
-    ("GUBER_ETCD_TLS_", None, 6),
-    ("GUBER_STATIC_PEERS", "", 6),
-    ("GUBER_HEARTBEAT_", None, 6),
-    ("GUBER_HINT_", None, 6),
-    ("GUBER_GLOBAL_SYNC_WAIT", 0.0005, 6),
-    ("GUBER_GLOBAL_TIMEOUT", 0.5, 6),
-    ("GUBER_GLOBAL_BATCH_LIMIT", MAX_BATCH_SIZE, 6),
-    ("GUBER_FAULTS", "", 6),
-    ("GUBER_FAULTS_SEED", 0, 6),
-    # the front door, tracing and device profiling
+    # the heartbeat failure detector (net/health.py)
+    ("GUBER_HEARTBEAT_ENABLED", True, "6d"),
+    ("GUBER_HEARTBEAT_INTERVAL_MS", 1000, "6d"),
+    ("GUBER_HEARTBEAT_TIMEOUT_MS", 500, "6d"),
+    ("GUBER_HEARTBEAT_SUSPECT", 3, "6d"),
+    ("GUBER_HEARTBEAT_RECOVER", 2, "6d"),
+    ("GUBER_HEARTBEAT_", None, "6d"),
+    # discovery backends (discovery/etcd.py, discovery/kubernetes.py)
+    ("GUBER_K8S_NAMESPACE", "", "6e"),
+    ("GUBER_K8S_POD_IP", "", "6e"),
+    ("GUBER_K8S_POD_PORT", "", "6e"),
+    ("GUBER_K8S_ENDPOINTS_SELECTOR", "", "6e"),
+    ("GUBER_ETCD_ENDPOINTS", "", "6e"),
+    ("GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/", "6e"),
+    ("GUBER_ETCD_DIAL_TIMEOUT", 5.0, "6e"),
+    ("GUBER_ETCD_USER", "", "6e"),
+    ("GUBER_ETCD_PASSWORD", "", "6e"),
+    ("GUBER_ETCD_TLS_", None, "6e"),
+    # the front door and device profiling
     ("GUBER_FRONTDOOR_WORKERS", 0, 7),
     ("GUBER_FRONTDOOR_", None, 7),
     ("GUBER_SHM_", None, 7),
-    ("GUBER_TRACE_SAMPLE", 0.0, 7),
-    ("GUBER_TRACE_EXPORT", "", 7),
     ("GUBER_DEVPROF", "", 7),
     ("GUBER_DEVPROF_", None, 7),
     # mesh serving and GLOBAL across processes
@@ -564,6 +603,10 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
     c = DaemonConfig()
     c.grpc_listen_address = _env("GUBER_GRPC_ADDRESS", c.grpc_listen_address)
     c.http_listen_address = _env("GUBER_HTTP_ADDRESS", c.http_listen_address)
+    c.advertise_address = _env("GUBER_ADVERTISE_ADDRESS",
+                               c.grpc_listen_address)
+    c.static_peers = [a.strip() for a in _env("GUBER_STATIC_PEERS").split(",")
+                      if a.strip()]
     c.cache_size = int(_env("GUBER_CACHE_SIZE", str(c.cache_size)))
     c.debug = _env("GUBER_DEBUG") in ("true", "1", "yes")
     c.device = _env("GUBER_TORCH_DEVICE", c.device)
@@ -575,10 +618,18 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
                                      c.snapshot_interval_ms, minimum=100)
 
     b = c.behaviors
+    if _env("GUBER_BATCH_TIMEOUT"):
+        b.batch_timeout = float(_env("GUBER_BATCH_TIMEOUT"))
     if _env("GUBER_BATCH_WAIT"):
         b.batch_wait = float(_env("GUBER_BATCH_WAIT"))
     if _env("GUBER_BATCH_LIMIT"):
         b.batch_limit = int(_env("GUBER_BATCH_LIMIT"))
+    if _env("GUBER_GLOBAL_SYNC_WAIT"):
+        b.global_sync_wait = float(_env("GUBER_GLOBAL_SYNC_WAIT"))
+    if _env("GUBER_GLOBAL_TIMEOUT"):
+        b.global_timeout = float(_env("GUBER_GLOBAL_TIMEOUT"))
+    if _env("GUBER_GLOBAL_BATCH_LIMIT"):
+        b.global_batch_limit = int(_env("GUBER_GLOBAL_BATCH_LIMIT"))
     b.validate()
 
     e = c.engine
@@ -630,6 +681,16 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
                                          q.breaker_half_open_probes)
     q.fail_open = env_bool("GUBER_QOS_FAIL_OPEN", q.fail_open)
     q.validate()
+
+    # hinted handoff (core/global_sync.py)
+    h = c.health
+    h.hint_ttl = env_float("GUBER_HINT_TTL_MS",
+                           h.hint_ttl * 1000.0, minimum=0.0) / 1000.0
+    h.hint_max = env_int("GUBER_HINT_MAX", h.hint_max, minimum=0)
+    h.validate()
+    # tracing, rebuilt after load_env_file like the analytics knobs below
+    c.trace_sample = env_float("GUBER_TRACE_SAMPLE", 0.0)
+    c.trace_export = _env("GUBER_TRACE_EXPORT")
 
     # the default_factory fields read GUBER_LEASE_* (at DaemonConfig()
     # above, after load_env_file), GUBER_ANALYTICS_* and GUBER_SLO_*:

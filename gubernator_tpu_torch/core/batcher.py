@@ -13,7 +13,9 @@ analog of the reference's per-peer batching loop, peers.go:143-172):
     ships as one `engine.process` call, followed, when the engine has the
     warm tier, by its `tier_maintain` on the same thread.
 
-`submit_rpc` hands whole serialized RPCs to the pipeline's raw-RPC lane.
+`submit_rpc` hands whole serialized RPCs to the pipeline's raw-RPC lane,
+and `apply_upserts` writes an owner's GLOBAL broadcast into the replica
+arena (engine.step([], upserts=...) in chunks, on the engine thread).
 
 With a QoS manager (qos/, JAX batcher.py:382-409) every `submit` first
 passes admission control: a full bounded queue, an unserviceable deadline
@@ -213,6 +215,19 @@ class WindowBatcher:
         if self.pipeline is None:
             return None
         return await self.pipeline.submit_rpc(data, peer_mode=peer_mode)
+
+    async def apply_upserts(self, upserts: Sequence) -> None:
+        """Write owner-broadcast replica state, in chunks of the engine's
+        max_global_updates (JAX batcher.py:552-560), on the engine thread
+        and in turn with every window and drain, at the batcher's clock."""
+        loop = asyncio.get_running_loop()
+        cap = self.engine.max_global_updates
+        for i in range(0, len(upserts), cap):
+            chunk = list(upserts[i:i + cap])
+            now = self.now_fn() if self.now_fn is not None else None
+            await loop.run_in_executor(
+                self._executor,
+                lambda c=chunk, t=now: self.engine.step([], t, upserts=c))
 
     def busy(self) -> bool:
         """Is any request queued or in flight (either lane)?"""

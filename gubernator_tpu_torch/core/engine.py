@@ -61,10 +61,13 @@ as a state/snapshot.py ArenaSnapshot; `enable_tiers` puts the warm tier
 resolved at a fence before each window's dispatch with one gather and one
 scatter on the device's planes.
 
-Mesh-mode registration (several processes), upserts from an owner's
-broadcast, the stacked legacy step (`step_stacked`) and live key migration
-(`export_rows` / `import_rows`) are not part of this single-process
-engine.
+Upserts from an owner's broadcast (`step([], upserts=...)`, JAX
+engine.py:324-384) are the GLOBAL window's upsert lanes: written into the
+replica arena and its config in phase A of global_window (or
+global_stage), before the window's config lanes and reads.  Mesh-mode
+registration (several processes), the stacked legacy step
+(`step_stacked`) and live key migration (`export_rows` / `import_rows`)
+are not part of this single-process engine.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ import torch
 from gubernator_tpu_torch import config
 from gubernator_tpu_torch import native as native_mod
 from gubernator_tpu_torch.api.types import (
+    Algorithm,
     Behavior,
     RateLimitReq,
     RateLimitResp,
@@ -145,8 +149,9 @@ def shard_of(key: str, num_shards: int) -> int:
 
 class _PackedWindow:
     """Host-side staging buffers for one window (numpy, reused per step):
-    regular lanes [S, B], GLOBAL lanes [S, Bg], and Kg GLOBAL config-write
-    (u*) and state-reset (rslot) lanes."""
+    regular lanes [S, B], GLOBAL lanes [S, Bg], Kg GLOBAL config-write
+    (u*) and state-reset (rslot) lanes, and Kg upsert lanes (p*), of which
+    the first n_ups are live."""
 
     def __init__(self, S: int, B: int, Bg: int, Kg: int):
         self.slot = np.full((S, B), kernel.PAD_SLOT, dtype=np.int32)
@@ -168,6 +173,14 @@ class _PackedWindow:
         self.uduration = np.zeros((Kg,), dtype=np.int64)
         self.ualgo = np.zeros((Kg,), dtype=np.int32)
         self.rslot = np.zeros((Kg,), dtype=np.int32)
+        self.pslot = np.zeros((Kg,), dtype=np.int32)
+        self.plimit = np.zeros((Kg,), dtype=np.int64)
+        self.pduration = np.zeros((Kg,), dtype=np.int64)
+        self.premaining = np.zeros((Kg,), dtype=np.int64)
+        self.ptstamp = np.zeros((Kg,), dtype=np.int64)
+        self.pexpire = np.zeros((Kg,), dtype=np.int64)
+        self.palgo = np.zeros((Kg,), dtype=np.int32)
+        self.n_ups = 0
 
     def reset(self, G: int):
         self.slot.fill(kernel.PAD_SLOT)
@@ -177,6 +190,7 @@ class _PackedWindow:
         # pad config-write/reset lanes point one past the GLOBAL arena: dropped
         self.uslot.fill(G)
         self.rslot.fill(G)
+        self.n_ups = 0
 
     def gbatch(self) -> WindowBatch:
         return WindowBatch(self.gslot, self.ghits, self.glimit,
@@ -186,14 +200,54 @@ class _PackedWindow:
         return (self.uslot, self.ulimit, self.uduration, self.ualgo,
                 self.rslot)
 
+    def ups(self) -> Optional[tuple]:
+        """The live upsert lanes, [n_ups] each, or None."""
+        if not self.n_ups:
+            return None
+        k = self.n_ups
+        return (self.pslot[:k], self.plimit[:k], self.pduration[:k],
+                self.premaining[:k], self.ptstamp[:k], self.pexpire[:k],
+                self.palgo[:k])
 
-def _control_live(gslot, upd, G: int) -> bool:
-    """Does a GLOBAL window stage a lane or a config write?  Without either
-    it is exact to skip it: every lane pads and every summed hit is 0.
-    Decided on the host arrays, before anything crosses to the device."""
+    def stage_upserts(self, gtable: SlotTable, upserts, now: int) -> None:
+        """Stage an owner broadcast's records (UpdatePeerGlobal: key,
+        status, algorithm, duration) as upsert lanes (JAX engine.py:
+        356-379): each looks up its GLOBAL slot; token sets tstamp and
+        expire to the status's reset_time, leaky restarts tstamp at `now`
+        and lives a full duration from it (the divergence from the
+        reference documented in api/proto/peers.proto).  A key twice in
+        one window raises: the JAX scatter leaves the order of duplicate
+        slots undefined."""
+        keys = [u.key for u in upserts]
+        if len(set(keys)) != len(keys):
+            raise ValueError("an upsert window names a GLOBAL key twice")
+        if len(upserts) > len(self.pslot):
+            raise ValueError(
+                f"{len(upserts)} upserts exceed the window's "
+                f"{len(self.pslot)} upsert lanes (max_global_updates)")
+        for i, u in enumerate(upserts):
+            slot, _ = gtable.lookup(u.key, now, u.duration)
+            st = u.status
+            is_token = u.algorithm == Algorithm.TOKEN_BUCKET
+            self.pslot[i] = slot
+            self.plimit[i] = st.limit
+            self.pduration[i] = u.duration
+            self.premaining[i] = st.remaining
+            self.ptstamp[i] = st.reset_time if is_token else now
+            self.pexpire[i] = (st.reset_time if is_token
+                               else now + u.duration)
+            self.palgo[i] = u.algorithm
+        self.n_ups = len(upserts)
+
+
+def _control_live(gslot, upd, G: int, ups=None) -> bool:
+    """Does a GLOBAL window stage a lane, a config write or an upsert?
+    Without any it is exact to skip it: every lane pads and every summed
+    hit is 0.  Decided on the host arrays, before anything crosses to the
+    device."""
     uslot, rslot = upd[0], upd[4]
     return bool((gslot >= 0).any()) or bool((uslot < G).any()) \
-        or bool((rslot < G).any())
+        or bool((rslot < G).any()) or ups is not None
 
 
 def _host(a) -> np.ndarray:
@@ -396,20 +450,25 @@ class RateLimitEngine:
 
     def step(self, requests: Sequence[RateLimitReq],
              now: Optional[int] = None,
-             accumulate: Optional[Sequence[bool]] = None
+             accumulate: Optional[Sequence[bool]] = None,
+             upserts: Optional[Sequence] = None
              ) -> List[RateLimitResp]:
         """Process one window of requests synchronously.
 
         accumulate[i]=False keeps request i's GLOBAL hits out of the
         per-slot sum and its config out of the arena (a replica read whose
-        hits reconcile elsewhere).  The caller must respect the window
-        caps (use `process` for auto-chunking): per-shard regular lanes <=
-        batch_per_shard, GLOBAL lanes <= num_shards *
-        global_batch_per_shard, distinct GLOBAL keys <= max_global_updates.
+        hits reconcile elsewhere: a non-owner host, core/service.py
+        _global_nonowner).  upserts: UpdatePeerGlobal records (key,
+        status, algorithm, duration) of an owner's broadcast, written into
+        the replica arena before this window's reads (stage_upserts); no
+        key twice.  The caller must respect the window caps (use `process`
+        for auto-chunking): per-shard regular lanes <= batch_per_shard,
+        GLOBAL lanes <= num_shards * global_batch_per_shard, distinct
+        GLOBAL keys <= max_global_updates, upserts <= max_global_updates.
         With the native router it is `_process_native`, which chunks.
         """
         if self.native is not None:
-            return self._process_native(requests, now, accumulate)
+            return self._process_native(requests, now, accumulate, upserts)
         now = self._resolve_now(now)
         buf = self._buf
         buf.reset(self.global_capacity)
@@ -418,6 +477,8 @@ class RateLimitEngine:
         for t in self.tables:
             t.begin_window()
         self.gtable.begin_window()
+        if upserts:
+            buf.stage_upserts(self.gtable, list(upserts), now)
         lanes, gcfg_upd, greset, max_fill, g_count = self._stage_requests(
             buf, requests, now, accumulate)
         for i, (slot, cfg) in enumerate(gcfg_upd.items()):
@@ -516,9 +577,11 @@ class RateLimitEngine:
         requests: Sequence[RateLimitReq],
         now: Optional[int] = None,
         accumulate: Optional[Sequence[bool]] = None,
+        upserts: Optional[Sequence] = None,
     ) -> List[RateLimitResp]:
         """Window processing with the C++ router resolving regular keys
-        (JAX engine.py:721-928).
+        (JAX engine.py:721-928).  Upserts ride the windows in chunks of
+        max_global_updates, first, like the JAX engine's.
 
         One `router_pack` call hashes, routes and slot-allocates a window's
         regular requests straight into the staging buffers; on lane
@@ -563,14 +626,19 @@ class RateLimitEngine:
             out_lane = np.zeros(nreg, np.int32)
         shard_fill = np.zeros(S, np.int32)
 
+        pending_upserts = list(upserts) if upserts else []
         pos = 0
         gpos = 0
         first = True
-        while first or pos < nreg or gpos < len(glob):
+        while first or pos < nreg or gpos < len(glob) or pending_upserts:
             first = False
             buf.reset(self.global_capacity)
             shard_fill[:] = 0
             self.gtable.begin_window()
+            ups_chunk = pending_upserts[:self.max_global_updates]
+            pending_upserts = pending_upserts[self.max_global_updates:]
+            if ups_chunk:
+                buf.stage_upserts(self.gtable, ups_chunk, now)
 
             packed = 0
             if pos < nreg:
@@ -619,7 +687,7 @@ class RateLimitEngine:
             for j, slot in enumerate(greset):
                 buf.rslot[j] = slot
 
-            if (packed == 0 and not glanes
+            if (packed == 0 and not glanes and not ups_chunk
                     and (pos < nreg or gpos < len(glob))):
                 raise RuntimeError("window packing made no progress")
 
@@ -729,9 +797,10 @@ class RateLimitEngine:
                 fout = drain_kernel.window_full(self.state, batch, now)
         self.windows_processed += 1
         gout = None
-        if _control_live(buf.gslot, buf.upd(), self.global_capacity):
+        ups = buf.ups()
+        if _control_live(buf.gslot, buf.upd(), self.global_capacity, ups):
             gout = self._global_window(buf.gbatch(), buf.ghits_acc,
-                                       buf.upd(), now)
+                                       buf.upd(), now, ups)
         # one fetch point: the responses come back after both launches
         if compact:
             out = kernel.decode_output_host(wire.cpu().numpy(), now)
@@ -754,12 +823,13 @@ class RateLimitEngine:
         return WindowOutput(*[torch.stack(f) for f in zip(*outs)])
 
     def _global_window(self, gbatch: WindowBatch, gacc, upd,
-                       now: int) -> torch.Tensor:
-        """One GLOBAL window (JAX engine.py:2645-2700, _apply_config and
-        _global_window): gbatch/gacc [S, Bg] lanes and upd's Kg config-write
-        and reset lanes (host arrays) packed into the engine's pinned
-        control block, one non-blocking copy to the device, then one launch
-        of global_window: the config writes and resets, every lane's read,
+                       now: int, ups=None) -> torch.Tensor:
+        """One GLOBAL window (JAX engine.py:2617-2700, _apply_control and
+        _global_window): gbatch/gacc [S, Bg] lanes, upd's Kg config-write
+        and reset lanes and ups's upsert lanes (host arrays, or None)
+        packed into the engine's pinned control block, one non-blocking
+        copy to the device, then one launch of global_window: the upserts,
+        the config writes and resets, every lane's read,
         and the hits summed per slot over every shard (the mesh psum)
         applied to the touched rows, in place.  Under the per-op lowering
         global_stage writes the config and sums the hits, the replica reads
@@ -768,10 +838,12 @@ class RateLimitEngine:
         here waits for the device.  Returns the read block i64[S, Bg, 4] on
         the device, pad lanes 0."""
         n, kg = int(np.size(gacc)), int(np.size(upd[0]))
+        ku = 0 if ups is None else int(np.size(ups[0]))
         block = self._staging.stage(
-            "control", global_kernel.control_words(n, kg),
-            lambda view: global_kernel.pack_control(view, gbatch, gacc, upd))
-        ctl = global_kernel.Control(block, n, kg)
+            "control", global_kernel.control_words(n, kg, ku),
+            lambda view: global_kernel.pack_control(view, gbatch, gacc, upd,
+                                                    ups))
+        ctl = global_kernel.Control(block, n, kg, ku)
         if self.per_op:
             global_kernel.global_stage(self.gstate, self.gcfg, ctl,
                                        self._gsums)
@@ -971,8 +1043,8 @@ class RateLimitEngine:
     def empty_drain_control(self):
         """(gbatch, gacc, upd) padding for a pipeline_dispatch_global that
         carries no GLOBAL lanes (JAX engine.py:1071): slots one past the
-        arena, which drop.  The JAX engine's empty_control adds the lanes
-        of an owner's upsert broadcast, which this engine does not take."""
+        arena, which drop.  A drain never carries upserts (they ride
+        step's windows), as in the JAX engine."""
         S, Bg, G, Kg = (self.num_shards, self.global_batch_per_shard,
                         self.global_capacity, self.max_global_updates)
         gbatch = WindowBatch(

@@ -67,10 +67,25 @@ encodes the response bytes from the fetched words in C
 refuses (malformed, GLOBAL, CONCURRENCY, an empty name or key, a value
 outside the compact ranges, more than 1000 items, or one that cannot fit
 even an empty stack) resolves to None, and the caller answers it through
-the protobuf path after the drain.  Standalone only: every item is local
-(no ring is installed in the parser).  Not ported here: the cluster ring
-and its forwards, the front door's column jobs, lockstep (mesh) serving,
-tracing and device profiling.
+the protobuf path after the drain.
+
+In a cluster (`install_ring`, JAX pipeline.py:740-760, from the
+Instance's set_peers) the parser classifies each item against the
+consistent-hash ring: items another peer owns are not staged.  The drain
+copies their serialized RateLimitReq frames out of the RPC, and once it
+is dispatched `_spawn_forwards` sends them, one spliced
+GetPeerRateLimitsReq per owner per drain (chunks of 1000), through that
+owner's PeerClient.get_peer_rate_limits_raw, while the local stack's fetch
+is in flight; `_assemble_mixed` then splices the owners' framed responses
+(metadata['owner'] appended) positionally with the local items' framed
+segments (fastpath_encode_parts) into the RPC's response.  A drain whose
+every item is forwarded launches nothing.  Forwarded items are the
+owner's decisions: they do not count in this node's decisions.  The lane
+is gated by `rpc_enabled`, which set_peers closes across the swap of the
+ring and the drain re-reads on the engine thread, so an RPC that races a
+membership change takes the protobuf path instead of deciding keys this
+node no longer owns.  Not ported here: the front door's column jobs,
+lockstep (mesh) serving, the drain-stage spans and device profiling.
 
 Two other departures from the JAX pipeline keep each key's requests in
 submission order, which the JAX pipeline loses once one drain's jobs
@@ -200,15 +215,87 @@ class ListJob:
         ]
 
 
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _frame(body: bytes) -> bytes:
+    """One repeated-field-1 entry (the same framing in GetRateLimitsResp
+    and GetPeerRateLimitsResp)."""
+    return b"\x0a" + _varint(len(body)) + body
+
+
+def _read_varint(data: bytes, i: int) -> tuple:
+    v = shift = 0
+    while True:
+        b = data[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        if not (b & 0x80):
+            return v, i
+        shift += 7
+
+
+def _walk_frames(data: bytes) -> List[bytes]:
+    """Split a serialized response into its field-1 entry FRAMES (tag +
+    length + body), in order; skips other fields."""
+    frames = []
+    i, n = 0, len(data)
+    while i < n:
+        start = i
+        tag, i = _read_varint(data, i)
+        wt = tag & 7
+        if wt == 2:
+            ln, i = _read_varint(data, i)
+            end = i + ln
+            if tag >> 3 == 1:
+                frames.append(data[start:end])
+            i = end
+        elif wt == 0:
+            _, i = _read_varint(data, i)
+        else:
+            raise ValueError("unsupported wire type in peer response")
+    return frames
+
+
+# the coordinator annotation the per-item path puts on forwarded responses
+# (gubernator.go:151): RateLimitResp.metadata is map<string,string> field
+# 6; one entry is a {key=1, value=2} submessage
+_META_OWNER_KEY = b"\x0a\x05owner"
+
+
+def _append_owner(frame: bytes, host: str) -> bytes:
+    """Annotate a framed RateLimitResp with metadata['owner'] by appending
+    the map entry to its body (protobuf fields concatenate)."""
+    ln, i = _read_varint(frame, 1)  # after the tag byte 0x0a
+    h = host.encode("utf-8")
+    entry = _META_OWNER_KEY + b"\x12" + _varint(len(h)) + h
+    return _frame(frame[i:i + ln] + b"\x32" + _varint(len(entry)) + entry)
+
+
+def _error_frame(message: str) -> bytes:
+    """A framed RateLimitResp carrying only `error` (field 5)."""
+    m = message.encode("utf-8")
+    return _frame(b"\x2a" + _varint(len(m)) + m)
+
+
 class RpcJob:
     """A whole serialized GetRateLimitsReq served natively: C parse ->
     stacked lanes -> C proto encode.  Resolves to the response BYTES, or
     None when the RPC needs the protobuf path.  peer_mode marks the
     authoritative peer-plane lane (GetPeerRateLimits): the parser ignores
-    any ring and takes every item as local."""
+    any ring and takes every item as local.  In a cluster, `remote` holds
+    the items the ring gives other peers, as (item index, ring peer
+    index, framed RateLimitReq bytes), and `forward_task` resolves to
+    their framed responses by item index (_spawn_forwards)."""
 
     __slots__ = ("data", "fut", "futs", "n", "row", "lane", "pos", "limit",
-                 "peer_mode", "after")
+                 "peer_mode", "after", "remote", "forward_task")
 
     def __init__(self, data: bytes, fut: asyncio.Future,
                  peer_mode: bool = False):
@@ -222,15 +309,28 @@ class RpcJob:
         self.pos = None
         self.limit = None
         self.after = 0
+        self.remote = ()
+        self.forward_task = None
 
-    def finish(self, pipeline, wflat, clflat, now) -> bytes:
+    def finish(self, pipeline, wflat, clflat, now):
         # the encode target is a per-fetch-thread scratch buffer: bytes()
         # copies out before this thread touches another job
         resp_buf = pipeline._resp_buf(self.n * 64 + 64)
-        m = pipeline.engine.native.fastpath_encode_w(
+        native = pipeline.engine.native
+        if not self.remote:
+            m = native.fastpath_encode_w(
+                wflat, self.limit, now, wflat.shape[-1], self.n,
+                self.row, self.lane, self.pos, resp_buf, climit=clflat)
+            return bytes(resp_buf[:m])
+        # mixed RPC: the local items as framed per-item segments (a
+        # forwarded item's length is 0); _assemble_mixed splices the rest
+        item_off = np.empty(self.n, np.int64)
+        item_len = np.empty(self.n, np.int32)
+        m = native.fastpath_encode_parts(
             wflat, self.limit, now, wflat.shape[-1], self.n,
-            self.row, self.lane, self.pos, resp_buf, climit=clflat)
-        return bytes(resp_buf[:m])
+            self.row, self.lane, self.pos, resp_buf, item_off, item_len,
+            climit=clflat)
+        return bytes(resp_buf[:m]), item_off, item_len
 
 
 def _pending_items(job) -> int:
@@ -245,7 +345,8 @@ class _DrainResult:
                  "an_decay", "staged", "fallback", "leftover", "now",
                  "n_decisions", "error", "started", "pack_done",
                  "dispatch_done", "fetch_start", "fetch_done", "arena",
-                 "cols_owner", "cfut", "deferred", "carried", "k_used")
+                 "cols_owner", "cfut", "deferred", "carried", "k_used",
+                 "ring_peers")
 
     def __init__(self):
         # the drain's response words and stored limits on the device, the
@@ -272,6 +373,8 @@ class _DrainResult:
         self.fallback = []
         self.leftover = []
         self.k_used = 0
+        # the PeerClients of the ring the drain's parse classified against
+        self.ring_peers = ()
         self.now = 0
         self.n_decisions = 0
         self.error = None
@@ -326,6 +429,17 @@ class DispatchPipeline:
         self.rpc_staged = 0
         self.rpc_leftover = 0
         self.rpc_refused = 0
+        # the raw-RPC lane's gate (JAX pipeline.py:563): the Instance's
+        # set_peers closes it across a ring swap; the drain re-reads it on
+        # the engine thread
+        self.rpc_enabled = self.enabled
+        # the ring's PeerClients, aligned with the parser's peer indices
+        # (install_ring), the items forwarded to them, and the Instance's
+        # Metrics (cluster_forwarded), when it has one
+        self._ring_peers: tuple = ()
+        self.forwarded = 0
+        self.metrics = None
+        self._tasks: set = set()
         if not self.enabled:
             return
         # per-fetch-thread response encode buffer (RpcJob.finish)
@@ -445,6 +559,18 @@ class DispatchPipeline:
             "chain_flushes": self.chain_flushes,
         }
 
+    def install_ring(self, points, peer_of, peers, self_idx: int) -> None:
+        """Install the cluster ring (engine thread): the C parser's point
+        table and the aligned PeerClient list for forwards.  Empty points
+        clear it back to standalone (every item local)."""
+        self.engine.native.set_ring(points, peer_of, self_idx)
+        self._ring_peers = tuple(peers)
+
+    def _spawn(self, coro) -> None:
+        t = self._loop.create_task(coro)
+        self._tasks.add(t)
+        t.add_done_callback(self._tasks.discard)
+
     # ------------------------------------------------------------ submit API
 
     async def submit_one(self, req: RateLimitReq) -> RateLimitResp:
@@ -470,8 +596,10 @@ class DispatchPipeline:
                          peer_mode: bool = False) -> Optional[bytes]:
         """Serve a whole serialized GetRateLimitsReq (or, with peer_mode,
         a GetPeerRateLimitsReq, the same wire shape) authoritatively; None
-        means the caller must run the protobuf path."""
-        if not (self.enabled and self.engine._compact_enabled) or self._closed:
+        means the caller must run the protobuf path (also while the lane's
+        gate is closed)."""
+        if (not (self.enabled and self.rpc_enabled
+                 and self.engine._compact_enabled) or self._closed):
             return None
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
@@ -746,6 +874,13 @@ class DispatchPipeline:
             res.arena = None
             self._pump(force=True)
             return
+        # start the forwards of the drain's mixed RPCs now, so the peers'
+        # round trips overlap the local stack's fetch; the completion
+        # callbacks attached below run after this, so each mixed job's
+        # forward_task exists when its drain commits
+        mixed = [j for j in res.staged if isinstance(j, RpcJob) and j.remote]
+        if mixed:
+            self._spawn_forwards(mixed, res.ring_peers)
         if res.deferred:
             self._chain_add(res)
         else:
@@ -814,7 +949,98 @@ class DispatchPipeline:
             self.slo.observe_drain(drain_wall, res.n_decisions)
         self._pump(force=True)
 
+    def _spawn_forwards(self, jobs: List[RpcJob], ring_peers) -> None:
+        """Forward a drain's remote items to their ring owners as spliced
+        bytes (JAX pipeline.py:1299-1373): per owner, every mixed RPC's
+        RateLimitReq frames concatenate into one GetPeerRateLimitsReq (the
+        same field-1 framing), in chunks of the 1000-item cap, sent with
+        the owner's PeerClient.get_peer_rate_limits_raw (the reference's
+        per-peer batch relay, peers.go:143-207).  Each job's forward_task
+        resolves to {item index: framed RateLimitResp} as soon as its own
+        items are answered; a failed chunk answers its items with an
+        in-band error, as the per-item path does."""
+        by_owner: dict = {}
+        pending: dict = {}
+        results: dict = {}
+        n_fwd = 0
+        for job in jobs:
+            job.forward_task = self._loop.create_future()
+            pending[id(job)] = len(job.remote)
+            results[id(job)] = {}
+            n_fwd += len(job.remote)
+            for i, owner, frame in job.remote:
+                by_owner.setdefault(owner, []).append((job, i, frame))
+        self.forwarded += n_fwd
+        if self.metrics is not None:
+            self.metrics.cluster_forwarded.inc(n_fwd)
+
+        def deliver(job, i, frame):
+            jid = id(job)
+            results[jid][i] = frame
+            pending[jid] -= 1
+            if pending[jid] == 0 and not job.forward_task.done():
+                job.forward_task.set_result(results[jid])
+
+        async def one_chunk(owner_idx, items):
+            # everything inside the try: forward_task has no exception
+            # path (errors are per item), so an escape here would leave
+            # the jobs' futures unresolved
+            peer = None
+            try:
+                peer = ring_peers[owner_idx]
+                resp = await peer.get_peer_rate_limits_raw(
+                    b"".join(f for _, _, f in items))
+                frames = _walk_frames(resp)
+                if len(frames) != len(items):
+                    raise RuntimeError(
+                        "number of rate limits in peer response does not "
+                        "match request")
+                for (job, i, _), fr in zip(items, frames):
+                    deliver(job, i, _append_owner(fr, peer.host))
+            except BaseException as e:  # noqa: BLE001 - even a cancel
+                # must resolve the chunk's items first
+                host = getattr(peer, "host", f"ring#{owner_idx}")
+                fr = _error_frame(f"while fetching rate limit from peer "
+                                  f"{host} - '{e}'")
+                for job, i, _ in items:
+                    deliver(job, i, fr)
+                if not isinstance(e, Exception):
+                    raise
+
+        for owner_idx, items in by_owner.items():
+            for base in range(0, len(items), MAX_BATCH_SIZE):
+                self._spawn(
+                    one_chunk(owner_idx, items[base:base + MAX_BATCH_SIZE]))
+
+    async def _assemble_mixed(self, job: RpcJob, local_parts) -> None:
+        """Splice a mixed RPC's local framed segments with its forwarded
+        framed responses, positionally, into its GetRateLimitsResp bytes
+        (JAX pipeline.py:1541)."""
+        try:
+            seg, item_off, item_len = local_parts
+            fwd = await job.forward_task
+            parts = []
+            for i in range(job.n):
+                if item_len[i]:
+                    o = int(item_off[i])
+                    parts.append(seg[o:o + int(item_len[i])])
+                else:
+                    parts.append(fwd[i])
+            if not job.fut.done():
+                job.fut.set_result(b"".join(parts))
+        except BaseException as e:  # noqa: BLE001 - resolve, then re-raise
+            # what is not an Exception
+            if not job.fut.done():
+                job.fut.set_exception(
+                    e if isinstance(e, Exception)
+                    else RuntimeError(f"pipeline shutdown ({type(e).__name__})"))
+            if not isinstance(e, Exception):
+                raise
+
     def _resolve(self, job, out) -> None:
+        if isinstance(job, RpcJob) and job.forward_task is not None:
+            self._spawn(self._assemble_mixed(job, out))
+            return
         if job.futs is not None:
             for f, r in zip(job.futs, out):
                 if not f.done():
@@ -854,6 +1080,8 @@ class DispatchPipeline:
         res.now = now
         res.cols_owner = cols
         list_ok = eng._compact_enabled
+        rpc_ok = self.rpc_enabled and list_ok
+        res.ring_peers = self._ring_peers
         # the previous drain's leftovers first: they were taken before
         # anything this drain was given
         if self._carry:
@@ -870,7 +1098,7 @@ class DispatchPipeline:
         for idx, job in enumerate(jobs):
             if isinstance(job, RpcJob):
                 n = -1
-                if list_ok:
+                if rpc_ok:
                     scr = arena.acquire_scratch()
                     job.row, job.lane, job.pos = scr.row, scr.lane, scr.pos
                     job.limit = scr.limit
@@ -881,7 +1109,18 @@ class DispatchPipeline:
                     job.n = n
                     res.staged.append(job)
                     self.rpc_staged += 1
-                    if n:
+                    remote = np.flatnonzero(scr.row[:n] < -1)
+                    if len(remote):
+                        # the forwards run on the loop after this drain's
+                        # arena (and its scratch) may be reused: copy each
+                        # remote item's frame out now
+                        data, off, mlen = job.data, scr.off, scr.mlen
+                        job.remote = [
+                            (int(i), -2 - int(scr.row[i]),
+                             b"\x0a" + _varint(int(mlen[i]))
+                             + data[int(off[i]):int(off[i]) + int(mlen[i])])
+                            for i in remote.tolist()]
+                    if len(remote) < n:
                         stack_empty = False
                 elif n == -6 and not stack_empty:
                     self.rpc_leftover += 1
@@ -954,7 +1193,10 @@ class DispatchPipeline:
         else:
             native.commit()  # staged jobs with no item: nothing to launch
         res.dispatch_done = time.monotonic()
-        res.n_decisions = sum(j.n for j in res.staged)
+        # forwarded items are the owners' decisions (their drains count
+        # them), not this node's
+        res.n_decisions = sum(
+            j.n - len(getattr(j, "remote", ())) for j in res.staged)
         # counted on the engine thread, like the legacy lane's process()
         eng.decisions_processed += res.n_decisions
         self.decisions_staged += res.n_decisions

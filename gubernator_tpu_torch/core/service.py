@@ -1,13 +1,32 @@
-"""Service core: request validation and dispatch on one node.
+"""Service core: request validation, owner routing and dispatch.
 
-The single-node subset of `gubernator_tpu/core/service.py` Instance (the
-reference's Instance, gubernator.go:41-322): per-item validation with the
-reference's exact error strings (gubernator.go:102-110), the 1000-item RPC
-cap (:78-81), and local decisions through the WindowBatcher into the
-engine's kernel launches per window.  GLOBAL items are served standalone
-(every replica is this node's), on the token and leaky algorithms only,
-as in the JAX package.  The engine is built with the native router when it
-builds (EngineConfig.use_native, "auto"), and then the batcher serves
+The port of `gubernator_tpu/core/service.py` Instance (the reference's
+Instance, gubernator.go:41-322) without mesh serving: per-item validation
+with the reference's exact error strings (gubernator.go:102-110), the
+1000-item RPC cap (:78-81), owner-vs-forward routing over the
+consistent-hash ring (:114-152), and local decisions through the
+WindowBatcher into the engine's kernel launches per window.
+
+The peer ring (ROADMAP item 6c): `set_peers` builds a
+parallel/router.py ConsistentHashRing of net/peers.py PeerClients (a
+PeerInfo with is_owner names this node), installs it in the pipeline's C
+parser on the engine thread with the raw-RPC lane's gate closed across the
+swap (`_sync_pipeline_ring`), and starts the GLOBAL manager.  Then a
+request whose key another peer owns is forwarded through that peer's
+batching window (a `peer_forward` span and stage; the answer names the
+owner in metadata['owner']); with the owner's breaker open it is answered
+locally, flagged non-authoritative, or shed (`fail_open`).  GLOBAL items
+(token and leaky only, as in the JAX package): the owner decides them and
+queues a broadcast (core/global_sync.py), a non-owner answers from its
+replica without adding the hits (`accumulate=False`) and queues the hits
+for the owner; `update_peer_globals` writes an owner's broadcast into the
+replica arena as upsert lanes.  With an empty ring (standalone) every key
+is this node's, and a peer-plane GLOBAL item is decided locally: the JAX
+Instance fails it (its GlobalManager has no started interval), a
+departure tests/test_torch_server.py pins.
+
+The engine is built with the native router when it builds
+(EngineConfig.use_native, "auto"), and then the batcher serves
 token and leaky requests in the compact ranges through the pipelined lane
 (core/pipeline.py: router-packed K-window stacks, one drain-kernel launch
 each, an asynchronous fetch) and everything else through engine.process on
@@ -20,10 +39,11 @@ drain's stats to `TrafficAnalytics.ingest` and its wall time to
 the JAX package).
 
 The transport (server.py, api/http_gateway.py) calls `get_rate_limits`,
-`get_peer_rate_limits` (the peer plane's relay: standalone, every item is
-this node's), `health_check`, `batcher.submit_rpc` (the raw-RPC lane) and
-`add_to_server`, and observes RPCs into `metrics` when it is set: a
-`observability.metrics.Metrics` (prometheus_client), None by default
+`get_peer_rate_limits` (the peer plane's relay: this node owns every item
+it is sent), `update_peer_globals`, `health_check`, `batcher.submit_rpc`
+(the raw-RPC lane) and `add_to_server`, roots its traces in `tracer`
+(observability/tracing.py), and observes RPCs into `metrics` when it is
+set: an `observability.metrics.Metrics` (prometheus_client), None by default
 because the serving core needs no metrics library.  `mesh_mode` stays
 False until mesh serving is ported.
 
@@ -43,8 +63,9 @@ The state lifecycle (JAX service.py:780-827): `export_snapshot`,
 `save_snapshot`, `export_snapshot_bytes` and `restore_snapshot_bytes` run
 the engine's export and import on the engine thread (`_quiesced`), and
 `tiers` (a TierConfig) puts the warm tier on the engine; a snapshot
-carries the lease book's rows.  Peers (with `release_peer_leases` and the
-breaker fallback) are not part of the port yet.
+carries the lease book's rows.  `aclose` flushes the GLOBAL manager
+before it closes.  Not here yet: the failure detector, rehoming and key
+migration (ROADMAP item 6d) and mesh serving (item 8).
 """
 
 from __future__ import annotations
@@ -52,7 +73,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from gubernator_tpu_torch.algorithms.leases import LeaseBook
 from gubernator_tpu_torch.algorithms.oracles import ALGORITHM_NAMES
@@ -70,18 +91,25 @@ from gubernator_tpu_torch.config import (
     AnalyticsConfig,
     BehaviorConfig,
     EngineConfig,
+    HealthConfig,
     LeaseConfig,
+    PeerInfo,
     QoSConfig,
     SLOConfig,
     TierConfig,
 )
 from gubernator_tpu_torch.core.batcher import WindowBatcher
 from gubernator_tpu_torch.core.engine import RateLimitEngine
+from gubernator_tpu_torch.core.global_sync import GlobalManager
+from gubernator_tpu_torch.net.peers import BreakerOpenError, PeerClient
 from gubernator_tpu_torch.observability.analytics import (
     SLOEngine,
     TrafficAnalytics,
 )
-from gubernator_tpu_torch.qos import QoSManager
+from gubernator_tpu_torch.observability.tracing import Tracer
+from gubernator_tpu_torch.parallel.router import ConsistentHashRing
+from gubernator_tpu_torch.qos import QoSManager, shed_response
+from gubernator_tpu_torch.qos.admission import SHED_BREAKER_OPEN
 from gubernator_tpu_torch.state import snapshot as snapmod
 
 log = logging.getLogger("gubernator.service")
@@ -107,7 +135,11 @@ class Instance:
                  metrics=None,
                  tiers: Optional[TierConfig] = None,
                  qos: Optional[QoSConfig] = None,
-                 leases: Optional[LeaseConfig] = None):
+                 leases: Optional[LeaseConfig] = None,
+                 advertise_address: str = "",
+                 tracer: Optional[Tracer] = None,
+                 health: Optional[HealthConfig] = None,
+                 peer_transport: Optional[Callable[[str], object]] = None):
         """engine: a ready engine, else one is built from engine_config on
         `device` (default `cuda`).  analytics / slo: when given and
         enabled, the traffic analytics (the engine's resident sketch and
@@ -119,7 +151,12 @@ class Instance:
         engine's Python tables (JAX service.py:128-137), fed by the
         analytics' heat when analytics is on too.  qos / leases: the QoS
         and lease-book knobs; None means the JAX package's defaults (QoS
-        on; LeaseConfig() reads GUBER_LEASE_*)."""
+        on; LeaseConfig() reads GUBER_LEASE_*).  advertise_address: the
+        address the ring knows this node by (the tracer's node label).
+        tracer: the span recorder; None builds one from GUBER_TRACE_SAMPLE
+        and GUBER_TRACE_EXPORT.  health: the hinted handoff's knobs.
+        peer_transport: host -> the transport of that peer's PeerClient
+        (net/peers.py); None connects over gRPC."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -176,6 +213,22 @@ class Instance:
             metrics.watch_leases(self.leases)
         # mesh serving is not ported yet (ROADMAP Queue 1 item 8)
         self.mesh_mode = False
+        if self.batcher.pipeline is not None:
+            self.batcher.pipeline.metrics = metrics
+        self.advertise_address = advertise_address
+        # per-instance span recorder: each node's ring buffer is its own,
+        # so a stitched trace is assembled by trace id across nodes
+        self.tracer = tracer if tracer is not None else Tracer(
+            node=advertise_address or "local")
+        self.peer_transport = peer_transport
+        self.global_mgr = GlobalManager(self.behaviors, self, metrics, log,
+                                        health=health)
+        self._picker: ConsistentHashRing[PeerClient] = ConsistentHashRing()
+
+    @property
+    def standalone(self) -> bool:
+        """No peer ring: this node owns every key."""
+        return self._picker.size() == 0
 
     def add_to_server(self, server, *, v1: bool = True,
                       peers: bool = True) -> None:
@@ -235,8 +288,76 @@ class Instance:
         # lifts only its deadline and sheds it when full or draining)
         resp = self._refusal(r)
         if resp is None:
-            resp = await self._local(r, deadline, admit=not release)
+            resp = await self._route_inner(r, deadline, admit=not release)
         self._account_decision(r, resp, client_id)
+        return resp
+
+    async def _route_inner(self, r: RateLimitReq,
+                           deadline: Optional[float] = None,
+                           admit: bool = True) -> RateLimitResp:
+        """A validated request to its owner (JAX service.py _route_inner
+        :385-446): decided here when the ring is empty or names this node;
+        a non-owner's GLOBAL item from the replica; anything else
+        forwarded through the owner's PeerClient."""
+        if self._picker.size() == 0:
+            return await self._local(r, deadline, admit)
+        key = r.hash_key()
+        try:
+            peer = self._picker.get(key)
+        except Exception as e:
+            return RateLimitResp(
+                error=f"while finding peer that owns rate limit '{key}' - "
+                      f"'{e}'")
+        if peer.is_owner:
+            try:
+                return await self._local(r, deadline, admit)
+            except Exception as e:
+                return RateLimitResp(
+                    error=f"while applying rate limit for '{key}' - '{e}'")
+        if r.behavior == Behavior.GLOBAL:
+            try:
+                return await self._global_nonowner(r)
+            except Exception as e:
+                return RateLimitResp(
+                    error=f"while applying rate limit for '{key}' - '{e}'")
+        # the forward hop is traced (peer_forward) and staged: the span's
+        # context rides to the owner as traceparent metadata
+        t0 = time.monotonic()
+        if self.metrics is not None:
+            self.metrics.cluster_forwarded.inc()
+        try:
+            with self.tracer.span("peer_forward") as span:
+                span.set_attr("peer", peer.host)
+                resp = await peer.get_peer_rate_limit(r)
+        except BreakerOpenError:
+            return await self._breaker_fallback(r, peer.host, deadline)
+        except Exception as e:
+            return RateLimitResp(
+                error=f"while fetching rate limit '{key}' from peer - '{e}'")
+        finally:
+            if self.metrics is not None:
+                self.metrics.observe_stage("peer_forward",
+                                           time.monotonic() - t0)
+        # tell the client who coordinates this key (gubernator.go:151)
+        resp.metadata = dict(resp.metadata or {}, owner=peer.host)
+        return resp
+
+    async def _breaker_fallback(self, r: RateLimitReq, host: str,
+                                deadline: Optional[float]) -> RateLimitResp:
+        """The owner's circuit breaker is open.  fail_open: answer from the
+        local engine, a non-authoritative decision flagged in metadata;
+        fail_closed: shed in-band with reason breaker_open."""
+        fail_open = (self.qos.fail_open if self.qos is not None
+                     else QoSConfig().fail_open)
+        if not fail_open:
+            if self.qos is not None:
+                self.qos.admission.record_shed(SHED_BREAKER_OPEN)
+            return shed_response(r, SHED_BREAKER_OPEN)
+        resp = await self._local(r, deadline)
+        resp.metadata = dict(resp.metadata or {}, owner=host,
+                             degraded="true", non_authoritative="true")
+        if self.metrics is not None:
+            self.metrics.fail_open_served.inc()
         return resp
 
     def _account_decision(self, r: RateLimitReq, resp: RateLimitResp,
@@ -281,7 +402,7 @@ class Instance:
                 algorithm=Algorithm.CONCURRENCY, behavior=tmpl.behavior)
             resp = self._refusal(rel)
             if resp is None:
-                resp = await self._local(rel, None, admit=False)
+                resp = await self._route_inner(rel, None, admit=False)
             if not resp.error:
                 total += count
         if (total or rows) and self.metrics is not None:
@@ -318,23 +439,48 @@ class Instance:
                 error=f"while applying rate limit for '{key}' - '{err}'")
         return None
 
+    async def release_peer_leases(self, host: str) -> int:
+        """Peer-death hook: grants are attributed to the forwarding peer's
+        source address, so a departed peer's clients get their slots back
+        here (JAX service.py:344)."""
+        ip = host.rsplit(":", 1)[0]
+        total = 0
+        for client in (host, ip):
+            if self.leases.holds(client):
+                total += await self.release_client_leases(
+                    client, reason="peer_down")
+        return total
+
     async def _local(self, r: RateLimitReq,
                      deadline: Optional[float] = None,
                      admit: bool = True) -> RateLimitResp:
         """Owner-side decision through the device engine (the reference's
         getRateLimit under the cache mutex, gubernator.go:236-251)."""
+        if r.behavior == Behavior.GLOBAL and self._picker.size() > 0:
+            # the owner saw a GLOBAL change: schedule an authoritative
+            # broadcast (gubernator.go:240-242)
+            self.global_mgr.queue_update(r)
         if r.behavior == Behavior.NO_BATCHING:
             # not gated by admission: NO_BATCHING jumps the window and
             # keeps working while the batched lane saturates
             return (await self.batcher.submit_now([r]))[0]
         return await self.batcher.submit(r, deadline=deadline, admit=admit)
 
+    async def _global_nonowner(self, r: RateLimitReq) -> RateLimitResp:
+        """Non-owner GLOBAL: answer from the local replica and reconcile
+        the hits with the owner asynchronously (gubernator.go:173-195):
+        the window reads the replica without adding the hits to the
+        per-slot sum or writing the request's config."""
+        self.global_mgr.queue_hit(r)
+        return await self.batcher.submit(r, accumulate=False)
+
     async def get_peer_rate_limits(self, requests: Sequence[RateLimitReq],
                                    client_id: Optional[str] = None
                                    ) -> List[RateLimitResp]:
         """Batch relay from a peer; this node is authoritative for every
-        key (gubernator.go:210-227).  Standalone there is no GLOBAL owner
-        to notify, so GLOBAL items are decided locally like the rest."""
+        key (gubernator.go:210-227).  In a ring a GLOBAL item's change is
+        queued for the owner's broadcast; standalone there is no replica to
+        tell, and the item is decided locally like the rest."""
         if len(requests) > MAX_BATCH_SIZE:
             raise BatchTooLargeError(
                 f"'PeerRequest.rate_limits' list too large; max size is "
@@ -347,6 +493,8 @@ class Instance:
                 out[i] = RateLimitResp(
                     error=f"invalid rate limit algorithm '{r.algorithm}'")
                 continue
+            if r.behavior == Behavior.GLOBAL and self._picker.size() > 0:
+                self.global_mgr.queue_update(r)
             valid.append(r)
             slots.append(i)
         if valid:
@@ -357,6 +505,20 @@ class Instance:
                 # forwarding peer
                 self._account_decision(requests[i], resp, client_id)
         return [o if o is not None else RateLimitResp() for o in out]
+
+    async def update_peer_globals(self, globals_: Sequence) -> None:
+        """The owner pushed authoritative GLOBAL statuses: upsert the
+        replicas (gubernator.go:199-207) on the engine thread."""
+        await self.batcher.apply_upserts(list(globals_))
+
+    async def read_global_status(self, probe: RateLimitReq) -> RateLimitResp:
+        """The authoritative hits=0 read of the broadcast loop
+        (global.go:199-203).  A per-item failure raises, so the broadcast
+        skips the key instead of pushing a zeroed status."""
+        resp = (await self.batcher.submit_now([probe]))[0]
+        if resp.error:
+            raise RuntimeError(resp.error)
+        return resp
 
     async def health_check(self) -> HealthCheckResp:
         """A draining node, or one whose admission queue is pinned at its
@@ -394,6 +556,93 @@ class Instance:
                 return False
             await sleep(0.01)
         return True
+
+    # ------------------------------------------------------------ membership
+
+    def get_peer(self, key: str) -> PeerClient:
+        return self._picker.get(key)
+
+    def peer_list(self) -> List[PeerClient]:
+        return self._picker.peers()
+
+    async def set_peers(self, peers: Sequence[PeerInfo]) -> None:
+        """Rebuild the ring on a membership change (gubernator.go:254-292,
+        JAX service.py:676-729), closing the clients of departed hosts
+        (the reference leaks them, :276 TODO)."""
+        picker = self._picker.new()
+        errs: List[str] = []
+        for info in peers:
+            client = self._picker.get_by_host(info.address)
+            if client is None:
+                try:
+                    transport = (self.peer_transport(info.address)
+                                 if self.peer_transport is not None
+                                 else None)
+                    client = PeerClient(self.behaviors, info.address,
+                                        qos=self.qos, transport=transport)
+                except Exception:
+                    errs.append(
+                        f"failed to connect to peer '{info.address}'; "
+                        f"consistent hash is incomplete")
+                    continue
+            client.is_owner = info.is_owner
+            picker.add(info.address, client)
+
+        old_hosts = {p.host for p in self._picker.peers()}
+        new_hosts = {p.host for p in picker.peers()}
+        departed = [self._picker.get_by_host(h) for h in old_hosts - new_hosts]
+        # close the raw-RPC lane across the swap: a drain between the
+        # picker swap and the ring install would otherwise classify
+        # against the stale ring and decide keys this node no longer owns;
+        # _sync_pipeline_ring opens it once the new ring is installed on
+        # the engine thread
+        if self.batcher.pipeline is not None:
+            self.batcher.pipeline.rpc_enabled = False
+        self._picker = picker
+        if self.metrics is not None:
+            self.metrics.cluster_peers.set(picker.size())
+        self.health = HealthCheckResp(
+            status=UNHEALTHY if errs else HEALTHY,
+            message="|".join(errs),
+            peer_count=picker.size(),
+        )
+        await self._sync_pipeline_ring()
+        self.global_mgr.start()
+        log.info("Peers updated: %s", [p.address for p in peers])
+        for client in departed:
+            if client is not None:
+                await client.close()
+
+    async def _sync_pipeline_ring(self) -> None:
+        """Keep the raw-RPC lane's view of the cluster equal to the
+        picker's: standalone an empty ring (everything local); in a
+        cluster the consistent-hash table, so the C parser classifies each
+        item local or forward.  The install runs on the engine thread,
+        in turn with the drains."""
+        pipe = self.batcher.pipeline
+        if pipe is None or not pipe.enabled:
+            return
+        import numpy as np
+        loop = asyncio.get_running_loop()
+        if self._picker.size() == 0:
+            await loop.run_in_executor(
+                self.batcher._executor, pipe.install_ring,
+                np.empty(0, np.uint32), np.empty(0, np.int32), (), -1)
+            pipe.rpc_enabled = True
+            return
+        points, peers = self._picker.ring_table()
+        self_idx = next(
+            (i for i, p in enumerate(peers) if getattr(p, "is_owner", False)),
+            -1)
+        if self_idx < 0:
+            # this node is not on the ring: the lane cannot classify
+            pipe.rpc_enabled = False
+            return
+        await loop.run_in_executor(
+            self.batcher._executor, pipe.install_ring,
+            np.asarray(points, np.uint32),
+            np.arange(len(points), dtype=np.int32), tuple(peers), self_idx)
+        pipe.rpc_enabled = True
 
     # ------------------------------------------------------ state lifecycle
 
@@ -455,5 +704,15 @@ class Instance:
         if self.analytics is not None:
             self.analytics.forget_labels()
 
+    async def aclose(self) -> None:
+        """Flush the GLOBAL manager first (a clean shutdown must not drop
+        queued aggregated hits or broadcasts), then close."""
+        try:
+            await self.global_mgr.flush()
+        except Exception as e:
+            log.error("global flush on close failed: %s", e)
+        self.close()
+
     def close(self) -> None:
+        self.global_mgr.stop()
         self.batcher.close()

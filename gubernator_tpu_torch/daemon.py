@@ -16,9 +16,20 @@ in the stop sequence, after the drain; a restored snapshot's lease rows go
 back into the lease book.  GUBER_TIER_WARM > 0 puts the warm tier on the
 engine (and forces the Python routing tables).  QoS runs at the JAX
 package's defaults (GUBER_QOS_*), and every GUBER_LEASE_SWEEP_MS the
-lease sweep drops expired grants from the book.  Peer discovery, the
-front door, mesh serving and fault injection are not ported yet: their
-knobs raise in config_from_env.
+lease sweep drops expired grants from the book.
+
+The peer ring: GUBER_STATIC_PEERS (comma-separated gRPC addresses, this
+node's GUBER_ADVERTISE_ADDRESS among them, default its gRPC address) is
+pushed once through discovery/static.py StaticPool into
+`Instance.set_peers`; keys then forward to their consistent-hash owners
+and GLOBAL limits sync through the GLOBAL manager, whose queue the stop
+sequence flushes after the drain.  Such a daemon runs no failure detector
+yet (net/health.py, ROADMAP item 6d: GUBER_HEARTBEAT_* raise off their
+defaults), so a dead static peer stays on the ring.  GUBER_FAULTS /
+GUBER_FAULTS_SEED install fault rules at boot (net/faults.py); a rule on a
+seam the port does not cross yet raises there.  etcd and Kubernetes
+discovery, the front door and mesh serving are not ported yet: their knobs
+raise in config_from_env.
 """
 
 from __future__ import annotations
@@ -34,7 +45,10 @@ from gubernator_tpu_torch.api.http_gateway import HttpGateway
 from gubernator_tpu_torch.api.types import millisecond_now
 from gubernator_tpu_torch.config import DaemonConfig, config_from_env
 from gubernator_tpu_torch.core.service import Instance
+from gubernator_tpu_torch.discovery.static import StaticPool
+from gubernator_tpu_torch.net.faults import FAULTS
 from gubernator_tpu_torch.observability.metrics import Metrics
+from gubernator_tpu_torch.observability.tracing import Tracer
 from gubernator_tpu_torch.server import GrpcServer
 from gubernator_tpu_torch.state import snapshot as snapmod
 
@@ -47,6 +61,7 @@ class Daemon:
         self.instance: Optional[Instance] = None
         self.grpc: Optional[GrpcServer] = None
         self.http: Optional[HttpGateway] = None
+        self.pool: Optional[StaticPool] = None
         # phase names appended as stop() runs them, in order: the JAX
         # daemon's order for the phases the port has
         self.shutdown_phases: list = []
@@ -85,10 +100,17 @@ class Daemon:
 
     async def start(self) -> None:
         c = self.conf
+        # fault injection (net/faults.py): GUBER_FAULTS is read once here;
+        # a rule on a seam the port does not cross raises before anything
+        # is built
+        FAULTS.load_from_env()
         self.instance = Instance(
             engine_config=c.engine, behaviors=c.behaviors, device=c.device,
             analytics=c.analytics, slo=c.slo, metrics=Metrics(),
-            tiers=c.tiers, qos=c.qos, leases=c.leases)
+            tiers=c.tiers, qos=c.qos, leases=c.leases,
+            advertise_address=c.advertise_address, health=c.health,
+            tracer=Tracer(sample=c.trace_sample, export=c.trace_export,
+                          node=c.advertise_address or "local"))
         # launch every drain shape before accepting traffic
         self.instance.engine.warmup()
         if c.snapshot_dir:
@@ -112,6 +134,13 @@ class Daemon:
         self.grpc = GrpcServer(self.instance, c.grpc_listen_address)
         await self.grpc.start()
         log.info("gRPC listening on %s", self.grpc.address)
+        if c.static_peers:
+            self.pool = StaticPool(addresses=c.static_peers,
+                                   advertise_address=c.advertise_address,
+                                   on_update=self.instance.set_peers)
+            await self.pool.start()
+            log.info("static peers: %s (this node %s)", c.static_peers,
+                     c.advertise_address)
         self.http = HttpGateway(self.instance, c.http_listen_address)
         await self.http.start()
         log.info("HTTP gateway listening on %s:%d", self.http.host,
@@ -122,10 +151,12 @@ class Daemon:
         the port has: drain (wait, at most drain_timeout, for queued and
         in-flight decisions), the final snapshot when GUBER_SNAPSHOT_DIR
         is set (after the drain, so a clean stop loses no decision), then
-        teardown (http, grpc, instance; main.go:127-139 order).
-        Standalone there is no detector to stop, no GLOBAL manager to
-        flush and no ring to hand keys to."""
+        teardown (http, grpc, instance; main.go:127-139 order).  With
+        static peers the GLOBAL manager's queue is flushed after the
+        drain; there is no detector to stop yet and no key handoff
+        (ROADMAP item 6d)."""
         await self._drain_requests()
+        await self._global_flush()
         await self._final_snapshot()
         await self._teardown()
 
@@ -141,6 +172,18 @@ class Daemon:
                 log.warning("drain: decisions still pending at timeout")
         except Exception:
             log.exception("drain failed; continuing shutdown")
+
+    async def _global_flush(self) -> None:
+        """Push every queued GLOBAL hit and broadcast (the JAX daemon's
+        global_flush phase), bounded by the drain timeout."""
+        if self.instance is None or self.instance.standalone:
+            return
+        self._phase("global_flush")
+        try:
+            await asyncio.wait_for(self.instance.global_mgr.flush(),
+                                   self.conf.drain_timeout)
+        except Exception:
+            log.exception("global flush failed; continuing shutdown")
 
     async def _final_snapshot(self) -> None:
         if self._snapshot_task is None:
@@ -161,6 +204,8 @@ class Daemon:
                 await self._lease_sweep_task
             except asyncio.CancelledError:
                 pass
+        if self.pool is not None:
+            await self.pool.close()
         if self.http is not None:
             await self.http.stop()
         if self.grpc is not None:

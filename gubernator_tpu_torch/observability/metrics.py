@@ -19,14 +19,25 @@ with the same names and labels:
   guber_tpu_lease_clients, guber_tpu_lease_keys,
   guber_tpu_lease_releases_total{reason}        the algorithm plane and the
                                                 lease book (watch_leases)
+  async_durations, broadcast_durations          reference global.go:44-51
+  guber_tpu_cluster_peers,
+  guber_tpu_cluster_forwarded_total,
+  guber_qos_peer_retries_total{peer},
+  guber_qos_fail_open_total,
+  global_send_errors_total{peer},
+  broadcast_errors_total{peer},
+  guber_hints_total{event,peer},
+  guber_tpu_stage_duration_ms{stage}            the peer ring (its stages
+                                                peer_forward and
+                                                global_broadcast)
 
 The cache families are read from the native router (its resident key
 count, hits and misses) at scrape time.  This module imports
 prometheus_client, so the serving core never imports it: an Instance has
 no registry unless one is given (`Instance(metrics=Metrics())`, which the
-daemon always does).  The JAX package's other families (GLOBAL, pipeline,
-analytics, migration, devprof) are left for the observability item of the
-port's ROADMAP.  `observe_shed` only counts: the admission controller
+daemon always does).  The JAX package's other families (pipeline,
+analytics, migration, devprof, the drain stages and their rolling
+quantiles) are left for the observability item of the port's ROADMAP.  `observe_shed` only counts: the admission controller
 feeds each shed to the SLO engine itself.
 """
 
@@ -153,6 +164,71 @@ class Metrics:
             ["peer"],
             registry=self.registry,
         )
+        # the peer ring (net/peers.py, core/global_sync.py,
+        # core/service.py): GLOBAL sends and broadcasts, membership, the
+        # forwarding tax, the peer lane's resilience and hinted handoff
+        self.async_durations = Histogram(
+            "async_durations",
+            "The duration of GLOBAL async sends in seconds.",
+            registry=self.registry,
+        )
+        self.broadcast_durations = Histogram(
+            "broadcast_durations",
+            "The duration of GLOBAL broadcasts to peers in seconds.",
+            registry=self.registry,
+        )
+        self.cluster_peers = Gauge(
+            "guber_tpu_cluster_peers",
+            "Peers in the installed consistent-hash ring, self included "
+            "(0 until the first membership update).",
+            registry=self.registry,
+        )
+        self.cluster_forwarded = Counter(
+            "guber_tpu_cluster_forwarded_total",
+            "Rate-limit items forwarded to their owning peer (both the "
+            "per-item path and the native lane's spliced batches).",
+            registry=self.registry,
+        )
+        self.peer_retries = Counter(
+            "guber_qos_peer_retries_total",
+            "Peer-lane RPC retries after transient failures.",
+            ["peer"],
+            registry=self.registry,
+        )
+        self.fail_open_served = Counter(
+            "guber_qos_fail_open_total",
+            "Forwards answered locally (non-authoritative) while the "
+            "owner's breaker was open.",
+            registry=self.registry,
+        )
+        self.global_send_errors = Counter(
+            "global_send_errors_total",
+            "Failed per-peer GLOBAL aggregated-hit sends (after the peer "
+            "lane's own retries).",
+            ["peer"],
+            registry=self.registry,
+        )
+        self.broadcast_errors = Counter(
+            "broadcast_errors_total",
+            "Failed per-peer GLOBAL owner-broadcast sends.",
+            ["peer"],
+            registry=self.registry,
+        )
+        self.hints = Counter(
+            "guber_hints_total",
+            "Hinted-handoff buffer events, by event "
+            "(queued | replayed | expired).",
+            ["event", "peer"],
+            registry=self.registry,
+        )
+        self.stage_duration = Histogram(
+            "guber_tpu_stage_duration_ms",
+            "Wall time of one request-lifecycle stage in milliseconds.",
+            ["stage"],
+            buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100,
+                     250, 500, 1000, 2500),
+            registry=self.registry,
+        )
         # the algorithm plane (algorithms/): per-algorithm decision mix,
         # and the host-side concurrency-lease book
         self.algo_decisions = Counter(
@@ -274,6 +350,33 @@ class Metrics:
     def observe_breaker(self, peer: str, state: str) -> None:
         self.breaker_state.labels(peer=peer).set(
             self._BREAKER_STATES.get(state, 0))
+
+    def observe_peer_retry(self, peer: str) -> None:
+        self.peer_retries.labels(peer=peer).inc()
+
+    def observe_global_error(self, peer: str, kind: str,
+                             queued: int = 0) -> None:
+        """One failed per-peer GLOBAL send (kind: hits|update), plus how
+        many NEW hint entries it buffered."""
+        if kind == "update":
+            self.broadcast_errors.labels(peer=peer).inc()
+        else:
+            self.global_send_errors.labels(peer=peer).inc()
+        if queued > 0:
+            self.hints.labels(event="queued", peer=peer).inc(queued)
+
+    def observe_hints(self, peer: str, replayed: int = 0,
+                      expired: int = 0) -> None:
+        if replayed:
+            self.hints.labels(event="replayed", peer=peer).inc(replayed)
+        if expired:
+            self.hints.labels(event="expired", peer=peer).inc(expired)
+
+    def observe_stage(self, stage: str, seconds: float) -> None:
+        """One stage's wall time (peer_forward, global_broadcast) into the
+        stage histogram, in milliseconds."""
+        self.stage_duration.labels(stage=stage).observe(
+            max(0.0, seconds) * 1000.0)
 
     def observe_snapshot(self, seconds: float, size_bytes: int,
                          ok: bool) -> None:

@@ -9,7 +9,9 @@
 // gubernator_tpu/core/engine.py:2645) and the per-slot sum of the lanes'
 // hits (kernel.global_accumulate and the mesh psum, engine.py:2665).  The
 // per-op engine keeps the JAX order: global_stage writes the window's
-// config and resets and sums its lanes' hits into the engine's scratch;
+// upserts (an owner's broadcast; a launch of their own first, phase A0,
+// so the config lanes land after them) and its config and resets, and
+// sums its lanes' hits into the engine's scratch;
 // the replica reads (kernel.global_read) run as torch ops on the staged
 // arena, in stream order; global_apply then applies each touched slot's
 // sum under its config, in place, and leaves the scratch all zero.  The
@@ -43,6 +45,12 @@ namespace {
 constexpr int kApplyThreads = 256;
 
 __global__ void __launch_bounds__(kApplyThreads)
+    global_upsert_kernel(GArena a, GConfig cfg, Control c) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p < c.ku) upsert_item(a, cfg, c, p);
+}
+
+__global__ void __launch_bounds__(kApplyThreads)
     global_stage_kernel(GArena a, GConfig cfg, Control c, int64_t* sums) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < stage_items(c)) stage_item(a, cfg, c, sums, i);
@@ -74,26 +82,36 @@ const char* guber_apply_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Phase A of a GLOBAL window: the control block's config writes and resets
-// into the config (limit/duration i64[G], algo i32[G]) and the arena
+// Phases A0 and A of a GLOBAL window: the control block's upserts (a launch
+// of their own, when ku > 0), then its config writes and resets into the
+// config (limit/duration i64[G], algo i32[G]) and the arena
 // (limit/duration/remaining/tstamp/expire i64[G], algo i32[G]), in place,
 // and its lanes' contributed hits added into the sums scratch i64[G].
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launches.
 int guber_global_stage(void* limit, void* duration, void* remaining, void* tstamp,
                        void* expire, void* algo, void* cfg_limit, void* cfg_duration,
                        void* cfg_algo, long long G, const void* control, long long n,
-                       long long kg, void* sums, void* stream) {
-  if (G < 1 || n < 0 || kg < 0) return cudaErrorInvalidValue;
+                       long long kg, long long ku, void* sums, void* stream) {
+  if (G < 1 || n < 0 || kg < 0 || ku < 0) return cudaErrorInvalidValue;
   const long long items = n + kg;
-  if (items == 0) return cudaSuccess;
-  if ((items + kApplyThreads - 1) / kApplyThreads > 0x7FFFFFFFll) return cudaErrorInvalidValue;
-  global_stage_kernel<<<blocks_for(items), kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      arena_of(limit, duration, remaining, tstamp, expire, algo, G),
-      GConfig{static_cast<int64_t*>(cfg_limit), static_cast<int64_t*>(cfg_duration),
-              static_cast<int32_t*>(cfg_algo)},
-      Control{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
-              static_cast<int64_t>(kg)},
-      static_cast<int64_t*>(sums));
+  if ((items + kApplyThreads - 1) / kApplyThreads > 0x7FFFFFFFll ||
+      (ku + kApplyThreads - 1) / kApplyThreads > 0x7FFFFFFFll)
+    return cudaErrorInvalidValue;
+  const GArena a = arena_of(limit, duration, remaining, tstamp, expire, algo, G);
+  const GConfig cfg{static_cast<int64_t*>(cfg_limit), static_cast<int64_t*>(cfg_duration),
+                    static_cast<int32_t*>(cfg_algo)};
+  const Control c{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
+                  static_cast<int64_t>(kg), static_cast<int64_t>(ku)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (ku > 0) {
+    global_upsert_kernel<<<blocks_for(ku), kApplyThreads, 0, s>>>(a, cfg, c);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (items > 0) {
+    global_stage_kernel<<<blocks_for(items), kApplyThreads, 0, s>>>(
+        a, cfg, c, static_cast<int64_t*>(sums));
+  }
   return cudaGetLastError();
 }
 
@@ -104,8 +122,8 @@ int guber_global_stage(void* limit, void* duration, void* remaining, void* tstam
 int guber_global_apply(void* limit, void* duration, void* remaining, void* tstamp,
                        void* expire, void* algo, void* cfg_limit, void* cfg_duration,
                        void* cfg_algo, long long G, const void* control, long long n,
-                       long long kg, void* sums, long long now, void* stream) {
-  if (G < 1 || n < 0 || kg < 0) return cudaErrorInvalidValue;
+                       long long kg, long long ku, void* sums, long long now, void* stream) {
+  if (G < 1 || n < 0 || kg < 0 || ku < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   if ((n + kApplyThreads - 1) / kApplyThreads > 0x7FFFFFFFll) return cudaErrorInvalidValue;
   global_apply_kernel<<<blocks_for(n), kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -113,7 +131,7 @@ int guber_global_apply(void* limit, void* duration, void* remaining, void* tstam
       GConfig{static_cast<int64_t*>(cfg_limit), static_cast<int64_t*>(cfg_duration),
               static_cast<int32_t*>(cfg_algo)},
       Control{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
-              static_cast<int64_t>(kg)},
+              static_cast<int64_t>(kg), static_cast<int64_t>(ku)},
       static_cast<int64_t*>(sums), static_cast<int64_t>(now));
   return cudaGetLastError();
 }

@@ -1,26 +1,38 @@
-// The three phases of a GLOBAL window, as device functions over an item
-// index (sm_90a).  global_window.cu runs them in one launch of one thread
-// block cluster with a cluster barrier between them; global_apply.cu runs
-// phase A alone (global_stage) and phase C alone (global_apply) for the
-// per-op lowering, which reads the replica in torch ops between them.
+// The phases of a GLOBAL window, as device functions over an item index
+// (sm_90a).  global_window.cu runs them in one launch of one thread block
+// cluster with a cluster barrier between them; global_apply.cu runs phases
+// A0 and A (global_stage) and phase C alone (global_apply) for the per-op
+// lowering, which reads the replica in torch ops between them.
 //
 // A window's control crosses as one packed int64 block (ops/global_kernel.py
-// pack_control), n lanes and kg config-write / reset lanes:
+// pack_control), n lanes, kg config-write / reset lanes and ku upsert lanes:
 //
 //   [0, 7n)        slot, hits, limit, duration, algo, is_init, gacc  (n each)
 //   [7n, 7n + 5kg) uslot, ulimit, uduration, ualgo, rslot            (kg each)
+//   [.., + 7ku)    pslot, plimit, pduration, premaining, ptstamp,
+//                  pexpire, palgo                                    (ku each)
 //
+// An upsert lane is an owner's broadcast written into this replica (JAX
+// engine.py:2617 _apply_control): the row's limit, duration, remaining,
+// tstamp, expire and algo, and its config's limit, duration and algo.
 // gacc is a lane's hits contributed to its slot's sum (0 for a lane whose
 // hits reconcile elsewhere).  The sums live in an engine-owned scratch
 // i64[G] that is all zero between windows: phase A adds into it, phase C
 // exchanges each touched slot's sum for 0.
 //
+//   A0 (upserts; a window with ku > 0 only), items [0, ku): item p writes
+//     upsert lane p into its row and the row's config, by the JAX
+//     package's scatter rule (.at[idx].set(mode="drop")): an index in
+//     [-G, 0) writes row G + idx, one outside [-G, G) drops.  The JAX
+//     engine writes the upserts before the config lanes and resets
+//     (_apply_control), so phase A0 ends before phase A starts (a barrier,
+//     or the stream's order): on a row both name, the config lane's
+//     fields and the reset's expire = 0 are the ones left.
 //   A (stage), items [0, kg + n): item k < kg writes config lane k into
-//     gcfg and resets row rslot[k] (expire = 0), by the JAX package's
-//     scatter rule (.at[idx].set(mode="drop")): an index in [-G, 0) writes
-//     row G + idx, one outside [-G, G) drops.  Item kg + i adds lane i's
-//     gacc into its slot's sum when the slot is in [0, G) and gacc != 0
-//     (kernel.global_accumulate drops slots < 0 and >= G).
+//     gcfg and resets row rslot[k] (expire = 0), by the same scatter
+//     rule.  Item kg + i adds lane i's gacc into its slot's sum when the
+//     slot is in [0, G) and gacc != 0 (kernel.global_accumulate drops
+//     slots < 0 and >= G).
 //   B (read), items [0, n): lane i answers from row min(slot, G - 1) as
 //     phase A left it (config written, no hits applied), with fresh =
 //     is_init | expire < now | algo != row algo and its hits only when
@@ -44,17 +56,22 @@
 
 namespace {
 
-// number of int64 fields of a lane and of a config lane in the block
+// number of int64 fields of a lane, a config lane and an upsert lane in
+// the block
 constexpr int64_t kLaneFields = 7;
 constexpr int64_t kUpdFields = 5;
 
 struct Control {
   const int64_t* base;
   int64_t n, kg;
+  int64_t ku = 0;
 
   __device__ int64_t lane(int field, int64_t i) const { return base[field * n + i]; }
   __device__ int64_t upd(int field, int64_t k) const {
     return base[kLaneFields * n + field * kg + k];
+  }
+  __device__ int64_t ups(int field, int64_t p) const {
+    return base[kLaneFields * n + kUpdFields * kg + field * ku + p];
   }
 };
 
@@ -70,7 +87,8 @@ struct GArena {
   int64_t G;
 
   // the row's planes but expire, which phase A may reset: a lane takes them
-  // before phase A ends and expire after it
+  // before phase A ends (after phase A0, which writes them all) and expire
+  // after it
   __device__ Reg load_but_expire(int64_t row) const {
     return Reg{limit[row], duration[row], remaining[row], tstamp[row], 0, algo[row]};
   }
@@ -103,6 +121,25 @@ __device__ __forceinline__ int64_t contributing_slot(const Control& c, int64_t i
 }
 
 __device__ __forceinline__ int64_t stage_items(const Control& c) { return c.kg + c.n; }
+
+// phase A0: upsert lane p into its row and the row's config (upsert slots
+// are unique within a window, as the host stages them)
+__device__ void upsert_item(const GArena& a, const GConfig& cfg, const Control& c, int64_t p) {
+  const int64_t row = scatter_row(c.ups(0, p), a.G);
+  if (row < 0) return;
+  const int64_t limit = c.ups(1, p);
+  const int64_t duration = c.ups(2, p);
+  const int32_t algo = static_cast<int32_t>(c.ups(6, p));
+  a.limit[row] = limit;
+  a.duration[row] = duration;
+  a.remaining[row] = c.ups(3, p);
+  a.tstamp[row] = c.ups(4, p);
+  a.expire[row] = c.ups(5, p);
+  a.algo[row] = algo;
+  cfg.limit[row] = limit;
+  cfg.duration[row] = duration;
+  cfg.algo[row] = algo;
+}
 
 __device__ void stage_item(const GArena& a, const GConfig& cfg, const Control& c,
                            int64_t* sums, int64_t item) {

@@ -53,7 +53,13 @@
 // each touched sum for 0): 2048 lanes' atomics stay in L2, and a sum in
 // distributed shared memory would need the slot's owning CTA to be known
 // before the adds, which a key's slot does not say.  The arena is updated
-// in place, only on the rows the window names.
+// in place, only on the rows the window names.  A window that carries an
+// owner's broadcast (upsert lanes, a replica's control-plane traffic) runs
+// phase A0 first and one more cluster barrier before phase A, so the
+// config lanes and resets land after the upserts as in the JAX engine's
+// _apply_control; the lanes' loads still overlap phase A.  (An upsert that
+// searched the config lanes for its row instead took 31.6 us a window
+// against 5.7 without upserts, PERF.md.)
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,6 +82,12 @@ struct WindowThread {
   ReadLane rl;
   ApplyLane al;
 };
+
+// segment 0, in a window with upsert lanes only: phase A0
+__device__ void window_seg_u(const GArena& a, const GConfig& cfg, const Control& c,
+                             WindowThread& t) {
+  for (int64_t p = t.first; p < c.ku; p += t.stride) upsert_item(a, cfg, c, p);
+}
 
 // segment 1: the prefetch, then phase A
 __device__ void window_seg_a(const GArena& a, const GConfig& cfg, const Control& c,
@@ -148,6 +160,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   WindowThread t;
   t.first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   t.stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (c.ku > 0) {
+    // an owner's broadcast lands before the window's config lanes (the
+    // branch is uniform: every thread reaches the barrier)
+    window_seg_u(a, cfg, c, t);
+    cluster.sync();
+  }
   window_seg_a(a, cfg, c, sums, t);
   stamp<kStamped>(stamps, 1);
   cluster.sync();
@@ -236,7 +254,9 @@ int guber_global_window_ctas(long long n) { return choose_ctas(n < 0 ? 0 : n); }
 // One GLOBAL window in one cluster launch of `ctas` CTAs (1..16, above 8
 // the non-portable cluster size; 0 lets choose_ctas pick): the arena
 // (limit/duration/remaining/tstamp/expire i64[G], algo i32[G]) and its
-// config (limit/duration i64[G], algo i32[G]) updated in place, the control block i64[7n + 5kg], the sums
+// config (limit/duration i64[G], algo i32[G]) updated in place, the control
+// block i64[7n + 5kg + 7ku] (ku upsert lanes: phase A0 and a barrier first),
+// the sums
 // scratch i64[G] (all zero; left all zero), and the read block i64[n, 4]
 // (status, limit, remaining, reset) written.  stamps, when not null,
 // u64[ctas * 2 * kStamps], takes each CTA's debug stamps.  Returns the
@@ -244,9 +264,9 @@ int guber_global_window_ctas(long long n) { return choose_ctas(n < 0 ? 0 : n); }
 int guber_global_window(void* limit, void* duration, void* remaining, void* tstamp,
                         void* expire, void* algo, void* cfg_limit, void* cfg_duration,
                         void* cfg_algo, long long G, const void* control, long long n,
-                        long long kg, void* sums, long long now, void* read, int ctas,
-                        void* stamps, void* stream) {
-  if (G < 1 || n < 0 || kg < 0 || ctas < 0 || ctas > 16) return cudaErrorInvalidValue;
+                        long long kg, long long ku, void* sums, long long now, void* read,
+                        int ctas, void* stamps, void* stream) {
+  if (G < 1 || n < 0 || kg < 0 || ku < 0 || ctas < 0 || ctas > 16) return cudaErrorInvalidValue;
   if (ctas == 0) ctas = choose_ctas(n);
   if (ctas > 8 && allow_nonportable() != cudaSuccess) return allow_nonportable();
   const GArena a{static_cast<int64_t*>(limit),  static_cast<int64_t*>(duration),
@@ -256,7 +276,7 @@ int guber_global_window(void* limit, void* duration, void* remaining, void* tsta
   const GConfig cfg{static_cast<int64_t*>(cfg_limit), static_cast<int64_t*>(cfg_duration),
                     static_cast<int32_t*>(cfg_algo)};
   const Control c{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
-                  static_cast<int64_t>(kg)};
+                  static_cast<int64_t>(kg), static_cast<int64_t>(ku)};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t conf =
       window_config(n, ctas, static_cast<cudaStream_t>(stream), &attr);

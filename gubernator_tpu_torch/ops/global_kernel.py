@@ -3,28 +3,30 @@ ops/csrc/global_apply.cu) and the packed control block they read.
 
 A GLOBAL window's control - its n = S x Bg lanes (slot, hits, limit,
 duration, algo, is_init and the hits each contributes to its slot's sum,
-`gacc`) and its kg config-write and reset lanes (uslot, ulimit, uduration,
-ualgo, rslot) - crosses to the device as one int64 block, laid out by
-`pack_control` (the one place that knows the layout; csrc/
-global_phases.cuh reads it).  The arena (`gstate`, [G] planes) and its
+`gacc`), its kg config-write and reset lanes (uslot, ulimit, uduration,
+ualgo, rslot) and its ku upsert lanes (pslot, plimit, pduration,
+premaining, ptstamp, pexpire, palgo: an owner's broadcast written into
+this replica, JAX engine.py:2617 _apply_control) - crosses to the device
+as one int64 block, laid out by `pack_control` (the one place that knows
+the layout; csrc/global_phases.cuh reads it).  The arena (`gstate`, [G] planes) and its
 config (`gcfg`) are updated in place, and the per-slot sums live in a
 scratch i64[G] that the caller owns and keeps all zero between windows.
 
   * `global_window(gstate, gcfg, control, scratch, now)` - one GLOBAL
-    window (the JAX engine's _apply_config and _global_window, with
-    global_combined_staged): config writes and resets, every lane's
+    window (the JAX engine's _apply_control and _global_window, with
+    global_combined_staged): upserts, then config writes and resets, every lane's
     answer from the arena as the writes left it, then every touched
     slot's summed hits applied under its config.  Returns the read block
     i64[n, 4] = (status, limit, remaining, reset_time).
   * `global_stage(gstate, gcfg, control, scratch)` and
     `global_apply(gstate, gcfg, control, scratch, now)` - the per-op
-    lowering's halves (GUBER_PALLAS=1, global_apply_pallas): the config
-    writes and the sums, then, after the caller's replica reads, the
-    apply, which leaves the scratch all zero.
+    lowering's halves (GUBER_PALLAS=1, global_apply_pallas): the upserts,
+    the config writes and the sums, then, after the caller's replica
+    reads, the apply, which leaves the scratch all zero.
 
 For CUDA tensors each launches its kernel on the current stream (building
 it with nvcc on first use, ops/build.py) or raises; for CPU tensors it runs
-its plain version: apply_config, kernel.global_accumulate and
+its plain version: apply_control, kernel.global_accumulate and
 kernel.global_combined / kernel.global_apply of ops/kernel.py, composed as
 the engine composed them, which chip_smoke.py and the tests hold the
 kernels against.  Pad lanes (slot < 0) answer 0 in every field on both
@@ -49,10 +51,13 @@ from gubernator_tpu_torch.ops.kernel import BucketState, GlobalConfig, WindowBat
 SOURCE = "global_window"
 APPLY_SOURCE = "global_apply"
 
-# the block's fields in order: n lane fields, then kg config-lane fields
+# the block's fields in order: n lane fields, kg config-lane fields, then
+# ku upsert-lane fields
 LANE_FIELDS = WindowBatch._fields + ("gacc",)
 UPD_FIELDS = ("uslot", "ulimit", "uduration", "ualgo", "rslot")
-_I32_FIELDS = ("slot", "algo", "uslot", "ualgo", "rslot")
+UPS_FIELDS = ("pslot", "plimit", "pduration", "premaining", "ptstamp",
+              "pexpire", "palgo")
+_I32_FIELDS = ("slot", "algo", "uslot", "ualgo", "rslot", "pslot", "palgo")
 
 launches = {"global_window": 0, "global_stage": 0, "global_apply": 0}
 plain_calls = {"global_window": 0, "global_stage": 0, "global_apply": 0}
@@ -71,45 +76,51 @@ def reset_counts() -> None:
 # ------------------------------------------------------------ control block
 
 class Control(NamedTuple):
-    """A GLOBAL window's packed control: block i64[control_words(n, kg)]."""
+    """A GLOBAL window's packed control: block
+    i64[control_words(n, kg, ku)]."""
 
     block: torch.Tensor
     n: int
     kg: int
+    ku: int = 0
 
 
-def control_words(n: int, kg: int) -> int:
-    return len(LANE_FIELDS) * n + len(UPD_FIELDS) * kg
+def control_words(n: int, kg: int, ku: int = 0) -> int:
+    return (len(LANE_FIELDS) * n + len(UPD_FIELDS) * kg
+            + len(UPS_FIELDS) * ku)
 
 
-def pack_control(dst, gbatch: WindowBatch, gacc, upd) -> tuple:
-    """Write a window's lanes (gbatch, gacc: [S, Bg] or [n]) and config
-    lanes (upd: 5 arrays of [kg]) into the int64 array `dst` (numpy, at
-    least control_words(n, kg) long), casting each field to int64.
+def pack_control(dst, gbatch: WindowBatch, gacc, upd, ups=None) -> tuple:
+    """Write a window's lanes (gbatch, gacc: [S, Bg] or [n]), config lanes
+    (upd: 5 arrays of [kg]) and upsert lanes (ups: 7 arrays of [ku], or
+    None for ku = 0) into the int64 array `dst` (numpy, at least
+    control_words(n, kg, ku) long), casting each field to int64.
     Returns (n, kg)."""
-    cols = (*gbatch, gacc, *upd)
     n, kg = int(np.size(gacc)), int(np.size(upd[0]))
+    ku = 0 if ups is None else int(np.size(ups[0]))
     off = 0
-    for i, a in enumerate(cols):
-        size = n if i < len(LANE_FIELDS) else kg
-        dst[off:off + size] = np.asarray(a).reshape(-1)
-        off += size
+    for cols, size in (((*gbatch, gacc), n), (upd, kg), (ups or (), ku)):
+        for a in cols:
+            dst[off:off + size] = np.asarray(a).reshape(-1)
+            off += size
     return n, kg
 
 
-def make_control(gbatch: WindowBatch, gacc, upd, device) -> Control:
+def make_control(gbatch: WindowBatch, gacc, upd, device,
+                 ups=None) -> Control:
     """The packed control of host arrays as a new tensor on `device`."""
     n, kg = int(np.size(gacc)), int(np.size(upd[0]))
-    host = np.empty(control_words(n, kg), np.int64)
-    pack_control(host, gbatch, gacc, upd)
-    return Control(torch.from_numpy(host).to(device), n, kg)
+    ku = 0 if ups is None else int(np.size(ups[0]))
+    host = np.empty(control_words(n, kg, ku), np.int64)
+    pack_control(host, gbatch, gacc, upd, ups)
+    return Control(torch.from_numpy(host).to(device), n, kg, ku)
 
 
 def unpack_control(control: Control) -> tuple:
     """(lanes WindowBatch [n], gacc i64[n], upd 5-tuple of [kg]) as views of
     the block, each field back at its own dtype (slot, algo and the
     config-lane slots int32, is_init bool)."""
-    block, n, kg = control
+    block, n, kg, _ = control
     out, off = {}, 0
     for name in LANE_FIELDS + UPD_FIELDS:
         size = n if name in LANE_FIELDS else kg
@@ -124,6 +135,20 @@ def unpack_control(control: Control) -> tuple:
     return lanes, out["gacc"], tuple(out[f] for f in UPD_FIELDS)
 
 
+def unpack_upserts(control: Control) -> tuple:
+    """The control's upsert lanes as views of the block: the 7-tuple
+    (pslot, plimit, pduration, premaining, ptstamp, pexpire, palgo) of
+    [ku], the slots and algorithms int32."""
+    block, n, kg, ku = control
+    off = len(LANE_FIELDS) * n + len(UPD_FIELDS) * kg
+    out = []
+    for name in UPS_FIELDS:
+        t = block[off:off + ku]
+        off += ku
+        out.append(t.to(torch.int32) if name in _I32_FIELDS else t)
+    return tuple(out)
+
+
 # ------------------------------------------------------------ plain pieces
 
 def apply_config(gstate: BucketState, gcfg: GlobalConfig, upd) -> None:
@@ -136,19 +161,47 @@ def apply_config(gstate: BucketState, gcfg: GlobalConfig, upd) -> None:
     at G and above drops (the host pads with G).  Write slots are unique
     within a window: a scatter with duplicate indices has no order."""
     uslot, ulimit, uduration, ualgo, rslot = upd
-    G = gcfg.limit.shape[0]
-
-    def rows(idx):
-        idx = idx.long()
-        idx = torch.where(idx < 0, idx + G, idx)
-        keep = (idx >= 0) & (idx < G)
-        return idx[keep], keep
-
-    u, keep = rows(uslot)
+    u, keep = _scatter_rows(uslot, gcfg.limit.shape[0])
     gcfg.limit[u] = ulimit[keep]
     gcfg.duration[u] = uduration[keep]
     gcfg.algo[u] = ualgo[keep].to(gcfg.algo.dtype)
-    gstate.expire[rows(rslot)[0]] = 0
+    gstate.expire[_scatter_rows(rslot, gcfg.limit.shape[0])[0]] = 0
+
+
+def _scatter_rows(idx, G: int):
+    """The rows a JAX scatter with mode="drop" writes for indices idx
+    ([-G, 0) wraps, the rest outside [0, G) drops), and the mask of the
+    indices kept."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + G, idx)
+    keep = (idx >= 0) & (idx < G)
+    return idx[keep], keep
+
+
+def apply_control(gstate: BucketState, gcfg: GlobalConfig, upd,
+                  ups=None) -> None:
+    """The host's control-plane writes of one GLOBAL window, in place (JAX
+    engine.py:2617 _apply_control): the upsert lanes first, each writing
+    its slot's limit, duration, remaining, tstamp, expire and algo into
+    the arena and its limit, duration and algo into the config (an
+    owner's broadcast, the reference's UpdatePeerGlobals -> Cache.Add,
+    gubernator.go:199-207), then apply_config, whose config lane or reset
+    on the same slot wins.  Upsert slots are unique within a window, like
+    the config lanes'."""
+    if ups is not None and len(ups[0]):
+        pslot, plimit, pduration, premaining, ptstamp, pexpire, palgo = ups
+        p, keep = _scatter_rows(pslot, gcfg.limit.shape[0])
+        for plane, vals in ((gstate.limit, plimit),
+                            (gstate.duration, pduration),
+                            (gstate.remaining, premaining),
+                            (gstate.tstamp, ptstamp),
+                            (gstate.expire, pexpire),
+                            (gstate.algo, palgo),
+                            (gcfg.limit, plimit),
+                            (gcfg.duration, pduration),
+                            (gcfg.algo, palgo)):
+            plane[p] = vals[keep].to(plane.dtype)
+    apply_config(gstate, gcfg, upd)
 
 
 def _read_block(out: kernel.WindowOutput, slot: torch.Tensor) -> torch.Tensor:
@@ -178,7 +231,7 @@ def load_library() -> ctypes.CDLL:
         lib = build.load(SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.guber_global_window.argtypes = (
-            [p] * 9 + [ll, p, ll, ll, p, ll, p, i, p, p])
+            [p] * 9 + [ll, p, ll, ll, ll, p, ll, p, i, p, p])
         lib.guber_global_window.restype = i
         lib.guber_global_window_ctas.argtypes = [ll]
         lib.guber_global_window_ctas.restype = i
@@ -197,9 +250,10 @@ def load_apply_library() -> ctypes.CDLL:
             return _apply_lib
         lib = build.load(APPLY_SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.guber_global_stage.argtypes = [p] * 9 + [ll, p, ll, ll, p, p]
+        lib.guber_global_stage.argtypes = [p] * 9 + [ll, p, ll, ll, ll, p, p]
         lib.guber_global_stage.restype = i
-        lib.guber_global_apply.argtypes = [p] * 9 + [ll, p, ll, ll, p, ll, p]
+        lib.guber_global_apply.argtypes = ([p] * 9
+                                           + [ll, p, ll, ll, ll, p, ll, p])
         lib.guber_global_apply.restype = i
         lib.guber_apply_error_string.argtypes = [i]
         lib.guber_apply_error_string.restype = ctypes.c_char_p
@@ -224,12 +278,13 @@ def _check(gstate: BucketState, gcfg: GlobalConfig, control: Control,
         check_tensor(t, f"gstate.{name}", _dtype(name), (G,), dev)
     for name, t in zip(GlobalConfig._fields, gcfg):
         check_tensor(t, f"gcfg.{name}", _dtype(name), (G,), dev)
-    block, n, kg = control
-    if n < 1 or kg < 0:
-        raise ValueError(f"control: want n >= 1 lanes and kg >= 0 config "
-                         f"lanes, got n={n}, kg={kg}")
+    block, n, kg, ku = control
+    if n < 1 or kg < 0 or ku < 0:
+        raise ValueError(f"control: want n >= 1 lanes and kg, ku >= 0 "
+                         f"config and upsert lanes, got n={n}, kg={kg}, "
+                         f"ku={ku}")
     check_tensor(block, "control.block", torch.int64,
-                 (control_words(n, kg),), dev)
+                 (control_words(n, kg, ku),), dev)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
     return G
@@ -268,7 +323,8 @@ def launch_window(gstate: BucketState, gcfg: GlobalConfig, control: Control,
                        device=scratch.device)
     rc = lib.guber_global_window(
         *_ptrs(gstate, gcfg), G, control.block.data_ptr(), control.n,
-        control.kg, scratch.data_ptr(), int(now), read.data_ptr(), int(ctas),
+        control.kg, control.ku, scratch.data_ptr(), int(now), read.data_ptr(),
+        int(ctas),
         None if stamps is None else stamps.data_ptr(), _stream(scratch))
     _raise(rc, "global_window", lib.guber_global_error_string)
     return read
@@ -322,13 +378,13 @@ def global_window(gstate: BucketState, gcfg: GlobalConfig, control: Control,
 def global_window_plain(gstate: BucketState, gcfg: GlobalConfig,
                         control: Control, scratch: torch.Tensor,
                         now: int) -> torch.Tensor:
-    """The plain version of global_window on any device: apply_config,
+    """The plain version of global_window on any device: apply_control,
     kernel.global_accumulate of the lanes' gacc, kernel.global_combined,
     its new arena copied into gstate and its reads stacked to [n, 4] with
     pad lanes zeroed.  The scratch is not used."""
     plain_calls["global_window"] += 1
     lanes, gacc, upd = unpack_control(control)
-    apply_config(gstate, gcfg, upd)
+    apply_control(gstate, gcfg, upd, unpack_upserts(control))
     summed = kernel.global_accumulate(torch.zeros_like(scratch),
                                       lanes._replace(hits=gacc))
     new, out = kernel.global_combined(gstate, gcfg, lanes, summed, now)
@@ -340,7 +396,8 @@ def global_window_plain(gstate: BucketState, gcfg: GlobalConfig,
 def global_stage(gstate: BucketState, gcfg: GlobalConfig, control: Control,
                  scratch: torch.Tensor) -> None:
     """Phase A of a GLOBAL window (the per-op lowering's first half): the
-    control's config writes and resets into gcfg and gstate, in place, and
+    control's upserts, config writes and resets into gcfg and gstate, in
+    place, and
     its lanes' gacc added per slot into scratch (i64[G], all zero before)."""
     G = _check(gstate, gcfg, control, scratch, "global_stage")
     if scratch.device.type == "cpu":
@@ -348,18 +405,18 @@ def global_stage(gstate: BucketState, gcfg: GlobalConfig, control: Control,
     lib = load_apply_library()
     rc = lib.guber_global_stage(
         *_ptrs(gstate, gcfg), G, control.block.data_ptr(), control.n,
-        control.kg, scratch.data_ptr(), _stream(scratch))
+        control.kg, control.ku, scratch.data_ptr(), _stream(scratch))
     _raise(rc, "global_stage", lib.guber_apply_error_string)
     launches["global_stage"] += 1
 
 
 def global_stage_plain(gstate: BucketState, gcfg: GlobalConfig,
                        control: Control, scratch: torch.Tensor) -> None:
-    """The plain version of global_stage on any device: apply_config, then
+    """The plain version of global_stage on any device: apply_control, then
     kernel.global_accumulate of the lanes' gacc into scratch."""
     plain_calls["global_stage"] += 1
     lanes, gacc, upd = unpack_control(control)
-    apply_config(gstate, gcfg, upd)
+    apply_control(gstate, gcfg, upd, unpack_upserts(control))
     scratch.copy_(kernel.global_accumulate(scratch,
                                            lanes._replace(hits=gacc)))
 
@@ -377,7 +434,8 @@ def global_apply(gstate: BucketState, gcfg: GlobalConfig, control: Control,
     lib = load_apply_library()
     rc = lib.guber_global_apply(
         *_ptrs(gstate, gcfg), G, control.block.data_ptr(), control.n,
-        control.kg, scratch.data_ptr(), int(now), _stream(scratch))
+        control.kg, control.ku, scratch.data_ptr(), int(now),
+        _stream(scratch))
     _raise(rc, "global_apply", lib.guber_apply_error_string)
     launches["global_apply"] += 1
 

@@ -11,11 +11,15 @@ inside GrpcServer and where an abort needs its status code, and protobuf
 only on the protobuf path (RPCs under FASTPATH_MIN_BYTES, or ones the
 parser refuses), which raises ImportError on a machine without it.
 
-Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits.  Not
-registered yet, so a caller gets UNIMPLEMENTED: TransferBuckets (key
-migration, with the peer ring) and RegisterGlobals, ApplyGlobalRegistration and
-UpdatePeerGlobals (GLOBAL across processes).  The tracing roots wait for
-the port of tracing.
+Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits and
+UpdatePeerGlobals (an owner's GLOBAL broadcast, `serve_update_peer_globals`).
+Not registered yet, so a caller gets UNIMPLEMENTED: TransferBuckets (key
+migration, ROADMAP item 6d), RegisterGlobals and ApplyGlobalRegistration
+(mesh GLOBAL, item 8).  With the Instance's tracer sampling, GetRateLimits
+roots an `rpc` span and GetPeerRateLimits a `peer_rpc` span, each
+continuing the caller's `traceparent` invocation metadata (the peer lane
+sends it, net/peers.py), so a forwarded request is one trace across the
+two nodes.
 
 The protobuf path carries the caller's gRPC deadline
 (`context.time_remaining()`) into QoS admission and its source address
@@ -34,6 +38,7 @@ from typing import Optional
 
 from gubernator_tpu_torch.api.types import Algorithm
 from gubernator_tpu_torch.core.service import BatchTooLargeError, Instance
+from gubernator_tpu_torch.observability.tracing import TRACEPARENT
 
 # Only RPCs at least this large take the native pipeline RPC lane; smaller
 # ones go through the per-item path, whose requests aggregate with
@@ -48,6 +53,7 @@ MAX_RECEIVE_BYTES = 1024 * 1024
 _GET_RATE_LIMITS = "/pb.gubernator.V1/GetRateLimits"
 _HEALTH_CHECK = "/pb.gubernator.V1/HealthCheck"
 _GET_PEER_RATE_LIMITS = "/pb.gubernator.PeersV1/GetPeerRateLimits"
+_UPDATE_PEER_GLOBALS = "/pb.gubernator.PeersV1/UpdatePeerGlobals"
 
 
 def _status(name: str):
@@ -77,6 +83,18 @@ def _client_id_from(context) -> Optional[str]:
     if p.startswith(("ipv4:", "ipv6:")):
         p = p.split(":", 1)[1].rsplit(":", 1)[0]
     return p or None
+
+
+def _traceparent_from(context) -> Optional[str]:
+    """The caller's `traceparent` invocation-metadata entry, if any (the
+    gRPC leg of trace propagation; net/peers.py sets it)."""
+    try:
+        for k, v in context.invocation_metadata() or ():
+            if k == TRACEPARENT:
+                return v
+    except Exception:
+        return None
+    return None
 
 
 def _arm_lease_stream_close(inst: Instance, context,
@@ -195,12 +213,36 @@ async def serve_peer_rate_limits(inst: Instance, data: bytes,
         rate_limits=[pb.resp_to_pb(r) for r in resps]).SerializeToString()
 
 
+async def serve_update_peer_globals(inst: Instance, request, context):
+    """PeersV1.UpdatePeerGlobals body: an owner's broadcast (a decoded
+    UpdatePeerGlobalsReq) upserted into this node's replicas."""
+    from gubernator_tpu_torch.api import pb
+    from gubernator_tpu_torch.api.types import UpdatePeerGlobal
+    start = time.monotonic()
+    ups = [
+        UpdatePeerGlobal(
+            key=g.key,
+            status=pb.resp_from_pb(g.status),
+            algorithm=g.algorithm,
+            duration=g.duration,
+        )
+        for g in request.globals
+    ]
+    await inst.update_peer_globals(ups)
+    _observe(inst, _UPDATE_PEER_GLOBALS, start, True)
+    return pb.UpdatePeerGlobalsResp()
+
+
 class _V1Servicer:
     def __init__(self, instance: Instance):
         self.instance = instance
 
     async def GetRateLimits(self, data: bytes, context):
-        return await serve_get_rate_limits(self.instance, data, context)
+        tracer = self.instance.tracer
+        if tracer is None or not tracer.enabled:
+            return await serve_get_rate_limits(self.instance, data, context)
+        with tracer.start_trace("rpc", _traceparent_from(context)):
+            return await serve_get_rate_limits(self.instance, data, context)
 
     async def HealthCheck(self, request, context):
         # the reference's stats-handler observes every RPC, HealthCheck
@@ -218,7 +260,18 @@ class _PeersServicer:
         self.instance = instance
 
     async def GetPeerRateLimits(self, data: bytes, context):
-        return await serve_peer_rate_limits(self.instance, data, context)
+        # the owner's root of a forwarded request: the traceparent the
+        # forwarding node attached stitches this node's spans into its
+        # trace
+        tracer = self.instance.tracer
+        if tracer is None or not tracer.enabled:
+            return await serve_peer_rate_limits(self.instance, data, context)
+        with tracer.start_trace("peer_rpc", _traceparent_from(context)):
+            return await serve_peer_rate_limits(self.instance, data, context)
+
+    async def UpdatePeerGlobals(self, request, context):
+        return await serve_update_peer_globals(self.instance, request,
+                                               context)
 
 
 class GrpcServer:

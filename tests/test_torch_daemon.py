@@ -11,7 +11,11 @@ daemon's phase order, and `python -m gubernator_tpu_torch.daemon --config
 FILE` boots, answers and exits 0 on SIGTERM.  The state lifecycle's knobs
 (GUBER_SNAPSHOT_*, GUBER_TIER_*) are served since the port has snapshots
 and tiers: they are held against the JAX function like the rest
-(tests/test_torch_daemon_snapshot.py drives them).
+(tests/test_torch_daemon_snapshot.py drives them), and so are the peer
+ring's (GUBER_STATIC_PEERS, GUBER_ADVERTISE_ADDRESS, the batch timeout,
+GUBER_GLOBAL_*, GUBER_HINT_*, GUBER_TRACE_*).  Two daemons given each
+other as GUBER_STATIC_PEERS forward a key to its owner, and a GUBER_FAULTS
+rule on a seam the port does not cross yet fails the boot.
 """
 
 import asyncio
@@ -78,6 +82,12 @@ def _served(c, jax_side):
         "tiers": dataclasses.asdict(c.tiers),
         "qos": dataclasses.asdict(c.qos),
         "leases": dataclasses.asdict(c.leases),
+        "advertise": c.advertise_address,
+        "batch_timeout": b.batch_timeout,
+        "global_sync_wait": b.global_sync_wait,
+        "global_timeout": b.global_timeout,
+        "global_batch_limit": b.global_batch_limit,
+        "hint_ttl": c.health.hint_ttl, "hint_max": c.health.hint_max,
     }
 
 
@@ -155,23 +165,14 @@ def test_malformed_env_file_raises_in_both(clean_env, tmp_path):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("GUBER_K8S_NAMESPACE", "default", 6),
-    ("GUBER_ETCD_ENDPOINTS", "http://e1:2379", 6),
-    ("GUBER_ETCD_TLS_CA", "/etc/ca.pem", 6),
-    ("GUBER_STATIC_PEERS", "127.0.0.1:1,127.0.0.1:2", 6),
-    ("GUBER_ADVERTISE_ADDRESS", "10.0.0.5:81", 6),
-    ("GUBER_BATCH_TIMEOUT", "0.25", 6),
-    ("GUBER_HEARTBEAT_ENABLED", "0", 6),
-    ("GUBER_GLOBAL_TIMEOUT", "0.25", 6),
-    ("GUBER_GLOBAL_BATCH_LIMIT", "100", 6),
-    ("GUBER_FAULTS_SEED", "7", 6),
-    ("GUBER_K8S_POD_IP", "10.0.0.7", 6),
-    ("GUBER_GLOBAL_SYNC_WAIT", "0.01", 6),
-    ("GUBER_FAULTS", "peer_drop:0.5", 6),
-    ("GUBER_HINT_TTL_MS", "1000", 6),
-    ("GUBER_TRACE_EXPORT", "stdout", 7),
+    ("GUBER_K8S_NAMESPACE", "default", "6e"),
+    ("GUBER_ETCD_ENDPOINTS", "http://e1:2379", "6e"),
+    ("GUBER_ETCD_TLS_CA", "/etc/ca.pem", "6e"),
+    ("GUBER_HEARTBEAT_ENABLED", "0", "6d"),
+    ("GUBER_HEARTBEAT_INTERVAL_MS", "250", "6d"),
+    ("GUBER_HEARTBEAT_SUSPECT", "5", "6d"),
+    ("GUBER_K8S_POD_IP", "10.0.0.7", "6e"),
     ("GUBER_FRONTDOOR_WORKERS", "2", 7),
-    ("GUBER_TRACE_SAMPLE", "0.5", 7),
     ("GUBER_DEVPROF", "periodic", 7),
     ("GUBER_MESH_PEERS", "127.0.0.1:1", 8),
     ("GUBER_MESH_COORDINATOR", "127.0.0.1:2", 8),
@@ -203,12 +204,51 @@ def test_qos_and_lease_knob_reads_as_the_jax_function(clean_env, name, value,
     assert got_p[section][knob] == want
 
 
+@pytest.mark.parametrize("name,value,read", [
+    ("GUBER_STATIC_PEERS", "127.0.0.1:1, 127.0.0.1:2,",
+     lambda c: c.static_peers == ["127.0.0.1:1", "127.0.0.1:2"]),
+    ("GUBER_ADVERTISE_ADDRESS", "10.0.0.5:81",
+     lambda c: c.advertise_address == "10.0.0.5:81"),
+    ("GUBER_BATCH_TIMEOUT", "0.25",
+     lambda c: c.behaviors.batch_timeout == 0.25),
+    ("GUBER_GLOBAL_TIMEOUT", "0.25",
+     lambda c: c.behaviors.global_timeout == 0.25),
+    ("GUBER_GLOBAL_BATCH_LIMIT", "100",
+     lambda c: c.behaviors.global_batch_limit == 100),
+    ("GUBER_GLOBAL_SYNC_WAIT", "0.01",
+     lambda c: c.behaviors.global_sync_wait == 0.01),
+    ("GUBER_HINT_TTL_MS", "1000", lambda c: c.health.hint_ttl == 1.0),
+    ("GUBER_HINT_MAX", "7", lambda c: c.health.hint_max == 7),
+    ("GUBER_FAULTS_SEED", "7", lambda c: True),
+    ("GUBER_FAULTS", "peer_rpc:drop=0.5", lambda c: True),
+    ("GUBER_TRACE_EXPORT", "stdout", lambda c: c.trace_export == "stdout"),
+    ("GUBER_TRACE_SAMPLE", "0.5", lambda c: c.trace_sample == 0.5),
+])
+def test_peer_ring_knob_reads_as_the_jax_function(clean_env, name, value,
+                                                  read):
+    """The peer ring's knobs are served now (they raised while it was
+    unported): the port reads each as the JAX function (or, for tracing,
+    the JAX library Config) does.  GUBER_FAULTS is read by the daemon at
+    boot, as in the JAX package."""
+    clean_env.setenv(name, value)
+    got_j, got_p = _both()
+    assert got_p == got_j
+    c = pconfig.config_from_env()
+    assert read(c)
+    jc = jconfig.Config()
+    assert (c.trace_sample, c.trace_export) == (jc.trace_sample,
+                                                jc.trace_export)
+    if name == "GUBER_STATIC_PEERS":
+        assert c.advertise_address == c.grpc_listen_address
+
+
 @pytest.mark.parametrize("name,value", [
     ("GUBER_FRONTDOOR_WORKERS", "0"), ("GUBER_LEASE_SWEEP_MS", "5000"),
     ("GUBER_LEASE_RELEASE_ON_CLOSE", "true"), ("GUBER_QOS_ENABLED", "0"),
     ("GUBER_LOCKSTEP_STACK", "1"), ("GUBER_SNAPSHOT_DIR", ""),
     ("GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/"),
-    ("GUBER_BATCH_TIMEOUT", "0.5")])
+    ("GUBER_BATCH_TIMEOUT", "0.5"), ("GUBER_HEARTBEAT_ENABLED", "true"),
+    ("GUBER_HEARTBEAT_RECOVER", "2")])
 def test_unported_knob_at_its_default_is_accepted(clean_env, name, value):
     clean_env.setenv(name, value)
     pconfig.config_from_env()
@@ -332,3 +372,68 @@ def test_python_m_daemon_serves_and_exits_on_sigterm(clean_env, tmp_path):
     assert [r.remaining for r in rs] == [2, 2, 2]
     assert proc.returncode == 0, out
     assert "caught signal; shutting down" in out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_two_daemons_with_static_peers_forward_to_the_owner(clean_env):
+    """Two daemons given GUBER_STATIC_PEERS naming both (each advertising
+    its own gRPC address) build the same ring: a key sent to either is
+    decided by its owner, and the non-owner's answer names it."""
+    addrs = [f"127.0.0.1:{_free_port()}" for _ in range(2)]
+    confs = []
+    for a in addrs:
+        for k, v in {**SMALL, "GUBER_GRPC_ADDRESS": a,
+                     "GUBER_STATIC_PEERS": ",".join(addrs)}.items():
+            clean_env.setenv(k, v)
+        confs.append(pconfig.config_from_env())
+    assert [c.advertise_address for c in confs] == addrs
+
+    async def body():
+        ds = [daemon_mod.Daemon(c) for c in confs]
+        for d in ds:
+            await d.start()
+        try:
+            inst = ds[0].instance
+            assert [p.host for p in inst.peer_list()] == addrs
+            # four keys each daemon owns (the ports, so the ring, vary)
+            pool = [RateLimitReq(name="sp", unique_key=f"k{i}", hits=1,
+                                 limit=5, duration=Second)
+                    for i in range(4096)]
+            reqs = [r for a in addrs for r in [
+                q for q in pool
+                if inst.get_peer(q.hash_key()).host == a][:4]]
+            owners = [inst.get_peer(r.hash_key()).host for r in reqs]
+            assert owners == [addrs[0]] * 4 + [addrs[1]] * 4
+            out = []
+            for a in addrs * 2:
+                client = AsyncClient(a)
+                out.append(await client.get_rate_limits(reqs))
+                await client.close()
+            health = await ds[1].instance.health_check()
+            return owners, out, health
+        finally:
+            for d in ds:
+                await d.stop()
+
+    owners, out, health = asyncio.run(body())
+    assert health.peer_count == 2 and health.status == "healthy"
+    for n, (a, rs) in enumerate(zip(addrs * 2, out)):
+        assert [r.remaining for r in rs] == [4 - n] * 8
+        assert [r.metadata.get("owner", a) for r in rs] == owners
+
+
+def test_fault_rule_on_an_unwired_seam_fails_the_boot(clean_env):
+    for k, v in {**SMALL, "GUBER_FAULTS": "snapshot_io:error",
+                 "GUBER_FAULTS_SEED": "3"}.items():
+        clean_env.setenv(k, v)
+    conf = pconfig.config_from_env()
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 6d"):
+        asyncio.run(daemon_mod.Daemon(conf).start())
+    from gubernator_tpu_torch.net.faults import FAULTS
+    assert not FAULTS.enabled

@@ -63,7 +63,14 @@ from gubernator_tpu_torch.ops import kernel as tk
 from .test_fold_fuzz import T0
 from .test_torch_drain import _adversarial_drain, _host_oracle, _jstep
 from .test_torch_global import CASES, G, global_inputs, summed_control
-from .test_torch_global_window import assert_window, jax_window
+from .test_torch_global_window import (
+    arena,
+    assert_window,
+    jax_window,
+    jax_window_ups,
+    random_control,
+    random_upserts,
+)
 from .test_torch_per_op import per_op_clock, per_op_state, per_op_window
 
 pytestmark = pytest.mark.torch_port
@@ -252,6 +259,12 @@ _PHASES = r"""
   const GArena a{limit, duration, remaining, tstamp, expire, algo, G};              \
   const GConfig cfg{cfg_limit, cfg_duration, cfg_algo};                             \
   const Control c{control, n, kg}
+// the same with the control's upsert lanes: the entries named *_ku take
+// `long long ku` after HOST_ARENA_ARGS
+#define HOST_ARENA_KU                                                                \
+  const GArena a{limit, duration, remaining, tstamp, expire, algo, G};              \
+  const GConfig cfg{cfg_limit, cfg_duration, cfg_algo};                             \
+  const Control c{control, n, kg, ku}
 """
 
 _APPLY_ENTRY = _PHASES + r"""
@@ -264,6 +277,15 @@ extern "C" void host_global_stage(HOST_ARENA_ARGS) {
 extern "C" void host_global_apply(HOST_ARENA_ARGS, long long now, int backward) {
   HOST_ARENA;
   for (int64_t k = 0; k < n; ++k) apply_lane(a, cfg, c, sums, now, backward ? n - 1 - k : k);
+}
+// global_stage with upsert lanes: its upsert launch's items, then its stage
+// launch's, each forward or backward (no item may depend on another's
+// order within a launch)
+extern "C" void host_global_stage_ku(HOST_ARENA_ARGS, long long ku, int backward) {
+  HOST_ARENA_KU;
+  for (int64_t p = 0; p < ku; ++p) upsert_item(a, cfg, c, backward ? ku - 1 - p : p);
+  const int64_t m = stage_items(c);
+  for (int64_t i = 0; i < m; ++i) stage_item(a, cfg, c, sums, backward ? m - 1 - i : i);
 }
 """
 
@@ -283,6 +305,23 @@ extern "C" void host_global_window(HOST_ARENA_ARGS, long long now, int64_t* read
   auto each = [&](auto seg) {
     for (long long k = 0; k < threads; ++k) seg(ts[backward ? threads - 1 - k : k]);
   };
+  each([&](WindowThread& t) { window_seg_a(a, cfg, c, sums, t); });
+  each([&](WindowThread& t) { window_seg_b(a, cfg, c, sums, now, read, t); });
+  each([&](WindowThread& t) { window_seg_c(a, cfg, c, sums, now, t); });
+}
+// the same with the control's upsert lanes
+extern "C" void host_global_window_ku(HOST_ARENA_ARGS, long long ku, long long now,
+                                      int64_t* read, int backward, long long threads) {
+  HOST_ARENA_KU;
+  std::vector<WindowThread> ts(static_cast<size_t>(threads));
+  for (long long t = 0; t < threads; ++t) {
+    ts[t].first = t;
+    ts[t].stride = threads;
+  }
+  auto each = [&](auto seg) {
+    for (long long k = 0; k < threads; ++k) seg(ts[backward ? threads - 1 - k : k]);
+  };
+  each([&](WindowThread& t) { window_seg_u(a, cfg, c, t); });
   each([&](WindowThread& t) { window_seg_a(a, cfg, c, sums, t); });
   each([&](WindowThread& t) { window_seg_b(a, cfg, c, sums, now, read, t); });
   each([&](WindowThread& t) { window_seg_c(a, cfg, c, sums, now, t); });
@@ -1520,3 +1559,66 @@ def test_host_stats_drain_entries_from_several_ctas(host_stats, P):
             int(nows[0]), 0, tenant_slots=T, topk=topk, over_weight=4)
         np.testing.assert_array_equal(stats[s], want, err_msg=f"s{s} stats")
         np.testing.assert_array_equal(sketch[s], want_sk[s])
+
+
+# ---------------------------------------------------------------------------
+# the GLOBAL window's upsert lanes (an owner's broadcast on a replica)
+
+
+def _host_global_ku(lib, entry, planes, cfgs, sums, ctl, *tail):
+    """_host_global for the *_ku entries: the control's ku after the
+    sums."""
+    block = np.ascontiguousarray(ctl.block.numpy())
+    getattr(lib, entry)(
+        *[_ptr(p) for p in planes], *[_ptr(c) for c in cfgs],
+        ctypes.c_longlong(sums.shape[0]), _ptr(block),
+        ctypes.c_longlong(ctl.n), ctypes.c_longlong(ctl.kg), _ptr(sums),
+        ctypes.c_longlong(ctl.ku),
+        *[_ptr(a) if isinstance(a, np.ndarray) else a for a in tail])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_global_kernels_with_upserts_match_jax_apply_control(
+        host_global, host_apply, seed):
+    """global_window.cu's segments (2n, 1 and 5 threads, forward and
+    backward; the upserts' segment before the barrier that precedes phase
+    A) and global_apply.cu's global_stage (its upsert launch, then its
+    stage launch, items forward and backward), the torch reads and
+    global_apply, on a window whose control carries upsert lanes (rows
+    also named by config lanes and resets, rows the lanes read, negative
+    indices, pads), against the JAX composition with _apply_control."""
+    rng = np.random.default_rng(900 + seed)
+    Gs, S, Bg, Kg = 64, 2, 8, 12
+    now = T0 + 5
+    state, cfg = arena(rng, Gs)
+    gbatch, gacc, upd = random_control(rng, Gs, S, Bg, Kg)
+    ups = random_upserts(rng, Gs, 10, upd)
+    gbatch.slot.reshape(-1)[:4] = np.asarray(ups[0])[:4] % Gs
+    ctl = gk.make_control(gbatch, gacc, upd, "cpu", ups)
+    for per_op in (False, True):
+        want = jax_window_ups(state, cfg, gbatch, gacc, upd, ups, now,
+                              per_op)
+        for backward in (0, 1):
+            for threads in ((None, 1, 5) if not per_op else (None,)):
+                planes, cfgs, sums = _arena_copies(state, cfg)
+                if per_op:
+                    _host_global_ku(host_apply, "host_global_stage_ku",
+                                    planes, cfgs, sums, ctl,
+                                    ctypes.c_int(backward))
+                    read = gk.global_read_block(
+                        tk.BucketState(*[torch.from_numpy(p)
+                                         for p in planes]), ctl, now).numpy()
+                    _host_global(host_apply, "host_global_apply", planes,
+                                 cfgs, sums, ctl, ctypes.c_longlong(now),
+                                 ctypes.c_int(backward))
+                else:
+                    read = np.full((ctl.n, 4), -7, np.int64)
+                    _host_global_ku(
+                        host_global, "host_global_window_ku", planes, cfgs,
+                        sums, ctl, ctypes.c_longlong(now), read,
+                        ctypes.c_int(backward),
+                        ctypes.c_longlong(2 * ctl.n if threads is None
+                                          else threads))
+                tag = f"per_op={per_op} backward={backward} t={threads}"
+                assert_window(planes, cfgs, read, want, tag)
+                assert not sums.any(), tag

@@ -404,3 +404,211 @@ def test_stamp_split_reads_a_launch_timeline():
     assert got["end us"] == 4.5
     assert got["phase A cycles"] == 20.0
     assert got["end cycles"] == 60.0
+
+
+# ---------------------------------------------------------------- upserts
+#
+# An owner's broadcast lands on a replica as upsert lanes of its next
+# GLOBAL window (JAX engine.py:2617 _apply_control): written before the
+# window's config lanes and resets, so on a row both name the config
+# lane's fields (and a reset's expire = 0) win.
+
+def random_upserts(rng, G, ku, upd):
+    """numpy upsert lanes (pslot, plimit, pduration, premaining, ptstamp,
+    pexpire, palgo) of [ku] on distinct rows, some by their negative
+    index, about half of them on rows the config lanes `upd` write or
+    reset, with pads below -G and at G and past it."""
+    urows = np.where(upd[0] < 0, upd[0] + G, upd[0])
+    rrows = np.where(upd[4] < 0, upd[4] + G, upd[4])
+    named = list(dict.fromkeys(int(r) for r in np.concatenate(
+        [urows, rrows]) if 0 <= r < G))
+    other = [r for r in rng.permutation(G).tolist() if r not in named]
+    half = max(1, (ku - 2) // 2)
+    rows = np.asarray(list(rng.permutation(named))[:half]
+                      + other[:ku - 2 - min(half, len(named))], np.int64)
+    k = rows.size
+    pslot = np.full(ku, G, np.int32)
+    pslot[:k] = np.where(rng.random(k) < 0.3, rows - G, rows)
+    if ku > k + 1:
+        pslot[k:k + 2] = (-G - 1, G + 3)
+    ups = (pslot, rng.integers(0, 300, ku).astype(np.int64),
+           rng.integers(1, 120_000, ku).astype(np.int64),
+           rng.integers(-5, 300, ku).astype(np.int64),
+           T0 + rng.integers(-60_000, 60_000, ku),
+           T0 + rng.integers(-60_000, 120_000, ku),
+           rng.choice(np.asarray([0, 1], np.int32), ku))
+    return ups
+
+
+def jax_window_ups(state, cfg, gbatch, gacc, upd, ups, now, per_op=False):
+    """jax_window with the upserts: _apply_control in place of
+    _apply_config."""
+    js, jc = jengine._apply_control(*_jax_planes(state, cfg),
+                                    tuple(jnp.asarray(a) for a in upd),
+                                    tuple(jnp.asarray(a) for a in ups))
+    G = js.limit.shape[0]
+    state = {f: np.asarray(a) for f, a in zip(jk.BucketState._fields, js)}
+    cfg = {f: np.asarray(a) for f, a in zip(jk.GlobalConfig._fields, jc)}
+    # the config lanes were applied with the upserts: none are left
+    empty = (np.full(1, G, np.int32), np.zeros(1, np.int64),
+             np.zeros(1, np.int64), np.zeros(1, np.int32),
+             np.full(1, G, np.int32))
+    return jax_window(state, cfg, gbatch, gacc, empty, now, per_op=per_op)
+
+
+@pytest.mark.parametrize("G", [8, 64])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_apply_control_matches_jax_with_upserts(G, seed):
+    """The plain apply_control against JAX _apply_control: upsert rows
+    also written or reset by config lanes (those fields end as the config
+    lane and the reset left them), negative indices, pads."""
+    rng = np.random.default_rng(700 + seed)
+    state, cfg = arena(rng, G)
+    _, _, upd = random_control(rng, G, 1, 4, max(2, G // 4))
+    ups = random_upserts(rng, G, max(6, G // 4), upd)
+    js, jc = jengine._apply_control(*_jax_planes(state, cfg),
+                                    tuple(jnp.asarray(a) for a in upd),
+                                    tuple(jnp.asarray(a) for a in ups))
+    ts, tc = _torch_planes(state, cfg)
+    gk.apply_control(ts, tc, tuple(torch.from_numpy(a) for a in upd),
+                     tuple(torch.from_numpy(a) for a in ups))
+    assert_window(ts, tc, np.zeros(0), ([np.asarray(a) for a in js],
+                                        [np.asarray(a) for a in jc],
+                                        np.zeros(0)), f"G={G}")
+    # the case the kernels order by lookup: some row named by both
+    urows = {int(r) % G for r in upd[0] if -G <= r < G}
+    rrows = {int(r) % G for r in upd[4] if -G <= r < G}
+    prows = {int(r) % G for r in ups[0] if -G <= r < G}
+    assert prows & urows and prows - urows - rrows
+
+
+def test_upsert_and_config_lane_on_one_slot():
+    """The smallest such window: G = 4, an upsert and a config lane on row
+    2 and a reset on it: the row ends with the upsert's remaining and
+    tstamp, the config lane's limit, duration and algorithm, expire 0."""
+    rng = np.random.default_rng(5)
+    state, cfg = arena(rng, 4)
+    upd = (np.asarray([2], np.int32), np.asarray([7]), np.asarray([900]),
+           np.asarray([1], np.int32), np.asarray([-2], np.int32))
+    ups = (np.asarray([-2], np.int32), np.asarray([50]), np.asarray([60]),
+           np.asarray([33]), np.asarray([T0]), np.asarray([T0 + 60]),
+           np.asarray([0], np.int32))
+    ts, tc = _torch_planes(state, cfg)
+    gk.apply_control(ts, tc, tuple(torch.from_numpy(a) for a in upd),
+                     tuple(torch.from_numpy(a) for a in ups))
+    js, jc = jengine._apply_control(*_jax_planes(state, cfg),
+                                    tuple(jnp.asarray(a) for a in upd),
+                                    tuple(jnp.asarray(a) for a in ups))
+    got = [int(p[2]) for p in (*ts, *tc)]
+    assert got == [int(np.asarray(p)[2]) for p in (*js, *jc)]
+    assert got == [50, 60, 33, T0, 0, 0, 7, 900, 1]
+
+
+@pytest.mark.parametrize("per_op", [False, True], ids=["window", "per_op"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_global_window_with_upserts_matches_jax_composition(seed, per_op):
+    """global_window (and global_stage + reads + global_apply) on a control
+    block carrying upsert lanes against the JAX composition with
+    _apply_control: the reads see the upserted rows."""
+    rng = np.random.default_rng(800 + seed)
+    G, S, Bg, Kg = 128, 2, 16, 24
+    state, cfg = arena(rng, G)
+    gbatch, gacc, upd = random_control(rng, G, S, Bg, Kg)
+    ups = random_upserts(rng, G, 12, upd)
+    # lanes read some upserted rows
+    prow = np.asarray(ups[0])[:6] % G
+    gbatch.slot.reshape(-1)[:6] = prow
+    now = T0 + seed
+    want = jax_window_ups(state, cfg, gbatch, gacc, upd, ups, now, per_op)
+    ts, tc = _torch_planes(state, cfg)
+    ctl = gk.make_control(gbatch, gacc, upd, "cpu", ups)
+    assert (ctl.n, ctl.kg, ctl.ku) == (S * Bg, Kg, 12)
+    assert ctl.block.shape == (gk.control_words(S * Bg, Kg, 12),)
+    for f, a, b in zip(gk.UPS_FIELDS, gk.unpack_upserts(ctl), ups):
+        assert a.numpy().dtype == b.dtype, f
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=f)
+    scratch = torch.zeros(G, dtype=torch.int64)
+    if per_op:
+        gk.global_stage(ts, tc, ctl, scratch)
+        read = gk.global_read_block(ts, ctl, now)
+        gk.global_apply(ts, tc, ctl, scratch, now)
+    else:
+        read = gk.global_window(ts, tc, ctl, scratch, now)
+    assert not scratch.any()
+    assert_window(ts, tc, read, want, f"seed {seed}")
+
+
+def _upsert_engines(monkeypatch, per_op):
+    from gubernator_tpu import compat
+    from gubernator_tpu.parallel.mesh import make_mesh
+    import jax
+    monkeypatch.setattr(
+        jengine, "_compat_shard_map",
+        lambda f, **kw: compat.shard_map(f, **{**kw, "check_vma": False}))
+    for v in vars(jengine).values():
+        if callable(getattr(v, "cache_clear", None)):
+            v.cache_clear()
+    geo = dict(capacity_per_shard=32, batch_per_shard=8, global_capacity=16,
+               global_batch_per_shard=4, max_global_updates=4)
+    ref = jengine.RateLimitEngine(mesh=make_mesh(jax.devices("cpu")[4:6]),
+                                  use_native=False, skip_global=False, **geo)
+    if per_op:
+        monkeypatch.setenv("GUBER_PALLAS", "1")
+    port = RateLimitEngine(num_shards=2, device="cpu", **geo)
+    monkeypatch.delenv("GUBER_PALLAS", raising=False)
+    assert port.per_op == per_op
+    return ref, port
+
+
+@pytest.mark.parametrize("per_op", [False, True], ids=["default", "per_op"])
+def test_engine_step_upserts_match_the_jax_engine(monkeypatch, per_op):
+    """engine.step([], upserts=...) against the JAX engine's on the same
+    arena: token and leaky records on live slots and on fresh keys (more
+    than one window's lanes, so the native path chunks them), then reads
+    with and without accumulation; every answer, the GLOBAL arena and its
+    config after every window.  A key twice in one window raises."""
+    from gubernator_tpu.api.types import RateLimitReq as JReq
+    from gubernator_tpu.api.types import RateLimitResp as JResp
+    from gubernator_tpu.api.types import UpdatePeerGlobal as JUp
+    from gubernator_tpu_torch.api.types import RateLimitResp, UpdatePeerGlobal
+    ref, port = _upsert_engines(monkeypatch, per_op)
+
+    def reqs(cls, hits, keys):
+        return [cls(name="u", unique_key=k, hits=hits, limit=9,
+                    duration=4000, algorithm=a, behavior=2)
+                for k, a in keys]
+
+    def ups(up_cls, resp_cls, recs):
+        return [up_cls(key=f"u_{k}", status=resp_cls(
+            status=0, limit=lim, remaining=rem, reset_time=rst),
+            algorithm=a, duration=d) for k, lim, rem, rst, a, d in recs]
+
+    def compare(tag):
+        for f, a, b in zip(tk.BucketState._fields, port.gstate, ref.gstate):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"{tag} gstate.{f}")
+        for f, a, b in zip(tk.GlobalConfig._fields, port.gcfg, ref.gcfg):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"{tag} gcfg.{f}")
+
+    def both(tag, hits, keys, now, acc=None, recs=()):
+        p = port.step(reqs(RateLimitReq, hits, keys), now, acc,
+                      upserts=ups(UpdatePeerGlobal, RateLimitResp, recs))
+        j = ref.step(reqs(JReq, hits, keys), now, acc,
+                     upserts=ups(JUp, JResp, recs))
+        assert [(int(r.status), r.limit, r.remaining, r.reset_time)
+                for r in p] == [(int(r.status), r.limit, r.remaining,
+                                 r.reset_time) for r in j], tag
+        compare(tag)
+
+    live = [("a", 0), ("b", 1)]
+    both("live", 2, live, T0)
+    recs = [("a", 9, 3, T0 + 4000, 0, 4000), ("b", 9, 5, 0, 1, 4000),
+            ("c", 8, 1, T0 + 3000, 0, 3000), ("d", 6, 4, 0, 1, 2000)]
+    both("upserts", 1, [], T0 + 10, recs=recs)
+    fresh = [("c", 0), ("d", 1), ("a", 0), ("b", 1)]
+    both("replica reads", 0, fresh, T0 + 20, acc=[False] * 4)
+    both("owner hits", 1, fresh, T0 + 30)
+    with pytest.raises(ValueError, match="twice"):
+        port.step([], T0 + 40, upserts=ups(UpdatePeerGlobal, RateLimitResp,
+                                           recs[:1] * 2))

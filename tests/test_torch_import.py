@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads no JAX, nothing of the
 JAX package, and none of grpc, protobuf, aiohttp and prometheus_client
-(only the transport modules import those); its wire enums equal the JAX
+(only the transport modules import those; the peer ring's modules load
+without them and build their gRPC transport on first use); its wire enums equal the JAX
 package's; its entry points refuse a CUDA device that is not there."""
 
 import ast
@@ -45,7 +46,13 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.qos",
                   "gubernator_tpu_torch.qos.admission",
                   "gubernator_tpu_torch.qos.congestion",
-                  "gubernator_tpu_torch.qos.breaker")
+                  "gubernator_tpu_torch.qos.breaker",
+                  "gubernator_tpu_torch.net.peers",
+                  "gubernator_tpu_torch.net.faults",
+                  "gubernator_tpu_torch.core.global_sync",
+                  "gubernator_tpu_torch.parallel.router",
+                  "gubernator_tpu_torch.observability.tracing",
+                  "gubernator_tpu_torch.discovery.static")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
@@ -109,3 +116,44 @@ def test_default_device_is_cuda_or_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RateLimitEngine(capacity_per_shard=8, batch_per_shard=8)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_peer_client_connects_without_grpc_through_its_transport_seam():
+    """In a fresh interpreter where grpc and protobuf cannot be imported,
+    a ring of PeerClients over an in-process transport forwards, batches
+    and pushes GLOBAL updates: nothing above the transport seam needs
+    either library."""
+    code = (
+        "import sys, asyncio\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('grpc', 'google', 'jax',\n"
+        "                                  'gubernator_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from gubernator_tpu_torch.api.types import RateLimitReq, "
+        "RateLimitResp\n"
+        "from gubernator_tpu_torch.config import BehaviorConfig\n"
+        "from gubernator_tpu_torch.net.peers import PeerClient\n"
+        "class T:\n"
+        "    errors = ()\n"
+        "    async def get_peer_rate_limits(self, reqs, timeout, metadata):\n"
+        "        return [RateLimitResp(remaining=r.limit - r.hits) "
+        "for r in reqs]\n"
+        "    async def update_peer_globals(self, g, timeout): self.g = g\n"
+        "    async def close(self): pass\n"
+        "async def main():\n"
+        "    t = T()\n"
+        "    p = PeerClient(BehaviorConfig(), 'h:1', transport=t)\n"
+        "    out = await asyncio.gather(*(p.get_peer_rate_limit(\n"
+        "        RateLimitReq(name='n', unique_key=str(i), hits=i, "
+        "limit=9)) for i in range(3)))\n"
+        "    await p.update_peer_globals(['x'])\n"
+        "    await p.close()\n"
+        "    print([r.remaining for r in out], t.g)\n"
+        "asyncio.run(main())\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[9, 8, 7] ['x']"

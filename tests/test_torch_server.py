@@ -251,7 +251,9 @@ def test_add_to_server_splits_services_between_two_instances(pinned):
     assert a.engine.cache_size == 120 and b.engine.cache_size == 120
     assert a.batcher.pipeline.rpc_staged == 2
     assert b.batcher.pipeline.rpc_staged == 1
-    assert un[0] == "UNIMPLEMENTED" and tb[0] == "UNIMPLEMENTED"
+    # UpdatePeerGlobals is served (an empty broadcast upserts nothing);
+    # TransferBuckets waits for key migration
+    assert un[0] == "OK" and tb[0] == "UNIMPLEMENTED"
 
 
 _BLOCKED = r"""
