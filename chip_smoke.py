@@ -240,22 +240,62 @@ Phases (one line each; any mismatch raises and exits non-zero):
      then one line of figures (decisions/s of 12a and 12b at saturation,
      the share of items forwarded, the forward round trip's p50 and p99,
      broadcasts and upserts, the card's idle share, the phase's wall).
+ 13. failure handling and live migration: four Instances at phase 12's
+     geometry on the Python slot tables (live migration needs key
+     strings, which the native router does not keep), QoS at the JAX
+     defaults, over RingLoopback (TransferBuckets bytes into
+     server.serve_transfer_buckets, HealthCheck into
+     Instance.health_check; a node listed dead raises UNAVAILABLE), the
+     clock pinned.  2^18 regular keys (token and leaky, compact, 1-3
+     hits) and 2048 GLOBAL keys are seeded through their owners' engines
+     in 1000-request windows, and 512 CONCURRENCY leases through the
+     first founder.  13a: a fourth node joins (its ring point takes 0.228
+     of the key space) and the founders run migrate_keys: 0.2-0.3 of the
+     keys move, all to it, each then on one node; kept keys keep their
+     slots; each moved row equals its source row before the move, bit
+     for bit, GLOBAL rows too (registered on the new owner), lease rows
+     with them; then every moved key and a 16384-key sample of kept keys
+     take one more hit through Instance.get_rate_limits (100-item RPCs,
+     round-robin).  13b: the fourth node leaves through the daemon's
+     handoff step (Daemon._handoff_keys), the survivors re-join and its
+     keys take one more hit.  13c: the third founder's loopback fails;
+     the first founder's GLOBAL hits for 64 keys it owns are hinted;
+     HeartbeatMonitors on the other two (suspect_after = recover_after =
+     2), stepped by probe_once, confirm it DOWN in 2 rounds and both rings
+     converge; 8192 of its keys and 8192 others take a hit (no error, its
+     keys cold); healed, it is UP in 2 rounds, the rings include it
+     again, the hints replay.  After the counts are read, a serial
+     Python-table engine on the card replays every decided request in
+     order and every answer must equal it (13c's hits on the killed
+     node's keys: a cold engine's); the owner's rows of the hinted keys
+     equal an uninterrupted run's.  13d: phase 8's Instance (router,
+     pipelined lane at depth 3); one engine_dispatch fault rule (drop 1,
+     times 1) under 256 serialized 100-item RPCs of distinct keys from
+     64 callers fails exactly one drain's RPCs; every RPC again, and 64
+     new ones, then equal a serial router engine that never saw the
+     failed drain.  Figures: rows moved a migrate_keys (regular, GLOBAL,
+     lease), payload bytes, the wall split (quiesced export, encode,
+     transfer with the destination's import, remove), rows a second, the
+     longest engine-thread pause on a source and a destination, detector
+     rounds, kill to converged rings.
 
-Nine main paths are counted, each from 0: the one-shard path (phases 3b
-and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
+Eleven main paths are counted, each from 0: the one-shard path (phases
+3b and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b), the per-op path (phase 7b), the pipelined serving path
 (phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes),
 the state lifecycle (phase 10), the lease and QoS path (phase 11,
-which must launch drain_compact) and the peer ring (phase 12, which must
-launch drain_compact and global_window and nothing else); each must
-launch its kernels and never
+which must launch drain_compact), the peer ring (phase 12, which must
+launch drain_compact and global_window and nothing else), migration
+(phases 13a-13c, drain_compact and global_window, window_full allowed,
+nothing else) and the dispatch fault (phase 13d, drain_compact only);
+each must launch its kernels and never
 run a plain version, the per-op path must launch no kernel but
 window_math, global_stage and global_apply, the raw-RPC lane none but
 drain_compact, once a drain, and the lifecycle none but drain_compact and
 global_window.  The kernel table's launch counts are drain_compact's (the
-first path's, the fifth's, the sixth's, the seventh's, the eighth's and
-the ninth's) and window_full's on the first and the eighth, global_window's
-on the second, the seventh, the eighth and the ninth, drain_compact_stats' and
+first path's and the fifth's to the eleventh's) and window_full's on the
+first, the eighth and the tenth, global_window's
+on the second and the seventh to the tenth, drain_compact_stats' and
 stats_finish's on the third, the fifth and the eighth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
 a wrapper made only to check or time it against its plain version come
@@ -288,6 +328,7 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
 )
 from gubernator_tpu_torch.config import (  # noqa: E402
     AnalyticsConfig,
+    BehaviorConfig,
     EngineConfig,
     SLOConfig,
     TierConfig,
@@ -4567,6 +4608,18 @@ RING_GLOBAL_RPC = 50        # GLOBAL items a get_rate_limits call
 RING_GLOBAL_LIMIT = 100_000  # no GLOBAL key runs out: aggregation is exact
 
 
+class LoopbackDown(Exception):
+    """What a dead peer's transport raises: UNAVAILABLE, which the peer
+    lane retries and counts against the peer's breaker, as a refused
+    gRPC connection."""
+
+    def code(self):
+        return "UNAVAILABLE"
+
+    def details(self):
+        return str(self)
+
+
 class RingLoopback:
     """The in-process transport of one PeerClient (net/peers.py's seam),
     from node `caller` to the Instance `owner`: GetPeerRateLimits bytes go
@@ -4575,16 +4628,26 @@ class RingLoopback:
     on a machine where protobuf cannot be imported, the loopback does
     what that path does: this script's proto3 codec decodes the request
     and Instance.get_peer_rate_limits(reqs, client_id=caller) answers.
-    UpdatePeerGlobals goes to Instance.update_peer_globals.  `stats`
-    (shared by the ring) counts the calls, the items and each call's
-    round trip."""
+    UpdatePeerGlobals goes to Instance.update_peer_globals,
+    TransferBuckets bytes to server.serve_transfer_buckets (no protobuf:
+    the payload is state/migrate.py's JSON) and HealthCheck to
+    Instance.health_check.  `stats` (shared by the ring) counts the calls,
+    the items, each call's round trip and each transfer's bytes and wall
+    time; while the owner's address is in stats["dead"] every call raises
+    LoopbackDown, as a dead peer's would."""
 
-    errors = ()
+    errors = (LoopbackDown,)
 
     def __init__(self, owner, caller, stats):
         self.owner, self.caller, self.stats = owner, caller, stats
 
+    def _alive(self):
+        host = self.owner.advertise_address
+        if host in self.stats.get("dead", ()):
+            raise LoopbackDown(f"peer {host} is down")
+
     async def _peer_bytes(self, data):
+        self._alive()
         from gubernator_tpu_torch.server import serve_peer_rate_limits
         t0 = time.perf_counter()
         try:
@@ -4612,11 +4675,24 @@ class RingLoopback:
         return await self._peer_bytes(data)
 
     async def update_peer_globals(self, globals_, timeout):
+        self._alive()
         self.stats["broadcasts"] += 1
         self.stats["upserts"] += len(globals_)
         await self.owner.update_peer_globals(globals_)
 
+    async def transfer_buckets(self, payload, timeout):
+        from gubernator_tpu_torch.server import serve_transfer_buckets
+        self._alive()
+        t0 = time.perf_counter()
+        ack = await serve_transfer_buckets(self.owner, payload, WireContext())
+        self.stats["transfers"].append((self.caller,
+                                        self.owner.advertise_address,
+                                        len(payload),
+                                        time.perf_counter() - t0))
+        return ack
+
     async def health_check(self, timeout):
+        self._alive()
         return await self.owner.health_check()
 
     async def close(self):
@@ -4673,7 +4749,7 @@ def ring_nodes():
     warmed before the counts start.  Returns (nodes, addresses, stats)."""
     addrs = [f"node{i}:81" for i in range(RING_NODES)]
     stats = dict(item_calls=0, raw_calls=0, items=0, codec_calls=0,
-                 broadcasts=0, upserts=0, rtt_ms=[])
+                 broadcasts=0, upserts=0, rtt_ms=[], transfers=[])
     nodes = []
     for addr in addrs:
         nodes.append(Instance(
@@ -5096,6 +5172,688 @@ def report_ring(r, chk, counts, smi):
     log("ring figures: " + json.dumps(dict(card=smi, **fig)))
 
 
+# ------------------------------- phase 13: failure handling and migration
+
+# Founders and joiner of 13a's ring: with one ring point a host (crc32 of
+# the address), the joiner's point takes 0.228 of the key space, all of
+# it from the third founder.
+MIG_FOUNDERS = ("10.0.1.4:81", "10.0.4.22:81", "10.0.6.31:81")
+MIG_JOINER = "10.0.0.14:81"
+MIG_KEYS = 1 << 18          # regular keys seeded on their owners
+MIG_GLOBAL = 2048           # GLOBAL keys seeded on their owners
+MIG_LEASES = 512            # CONCURRENCY acquires whose lease rows travel
+MIG_SEED_WINDOW = 1000      # requests a seeding window of an owner's engine
+MIG_SAMPLE = 16384          # kept keys asked after the grow; 13c's sample
+MIG_HINTED = 64             # the killed node's GLOBAL keys hinted in 13c
+MIG_GROUP = 8192            # items a concurrent group (one admission bound)
+MIG_DURATION = 600_000      # nothing expires during the phase
+MIG_GLOBAL_LIMIT = 1_000_000
+FAULT_RPCS = 256            # 13d's RPCs a round, 100 items each
+
+
+def mig_engine_config():
+    """Phase 12's geometry on the Python slot tables, which migration
+    needs (the native router keeps fingerprints, not key strings)."""
+    return EngineConfig(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                        num_shards=SHARDS, batch_per_shard=FULL_LANES,
+                        use_native=False)
+
+
+def mig_request(idx, hits):
+    """Regular key idx: token or leaky by parity, in the compact ranges."""
+    return RateLimitReq(name=f"m{idx % 80}", unique_key=f"mk{idx:07d}",
+                        hits=hits, limit=20 + idx % 50, duration=MIG_DURATION,
+                        algorithm=int(idx & 1))
+
+
+def mig_global_request(idx, hits):
+    return RateLimitReq(name="mg", unique_key=f"g{idx:05d}", hits=hits,
+                        limit=MIG_GLOBAL_LIMIT, duration=MIG_DURATION,
+                        algorithm=int(idx & 1), behavior=Behavior.GLOBAL)
+
+
+def mig_lease_request(idx):
+    return RateLimitReq(name="ml", unique_key=f"l{idx:04d}", hits=1, limit=8,
+                        duration=MIG_DURATION,
+                        algorithm=Algorithm.CONCURRENCY)
+
+
+def mig_nodes():
+    """Phase 13's four Instances (the founders and the joiner), each on
+    the Python tables at phase 12's geometry, QoS at the JAX defaults,
+    reaching the others through RingLoopback; built and warmed before the
+    counts start.  Returns ({address: Instance}, stats)."""
+    stats = dict(item_calls=0, raw_calls=0, items=0, codec_calls=0,
+                 broadcasts=0, upserts=0, rtt_ms=[], transfers=[],
+                 dead=set())
+    nodes = {}
+    for addr in MIG_FOUNDERS + (MIG_JOINER,):
+        # the GLOBAL managers send when the script says (13c's hints)
+        nodes[addr] = Instance(
+            engine_config=mig_engine_config(), advertise_address=addr,
+            behaviors=BehaviorConfig(global_sync_wait=3600.0),
+            peer_transport=(lambda host, me=addr: RingLoopback(
+                nodes[host], me, stats)))
+    for n in nodes.values():
+        check(n.engine.native is None and n.batcher.pipeline is None
+              and n.qos is not None,
+              "a migration node is not on the Python tables with QoS")
+        n.engine.warmup()
+    torch.cuda.synchronize()
+    return nodes, stats
+
+
+async def mig_join(nodes, hosts):
+    from gubernator_tpu_torch.config import PeerInfo
+    for h in hosts:
+        await nodes[h].set_peers([PeerInfo(address=a, is_owner=(a == h))
+                                  for a in hosts])
+
+
+def mig_pin(nodes, now):
+    for n in nodes.values():
+        n.batcher.now_fn = lambda: now
+
+
+def mig_rpcs(reqs):
+    return [reqs[i:i + SERVE_RPC] for i in range(0, len(reqs), SERVE_RPC)]
+
+
+async def mig_ask(insts, rpcs, client_id=None):
+    """RPCs round-robin over `insts` through Instance.get_rate_limits, in
+    concurrent groups of at most MIG_GROUP items (no node's admission
+    queue can fill, so nothing is shed); the answers per RPC."""
+    out, i, turn = [], 0, 0
+    while i < len(rpcs):
+        j, n = i, 0
+        while j < len(rpcs) and n + len(rpcs[j]) <= MIG_GROUP:
+            n += len(rpcs[j])
+            j += 1
+        out += await asyncio.gather(*(
+            insts[(turn + k) % len(insts)].get_rate_limits(
+                rpcs[i + k], client_id=client_id)
+            for k in range(j - i)))
+        turn += j - i
+        i = j
+    return out
+
+
+class MigTimer:
+    """The engine-thread work of the migrations, per node and kind: on a
+    source the quiesced export (local_keys, global_keys, export_rows,
+    export_global_rows) and remove_keys, on a destination import_rows and
+    import_global_rows; and the payload encode (state/migrate.py
+    encode_rows, on the loop).  remove() puts them back."""
+
+    KINDS = (("local_keys", "export"), ("global_keys", "export"),
+             ("export_rows", "export"), ("export_global_rows", "export"),
+             ("remove_keys", "remove"), ("import_rows", "import"),
+             ("import_global_rows", "import"))
+
+    def __init__(self, nodes):
+        from gubernator_tpu_torch.state import migrate
+        self.nodes, self.migrate = nodes, migrate
+        self.secs, self.longest = {}, {}
+        for addr, n in nodes.items():
+            for name, kind in self.KINDS:
+                setattr(n.engine, name,
+                        self._timed(addr, kind, getattr(n.engine, name)))
+        self.encode = migrate.encode_rows
+        migrate.encode_rows = self._timed("loop", "encode", self.encode)
+
+    def _timed(self, addr, kind, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                k = (addr, kind)
+                self.secs[k] = self.secs.get(k, 0.0) + dt
+                self.longest[k] = max(self.longest.get(k, 0.0), dt)
+        return timed
+
+    def take(self):
+        """The seconds by kind since the last take, the longest single
+        engine-thread call of a source and of a destination."""
+        by_kind, pause = {}, {"source": 0.0, "destination": 0.0}
+        for (addr, kind), t in self.secs.items():
+            by_kind[kind] = by_kind.get(kind, 0.0) + t
+            side = "destination" if kind == "import" else "source"
+            if kind != "encode":
+                pause[side] = max(pause[side], self.longest[(addr, kind)])
+        self.secs, self.longest = {}, {}
+        return by_kind, pause
+
+    def remove(self):
+        for n in self.nodes.values():
+            for name, _ in self.KINDS:
+                delattr(n.engine, name)
+        self.migrate.encode_rows = self.encode
+
+
+def mig_where(nodes, keys):
+    """key -> the addresses whose regular tables hold it."""
+    from gubernator_tpu_torch.core.engine import shard_of
+    out = {}
+    for addr, n in nodes.items():
+        tables = n.engine.tables
+        for k in keys:
+            if k in tables[shard_of(k, SHARDS)]:
+                out.setdefault(k, []).append(addr)
+    return out
+
+
+async def mig_move(nodes, timer, stats, movers, old, new):
+    """Run migrate_keys(old, new) on each of `movers` in turn; its totals,
+    the wall time, the transfers' bytes and seconds, and the time split."""
+    t0 = time.perf_counter()
+    n0 = len(stats["transfers"])
+    totals = [await nodes[a].migrate_keys(list(old), list(new))
+              for a in movers]
+    wall = time.perf_counter() - t0
+    tr = stats["transfers"][n0:]
+    by_kind, pause = timer.take()
+    moved = sum(t["moved"] for t in totals)
+    gmoved = sum(t["gmoved"] for t in totals)
+    return dict(totals=totals, moved=moved, gmoved=gmoved, wall_s=wall,
+                payload_bytes=sum(b for _, _, b, _ in tr),
+                transfer_s=sum(s for _, _, _, s in tr), transfers=len(tr),
+                export_s=by_kind.get("export", 0.0),
+                encode_s=by_kind.get("encode", 0.0),
+                import_s=by_kind.get("import", 0.0),
+                remove_s=by_kind.get("remove", 0.0),
+                rows_per_s=(moved + gmoved) / wall if wall > 0 else None,
+                pause_s=pause)
+
+
+def phase_migration():
+    """Phase 13a-13c, the counted part: four Instances on the Python
+    tables (phase 12's geometry) over RingLoopback, the founders joined.
+    Seeds MIG_KEYS regular keys (1-3 hits each) and MIG_GLOBAL GLOBAL
+    keys through each owner's engine in MIG_SEED_WINDOW-request windows,
+    and MIG_LEASES CONCURRENCY acquires through the first founder.  13a:
+    the joiner joins and the founders run migrate_keys; every moved key,
+    and a MIG_SAMPLE sample of kept keys, takes one more hit through
+    Instance.get_rate_limits.  13b: the joiner leaves through the daemon's
+    handoff step (Daemon._handoff_keys: migrate_keys(all, survivors)), the
+    survivors re-join without it, and every key it held takes one more
+    hit.  13c: the third founder's loopback fails; the first founder's
+    GLOBAL hits for MIG_HINTED keys it owns are hinted; HeartbeatMonitors
+    on the other two, stepped by probe_once, confirm it down and re-home;
+    a sample of its keys and of the others' takes a hit; then it heals,
+    is confirmed up, re-homed back, and the hints replay.  The clock is
+    pinned; the serial engines replay it all after the counts are read
+    (check_migration)."""
+    from gubernator_tpu_torch.config import DaemonConfig, HealthConfig
+    from gubernator_tpu_torch.daemon import Daemon
+    from gubernator_tpu_torch.net.health import DOWN, UP, HeartbeatMonitor
+    from gubernator_tpu_torch.parallel.router import ConsistentHashRing
+    from gubernator_tpu_torch.state import migrate
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1313)
+    nodes, stats = mig_nodes()
+    founders, joiner = list(MIG_FOUNDERS), MIG_JOINER
+    grown = founders + [joiner]
+    ring = ConsistentHashRing()
+    for a in founders:
+        ring.add(a, a)
+    seed = [mig_request(i, int(h)) for i, h in
+            enumerate(rng.integers(1, 4, MIG_KEYS))]
+    gseed = [mig_global_request(i, 1 + i % 3) for i in range(MIG_GLOBAL)]
+    leases = [mig_lease_request(i) for i in range(MIG_LEASES)]
+    t_pin = millisecond_now()
+    out = dict(nodes=nodes, t_pin=t_pin, seed=seed, gseed=gseed,
+               leases=leases)
+
+    async def script():
+        await mig_join(nodes, founders)
+        mig_pin(nodes, t_pin)
+        timer = MigTimer(nodes)
+        reset_counts()
+        try:
+            # seeding on the owners, in windows through their engines
+            t0 = time.perf_counter()
+            for reqs in (seed, gseed):
+                by_owner = {}
+                for r in reqs:
+                    by_owner.setdefault(ring.get(r.hash_key()), []).append(r)
+                for a, rs in by_owner.items():
+                    eng = nodes[a].engine
+                    for b in range(0, len(rs), MIG_SEED_WINDOW):
+                        await nodes[a]._quiesced(
+                            lambda c=rs[b:b + MIG_SEED_WINDOW], e=eng:
+                            e.process(c, now=t_pin))
+            out["lease_out"] = await mig_ask(
+                [nodes[founders[0]]], mig_rpcs(leases), client_id="mig")
+            out["seed_s"] = time.perf_counter() - t0
+            timer.take()
+
+            # 13a: grow 3 -> 4
+            keys = [r.hash_key() for r in seed]
+            lkeys = [r.hash_key() for r in leases]
+            gkeys = [r.hash_key() for r in gseed]
+            moved = migrate.ownership_diff(keys, founders, grown)
+            gmoved = migrate.ownership_diff(gkeys, founders, grown)
+            lmoved = migrate.ownership_diff(lkeys, founders, grown)
+            out["dests"] = sorted(set(moved) | set(gmoved) | set(lmoved))
+            moved = moved.get(joiner, [])
+            gmoved = gmoved.get(joiner, [])
+            lmoved = lmoved.get(joiner, [])
+            mset = set(moved + lmoved)
+            kept = [k for k in keys if k not in mset]
+            sample = sorted(rng.choice(len(kept), MIG_SAMPLE, replace=False))
+            kept_sample = [kept[int(i)] for i in sample]
+            owner0 = {k: ring.get(k) for k in moved + lmoved + kept_sample}
+            out["src_rows"] = {}
+            out["src_grows"] = {}
+            for a in founders:
+                mine = [k for k in moved + lmoved if owner0[k] == a]
+                out["src_rows"].update(
+                    (r["key"], r) for r in nodes[a].engine.export_rows(mine))
+                out["src_grows"].update(
+                    (r["key"], r) for r in
+                    nodes[a].engine.export_global_rows(gmoved))
+            # an owner's book holds its keys' lease rows (an entry node's
+            # book also holds rows of the keys it forwarded: they stay)
+            out["src_leases"] = sorted(
+                row for k in lmoved
+                for row in nodes[owner0[k]].leases.export_rows([k]))
+            from gubernator_tpu_torch.core.engine import shard_of
+            slot0 = {k: nodes[owner0[k]].engine.tables[
+                shard_of(k, SHARDS)].peek(k) for k in kept_sample}
+            timer.take()
+            await mig_join(nodes, grown)
+            out["grow"] = await mig_move(nodes, timer, stats, founders,
+                                         founders, grown)
+            jn = nodes[joiner]
+            out["moved"], out["gmoved"], out["lmoved"] = moved, gmoved, lmoved
+            out["where_a"] = mig_where(nodes, moved + lmoved + kept_sample)
+            out["slot_a"] = {k: nodes[owner0[k]].engine.tables[
+                shard_of(k, SHARDS)].peek(k) for k in kept_sample}
+            out["slot0"] = slot0
+            out["owner0"] = owner0
+            out["dst_rows"] = {r["key"]: r for r in
+                               jn.engine.export_rows(moved + lmoved)}
+            out["dst_gkeys"] = set(jn.engine.global_keys())
+            out["dst_grows"] = {r["key"]: r for r in
+                                jn.engine.export_global_rows(gmoved)}
+            out["dst_leases"] = sorted(jn.leases.export_rows(lmoved))
+            out["src_left_leases"] = sorted(
+                row for k in lmoved
+                for row in nodes[owner0[k]].leases.export_rows([k]))
+            by_key = {r.hash_key(): r for r in seed + leases}
+            again_a = [RateLimitReq(**{**vars(by_key[k]), "hits": 1})
+                       for k in moved + lmoved + kept_sample]
+            t0 = time.perf_counter()
+            out["again_a"] = mig_rpcs(again_a)
+            out["again_a_out"] = await mig_ask(
+                [nodes[a] for a in grown], out["again_a"], client_id="mig")
+            out["ask_a_s"] = time.perf_counter() - t0
+
+            # 13b: shrink 4 -> 3 through the daemon's handoff step
+            held = [k for k in jn.engine.local_keys()]
+            d = Daemon(DaemonConfig())
+            d.conf.drain_timeout = 600.0
+            d.instance = jn
+            t0 = time.perf_counter()
+            n0 = len(stats["transfers"])
+            await d._handoff_keys()
+            out["handoff_phases"] = list(d.shutdown_phases)
+            tr = stats["transfers"][n0:]
+            by_kind, pause = timer.take()
+            wall = time.perf_counter() - t0
+            out["shrink"] = dict(
+                moved=len(held), wall_s=wall, transfers=len(tr),
+                payload_bytes=sum(b for _, _, b, _ in tr),
+                transfer_s=sum(s for _, _, _, s in tr),
+                export_s=by_kind.get("export", 0.0),
+                encode_s=by_kind.get("encode", 0.0),
+                import_s=by_kind.get("import", 0.0),
+                remove_s=by_kind.get("remove", 0.0),
+                rows_per_s=len(held) / wall if wall > 0 else None,
+                pause_s=pause)
+            await mig_join(nodes, founders)
+            out["held"] = held
+            out["joiner_left"] = jn.engine.local_keys()
+            out["where_b"] = mig_where(
+                {a: nodes[a] for a in founders}, held)
+            again_b = [RateLimitReq(**{**vars(by_key[k]), "hits": 1})
+                       for k in held]
+            t0 = time.perf_counter()
+            out["again_b"] = mig_rpcs(again_b)
+            out["again_b_out"] = await mig_ask(
+                [nodes[a] for a in founders], out["again_b"],
+                client_id="mig")
+            out["ask_b_s"] = time.perf_counter() - t0
+
+            # 13c: kill and heal the third founder
+            victim, survivors = founders[2], founders[:2]
+            vkeys = [k for k in keys if ring.get(k) == victim]
+            okeys = [k for k in keys if ring.get(k) != victim]
+            hinted = [k for k in gkeys if ring.get(k) == victim][:MIG_HINTED]
+            gby = {r.hash_key(): r for r in gseed}
+            conf = HealthConfig(suspect_after=2, recover_after=2)
+            mons = []
+            for a in survivors:
+                nodes[a].monitor = HeartbeatMonitor(nodes[a], founders,
+                                                    conf=conf)
+                mons.append(nodes[a].monitor)
+            await asyncio.gather(*(m.probe_once() for m in mons))
+            t_kill = time.perf_counter()
+            stats["dead"].add(victim)
+            gm = nodes[survivors[0]].global_mgr
+            for k in hinted:
+                gm.queue_hit(RateLimitReq(**{**vars(gby[k]), "hits": 2}))
+            await gm._send_hits()
+            out["hints_pending"] = gm.hints.pending(victim)
+            rounds = 0
+            while rounds < 10 and not all(
+                    m.snapshot()["peers"][victim]["state"] == DOWN
+                    for m in mons):
+                for m in mons:
+                    await m.probe_once()
+                rounds += 1
+            out["rounds_down"] = rounds
+            out["rings_down"] = [sorted(p.host for p in
+                                        nodes[a].peer_list())
+                                 for a in survivors]
+            out["kill_to_converged_s"] = time.perf_counter() - t_kill
+            pick = lambda ks: [ks[int(i)] for i in sorted(  # noqa: E731
+                rng.choice(len(ks), MIG_SAMPLE // 2, replace=False))]
+            vsample, osample = pick(vkeys), pick(okeys)
+            out["vsample"], out["osample"] = vsample, osample
+            cold = [RateLimitReq(**{**vars(by_key[k]), "hits": 1})
+                    for k in vsample + osample]
+            out["cold"] = mig_rpcs(cold)
+            out["cold_out"] = await mig_ask(
+                [nodes[a] for a in survivors], out["cold"], client_id="mig")
+            stats["dead"].discard(victim)
+            t_heal = time.perf_counter()
+            rounds = 0
+            while rounds < 10 and not all(
+                    m.snapshot()["peers"][victim]["state"] == UP
+                    for m in mons):
+                for m in mons:
+                    await m.probe_once()
+                rounds += 1
+            out["rounds_up"] = rounds
+            out["rings_up"] = [sorted(p.host for p in nodes[a].peer_list())
+                               for a in survivors]
+            out["heal_to_converged_s"] = time.perf_counter() - t_heal
+            out["hints_after"] = (gm.hints.pending(victim),
+                                  gm.hints.replayed.get(victim, 0))
+            await gm._send_hits()
+            for m in mons:
+                await m.stop()
+            out["where_c"] = mig_where(nodes, vsample)
+            out["hinted"] = hinted
+            out["victim"] = victim
+            vn = nodes[victim]
+            out["hinted_rows"] = {k: [int(p[vn.engine.gtable.peek(k)])
+                                      for p in vn.engine.gstate]
+                                  for k in hinted}
+            back = [RateLimitReq(**{**vars(by_key[k]), "hits": 1})
+                    for k in vsample]
+            out["back"] = mig_rpcs(back)
+            out["back_out"] = await mig_ask(
+                [nodes[a] for a in founders], out["back"], client_id="mig")
+            torch.cuda.synchronize()
+        finally:
+            timer.remove()
+            for n in nodes.values():
+                n.close()
+
+    asyncio.run(script())
+    out["stats"] = stats
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _answers(outs):
+    return [answer_fields(a) for rpc in outs for a in rpc]
+
+
+def check_migration(r):
+    """Phase 13a-13c's checks, after its counts are read.  A serial
+    Python-table engine on the card replays, at the same pinned clock and
+    in the same order, every request the phase decided (the seed, the
+    lease acquires, 13a's and 13b's hits, 13c's hits on keys the survivors
+    owned, the hits after the heal, the hinted GLOBAL hits); a cold engine
+    answers 13c's hits on the killed node's keys, which restart there."""
+    t = r["t_pin"]
+    serial = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                             num_shards=SHARDS, batch_per_shard=FULL_LANES)
+    cold = RateLimitEngine(capacity_per_shard=1 << 16, num_shards=SHARDS,
+                           batch_per_shard=FULL_LANES)
+
+    def replay(eng, reqs):
+        outs = []
+        for b in range(0, len(reqs), MIG_SEED_WINDOW):
+            outs += eng.process(reqs[b:b + MIG_SEED_WINDOW], now=t)
+        return [answer_fields(a) for a in outs]
+
+    replay(serial, r["seed"])
+    replay(serial, r["gseed"])
+    lease_want = replay(serial, r["leases"])
+    check(_answers(r["lease_out"]) == lease_want,
+          "13: the lease acquires differ from the serial engine")
+    # 13a: who moved where, rows bit for bit, answers
+    n_moved = len(r["moved"]) + len(r["lmoved"])
+    share = n_moved / (MIG_KEYS + MIG_LEASES)
+    check(0.2 <= share <= 0.3, f"13a: {share:.3f} of the keys moved")
+    check(r["dests"] == [MIG_JOINER],
+          f"13a: keys moved to {r['dests']}, not only to the joiner")
+    g = r["grow"]
+    check(g["moved"] == n_moved and g["gmoved"] == len(r["gmoved"]),
+          f"13a: migrate_keys moved {g['moved']} + {g['gmoved']}, the "
+          f"ring diff says {n_moved} + {len(r['gmoved'])}")
+    where = r["where_a"]
+    check(all(where.get(k) == [MIG_JOINER]
+              for k in r["moved"] + r["lmoved"]),
+          "13a: a moved key does not live on the joiner alone")
+    check(all(where.get(k) == [r["owner0"][k]] and
+              r["slot_a"][k] == r["slot0"][k] for k in r["slot0"]),
+          "13a: a kept key moved or changed its slot")
+    check(r["dst_rows"] == r["src_rows"]
+          and len(r["dst_rows"]) == n_moved,
+          "13a: a moved key's row on the joiner differs from its source "
+          "row before the move")
+    check(set(r["gmoved"]) <= r["dst_gkeys"]
+          and r["dst_grows"] == r["src_grows"] and r["gmoved"],
+          "13a: a moved GLOBAL key is not registered on the joiner with "
+          "its source row")
+    check(r["dst_leases"] == r["src_leases"] and r["src_leases"]
+          and not r["src_left_leases"],
+          "13a: the moved keys' lease rows did not move with them")
+    want = replay(serial, [q for rpc in r["again_a"] for q in rpc])
+    check(_answers(r["again_a_out"]) == want,
+          "13a: answers after the grow differ from the serial engine")
+    # 13b
+    check(r["handoff_phases"] == ["handoff"] and not r["joiner_left"]
+          and sorted(r["held"]) == sorted(r["moved"] + r["lmoved"]),
+          f"13b: the handoff left {len(r['joiner_left'])} keys on the "
+          f"joiner (phases {r['handoff_phases']})")
+    check(all(len(r["where_b"].get(k, ())) == 1 for k in r["held"]),
+          "13b: a handed-off key is not on exactly one survivor")
+    want = replay(serial, [q for rpc in r["again_b"] for q in rpc])
+    check(_answers(r["again_b_out"]) == want,
+          "13b: answers after the shrink differ from the serial engine")
+    # 13c
+    check(r["hints_pending"] == len(r["hinted"]) > 0,
+          f"13c: {r['hints_pending']} hints for {len(r['hinted'])} keys")
+    survivors = sorted(MIG_FOUNDERS[:2])
+    check(r["rounds_down"] == 2 and r["rings_down"] == [survivors] * 2,
+          f"13c: DOWN after {r['rounds_down']} rounds, rings "
+          f"{r['rings_down']}")
+    got = _answers(r["cold_out"])
+    check(all(a[4] == "" for a in got), "13c: an answer carries an error")
+    nv = len(r["vsample"])
+    vreqs = [q for rpc in r["cold"] for q in rpc][:nv]
+    oreqs = [q for rpc in r["cold"] for q in rpc][nv:]
+    check(got[:nv] == replay(cold, vreqs),
+          "13c: the killed node's keys did not restart cold")
+    check(got[nv:] == replay(serial, oreqs),
+          "13c: the survivors' keys differ from the serial engine")
+    check(r["rounds_up"] == 2
+          and r["rings_up"] == [sorted(MIG_FOUNDERS)] * 2
+          and r["hints_after"] == (0, len(r["hinted"])),
+          f"13c: UP after {r['rounds_up']} rounds, rings {r['rings_up']}, "
+          f"hints (pending, replayed) {r['hints_after']}")
+    check(all(r["where_c"].get(k) == [r["victim"]] for k in r["vsample"]),
+          "13c: a key of the healed node lives elsewhere too")
+    # the outage rows tie on expire (a pinned clock): the healed node
+    # keeps its own, so its keys answer as if the outage never happened
+    check(_answers(r["back_out"])
+          == replay(serial, [q for rpc in r["back"] for q in rpc]),
+          "13c: the healed node's keys differ from the serial engine")
+    gby = {q.hash_key(): q for q in r["gseed"]}
+    replay(serial, [RateLimitReq(**{**vars(gby[k]), "hits": 2})
+                    for k in r["hinted"]])
+    planes = [p.cpu().numpy() for p in serial.gstate]
+    for k in r["hinted"]:
+        want = [int(p[serial.gtable.peek(k)]) for p in planes]
+        check(r["hinted_rows"][k] == want,
+              f"13c: the owner's row of {k} {r['hinted_rows'][k]} != an "
+              f"uninterrupted run's {want}")
+    return dict(share=share, n_moved=n_moved, answers_a=len(r["again_a_out"])
+                * SERVE_RPC, answers_b=len(r["again_b_out"]) * SERVE_RPC,
+                cold=len(got))
+
+
+def report_migration(r, chk, counts, smi):
+    """Phase 13a-13c's line and its figures line."""
+    def fig(m):
+        return {k: (v if not isinstance(v, float) else float(f"{v:.6g}"))
+                for k, v in m.items() if k != "totals"}
+    leases = len(r["dst_leases"])
+    figures = dict(
+        grow=dict(fig(r["grow"]), lease_rows=leases),
+        shrink=fig(r["shrink"]),
+        detector=dict(rounds_down=r["rounds_down"], rounds_up=r["rounds_up"],
+                      kill_to_converged_s=r["kill_to_converged_s"],
+                      heal_to_converged_s=r["heal_to_converged_s"]),
+        seed_s=r["seed_s"], ask_grow_s=r["ask_a_s"],
+        ask_shrink_s=r["ask_b_s"], launches=counts,
+        phase_wall_s=r["wall_s"])
+    g, s = r["grow"], r["shrink"]
+    log(f"phase 13 failure handling and migration (4 Instances of "
+        f"{SHARDS} x {FULL_CAPACITY // SHARDS} slots on the Python tables, "
+        f"one card): 13a grow 3 -> 4 moved {g['moved']} regular keys "
+        f"({chk['share']:.3f} of {MIG_KEYS + MIG_LEASES}), {g['gmoved']} "
+        f"GLOBAL, {leases} lease rows in {g['payload_bytes']} payload bytes, "
+        f"{g['wall_s']:.3f} s (export {g['export_s']:.3f}, encode "
+        f"{g['encode_s']:.3f}, transfer with import {g['transfer_s']:.3f}, "
+        f"remove {g['remove_s']:.3f}), rows bit for bit, "
+        f"{chk['answers_a']} answers = the serial engine; 13b shrink moved "
+        f"{s['moved']} keys in {s['wall_s']:.3f} s, {chk['answers_b']} "
+        f"answers = the serial engine; 13c DOWN in {r['rounds_down']} "
+        f"rounds, converged {r['kill_to_converged_s']:.3f} s after the "
+        f"kill, {chk['cold']} answers with no error (the killed node's "
+        f"keys cold), UP in {r['rounds_up']} rounds, {len(r['hinted'])} "
+        f"hinted GLOBAL keys = an uninterrupted run; {r['wall_s']:.1f} s; "
+        f"launches {counts}; {smi}")
+    log("migration figures: " + json.dumps(dict(card=smi, **figures)))
+
+
+def phase_dispatch_fault():
+    """Phase 13d, the counted part: phase 8's Instance (the router, the
+    pipelined lane at depth 3, QoS at the JAX defaults, the occupancy gate
+    off) on a pinned clock; one engine_dispatch rule (drop=1.0, times=1),
+    then FAULT_RPCS serialized 100-item RPCs of distinct compact keys from
+    64 callers through serve_get_rate_limits: exactly one drain's RPCs
+    fail.  Then every RPC once more, and FAULT_RPCS // 4 new ones."""
+    from gubernator_tpu_torch.net.faults import FAULTS, SEAM_ENGINE_DISPATCH
+    inst = Instance(engine_config=serving_engine_config())
+    check(inst.engine.native is not None and inst.batcher.pipeline is not None
+          and inst.batcher.pipeline.depth == 3,
+          "13d: the Instance lacks the router or the depth-3 pipeline")
+    inst.engine.warmup()
+    torch.cuda.synchronize()
+    t_pin = millisecond_now()
+    pin_clock(inst, t_pin)
+    inst.batcher.pipeline.gate_enabled = False
+    reqs = [wire_request(i, "fault", 1 + i % 3)
+            for i in range(FAULT_RPCS * 5 // 4 * SERVE_RPC)]
+    rpcs = mig_rpcs(reqs)
+    first = rpcs[:FAULT_RPCS]
+    again = first + rpcs[FAULT_RPCS:]
+    data = {id(rpc): encode_list([vars(q) for q in rpc], REQ_FIELDS)
+            for rpc in rpcs}
+    ctx = WireContext()
+    out = dict(t_pin=t_pin, first=first, again=again)
+
+    async def serve(rpc):
+        try:
+            return decode_list(await serve_get_rate_limits(
+                inst, data[id(rpc)], ctx), RESP_FIELDS)
+        except Exception as e:
+            return e
+
+    async def script():
+        reset_counts()
+        FAULTS.seed(13)
+        FAULTS.configure(SEAM_ENGINE_DISPATCH, drop=1.0, times=1)
+        try:
+            outs = [None] * len(first)
+
+            async def caller(c):
+                for i in range(c, len(first), SERVE_CLIENTS):
+                    outs[i] = await serve(first[i])
+            await asyncio.gather(*(caller(c) for c in range(SERVE_CLIENTS)))
+            out["first_out"] = outs
+            out["fired"] = FAULTS.describe()[SEAM_ENGINE_DISPATCH][0]["fired"]
+            out["again_out"] = [await serve(rpc) for rpc in again]
+            out["drains"] = inst.batcher.pipeline.drains
+            torch.cuda.synchronize()
+        finally:
+            FAULTS.clear()
+            await inst.aclose()
+
+    asyncio.run(script())
+    return out
+
+
+def check_dispatch_fault(r):
+    """13d against a serial router engine on the card that never saw the
+    failed drain: it replays the first round's answered RPCs, then every
+    RPC of the second round (each RPC's keys are its own, so the order
+    across RPCs changes no answer)."""
+    failed = [i for i, o in enumerate(r["first_out"])
+              if isinstance(o, Exception)]
+    check(r["fired"] == 1 and failed and len(failed) < len(r["first"]),
+          f"13d: the rule fired {r['fired']} times and failed "
+          f"{len(failed)} of {len(r['first'])} RPCs")
+    check(all("engine_dispatch" in str(r["first_out"][i]) for i in failed),
+          "13d: an RPC failed for another reason than the injected fault")
+    check(not any(isinstance(o, Exception) for o in r["again_out"]),
+          "13d: an RPC after the failed drain failed")
+    serial = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                             num_shards=SHARDS, batch_per_shard=FULL_LANES,
+                             use_native="on")
+    t = r["t_pin"]
+    for i, (rpc, got) in enumerate(zip(r["first"], r["first_out"])):
+        if i not in failed:
+            check([answer_fields(a) for a in got]
+                  == [answer_fields(a) for a in serial.process(rpc, now=t)],
+                  f"13d: RPC {i} of the first round differs from the "
+                  f"serial engine")
+    for i, (rpc, got) in enumerate(zip(r["again"], r["again_out"])):
+        check([answer_fields(a) for a in got]
+              == [answer_fields(a) for a in serial.process(rpc, now=t)],
+              f"13d: RPC {i} after the failed drain differs from the "
+              f"serial engine")
+    return len(failed)
+
+
+def report_dispatch_fault(r, n_failed, counts, smi):
+    log(f"phase 13d a dispatch fault on the pipelined lane (depth 3): one "
+        f"engine_dispatch rule failed {n_failed} of {len(r['first'])} "
+        f"RPCs, one drain's, each once; {len(r['again'])} RPCs after it = "
+        f"a serial engine that never saw the failed drain; "
+        f"{r['drains']} drains; launches {counts}; {smi}")
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -5270,13 +6028,41 @@ def main():
     chk12 = check_ring(ring)
     report_ring(ring, chk12, path9, smi)
     del ring
+    # failure handling and live migration: counts from 0 again (inside,
+    # after the four Instances are built, warmed and the founders joined)
+    mig = phase_migration()
+    path10, plain10 = launch_counts(), plain_counts()
+    check(path10["drain_compact"] > 0 and path10["global_window"] > 0,
+          f"a kernel of the migration path never launched: {path10}")
+    others10 = {k: v for k, v in path10.items()
+                if k not in ("drain_compact", "window_full", "global_window")}
+    check(not any(others10.values()),
+          f"the migration path launched another kernel: {others10}")
+    check(not any(plain10.values()),
+          f"the plain versions ran on the migration path: {plain10}")
+    chk13 = check_migration(mig)
+    report_migration(mig, chk13, path10, smi)
+    del mig
+    # a dispatch fault on the pipelined lane: counts from 0 again (inside,
+    # after its Instance is built and warmed)
+    fault = phase_dispatch_fault()
+    path11, plain11 = launch_counts(), plain_counts()
+    others11 = {k: v for k, v in path11.items() if k != "drain_compact"}
+    check(path11["drain_compact"] > 0 and not any(others11.values()),
+          f"the dispatch-fault path launched {path11}")
+    check(not any(plain11.values()),
+          f"the plain versions ran on the dispatch-fault path: {plain11}")
+    n_failed = check_dispatch_fault(fault)
+    report_dispatch_fault(fault, n_failed, path11, smi)
+    del fault
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:974",
              launches=(path1["drain_compact"] + path5["drain_compact"]
                        + path6["drain_compact"] + path7["drain_compact"]
-                       + path8["drain_compact"] + path9["drain_compact"]),
+                       + path8["drain_compact"] + path9["drain_compact"]
+                       + path10["drain_compact"] + path11["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -5284,7 +6070,8 @@ def main():
              library_ms=None),
         dict(name="window_full", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/kernel.py:1084",
-             launches=path1["window_full"] + path8["window_full"],
+             launches=(path1["window_full"] + path8["window_full"]
+                       + path10["window_full"]),
              max_abs_err=full_err,
              ms=sig4(full["ms"]), plain_ms=sig4(full["plain_ms"]),
              bound_ms=full["bound_ms"], bound_by=full["bound_by"],
@@ -5292,7 +6079,8 @@ def main():
         dict(name="global_window", route="cuda", source=GLOBAL_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
              launches=(path2["global_window"] + path7["global_window"]
-                       + path8["global_window"] + path9["global_window"]),
+                       + path8["global_window"] + path9["global_window"]
+                       + path10["global_window"]),
              max_abs_err=max(global_err, alone["err"], glob["global_err"],
                              chk["global_err"], cmp["err"], upsert_err,
                              upw["err"]),

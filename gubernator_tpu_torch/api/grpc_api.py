@@ -5,8 +5,8 @@ Service and method names match the reference exactly ("pb.gubernator.V1"
 and "pb.gubernator.PeersV1", reference gubernator.pb.go:419,
 peers.pb.go:164) so reference clients interoperate.  Method handlers are
 registered directly instead of through generated *_grpc.py stubs.  Of
-PeersV1 GetPeerRateLimits and UpdatePeerGlobals are ported:
-TransferBuckets (key migration), RegisterGlobals and
+PeersV1 GetPeerRateLimits, UpdatePeerGlobals and TransferBuckets (key
+migration, raw bytes in and out) are ported: RegisterGlobals and
 ApplyGlobalRegistration (mesh GLOBAL) are not registered, so they answer
 UNIMPLEMENTED.
 """
@@ -46,14 +46,21 @@ def add_v1_servicer(server: grpc.aio.Server, servicer) -> None:
 
 
 def add_peers_servicer(server: grpc.aio.Server, servicer) -> None:
-    """servicer: async GetPeerRateLimits(req, ctx), UpdatePeerGlobals(req,
-    ctx)."""
+    """servicer: async GetPeerRateLimits(req, ctx), TransferBuckets(req,
+    ctx), UpdatePeerGlobals(req, ctx)."""
     handlers = {
         # bytes-level like V1.GetRateLimits: the servicer owns
         # decode/encode so authoritative relays can run the native
         # pipeline lane without materializing protobuf objects
         "GetPeerRateLimits": grpc.unary_unary_rpc_method_handler(
             servicer.GetPeerRateLimits,
+            request_deserializer=None,
+            response_serializer=None,
+        ),
+        # bytes-level: the migration payload's codec is state/migrate.py's
+        # (versioned JSON), not a generated proto
+        "TransferBuckets": grpc.unary_unary_rpc_method_handler(
+            servicer.TransferBuckets,
             request_deserializer=None,
             response_serializer=None,
         ),

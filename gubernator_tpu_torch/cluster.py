@@ -7,8 +7,11 @@ with is_owner set by address match; no discovery backend.  The GLOBAL
 manager syncs fast for tests (50 ms, cluster.go:87).  Every Instance owns
 its own arenas on `device` (`cuda` by default, `cpu` in the tests), so the
 cluster runs the cross-host protocol (forwarding, hit aggregation,
-broadcasts) over real gRPC.  It needs grpcio and protobuf.  Growing and
-shrinking the ring with key migration waits for ROADMAP item 6d.
+broadcasts) over real gRPC.  It needs grpcio and protobuf.  The ring
+grows (`add_instance`) and shrinks (`remove_instance`) with live key
+migration (Instance.migrate_keys, which needs EngineConfig
+use_native=False), and `kill_instance` crashes a node with no handoff, for
+the failure detector (net/health.py) to notice.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ class ClusterNode:
 class Cluster:
     def __init__(self):
         self.nodes: List[ClusterNode] = []
+        # remembered for add_instance: a node joining later is built with
+        # the founders' configs and device
+        self._behaviors: Optional[BehaviorConfig] = None
+        self._engine: Optional[EngineConfig] = None
+        self._device = None
 
     @property
     def addresses(self) -> List[str]:
@@ -56,6 +64,82 @@ class Cluster:
         node (functional_test.go:283-285)."""
         owner = self.nodes[0].instance.get_peer(key)
         return self.addresses.index(owner.host)
+
+    async def _boot(self, address: str) -> ClusterNode:
+        """One Instance (its own Metrics) and gRPC server on `address`, the
+        Instance relabelled with the address the server bound."""
+        from gubernator_tpu_torch.observability.metrics import Metrics
+        inst = Instance(engine_config=self._engine,
+                        behaviors=replace(self._behaviors),
+                        device=self._device, advertise_address=address,
+                        metrics=Metrics())
+        server = GrpcServer(inst, address)
+        await server.start()
+        # an ephemeral port resolves the address late: re-label the node
+        # so stitched traces name each node distinctly
+        inst.advertise_address = server.address
+        inst.tracer.node = server.address
+        return ClusterNode(inst, server)
+
+    async def _rewire(self) -> None:
+        """Install the current membership on every node (is_owner by
+        address match, cluster.go:35-45)."""
+        for node in self.nodes:
+            await node.instance.set_peers([
+                PeerInfo(address=a, is_owner=(a == node.address))
+                for a in self.addresses])
+
+    async def add_instance(self, address: str = "127.0.0.1:0") -> ClusterNode:
+        """Grow the ring by one node, then migrate the re-homed keys live:
+        once the new membership is installed everywhere, every founding
+        node diffs old -> new ownership and ships its moved rows to their
+        new owners (Instance.migrate_keys); about 1/(N+1) of the key space
+        moves, the rest stays where it was."""
+        old_hosts = self.addresses
+        node = await self._boot(address)
+        node.instance.engine.warmup()
+        self.nodes.append(node)
+        await self._rewire()
+        for n in self.nodes[:-1]:
+            await n.instance.migrate_keys(old_hosts, self.addresses)
+        return node
+
+    async def remove_instance(self, idx: int) -> None:
+        """Shrink the ring: the departing node first ships every key it
+        owns to the surviving membership (its diff is old membership ->
+        membership without itself, so all its keys re-home), then leaves
+        the ring and stops.  A failed handoff still rewires the survivors
+        (its keys restart cold there)."""
+        node = self.nodes[idx]
+        old_hosts = self.addresses
+        new_hosts = [a for a in old_hosts if a != node.address]
+        try:
+            # the departing node still has the old ring installed, so its
+            # picker reaches every destination while it hands off
+            await node.instance.migrate_keys(old_hosts, new_hosts)
+        except Exception:
+            log.exception("departing node %s failed its handoff; its keys "
+                          "restart cold on the survivors", node.address)
+        self.nodes.pop(idx)
+        await self._rewire()
+        await node.server.stop()
+        node.instance.close()
+
+    async def kill_instance(self, idx: int) -> ClusterNode:
+        """Crash a node: stop its server and engine with no handoff and no
+        rewire, so the survivors' rings still name it, as after a real
+        peer death.  Recovery is the failure detector's job
+        (net/health.py).  Returns the removed node."""
+        node = self.nodes.pop(idx)
+        try:
+            await node.server.stop(grace=0.0)
+        except Exception:
+            log.exception("killing %s: server stop failed", node.address)
+        try:
+            node.instance.close()
+        except Exception:
+            log.exception("killing %s: instance close failed", node.address)
+        return node
 
     async def stop(self) -> None:
         """Stop every node, tolerating per-node failures: one failing stop
@@ -86,7 +170,6 @@ async def start_with(
     """Boot one Instance and server per address and wire the full mesh
     (cluster.go:70-118).  Each node gets its own Metrics registry, as a
     JAX Instance always has one."""
-    from gubernator_tpu_torch.observability.metrics import Metrics
     if behaviors is None:
         # fast global sync for tests (cluster.go:87)
         behaviors = BehaviorConfig(global_sync_wait=0.05)
@@ -97,25 +180,15 @@ async def start_with(
             max_global_updates=32,
         )
     cluster = Cluster()
+    cluster._behaviors = behaviors
+    cluster._engine = engine
+    cluster._device = device
     try:
         for addr in addresses:
-            inst = Instance(engine_config=engine, behaviors=replace(behaviors),
-                            device=device, advertise_address=addr,
-                            metrics=Metrics())
-            server = GrpcServer(inst, addr)
-            await server.start()
-            # an ephemeral port resolves the address late: re-label the
-            # node so stitched traces name each node distinctly
-            inst.advertise_address = server.address
-            inst.tracer.node = server.address
-            cluster.nodes.append(ClusterNode(inst, server))
+            cluster.nodes.append(await cluster._boot(addr))
         for node in cluster.nodes:
             node.instance.engine.warmup()
-        for node in cluster.nodes:
-            # is_owner marks self by address match (cluster.go:35-45)
-            await node.instance.set_peers([
-                PeerInfo(address=a, is_owner=(a == node.address))
-                for a in cluster.addresses])
+        await cluster._rewire()
     except Exception:
         await cluster.stop()
         raise

@@ -9,7 +9,8 @@ admission, the congestion window, fair slotting, the breaker knobs), the
 concurrency-lease book (LeaseConfig, GUBER_LEASE_*), the peer ring's
 (GUBER_STATIC_PEERS, GUBER_ADVERTISE_ADDRESS, GUBER_BATCH_TIMEOUT, the
 GLOBAL manager's GUBER_GLOBAL_SYNC_WAIT / _TIMEOUT / _BATCH_LIMIT, the
-hinted handoff's GUBER_HINT_*, tracing's GUBER_TRACE_*; GUBER_FAULTS is
+heartbeat detector's GUBER_HEARTBEAT_*, the hinted handoff's
+GUBER_HINT_*, tracing's GUBER_TRACE_*; GUBER_FAULTS is
 read by the daemon at boot, net/faults.py), the engine's lowering
 (GUBER_PALLAS), the serving pipeline's knobs, the env readers they use,
 and the daemon's env config (DaemonConfig with GUBER_SNAPSHOT_DIR and
@@ -209,10 +210,26 @@ class LeaseConfig:
 
 @dataclass
 class HealthConfig:
-    """The hinted-handoff buffer of core/global_sync.py (GUBER_HINT_TTL_MS,
-    GUBER_HINT_MAX), the subset of the JAX package's HealthConfig the port
-    serves; its heartbeat detector knobs wait for ROADMAP item 6d."""
+    """Self-healing ring knobs: the heartbeat failure detector
+    (net/health.py, GUBER_HEARTBEAT_*) and the hinted-handoff buffer of
+    core/global_sync.py (GUBER_HINT_TTL_MS, GUBER_HINT_MAX), as in the JAX
+    package's HealthConfig; its drain ceiling is the port's
+    DaemonConfig.drain_timeout.  No reference analog: the reference leans
+    on its discovery backend to remove dead peers, which
+    GUBER_STATIC_PEERS never does."""
 
+    # ---- heartbeat failure detector (net/health.py)
+    heartbeat_enabled: bool = True
+    # probe cadence and per-probe deadline (seconds)
+    heartbeat_interval: float = 1.0
+    heartbeat_timeout: float = 0.5
+    # consecutive probe failures before a peer is confirmed DOWN (and the
+    # ring re-homes around it); consecutive successes before a DOWN peer
+    # is confirmed UP again: the two-sided hysteresis keeps a flapping
+    # peer from churning the ring on every blip
+    suspect_after: int = 3
+    recover_after: int = 2
+    # ---- hinted handoff (core/global_sync.py)
     # how long a failed peer's GLOBAL hits/updates are buffered before
     # being dropped as expired (seconds), and the per-peer entry bound
     # (oldest evicted first, counted as expired)
@@ -220,6 +237,10 @@ class HealthConfig:
     hint_max: int = 1024
 
     def validate(self) -> None:
+        if self.heartbeat_interval <= 0 or self.heartbeat_timeout <= 0:
+            raise ValueError("Health heartbeat interval/timeout must be > 0")
+        if self.suspect_after < 1 or self.recover_after < 1:
+            raise ValueError("Health suspect_after/recover_after must be >= 1")
         if self.hint_ttl < 0 or self.hint_max < 0:
             raise ValueError("Health hint_ttl/hint_max must be >= 0")
 
@@ -507,13 +528,6 @@ def per_op_lowering() -> bool:
 # ending in "_", its default (None: any value), ROADMAP Queue 1 item).
 # config_from_env raises when one is set to anything but its default.
 _UNPORTED = (
-    # the heartbeat failure detector (net/health.py)
-    ("GUBER_HEARTBEAT_ENABLED", True, "6d"),
-    ("GUBER_HEARTBEAT_INTERVAL_MS", 1000, "6d"),
-    ("GUBER_HEARTBEAT_TIMEOUT_MS", 500, "6d"),
-    ("GUBER_HEARTBEAT_SUSPECT", 3, "6d"),
-    ("GUBER_HEARTBEAT_RECOVER", 2, "6d"),
-    ("GUBER_HEARTBEAT_", None, "6d"),
     # discovery backends (discovery/etcd.py, discovery/kubernetes.py)
     ("GUBER_K8S_NAMESPACE", "", "6e"),
     ("GUBER_K8S_POD_IP", "", "6e"),
@@ -682,8 +696,19 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
     q.fail_open = env_bool("GUBER_QOS_FAIL_OPEN", q.fail_open)
     q.validate()
 
-    # hinted handoff (core/global_sync.py)
+    # the self-healing ring: the heartbeat detector (net/health.py) and
+    # the hinted handoff (core/global_sync.py)
     h = c.health
+    h.heartbeat_enabled = env_bool("GUBER_HEARTBEAT_ENABLED",
+                                   h.heartbeat_enabled)
+    h.heartbeat_interval = env_float(
+        "GUBER_HEARTBEAT_INTERVAL_MS",
+        h.heartbeat_interval * 1000.0, minimum=10.0) / 1000.0
+    h.heartbeat_timeout = env_float(
+        "GUBER_HEARTBEAT_TIMEOUT_MS",
+        h.heartbeat_timeout * 1000.0, minimum=10.0) / 1000.0
+    h.suspect_after = env_int("GUBER_HEARTBEAT_SUSPECT", h.suspect_after)
+    h.recover_after = env_int("GUBER_HEARTBEAT_RECOVER", h.recover_after)
     h.hint_ttl = env_float("GUBER_HINT_TTL_MS",
                            h.hint_ttl * 1000.0, minimum=0.0) / 1000.0
     h.hint_max = env_int("GUBER_HINT_MAX", h.hint_max, minimum=0)

@@ -24,6 +24,10 @@ an admitted request holds its slot until its decision resolves.  The
 classic window is interleaved across tenants (fair slotting) and cut to
 the congestion window, whose controller observes each window's wall time.
 
+An `engine_dispatch` fault rule (net/faults.py) fails a classic window's
+engine call on the engine thread: that window's waiters get the error,
+and the next window serves.
+
 Responses resolve back to awaiting callers by position.  The engine is not
 thread-safe, so all device work funnels through a single-thread executor
 that the pipeline shares; NO_BATCHING requests jump the window (submit_now)
@@ -43,6 +47,7 @@ from gubernator_tpu_torch.config import BehaviorConfig
 from gubernator_tpu_torch.core.engine import RateLimitEngine
 from gubernator_tpu_torch.core.interval import ArmedInterval
 from gubernator_tpu_torch.core.pipeline import DispatchPipeline
+from gubernator_tpu_torch.net.faults import FAULTS, SEAM_ENGINE_DISPATCH
 from gubernator_tpu_torch.qos import interleave_by_tenant, shed_response
 from gubernator_tpu_torch.qos.fairness import tenant_of
 
@@ -166,6 +171,8 @@ class WindowBatcher:
         start = time.monotonic()
 
         def run():
+            if FAULTS.enabled:
+                FAULTS.on_sync(SEAM_ENGINE_DISPATCH, "window")
             now = self.now_fn() if self.now_fn is not None else None
             resps = self.engine.process(reqs, now, accumulate)
             self._tier_maintain(now)

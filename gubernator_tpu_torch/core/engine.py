@@ -64,10 +64,13 @@ scatter on the device's planes.
 Upserts from an owner's broadcast (`step([], upserts=...)`, JAX
 engine.py:324-384) are the GLOBAL window's upsert lanes: written into the
 replica arena and its config in phase A of global_window (or
-global_stage), before the window's config lanes and reads.  Mesh-mode
-registration (several processes), the stacked legacy step
-(`step_stacked`) and live key migration (`export_rows` / `import_rows`)
-are not part of this single-process engine.
+global_stage), before the window's config lanes and reads.  Live key
+migration (state/migrate.py) reads and writes rows through `local_keys`,
+`export_rows` / `import_rows`, `export_global_rows` /
+`import_global_rows` and `remove_keys` (JAX engine.py:2045-2258), on the
+Python tables.  Mesh-mode registration (several processes) and the
+stacked legacy step (`step_stacked`) are not part of this single-process
+engine.
 """
 
 from __future__ import annotations
@@ -1393,6 +1396,199 @@ class RateLimitEngine:
             self._compact_sound = False
             self._compact_enabled = False
 
+    # ------------------------------------------------------ live migration
+    #
+    # The row API of state/migrate.py (JAX engine.py:2045-2258): a ring
+    # change ships live rows between nodes.  The native router keeps
+    # fingerprints, not key strings, so regular-key migration needs the
+    # Python tables.  The gathers and scatters are torch indexing on the
+    # device's planes (the JAX package's XLA _gather_rows_jit and
+    # _scatter_rows_jit), one of each a call, as the tier fence's.  Call
+    # these where no window is half staged (the engine thread).
+
+    def _check_migratable(self) -> None:
+        if self.native is not None:
+            raise RuntimeError(
+                "native router does not retain key strings; live migration "
+                "needs the Python tables (EngineConfig use_native=False)")
+
+    def local_keys(self) -> List[str]:
+        """Every committed regular key resident on this engine."""
+        self._check_migratable()
+        out: List[str] = []
+        for t in self.tables:
+            out.extend(k for k in t.keys() if not t.is_pending(k))
+        return out
+
+    def global_keys(self) -> List[str]:
+        """Every committed GLOBAL key registered on this engine."""
+        return [k for k in self.gtable.keys()
+                if not self.gtable.is_pending(k)]
+
+    def export_rows(self, keys: Sequence[str]) -> List[dict]:
+        """The live device rows of `keys` (regular arena) as host dicts.
+        Keys not resident here, still pending their initializing dispatch,
+        or whose device row was never written (expire 0) are skipped."""
+        self._check_migratable()
+        picks = []
+        for key in keys:
+            s = shard_of(key, self.num_shards)
+            t = self.tables[s]
+            slot = t.peek(key)
+            if slot is None or t.is_pending(key):
+                continue
+            picks.append((key, s, slot))
+        if not picks:
+            return []
+        vals = self._gather_rows([(s, slot) for _, s, slot in picks])
+        rows = []
+        for (key, _s, _slot), v in zip(picks, vals.T.tolist()):
+            if v[4] == 0:
+                continue  # registered but never initialized on the device
+            row = dict(zip(ARENA_FIELDS, v))
+            row["key"] = key
+            rows.append(row)
+        return rows
+
+    def import_rows(self, rows: Sequence[dict],
+                    now: Optional[int] = None) -> tuple:
+        """Install migrated regular rows into the arena.  Returns
+        (imported, skipped_stale).  An incoming row never clobbers a
+        fresher local entry: a key pending its initializing dispatch (a
+        request already arrived here), or a committed row whose device
+        expire is at least the incoming one's.
+
+        With the warm tier on, an allocation may spill an LRU victim whose
+        device row the fence gathers later.  Two departures from the JAX
+        engine (ROADMAP Queue 3), whose import runs inside the last
+        window: there, a victim that window touched drops to cold as
+        stale, and the imported row is scattered into the victim's slot
+        before the fence, which then stores the imported key's row as the
+        victim's.  The port opens a window of its own for the import and
+        resolves the pending spills before the scatter."""
+        self._check_migratable()
+        now = self._resolve_now(now)
+        skipped = 0
+        cand = []
+        for row in rows:
+            key = row["key"]
+            s = shard_of(key, self.num_shards)
+            t = self.tables[s]
+            if t.is_pending(key):
+                skipped += 1
+                continue
+            cand.append((key, s, t.peek(key), row))
+        # one gather for every already-resident key's device expire
+        resident = [(i, s, slot) for i, (_, s, slot, _) in enumerate(cand)
+                    if slot is not None]
+        dev_expire = {}
+        if resident:
+            exp = self._gather_rows([(s, slot) for _, s, slot in resident])[4]
+            dev_expire = {i: int(exp[j]) for j, (i, _, _) in
+                          enumerate(resident)}
+        winners = []
+        for i, (key, s, _slot, row) in enumerate(cand):
+            if i in dev_expire and dev_expire[i] >= row["expire"]:
+                skipped += 1
+                continue
+            winners.append((key, s, row))
+        if not winners:
+            return 0, skipped
+        # the import is a window of its own: a key the last window touched
+        # is committed on the device, so it may spill as any other victim
+        for t in self.tables:
+            t.begin_window()
+        where = [(s, self.tables[s].upsert(key, now, row["expire"]))
+                 for key, s, row in winners]
+        if self._tiers is not None and self._tiers.pending_spills:
+            self._tier_fence(now)
+        self._scatter_rows(where, np.asarray(
+            [[row[f] for _, _, row in winners] for f in ARENA_FIELDS],
+            np.int64))
+        return len(winners), skipped
+
+    def export_global_rows(self, keys: Sequence[str]) -> List[dict]:
+        """GLOBAL rows (the replica's state and the registration config)
+        for re-registration on a new owner.  A registered key whose state
+        row was never written still exports (expire 0): its config must
+        move for the new owner to serve it."""
+        picks = []
+        for key in keys:
+            slot = self.gtable.peek(key)
+            if slot is None or self.gtable.is_pending(key):
+                continue
+            picks.append((key, slot))
+        if not picks:
+            return []
+        vals = self._gather_planes((*self.gstate, *self.gcfg),
+                                   [slot for _, slot in picks])
+        names = ARENA_FIELDS + tuple(f"cfg_{f}" for f in GlobalConfig._fields)
+        rows = []
+        for (key, _slot), v in zip(picks, vals.T.tolist()):
+            row = dict(zip(names, v))
+            row["key"] = key
+            rows.append(row)
+        return rows
+
+    def import_global_rows(self, rows: Sequence[dict],
+                           now: Optional[int] = None) -> tuple:
+        """Register and install migrated GLOBAL rows.  Returns (imported,
+        skipped_stale), by import_rows' rule, except that a row with
+        expire 0 over a resident expire 0 imports: such a row registers
+        its config only (its state row stays dead until traffic
+        initializes it).  The resident keys' device expires come from one
+        gather (the JAX engine reads the device once a key)."""
+        now = self._resolve_now(now)
+        skipped = 0
+        cand = []
+        for row in rows:
+            key = row["key"]
+            if self.gtable.is_pending(key):
+                skipped += 1
+                continue
+            cand.append((row, self.gtable.peek(key)))
+        resident = [(i, slot) for i, (_, slot) in enumerate(cand)
+                    if slot is not None]
+        dev_expire = {}
+        if resident:
+            exp = self._gather_planes((self.gstate.expire,),
+                                      [slot for _, slot in resident])[0]
+            dev_expire = {i: int(exp[j]) for j, (i, _) in
+                          enumerate(resident)}
+        winners = []
+        for i, (row, _slot) in enumerate(cand):
+            dev = dev_expire.get(i)
+            if (dev is not None and dev >= row["expire"]
+                    and not (dev == 0 and row["expire"] == 0)):
+                skipped += 1
+                continue
+            winners.append(row)
+        if not winners:
+            return 0, skipped
+        self.gtable.begin_window()  # a window of its own, as import_rows
+        slots = []
+        for row in winners:
+            est = row["expire"] if row["expire"] else now + row["cfg_duration"]
+            slots.append(self.gtable.upsert(row["key"], now, est))
+        fields = ARENA_FIELDS + tuple(f"cfg_{f}" for f in GlobalConfig._fields)
+        self._scatter_planes((*self.gstate, *self.gcfg), slots, np.asarray(
+            [[row[f] for row in winners] for f in fields], np.int64))
+        return len(winners), skipped
+
+    def remove_keys(self, keys: Sequence[str]) -> int:
+        """Drop regular keys from the tables after they migrated away.
+        Their device rows become dead tenants: a reuse of the slot
+        initializes it again, and routing no longer sends these keys
+        here."""
+        self._check_migratable()
+        removed = 0
+        for key in keys:
+            s = shard_of(key, self.num_shards)
+            if key in self.tables[s]:
+                self.tables[s].remove(key)
+                removed += 1
+        return removed
+
     # --------------------------------------------------------- tiered state
     #
     # The warm tier (state/tiers.py): the fixed arena becomes a managed
@@ -1440,31 +1636,45 @@ class RateLimitEngine:
         """Rows (shard, slot) of the regular arena as host int64 [6, n]
         (BucketState order): one gather on the device, padded to a power
         of two, and one copy to the host."""
-        n = len(where)
-        flat = np.zeros(_pad_pow2(n), np.int64)  # pads read row 0, dropped
-        flat[:n] = [s * self.capacity_per_shard + sl for s, sl in where]
-        idx = self._staging.array("tier.gather", flat)
-        got = torch.stack([p.reshape(-1).index_select(0, idx).to(torch.int64)
-                           for p in self.state])
-        return got.cpu().numpy()[:, :n]
+        C = self.capacity_per_shard
+        return self._gather_planes(self.state,
+                                   [s * C + sl for s, sl in where])
 
     def _scatter_rows(self, where: List[tuple], vals: np.ndarray) -> None:
         """Write host rows vals int64 [6, n] (BucketState order) into
-        (shard, slot) of the regular arena, in place: one copy to the
-        device, padded to a power of two (pads repeat the first row, so a
-        pad writes what the first row writes), and one index_put_ a
-        plane."""
-        n = len(where)
+        (shard, slot) of the regular arena, in place."""
+        C = self.capacity_per_shard
+        self._scatter_planes(self.state, [s * C + sl for s, sl in where],
+                             vals)
+
+    def _gather_planes(self, planes, flat: List[int]) -> np.ndarray:
+        """Rows at flat indices of same-shaped planes as host int64
+        [len(planes), n]: one index_select a plane on the device, padded to
+        a power of two (pads read row 0, dropped), and one copy to the
+        host."""
+        n = len(flat)
+        idx = np.zeros(_pad_pow2(n), np.int64)
+        idx[:n] = flat
+        dev = self._staging.array("rows.gather", idx)
+        got = torch.stack([p.reshape(-1).index_select(0, dev).to(torch.int64)
+                           for p in planes])
+        return got.cpu().numpy()[:, :n]
+
+    def _scatter_planes(self, planes, flat: List[int],
+                        vals: np.ndarray) -> None:
+        """Write host rows vals int64 [len(planes), n] at flat indices of
+        same-shaped planes, in place: one copy to the device, padded to a
+        power of two (pads repeat the first row, so a pad writes what the
+        first row writes), and one index_put_ a plane."""
+        n = len(flat)
         m = _pad_pow2(n)
-        flat = np.empty(m, np.int64)
-        flat[:n] = [s * self.capacity_per_shard + sl for s, sl in where]
-        flat[n:] = flat[0]
-        block = np.empty((7, m), np.int64)
-        block[0] = flat
+        block = np.empty((len(planes) + 1, m), np.int64)
+        block[0, :n] = flat
+        block[0, n:] = flat[0]
         block[1:, :n] = vals
-        block[1:, n:] = vals[:, :1]
-        dev = self._staging.array("tier.scatter", block)
-        for f, plane in enumerate(self.state):
+        block[1:, n:] = np.asarray(vals)[:, :1]
+        dev = self._staging.array("rows.scatter", block)
+        for f, plane in enumerate(planes):
             plane.view(-1).index_put_((dev[0],), dev[f + 1].to(plane.dtype))
 
     def _tier_fence(self, now: int) -> None:

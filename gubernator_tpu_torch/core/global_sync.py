@@ -24,8 +24,8 @@ is re-queued after the next successful send to that peer (opportunistic
 replay).  Replay goes back through queue_hit / queue_update, so ownership
 and the authoritative status are re-resolved at replay time.  What is
 still dropped (TTL and bound evictions, send errors) is counted.  The
-failure detector's `replay_hints` trigger comes with net/health.py
-(ROADMAP item 6d).
+failure detector (net/health.py) also replays a peer's hints when it
+confirms the peer UP again (Instance.on_peer_recovered -> replay_hints).
 """
 
 from __future__ import annotations

@@ -137,6 +137,7 @@ from gubernator_tpu_torch.core.window_buffers import (
     RequestColumns,
     WindowArenaRing,
 )
+from gubernator_tpu_torch.net.faults import FAULTS, SEAM_ENGINE_DISPATCH
 from gubernator_tpu_torch.ops import kernel
 from gubernator_tpu_torch.ops.analytics import _SLOT_MASK
 from gubernator_tpu_torch.qos.fairness import interleave_by_tenant, tenant_of
@@ -1166,6 +1167,12 @@ class DispatchPipeline:
             nows = arena.nows_t[:kb]
             nows.fill_(now)
             try:
+                # the fault seam: an injected dispatch failure aborts the
+                # router's staged allocations (no partial commit) and fails
+                # exactly this drain's jobs; the drains in flight beside it
+                # commit through the ordered completion queue untouched
+                if FAULTS.enabled:
+                    FAULTS.on_sync(SEAM_ENGINE_DISPATCH, "pipeline")
                 if self.analytics is not None:
                     an_args = self._analytics_stage(res, arena, kb, now)
                     out = eng.pipeline_dispatch_global(

@@ -64,8 +64,18 @@ The state lifecycle (JAX service.py:780-827): `export_snapshot`,
 the engine's export and import on the engine thread (`_quiesced`), and
 `tiers` (a TierConfig) puts the warm tier on the engine; a snapshot
 carries the lease book's rows.  `aclose` flushes the GLOBAL manager
-before it closes.  Not here yet: the failure detector, rehoming and key
-migration (ROADMAP item 6d) and mesh serving (item 8).
+before it closes.
+
+Failure handling and live key migration (JAX service.py:729-759,
+:829-920): `migrate_keys(old_hosts, new_hosts)` ships each re-homed key's
+live row to its new owner (state/migrate.py's payload over the peer lane's
+`transfer_buckets`) and drops the moved regular keys and their lease rows
+here; `transfer_buckets` is the receiving side.  Every engine call of both
+runs on the engine thread (`_quiesced`), and both need the Python slot
+tables.  The failure detector (net/health.py, `monitor` when the daemon
+runs one) calls `release_peer_leases` and `rehome` when a peer goes down,
+and `rehome` then `on_peer_recovered` (the GLOBAL hints' replay) when it
+comes back.  Not here yet: mesh serving (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -110,6 +120,7 @@ from gubernator_tpu_torch.observability.tracing import Tracer
 from gubernator_tpu_torch.parallel.router import ConsistentHashRing
 from gubernator_tpu_torch.qos import QoSManager, shed_response
 from gubernator_tpu_torch.qos.admission import SHED_BREAKER_OPEN
+from gubernator_tpu_torch.state import migrate
 from gubernator_tpu_torch.state import snapshot as snapmod
 
 log = logging.getLogger("gubernator.service")
@@ -224,11 +235,9 @@ class Instance:
         self.global_mgr = GlobalManager(self.behaviors, self, metrics, log,
                                         health=health)
         self._picker: ConsistentHashRing[PeerClient] = ConsistentHashRing()
-
-    @property
-    def standalone(self) -> bool:
-        """No peer ring: this node owns every key."""
-        return self._picker.size() == 0
+        # the failure detector watching this node's peers (net/health.py
+        # HeartbeatMonitor), when the daemon runs one
+        self.monitor = None
 
     def add_to_server(self, server, *, v1: bool = True,
                       peers: bool = True) -> None:
@@ -440,9 +449,10 @@ class Instance:
         return None
 
     async def release_peer_leases(self, host: str) -> int:
-        """Peer-death hook: grants are attributed to the forwarding peer's
-        source address, so a departed peer's clients get their slots back
-        here (JAX service.py:344)."""
+        """Peer-death hook, called by the failure detector when it confirms
+        `host` down (net/health.py): grants are attributed to the
+        forwarding peer's source address, so a departed peer's clients get
+        their slots back here (JAX service.py:344)."""
         ip = host.rsplit(":", 1)[0]
         total = 0
         for client in (host, ip):
@@ -643,6 +653,134 @@ class Instance:
             np.asarray(points, np.uint32),
             np.arange(len(points), dtype=np.int32), tuple(peers), self_idx)
         pipe.rpc_enabled = True
+
+    # ------------------------------------------------------- self-healing
+
+    async def rehome(self, hosts: Sequence[str],
+                     direction: str = "down") -> None:
+        """Rebuild the ring around the given membership (the failure
+        detector's view) and migrate the re-homed resident keys.  The
+        detector calls this with the membership minus a confirmed-down
+        peer (its key space spreads over the survivors, where its own
+        state restarts cold; the hint buffer holds the GLOBAL hits meant
+        for it) or plus a recovered one.  A failed migration leaves the
+        new ring in place: serving with cold keys beats refusing to
+        re-home."""
+        old_hosts = [p.host for p in self.peer_list()]
+        new_hosts = sorted(set(hosts))
+        if sorted(old_hosts) == new_hosts:
+            return
+        await self.set_peers([
+            PeerInfo(address=h, is_owner=(h == self.advertise_address))
+            for h in new_hosts])
+        try:
+            await self.migrate_keys(old_hosts, new_hosts)
+        except Exception as e:
+            log.error("rehome: migration failed (keys restart cold): %s", e)
+        if self.metrics is not None:
+            self.metrics.observe_rehome(direction)
+        log.warning("ring re-homed (%s): %s -> %s", direction,
+                    sorted(old_hosts), new_hosts)
+
+    def on_peer_recovered(self, host: str) -> int:
+        """Detector callback: the peer answers probes again, so its hinted
+        GLOBAL payloads replay (their owners resolved at replay time)."""
+        return self.global_mgr.replay_hints(host)
+
+    # --------------------------------------------------------- migration
+
+    async def transfer_buckets(self, payload: bytes) -> bytes:
+        """The receiving side of live migration: import the shipped rows,
+        never over a fresher local entry (engine.import_rows /
+        import_global_rows, on the engine thread), and re-register the
+        lease rows that came with them, with their request templates.
+        Returns state/migrate.py's ack bytes."""
+        regular, global_, leases = migrate.decode_rows(payload)
+        now = millisecond_now()
+        imp = sk = gimp = gsk = 0
+        if regular:
+            imp, sk = await self._quiesced(
+                lambda: self.engine.import_rows(regular, now=now))
+        if global_:
+            gimp, gsk = await self._quiesced(
+                lambda: self.engine.import_global_rows(global_, now=now))
+        if leases:
+            # the device's free-slot counters arrived with the arena rows
+            self.leases.import_rows((r[0], r[1], r[2], r[3]) for r in leases)
+            for r in leases:
+                if len(r) >= 8 and r[4]:
+                    self._lease_tmpl[r[0]] = RateLimitReq(
+                        name=str(r[4]), unique_key=str(r[5]),
+                        limit=int(r[6]), duration=int(r[7]),
+                        algorithm=Algorithm.CONCURRENCY)
+            log.info("migration import: %d lease rows re-registered",
+                     len(leases))
+        if self.metrics is not None:
+            self.metrics.observe_migration(imported=imp + gimp,
+                                           skipped_stale=sk + gsk)
+        if imp or gimp or sk or gsk:
+            log.info("migration import: %d rows (+%d GLOBAL), "
+                     "%d stale skipped", imp, gimp, sk + gsk)
+        return migrate.encode_ack(imp, sk, gimp, gsk)
+
+    async def migrate_keys(self, old_hosts: Sequence[str],
+                           new_hosts: Sequence[str]) -> dict:
+        """The sending side of live migration, run after set_peers
+        installed the new ring: diff the ownership of the keys resident
+        here from the old membership to the new one, ship each re-homed
+        key's live row to its new owner, then drop the moved regular keys
+        here.  GLOBAL keys re-register on their new owner and keep their
+        replica here (every node serves GLOBAL reads).  Returns {"moved",
+        "gmoved", "imported", "skipped_stale"} totals."""
+        keys = await self._quiesced(self.engine.local_keys)
+        gkeys = await self._quiesced(self.engine.global_keys)
+        moved = migrate.ownership_diff(keys, old_hosts, new_hosts)
+        gmoved = migrate.ownership_diff(gkeys, old_hosts, new_hosts)
+        # keys this node no longer owns move OUT; a key re-homed TO this
+        # node is another node's export
+        self_host = self.advertise_address
+        totals = {"moved": 0, "gmoved": 0, "imported": 0, "skipped_stale": 0}
+        for dest in sorted(set(moved) | set(gmoved)):
+            if dest == self_host:
+                continue
+            dkeys = moved.get(dest, [])
+            dgkeys = gmoved.get(dest, [])
+            rows = await self._quiesced(
+                lambda ks=dkeys: self.engine.export_rows(ks))
+            grows = await self._quiesced(
+                lambda ks=dgkeys: self.engine.export_global_rows(ks))
+            lrows = []
+            for key, client, count, expire in self.leases.export_rows(dkeys):
+                tmpl = self._lease_tmpl.get(key)
+                lrows.append([key, client, count, expire]
+                             + ([tmpl.name, tmpl.unique_key, tmpl.limit,
+                                 tmpl.duration] if tmpl is not None
+                                else ["", "", 0, 0]))
+            peer = self._picker.get_by_host(dest)
+            if peer is None:
+                log.warning("migration: new owner %s not connected; "
+                            "%d keys restart cold there", dest,
+                            len(dkeys) + len(dgkeys))
+                continue
+            ack = migrate.decode_ack(await peer.transfer_buckets(
+                migrate.encode_rows(rows, grows, lrows)))
+            # the moved regular keys leave the tables either way: the new
+            # owner is authoritative now (a stale skip means it already
+            # held a fresher row), and routing no longer sends them here
+            await self._quiesced(
+                lambda ks=dkeys: self.engine.remove_keys(ks))
+            self.leases.drop_keys(dkeys)
+            totals["moved"] += len(dkeys)
+            totals["gmoved"] += len(dgkeys)
+            totals["imported"] += ack["imported"] + ack["gimported"]
+            totals["skipped_stale"] += (ack["skipped_stale"]
+                                        + ack["gskipped_stale"])
+        if self.metrics is not None:
+            self.metrics.observe_migration(
+                moved=totals["moved"] + totals["gmoved"])
+        if totals["moved"] or totals["gmoved"]:
+            log.info("migration out: %s", totals)
+        return totals
 
     # ------------------------------------------------------ state lifecycle
 

@@ -22,14 +22,21 @@ The peer ring: GUBER_STATIC_PEERS (comma-separated gRPC addresses, this
 node's GUBER_ADVERTISE_ADDRESS among them, default its gRPC address) is
 pushed once through discovery/static.py StaticPool into
 `Instance.set_peers`; keys then forward to their consistent-hash owners
-and GLOBAL limits sync through the GLOBAL manager, whose queue the stop
-sequence flushes after the drain.  Such a daemon runs no failure detector
-yet (net/health.py, ROADMAP item 6d: GUBER_HEARTBEAT_* raise off their
-defaults), so a dead static peer stays on the ring.  GUBER_FAULTS /
-GUBER_FAULTS_SEED install fault rules at boot (net/faults.py); a rule on a
-seam the port does not cross yet raises there.  etcd and Kubernetes
-discovery, the front door and mesh serving are not ported yet: their knobs
-raise in config_from_env.
+and GLOBAL limits sync through the GLOBAL manager.  A static pool has no
+discovery backend to drop a dead peer, so with GUBER_HEARTBEAT_ENABLED
+(the default) the daemon runs the heartbeat failure detector
+(net/health.py, GUBER_HEARTBEAT_*): a peer confirmed down is re-homed
+around, and one confirmed up again re-homed back with its GLOBAL hints
+replayed.  The graceful stop runs the JAX daemon's phases in order, each
+bounded and none skipped because an earlier one failed: monitor_stop,
+drain, global_flush, handoff (every key this node owns shipped to the
+surviving ring, Instance.migrate_keys, which needs the Python slot
+tables: with the native router it fails, is logged, and the survivors
+restart those keys cold) or handoff_skipped (no survivor), snapshot,
+teardown.  GUBER_FAULTS / GUBER_FAULTS_SEED install fault rules at boot
+(net/faults.py) on the seams peer_rpc, snapshot_io and engine_dispatch.
+etcd and Kubernetes discovery, the front door and mesh serving are not
+ported yet: their knobs raise in config_from_env.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from gubernator_tpu_torch.config import DaemonConfig, config_from_env
 from gubernator_tpu_torch.core.service import Instance
 from gubernator_tpu_torch.discovery.static import StaticPool
 from gubernator_tpu_torch.net.faults import FAULTS
+from gubernator_tpu_torch.net.health import HeartbeatMonitor
 from gubernator_tpu_torch.observability.metrics import Metrics
 from gubernator_tpu_torch.observability.tracing import Tracer
 from gubernator_tpu_torch.server import GrpcServer
@@ -62,8 +70,10 @@ class Daemon:
         self.grpc: Optional[GrpcServer] = None
         self.http: Optional[HttpGateway] = None
         self.pool: Optional[StaticPool] = None
+        # net/health.py HeartbeatMonitor (static pools)
+        self.monitor: Optional[HeartbeatMonitor] = None
         # phase names appended as stop() runs them, in order: the JAX
-        # daemon's order for the phases the port has
+        # daemon's shutdown contract
         self.shutdown_phases: list = []
         self._snapshot_task: Optional[asyncio.Task] = None
         self._lease_sweep_task: Optional[asyncio.Task] = None
@@ -101,8 +111,7 @@ class Daemon:
     async def start(self) -> None:
         c = self.conf
         # fault injection (net/faults.py): GUBER_FAULTS is read once here;
-        # a rule on a seam the port does not cross raises before anything
-        # is built
+        # a rule on an unknown seam raises before anything is built
         FAULTS.load_from_env()
         self.instance = Instance(
             engine_config=c.engine, behaviors=c.behaviors, device=c.device,
@@ -141,27 +150,54 @@ class Daemon:
             await self.pool.start()
             log.info("static peers: %s (this node %s)", c.static_peers,
                      c.advertise_address)
+            # a static pool has no discovery backend to drop dead peers:
+            # the heartbeat detector is its self-healing layer
+            if c.health.heartbeat_enabled:
+                self.monitor = HeartbeatMonitor(
+                    self.instance, c.static_peers, conf=c.health)
+                self.instance.monitor = self.monitor
+                self.monitor.start()
+                log.info("heartbeat detector on %d peers (interval %.1fs, "
+                         "down after %d misses)", len(c.static_peers) - 1,
+                         c.health.heartbeat_interval, c.health.suspect_after)
         self.http = HttpGateway(self.instance, c.http_listen_address)
         await self.http.start()
         log.info("HTTP gateway listening on %s:%d", self.http.host,
                  self.http.port)
 
     async def stop(self) -> None:
-        """Graceful departure, in the JAX daemon's order for the phases
-        the port has: drain (wait, at most drain_timeout, for queued and
-        in-flight decisions), the final snapshot when GUBER_SNAPSHOT_DIR
-        is set (after the drain, so a clean stop loses no decision), then
-        teardown (http, grpc, instance; main.go:127-139 order).  With
-        static peers the GLOBAL manager's queue is flushed after the
-        drain; there is no detector to stop yet and no key handoff
-        (ROADMAP item 6d)."""
+        """Graceful departure, in the JAX daemon's phases (each bounded,
+        none skipped because an earlier one failed):
+
+          1. monitor_stop: the failure detector must not react to this
+             node's own departure;
+          2. drain: close admission intake and wait, at most
+             drain_timeout, for queued and in-flight decisions;
+          3. global_flush: queued GLOBAL hits and broadcasts ship now;
+          4. handoff: with a surviving ring, every key this node owns
+             ships to the survivors under drain_timeout
+             (Instance.migrate_keys); handoff_skipped when this node is
+             the whole ring;
+          5. snapshot, with GUBER_SNAPSHOT_DIR, after the handoff;
+          6. teardown: discovery, http, grpc, the instance
+             (main.go:127-139 order)."""
+        await self._stop_monitor()
         await self._drain_requests()
         await self._global_flush()
+        await self._handoff_keys()
         await self._final_snapshot()
         await self._teardown()
 
     def _phase(self, name: str) -> None:
         self.shutdown_phases.append(name)
+
+    async def _stop_monitor(self) -> None:
+        self._phase("monitor_stop")
+        if self.monitor is not None:
+            try:
+                await self.monitor.stop()
+            except Exception:
+                log.exception("stopping heartbeat monitor failed")
 
     async def _drain_requests(self) -> None:
         self._phase("drain")
@@ -174,16 +210,37 @@ class Daemon:
             log.exception("drain failed; continuing shutdown")
 
     async def _global_flush(self) -> None:
-        """Push every queued GLOBAL hit and broadcast (the JAX daemon's
-        global_flush phase), bounded by the drain timeout."""
-        if self.instance is None or self.instance.standalone:
-            return
+        """Push every queued GLOBAL hit and broadcast, bounded by the drain
+        timeout."""
         self._phase("global_flush")
+        if self.instance is None:
+            return
         try:
             await asyncio.wait_for(self.instance.global_mgr.flush(),
                                    self.conf.drain_timeout)
         except Exception:
             log.exception("global flush failed; continuing shutdown")
+
+    async def _handoff_keys(self) -> None:
+        inst = self.instance
+        if inst is None:
+            return
+        all_hosts = [p.host for p in inst.peer_list()]
+        survivors = [h for h in all_hosts if h != inst.advertise_address]
+        if not survivors:
+            # standalone, or the last node standing: the final snapshot is
+            # the only continuity there is
+            self._phase("handoff_skipped")
+            return
+        self._phase("handoff")
+        try:
+            totals = await asyncio.wait_for(
+                inst.migrate_keys(all_hosts, survivors),
+                self.conf.drain_timeout)
+            log.info("departure handoff: %s", totals)
+        except Exception:
+            log.exception("departure handoff failed; survivors restart "
+                          "these keys cold")
 
     async def _final_snapshot(self) -> None:
         if self._snapshot_task is None:
@@ -211,7 +268,7 @@ class Daemon:
         if self.grpc is not None:
             await self.grpc.stop()
         if self.instance is not None:
-            self.instance.close()
+            await self.instance.aclose()
 
 
 async def _amain(conf: DaemonConfig) -> None:

@@ -1,9 +1,9 @@
 """Deterministic fault injection: seams at the I/O edges of the node.
 
-A copy of `gubernator_tpu/net/faults.py` (JAX-free).  The port wires one
-seam so far, `peer_rpc` (net/peers.py); a rule on `snapshot_io` or
-`engine_dispatch` raises ValueError naming ROADMAP item 6d, and a rule on
-a seam no package knows raises too, so no rule is ever silently ignored.
+A copy of `gubernator_tpu/net/faults.py` (JAX-free).  The port crosses
+the JAX package's three seams at the same places; one departure: a rule on
+a seam neither package knows raises ValueError (the JAX injector installs
+it, and nothing ever crosses it), so no rule is silently ignored.
 
 The chaos suite (tests/test_chaos.py) needs to make peers unreachable,
 disks fail, and dispatches die — *deterministically*, in-process, with no
@@ -23,8 +23,10 @@ Seams (the `seam` argument at each call site):
   snapshot_io     state/snapshot.py — snapshot file write/read.
                   FaultError subclasses OSError so the existing
                   degrade-to-cold-start handling applies unchanged.
-  engine_dispatch core/batcher.py — the device window dispatch on the
-                  engine thread (window waiters see the failure, the
+  engine_dispatch core/batcher.py and core/pipeline.py — the device
+                  window dispatch on the engine thread: the classic
+                  lane's engine.process and each pipeline drain's launch
+                  (that window's or drain's waiters see the failure, the
                   serving loop survives).
 
 Configuration, either programmatically::
@@ -60,17 +62,12 @@ log = logging.getLogger("gubernator.faults")
 SEAM_PEER_RPC = "peer_rpc"
 SEAM_SNAPSHOT_IO = "snapshot_io"
 SEAM_ENGINE_DISPATCH = "engine_dispatch"
-# the seams the port's call sites cross; the others wait for item 6d
-WIRED_SEAMS = (SEAM_PEER_RPC,)
-_UNWIRED_SEAMS = (SEAM_SNAPSHOT_IO, SEAM_ENGINE_DISPATCH)
+# the seams the port's call sites cross: the JAX package's three
+WIRED_SEAMS = (SEAM_PEER_RPC, SEAM_SNAPSHOT_IO, SEAM_ENGINE_DISPATCH)
 
 
 def _check_seam(seam: str) -> None:
     """Raise ValueError unless the port crosses `seam`."""
-    if seam in _UNWIRED_SEAMS:
-        raise ValueError(
-            f"fault seam '{seam}' is not wired in gubernator_tpu_torch yet "
-            f"(ROADMAP.md Queue 1 item 6d)")
     if seam not in WIRED_SEAMS:
         raise ValueError(f"unknown fault seam '{seam}'")
 

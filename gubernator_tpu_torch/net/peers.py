@@ -20,8 +20,9 @@ first use.  A caller may pass its own transport (chip_smoke.py's
 in-process loopback): the batching window, the retries, the breaker, the
 fault seam and the trace metadata run above the seam either way.
 
-Not here yet: `transfer_buckets` (key migration, ROADMAP item 6d) and
-`register_globals` / `apply_global_registration` (mesh GLOBAL, item 8).
+`transfer_buckets` ships migrated bucket rows (state/migrate.py's bytes)
+through the same layer.  Not here yet: `register_globals` /
+`apply_global_registration` (mesh GLOBAL, ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -91,17 +92,22 @@ class BreakerOpenError(PeerError):
 class GrpcPeerTransport:
     """The PeersV1 calls over an insecure grpc.aio channel, like the
     reference (peers.go:132).  Importing grpc and the protobuf stubs
-    happens here, at construction."""
+    happens here, at construction.  `options`: the channel's gRPC
+    options."""
 
-    def __init__(self, host: str):
+    def __init__(self, host: str, options=()):
         import grpc
 
         from gubernator_tpu_torch.api.grpc_api import PeersV1Stub
         self.errors = (grpc.RpcError,)
-        self.channel = grpc.aio.insecure_channel(host)
+        self.channel = grpc.aio.insecure_channel(host, options=list(options))
         self.stub = PeersV1Stub(self.channel)
         self._raw_batch = self.channel.unary_unary(
             "/pb.gubernator.PeersV1/GetPeerRateLimits",
+            request_serializer=lambda b: b,
+            response_deserializer=lambda b: b)
+        self._raw_transfer = self.channel.unary_unary(
+            "/pb.gubernator.PeersV1/TransferBuckets",
             request_serializer=lambda b: b,
             response_deserializer=lambda b: b)
         self._v1 = None
@@ -133,6 +139,10 @@ class GrpcPeerTransport:
     async def get_peer_rate_limits_raw(self, data: bytes,
                                        timeout: float) -> bytes:
         return await self._raw_batch(data, timeout=timeout)
+
+    async def transfer_buckets(self, payload: bytes,
+                               timeout: float) -> bytes:
+        return await self._raw_transfer(payload, timeout=timeout)
 
     async def health_check(self, timeout: float):
         from gubernator_tpu_torch.api import pb
@@ -299,6 +309,13 @@ class PeerClient:
         (the pipeline's mixed-RPC flow)."""
         return await self._call(lambda t: t.get_peer_rate_limits_raw(
             data, timeout=self.conf.batch_timeout))
+
+    async def transfer_buckets(self, payload: bytes) -> bytes:
+        """Ship migrated bucket rows to this peer (state/migrate.py's wire
+        payload) and return its ack bytes.  Bytes-level like the raw batch
+        relay: the codec lives in one module, not in generated protos."""
+        return await self._call(lambda t: t.transfer_buckets(
+            payload, timeout=self.conf.batch_timeout))
 
     # -------------------------------------------------------------- batching
 

@@ -30,13 +30,18 @@ with the same names and labels:
   guber_tpu_stage_duration_ms{stage}            the peer ring (its stages
                                                 peer_forward and
                                                 global_broadcast)
+  guber_tpu_migrated_keys_total{direction},
+  guber_tpu_migration_skipped_stale_total,
+  guber_peer_health_state{peer},
+  guber_ring_rehomes_total{direction}           failure handling and live
+                                                migration
 
 The cache families are read from the native router (its resident key
 count, hits and misses) at scrape time.  This module imports
 prometheus_client, so the serving core never imports it: an Instance has
 no registry unless one is given (`Instance(metrics=Metrics())`, which the
 daemon always does).  The JAX package's other families (pipeline,
-analytics, migration, devprof, the drain stages and their rolling
+analytics, devprof, the drain stages and their rolling
 quantiles) are left for the observability item of the port's ROADMAP.  `observe_shed` only counts: the admission controller
 feeds each shed to the SLO engine itself.
 """
@@ -221,6 +226,33 @@ class Metrics:
             ["event", "peer"],
             registry=self.registry,
         )
+        # failure handling and live key migration (state/migrate.py,
+        # net/health.py)
+        self.migrated_keys = Counter(
+            "guber_tpu_migrated_keys_total",
+            "Bucket rows shipped or imported by live key migration.",
+            ["direction"],  # out | in
+            registry=self.registry,
+        )
+        self.migration_skipped_stale = Counter(
+            "guber_tpu_migration_skipped_stale_total",
+            "Incoming migrated rows dropped because a fresher local entry "
+            "existed.",
+            registry=self.registry,
+        )
+        self.peer_health_state = Gauge(
+            "guber_peer_health_state",
+            "Failure-detector verdict per peer (0=up, 1=suspect, 2=down).",
+            ["peer"],
+            registry=self.registry,
+        )
+        self.ring_rehomes = Counter(
+            "guber_ring_rehomes_total",
+            "Automatic ring membership changes driven by the failure "
+            "detector, by direction (down | up).",
+            ["direction"],
+            registry=self.registry,
+        )
         self.stage_duration = Histogram(
             "guber_tpu_stage_duration_ms",
             "Wall time of one request-lifecycle stage in milliseconds.",
@@ -371,6 +403,24 @@ class Metrics:
             self.hints.labels(event="replayed", peer=peer).inc(replayed)
         if expired:
             self.hints.labels(event="expired", peer=peer).inc(expired)
+
+    _HEALTH_STATES = {"up": 0, "suspect": 1, "down": 2}
+
+    def observe_peer_health(self, peer: str, state: str) -> None:
+        self.peer_health_state.labels(peer=peer).set(
+            self._HEALTH_STATES.get(state, 0))
+
+    def observe_rehome(self, direction: str) -> None:
+        self.ring_rehomes.labels(direction=direction).inc()
+
+    def observe_migration(self, moved: int = 0, imported: int = 0,
+                          skipped_stale: int = 0) -> None:
+        if moved:
+            self.migrated_keys.labels(direction="out").inc(moved)
+        if imported:
+            self.migrated_keys.labels(direction="in").inc(imported)
+        if skipped_stale:
+            self.migration_skipped_stale.inc(skipped_stale)
 
     def observe_stage(self, stage: str, seconds: float) -> None:
         """One stage's wall time (peer_forward, global_broadcast) into the

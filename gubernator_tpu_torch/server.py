@@ -11,11 +11,11 @@ inside GrpcServer and where an abort needs its status code, and protobuf
 only on the protobuf path (RPCs under FASTPATH_MIN_BYTES, or ones the
 parser refuses), which raises ImportError on a machine without it.
 
-Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits and
-UpdatePeerGlobals (an owner's GLOBAL broadcast, `serve_update_peer_globals`).
-Not registered yet, so a caller gets UNIMPLEMENTED: TransferBuckets (key
-migration, ROADMAP item 6d), RegisterGlobals and ApplyGlobalRegistration
-(mesh GLOBAL, item 8).  With the Instance's tracer sampling, GetRateLimits
+Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits,
+UpdatePeerGlobals (an owner's GLOBAL broadcast, `serve_update_peer_globals`)
+and TransferBuckets (key migration, `serve_transfer_buckets`: raw bytes in,
+raw bytes out).  Not registered yet, so a caller gets UNIMPLEMENTED:
+RegisterGlobals and ApplyGlobalRegistration (mesh GLOBAL, ROADMAP item 8).  With the Instance's tracer sampling, GetRateLimits
 roots an `rpc` span and GetPeerRateLimits a `peer_rpc` span, each
 continuing the caller's `traceparent` invocation metadata (the peer lane
 sends it, net/peers.py), so a forwarded request is one trace across the
@@ -54,6 +54,7 @@ _GET_RATE_LIMITS = "/pb.gubernator.V1/GetRateLimits"
 _HEALTH_CHECK = "/pb.gubernator.V1/HealthCheck"
 _GET_PEER_RATE_LIMITS = "/pb.gubernator.PeersV1/GetPeerRateLimits"
 _UPDATE_PEER_GLOBALS = "/pb.gubernator.PeersV1/UpdatePeerGlobals"
+_TRANSFER_BUCKETS = "/pb.gubernator.PeersV1/TransferBuckets"
 
 
 def _status(name: str):
@@ -233,6 +234,26 @@ async def serve_update_peer_globals(inst: Instance, request, context):
     return pb.UpdatePeerGlobalsResp()
 
 
+async def serve_transfer_buckets(inst: Instance, data: bytes,
+                                 context) -> bytes:
+    """PeersV1.TransferBuckets body, the import lane of key migration
+    (state/migrate.py): payload bytes in, ack bytes out.  A malformed
+    payload aborts with INVALID_ARGUMENT, an import the engine refuses
+    with FAILED_PRECONDITION."""
+    from gubernator_tpu_torch.state.migrate import MigrationError
+    start = time.monotonic()
+    try:
+        ack = await inst.transfer_buckets(data)
+    except MigrationError as e:
+        _observe(inst, _TRANSFER_BUCKETS, start, False)
+        await context.abort(_status("INVALID_ARGUMENT"), str(e))
+    except Exception as e:
+        _observe(inst, _TRANSFER_BUCKETS, start, False)
+        await context.abort(_status("FAILED_PRECONDITION"), str(e))
+    _observe(inst, _TRANSFER_BUCKETS, start, True)
+    return ack
+
+
 class _V1Servicer:
     def __init__(self, instance: Instance):
         self.instance = instance
@@ -272,6 +293,9 @@ class _PeersServicer:
     async def UpdatePeerGlobals(self, request, context):
         return await serve_update_peer_globals(self.instance, request,
                                                context)
+
+    async def TransferBuckets(self, data: bytes, context):
+        return await serve_transfer_buckets(self.instance, data, context)
 
 
 class GrpcServer:

@@ -60,6 +60,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from gubernator_tpu_torch.api.types import millisecond_now
+from gubernator_tpu_torch.net.faults import FAULTS, SEAM_SNAPSHOT_IO
 
 log = logging.getLogger("gubernator.snapshot")
 
@@ -442,11 +443,20 @@ def write_bytes(data: bytes, path: str) -> int:
 
 
 def save(snap: ArenaSnapshot, path: str) -> int:
-    """dumps, then write_bytes.  Returns the bytes written."""
+    """dumps, then write_bytes.  Returns the bytes written.  The
+    `snapshot_io` fault seam (net/faults.py) fires before anything is
+    written, so an injected failure leaves the previous file as it was."""
+    if FAULTS.enabled:
+        FAULTS.on_sync(SEAM_SNAPSHOT_IO, path)
     return write_bytes(dumps(snap), path)
 
 
 def load(path: str) -> ArenaSnapshot:
+    """The file's ArenaSnapshot.  An injected `snapshot_io` failure is a
+    FaultError, an OSError, so restore_engine starts cold on it as on a
+    disk error."""
+    if FAULTS.enabled:
+        FAULTS.on_sync(SEAM_SNAPSHOT_IO, path)
     with open(path, "rb") as f:
         return loads(f.read())
 

@@ -13,9 +13,10 @@ FILE` boots, answers and exits 0 on SIGTERM.  The state lifecycle's knobs
 and tiers: they are held against the JAX function like the rest
 (tests/test_torch_daemon_snapshot.py drives them), and so are the peer
 ring's (GUBER_STATIC_PEERS, GUBER_ADVERTISE_ADDRESS, the batch timeout,
-GUBER_GLOBAL_*, GUBER_HINT_*, GUBER_TRACE_*).  Two daemons given each
-other as GUBER_STATIC_PEERS forward a key to its owner, and a GUBER_FAULTS
-rule on a seam the port does not cross yet fails the boot.
+GUBER_GLOBAL_*, GUBER_HINT_*, GUBER_TRACE_*) and the failure detector's
+(GUBER_HEARTBEAT_*).  Two daemons given each other as GUBER_STATIC_PEERS
+forward a key to its owner, and a GUBER_FAULTS rule on the snapshot_io
+seam fails the daemon's saves, never its boot or its serving.
 """
 
 import asyncio
@@ -88,6 +89,10 @@ def _served(c, jax_side):
         "global_timeout": b.global_timeout,
         "global_batch_limit": b.global_batch_limit,
         "hint_ttl": c.health.hint_ttl, "hint_max": c.health.hint_max,
+        "heartbeat": (c.health.heartbeat_enabled,
+                      c.health.heartbeat_interval,
+                      c.health.heartbeat_timeout, c.health.suspect_after,
+                      c.health.recover_after),
     }
 
 
@@ -168,9 +173,6 @@ def test_malformed_env_file_raises_in_both(clean_env, tmp_path):
     ("GUBER_K8S_NAMESPACE", "default", "6e"),
     ("GUBER_ETCD_ENDPOINTS", "http://e1:2379", "6e"),
     ("GUBER_ETCD_TLS_CA", "/etc/ca.pem", "6e"),
-    ("GUBER_HEARTBEAT_ENABLED", "0", "6d"),
-    ("GUBER_HEARTBEAT_INTERVAL_MS", "250", "6d"),
-    ("GUBER_HEARTBEAT_SUSPECT", "5", "6d"),
     ("GUBER_K8S_POD_IP", "10.0.0.7", "6e"),
     ("GUBER_FRONTDOOR_WORKERS", "2", 7),
     ("GUBER_DEVPROF", "periodic", 7),
@@ -242,6 +244,27 @@ def test_peer_ring_knob_reads_as_the_jax_function(clean_env, name, value,
         assert c.advertise_address == c.grpc_listen_address
 
 
+@pytest.mark.parametrize("name,value,knob,want", [
+    ("GUBER_HEARTBEAT_ENABLED", "0", "heartbeat_enabled", False),
+    ("GUBER_HEARTBEAT_INTERVAL_MS", "250", "heartbeat_interval", 0.25),
+    ("GUBER_HEARTBEAT_SUSPECT", "5", "suspect_after", 5),
+    ("GUBER_HEARTBEAT_TIMEOUT_MS", "40", "heartbeat_timeout", 0.04),
+    ("GUBER_HEARTBEAT_RECOVER", "4", "recover_after", 4),
+    ("GUBER_HEARTBEAT_INTERVAL_MS", "5", "heartbeat_interval", 0.01),
+    ("GUBER_HEARTBEAT_SUSPECT", "0", "suspect_after", 1),
+    ("GUBER_HEARTBEAT_RECOVER", "junk", "recover_after", 2),
+])
+def test_heartbeat_knob_reads_as_the_jax_function(clean_env, name, value,
+                                                  knob, want):
+    """The failure detector's knobs are served (they raised while it was
+    unported): the port's config_from_env reads each as the JAX function
+    does, its floors and its fallback on a malformed value included."""
+    clean_env.setenv(name, value)
+    got_j, got_p = _both()
+    assert got_p == got_j
+    assert getattr(pconfig.config_from_env().health, knob) == want
+
+
 @pytest.mark.parametrize("name,value", [
     ("GUBER_FRONTDOOR_WORKERS", "0"), ("GUBER_LEASE_SWEEP_MS", "5000"),
     ("GUBER_LEASE_RELEASE_ON_CLOSE", "true"), ("GUBER_QOS_ENABLED", "0"),
@@ -311,7 +334,8 @@ def test_sigterm_stops_a_serving_daemon_in_order(clean_env, monkeypatch):
     assert health.status == hjson["status"] == "healthy"
     assert "grpc_request_counts_total" in text and "cache_size 30.0" in text
     assert d.instance.batcher.pipeline.rpc_staged == 1
-    assert d.shutdown_phases == ["drain", "teardown"]
+    assert d.shutdown_phases == ["monitor_stop", "drain", "global_flush",
+                                 "handoff_skipped", "teardown"]
     assert d.shutdown_phases == [p for p in JAX_PHASES
                                  if p in d.shutdown_phases]
     assert d.instance.batcher.pipeline._closed
@@ -381,6 +405,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+async def _rings_settle(ds, addrs, seconds=30.0):
+    """Wait until every daemon's ring holds every address and its detector
+    sees every peer UP."""
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        if all(sorted(p.host for p in d.instance.peer_list()) == sorted(addrs)
+               and all(v["state"] == "up" for v in
+                       d.monitor.snapshot()["peers"].values())
+               for d in ds):
+            return
+        await asyncio.sleep(0.02)
+    raise AssertionError("the daemons' rings never settled")
+
+
 def test_two_daemons_with_static_peers_forward_to_the_owner(clean_env):
     """Two daemons given GUBER_STATIC_PEERS naming both (each advertising
     its own gRPC address) build the same ring: a key sent to either is
@@ -399,6 +437,10 @@ def test_two_daemons_with_static_peers_forward_to_the_owner(clean_env):
         for d in ds:
             await d.start()
         try:
+            # each daemon's heartbeat detector probes the other from its
+            # start: a peer still booting may be re-homed around and back
+            # before both rings settle on both nodes
+            await _rings_settle(ds, addrs)
             inst = ds[0].instance
             assert [p.host for p in inst.peer_list()] == addrs
             # four keys each daemon owns (the ports, so the ring, vary)
@@ -428,12 +470,40 @@ def test_two_daemons_with_static_peers_forward_to_the_owner(clean_env):
         assert [r.metadata.get("owner", a) for r in rs] == owners
 
 
-def test_fault_rule_on_an_unwired_seam_fails_the_boot(clean_env):
-    for k, v in {**SMALL, "GUBER_FAULTS": "snapshot_io:error",
-                 "GUBER_FAULTS_SEED": "3"}.items():
-        clean_env.setenv(k, v)
-    conf = pconfig.config_from_env()
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 6d"):
-        asyncio.run(daemon_mod.Daemon(conf).start())
+def test_fault_rule_on_an_unwired_seam_fails_the_boot(clean_env, tmp_path):
+    """A GUBER_FAULTS rule on snapshot_io (a seam the port crosses now)
+    boots: the restore starts cold, the daemon serves, and its failed
+    saves are counted and leave the previous snapshot file as it was."""
     from gubernator_tpu_torch.net.faults import FAULTS
-    assert not FAULTS.enabled
+    snap_dir = tmp_path / "snaps"
+    for k, v in {**SMALL, "GUBER_SNAPSHOT_DIR": str(snap_dir)}.items():
+        clean_env.setenv(k, v)
+
+    async def serve(conf):
+        d = daemon_mod.Daemon(conf)
+        await d.start()
+        try:
+            client = AsyncClient(d.grpc.address)
+            got = await client.get_rate_limits(_reqs(10))
+            await client.close()
+        finally:
+            await d.stop()
+        return d, got
+
+    _, first = asyncio.run(serve(pconfig.config_from_env()))
+    before = (snap_dir / "arena.snap").read_bytes()
+    clean_env.setenv("GUBER_FAULTS", "snapshot_io:error")
+    clean_env.setenv("GUBER_FAULTS_SEED", "3")
+    try:
+        d1, second = asyncio.run(serve(pconfig.config_from_env()))
+        assert FAULTS.enabled
+        assert FAULTS.describe()["snapshot_io"][0]["fired"] >= 2
+    finally:
+        FAULTS.clear()
+    assert [r.remaining for r in first] == [2] * 10
+    # the injected load failure restored nothing: the keys start cold
+    assert [r.remaining for r in second] == [2] * 10
+    assert d1.shutdown_phases[-2:] == ["snapshot", "teardown"]
+    assert d1.instance.metrics.snapshot_total.labels(
+        status="failed")._value.get() == 1
+    assert (snap_dir / "arena.snap").read_bytes() == before

@@ -6,7 +6,8 @@ file the JAX package's Instance saved (its periodic save,
 `Instance.save_snapshot`), after which it answers as the JAX engine does;
 from a corrupt file or none, with a logged cold start.  It saves every
 GUBER_SNAPSHOT_INTERVAL_MS and once more in the stop sequence, after the
-drain (stop phases drain, snapshot, teardown, the JAX daemon's order).
+drain and the handoff (the JAX daemon's stop phases, STOP_PHASES for a
+standalone daemon).
 The HTTP gateway's GET /v1/admin/snapshot and POST /v1/admin/restore
 answer as the JAX gateway's on the same state (clocks pinned as in
 tests/test_torch_http_gateway.py): the same blob bytes in each layout,
@@ -51,6 +52,10 @@ SMALL = {"GUBER_TORCH_DEVICE": "cpu", "GUBER_GRPC_ADDRESS": "127.0.0.1:0",
          "GUBER_TPU_CAPACITY_PER_SHARD": "256",
          "GUBER_TPU_BATCH_PER_SHARD": "64",
          "GUBER_TPU_GLOBAL_CAPACITY": "16"}
+# a standalone daemon's stop, in the JAX daemon's order (no survivor to
+# hand keys to)
+STOP_PHASES = ["monitor_stop", "drain", "global_flush", "handoff_skipped",
+               "snapshot", "teardown"]
 GEOMETRY = dict(capacity_per_shard=256, batch_per_shard=64,
                 global_capacity=16, global_batch_per_shard=8,
                 max_global_updates=8)
@@ -134,7 +139,7 @@ def test_daemon_boots_from_a_jax_instance_snapshot(clean_env, tmp_path):
     assert [r.remaining for r in got] == [2] * 10
     assert _tuples(got) == _tuples(want)
     assert "guber_tpu_restore_age_seconds" in text
-    assert d.shutdown_phases == ["drain", "snapshot", "teardown"]
+    assert d.shutdown_phases == STOP_PHASES
     # the stop's save holds the hits served after the restore
     fresh = pengine.RateLimitEngine(capacity_per_shard=256, device="cpu",
                                     use_native="auto", global_capacity=16)
@@ -181,8 +186,8 @@ def test_daemon_saves_each_interval_and_once_after_the_drain(clean_env,
     # every save before the stop ran outside it; the stop saved once,
     # after the drain
     assert all(c == [] for c in calls[:-1])
-    assert calls[-1] == ["drain", "snapshot"] and len(calls) > periodic
-    assert d.shutdown_phases == ["drain", "snapshot", "teardown"]
+    assert calls[-1] == STOP_PHASES[:-1] and len(calls) > periodic
+    assert d.shutdown_phases == STOP_PHASES
     line = [ln for ln in text.splitlines()
             if ln.startswith('guber_tpu_snapshots_total{status="success"}')]
     assert line and float(line[0].split()[1]) == len(calls)

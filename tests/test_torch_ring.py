@@ -2,7 +2,7 @@
 ConsistentHashRing against the JAX ring, net/peers.py PeerClient over a
 fake transport (its batching window, typed errors, retries, breaker, the
 peer_rpc fault seam and the traceparent metadata), net/faults.py's
-refusal of seams the port does not cross, and core/global_sync.py
+specs and seams against the JAX injector's, and core/global_sync.py
 GlobalManager over fake peers (aggregation, broadcast, hinted handoff),
 against the JAX manager on the same script."""
 
@@ -95,11 +95,25 @@ def test_empty_ring_raises_like_the_jax_ring():
                                   "engine_dispatch:drop=1.0",
                                   "peer_rpc:drop=0.5;snapshot_io:error"])
 def test_unwired_fault_seam_raises_naming_item_6d(spec):
-    f = FaultInjector()
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 6d"):
-        f.load_spec(spec)
-    # nothing of a refused spec is installed
-    assert not f.enabled and f.describe() == {}
+    """The snapshot_io and engine_dispatch seams are crossed now: a spec
+    on them loads as the JAX injector loads it (the same rules, the same
+    seeded schedule) instead of raising."""
+    from gubernator_tpu.net.faults import FaultInjector as JFaultInjector
+    f, j = FaultInjector(), JFaultInjector()
+    f.load_spec(spec, seed=3)
+    j.load_spec(spec, seed=3)
+    assert f.enabled and j.enabled
+    assert f.describe() == j.describe() != {}
+    for seam in f.describe():
+        got, want = [], []
+        for inj, out in ((f, got), (j, want)):
+            for _ in range(32):
+                try:
+                    inj.on_sync(seam, "target")
+                    out.append(0)
+                except OSError:
+                    out.append(1)
+        assert got == want
 
 
 def test_unknown_fault_seam_and_key_raise():
@@ -507,7 +521,10 @@ def test_hint_buffer_bounds_ttl_and_aggregation():
 
 
 def test_unwired_seams_are_the_jax_seams_without_peer_rpc():
+    """No seam is left unwired: the seams the port crosses are the JAX
+    package's three."""
     from gubernator_tpu.net import faults as jfaults
-    assert faults_mod.WIRED_SEAMS + faults_mod._UNWIRED_SEAMS == (
+    assert faults_mod.WIRED_SEAMS == (
         jfaults.SEAM_PEER_RPC, jfaults.SEAM_SNAPSHOT_IO,
         jfaults.SEAM_ENGINE_DISPATCH)
+    assert not hasattr(faults_mod, "_UNWIRED_SEAMS")

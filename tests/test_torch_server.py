@@ -12,8 +12,8 @@ validation errors, a malformed body (INVALID_ARGUMENT), 1001 items
 threshold, HealthCheck and GetPeerRateLimits.  Both servers' clocks are
 pinned (the pipelines', the batchers' and the engines' wall-clock
 fallback).  Also: `Instance.add_to_server` splitting V1 and PeersV1
-between two instances on one server, the methods not ported yet answering
-UNIMPLEMENTED, and a fresh interpreter with grpc, protobuf, aiohttp and
+between two instances on one server (TransferBuckets' ack and its error
+codes among its PeersV1 answers), and a fresh interpreter with grpc, protobuf, aiohttp and
 prometheus_client blocked serving a large RPC on the bytes lane through
 `serve_get_rate_limits`, with the same bytes.
 """
@@ -38,6 +38,7 @@ from gubernator_tpu.core.service import Instance as JInstance
 from gubernator_tpu.parallel.mesh import make_mesh
 from gubernator_tpu.server import GrpcServer as JGrpcServer
 from gubernator_tpu_torch.api import pb
+from gubernator_tpu_torch.state import migrate
 from gubernator_tpu_torch.config import EngineConfig
 from gubernator_tpu_torch.core.service import Instance
 from gubernator_tpu_torch.observability.metrics import Metrics
@@ -236,11 +237,15 @@ def test_add_to_server_splits_services_between_two_instances(pinned):
                 r2 = await _call(ch, PEERS + "GetPeerRateLimits", data)
                 r3 = await _call(ch, V1 + "GetRateLimits", data)
                 un = await _call(ch, PEERS + "UpdatePeerGlobals", b"")
-                tb = await _call(ch, PEERS + "TransferBuckets", b"")
+                tb = [await _call(ch, PEERS + "TransferBuckets", d)
+                      for d in (b"", migrate.encode_rows([], []), row)]
             return r1, r2, r3, un, tb
         finally:
             await server.stop(None)
 
+    row = migrate.encode_rows([dict(key="split_x", limit=5, duration=60_000,
+                                    remaining=4, tstamp=T0, expire=T0 + 1,
+                                    algo=0)], [])
     try:
         r1, r2, r3, un, tb = asyncio.run(body())
     finally:
@@ -251,9 +256,14 @@ def test_add_to_server_splits_services_between_two_instances(pinned):
     assert a.engine.cache_size == 120 and b.engine.cache_size == 120
     assert a.batcher.pipeline.rpc_staged == 2
     assert b.batcher.pipeline.rpc_staged == 1
-    # UpdatePeerGlobals is served (an empty broadcast upserts nothing);
-    # TransferBuckets waits for key migration
-    assert un[0] == "OK" and tb[0] == "UNIMPLEMENTED"
+    # UpdatePeerGlobals is served (an empty broadcast upserts nothing), and
+    # so is TransferBuckets: a malformed payload is INVALID_ARGUMENT, an
+    # empty one acks, and regular rows into the native router (no key
+    # strings) are FAILED_PRECONDITION
+    assert un[0] == "OK"
+    assert tb[0][0] == "INVALID_ARGUMENT" and "malformed" in tb[0][1]
+    assert tb[1] == ("OK", migrate.encode_ack(0, 0, 0, 0))
+    assert tb[2][0] == "FAILED_PRECONDITION" and "native router" in tb[2][1]
 
 
 _BLOCKED = r"""
