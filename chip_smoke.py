@@ -278,8 +278,43 @@ Phases (one line each; any mismatch raises and exits non-zero):
      transfer with the destination's import, remove), rows a second, the
      longest engine-thread pause on a source and a destination, detector
      rounds, kill to converged rings.
+ 14. the front door (frontdoor.py): phase 9's Instance (8 x 2^21 slots,
+     B = 1024, router, pipeline and QoS at the JAX defaults, analytics
+     off) under a FrontdoorHub of 2 workers, 64 ring slots each (fewer,
+     with the cut printed, when /dev/shm is too small: its size is
+     printed first) and batch reads 8.  14a, always: the workers are
+     frontdoor_replay.py processes (no torch, no gRPC: the worker's own
+     path, _WorkerV1.GetRateLimits, fed serialized RPCs), 32 callers
+     each; the engine needs protobuf, whose path the RAW records take
+     (14a fails at once, saying so, where it does not import).  A
+     pinned-clock burst of about 50k decisions: phase 9's
+     100-item RPCs, 3000 single-item RPCs on keys of their own (coalesced
+     into batch records, or RAW) and 600 single GLOBAL items (RAW records
+     into the GLOBAL window), shuffled, with the engine's order logged
+     (FrontDoorLog); then on the wall clock saturation (again under the
+     profiler), open-loop rates at 25/50/100% of it, and a saturating run
+     with the engine's host steps timed.  After the counts are read:
+     every burst RPC's response bytes equal a serial router engine on the
+     card replaying the logged order (RPCs of equal bytes compare as a
+     multiset), each RPC applied once, no shed, no call of a timed run
+     failed, and one process holds a CUDA context, the engine:
+     nvidia-smi lists one compute app, not a worker's pid, and only the
+     engine maps CUDA.  14b,
+     where grpc imports: the real gRPC workers, 64 gRPC callers,
+     three bursts held against the serial engine the same way, a worker
+     SIGKILLed a fifth into the second (every staged RPC is the bytes of
+     one sent, and a failed one applied once or never; the respawn takes
+     the same port); where grpc does not import, one line says so.
+     Figures: decisions/s answered at saturation beside phase 9's, each
+     saturating run's RPCs and sheds, at the offered rates the decisions
+     answered, the RPCs answered with no shed item and their p50 and p99
+     latency, and the sheds, the card's idle share, the engine's
+     host microseconds an RPC by step (ring pop, pack_stack_fast, other
+     staging, dispatch, fetch wait and decode, completion write) beside
+     phase 9's, the workers' parse and encode, records by kind, encode
+     paths, sheds and ring stalls.
 
-Eleven main paths are counted, each from 0: the one-shard path (phases
+Twelve main paths are counted, each from 0: the one-shard path (phases
 3b and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b), the per-op path (phase 7b), the pipelined serving path
 (phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes),
@@ -287,15 +322,16 @@ the state lifecycle (phase 10), the lease and QoS path (phase 11,
 which must launch drain_compact), the peer ring (phase 12, which must
 launch drain_compact and global_window and nothing else), migration
 (phases 13a-13c, drain_compact and global_window, window_full allowed,
-nothing else) and the dispatch fault (phase 13d, drain_compact only);
+nothing else), the dispatch fault (phase 13d, drain_compact only) and
+the front door (phase 14, drain_compact and global_window, nothing else);
 each must launch its kernels and never
 run a plain version, the per-op path must launch no kernel but
 window_math, global_stage and global_apply, the raw-RPC lane none but
 drain_compact, once a drain, and the lifecycle none but drain_compact and
 global_window.  The kernel table's launch counts are drain_compact's (the
-first path's and the fifth's to the eleventh's) and window_full's on the
-first, the eighth and the tenth, global_window's
-on the second and the seventh to the tenth, drain_compact_stats' and
+first path's and the fifth's to the twelfth's) and window_full's on the
+first, the eighth and the tenth, global_window's on the second, the
+seventh to the tenth and the twelfth, drain_compact_stats' and
 stats_finish's on the third, the fifth and the eighth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
 a wrapper made only to check or time it against its plain version come
@@ -3722,6 +3758,8 @@ def report_wire(r, counts, serve, smi):
         f"burst's arena too; {r['calls']} RPCs served, {r['pipe']['staged']} "
         f"staged, {r['pipe']['refused']} refused; launches {counts}; {smi}")
     log("wire figures: " + json.dumps(dict(card=smi, **fig)))
+    return dict(decisions_per_s=on["decisions_per_s"],
+                host_us_per_rpc=host_us)
 
 
 # ------------------------------------------------ phase 10: the lifecycle
@@ -5854,6 +5892,657 @@ def report_dispatch_fault(r, n_failed, counts, smi):
         f"{r['drains']} drains; launches {counts}; {smi}")
 
 
+# ------------------------------------------- phase 14: the front door
+
+# phase 14 drives frontdoor.py's hub on phase 9's Instance.  Its workers
+# are stand-ins without gRPC (14a: frontdoor_replay.py processes, which
+# import no torch and run the worker's own path, _WorkerV1.GetRateLimits:
+# batched wire reads, frontdoor_parse_req into the slab, RAW records for
+# what the parser refuses, frontdoor_encode_resp on the completions), or
+# the real gRPC workers where grpc imports (14b).
+FD_WORKERS = 2
+FD_SLOTS = 64
+FD_SLAB = (1 << 20) + (1 << 16)
+FD_BATCH_READS = 8
+FD_COLS_DECISIONS = 45_000    # 100-item RPCs of phase 9's law
+FD_RAW_RPCS = 3000            # single-item RPCs on keys of their own
+FD_RAW_KEYS = 4096
+FD_GLOBAL_RPCS = 600          # single GLOBAL items
+FD_GLOBAL_KEYS = 256
+FD_SAT_RPCS = 512
+FD_KILL_AFTER = 0.2           # 14b: the share of a burst before the kill
+REPLAY_ENTRY = "gubernator_tpu_torch.frontdoor_replay:replay_main"
+
+
+def fd_slots():
+    """Ring slots a worker: FD_SLOTS, or what half of /dev/shm's free
+    space holds for both workers' segments when that is fewer (a segment
+    larger than /dev/shm maps, then faults at first touch).  Returns the
+    slots and the line that says so."""
+    from gubernator_tpu_torch.core.shm_ring import WorkerChannel
+    st = os.statvfs("/dev/shm")
+    free, size = st.f_bavail * st.f_frsize, st.f_blocks * st.f_frsize
+    need = FD_WORKERS * WorkerChannel.segment_size(FD_SLOTS, FD_SLAB)
+    slots = FD_SLOTS
+    if need > free // 2:
+        slots = max(2, FD_SLOTS * (free // 2) // need)
+    line = (f"phase 14 /dev/shm: {size} bytes, {free} free; {FD_WORKERS} "
+            f"workers x {FD_SLOTS} slots x {FD_SLAB}-byte slabs need {need}"
+            + ("" if slots == FD_SLOTS else
+               f"; CUT to {slots} slots a worker to fit half the free space"))
+    return slots, line
+
+
+def fd_raw_request(idx, prefix, glob=False):
+    """A single-item RPC's request: its key's own, every time (hits 1), so
+    two RPCs of one key are interchangeable."""
+    return RateLimitReq(
+        name="fdg" if glob else "fdr", unique_key=f"{prefix}{idx:06d}",
+        hits=1, limit=(1000 if glob else 20) + idx % 50, duration=60_000,
+        algorithm=int(idx & 1),
+        behavior=Behavior.GLOBAL if glob else Behavior.BATCHING)
+
+
+def fd_burst(rng, prefix):
+    """The pinned burst: phase 9's 100-item RPCs (wire_rpcs), FD_RAW_RPCS
+    single-item RPCs on keys of their own (the workers coalesce them into
+    batch records, a lone one ships RAW) and FD_GLOBAL_RPCS single GLOBAL
+    items (the C parser refuses them: RAW records, the GLOBAL window),
+    shuffled.  (requests per RPC, serialized RPCs)."""
+    rpcs, _ = wire_rpcs(rng, FD_COLS_DECISIONS)
+    rpcs = [[RateLimitReq(**{**vars(q), "unique_key": prefix + q.unique_key})
+             for q in rpc] for rpc in rpcs]
+    raw = (rng.zipf(1.1, FD_RAW_RPCS) - 1) % FD_RAW_KEYS
+    rpcs += [[fd_raw_request(int(i), prefix + "r")] for i in raw]
+    glob = (rng.zipf(1.1, FD_GLOBAL_RPCS) - 1) % FD_GLOBAL_KEYS
+    rpcs += [[fd_raw_request(int(i), prefix + "g", glob=True)] for i in glob]
+    rpcs = [rpcs[i] for i in rng.permutation(len(rpcs))]
+    return rpcs, [encode_list([vars(q) for q in rpc], REQ_FIELDS)
+                  for rpc in rpcs]
+
+
+class FrontDoorLog:
+    """The order in which one Instance applied a front door's records
+    (engine thread): each drain's staged jobs as RPCs (a ColsJob's
+    requests read from its slab while it is live and split by its
+    record's counts; a ListJob's singles one RPC each), and each
+    engine.process call (the legacy lane's GLOBAL windows) as its own
+    window, in turn; optionally the time pack_stack_fast took.  remove()
+    puts the methods back."""
+
+    def __init__(self, inst, hub, order=True):
+        import threading
+        self.inst, self.hub, self.lock = inst, hub, threading.Lock()
+        self.entries, self.counts, self.bad, self.pack_s = [], {}, 0, 0.0
+        pipe, eng, nat = inst.batcher.pipeline, inst.engine, inst.engine.native
+        drain, process, dispatch = pipe._drain_sync, eng.process, hub._dispatch
+        pack = nat.pack_stack_fast
+
+        def timed_pack(*a, **kw):
+            t0 = time.perf_counter()
+            rc = pack(*a, **kw)
+            self.pack_s += time.perf_counter() - t0
+            return rc
+
+        nat.pack_stack_fast = timed_pack
+        if not order:
+            return
+
+        def logged_dispatch(rec):
+            if rec.cols is not None:
+                self.counts[id(rec.cols)] = rec.counts or [rec.n]
+            return dispatch(rec)
+
+        def logged_drain(jobs, now=None, cols=None):
+            from gubernator_tpu_torch.core.pipeline import (
+                ColsJob, ListJob, requests_from_cols)
+            res = drain(jobs, now, cols)
+            for job in res.staged:
+                if isinstance(job, ColsJob):
+                    reqs = requests_from_cols(job.cols, job.name_lens, job.n)
+                    split, at = [], 0
+                    for n in self.counts.get(id(job.cols), [job.n]):
+                        split.append(reqs[at:at + n])
+                        at += n
+                    self.entries.append(("drain", split, None))
+                elif isinstance(job, ListJob) and job.futs is not None:
+                    self.entries.append(("drain", [[q] for q in job.reqs],
+                                         None))
+                else:
+                    self.bad += 1
+            return res
+
+        def logged_process(reqs, now=None, accumulate=None):
+            out = process(reqs, now, accumulate)
+            self.entries.append(("process", [[q] for q in reqs],
+                                 accumulate))
+            return out
+
+        pipe._drain_sync = logged_drain
+        eng.process = logged_process
+        hub._dispatch = logged_dispatch
+
+    def remove(self):
+        for obj, name in ((self.inst.batcher.pipeline, "_drain_sync"),
+                          (self.inst.engine, "process"),
+                          (self.hub, "_dispatch"),
+                          (self.inst.engine.native, "pack_stack_fast")):
+            obj.__dict__.pop(name, None)
+
+
+def compute_apps():
+    """The pids nvidia-smi lists as holding a CUDA context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def maps_cuda(pid):
+    """Does process pid map CUDA or torch (its /proc maps)?"""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            text = f.read()
+    except OSError:
+        return None
+    return any(s in text for s in ("libcuda", "libtorch", "libcudart"))
+
+
+async def fd_command(ctl, seq, per_worker):
+    from gubernator_tpu_torch import frontdoor_replay as fr
+    fr.write_command(ctl, seq, per_worker)
+    return await fr.await_results(ctl, seq, len(per_worker))
+
+
+def fd_split(datas):
+    """Each worker's share of a list of RPCs (round robin)."""
+    return [datas[w::FD_WORKERS] for w in range(FD_WORKERS)]
+
+
+def hub_counters(hub, pipe, log_):
+    s = hub.stats()
+    return dict(pop=hub.pop_s, complete=hub.complete_s,
+                pack=log_.pack_s if log_ is not None else 0.0,
+                busy=dict(pipe.stage_busy), drains=pipe.drains,
+                served=hub.records_served, kinds=dict(hub.records_by_kind),
+                encodes=s["encodes"], enc_fallbacks=s["enc_fallbacks"],
+                engine_encode_fallbacks=s["engine_encode_fallbacks"],
+                stalls=s["stalls"], sheds=s["sheds"],
+                batch_rpcs=s["batch_rpcs"], batch_flushes=s["batch_flushes"])
+
+
+def phase_front_door():
+    """Phase 14a, the counted part: phase 9's Instance (8 x 2^21 slots,
+    B = 1024, the router, the pipeline and QoS at the JAX defaults) under
+    a FrontdoorHub of FD_WORKERS replay workers (FD_SLOTS ring slots each,
+    batch reads 8).  A pinned-clock burst of about 50k decisions from 64
+    callers (32 a worker) with the engine's order logged; then on the wall
+    clock saturation (unprofiled, profiled), open-loop rates at 25/50/100%
+    of it, and a saturating run with the host steps timed.  The Instance
+    is built and warmed, and the RPCs encoded, before the counts start."""
+    import importlib.util
+    from gubernator_tpu_torch.core import shm_ring
+    from gubernator_tpu_torch.frontdoor import FrontdoorHub
+    check(importlib.util.find_spec("google") is not None
+          and importlib.util.find_spec("google.protobuf") is not None,
+          "14a needs protobuf in the engine process: its RAW records (the "
+          "small and GLOBAL RPCs) take the server's protobuf path")
+    rng = np.random.default_rng(141)
+    inst = Instance(engine_config=serving_engine_config())
+    eng, pipe = inst.engine, inst.batcher.pipeline
+    check(eng.native is not None and pipe is not None,
+          "14a: the router or the pipeline is missing")
+    eng.warmup()
+    torch.cuda.synchronize()
+    burst_rpcs, burst = fd_burst(rng, "fda")
+    sat_rpcs, sat = wire_rpcs(rng, FD_SAT_RPCS * SERVE_RPC)
+    sat_items = [len(r) for r in sat_rpcs]
+    slots, shm_line = fd_slots()
+    log(shm_line)
+    ctl = tempfile.mkdtemp(prefix="guber-fd-")
+    hub = FrontdoorHub(inst, workers=FD_WORKERS, ring_slots=slots,
+                       slab_bytes=FD_SLAB, listen_address="127.0.0.1:0",
+                       batch_reads=FD_BATCH_READS, worker_entry=REPLAY_ENTRY,
+                       worker_args=(ctl,))
+    tb = millisecond_now()
+    out = dict(burst_rpcs=burst_rpcs, burst=burst, tb=tb, slots=slots,
+               engine_pid=os.getpid(), shm=shm_line)
+    callers = SERVE_CLIENTS // FD_WORKERS
+    reset_counts()
+
+    async def script():
+        from torch.profiler import ProfilerActivity, profile
+        await hub.start()
+        seq = 0
+        try:
+            out["worker_pids"] = [hub.status.get_w(i, shm_ring.W_PID)
+                                  for i in range(FD_WORKERS)]
+            pin_clock(inst, tb)
+            flog = FrontDoorLog(inst, hub)
+            try:
+                res = await fd_command(ctl, seq, [
+                    dict(mode="burst", rpcs=part, callers=callers)
+                    for part in fd_split(burst)])
+                seq += 1
+                # while the workers live: who holds a CUDA context
+                out["apps"] = compute_apps()
+                out["worker_maps_cuda"] = [maps_cuda(p)
+                                           for p in out["worker_pids"]]
+                out["engine_maps_cuda"] = maps_cuda(os.getpid())
+            finally:
+                flog.remove()
+            out["log"], out["log_bad"] = flog.entries, flog.bad
+            resps = [None] * len(burst)
+            for w in range(FD_WORKERS):
+                resps[w::FD_WORKERS] = res[w]["resps"]
+            out["burst_out"] = resps
+            out["burst_errors"] = sum(r["errors"] for r in res)
+            out["burst_sheds"] = [r["sheds"] for r in res]
+            out["burst_counters"] = hub_counters(hub, pipe, None)
+            pin_clock(inst, None)
+
+            async def command(per_worker):
+                nonlocal seq
+                res = await fd_command(ctl, seq, per_worker)
+                seq += 1
+                return res
+
+            async def run(mode, seconds, **kw):
+                """Both workers' answers to one timed command: decisions
+                answered (no shed item, no failed call), RPCs made,
+                failed calls, RPCs with a shed item by reason, and the
+                latencies of the RPCs answered whole."""
+                res = await command([
+                    dict(mode=mode, rpcs=part, items=items,
+                         seconds=seconds, **kw)
+                    for part, items in zip(fd_split(sat),
+                                           fd_split(sat_items))])
+                sheds = {}
+                for r in res:
+                    for k, v in r["sheds"].items():
+                        sheds[k] = sheds.get(k, 0) + v
+                return dict(n=sum(r["n"] for r in res),
+                            wall=max(r["wall"] for r in res),
+                            rpcs=sum(r["rpcs"] for r in res),
+                            errors=sum(r["errors"] for r in res),
+                            sheds=sheds,
+                            lat=[x for r in res for x in r.get("lat_ms", ())],
+                            res=res)
+
+            await run("saturate", 0.5, callers=callers)  # warm, wall clock
+            s1 = await run("saturate", SERVE_SECONDS, callers=callers)
+            rate = s1["n"] / s1["wall"]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                s2 = await run("saturate", SERVE_SECONDS, callers=callers)
+                torch.cuda.synchronize()
+            out["sat"] = (s1["n"], s1["wall"], s2["n"] / s2["wall"],
+                          busy_share(prof, s2["wall"]))
+            out["sat_runs"] = [s1, s2]
+            out["rates"] = []
+            for share in RATE_SHARES:
+                stalls0 = hub.stats()["stalls"]
+                # an open loop past what the engine answers fills the
+                # rings: the RPCs over the slots in flight a worker shed
+                # ring_full, and count neither in the rate nor in the
+                # latencies
+                sr = await run("rate", RATE_SECONDS,
+                               rate=share * rate / FD_WORKERS)
+                lat = sr["lat"]
+                out["rates"].append(dict(
+                    share=share, offered=share * rate,
+                    achieved=sr["n"] / sr["wall"],
+                    p50=float(np.percentile(lat, 50)) if lat else None,
+                    p99=float(np.percentile(lat, 99)) if lat else None,
+                    rpcs=sr["rpcs"], answered=len(lat), errors=sr["errors"],
+                    sheds=sr["sheds"],
+                    stalls=hub.stats()["stalls"] - stalls0))
+            # the host split: the same saturating load, every step timed
+            w0 = sr["res"]  # each worker's parse and encode seconds so far
+            tlog = FrontDoorLog(inst, hub, order=False)
+            try:
+                c0 = hub_counters(hub, pipe, tlog)
+                s3 = await run("saturate", RATE_SECONDS, callers=callers)
+                c1 = hub_counters(hub, pipe, tlog)
+            finally:
+                tlog.remove()
+            out["sat_runs"].append(s3)
+            out["split"] = (s3["n"], s3["wall"], c0, c1,
+                            sum(r["parse_s"] - w["parse_s"]
+                                for r, w in zip(s3["res"], w0)),
+                            sum(r["encode_s"] - w["encode_s"]
+                                for r, w in zip(s3["res"], w0)))
+            for sr in out["sat_runs"]:
+                del sr["res"], sr["lat"]
+            out["counters"] = hub_counters(hub, pipe, None)
+            out["debug"] = hub.debug_snapshot()
+        finally:
+            from gubernator_tpu_torch import frontdoor_replay as fr
+            fr.write_command(ctl, seq, [dict(mode="stop")] * FD_WORKERS)
+            await asyncio.sleep(0.1)
+            await hub.stop()
+            await inst.aclose()
+
+    try:
+        asyncio.run(script())
+    finally:
+        shutil.rmtree(ctl, ignore_errors=True)
+    out["adm"] = (inst.qos.admission.pending_peak,
+                  inst.qos.admission.max_pending)
+    out["pipe"] = rpc_counters(pipe)
+    out["eng_cfg"] = (eng.capacity_per_shard, eng.num_shards,
+                      eng.batch_per_shard)
+    return out
+
+
+def fd_expected(entries, tb):
+    """Replay a FrontDoorLog's entries, in order, through a serial router
+    engine on the card at the same geometry and clock (each entry one
+    process call, so the GLOBAL windows are cut as the Instance cut
+    them): {serialized request: [expected response bytes]}."""
+    from collections import defaultdict
+    twin = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
+                           num_shards=SHARDS, batch_per_shard=FULL_LANES,
+                           use_native="on")
+    want = defaultdict(list)
+    for _, rpcs, accumulate in entries:
+        resps = twin.process([q for rpc in rpcs for q in rpc], tb,
+                             accumulate)
+        at = 0
+        for rpc in rpcs:
+            key = encode_list([vars(q) for q in rpc], REQ_FIELDS)
+            want[key].append(encode_list(
+                [vars(r) for r in resps[at:at + len(rpc)]], RESP_FIELDS))
+            at += len(rpc)
+    del twin
+    return want
+
+
+def check_front_door(r):
+    """Phase 14a, after the counts are read: every burst RPC answered,
+    none shed, no job the log could not place; each RPC's response bytes
+    equal to what the serial engine answered it in the engine's order
+    (RPCs of equal bytes are interchangeable, so they compare as a
+    multiset); each RPC staged once; only the engine's process holds a
+    CUDA context."""
+    from collections import Counter, defaultdict
+    check(r["burst_errors"] == 0 and None not in r["burst_out"],
+          f"14a: {r['burst_errors']} burst RPCs failed")
+    check(not any(r["burst_sheds"]), f"14a: burst sheds {r['burst_sheds']}")
+    check(r["log_bad"] == 0, f"14a: {r['log_bad']} staged jobs were neither "
+          f"a column record nor singles")
+    want = fd_expected(r["log"], r["tb"])
+    got = defaultdict(list)
+    for data, resp in zip(r["burst"], r["burst_out"]):
+        got[data].append(resp)
+    check(sum(len(v) for v in want.values()) == len(r["burst"]),
+          f"14a: the engine applied {sum(len(v) for v in want.values())} "
+          f"RPCs, not each of the {len(r['burst'])} once")
+    bad = [k for k in got if Counter(got[k]) != Counter(want.get(k, []))]
+    check(not bad, f"14a: {len(bad)} of {len(got)} distinct RPCs answered "
+          f"other bytes than the serial engine")
+    apps, pids = r["apps"], r["worker_pids"]
+    check(not set(pids) & set(apps),
+          f"14a: a worker holds a CUDA context (nvidia-smi {apps}, "
+          f"workers {pids})")
+    check(r["worker_maps_cuda"] == [False] * FD_WORKERS,
+          f"14a: a worker maps CUDA or torch: {r['worker_maps_cuda']}")
+    # one process holds a context: the engine (a sandbox's nvidia-smi
+    # may name it by another pid namespace's number)
+    check(len(apps) == 1 and r["engine_maps_cuda"],
+          f"14a: nvidia-smi lists {apps} as holding a CUDA context, not "
+          f"one process (the engine, pid {r['engine_pid']} here, maps "
+          f"CUDA: {r['engine_maps_cuda']})")
+    kinds = r["burst_counters"]["kinds"]
+    check(kinds.get(0, 0) > 0 and kinds.get(7, 0) > 0,
+          f"14a: the burst's records by kind {kinds} lack RAW or batch "
+          f"records")
+    check(r["adm"][0] < r["adm"][1], f"14a: admission reached {r['adm']}")
+    errs = [sr["errors"] for sr in r["sat_runs"]]
+    check(not any(errs) and all(sr["n"] > 0 for sr in r["sat_runs"]),
+          f"14a: the saturating runs failed {errs} RPCs, answered "
+          f"{[sr['n'] for sr in r['sat_runs']]} decisions")
+    check(not any(x["errors"] for x in r["rates"]),
+          f"14a: the open-loop runs failed "
+          f"{[x['errors'] for x in r['rates']]} RPCs")
+    return len(got)
+
+
+def phase_front_door_grpc():
+    """Phase 14b, where grpc imports: the hub with its real gRPC workers
+    (FD_WORKERS on an ephemeral port) on phase 9's Instance, 64 callers
+    (the port's gRPC client) sending a pinned burst of 14a's law, held
+    against the serial engine in the engine's order as 14a is; then a
+    SIGKILL of one worker
+    a share FD_KILL_AFTER into a second burst: each of its RPCs either
+    fails or is applied whole, the hub respawns the worker on the same
+    port, and a third burst is answered.  Returns None, and the reason,
+    where grpc does not import."""
+    import importlib.util
+    import signal as _signal
+    try:
+        if importlib.util.find_spec("grpc") is None:
+            return None, "grpc is not installed"
+        from gubernator_tpu_torch.client import AsyncClient
+    except ImportError as e:
+        return None, f"the gRPC client does not import ({e})"
+
+    from gubernator_tpu_torch.core import shm_ring
+    from gubernator_tpu_torch.frontdoor import FrontdoorHub
+    rng = np.random.default_rng(142)
+    inst = Instance(engine_config=serving_engine_config())
+    # 14a's counts are running: this Instance's warm-up is not the path's
+    before = [dict(m.launches) for m in (dk, gk, sk, wm)]
+    inst.engine.warmup()
+    torch.cuda.synchronize()
+    for m, b in zip((dk, gk, sk, wm), before):
+        m.launches.update(b)
+    bursts = [fd_burst(rng, f"fdb{k}") for k in range(3)]
+    slots, _ = fd_slots()
+    hub = FrontdoorHub(inst, workers=FD_WORKERS, ring_slots=slots,
+                       slab_bytes=FD_SLAB, listen_address="127.0.0.1:0",
+                       batch_reads=FD_BATCH_READS)
+    tb = millisecond_now()
+    out = dict(tb=tb, bursts=bursts)
+
+    async def send_all(rpcs, kill_at=None):
+        """Each RPC through the port's gRPC client, its answer in this
+        script's encoding (None where the call failed); the kill takes
+        the worker that served the most of this burst's RPCs so far (gRPC
+        may put every caller on one connection, so on one worker)."""
+        clients = [AsyncClient(hub.address) for _ in range(SERVE_CLIENTS)]
+        outs, done = [None] * len(rpcs), [0]
+        rpcs0 = [hub.status.get_w(w, shm_ring.W_RPCS)
+                 for w in range(FD_WORKERS)]
+
+        async def caller(c):
+            for i in range(c, len(rpcs), SERVE_CLIENTS):
+                try:
+                    resps = await clients[c].get_rate_limits(rpcs[i],
+                                                             timeout=60)
+                    outs[i] = encode_list([vars(r) for r in resps],
+                                          RESP_FIELDS)
+                except Exception:
+                    outs[i] = None
+                done[0] += 1
+                if kill_at is not None and done[0] == kill_at:
+                    busiest = max(range(FD_WORKERS), key=lambda w:
+                                  hub.status.get_w(w, shm_ring.W_RPCS)
+                                  - rpcs0[w])
+                    out["killed"] = busiest
+                    os.kill(hub.status.get_w(busiest, shm_ring.W_PID),
+                            _signal.SIGKILL)
+
+        try:
+            await asyncio.gather(*(caller(c) for c in range(SERVE_CLIENTS)))
+        finally:
+            for c in clients:
+                await c.close()
+        return outs
+
+    async def script():
+        await hub.start()
+        try:
+            pin_clock(inst, tb)
+            flog = FrontDoorLog(inst, hub)
+            try:
+                out["out0"] = await send_all(bursts[0][0])
+                port0, restarts0 = hub.port, hub.restarts
+                out["out1"] = await send_all(
+                    bursts[1][0], kill_at=int(FD_KILL_AFTER
+                                              * len(bursts[1][0])))
+                deadline = time.monotonic() + 60
+                while hub.restarts == restarts0:
+                    check(time.monotonic() < deadline,
+                          "14b: the killed worker never respawned")
+                    await asyncio.sleep(0.1)
+                await asyncio.sleep(1.0)
+                out["same_port"] = hub.port == port0
+                out["out2"] = await send_all(bursts[2][0])
+            finally:
+                flog.remove()
+            out["log"], out["log_bad"] = flog.entries, flog.bad
+            out["restarts"] = hub.restarts
+        finally:
+            await hub.stop()
+            await inst.aclose()
+
+    asyncio.run(script())
+    return out, None
+
+
+def fd_whole_rpcs(datas, outs, want):
+    """The accounting of RPCs sent with a SIGKILL among them: datas the
+    RPCs sent, outs each one's response (None where the call failed),
+    want the serial engine's {RPC bytes: [responses]} of what the drains
+    staged.  Every staged RPC is the bytes of an RPC sent (a partly staged
+    one rebuilds other bytes); of the copies of one RPC, each answered one
+    was applied and answered as the serial engine answered it, and each
+    failed one was applied once or never.  (failed, applied, faults)."""
+    from collections import Counter, defaultdict
+    sent, got = Counter(datas), defaultdict(list)
+    for data, resp in zip(datas, outs):
+        if resp is not None:
+            got[data].append(resp)
+    faults = [f"{len(v)} staged RPCs were never sent"
+              for k, v in want.items() if k not in sent]
+    for k, n in sent.items():
+        applied, answered = len(want.get(k, ())), len(got.get(k, ()))
+        if not answered <= applied <= n:
+            faults.append(f"an RPC sent {n} times, answered {answered}, "
+                          f"was applied {applied} times")
+        if not Counter(got.get(k, ())) <= Counter(want.get(k, ())):
+            faults.append("an RPC answered other bytes than the serial "
+                          "engine")
+    return (sum(o is None for o in outs),
+            sum(len(v) for v in want.values()), faults)
+
+
+def check_front_door_grpc(r):
+    """14b against the serial engine in the engine's order: bursts 0 and
+    2 answered whole; over the three, every answered RPC answered as the
+    serial engine did and every failed one applied whole or not at all
+    (fd_whole_rpcs)."""
+    want = fd_expected(r["log"], r["tb"])
+    check(r["log_bad"] == 0, f"14b: {r['log_bad']} unplaced staged jobs")
+    for b in (0, 2):
+        check(None not in r[f"out{b}"], f"14b: burst {b} lost an RPC")
+    datas = [d for b in range(3) for d in r["bursts"][b][1]]
+    outs = [o for b in range(3) for o in r[f"out{b}"]]
+    failed, applied, faults = fd_whole_rpcs(datas, outs, want)
+    check(not faults, f"14b: {len(faults)} faults in what was applied, "
+          f"{faults[:3]}")
+    check(r["same_port"] and r["restarts"] >= 1,
+          f"14b: respawn on the same port {r['same_port']}, restarts "
+          f"{r['restarts']}")
+    return failed, applied, len(datas)
+
+
+def report_front_door(r, n_rpcs, grpc_res, counts, wire_fig, smi):
+    n, wall, prof_rate, share = r["sat"]
+    n3, wall3, c0, c1, parse_s, encode_s = r["split"]
+    rpcs = max(1, n3 // SERVE_RPC)
+    busy0, busy1 = c0["busy"], c1["busy"]
+    d = {k: busy1[k] - busy0[k] for k in busy1}
+    engine_us = dict(
+        ring_pop=(c1["pop"] - c0["pop"]) / rpcs * 1e6,
+        pack_stack_fast=(c1["pack"] - c0["pack"]) / rpcs * 1e6,
+        staging_besides_pack=(d["host_encode"] - (c1["pack"] - c0["pack"]))
+        / rpcs * 1e6,
+        dispatch=d["device_dispatch"] / rpcs * 1e6,
+        fetch_wait_and_decode=d["fetch_decode"] / rpcs * 1e6,
+        completion_write=(c1["complete"] - c0["complete"]) / rpcs * 1e6)
+    worker_us = dict(c_parse=parse_s / rpcs * 1e6,
+                     encode=encode_s / rpcs * 1e6)
+    cnt = r["counters"]
+    kinds = {KIND_NAMES.get(k, str(k)): v for k, v in cnt["kinds"].items()}
+    burst_sheds = {}
+    for s in r["burst_sheds"]:
+        for k, v in s.items():
+            burst_sheds[k] = burst_sheds.get(k, 0) + v
+    sat_runs = [dict(decisions_per_s=sr["n"] / sr["wall"], **sr)
+                for sr in r["sat_runs"]]
+    fig = dict(
+        card=smi, decisions_per_s=n / wall,
+        decisions_per_s_profiled=prof_rate,
+        idle_share=None if share is None else 1 - share,
+        phase9_in_process_decisions_per_s=wire_fig["decisions_per_s"],
+        saturating_runs=dict(zip(("timed", "profiled", "host_split"),
+                                 sat_runs)),
+        latency_ms={f"{int(x['share'] * 100)}%": x for x in r["rates"]},
+        engine_host_us_per_rpc=engine_us,
+        phase9_host_us_per_rpc=wire_fig["host_us_per_rpc"],
+        worker_us_per_rpc=worker_us, host_split_decisions_per_s=n3 / wall3,
+        records_by_kind=kinds,
+        encode_paths=dict(worker=cnt["encodes"],
+                          engine_bytes=cnt["enc_fallbacks"],
+                          engine_fallbacks=cnt["engine_encode_fallbacks"]),
+        burst_sheds=burst_sheds, ring_stalls=cnt["stalls"],
+        batched_rpcs=cnt["batch_rpcs"], batch_flushes=cnt["batch_flushes"],
+        slots=r["slots"], nvidia_smi_compute_pids=r["apps"],
+        engine_pid=r["engine_pid"], worker_pids=r["worker_pids"])
+
+    def ms(v):
+        return "none answered" if v is None else f"{v:.3f} ms"
+    rates = "; ".join(
+        f"{int(x['share'] * 100)}% ({x['achieved']:.0f}/s answered, "
+        f"{x['answered']} of {x['rpcs']} RPCs answered with no shed, sheds "
+        f"{x['sheds']}): p50 {ms(x['p50'])} p99 {ms(x['p99'])} over the "
+        f"RPCs answered" for x in r["rates"])
+    sats = ", ".join(f"{sr['rpcs']} RPCs, sheds {sr['sheds']}"
+                     for sr in r["sat_runs"])
+    log(f"phase 14a front door ({FD_WORKERS} replay workers x {r['slots']} "
+        f"slots, batch reads {FD_BATCH_READS}, {SERVE_CLIENTS} callers on "
+        f"phase 9's Instance): {len(r['burst'])} burst RPCs ({n_rpcs} "
+        f"distinct) = the serial engine in the engine's order; saturated "
+        f"{n / wall:.1f} decisions/s answered (phase 9 in-process "
+        f"{wire_fig['decisions_per_s']:.1f}; timed, profiled and host-split "
+        f"runs: {sats}; no RPC failed), idle share "
+        f"{fig['idle_share']}; offered rates: {rates}; engine host us per "
+        f"RPC: " + ", ".join(f"{k} {v:.1f}" for k, v in engine_us.items())
+        + "; worker us per RPC: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in worker_us.items())
+        + f"; records {kinds}; only the engine's pid {r['engine_pid']} "
+        f"holds a CUDA context (nvidia-smi {r['apps']}); launches {counts}; "
+        f"{smi}")
+    log("front door figures: " + json.dumps(fig))
+    if grpc_res[0] is None:
+        log(f"phase 14b (the gRPC workers) did not run: {grpc_res[1]}; "
+            f"14a carries the phase's checks")
+    else:
+        failed, applied, sent = grpc_res[0]
+        log(f"phase 14b gRPC workers: 3 bursts of {sent // 3} RPCs = the "
+            f"serial engine; a worker SIGKILLed {FD_KILL_AFTER:.0%} into the "
+            f"second: {failed} RPCs failed, each applied whole or not at "
+            f"all ({applied} applied of {sent}); respawned on the same "
+            f"port; {smi}")
+
+
+KIND_NAMES = {0: "raw", 1: "cols", 2: "peer_rl", 3: "transfer",
+              4: "register", 5: "apply_greg", 6: "update_globals",
+              7: "batch_cols"}
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -5973,7 +6662,7 @@ def main():
           f"admission reached {wire['adm'][0]} of its {wire['adm'][1]} on "
           f"the raw-bytes lane (a saturated queue sends RPCs to protobuf)")
     check_wire(wire)
-    report_wire(wire, path6, serve, smi)
+    wire_fig = report_wire(wire, path6, serve, smi)
     del wire
     # the state lifecycle: counts from 0 again (inside 10a, after its
     # Instances are built and warmed); 10b adds the tiered engines'
@@ -6055,6 +6744,27 @@ def main():
     n_failed = check_dispatch_fault(fault)
     report_dispatch_fault(fault, n_failed, path11, smi)
     del fault
+    # the front door: counts from 0 again (inside 14a, after its Instance
+    # is warmed and its RPCs encoded); 14b, where grpc imports, adds its
+    # launches
+    fd = phase_front_door()
+    grpc_res = phase_front_door_grpc()
+    path12, plain12 = launch_counts(), plain_counts()
+    check(path12["drain_compact"] >= fd["pipe"]["drains"] > 0
+          and path12["global_window"] > 0,
+          f"a kernel of the front door's path never launched: {path12}, "
+          f"{fd['pipe']['drains']} pipeline drains")
+    others12 = {k: v for k, v in path12.items()
+                if k not in ("drain_compact", "global_window")}
+    check(not any(others12.values()),
+          f"the front door's path launched another kernel: {others12}")
+    check(not any(plain12.values()),
+          f"the plain versions ran on the front door's path: {plain12}")
+    n_rpcs = check_front_door(fd)
+    if grpc_res[0] is not None:
+        grpc_res = (check_front_door_grpc(grpc_res[0]), None)
+    report_front_door(fd, n_rpcs, grpc_res, path12, wire_fig, smi)
+    del fd, grpc_res
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
@@ -6062,7 +6772,8 @@ def main():
              launches=(path1["drain_compact"] + path5["drain_compact"]
                        + path6["drain_compact"] + path7["drain_compact"]
                        + path8["drain_compact"] + path9["drain_compact"]
-                       + path10["drain_compact"] + path11["drain_compact"]),
+                       + path10["drain_compact"] + path11["drain_compact"]
+                       + path12["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -6080,7 +6791,7 @@ def main():
              replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
              launches=(path2["global_window"] + path7["global_window"]
                        + path8["global_window"] + path9["global_window"]
-                       + path10["global_window"]),
+                       + path10["global_window"] + path12["global_window"]),
              max_abs_err=max(global_err, alone["err"], glob["global_err"],
                              chk["global_err"], cmp["err"], upsert_err,
                              upw["err"]),

@@ -15,6 +15,8 @@ google.protobuf.json_format, the conversion rules grpc-gateway uses):
   POST /v1/admin/restore   restore from a snapshot blob (?rebase_to=ms);
                            {"restoredKeys": n}, or 400 {"error", "code": 3}
                            for a bad blob
+  GET  /v1/admin/debug     the runtime introspection snapshot (JSON,
+                           observability/introspect.py)
 
 The gateway calls the Instance in-process and observes its requests under
 the gRPC method names when the Instance has metrics.  With QoS on (the
@@ -23,10 +25,9 @@ budget into admission as the request's deadline, and one that is not a
 number is refused with 400, as in the JAX gateway.  A `traceparent`
 header continues the caller's trace (or the Instance's tracer samples a
 new `http` root) and the root's context is echoed back in the same
-header.  The debug,
-profile and kernels routes wait for the ports of introspection and device
-profiling.  The body cap is 1 GiB, as in the JAX gateway: a full arena's
-snapshot is far past aiohttp's 1 MiB default.
+header.  The profile and kernels routes wait for the port of device
+profiling (ROADMAP item 7).  The body cap is 1 GiB, as in the JAX
+gateway: a full arena's snapshot is far past aiohttp's 1 MiB default.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from google.protobuf import json_format
 
 from gubernator_tpu_torch.api import pb
 from gubernator_tpu_torch.core.service import BatchTooLargeError, Instance
+from gubernator_tpu_torch.observability.introspect import build_debug_snapshot
 from gubernator_tpu_torch.observability.metrics import CONTENT_TYPE_LATEST
 from gubernator_tpu_torch.observability.tracing import TRACEPARENT
 from gubernator_tpu_torch.state.snapshot import SnapshotError
@@ -124,6 +126,9 @@ def build_app(instance: Instance) -> web.Application:
             headers={"Content-Type": CONTENT_TYPE_LATEST},
         )
 
+    async def admin_debug(request: web.Request) -> web.Response:
+        return web.json_response(build_debug_snapshot(instance))
+
     async def admin_topk(request: web.Request) -> web.Response:
         # hot-key view of the traffic analytics: 404 when the subsystem
         # is off, so a client can say why
@@ -169,6 +174,7 @@ def build_app(instance: Instance) -> web.Application:
     app.router.add_get("/v1/admin/snapshot", admin_snapshot)
     app.router.add_post("/v1/admin/restore", admin_restore)
     app.router.add_get("/v1/admin/topk", admin_topk)
+    app.router.add_get("/v1/admin/debug", admin_debug)
     return app
 
 

@@ -14,7 +14,9 @@ GUBER_HINT_*, tracing's GUBER_TRACE_*; GUBER_FAULTS is
 read by the daemon at boot, net/faults.py), the engine's lowering
 (GUBER_PALLAS), the serving pipeline's knobs, the env readers they use,
 and the daemon's env config (DaemonConfig with GUBER_SNAPSHOT_DIR and
-GUBER_SNAPSHOT_INTERVAL_MS, load_env_file, config_from_env: reference
+GUBER_SNAPSHOT_INTERVAL_MS, the front door's GUBER_FRONTDOOR_* and
+GUBER_SHM_*, the discovery backends' GUBER_K8S_* and GUBER_ETCD_* with
+etcd's TLS, load_env_file, config_from_env: reference
 cmd/gubernator/config.go:59-147, the same GUBER_* names and values as the JAX package's for every knob the
 port serves).  GUBER_TORCH_DEVICE names the daemon's device (default
 `cuda`; `cpu` runs the plain versions), the port's counterpart of the JAX
@@ -425,6 +427,43 @@ class DaemonConfig:
     trace_export: str = field(
         default_factory=lambda: _env("GUBER_TRACE_EXPORT"))
 
+    # The multi-process front door (frontdoor.py): 0 = the in-process gRPC
+    # server; N >= 1 starts N acceptor worker processes sharing the gRPC
+    # listen port via SO_REUSEPORT, each handing parsed request columns to
+    # this engine process over a shared-memory ring (core/shm_ring.py).
+    frontdoor_workers: int = 0
+    # slabs a worker ring = RPCs in flight a worker; beyond it workers
+    # shed in-band with shed_reason=ring_full
+    shm_ring_slots: int = 64
+    # the slab size: fits a max-size (1 MB) gRPC message in either record
+    # shape (raw bytes, or 1000-item columns and keys)
+    shm_slab_bytes: int = (1 << 20) + (1 << 16)
+    # the response encode's side: "worker" ships decision columns and each
+    # worker serializes the protobuf; "engine" serializes here
+    frontdoor_encode: str = "worker"
+    # wire-read coalescing: up to N RPCs of one worker event-loop tick
+    # share one slab and one ring publish; 0/1 = off
+    frontdoor_batch_reads: int = 8
+
+    # Kubernetes discovery (discovery/kubernetes.py)
+    k8s_namespace: str = ""
+    k8s_pod_ip: str = ""
+    k8s_pod_port: str = ""
+    k8s_endpoints_selector: str = ""
+    # etcd discovery (discovery/etcd.py); any GUBER_ETCD_TLS_* variable
+    # enables TLS (reference cmd/gubernator/config.go:149-192), its CA,
+    # cert and key file paths
+    etcd_addresses: List[str] = field(default_factory=list)
+    etcd_prefix: str = "/gubernator/peers/"
+    etcd_dial_timeout: float = 5.0
+    etcd_username: str = ""
+    etcd_password: str = ""
+    etcd_tls_enabled: bool = False
+    etcd_tls_cert: str = ""
+    etcd_tls_key: str = ""
+    etcd_tls_ca: str = ""
+    etcd_tls_skip_verify: bool = False
+
     behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
     health: HealthConfig = field(default_factory=HealthConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
@@ -433,6 +472,31 @@ class DaemonConfig:
     slo: SLOConfig = field(default_factory=SLOConfig)
     tiers: TierConfig = field(default_factory=TierConfig)
     leases: LeaseConfig = field(default_factory=LeaseConfig)
+
+    def etcd_ssl_context(self):
+        """The ssl.SSLContext of the etcd gateway connection, or None when
+        TLS is off (the reference's setupTLS, config.go:149-192)."""
+        if not self.etcd_tls_enabled:
+            return None
+        import ssl
+
+        ctx = ssl.create_default_context()
+        if self.etcd_tls_ca:
+            ctx.load_verify_locations(cafile=self.etcd_tls_ca)
+        if self.etcd_tls_cert and self.etcd_tls_key:
+            ctx.load_cert_chain(self.etcd_tls_cert, self.etcd_tls_key)
+        if self.etcd_tls_skip_verify:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        return ctx
+
+    @property
+    def k8s_enabled(self) -> bool:
+        return bool(self.k8s_namespace)
+
+    @property
+    def etcd_enabled(self) -> bool:
+        return bool(self.etcd_addresses)
 
 
 def _env(name: str, default: str = "") -> str:
@@ -527,22 +591,11 @@ def per_op_lowering() -> bool:
 # Knobs of subsystems the port has not ported yet: (variable, or a prefix
 # ending in "_", its default (None: any value), ROADMAP Queue 1 item).
 # config_from_env raises when one is set to anything but its default.
+# The front door (GUBER_FRONTDOOR_*, GUBER_SHM_*) and the discovery
+# backends (GUBER_K8S_*, GUBER_ETCD_*) are served; what is left is device
+# profiling and mesh serving.
 _UNPORTED = (
-    # discovery backends (discovery/etcd.py, discovery/kubernetes.py)
-    ("GUBER_K8S_NAMESPACE", "", "6e"),
-    ("GUBER_K8S_POD_IP", "", "6e"),
-    ("GUBER_K8S_POD_PORT", "", "6e"),
-    ("GUBER_K8S_ENDPOINTS_SELECTOR", "", "6e"),
-    ("GUBER_ETCD_ENDPOINTS", "", "6e"),
-    ("GUBER_ETCD_KEY_PREFIX", "/gubernator/peers/", "6e"),
-    ("GUBER_ETCD_DIAL_TIMEOUT", 5.0, "6e"),
-    ("GUBER_ETCD_USER", "", "6e"),
-    ("GUBER_ETCD_PASSWORD", "", "6e"),
-    ("GUBER_ETCD_TLS_", None, "6e"),
-    # the front door and device profiling
-    ("GUBER_FRONTDOOR_WORKERS", 0, 7),
-    ("GUBER_FRONTDOOR_", None, 7),
-    ("GUBER_SHM_", None, 7),
+    # device profiling (observability/devprof.py)
     ("GUBER_DEVPROF", "", 7),
     ("GUBER_DEVPROF_", None, 7),
     # mesh serving and GLOBAL across processes
@@ -630,6 +683,43 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
     c.snapshot_dir = _env("GUBER_SNAPSHOT_DIR")
     c.snapshot_interval_ms = env_int("GUBER_SNAPSHOT_INTERVAL_MS",
                                      c.snapshot_interval_ms, minimum=100)
+
+    # the front door, read as the JAX package reads it
+    c.frontdoor_workers = env_int("GUBER_FRONTDOOR_WORKERS",
+                                  c.frontdoor_workers, minimum=0)
+    c.shm_ring_slots = env_int("GUBER_SHM_RING_SLOTS", c.shm_ring_slots,
+                               minimum=2)
+    c.shm_slab_bytes = env_int("GUBER_SHM_SLAB_BYTES", c.shm_slab_bytes,
+                               minimum=1 << 16)
+    enc = _env("GUBER_FRONTDOOR_ENCODE", c.frontdoor_encode)
+    c.frontdoor_encode = enc if enc in ("worker", "engine") else "worker"
+    c.frontdoor_batch_reads = env_int("GUBER_FRONTDOOR_BATCH_READS",
+                                      c.frontdoor_batch_reads, minimum=0)
+
+    # the discovery backends
+    c.k8s_namespace = _env("GUBER_K8S_NAMESPACE")
+    c.k8s_pod_ip = _env("GUBER_K8S_POD_IP")
+    c.k8s_pod_port = _env("GUBER_K8S_POD_PORT")
+    c.k8s_endpoints_selector = _env("GUBER_K8S_ENDPOINTS_SELECTOR")
+    etcd = _env("GUBER_ETCD_ENDPOINTS")
+    c.etcd_addresses = [a.strip() for a in etcd.split(",") if a.strip()]
+    c.etcd_prefix = _env("GUBER_ETCD_KEY_PREFIX", c.etcd_prefix)
+    c.etcd_dial_timeout = float(_env("GUBER_ETCD_DIAL_TIMEOUT", "5"))
+    c.etcd_username = _env("GUBER_ETCD_USER")
+    c.etcd_password = _env("GUBER_ETCD_PASSWORD")
+    # any GUBER_ETCD_TLS_* variable switches the connection to TLS
+    # (reference config.go:136-140 anyHasPrefix)
+    c.etcd_tls_enabled = any(k.startswith("GUBER_ETCD_TLS_")
+                             for k in os.environ)
+    c.etcd_tls_cert = _env("GUBER_ETCD_TLS_CERT")
+    c.etcd_tls_key = _env("GUBER_ETCD_TLS_KEY")
+    c.etcd_tls_ca = _env("GUBER_ETCD_TLS_CA")
+    c.etcd_tls_skip_verify = _env("GUBER_ETCD_TLS_SKIP_VERIFY").lower() in (
+        "true", "1", "yes")
+    # reference config.go:118-133: the two backends are exclusive
+    if c.k8s_enabled and c.etcd_enabled:
+        raise ValueError(
+            "set only one of GUBER_K8S_NAMESPACE or GUBER_ETCD_ENDPOINTS")
 
     b = c.behaviors
     if _env("GUBER_BATCH_TIMEOUT"):

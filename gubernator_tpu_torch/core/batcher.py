@@ -14,6 +14,7 @@ analog of the reference's per-peer batching loop, peers.go:143-172):
     warm tier, by its `tier_maintain` on the same thread.
 
 `submit_rpc` hands whole serialized RPCs to the pipeline's raw-RPC lane,
+`submit_cols` a front-door worker's parsed columns to its column lane,
 and `apply_upserts` writes an owner's GLOBAL broadcast into the replica
 arena (engine.step([], upserts=...) in chunks, on the engine thread).
 
@@ -222,6 +223,16 @@ class WindowBatcher:
         if self.pipeline is None:
             return None
         return await self.pipeline.submit_rpc(data, peer_mode=peer_mode)
+
+    async def submit_cols(self, cols: tuple, name_lens, n: int,
+                          want_cols: bool = False):
+        """Serve a front-door worker's parsed request columns through the
+        pipeline (core/pipeline.py ColsJob); None means the hub must take
+        the protobuf path (always so without a pipeline)."""
+        if self.pipeline is None:
+            return None
+        return await self.pipeline.submit_cols(cols, name_lens, n,
+                                               want_cols=want_cols)
 
     async def apply_upserts(self, upserts: Sequence) -> None:
         """Write owner-broadcast replica state, in chunks of the engine's

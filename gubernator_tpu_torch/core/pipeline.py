@@ -84,8 +84,20 @@ owner's decisions: they do not count in this node's decisions.  The lane
 is gated by `rpc_enabled`, which set_peers closes across the swap of the
 ring and the drain re-reads on the engine thread, so an RPC that races a
 membership change takes the protobuf path instead of deciding keys this
-node no longer owns.  Not ported here: the front door's column jobs,
-lockstep (mesh) serving, the drain-stage spans and device profiling.
+node no longer owns.  Not ported here: lockstep (mesh) serving, the
+drain-stage spans and device profiling.
+
+The front door's column lane (`submit_cols`, ColsJob; frontdoor.py):
+request columns a worker process parsed with frontdoor_parse_req into its
+shared-memory slab are staged with pack_stack_fast straight from those
+views, as a ListJob's columns are, and finish to engine-encoded bytes or,
+with want_cols, to four int64 decision columns (status, limit, remaining,
+reset) that the worker encodes.  A ColsJob follows the port's order rules
+below, not the JAX pipeline's: a leftover goes first in the next drain
+(its slab stays valid until its completion), and one no stack takes runs
+through engine.process in its turn and resolves to the response list.
+The lane is standalone only: with ring peers installed submit_cols
+returns None.
 
 Two other departures from the JAX pipeline keep each key's requests in
 submission order, which the JAX pipeline loses once one drain's jobs
@@ -184,27 +196,9 @@ class ListJob:
         """Decode the job's items from the fetched words [K * S, B] (row k
         * S + shard); clflat is the stored-limit plane, given only when a
         mismatch flag fired."""
-        w = wflat[self.row, self.lane]
-        enc = (w >> 32) & 0xFFFFFFFF
-        # aggregated items (pos >= 0, host_router.cc decode_word_item): the
-        # word carries the run's r_start; each item's answer follows from
-        # its 0-based position in the run (bits 0-29) and the algorithm
-        # (bit 30: leaky answers reset 0 while under).  Plain items
-        # (pos == -1) decode the word directly.
-        pos = self.pos
-        synth = pos >= 0
-        p = np.where(synth, pos & 0x3FFFFFFF, 0)
-        algo1 = (pos >> 30) & 1
-        r_start = w & 0x7FFFFFFF
-        under = p < r_start
-        remaining = np.where(
-            synth, np.where(under, r_start - p - 1, 0),
-            w & 0x7FFFFFFF).tolist()
-        status = np.where(
-            synth, np.where(under, 0, 1), (w >> 31) & 1).tolist()
-        reset_plain = np.where(enc == 0, 0, now + enc - 1)
-        reset = np.where(
-            synth & (algo1 == 1) & under, 0, reset_plain).tolist()
+        status, remaining, reset = (
+            a.tolist() for a in _decode_words(
+                wflat[self.row, self.lane], self.pos, now))
         if clflat is not None:
             limits = clflat[self.row, self.lane].tolist()
         else:
@@ -214,6 +208,27 @@ class ListJob:
                           remaining=remaining[i], reset_time=reset[i])
             for i in range(self.n)
         ]
+
+
+def _decode_words(w, pos, now):
+    """(status, remaining, reset) of each item from its fetched word w.
+    Aggregated items (pos >= 0, host_router.cc decode_word_item): the word
+    carries the run's r_start; each item's answer follows from its 0-based
+    position in the run (bits 0-29) and the algorithm (bit 30: leaky
+    answers reset 0 while under).  Plain items (pos == -1) decode the word
+    directly."""
+    enc = (w >> 32) & 0xFFFFFFFF
+    synth = pos >= 0
+    p = np.where(synth, pos & 0x3FFFFFFF, 0)
+    algo1 = (pos >> 30) & 1
+    r_start = w & 0x7FFFFFFF
+    under = p < r_start
+    remaining = np.where(
+        synth, np.where(under, r_start - p - 1, 0), w & 0x7FFFFFFF)
+    status = np.where(synth, np.where(under, 0, 1), (w >> 31) & 1)
+    reset = np.where(synth & (algo1 == 1) & under, 0,
+                     np.where(enc == 0, 0, now + enc - 1))
+    return status, remaining, reset
 
 
 def _varint(v: int) -> bytes:
@@ -332,6 +347,84 @@ class RpcJob:
             self.row, self.lane, self.pos, resp_buf, item_off, item_len,
             climit=clflat)
         return bytes(resp_buf[:m]), item_off, item_len
+
+
+def requests_from_cols(cols: tuple, name_lens, n: int) -> List[RateLimitReq]:
+    """The requests of frontdoor_parse_req's columns, rebuilt: each hash
+    key is name + "_" + unique key, split at the name's length."""
+    kb, ke, hits, limits, durations, algos = cols
+    keys = bytes(kb)
+    out = []
+    prev = 0
+    for j in range(n):
+        end = int(ke[j])
+        nl = int(name_lens[j])
+        k = keys[prev:end]
+        out.append(RateLimitReq(
+            name=k[:nl].decode("utf-8", "replace"),
+            unique_key=k[nl + 1:].decode("utf-8", "replace"),
+            hits=int(hits[j]), limit=int(limits[j]),
+            duration=int(durations[j]), algorithm=int(algos[j])))
+        prev = end
+    return out
+
+
+class ColsJob:
+    """Request columns a front-door worker parsed into its shared-memory
+    slab (JAX pipeline.py ColsJob): (key_bytes, key_ends, hits, limits,
+    durations, algos) zero-copy views, plus the name lengths that split
+    each hash key back into name and unique key.  Staged like a ListJob
+    (pack_stack_fast over the columns), finished like an RpcJob: to
+    response bytes encoded in C, or with want_cols to the decision columns
+    (status, limit, remaining, reset int64 arrays) for a complete_cols
+    completion.  The parse applied the RpcJob parser's acceptance rules,
+    so the router takes every item; a job no stack takes runs through
+    engine.process (`reqs` rebuilds its requests) and resolves to the
+    response list.
+
+    No _cols slot on purpose: a leftover keeps reading the slab, which
+    stays valid until the hub completes the record."""
+
+    __slots__ = ("cols", "name_lens", "fut", "futs", "n", "row", "lane",
+                 "pos", "want_cols", "after")
+
+    def __init__(self, cols: tuple, name_lens, n: int, fut: asyncio.Future,
+                 want_cols: bool = False):
+        self.cols = cols
+        self.name_lens = name_lens
+        self.fut = fut
+        self.futs = None
+        self.n = n
+        self.row = None
+        self.lane = None
+        self.pos = None
+        self.want_cols = want_cols
+        self.after = 0
+
+    def columns(self):
+        return self.cols
+
+    @property
+    def reqs(self) -> List[RateLimitReq]:
+        return requests_from_cols(self.cols, self.name_lens, self.n)
+
+    def finish(self, pipeline, wflat, clflat, now):
+        if not self.want_cols:
+            resp_buf = pipeline._resp_buf(self.n * 64 + 64)
+            m = pipeline.engine.native.fastpath_encode_w(
+                wflat, self.cols[3], now, wflat.shape[-1], self.n,
+                self.row, self.lane, self.pos, resp_buf, climit=clflat)
+            return bytes(resp_buf[:m])
+        status, remaining, reset = _decode_words(
+            wflat[self.row, self.lane], self.pos, now)
+        if clflat is not None:
+            limits = clflat[self.row, self.lane].astype(np.int64)
+        else:
+            # a copy: cols[3] views the slab that complete_cols overwrites
+            # with these very columns
+            limits = self.cols[3][:self.n].astype(np.int64)
+        return (status.astype(np.int64), limits,
+                remaining.astype(np.int64), reset.astype(np.int64))
 
 
 def _pending_items(job) -> int:
@@ -605,6 +698,29 @@ class DispatchPipeline:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
         job = RpcJob(data, fut, peer_mode=peer_mode)
+        job.after = self._singles_seen
+        self._jobs.append(job)
+        self._pump()
+        return await fut
+
+    async def submit_cols(self, cols: tuple, name_lens, n: int,
+                          want_cols: bool = False):
+        """Serve request columns a front-door worker parsed (ColsJob):
+        (key_bytes, key_ends, hits, limits, durations, algos) views into
+        its slab, staged straight from there, and each item's name length
+        (to rebuild the requests where engine.process must take them).
+        Resolves to response bytes, to decision columns with want_cols, or
+        to the response list when the job ran through engine.process; None
+        means the hub must run the protobuf path (the lane's gate is
+        closed, or ring peers are installed: pack_stack_fast never
+        consults the ring)."""
+        if (not (self.enabled and self.rpc_enabled
+                 and self.engine._compact_enabled) or self._closed
+                or self._ring_peers):
+            return None
+        self._loop = asyncio.get_running_loop()
+        fut = self._loop.create_future()
+        job = ColsJob(cols, name_lens, n, fut, want_cols=want_cols)
         job.after = self._singles_seen
         self._jobs.append(job)
         self._pump()
@@ -1241,9 +1357,9 @@ class DispatchPipeline:
         """The drain's tenant lanes i32[kd, S, B] (in the arena's buffer)
         and decay flag, staged before the dispatch: each staged ListJob
         lane's tenant id (qos/fairness.tenant_of of its request), each
-        slot it touches labelled with its key for the top-K.  RpcJob lanes
-        stay tenant 0 ("other") and label nothing, as in the JAX pipeline:
-        the bytes lane never builds a request on the host.  Any failure
+        slot it touches labelled with its key for the top-K.  RpcJob and
+        ColsJob lanes stay tenant 0 ("other") and label nothing, as in the
+        JAX pipeline: neither lane builds a request on the host.  Any failure
         degrades to zero tenants and no decay: analytics never fails a
         drain."""
         eng = self.engine
@@ -1257,7 +1373,7 @@ class DispatchPipeline:
         try:
             an = self.analytics
             for job in res.staged:
-                if isinstance(job, RpcJob):
+                if isinstance(job, (RpcJob, ColsJob)):
                     continue
                 rows = job.row
                 for i in range(job.n):
@@ -1306,7 +1422,7 @@ class DispatchPipeline:
         if res.stats is not None:
             res.stats_host = res.stats.numpy().copy()
         outs = [job.finish(self, wflat, clflat, res.now)
-                if isinstance(job, RpcJob)
+                if isinstance(job, (RpcJob, ColsJob))
                 else job.finish(wflat, clflat, res.now)
                 for job in res.staged]
         res.fetch_done = time.monotonic()

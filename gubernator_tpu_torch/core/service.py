@@ -75,7 +75,9 @@ runs on the engine thread (`_quiesced`), and both need the Python slot
 tables.  The failure detector (net/health.py, `monitor` when the daemon
 runs one) calls `release_peer_leases` and `rehome` when a peer goes down,
 and `rehome` then `on_peer_recovered` (the GLOBAL hints' replay) when it
-comes back.  Not here yet: mesh serving (ROADMAP item 8).
+comes back.  `frontdoor` is the multi-process front door's hub
+(frontdoor.py) when the daemon runs one; it serves its workers' records on
+this Instance's event loop.  Not here yet: mesh serving (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -238,6 +240,14 @@ class Instance:
         # the failure detector watching this node's peers (net/health.py
         # HeartbeatMonitor), when the daemon runs one
         self.monitor = None
+        # the multi-process front door serving this node (frontdoor.py
+        # FrontdoorHub), when the daemon runs one
+        self.frontdoor = None
+
+    @property
+    def standalone(self) -> bool:
+        """No peer ring: this node owns every key."""
+        return not self.mesh_mode and self._picker.size() == 0
 
     def add_to_server(self, server, *, v1: bool = True,
                       peers: bool = True) -> None:

@@ -35,8 +35,23 @@ tables: with the native router it fails, is logged, and the survivors
 restart those keys cold) or handoff_skipped (no survivor), snapshot,
 teardown.  GUBER_FAULTS / GUBER_FAULTS_SEED install fault rules at boot
 (net/faults.py) on the seams peer_rpc, snapshot_io and engine_dispatch.
-etcd and Kubernetes discovery, the front door and mesh serving are not
-ported yet: their knobs raise in config_from_env.
+
+Discovery: GUBER_K8S_NAMESPACE builds discovery/kubernetes.py K8sPool and
+GUBER_ETCD_ENDPOINTS discovery/etcd.py EtcdPool (with TLS from
+GUBER_ETCD_TLS_*) in place of the static pool, in the JAX daemon's order
+(Kubernetes, etcd, static).  Those pools watch membership themselves, so
+the heartbeat detector runs only beside a static pool, as in the JAX
+daemon.
+
+The front door: GUBER_FRONTDOOR_WORKERS=N > 0 starts frontdoor.py's
+FrontdoorHub in place of the in-process gRPC server: N worker processes
+share GUBER_GRPC_ADDRESS's port and hand their records to this process
+over shared-memory rings (GUBER_SHM_RING_SLOTS, GUBER_SHM_SLAB_BYTES,
+GUBER_FRONTDOOR_ENCODE, GUBER_FRONTDOOR_BATCH_READS).  The drain phase
+starts by setting its draining flag (the workers shed in-band from then
+on), and the hub stops after the handoff, before the snapshot, so the
+snapshot holds the last decision served.  Device profiling and mesh
+serving are not ported yet: their knobs raise in config_from_env.
 """
 
 from __future__ import annotations
@@ -69,7 +84,10 @@ class Daemon:
         self.instance: Optional[Instance] = None
         self.grpc: Optional[GrpcServer] = None
         self.http: Optional[HttpGateway] = None
-        self.pool: Optional[StaticPool] = None
+        # the discovery pool: StaticPool, K8sPool or EtcdPool
+        self.pool = None
+        # frontdoor.py FrontdoorHub (GUBER_FRONTDOOR_WORKERS > 0)
+        self.frontdoor = None
         # net/health.py HeartbeatMonitor (static pools)
         self.monitor: Optional[HeartbeatMonitor] = None
         # phase names appended as stop() runs them, in order: the JAX
@@ -140,10 +158,44 @@ class Daemon:
         if c.leases.sweep_interval_ms > 0:
             self._lease_sweep_task = asyncio.create_task(
                 self._lease_sweep_loop(c.leases.sweep_interval_ms))
-        self.grpc = GrpcServer(self.instance, c.grpc_listen_address)
-        await self.grpc.start()
-        log.info("gRPC listening on %s", self.grpc.address)
-        if c.static_peers:
+        if c.frontdoor_workers > 0 and not self.instance.mesh_mode:
+            # the multi-process front door: the workers share the gRPC
+            # port; this process binds no public gRPC port of its own
+            from gubernator_tpu_torch.frontdoor import FrontdoorHub
+            self.frontdoor = FrontdoorHub(
+                self.instance, workers=c.frontdoor_workers,
+                ring_slots=c.shm_ring_slots, slab_bytes=c.shm_slab_bytes,
+                listen_address=c.grpc_listen_address,
+                encode=c.frontdoor_encode,
+                batch_reads=c.frontdoor_batch_reads)
+            await self.frontdoor.start()
+            self.instance.frontdoor = self.frontdoor
+            self.instance.metrics.watch_frontdoor(self.frontdoor)
+            log.info("frontdoor: %d workers on %s (engine pid %d)",
+                     c.frontdoor_workers, self.frontdoor.address,
+                     os.getpid())
+        else:
+            self.grpc = GrpcServer(self.instance, c.grpc_listen_address)
+            await self.grpc.start()
+            log.info("gRPC listening on %s", self.grpc.address)
+        if c.k8s_enabled:
+            from gubernator_tpu_torch.discovery.kubernetes import K8sPool
+            self.pool = K8sPool(
+                namespace=c.k8s_namespace, pod_ip=c.k8s_pod_ip,
+                pod_port=c.k8s_pod_port, selector=c.k8s_endpoints_selector,
+                on_update=self.instance.set_peers)
+            await self.pool.start()
+        elif c.etcd_enabled:
+            from gubernator_tpu_torch.discovery.etcd import EtcdPool
+            self.pool = EtcdPool(
+                endpoints=c.etcd_addresses,
+                advertise_address=c.advertise_address,
+                on_update=self.instance.set_peers,
+                prefix=c.etcd_prefix, username=c.etcd_username,
+                password=c.etcd_password,
+                ssl_context=c.etcd_ssl_context())
+            await self.pool.start()
+        elif c.static_peers:
             self.pool = StaticPool(addresses=c.static_peers,
                                    advertise_address=c.advertise_address,
                                    on_update=self.instance.set_peers)
@@ -178,13 +230,16 @@ class Daemon:
              ships to the survivors under drain_timeout
              (Instance.migrate_keys); handoff_skipped when this node is
              the whole ring;
-          5. snapshot, with GUBER_SNAPSHOT_DIR, after the handoff;
-          6. teardown: discovery, http, grpc, the instance
+          5. frontdoor_stop, with the front door: its workers exit and
+             its segments are unlinked;
+          6. snapshot, with GUBER_SNAPSHOT_DIR, after the handoff;
+          7. teardown: discovery, http, grpc, the instance
              (main.go:127-139 order)."""
         await self._stop_monitor()
         await self._drain_requests()
         await self._global_flush()
         await self._handoff_keys()
+        await self._stop_frontdoor()
         await self._final_snapshot()
         await self._teardown()
 
@@ -201,6 +256,10 @@ class Daemon:
 
     async def _drain_requests(self) -> None:
         self._phase("drain")
+        if self.frontdoor is not None:
+            # the workers shed new work in-band (reason `draining`) from
+            # here on, with no ring round trip
+            self.frontdoor.set_draining()
         if self.instance is None:
             return
         try:
@@ -241,6 +300,17 @@ class Daemon:
         except Exception:
             log.exception("departure handoff failed; survivors restart "
                           "these keys cold")
+
+    async def _stop_frontdoor(self) -> None:
+        """Stop the front door's workers and unlink its segments, so the
+        snapshot after it holds the last decision they were answered."""
+        if self.frontdoor is None:
+            return
+        self._phase("frontdoor_stop")
+        try:
+            await self.frontdoor.stop()
+        except Exception:
+            log.exception("stopping the front door failed")
 
     async def _final_snapshot(self) -> None:
         if self._snapshot_task is None:

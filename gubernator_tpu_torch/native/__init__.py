@@ -15,6 +15,12 @@ race to build it each see a whole library.  It is rebuilt when the source
 is newer.  Without a toolchain `available()` is False and the build's error
 is kept in `build_error()`; the engine then uses its Python slot tables,
 or raises when the router was asked for (`use_native="on"`).
+
+The front door's worker processes (frontdoor.py) call two of its functions
+that hold no router state, `frontdoor_parse_req` and
+`frontdoor_encode_resp`.  A worker calls `prebuilt_only()` first: it then
+loads the library the engine process built before spawning it and never
+runs g++ itself, so no two workers race a build into the same output.
 """
 
 from __future__ import annotations
@@ -38,6 +44,15 @@ LIBRARY = BUILD_DIR / "libhost_router.so"
 _lib = None
 _lib_lock = threading.Lock()
 _error: Optional[str] = None
+# False in a front-door worker: load what the engine built, never build
+_build_allowed = True
+
+
+def prebuilt_only() -> None:
+    """Never build in this process: load the library as it stands (a
+    missing or stale one makes available() False)."""
+    global _build_allowed
+    _build_allowed = False
 
 
 def _build() -> None:
@@ -128,6 +143,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.router_occupancy.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, i64p, i64p, i64p,
     ]
+    lib.frontdoor_parse_req.restype = ctypes.c_int64
+    lib.frontdoor_parse_req.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        u8p, i64p, i64p, i64p, i64p, i32p, i32p,
+    ]
+    lib.frontdoor_encode_resp.restype = ctypes.c_int64
+    lib.frontdoor_encode_resp.argtypes = [
+        i64p, i64p, i64p, i64p, i32p, ctypes.c_int64, u8p, ctypes.c_int64,
+    ]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -137,6 +161,10 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         try:
             if _stale():
+                if not _build_allowed:
+                    raise RuntimeError(
+                        f"{LIBRARY} is missing or older than its source, "
+                        "and this process does not build it")
                 _build()
             lib = ctypes.CDLL(str(LIBRARY))
             _bind(lib)
@@ -162,6 +190,48 @@ def build_error() -> Optional[str]:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def frontdoor_parse_req(data: bytes, key_bytes: np.ndarray,
+                        key_ends: np.ndarray, hits: np.ndarray,
+                        limits: np.ndarray, durations: np.ndarray,
+                        algos: np.ndarray, name_lens: np.ndarray,
+                        max_items: int) -> int:
+    """Stateless worker-side parse: serialized GetRateLimitsReq -> request
+    columns in caller-owned buffers (a front-door worker writes straight
+    into its shared-memory slab, core/shm_ring.py).  It applies the
+    acceptance rules of the router's fastpath_parse_stack.  Returns n >= 0
+    (requests parsed) or a negative fallback code (the worker then ships
+    the raw bytes); -1 also when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return -1
+    buf = ctypes.cast(ctypes.c_char_p(data), ctypes.POINTER(ctypes.c_uint8))
+    return lib.frontdoor_parse_req(
+        buf, len(data), max_items, key_bytes.nbytes,
+        _ptr(key_bytes, ctypes.c_uint8), _ptr(key_ends, ctypes.c_int64),
+        _ptr(hits, ctypes.c_int64), _ptr(limits, ctypes.c_int64),
+        _ptr(durations, ctypes.c_int64), _ptr(algos, ctypes.c_int32),
+        _ptr(name_lens, ctypes.c_int32))
+
+
+def frontdoor_encode_resp(status: np.ndarray, limit: np.ndarray,
+                          remaining: np.ndarray, reset: np.ndarray,
+                          flags, n: int, out: np.ndarray) -> int:
+    """Stateless worker-side encode: decision columns (from the
+    completion-ring slab) -> serialized GetRateLimitsResp bytes in `out`.
+    flags is an int32 column (0 = plain decision, 1..5 = a shed reason,
+    shm_ring.SHED_REASON_CODES) or None.  Returns the byte length, or -1
+    (out too small, or no library) / -2 (unknown shed code): the caller
+    then encodes with protobuf."""
+    lib = _load()
+    if lib is None:
+        return -1
+    fl = _ptr(flags, ctypes.c_int32) if flags is not None else None
+    return lib.frontdoor_encode_resp(
+        _ptr(status, ctypes.c_int64), _ptr(limit, ctypes.c_int64),
+        _ptr(remaining, ctypes.c_int64), _ptr(reset, ctypes.c_int64),
+        fl, n, _ptr(out, ctypes.c_uint8), out.nbytes)
 
 
 class NativeRouter:

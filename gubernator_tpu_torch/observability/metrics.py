@@ -35,21 +35,38 @@ with the same names and labels:
   guber_peer_health_state{peer},
   guber_ring_rehomes_total{direction}           failure handling and live
                                                 migration
+  guber_tpu_frontdoor_workers,
+  guber_tpu_frontdoor_rpcs_total{worker},
+  guber_tpu_frontdoor_sheds_total{worker},
+  guber_tpu_frontdoor_restarts_total,
+  guber_tpu_frontdoor_encode_total{worker,path},
+  guber_tpu_frontdoor_batched_rpcs_total{worker},
+  guber_tpu_frontdoor_batch_flushes_total{worker},
+  guber_tpu_frontdoor_trace_drops_total{worker},
+  guber_tpu_shm_ring_depth{worker},
+  guber_tpu_shm_ring_stalls_total{worker}       the front door
+                                                (watch_frontdoor)
+
+The stage histogram's rolling p50/p95/p99 per stage (`stage_snapshot`,
+the `stages` section of /v1/admin/debug) come from `_StageRing`s fed by
+observe_stage.
 
 The cache families are read from the native router (its resident key
 count, hits and misses) at scrape time.  This module imports
 prometheus_client, so the serving core never imports it: an Instance has
 no registry unless one is given (`Instance(metrics=Metrics())`, which the
 daemon always does).  The JAX package's other families (pipeline,
-analytics, devprof, the drain stages and their rolling
-quantiles) are left for the observability item of the port's ROADMAP.  `observe_shed` only counts: the admission controller
-feeds each shed to the SLO engine itself.
+analytics, devprof, the drain stages) are left for the observability
+item of the port's ROADMAP.  `observe_shed` only counts: the admission
+controller feeds each shed to the SLO engine itself.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 from prometheus_client import (  # noqa: F401  (CONTENT_TYPE_LATEST re-exported)
     CONTENT_TYPE_LATEST,
@@ -59,6 +76,61 @@ from prometheus_client import (  # noqa: F401  (CONTENT_TYPE_LATEST re-exported)
     Histogram,
     generate_latest,
 )
+
+
+# Canonical request-lifecycle stage names (JAX observability/metrics.py
+# STAGES): the stage histogram and the rolling quantile snapshot order by
+# them.  The port observes peer_forward and global_broadcast so far.
+STAGES = (
+    "enqueue",          # submit -> appended to the pending window
+    "admission_wait",   # time queued before a dispatch takes the request
+    "window_fill",      # host-side window build (pack keys, stage cols)
+    "device_dispatch",  # engine thread: device step launch through done
+    "drain_commit",     # fetch thread: device->host readback + replies
+    "peer_forward",     # non-owner hop: peer-lane RPC round trip
+    "global_broadcast", # GLOBAL lane: owner's broadcast to all peers
+)
+
+
+class _StageRing:
+    """Fixed-size ring of recent stage durations (seconds) behind one
+    lock: the rolling-window source of the p50/p95/p99 snapshot that
+    /v1/admin/debug reads in-process."""
+
+    __slots__ = ("_buf", "_size", "_idx", "_count", "_lock")
+
+    def __init__(self, size: int = 1024):
+        self._buf = [0.0] * size
+        self._size = size
+        self._idx = 0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float) -> None:
+        with self._lock:
+            self._buf[self._idx] = seconds
+            self._idx = (self._idx + 1) % self._size
+            if self._count < self._size:
+                self._count += 1
+
+    def snapshot(self) -> Optional[dict]:
+        with self._lock:
+            n = self._count
+            if n == 0:
+                return None
+            samples = sorted(self._buf[:n] if n < self._size
+                             else list(self._buf))
+
+        def pct(p: float) -> float:
+            return samples[min(n - 1, int(math.ceil(p * n)) - 1)] * 1000.0
+
+        return {
+            "count": n,
+            "p50_ms": pct(0.50),
+            "p95_ms": pct(0.95),
+            "p99_ms": pct(0.99),
+            "mean_ms": sum(samples) / n * 1000.0,
+        }
 
 
 class Metrics:
@@ -295,6 +367,79 @@ class Metrics:
             ["reason"],
             registry=self.registry,
         )
+        self._stage_rings: Dict[str, _StageRing] = {}
+        self._stage_rings_lock = threading.Lock()
+        # the multi-process front door (frontdoor.py): per-worker counters
+        # live in the shared-memory status block and are read here at
+        # scrape time (watch_frontdoor)
+        self.frontdoor_workers = Gauge(
+            "guber_tpu_frontdoor_workers",
+            "Configured frontdoor acceptor worker processes "
+            "(0 = classic single-process serving).",
+            registry=self.registry,
+        )
+        self.frontdoor_rpcs = Counter(
+            "guber_tpu_frontdoor_rpcs_total",
+            "RPCs completed through the frontdoor shm ring, per worker.",
+            ["worker"],
+            registry=self.registry,
+        )
+        self.frontdoor_sheds = Counter(
+            "guber_tpu_frontdoor_sheds_total",
+            "Requests shed in-band by frontdoor workers (draining / "
+            "saturated / ring_full), per worker.",
+            ["worker"],
+            registry=self.registry,
+        )
+        self.frontdoor_restarts = Counter(
+            "guber_tpu_frontdoor_restarts_total",
+            "Frontdoor worker crash-restarts performed by the hub.",
+            registry=self.registry,
+        )
+        self.shm_ring_depth = Gauge(
+            "guber_tpu_shm_ring_depth",
+            "Published-but-unconsumed submissions in each worker's shm "
+            "ring at scrape time.",
+            ["worker"],
+            registry=self.registry,
+        )
+        self.shm_ring_stalls = Counter(
+            "guber_tpu_shm_ring_stalls_total",
+            "Producer-side ring-full events (every slab in flight; the "
+            "worker shed in-band with reason ring_full), per worker.",
+            ["worker"],
+            registry=self.registry,
+        )
+        self.frontdoor_encode = Counter(
+            "guber_tpu_frontdoor_encode_total",
+            "GetRateLimits responses delivered per worker, by encode "
+            "path (worker = encoded from completion-ring decision "
+            "columns; engine = pre-serialized on the engine).",
+            ["worker", "path"],
+            registry=self.registry,
+        )
+        self.frontdoor_batched_rpcs = Counter(
+            "guber_tpu_frontdoor_batched_rpcs_total",
+            "RPCs coalesced into multi-RPC columnar slab records by "
+            "batched wire reads, per worker.",
+            ["worker"],
+            registry=self.registry,
+        )
+        self.frontdoor_batch_flushes = Counter(
+            "guber_tpu_frontdoor_batch_flushes_total",
+            "Multi-RPC batch records published to the shm ring "
+            "(KIND_BATCH_COLS), per worker.",
+            ["worker"],
+            registry=self.registry,
+        )
+        self.frontdoor_trace_drops = Counter(
+            "guber_tpu_frontdoor_trace_drops_total",
+            "Sampled trace contexts dropped at the shm hand-off, per "
+            "worker (raw-record fallback, or non-first members of a "
+            "coalesced batch).",
+            ["worker"],
+            registry=self.registry,
+        )
 
     def watch_engine(self, engine) -> None:
         """Export the engine's cache counters at scrape time: the
@@ -424,9 +569,75 @@ class Metrics:
 
     def observe_stage(self, stage: str, seconds: float) -> None:
         """One stage's wall time (peer_forward, global_broadcast) into the
-        stage histogram, in milliseconds."""
-        self.stage_duration.labels(stage=stage).observe(
-            max(0.0, seconds) * 1000.0)
+        stage histogram, in milliseconds, and into the stage's rolling
+        ring (stage_snapshot)."""
+        seconds = max(0.0, seconds)
+        self.stage_duration.labels(stage=stage).observe(seconds * 1000.0)
+        ring = self._stage_rings.get(stage)
+        if ring is None:
+            with self._stage_rings_lock:
+                ring = self._stage_rings.setdefault(stage, _StageRing())
+        ring.observe(seconds)
+
+    def stage_snapshot(self) -> Dict[str, dict]:
+        """Rolling per-stage quantiles: one read of every stage ring,
+        keyed by stage name in STAGES order (stages with no samples yet
+        omitted, stages outside STAGES last)."""
+        out: Dict[str, dict] = {}
+        with self._stage_rings_lock:
+            rings = dict(self._stage_rings)
+        for stage in STAGES:
+            ring = rings.pop(stage, None)
+            if ring is not None:
+                snap = ring.snapshot()
+                if snap is not None:
+                    out[stage] = snap
+        for stage, ring in rings.items():
+            snap = ring.snapshot()
+            if snap is not None:
+                out[stage] = snap
+        return out
+
+    def watch_frontdoor(self, hub) -> None:
+        """Export the front door hub's per-worker shared-memory counters at
+        scrape time: the workers bump int64 cells of the status block (no
+        prometheus client in the worker processes), and this hook
+        advances the counters here by the change since the last scrape."""
+        from gubernator_tpu_torch.core import shm_ring as sr
+        last: Dict[tuple, int] = {}
+
+        def delta(w: str, field: int, counter, **labels) -> None:
+            cur = hub.status.get_w(int(w), field)
+            prev = last.get((w, field), 0)
+            if cur > prev:
+                counter.labels(worker=w, **labels).inc(cur - prev)
+                last[(w, field)] = cur
+
+        def refresh():
+            self.frontdoor_workers.set(hub.workers)
+            if hub.status is None:
+                return
+            for i in range(hub.workers):
+                w = str(i)
+                delta(w, sr.W_RPCS, self.frontdoor_rpcs)
+                delta(w, sr.W_SHEDS, self.frontdoor_sheds)
+                delta(w, sr.W_STALLS, self.shm_ring_stalls)
+                delta(w, sr.W_ENCODES, self.frontdoor_encode, path="worker")
+                delta(w, sr.W_ENC_FALLBACK, self.frontdoor_encode,
+                      path="engine")
+                delta(w, sr.W_BATCH_RPCS, self.frontdoor_batched_rpcs)
+                delta(w, sr.W_BATCH_FLUSHES, self.frontdoor_batch_flushes)
+                delta(w, sr.W_TRACE_DROPS, self.frontdoor_trace_drops)
+                if hub.chans:
+                    self.shm_ring_depth.labels(worker=w).set(
+                        hub.chans[i].sub_depth())
+            cur = hub.restarts
+            prev = last.get(("", "restarts"), 0)
+            if cur > prev:
+                self.frontdoor_restarts.inc(cur - prev)
+                last[("", "restarts")] = cur
+
+        self._scrape_hooks.append(refresh)
 
     def observe_snapshot(self, seconds: float, size_bytes: int,
                          ok: bool) -> None:

@@ -2,10 +2,11 @@
 
 A copy of `gubernator_tpu/observability/tracing.py` (JAX-free), with its
 one config import pointed at the port's.  The port wires the peer plane's
-spans so far: the servers' roots (`rpc`, `peer_rpc`, `http`), the
-`peer_forward` hop and the `global_broadcast` root; the pipeline's
-drain-stage spans and the `/v1/admin/debug` reader wait for ROADMAP item
-7.
+spans so far: the servers' roots (`rpc`, `peer_rpc`, `http`; the front
+door's hub roots `rpc` for a columnar record that carried a traceparent),
+the `peer_forward` hop and the `global_broadcast` root, and
+`/v1/admin/debug` (observability/introspect.py) reads the recent traces;
+the pipeline's drain-stage spans wait for ROADMAP item 7.
 
 No OpenTelemetry dependency — the serving path needs span *recording* to
 cost nanoseconds when sampling is off, and the otel SDK's context plumbing

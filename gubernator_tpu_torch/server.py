@@ -21,6 +21,12 @@ continuing the caller's `traceparent` invocation metadata (the peer lane
 sends it, net/peers.py), so a forwarded request is one trace across the
 two nodes.
 
+The bodies serve the front door's records too (frontdoor.py): its
+engine-side context shim has `time_remaining`, `invocation_metadata` and
+an `abort` that takes integer status codes (`integer_codes`, _abort), so
+the engine process needs no grpc; its RAW records (small and GLOBAL
+RPCs) take the protobuf path.
+
 The protobuf path carries the caller's gRPC deadline
 (`context.time_remaining()`) into QoS admission and its source address
 into the lease book (`_client_id_from`); an RPC with CONCURRENCY items
@@ -57,10 +63,24 @@ _UPDATE_PEER_GLOBALS = "/pb.gubernator.PeersV1/UpdatePeerGlobals"
 _TRANSFER_BUCKETS = "/pb.gubernator.PeersV1/TransferBuckets"
 
 
-def _status(name: str):
-    """grpc.StatusCode.<name>, resolved only when an abort needs it."""
-    import grpc
-    return getattr(grpc.StatusCode, name)
+# gRPC status codes by name (the first element of each grpc.StatusCode
+# value): a context whose `integer_codes` is true, such as the front
+# door's engine-side shim (frontdoor.py), aborts with these, so the
+# engine process needs no grpc
+STATUS_CODES = {"INVALID_ARGUMENT": 3, "RESOURCE_EXHAUSTED": 8,
+                "FAILED_PRECONDITION": 9, "OUT_OF_RANGE": 11,
+                "UNIMPLEMENTED": 12, "INTERNAL": 13}
+
+
+async def _abort(context, name: str, message: str) -> None:
+    """context.abort with grpc.StatusCode.<name>, resolved only when an
+    abort needs it, or with its integer code for an integer-code
+    context."""
+    if getattr(context, "integer_codes", False):
+        await context.abort(STATUS_CODES[name], message)
+    else:
+        import grpc
+        await context.abort(getattr(grpc.StatusCode, name), message)
 
 
 def _observe(inst: Instance, method: str, start: float, ok: bool) -> None:
@@ -161,8 +181,8 @@ async def serve_get_rate_limits_inner(inst: Instance, data: bytes, context):
         request = pb.GetRateLimitsReq.FromString(data)
     except Exception:
         _observe(inst, _GET_RATE_LIMITS, start, False)
-        await context.abort(_status("INVALID_ARGUMENT"),
-                            "malformed GetRateLimitsReq")
+        await _abort(context, "INVALID_ARGUMENT",
+                     "malformed GetRateLimitsReq")
     deadline = None
     if inst.qos is not None:
         remaining = None
@@ -179,7 +199,7 @@ async def serve_get_rate_limits_inner(inst: Instance, data: bytes, context):
             reqs, deadline=deadline, client_id=client_id)
     except BatchTooLargeError as e:
         _observe(inst, _GET_RATE_LIMITS, start, False)
-        await context.abort(_status("OUT_OF_RANGE"), str(e))
+        await _abort(context, "OUT_OF_RANGE", str(e))
     _observe(inst, _GET_RATE_LIMITS, start, True)
     return "resps", resps
 
@@ -200,15 +220,15 @@ async def serve_peer_rate_limits(inst: Instance, data: bytes,
         request = pb.GetPeerRateLimitsReq.FromString(data)
     except Exception:
         _observe(inst, _GET_PEER_RATE_LIMITS, start, False)
-        await context.abort(_status("INVALID_ARGUMENT"),
-                            "malformed GetPeerRateLimitsReq")
+        await _abort(context, "INVALID_ARGUMENT",
+                     "malformed GetPeerRateLimitsReq")
     try:
         resps = await inst.get_peer_rate_limits(
             [pb.req_from_pb(r) for r in request.requests],
             client_id=_client_id_from(context))
     except BatchTooLargeError as e:
         _observe(inst, _GET_PEER_RATE_LIMITS, start, False)
-        await context.abort(_status("OUT_OF_RANGE"), str(e))
+        await _abort(context, "OUT_OF_RANGE", str(e))
     _observe(inst, _GET_PEER_RATE_LIMITS, start, True)
     return pb.GetPeerRateLimitsResp(
         rate_limits=[pb.resp_to_pb(r) for r in resps]).SerializeToString()
@@ -246,10 +266,10 @@ async def serve_transfer_buckets(inst: Instance, data: bytes,
         ack = await inst.transfer_buckets(data)
     except MigrationError as e:
         _observe(inst, _TRANSFER_BUCKETS, start, False)
-        await context.abort(_status("INVALID_ARGUMENT"), str(e))
+        await _abort(context, "INVALID_ARGUMENT", str(e))
     except Exception as e:
         _observe(inst, _TRANSFER_BUCKETS, start, False)
-        await context.abort(_status("FAILED_PRECONDITION"), str(e))
+        await _abort(context, "FAILED_PRECONDITION", str(e))
     _observe(inst, _TRANSFER_BUCKETS, start, True)
     return ack
 

@@ -169,12 +169,71 @@ def test_malformed_env_file_raises_in_both(clean_env, tmp_path):
             mod.config_from_env(str(f))
 
 
+def _front_door_and_discovery(c):
+    """The front door's and the discovery backends' knobs, from either
+    package's DaemonConfig."""
+    return {
+        "workers": c.frontdoor_workers, "slots": c.shm_ring_slots,
+        "slab": c.shm_slab_bytes, "encode": c.frontdoor_encode,
+        "batch_reads": c.frontdoor_batch_reads,
+        "k8s": (c.k8s_namespace, c.k8s_pod_ip, c.k8s_pod_port,
+                c.k8s_endpoints_selector, c.k8s_enabled),
+        "etcd": (c.etcd_addresses, c.etcd_prefix, c.etcd_dial_timeout,
+                 c.etcd_username, c.etcd_password, c.etcd_enabled),
+        "etcd_tls": (c.etcd_tls_enabled, c.etcd_tls_cert, c.etcd_tls_key,
+                     c.etcd_tls_ca, c.etcd_tls_skip_verify),
+    }
+
+
+@pytest.mark.parametrize("name,value,read", [
+    ("GUBER_K8S_NAMESPACE", "default",
+     lambda c: c.k8s_namespace == "default" and c.k8s_enabled),
+    ("GUBER_ETCD_ENDPOINTS", "http://e1:2379, http://e2:2379,",
+     lambda c: c.etcd_addresses == ["http://e1:2379", "http://e2:2379"]),
+    ("GUBER_ETCD_TLS_CA", "/etc/ca.pem",
+     lambda c: c.etcd_tls_enabled and c.etcd_tls_ca == "/etc/ca.pem"),
+    ("GUBER_K8S_POD_IP", "10.0.0.7", lambda c: c.k8s_pod_ip == "10.0.0.7"),
+    ("GUBER_FRONTDOOR_WORKERS", "2", lambda c: c.frontdoor_workers == 2),
+])
+def test_front_door_and_discovery_knob_reads_as_the_jax_function(
+        clean_env, name, value, read):
+    """The front door's and the discovery backends' knobs are served now
+    (they raised while unported): the port's config_from_env reads each
+    as the JAX function does, the rest of the config unchanged."""
+    clean_env.setenv(name, value)
+    got_j, got_p = _both()
+    assert got_p == got_j
+    c = pconfig.config_from_env()
+    assert read(c)
+    assert (_front_door_and_discovery(c)
+            == _front_door_and_discovery(jconfig.config_from_env()))
+
+
+@pytest.mark.parametrize("env", [
+    {"GUBER_SHM_RING_SLOTS": "1", "GUBER_SHM_SLAB_BYTES": "1000",
+     "GUBER_FRONTDOOR_ENCODE": "bogus", "GUBER_FRONTDOOR_BATCH_READS": "-3"},
+    {"GUBER_SHM_RING_SLOTS": "16", "GUBER_FRONTDOOR_ENCODE": "engine",
+     "GUBER_FRONTDOOR_BATCH_READS": "0", "GUBER_ETCD_KEY_PREFIX": "/p/",
+     "GUBER_ETCD_DIAL_TIMEOUT": "2.5", "GUBER_ETCD_USER": "u",
+     "GUBER_ETCD_TLS_SKIP_VERIFY": "yes", "GUBER_K8S_POD_PORT": "81",
+     "GUBER_K8S_ENDPOINTS_SELECTOR": "app=g"},
+], ids=["floors", "every_knob"])
+def test_front_door_and_discovery_knobs_clamp_as_the_jax_function(clean_env,
+                                                                  env):
+    for k, v in env.items():
+        clean_env.setenv(k, v)
+    assert (_front_door_and_discovery(pconfig.config_from_env())
+            == _front_door_and_discovery(jconfig.config_from_env()))
+
+
+def test_both_discovery_backends_raise_in_both(clean_env):
+    clean_env.setenv("GUBER_K8S_NAMESPACE", "ns")
+    clean_env.setenv("GUBER_ETCD_ENDPOINTS", "http://e:2379")
+    got_j, got_p = _both()
+    assert got_p == got_j and got_p[0] == "ValueError"
+
+
 @pytest.mark.parametrize("name,value,item", [
-    ("GUBER_K8S_NAMESPACE", "default", "6e"),
-    ("GUBER_ETCD_ENDPOINTS", "http://e1:2379", "6e"),
-    ("GUBER_ETCD_TLS_CA", "/etc/ca.pem", "6e"),
-    ("GUBER_K8S_POD_IP", "10.0.0.7", "6e"),
-    ("GUBER_FRONTDOOR_WORKERS", "2", 7),
     ("GUBER_DEVPROF", "periodic", 7),
     ("GUBER_MESH_PEERS", "127.0.0.1:1", 8),
     ("GUBER_MESH_COORDINATOR", "127.0.0.1:2", 8),

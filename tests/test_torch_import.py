@@ -54,7 +54,12 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.observability.tracing",
                   "gubernator_tpu_torch.discovery.static",
                   "gubernator_tpu_torch.net.health",
-                  "gubernator_tpu_torch.state.migrate")
+                  "gubernator_tpu_torch.state.migrate",
+                  "gubernator_tpu_torch.frontdoor",
+                  "gubernator_tpu_torch.frontdoor_replay",
+                  "gubernator_tpu_torch.core.shm_ring",
+                  "gubernator_tpu_torch.observability.introspect",
+                  "gubernator_tpu_torch.cmd.cluster_main")
 
 
 @pytest.mark.parametrize("module", _ENTRY_MODULES)
@@ -159,3 +164,64 @@ def test_peer_client_connects_without_grpc_through_its_transport_seam():
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[9, 8, 7] ['x']"
+
+
+# what a front-door worker process imports (frontdoor.py worker_main,
+# frontdoor_replay.py replay_main and the calls they make)
+_WORKER_IMPORTS = ("gubernator_tpu_torch.frontdoor",
+                   "gubernator_tpu_torch.frontdoor_replay",
+                   "gubernator_tpu_torch.core.shm_ring",
+                   "gubernator_tpu_torch.native",
+                   "gubernator_tpu_torch.api.pb",
+                   "gubernator_tpu_torch.api.grpc_api",
+                   "gubernator_tpu_torch.api.types",
+                   "gubernator_tpu_torch.qos.admission",
+                   "gubernator_tpu_torch.observability.tracing")
+
+
+def test_front_door_worker_imports_load_no_torch_jax_or_jax_package():
+    """In a fresh interpreter, the front door worker's import set (gRPC
+    and protobuf included) loads neither torch, jax nor the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {_WORKER_IMPORTS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gubernator_tpu_torch import native\n"
+        "native.prebuilt_only()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'gubernator_tpu')]\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", res.stdout
+
+
+def test_front_door_hub_engine_side_loads_no_grpc():
+    """The hub's engine side (frontdoor.py with server.py and the
+    Instance) loads no grpc: a hub is built on a CPU Instance and its
+    context shim aborts with integer codes."""
+    code = (
+        "import sys, asyncio\n"
+        "from gubernator_tpu_torch.core.service import Instance\n"
+        "from gubernator_tpu_torch.config import EngineConfig\n"
+        "from gubernator_tpu_torch.frontdoor import (FrontdoorHub,\n"
+        "    FrontdoorAbort, _EngineContext)\n"
+        "import gubernator_tpu_torch.server\n"
+        "inst = Instance(engine_config=EngineConfig(capacity_per_shard=64,\n"
+        "    batch_per_shard=16, num_shards=1), device='cpu')\n"
+        "hub = FrontdoorHub(inst, 2, 4, 1 << 16, '127.0.0.1:0')\n"
+        "try:\n"
+        "    asyncio.run(gubernator_tpu_torch.server._abort(\n"
+        "        _EngineContext(), 'OUT_OF_RANGE', 'x'))\n"
+        "except FrontdoorAbort as e:\n"
+        "    print(e.code)\n"
+        "inst.close()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'grpc']\n"
+        "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:2] == ["11", ""], res.stdout

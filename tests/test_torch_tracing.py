@@ -1,8 +1,8 @@
 """The port's request tracing (observability/tracing.py, a copy of the
 JAX module) and the peer plane's spans: the unit tests of
-tests/test_tracing.py (:47-141, and the stage histogram of :167; its
-quantile snapshot, :144-165, waits for ROADMAP item 7) on the port's
-tracer and metrics, and the stitched
+tests/test_tracing.py (:47-141, the stage quantile snapshot of :144-165
+and the stage histogram of :167) on the port's tracer and metrics, and
+the stitched
 cross-node trace of `test_forwarded_request_yields_one_stitched_trace`
 on a three-node port cluster over real gRPC: a request dialed at a
 non-owner yields one trace whose spans cover the non-owner's `rpc` root,
@@ -134,10 +134,41 @@ def test_span_ring_is_bounded():
 # ------------------------------------------------------------ unit: stages
 
 
+def test_stage_snapshot_quantiles():
+    """The rolling per-stage quantiles /v1/admin/debug reads (JAX
+    tests/test_tracing.py:144-157)."""
+    from gubernator_tpu_torch.observability.metrics import Metrics
+    m = Metrics()
+    for v in range(1, 101):  # 1..100 ms
+        m.observe_stage("drain_commit", v / 1000.0)
+    snap = m.stage_snapshot()
+    assert set(snap) == {"drain_commit"}
+    s = snap["drain_commit"]
+    assert s["count"] == 100
+    assert abs(s["p50_ms"] - 50.0) < 1.01
+    assert abs(s["p95_ms"] - 95.0) < 1.01
+    assert abs(s["p99_ms"] - 99.0) < 1.01
+    # a negative observation clamps instead of corrupting the ring
+    m.observe_stage("enqueue", -1.0)
+    assert m.stage_snapshot()["enqueue"]["p99_ms"] == 0.0
+
+
+def test_stage_snapshot_orders_canonically():
+    """Stages come back in the JAX package's canonical order
+    (tests/test_tracing.py:160-165), the names equal to its STAGES."""
+    from gubernator_tpu.observability.metrics import STAGES as JSTAGES
+    from gubernator_tpu_torch.observability.metrics import STAGES, Metrics
+    assert STAGES == JSTAGES
+    m = Metrics()
+    for stage in reversed(STAGES):
+        m.observe_stage(stage, 0.001)
+    m.observe_stage("zz_custom", 0.001)
+    assert list(m.stage_snapshot()) == list(STAGES) + ["zz_custom"]
+
+
 def test_stage_histogram_exposed():
     """The peer plane's stages land in the stage histogram under the JAX
-    package's name (its rolling quantile snapshot waits for the
-    observability item, ROADMAP item 7)."""
+    package's name."""
     from gubernator_tpu_torch.observability.metrics import Metrics
     m = Metrics()
     m.observe_stage("peer_forward", 0.002)
