@@ -312,9 +312,42 @@ Phases (one line each; any mismatch raises and exits non-zero):
      host microseconds an RPC by step (ring pop, pack_stack_fast, other
      staging, dispatch, fetch wait and decode, completion write) beside
      phase 9's, the workers' parse and encode, records by kind, encode
-     paths, sheds and ring stalls.
+     paths, sheds and ring stalls, and the drain's wall split into
+     window_fill, device_dispatch and drain_commit from the Instance's
+     stage histograms (14a's Instance has a Metrics registry).
+ 15. device profiling (observability/devprof.py, introspect.py): phase
+     9's Instance with a Metrics registry, a tracer and the periodic
+     capture controller (GUBER_DEVPROF=periodic, an interval that never
+     fires by itself).  15a: an 8-drain capture armed through
+     batcher.profile while 64 callers send phase 9's serialized RPCs
+     through serve_get_rate_limits; the capture's drain_compact_kernel
+     events equal the wrapper's launches over the armed drains, each
+     joined to composed_drain, none to the remainder bucket; the kernel
+     table's drain time a window (the trace folded into the Instance's
+     table) beside the CUDA-event time of the same stacks replayed on a
+     copy of the arena (launch_compact, uncounted), within 2x.  15b:
+     measure_census_arms on the card, the arms at the serving geometry
+     (8 x 2^21 slots, K = 8, B = 1024): every arm a measured ms/window
+     above 0 and hand-kernel events a window equal to its census (the
+     wrappers' launches a window, the same runs and census_table's), each
+     hand kernel's profiler time a launch beside the CUDA-event time of
+     its arm's call.  15c: tracing at sample 1.0, RPCs under `rpc`
+     roots, 200 one at a time from one caller, then the 64 callers at
+     saturation: over the sequential RPCs (the regime of the JAX test
+     that sets the bound: each RPC alone in its drain) the
+     admission_wait, window_fill, device_dispatch and drain_commit
+     histogram totals within [0.02x, 2x + 50 ms] of the end-to-end RPC
+     total; over both, every traced RPC with its four drain-stage spans,
+     the window clock and each stage histogram one sample a drain;
+     decisions/s at saturation beside phase 9's, and the histograms'
+     share of the end-to-end total there (about one over the RPCs a
+     drain carries).  15d: one periodic
+     controller cycle while the callers serve: it folds rows and leaves
+     no trace directory.  Then a fresh process serves a small Instance
+     and arms its first capture: the profiler's start there is the cold
+     initialisation an engine thread pays once.
 
-Twelve main paths are counted, each from 0: the one-shard path (phases
+Thirteen main paths are counted, each from 0: the one-shard path (phases
 3b and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
 path (phase 6b), the per-op path (phase 7b), the pipelined serving path
 (phase 8, from requests), the raw-RPC lane (phase 9, from wire bytes),
@@ -323,16 +356,19 @@ which must launch drain_compact), the peer ring (phase 12, which must
 launch drain_compact and global_window and nothing else), migration
 (phases 13a-13c, drain_compact and global_window, window_full allowed,
 nothing else), the dispatch fault (phase 13d, drain_compact only) and
-the front door (phase 14, drain_compact and global_window, nothing else);
+the front door (phase 14, drain_compact and global_window, nothing else)
+and device profiling (phase 15, drain_compact on the serving path and
+every arm's kernels in the measured pass);
 each must launch its kernels and never
 run a plain version, the per-op path must launch no kernel but
 window_math, global_stage and global_apply, the raw-RPC lane none but
 drain_compact, once a drain, and the lifecycle none but drain_compact and
 global_window.  The kernel table's launch counts are drain_compact's (the
-first path's and the fifth's to the twelfth's) and window_full's on the
-first, the eighth and the tenth, global_window's on the second, the
-seventh to the tenth and the twelfth, drain_compact_stats' and
-stats_finish's on the third, the fifth and the eighth, and
+first path's and the fifth's to the thirteenth's) and window_full's on
+the first, the eighth, the tenth and the thirteenth, global_window's on
+the second, the seventh to the tenth and the twelfth, drain_compact_stats'
+and stats_finish's on the third, the fifth, the eighth and the
+thirteenth, and
 window_math's, global_stage's and global_apply's on the fourth; calls of
 a wrapper made only to check or time it against its plain version come
 before the counts start or after they are read.  The third-to-last line is the kernel
@@ -3204,12 +3240,69 @@ def phase_serving_analytics(inst, rpcs, tb):
                 decisions=pipe.decisions_staged)
 
 
+def keyed_state(eng):
+    """An engine's arena keyed by key instead of by slot: per shard, the
+    router's key fingerprints (sorted), each key's expiry, every [S, C]
+    plane's rows at the keys' slots in that order and at the slots no key
+    holds (in slot order); then the [G] planes as they are."""
+    arena = eng.export_arena()
+    per_slot = sorted(n for n, p in arena.items() if p.ndim == 2)
+    out = []
+    for s in range(eng.num_shards):
+        fp, slot, expire = eng.native.export_keys(s)
+        order = np.argsort(fp)
+        held = np.zeros(arena[per_slot[0]].shape[1], bool)
+        held[slot] = True
+        out.append([fp[order], expire[order]]
+                   + [arena[n][s, slot[order]] for n in per_slot]
+                   + [arena[n][s, ~held] for n in per_slot])
+    out.append([arena[n] for n in sorted(arena) if arena[n].ndim == 1])
+    return out
+
+
+def small_twins(rpcs, tb):
+    """The small Instance on the card and on the CPU (router both, depth
+    3, the pinned clock tb), the RPCs one after another: (responses,
+    arenas, keyed states), card first."""
+    outs, arenas, keyed = [], [], []
+    for dev in (DEV, torch.device("cpu")):
+        inst = Instance(engine_config=EngineConfig(**SMALL_TWIN,
+                                                   use_native="on"),
+                        device=dev)
+        pin_clock(inst, tb)
+        inst.batcher.pipeline.depth = 3
+
+        async def serial():
+            return [await inst.get_rate_limits(rpc) for rpc in rpcs]
+
+        try:
+            outs.append([q for rpc in asyncio.run(serial()) for q in rpc])
+        finally:
+            inst.close()
+        arenas.append(inst.engine.export_arena())
+        keyed.append(keyed_state(inst.engine))
+    return outs, arenas, keyed
+
+
 def check_serving(r):
     """Phase 8, after the counts are read: every burst response against a
     Python-table engine on the card running process() over the same
     stream in submission order; the sync-checked drain's answers; the
     analytics totals and top-K; then a small Instance on the card against
-    the same Instance on the CPU (router both), responses and arena."""
+    the same Instance on the CPU (router both), responses and state.
+
+    Which slot a new key takes follows the order in which keys are first
+    seen on the engine thread, and with serving's mix that order depends
+    on timing twice: a NO_BATCHING request jumps the window, and a drain
+    job holding a request the stack refuses (GCRA, sliding window,
+    concurrency) takes the full path when it opens the stack and waits
+    for the next drain otherwise, so which items share a drain (the QoS
+    window's cut, read from the drain's wall) decides the order.  With
+    that mix the twins are held to equal responses and equal state key by
+    key (keyed_state: every plane's row of every key, its expiry, the
+    slots no key holds, the [G] planes); with token and leaky requests
+    only, BATCHING, every key takes its slot in submission order on one
+    path, and the arenas are held equal plane for plane."""
     tb = r["tb"]
     twin = RateLimitEngine(capacity_per_shard=FULL_CAPACITY // SHARDS,
                            num_shards=SHARDS, batch_per_shard=FULL_LANES)
@@ -3243,32 +3336,30 @@ def check_serving(r):
     check(all(k in top for k in hot),
           f"the burst's hottest keys {hot} are not in the top-K {top}")
     # the CPU twin at the port tests' geometry: ~640 keys over 2048 slots
-    # (no eviction), RPCs one after another, depth 3
-    rng = np.random.default_rng(97)
-    rpcs = serving_rpcs(rng, 3_000, "c", keys=640)
-    outs, arenas = [], []
-    for dev in (DEV, torch.device("cpu")):
-        inst = Instance(engine_config=EngineConfig(**SMALL_TWIN,
-                                                   use_native="on"),
-                        device=dev)
-        pin_clock(inst, tb)
-        inst.batcher.pipeline.depth = 3
-
-        async def serial():
-            return [await inst.get_rate_limits(rpc) for rpc in rpcs]
-
-        try:
-            outs.append(flat(asyncio.run(serial())))
-        finally:
-            inst.close()
-        arenas.append(inst.engine.export_arena())
+    # (no eviction), RPCs one after another, depth 3: serving's mix, then
+    # the same keys as token and leaky requests only
+    outs, arenas, keyed = small_twins(
+        serving_rpcs(np.random.default_rng(97), 3_000, "c", keys=640), tb)
     check(tup(outs[0]) == tup(outs[1]), "the card's small Instance differs "
           "from the CPU twin")
-    for name, plane in arenas[1].items():
-        check(np.array_equal(arenas[0][name], plane),
+    for s, (a, b) in enumerate(zip(*keyed)):
+        check(len(a) == len(b) and all(np.array_equal(x, y)
+                                       for x, y in zip(a, b)),
+              f"shard {s} of the small Instance's state differs from the "
+              f"CPU twin's, key by key")
+    same_slots = all(np.array_equal(arenas[0][n], p)
+                     for n, p in arenas[1].items())
+    c_outs, c_arenas, _ = small_twins(
+        serving_rpcs(np.random.default_rng(97), 3_000, "p", keys=640,
+                     compact_only=True), tb)
+    check(tup(c_outs[0]) == tup(c_outs[1]), "the card's small Instance "
+          "differs from the CPU twin on token and leaky requests")
+    for name, plane in c_arenas[1].items():
+        check(np.array_equal(c_arenas[0][name], plane),
               f"plane {name} of the small Instance differs from the CPU "
-              f"twin's")
+              f"twin's on token and leaky requests")
     return dict(hot=hot, top=top[:5], small=len(outs[0]),
+                small_same_slots=same_slots,
                 staging=staging_paths(r["eng"]))
 
 
@@ -3333,7 +3424,9 @@ def report_serving(r, chk, counts, p4_ms, smi):
         f"{r['an']['decisions']} decisions): hottest keys {chk['hot']} in "
         f"the top-K "
         f"{chk['top']}; small Instance ({chk['small']} decisions) = the CPU "
-        f"twin, arena included; launches {counts}; {smi}")
+        f"twin, its state key by key (same slots: "
+        f"{chk['small_same_slots']}), and on token and leaky requests "
+        f"plane for plane; launches {counts}; {smi}")
     fig["staging_ms"] = {k: dict(host=h, card=c)
                          for k, (h, c) in chk["staging"].items()}
     log("serving figures: " + json.dumps(dict(card=smi, **fig)))
@@ -6087,8 +6180,9 @@ def phase_front_door():
           and importlib.util.find_spec("google.protobuf") is not None,
           "14a needs protobuf in the engine process: its RAW records (the "
           "small and GLOBAL RPCs) take the server's protobuf path")
+    from gubernator_tpu_torch.observability.metrics import Metrics
     rng = np.random.default_rng(141)
-    inst = Instance(engine_config=serving_engine_config())
+    inst = Instance(engine_config=serving_engine_config(), metrics=Metrics())
     eng, pipe = inst.engine, inst.batcher.pipeline
     check(eng.native is not None and pipe is not None,
           "14a: the router or the pipeline is missing")
@@ -6202,8 +6296,11 @@ def phase_front_door():
             tlog = FrontDoorLog(inst, hub, order=False)
             try:
                 c0 = hub_counters(hub, pipe, tlog)
+                st0 = stage_totals(inst.metrics)
                 s3 = await run("saturate", RATE_SECONDS, callers=callers)
                 c1 = hub_counters(hub, pipe, tlog)
+                out["stage_split"] = stage_split(st0,
+                                                 stage_totals(inst.metrics))
             finally:
                 tlog.remove()
             out["sat_runs"].append(s3)
@@ -6491,6 +6588,7 @@ def report_front_door(r, n_rpcs, grpc_res, counts, wire_fig, smi):
                                  sat_runs)),
         latency_ms={f"{int(x['share'] * 100)}%": x for x in r["rates"]},
         engine_host_us_per_rpc=engine_us,
+        drain_stage_ms_per_drain=r["stage_split"],
         phase9_host_us_per_rpc=wire_fig["host_us_per_rpc"],
         worker_us_per_rpc=worker_us, host_split_decisions_per_s=n3 / wall3,
         records_by_kind=kinds,
@@ -6522,6 +6620,8 @@ def report_front_door(r, n_rpcs, grpc_res, counts, wire_fig, smi):
         f"RPC: " + ", ".join(f"{k} {v:.1f}" for k, v in engine_us.items())
         + "; worker us per RPC: " + ", ".join(
             f"{k} {v:.1f}" for k, v in worker_us.items())
+        + "; drain stages ms a drain (histograms): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["stage_split"].items())
         + f"; records {kinds}; only the engine's pid {r['engine_pid']} "
         f"holds a CUDA context (nvidia-smi {r['apps']}); launches {counts}; "
         f"{smi}")
@@ -6541,6 +6641,509 @@ def report_front_door(r, n_rpcs, grpc_res, counts, wire_fig, smi):
 KIND_NAMES = {0: "raw", 1: "cols", 2: "peer_rl", 3: "transfer",
               4: "register", 5: "apply_greg", 6: "update_globals",
               7: "batch_cols"}
+
+
+# ------------------------------------------- phase 15: device profiling
+
+DEVPROF_DRAINS = 8
+# 15c's first part: RPCs one at a time from one caller, the regime of the
+# JAX test whose bound it checks (each RPC alone in its drain)
+SEQ_RPCS = 200
+DRAIN_STAGES = ("admission_wait", "window_fill", "device_dispatch",
+                "drain_commit")
+GET_RATE_LIMITS = "/pb.gubernator.V1/GetRateLimits"
+# the first capture of a fresh serving process: its profiler start is the
+# cold CUPTI initialisation (argv[1]: the checkout's root)
+COLD_CAPTURE = r"""
+import asyncio, json, shutil, sys, time
+sys.path.insert(0, sys.argv[1])
+from gubernator_tpu_torch.api.types import RateLimitReq
+from gubernator_tpu_torch.config import EngineConfig
+from gubernator_tpu_torch.core.service import Instance
+inst = Instance(engine_config=EngineConfig(
+    capacity_per_shard=1 << 16, num_shards=8, batch_per_shard=1024,
+    use_native="on"))
+inst.engine.warmup()
+reqs = [RateLimitReq(name="c", unique_key=f"k{i}", hits=1, limit=100,
+                     duration=60000) for i in range(100)]
+prof = inst.batcher.profile
+
+
+async def main():
+    await inst.get_rate_limits(reqs)
+    t0 = time.perf_counter()
+    await inst.get_rate_limits(reqs)
+    warm = time.perf_counter() - t0
+    prof.arm(1, sys.argv[2])
+    t0 = time.perf_counter()
+    await inst.get_rate_limits(reqs)
+    armed = time.perf_counter() - t0
+    # the capture counts a drain a roll after its start, and stops a roll
+    # after it
+    while prof.armed and time.perf_counter() - t0 < 60:
+        await inst.get_rate_limits(reqs)
+        await asyncio.sleep(0.01)
+    return warm, armed
+
+
+warm, armed = asyncio.run(main())
+print(json.dumps(dict(last=prof.last, rpc_ms=warm * 1e3,
+                      armed_rpc_ms=armed * 1e3)))
+inst.close()
+"""
+
+
+def stage_totals(m):
+    """{stage: (histogram sum ms, count)} of the drain stages, and the
+    GetRateLimits RPCs' end-to-end (sum ms, count)."""
+    g = m.registry.get_sample_value
+    out = {st: (g("guber_tpu_stage_duration_ms_sum", {"stage": st}) or 0.0,
+                g("guber_tpu_stage_duration_ms_count", {"stage": st}) or 0.0)
+           for st in DRAIN_STAGES}
+    out["rpc"] = (
+        g("grpc_request_duration_milliseconds_sum",
+          {"method": GET_RATE_LIMITS}) or 0.0,
+        g("grpc_request_duration_milliseconds_count",
+          {"method": GET_RATE_LIMITS}) or 0.0)
+    return out
+
+
+def stage_split(t0, t1):
+    """Mean ms a drain of each drain stage between two stage_totals."""
+    return {st: (t1[st][0] - t0[st][0]) / max(1.0, t1[st][1] - t0[st][1])
+            for st in DRAIN_STAGES}
+
+
+def cuda_event_ms(fn, reps):
+    """Mean device-stream ms of fn() over reps runs (CUDA events)."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_devprof():
+    """Phase 15, the counted part: the capture of serving drains (15a),
+    the measured census pass at the serving geometry (15b), the drain
+    stages under full tracing (15c) and one periodic controller cycle
+    (15d), on one Instance built and warmed, with its RPCs encoded,
+    before the counts start; then the cold first capture of a fresh
+    process.  The caller reads the counts when this returns."""
+    from gubernator_tpu_torch.observability import devprof
+    from gubernator_tpu_torch.observability.metrics import Metrics
+    from gubernator_tpu_torch.observability.tracing import Tracer
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(151)
+    metrics = Metrics()
+    tracer = Tracer(sample=0.0, export="", node="phase15", max_spans=1 << 21)
+    inst = Instance(engine_config=serving_engine_config(), metrics=metrics,
+                    tracer=tracer, devprof_mode="periodic",
+                    devprof_interval_s=3600.0, devprof_drains=DEVPROF_DRAINS)
+    eng, pipe = inst.engine, inst.batcher.pipeline
+    prof = inst.batcher.profile
+    check(eng.native is not None and pipe is not None,
+          "15: the router or the pipeline is missing")
+    eng.warmup()
+    torch.cuda.synchronize()
+    sat_rpcs, sat = wire_rpcs(rng, 512 * SERVE_RPC)
+    ctx = WireContext()
+
+    async def serve(data):
+        return await serve_get_rate_limits(inst, data, ctx)
+
+    async def serve_traced(data):
+        with tracer.start_trace("rpc"):
+            return await serve_get_rate_limits(inst, data, ctx)
+
+    # 15a's marks, taken on the engine thread: the wrapper's launches and
+    # the engine's windows when the capture's counted span opens and
+    # closes, and every stack the counted drains launched
+    marks = {"stacks": []}
+    before, after = prof.before_drain, prof.after_drain
+    dispatch = eng.pipeline_dispatch
+
+    def marked_before():
+        before()
+        if prof._span is not None and "l0" not in marks:
+            marks["l0"] = dk.launches["drain_compact"]
+            marks["w0"] = eng.windows_processed
+
+    def marked_after():
+        after()
+        if "l0" in marks and "l1" not in marks and prof._span is None:
+            marks["l1"] = dk.launches["drain_compact"]
+            marks["w1"] = eng.windows_processed
+
+    def logged_dispatch(packed, nows, n_windows=None):
+        if prof._span is not None and "l1" not in marks:
+            marks["stacks"].append((packed.clone(), nows.clone(), n_windows))
+        return dispatch(packed, nows, n_windows)
+
+    prof.before_drain, prof.after_drain = marked_before, marked_after
+    eng.pipeline_dispatch = logged_dispatch
+    out = {}
+    cap_dir = tempfile.mkdtemp(prefix="guber-profile-")
+    tmp_root = tempfile.gettempdir()
+    reset_counts()
+
+    async def until_disarmed(serve_fn, limit_s):
+        n, t0 = 0, time.perf_counter()
+        while prof.armed and time.perf_counter() - t0 < limit_s:
+            n += (await saturate(serve_fn, sat, 0.2))[0]
+        return n, time.perf_counter() - t0
+
+    async def script():
+        await saturate(serve, sat, 0.5)  # the lane warm on the wall clock
+        # 15a: an operator's 8-drain capture of serving drains
+        check(prof.arm(DEVPROF_DRAINS, cap_dir)["armed"], "15a: arm refused")
+        out["15a_wall"] = await until_disarmed(serve, 60.0)
+        check(not prof.armed, "15a: the capture never completed")
+        out["15a_last"] = dict(prof.last)
+        out["roll_s"] = {"15a": devprof.ROLL.seconds}
+        # 15b: the measured census pass, the arms at the serving geometry,
+        # on a thread of its own as the kernels route runs it, while the
+        # callers serve; each arm's call is timed with CUDA events after
+        # the counts are read (check_devprof)
+        loop = asyncio.get_running_loop()
+        arms = devprof.build_census_arms(
+            device=DEV, capacity_per_shard=FULL_CAPACITY // SHARDS,
+            batch_per_shard=FULL_LANES, num_shards=SHARDS)
+
+        def measure():
+            check(prof.hold(), "15b: the profiler is busy")
+            try:
+                table = devprof.KernelTable()
+                t0 = time.perf_counter()
+                res = devprof.measure_census_arms(arms=arms, iters=3,
+                                                  table=table)
+                res["wall_s"] = time.perf_counter() - t0
+            finally:
+                prof.release()
+            res["table"] = table.snapshot(top=100)
+            res["census"] = devprof.census_table(device=DEV)
+            return res
+
+        fut = loop.run_in_executor(None, measure)
+        n, t0 = 0, time.perf_counter()
+        while not fut.done():
+            n += (await saturate(serve, sat, 0.2))[0]
+        out["15b"] = dict(await fut, specs=arms, served=n,
+                          served_s=time.perf_counter() - t0)
+        out["roll_s"]["15b"] = devprof.ROLL.seconds
+        # 15c: every RPC traced, one at a time from one caller, then at
+        # saturation
+        c0, k0, t0 = pipeline_counters(pipe), inst.devprof.clock.total(), \
+            stage_totals(metrics)
+        tracer.sample = 1.0
+        try:
+            for data in sat[:SEQ_RPCS]:
+                await serve_traced(data)
+            tseq = stage_totals(metrics)
+            n, wall = await saturate(serve_traced, sat, SERVE_SECONDS)
+        finally:
+            tracer.sample = 0.0
+        out["15c"] = dict(n=n, wall=wall, t0=t0, tseq=tseq,
+                          t1=stage_totals(metrics),
+                          d=counter_delta(c0, pipeline_counters(pipe)),
+                          clock=inst.devprof.clock.total() - k0,
+                          spans=tracer.spans())
+        # 15d: periodic cycles while the callers serve, in turns with as
+        # long with no cycle (cycle, none, none, cycle): the cycle's cost
+        ctl = inst.devprof.controller
+        check(ctl is not None, "15d: no periodic controller")
+        before_dirs = {d for d in os.listdir(tmp_root)
+                       if d.startswith("guber-devprof-")}
+        import threading
+
+        async def one_cycle():
+            res = {}
+
+            def cycle():
+                t = time.perf_counter()
+                res["ok"] = ctl.run_once(capture_timeout=30.0)
+                res["wall_s"] = time.perf_counter() - t
+                res["roll_s"] = devprof.ROLL.seconds
+                res["last"] = dict(prof.last)
+
+            th = threading.Thread(target=cycle)
+            th.start()
+            n, t0 = 0, time.perf_counter()
+            while th.is_alive():
+                n += (await saturate(serve, sat, 0.2))[0]
+            th.join()
+            return dict(res, n=n, wall=time.perf_counter() - t0)
+
+        c1 = await one_cycle()
+        quiet = [await saturate(serve, sat, c1["wall"]) for _ in range(2)]
+        c2 = await one_cycle()
+        left = {d for d in os.listdir(tmp_root)
+                if d.startswith("guber-devprof-")} - before_dirs
+        out["15d"] = dict(cycles=[c1, c2], quiet=quiet, status=ctl.status(),
+                          left=sorted(left))
+        out["roll_s"]["15d"] = devprof.ROLL.seconds
+
+    try:
+        asyncio.run(script())
+    finally:
+        prof.before_drain, prof.after_drain = before, after
+        del eng.pipeline_dispatch
+        inst.close()
+    out["events"] = devprof.parse_run_dir(cap_dir)
+    shutil.rmtree(cap_dir, ignore_errors=True)
+    out["marks"], out["pipe"] = marks, rpc_counters(pipe)
+    out["table"] = inst.devprof.table
+    out["eng"], out["inst_clock"] = eng, inst.devprof.clock.snapshot()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_devprof(r):
+    """Phase 15, after the counts are read: 15a's capture against the
+    launches and the replayed stacks' CUDA-event time, 15b's census join,
+    15c's stage accounting and spans, 15d's cycle; then the cold first
+    capture of a fresh process.  Returns the figures."""
+    from gubernator_tpu_torch.observability import devprof
+    fig = {}
+    # 15a
+    m, events = r["marks"], r["events"]
+    check("l1" in m, f"15a: the capture's stop was not seen: {m.keys()}")
+    launched = m["l1"] - m["l0"]
+    windows = m["w1"] - m["w0"]
+    rows = devprof.self_times(events)
+    drain_rows = [x for x in rows
+                  if devprof.kernel_base(x[0]) == "drain_compact_kernel"]
+    if len(drain_rows) != launched:
+        from collections import Counter
+        cats = Counter(e.get("cat") for e in events)
+        kern = Counter(devprof.kernel_base(e["name"]) for e in events
+                       if e.get("cat") == "kernel")
+        log(f"15a capture: {len(events)} events by category {dict(cats)}; "
+            f"kernels {dict(kern)}; profiler {r['15a_last']}")
+    check(launched >= DEVPROF_DRAINS and len(drain_rows) == launched,
+          f"15a: {len(drain_rows)} drain_compact_kernel events, "
+          f"{launched} launches over the armed drains")
+    arms = {a for _n, _ms, a in drain_rows}
+    check(arms == {devprof.ARM_DRAIN},
+          f"15a: drain_compact_kernel attributed to {arms}")
+    check(not any(a == devprof.ARM_OTHER and devprof.is_hand_kernel(n)
+                  for n, _ms, a in rows),
+          "15a: a hand kernel fell in the remainder bucket")
+    folded = r["table"].fold(events, windows=windows)
+    check(folded == len(rows), f"15a: folded {folded} of {len(rows)} rows")
+    table_ms = sum(ms for _n, ms, _a in drain_rows) / windows
+    # the same stacks replayed on a copy of the arena, CUDA events
+    eng = r["eng"]
+    arena = tk.BucketState(*[p.clone() for p in eng.state])
+    stacks = r["marks"]["stacks"]
+    check(len(stacks) == launched, f"15a: {len(stacks)} stacks logged")
+    ev_ms = 0.0
+    for packed, nows, _nw in stacks:
+        pd, nd = packed.to(DEV), nows.to(DEV)
+        ev_ms += cuda_event_ms(lambda: dk.launch_compact(arena, pd, nd), 10)
+    del arena
+    event_ms = ev_ms / windows
+    ratio = table_ms / event_ms
+    check(0.5 <= ratio <= 2.0,
+          f"15a: the table's {table_ms:.5f} ms a window vs CUDA events' "
+          f"{event_ms:.5f}")
+    per_arm = {}
+    for n, ms, a in rows:
+        per_arm[a] = per_arm.get(a, 0.0) + ms
+    # the trace's device start of each counted drain kernel less its
+    # launch's host start: the profiler's clock alignment at this age
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    lag = sorted(e["ts"] - launch_ts[e["args"]["correlation"]]
+                 for e in events if e.get("cat") == "kernel"
+                 and devprof.kernel_base(e["name"]) == "drain_compact_kernel"
+                 and e.get("args", {}).get("correlation") in launch_ts)
+    fig["15a"] = dict(
+        drains=launched, windows=windows,
+        drain_kernel_ms_per_window_profiler=table_ms,
+        drain_kernel_ms_per_window_cuda_events=event_ms,
+        ratio=ratio,
+        device_ms_per_window_by_arm={a: v / windows
+                                     for a, v in per_arm.items()},
+        rows=len(rows), wall_s=r["15a_wall"][1],
+        kernel_minus_launch_ms=(lag[len(lag) // 2] / 1000.0 if lag
+                                else None),
+        profiler_start_ms=r["15a_last"].get("start_ms"),
+        profiler_stop_and_write_ms=r["15a_last"].get("stop_ms"))
+    # 15b: each arm's call timed with CUDA events, now that the counts
+    # are read
+    b = r["15b"]
+    b["event_ms"] = {a["name"]: cuda_event_ms(a["fn"], 20) / a["windows"]
+                     for a in b.pop("specs")}
+    check(b["complete"], "15b: the measured capture lost counted kernels "
+          f"twice (roll {b['roll_s']} s)")
+    for name, row in b["arms"].items():
+        check(row["measured_ms_per_window"] > 0,
+              f"15b: {name} measured no time")
+        check(row["hand_kernel_events_per_window"]
+              == row["census_kernels_per_window"] == b["census"][name],
+              f"15b: {name}: {row['hand_kernel_events_per_window']} hand "
+              f"kernel events a window, census "
+              f"{row['census_kernels_per_window']} / {b['census'][name]}")
+    per_kernel = {}
+    for x in b["table"]["rows"]:
+        if devprof.is_hand_kernel(x["kernel"]):
+            per_kernel[f"{x['arm']}:{devprof.kernel_base(x['kernel'])}"] = \
+                x["total_ms"] / x["count"]
+    fig["15b"] = dict(
+        arms={n: dict(row, cuda_event_ms_per_window=b["event_ms"][n])
+              for n, row in b["arms"].items()},
+        hand_kernel_profiler_ms_per_launch=per_kernel,
+        census=b["census"], wall_s=b["wall_s"],
+        decisions_per_s_while_measuring=b["served"] / b["served_s"])
+    # 15c: the bound of JAX test_stage_sums_match_e2e_duration on the
+    # sequential RPCs; at saturation one drain carries tens of RPCs, so
+    # the histograms (one sample a drain) read about 1 / RPCs a drain of
+    # the end-to-end total (one a RPC): reported, not held to it
+    c = r["15c"]
+    t0, tseq, t1 = c["t0"], c["tseq"], c["t1"]
+
+    def stage_ms(a, b):
+        return sum(b[st][0] - a[st][0] for st in DRAIN_STAGES)
+
+    ds, de = stage_ms(t0, tseq), tseq["rpc"][0] - t0["rpc"][0]
+    check(tseq["rpc"][1] - t0["rpc"][1] == SEQ_RPCS,
+          f"15c: {tseq['rpc'][1] - t0['rpc'][1]} sequential RPCs observed")
+    check(de > 0 and ds >= 0.02 * de and ds <= 2.0 * de + 50.0,
+          f"15c: drain stages {ds:.1f} ms against {de:.1f} ms end to end "
+          f"over {SEQ_RPCS} sequential RPCs")
+    ds_sat, de_sat = stage_ms(tseq, t1), t1["rpc"][0] - tseq["rpc"][0]
+    drains = c["d"]["drains"]
+    counts = {st: t1[st][1] - t0[st][1] for st in DRAIN_STAGES}
+    check(drains > 0 and c["clock"] == drains
+          and all(v == drains for v in counts.values()),
+          f"15c: {drains} drains, window clock {c['clock']}, stage "
+          f"samples {counts}")
+    by_trace = {}
+    for sp in c["spans"]:
+        by_trace.setdefault(sp.trace_id, set()).add(sp.name)
+    roots = [t for t, names in by_trace.items() if "rpc" in names]
+    missing = [t for t in roots
+               if not set(DRAIN_STAGES) <= by_trace[t]]
+    check(roots and (len(roots) - SEQ_RPCS) * SERVE_RPC >= c["n"]
+          and not missing,
+          f"15c: {len(missing)} of {len(roots)} traced RPCs lack a drain "
+          f"stage ({c['n']} decisions at saturation)")
+    fig["15c"] = dict(
+        decisions_per_s=c["n"] / c["wall"], traced_rpcs=len(roots),
+        drains=drains, sequential_stage_ms=ds, sequential_rpc_ms=de,
+        sequential_share=ds / de,
+        sequential_stage_ms_per_drain=stage_split(t0, tseq),
+        saturated_stage_ms=ds_sat, saturated_rpc_ms=de_sat,
+        saturated_share=ds_sat / de_sat,
+        saturated_stage_ms_per_drain=stage_split(tseq, t1),
+        saturated_rpcs_per_drain=(t1["rpc"][1] - tseq["rpc"][1])
+        / max(1.0, t1["window_fill"][1] - tseq["window_fill"][1]),
+        mean_inflight=c["d"]["mean_inflight"])
+    # 15d: the first cycle folds; a later one may lose kernels once the
+    # roll has shrunk (then it folds nothing and the roll grows back)
+    d = r["15d"]
+    c1, c2 = d["cycles"]
+    check(c1.get("ok") is True and d["status"]["kernel_rows"] > 0,
+          f"15d: the periodic cycle folded nothing: {c1}")
+    check(c2.get("ok") is True or d["status"]["incomplete"] > 0,
+          f"15d: the second cycle neither folded nor was judged "
+          f"incomplete: {c2}")
+    check(not d["left"], f"15d: trace directories left: {d['left']}")
+    on = sum(c["n"] for c in d["cycles"]) / sum(c["wall"]
+                                                for c in d["cycles"])
+    off = sum(n for n, _w in d["quiet"]) / sum(w for _n, w in d["quiet"])
+    fig["15d"] = dict(
+        cycle_wall_s=[c["wall_s"] for c in d["cycles"]],
+        decisions_per_s=on, decisions_per_s_no_cycle=off,
+        cycle_share=on / off,
+        decisions_per_s_turns=[c1["n"] / c1["wall"]]
+        + [n / w for n, w in d["quiet"]] + [c2["n"] / c2["wall"]],
+        folded=[c["ok"] for c in d["cycles"]],
+        roll_s_after=[c["roll_s"] for c in d["cycles"]],
+        kernel_rows=d["status"]["kernel_rows"],
+        incomplete=d["status"]["incomplete"],
+        profiler_start_ms=c1["last"].get("start_ms"),
+        profiler_stop_and_write_ms=[c["last"].get("stop_ms")
+                                    for c in d["cycles"]])
+    # the cold first capture, a fresh process
+    cold_dir = tempfile.mkdtemp(prefix="guber-cold-")
+    try:
+        root = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-c", COLD_CAPTURE, root,
+                            cold_dir], capture_output=True, text=True,
+                           timeout=300, cwd=root)
+        cold_wall = time.perf_counter() - t
+        check(p.returncode == 0, f"15: the cold capture failed: "
+              f"{p.stderr[-2000:]}")
+        cold = json.loads(p.stdout.strip().splitlines()[-1])
+        cold_rows = devprof.self_times(devprof.parse_run_dir(cold_dir))
+    finally:
+        shutil.rmtree(cold_dir, ignore_errors=True)
+    check(any(devprof.kernel_base(n) == "drain_compact_kernel"
+              for n, _ms, _a in cold_rows),
+          "15: the cold capture holds no drain_compact_kernel event")
+    fig["cold"] = dict(
+        profiler_start_ms=cold["last"].get("start_ms"),
+        profiler_stop_and_write_ms=cold["last"].get("stop_ms"),
+        rpc_ms=cold["rpc_ms"], armed_rpc_ms=cold["armed_rpc_ms"],
+        process_wall_s=cold_wall)
+    fig["roll_s"] = dict(r["roll_s"], cold=cold["last"].get("roll_s"))
+    fig["phase_wall_s"] = r["wall_s"] + cold_wall
+    return fig
+
+
+def report_devprof(r, fig, counts, wire_fig, smi):
+    a, b, c, d, cold = (fig["15a"], fig["15b"], fig["15c"], fig["15d"],
+                        fig["cold"])
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.1f}"
+    log(f"phase 15 device profiling (phase 9's Instance, {SERVE_CLIENTS} "
+        f"callers): 15a an {a['drains']}-drain capture of serving drains "
+        f"({a['windows']} windows): {a['drains']} drain_compact_kernel "
+        f"events = the launches, all composed_drain; the drain kernel "
+        f"{a['drain_kernel_ms_per_window_profiler']:.5f} ms a window by "
+        f"the table beside {a['drain_kernel_ms_per_window_cuda_events']:.5f}"
+        f" by CUDA events (x{a['ratio']:.3f}); 15b census x measured "
+        + ", ".join(f"{n} {row['census_kernels_per_window']} / "
+                    f"{row['measured_ms_per_window']:.5f} ms "
+                    f"(events {row['cuda_event_ms_per_window']:.5f})"
+                    for n, row in b["arms"].items())
+        + f"; 15c traced at 1.0: {c['traced_rpcs']} RPCs each with its "
+        f"four drain stages; {SEQ_RPCS} one at a time: stages "
+        f"{c['sequential_stage_ms']:.1f} ms of "
+        f"{c['sequential_rpc_ms']:.1f} ms end to end "
+        f"(x{c['sequential_share']:.3f}); at saturation "
+        f"{c['decisions_per_s']:.1f} decisions/s (phase 9 "
+        f"{wire_fig['decisions_per_s']:.1f}), "
+        f"{c['saturated_rpcs_per_drain']:.1f} RPCs a drain, stages "
+        f"x{c['saturated_share']:.4f} of end to end, ms a drain "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    c["saturated_stage_ms_per_drain"].items())
+        + f"; 15b served {b['decisions_per_s_while_measuring']:.1f} "
+        f"decisions/s meanwhile"
+        + f"; 15d periodic cycles of {d['cycle_wall_s']} s (folded "
+        f"{d['folded']}), {d['decisions_per_s']:.1f} decisions/s during "
+        f"them beside {d['decisions_per_s_no_cycle']:.1f} with none, in "
+        f"turns (x{d['cycle_share']:.3f}; cycle, none, none, cycle: "
+        + ", ".join(f"{v:.1f}" for v in d["decisions_per_s_turns"])
+        + f"), {d['kernel_rows']} rows, no trace left; roll s "
+        f"{fig['roll_s']}, after each cycle {d['roll_s_after']}; "
+        f"profiler start / stop "
+        f"ms: warm {ms(d['profiler_start_ms'])} / "
+        f"{d['profiler_stop_and_write_ms']}, cold first capture "
+        f"{ms(cold['profiler_start_ms'])} / "
+        f"{ms(cold['profiler_stop_and_write_ms'])}; phase "
+        f"{fig['phase_wall_s']:.1f} s; launches {counts}; {smi}")
+    log("devprof figures: " + json.dumps(dict(card=smi, **fig)))
 
 
 def main():
@@ -6765,6 +7368,23 @@ def main():
         grpc_res = (check_front_door_grpc(grpc_res[0]), None)
     report_front_door(fd, n_rpcs, grpc_res, path12, wire_fig, smi)
     del fd, grpc_res
+    # device profiling: counts from 0 again (inside, after its Instance is
+    # warmed and its RPCs encoded); the replay of 15a's stacks and the
+    # cold capture's process come after they are read
+    dp = phase_devprof()
+    path13, plain13 = launch_counts(), plain_counts()
+    dp_kernels = ("drain_compact", "drain_compact_stats", "stats_finish",
+                  "window_full")
+    check(all(path13[k] > 0 for k in dp_kernels),
+          f"a kernel of the device-profiling path never launched: {path13}")
+    others13 = {k: v for k, v in path13.items() if k not in dp_kernels}
+    check(not any(others13.values()),
+          f"the device-profiling path launched another kernel: {others13}")
+    check(not any(plain13.values()),
+          f"the plain versions ran on the device-profiling path: {plain13}")
+    dp_fig = check_devprof(dp)
+    report_devprof(dp, dp_fig, path13, wire_fig, smi)
+    del dp
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
@@ -6773,7 +7393,7 @@ def main():
                        + path6["drain_compact"] + path7["drain_compact"]
                        + path8["drain_compact"] + path9["drain_compact"]
                        + path10["drain_compact"] + path11["drain_compact"]
-                       + path12["drain_compact"]),
+                       + path12["drain_compact"] + path13["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -6782,7 +7402,7 @@ def main():
         dict(name="window_full", route="cuda", source=SOURCE,
              replaces="gubernator_tpu/ops/kernel.py:1084",
              launches=(path1["window_full"] + path8["window_full"]
-                       + path10["window_full"]),
+                       + path10["window_full"] + path13["window_full"]),
              max_abs_err=full_err,
              ms=sig4(full["ms"]), plain_ms=sig4(full["plain_ms"]),
              bound_ms=full["bound_ms"], bound_by=full["bound_by"],
@@ -6802,7 +7422,8 @@ def main():
              replaces="gubernator_tpu/ops/pallas_kernel.py:852",
              launches=(path3["drain_compact_stats"]
                        + path5["drain_compact_stats"]
-                       + path8["drain_compact_stats"]),
+                       + path8["drain_compact_stats"]
+                       + path13["drain_compact_stats"]),
              max_abs_err=max(stats_err, chk["err"]),
              ms=sig4(an["stats_drain_ms"] if an["stats_drain_ms"] is not None
                      else an["call_ms"][0]),
@@ -6812,7 +7433,7 @@ def main():
         dict(name="stats_finish", route="cuda", source=STATS_SOURCE,
              replaces="gubernator_tpu/ops/pallas_kernel.py:1168",
              launches=(path3["stats_finish"] + path5["stats_finish"]
-                       + path8["stats_finish"]),
+                       + path8["stats_finish"] + path13["stats_finish"]),
              max_abs_err=max(stats_err, chk["err"]),
              ms=sig4(an["finish_ms"] if an["finish_ms"] is not None
                      else an["call_ms"][0]),

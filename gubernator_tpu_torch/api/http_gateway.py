@@ -17,6 +17,15 @@ google.protobuf.json_format, the conversion rules grpc-gateway uses):
                            for a bad blob
   GET  /v1/admin/debug     the runtime introspection snapshot (JSON,
                            observability/introspect.py)
+  POST /v1/admin/profile   arm a torch.profiler capture of the next N
+                           drains (?drains=N&dir=path, or a JSON body);
+                           409 while one is armed, 400 on a bad argument
+  GET  /v1/admin/kernels   census x measured ms/window per serving arm,
+                           the rolling kernel table and the window clock
+                           (observability/devprof.py); ?census=0 skips the
+                           census, ?measure=1&iters=N runs the measured
+                           pass (409 while a capture is armed or
+                           another pass runs)
 
 The gateway calls the Instance in-process and observes its requests under
 the gRPC method names when the Instance has metrics.  With QoS on (the
@@ -25,13 +34,18 @@ budget into admission as the request's deadline, and one that is not a
 number is refused with 400, as in the JAX gateway.  A `traceparent`
 header continues the caller's trace (or the Instance's tracer samples a
 new `http` root) and the root's context is echoed back in the same
-header.  The profile and kernels routes wait for the port of device
-profiling (ROADMAP item 7).  The body cap is 1 GiB, as in the JAX
-gateway: a full arena's snapshot is far past aiohttp's 1 MiB default.
+header.  The census runs on the engine thread.  The measured pass runs on
+a thread of its own while serving drains go on: its counts are that
+thread's, its rows only the work launched inside its counted spans, and
+it holds the process's one profiler (ProfileCapture.hold), so a capture
+armed meanwhile gets 409 and a periodic cycle sheds.  The body
+cap is 1 GiB, as in the JAX gateway: a full arena's snapshot is far past
+aiohttp's 1 MiB default.
 """
 
 from __future__ import annotations
 
+import asyncio
 import time
 
 from aiohttp import web
@@ -39,6 +53,10 @@ from google.protobuf import json_format
 
 from gubernator_tpu_torch.api import pb
 from gubernator_tpu_torch.core.service import BatchTooLargeError, Instance
+from gubernator_tpu_torch.observability.devprof import (
+    census_table,
+    measure_census_arms,
+)
 from gubernator_tpu_torch.observability.introspect import build_debug_snapshot
 from gubernator_tpu_torch.observability.metrics import CONTENT_TYPE_LATEST
 from gubernator_tpu_torch.observability.tracing import TRACEPARENT
@@ -146,6 +164,74 @@ def build_app(instance: Instance) -> web.Application:
         snap["topk"] = an.topk_snapshot(n)
         return web.json_response(snap)
 
+    async def admin_profile(request: web.Request) -> web.Response:
+        body = {}
+        if request.can_read_body:
+            try:
+                body = await request.json()
+            except Exception:
+                return web.json_response(
+                    {"error": "malformed JSON body", "code": 3}, status=400)
+        drains = body.get("drains", request.query.get("drains", 1))
+        trace_dir = body.get("dir", request.query.get("dir", ""))
+        try:
+            drains = int(drains)
+        except (TypeError, ValueError):
+            return web.json_response({"error": "invalid drains", "code": 3},
+                                     status=400)
+        out = instance.batcher.profile.arm(drains, trace_dir)
+        # already armed is a conflict, not a new capture
+        return web.json_response(out,
+                                 status=200 if out.get("armed") else 409)
+
+    async def admin_kernels(request: web.Request) -> web.Response:
+        """Census and measured ms/window per serving arm, the rolling
+        kernel table and the window clock (observability/devprof.py)."""
+        devprof = instance.devprof
+        q = request.query
+        loop = asyncio.get_running_loop()
+        engine_thread = instance.batcher._executor
+        dev = instance.engine.device
+        census = None
+        if q.get("census", "1") not in ("0", "false"):
+            census = await loop.run_in_executor(
+                engine_thread, lambda: census_table(device=dev))
+            # keep the gauge current (the daemon's boot publishes it too)
+            kpw = census.get(instance.census_arm())
+            if instance.metrics is not None and kpw:
+                instance.metrics.kernels_per_window.set(kpw)
+        measured = None
+        if q.get("measure") in ("1", "true"):
+            try:
+                iters = max(1, int(q.get("iters", 2)))
+            except (TypeError, ValueError):
+                return web.json_response(
+                    {"error": "invalid iters", "code": 3}, status=400)
+            # the pass runs on a thread of its own, so serving drains go
+            # on: its counts are that thread's and its rows the work
+            # launched inside its counted spans, and it holds the
+            # profiler so that no capture starts meanwhile
+            profile = instance.batcher.profile
+            if not profile.hold():
+                return web.json_response(
+                    {"error": "capture already in progress", "code": 10},
+                    status=409)
+            try:
+                measured = await loop.run_in_executor(
+                    None, lambda: measure_census_arms(
+                        iters=iters, table=devprof.table, device=dev))
+            finally:
+                profile.release()
+        out = devprof.kernels_snapshot(census=census)
+        if measured is not None:
+            out["measured"] = measured["arms"]
+            for arm, row in measured["arms"].items():
+                slot = out["arms"].setdefault(
+                    arm, {"census_kernels_per_window": None,
+                          "measured_ms_per_window": None})
+                slot["measured_ms_per_window"] = row["measured_ms_per_window"]
+        return web.json_response(out)
+
     # the state lifecycle's admin plane: the blob travels as it is (it is
     # versioned and checksummed already)
     async def admin_snapshot(request: web.Request) -> web.Response:
@@ -175,6 +261,8 @@ def build_app(instance: Instance) -> web.Application:
     app.router.add_post("/v1/admin/restore", admin_restore)
     app.router.add_get("/v1/admin/topk", admin_topk)
     app.router.add_get("/v1/admin/debug", admin_debug)
+    app.router.add_post("/v1/admin/profile", admin_profile)
+    app.router.add_get("/v1/admin/kernels", admin_kernels)
     return app
 
 

@@ -426,6 +426,23 @@ class DaemonConfig:
         default_factory=lambda: env_float("GUBER_TRACE_SAMPLE", 0.0))
     trace_export: str = field(
         default_factory=lambda: _env("GUBER_TRACE_EXPORT"))
+    # Device-time flight recorder (observability/devprof.py), read as the
+    # JAX package's Config reads them (gubernator_tpu/config.py:416-431).
+    # Mode "" = off (the window clock still runs; the kernel table fills
+    # only from explicit captures); "periodic" re-arms an N-drain
+    # torch.profiler capture every interval on a shedding background
+    # thread and folds the parsed kernel table.
+    devprof_mode: str = field(
+        default_factory=lambda: _env("GUBER_DEVPROF"))
+    devprof_interval_s: float = field(
+        default_factory=lambda: env_float("GUBER_DEVPROF_INTERVAL_S", 30.0,
+                                          minimum=0.05))
+    devprof_drains: int = field(
+        default_factory=lambda: env_int("GUBER_DEVPROF_DRAINS", 8))
+    devprof_ring: int = field(
+        default_factory=lambda: env_int("GUBER_DEVPROF_RING", 64))
+    devprof_slow_ms: float = field(
+        default_factory=lambda: env_float("GUBER_DEVPROF_SLOW_MS", 50.0))
 
     # The multi-process front door (frontdoor.py): 0 = the in-process gRPC
     # server; N >= 1 starts N acceptor worker processes sharing the gRPC
@@ -591,13 +608,10 @@ def per_op_lowering() -> bool:
 # Knobs of subsystems the port has not ported yet: (variable, or a prefix
 # ending in "_", its default (None: any value), ROADMAP Queue 1 item).
 # config_from_env raises when one is set to anything but its default.
-# The front door (GUBER_FRONTDOOR_*, GUBER_SHM_*) and the discovery
-# backends (GUBER_K8S_*, GUBER_ETCD_*) are served; what is left is device
-# profiling and mesh serving.
+# The front door (GUBER_FRONTDOOR_*, GUBER_SHM_*), the discovery backends
+# (GUBER_K8S_*, GUBER_ETCD_*) and device profiling (GUBER_DEVPROF*) are
+# served; what is left is mesh serving.
 _UNPORTED = (
-    # device profiling (observability/devprof.py)
-    ("GUBER_DEVPROF", "", 7),
-    ("GUBER_DEVPROF_", None, 7),
     # mesh serving and GLOBAL across processes
     ("GUBER_MESH_", None, 8),
     ("GUBER_GLOBAL_KEYS_FILE", "", 8),

@@ -29,6 +29,13 @@ An `engine_dispatch` fault rule (net/faults.py) fails a classic window's
 engine call on the engine thread: that window's waiters get the error,
 and the next window serves.
 
+`profile` (observability/introspect.py ProfileCapture, armed by POST
+/v1/admin/profile) wraps the engine thread's drains and classic windows
+in a torch.profiler capture, as the JAX batcher does (batcher.py:481-500);
+with `metrics` each classic window counts as a device window and its wall
+as the device_dispatch stage (one engine.process call covers dispatch
+through fetch), and the pipeline shares the metrics and the tracer.
+
 Responses resolve back to awaiting callers by position.  The engine is not
 thread-safe, so all device work funnels through a single-thread executor
 that the pipeline shares; NO_BATCHING requests jump the window (submit_now)
@@ -49,6 +56,7 @@ from gubernator_tpu_torch.core.engine import RateLimitEngine
 from gubernator_tpu_torch.core.interval import ArmedInterval
 from gubernator_tpu_torch.core.pipeline import DispatchPipeline
 from gubernator_tpu_torch.net.faults import FAULTS, SEAM_ENGINE_DISPATCH
+from gubernator_tpu_torch.observability.introspect import ProfileCapture
 from gubernator_tpu_torch.qos import interleave_by_tenant, shed_response
 from gubernator_tpu_torch.qos.fairness import tenant_of
 
@@ -58,13 +66,19 @@ log = logging.getLogger("gubernator.batcher")
 class WindowBatcher:
     def __init__(self, engine: RateLimitEngine,
                  behaviors: Optional[BehaviorConfig] = None,
-                 analytics=None, slo=None, qos=None):
+                 analytics=None, slo=None, qos=None, metrics=None,
+                 tracer=None):
         """analytics / slo: the TrafficAnalytics and SLOEngine the
         pipeline feeds each drain's stats and wall time to, or None.
-        qos: the QoSManager shared with the pipeline, or None."""
+        qos: the QoSManager shared with the pipeline, or None.  metrics /
+        tracer: the observability Metrics and Tracer, or None."""
         self.engine = engine
         self.behaviors = behaviors or BehaviorConfig()
         self.qos = qos
+        self.metrics = metrics
+        # the armable capture (POST /v1/admin/profile), checked on the
+        # engine thread around each drain and window
+        self.profile = ProfileCapture()
         self._pending: List[tuple] = []  # (req, accumulate, future)
         self._interval: Optional[ArmedInterval] = None
         self._waiter: Optional[asyncio.Task] = None
@@ -72,11 +86,13 @@ class WindowBatcher:
         # one thread == one device stream; serializes all engine access
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix="guber-device")
+        self.profile.executor = self._executor
         # Injectable clock (ms epoch) for the classic lane; None = wall
         # time.  Tests pin it beside pipeline.now_fn.
         self.now_fn = None
         self.pipeline: Optional[DispatchPipeline] = DispatchPipeline(
-            engine, self._executor, qos=qos, analytics=analytics, slo=slo)
+            engine, self._executor, qos=qos, analytics=analytics, slo=slo,
+            metrics=metrics, tracer=tracer, profile=self.profile)
         if not self.pipeline.enabled:
             self.pipeline = None
         else:
@@ -174,10 +190,18 @@ class WindowBatcher:
         def run():
             if FAULTS.enabled:
                 FAULTS.on_sync(SEAM_ENGINE_DISPATCH, "window")
-            now = self.now_fn() if self.now_fn is not None else None
-            resps = self.engine.process(reqs, now, accumulate)
-            self._tier_maintain(now)
-            return resps
+            prof = self.profile
+            profiling = prof.armed
+            if profiling:
+                prof.before_drain()
+            try:
+                now = self.now_fn() if self.now_fn is not None else None
+                resps = self.engine.process(reqs, now, accumulate)
+                self._tier_maintain(now)
+                return resps
+            finally:
+                if profiling:
+                    prof.after_drain()
 
         try:
             resps = await loop.run_in_executor(self._executor, run)
@@ -186,8 +210,14 @@ class WindowBatcher:
                 if not fut.done():
                     fut.set_exception(e)
             return
+        wall = time.monotonic() - start
         if self.qos is not None:
-            self.qos.congestion.observe_drain(time.monotonic() - start)
+            self.qos.congestion.observe_drain(wall)
+        if self.metrics is not None:
+            self.metrics.window_count.inc()
+            self.metrics.window_occupancy.observe(len(reqs))
+            self.metrics.window_duration.observe(wall)
+            self.metrics.observe_stage("device_dispatch", wall)
         for (_, _, fut), resp in zip(window, resps):
             if not fut.done():
                 fut.set_result(resp)
@@ -254,6 +284,9 @@ class WindowBatcher:
                     or (p is not None and p.busy()))
 
     def close(self) -> None:
+        # a capture still running stops on the engine thread, which its
+        # profiler belongs to, before that thread goes
+        self.profile.cancel()
         if self.pipeline is not None:
             self.pipeline.close()
         if self._interval is not None:

@@ -71,6 +71,15 @@ migration (state/migrate.py) reads and writes rows through `local_keys`,
 Python tables.  Mesh-mode registration (several processes) and the
 stacked legacy step (`step_stacked`) are not part of this single-process
 engine.
+
+Device profiling (observability/devprof.py) joins kernels to serving arms
+by the `torch.profiler.record_function` annotations put around each
+per-drain call, never per item (JAX engine.py:1379-1382, :1463, :1538,
+:1594, :1604, :1671): `guber_window` around a compact `_dispatch`
+(`guber_window_full` around a full-format one), `guber_drain` around
+`pipeline_dispatch` and a `pipeline_dispatch_global` without analytics
+(`guber_analytics` with it, and around `analytics_dispatch`), and
+`guber_fetch` around `fetch_async`.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gubernator_tpu_torch import config
 from gubernator_tpu_torch import native as native_mod
@@ -771,45 +781,48 @@ class RateLimitEngine:
         full width."""
         buf = self._buf
         compact = self._compact_eligible(buf)
-        lanes = (self._lane_bucket(reg_fill)
-                 if compact and reg_fill is not None
-                 else self.batch_per_shard)
-        stage = self._staging.array
-        if compact:
-            packed = kernel.encode_batch_host(
-                buf.slot[:, :lanes], buf.hits[:, :lanes],
-                buf.limit[:, :lanes], buf.duration[:, :lanes],
-                buf.algo[:, :lanes], buf.is_init[:, :lanes])
-            if self.per_op:
-                wire = kernel.encode_output_compact(self._step_per_op(
-                    kernel.decode_batch(stage("packed", packed)), now), now)
+        with record_function("guber_window" if compact
+                             else "guber_window_full"):
+            lanes = (self._lane_bucket(reg_fill)
+                     if compact and reg_fill is not None
+                     else self.batch_per_shard)
+            stage = self._staging.array
+            if compact:
+                packed = kernel.encode_batch_host(
+                    buf.slot[:, :lanes], buf.hits[:, :lanes],
+                    buf.limit[:, :lanes], buf.duration[:, :lanes],
+                    buf.algo[:, :lanes], buf.is_init[:, :lanes])
+                if self.per_op:
+                    wire = kernel.encode_output_compact(
+                        self._step_per_op(kernel.decode_batch(
+                            stage("packed", packed)), now), now)
+                else:
+                    words, limits, _ = drain_kernel.drain_compact(
+                        self.state, stage("packed", packed[None]),
+                        stage("nows", np.full(1, now, np.int64)))
+                    wire = torch.stack([words[0], limits[0]], dim=-1)
             else:
-                words, limits, _ = drain_kernel.drain_compact(
-                    self.state, stage("packed", packed[None]),
-                    stage("nows", np.full(1, now, np.int64)))
-                wire = torch.stack([words[0], limits[0]], dim=-1)
-        else:
-            batch = WindowBatch(*[
-                stage(f"full.{name}", a[:, :lanes])
-                for name, a in zip(WindowBatch._fields,
-                                   (buf.slot, buf.hits, buf.limit,
-                                    buf.duration, buf.algo, buf.is_init))])
-            if self.per_op:
-                fout = self._step_per_op(batch, now)
+                batch = WindowBatch(*[
+                    stage(f"full.{name}", a[:, :lanes])
+                    for name, a in zip(WindowBatch._fields,
+                                       (buf.slot, buf.hits, buf.limit,
+                                        buf.duration, buf.algo, buf.is_init))])
+                if self.per_op:
+                    fout = self._step_per_op(batch, now)
+                else:
+                    fout = drain_kernel.window_full(self.state, batch, now)
+            self.windows_processed += 1
+            gout = None
+            ups = buf.ups()
+            if _control_live(buf.gslot, buf.upd(), self.global_capacity, ups):
+                gout = self._global_window(buf.gbatch(), buf.ghits_acc,
+                                           buf.upd(), now, ups)
+            # one fetch point: the responses come back after both launches
+            if compact:
+                out = kernel.decode_output_host(wire.cpu().numpy(), now)
             else:
-                fout = drain_kernel.window_full(self.state, batch, now)
-        self.windows_processed += 1
-        gout = None
-        ups = buf.ups()
-        if _control_live(buf.gslot, buf.upd(), self.global_capacity, ups):
-            gout = self._global_window(buf.gbatch(), buf.ghits_acc,
-                                       buf.upd(), now, ups)
-        # one fetch point: the responses come back after both launches
-        if compact:
-            out = kernel.decode_output_host(wire.cpu().numpy(), now)
-        else:
-            out = WindowOutput(*[f.cpu().numpy() for f in fout])
-        return out, (None if gout is None else gout.cpu().numpy())
+                out = WindowOutput(*[f.cpu().numpy() for f in fout])
+            return out, (None if gout is None else gout.cpu().numpy())
 
     def _step_per_op(self, batch: WindowBatch, now: int) -> WindowOutput:
         """One window of [S, B] decoded lanes through the per-op lowering:
@@ -870,7 +883,8 @@ class RateLimitEngine:
         eligibility.  A pinned host tensor (the serving pipeline's arena)
         crosses in one non-blocking copy and must stay unchanged until
         the drain's outputs have been fetched (fetch_async's event)."""
-        return self._drain(packed, nows, n_windows)
+        with record_function("guber_drain"):
+            return self._drain(packed, nows, n_windows)
 
     def fetch_async(self, pairs) -> Optional["torch.cuda.Event"]:
         """Start copying each (device tensor, host tensor) pair of `pairs`
@@ -880,13 +894,14 @@ class RateLimitEngine:
         on the stream (the drain that made them, the copies that fed it)
         is done.  On a CPU engine the copies are done on return and the
         event is None."""
-        for src, dst in pairs:
-            dst.copy_(src, non_blocking=True)
-        if self.device.type != "cuda":
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
+        with record_function("guber_fetch"):
+            for src, dst in pairs:
+                dst.copy_(src, non_blocking=True)
+            if self.device.type != "cuda":
+                return None
+            ev = torch.cuda.Event()
+            ev.record()
+            return ev
 
     def _drain(self, packed, nows, n_windows: Optional[int],
                tenants=None):
@@ -954,29 +969,31 @@ class RateLimitEngine:
         without tenants and the stats are analytics_dispatch's torch
         reduction over its words (the JAX engine's route without the
         staged kernels, engine.py:3136)."""
-        now0 = int(_host(nows).reshape(-1)[0])
-        tenants = decay = None
-        if analytics_args is not None:
-            conf = self._analytics_conf()
-            tenants, decay = analytics_args
-        words, limits, mism = self._drain(packed, nows, n_windows, tenants)
-        gbatch = WindowBatch(*[_host(a) for a in gbatch])
-        gacc, upd = _host(gacc), tuple(_host(a) for a in upd)
-        if _control_live(gbatch.slot, upd, self.global_capacity):
-            gfused = self._global_window(gbatch, gacc, upd, now0)
-        else:
-            gfused = torch.zeros((*tuple(gbatch.slot.shape), 4),
-                                 dtype=torch.int64, device=self.device)
-        if analytics_args is None:
-            return words, limits, mism, gfused
-        if self.per_op:
-            stats = self.analytics_dispatch(packed, words, tenants, now0,
-                                            decay)
+        with record_function("guber_drain" if analytics_args is None
+                             else "guber_analytics"):
+            now0 = int(_host(nows).reshape(-1)[0])
+            tenants = decay = None
+            if analytics_args is not None:
+                conf = self._analytics_conf()
+                tenants, decay = analytics_args
+            words, limits, mism = self._drain(packed, nows, n_windows, tenants)
+            gbatch = WindowBatch(*[_host(a) for a in gbatch])
+            gacc, upd = _host(gacc), tuple(_host(a) for a in upd)
+            if _control_live(gbatch.slot, upd, self.global_capacity):
+                gfused = self._global_window(gbatch, gacc, upd, now0)
+            else:
+                gfused = torch.zeros((*tuple(gbatch.slot.shape), 4),
+                                     dtype=torch.int64, device=self.device)
+            if analytics_args is None:
+                return words, limits, mism, gfused
+            if self.per_op:
+                stats = self.analytics_dispatch(packed, words, tenants, now0,
+                                                decay)
+                return words, limits, mism, gfused, stats
+            stats = stats_kernel.stats_finish(
+                self._an_sketch, self._an_acc, self.state.expire, now0,
+                int(decay), topk=conf.topk, over_weight=conf.over_weight)
             return words, limits, mism, gfused, stats
-        stats = stats_kernel.stats_finish(
-            self._an_sketch, self._an_acc, self.state.expire, now0,
-            int(decay), topk=conf.topk, over_weight=conf.over_weight)
-        return words, limits, mism, gfused, stats
 
     # ------------------------------------------------------ traffic analytics
 
@@ -1012,21 +1029,22 @@ class RateLimitEngine:
         and the lanes' tenant ids [K, S, B] against the current expiry
         plane; updates the resident sketch in place and returns stats
         i64[S, V] on the device.  decay=1 halves the sketch first."""
-        conf = self._analytics_conf()
-        stage = self._staging.array
-        packed = stage("packed", packed, torch.int64)
-        words = stage("words", words, torch.int64)
-        tenants = stage("tenants", tenants, torch.int32)
-        out = []
-        for s in range(self.num_shards):
-            sk, stats = analytics.shard_stats(
-                self._an_sketch[s], packed[:, s], words[:, s], tenants[:, s],
-                self.state.expire[s], now, int(decay),
-                tenant_slots=conf.tenant_slots, topk=conf.topk,
-                over_weight=conf.over_weight)
-            self._an_sketch[s].copy_(sk)
-            out.append(stats)
-        return torch.stack(out)
+        with record_function("guber_analytics"):
+            conf = self._analytics_conf()
+            stage = self._staging.array
+            packed = stage("packed", packed, torch.int64)
+            words = stage("words", words, torch.int64)
+            tenants = stage("tenants", tenants, torch.int32)
+            out = []
+            for s in range(self.num_shards):
+                sk, stats = analytics.shard_stats(
+                    self._an_sketch[s], packed[:, s], words[:, s],
+                    tenants[:, s], self.state.expire[s], now, int(decay),
+                    tenant_slots=conf.tenant_slots, topk=conf.topk,
+                    over_weight=conf.over_weight)
+                self._an_sketch[s].copy_(sk)
+                out.append(stats)
+            return torch.stack(out)
 
     def export_analytics(self) -> np.ndarray:
         """The resident sketch as host i64[S, D, W]."""

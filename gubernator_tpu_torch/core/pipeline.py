@@ -84,8 +84,7 @@ owner's decisions: they do not count in this node's decisions.  The lane
 is gated by `rpc_enabled`, which set_peers closes across the swap of the
 ring and the drain re-reads on the engine thread, so an RPC that races a
 membership change takes the protobuf path instead of deciding keys this
-node no longer owns.  Not ported here: lockstep (mesh) serving, the
-drain-stage spans and device profiling.
+node no longer owns.  Not ported here: lockstep (mesh) serving.
 
 The front door's column lane (`submit_cols`, ColsJob; frontdoor.py):
 request columns a worker process parsed with frontdoor_parse_req into its
@@ -114,6 +113,29 @@ submits its items again behind everything submitted meanwhile, RPCs
 staged later in the same drain included, so a key it shares with such an
 RPC is decided after it (tests/test_torch_rpc_lane.py pins this).  Only
 concurrent RPCs can meet so, and the reference orders those no more.
+
+Observability (JAX pipeline.py:1424-1540, :1605-1622).  Each job carries
+the sampled trace context it was submitted under and its enqueue stamp
+(a single's, a submit_many batch's, a raw RPC's, and a front-door column
+record's whose worker carried a traceparent: the hub's `rpc` root), and
+submit records the `enqueue` span.  A drain stamps its boundaries on one
+monotonic clock: started, pack_done, dispatch_done, fetch_start and
+fetch_done (and a chain's shared fetch window).  At commit, every context
+the drain carried gets the `admission_wait` (enqueue -> started),
+`window_fill` (started -> pack_done), `device_dispatch` (pack_done ->
+dispatch_done) and `drain_commit` (the fetch thread's wait for the
+drain's event and the decode, as the JAX stage covers its blocking fetch
+and the decode; a chained drain's decode alone) spans, and `chain_fetch`
+(the chain's one shared wait) when the drain committed through a chain; the metrics' stage
+histograms observe the same intervals once per drain (chain_fetch once per
+chain), so the stage sums reconcile with an RPC's end-to-end span at any
+stride.  The window, occupancy, depth, overlap, arena and chain metrics
+move with them.  The window clock (observability/devprof.py WindowClock)
+observes each drain's dispatch_done -> fetch_done under its arm
+(`composed_drain`, or `composed_analytics` with analytics), with the
+trace IDs of its requests taken only for a slow window.  An armed
+ProfileCapture (observability/introspect.py) wraps the engine thread's
+drains (`_drain_sync`) in its capture.
 """
 
 from __future__ import annotations
@@ -150,6 +172,12 @@ from gubernator_tpu_torch.core.window_buffers import (
     WindowArenaRing,
 )
 from gubernator_tpu_torch.net.faults import FAULTS, SEAM_ENGINE_DISPATCH
+from gubernator_tpu_torch.observability.devprof import (
+    ARM_ANALYTICS,
+    ARM_DRAIN,
+    WindowClock,
+)
+from gubernator_tpu_torch.observability.tracing import current_context
 from gubernator_tpu_torch.ops import kernel
 from gubernator_tpu_torch.ops.analytics import _SLOT_MASK
 from gubernator_tpu_torch.qos.fairness import interleave_by_tenant, tenant_of
@@ -163,14 +191,19 @@ class ListJob:
     (singles) or one future with the response list (batch)."""
 
     __slots__ = ("reqs", "futs", "fut", "row", "lane", "pos", "n", "_cols",
-                 "after")
+                 "after", "ctxs", "enq")
 
     def __init__(self, reqs: Sequence[RateLimitReq],
                  futs: Optional[List[asyncio.Future]] = None,
-                 fut: Optional[asyncio.Future] = None):
+                 fut: Optional[asyncio.Future] = None,
+                 ctxs: Optional[List] = None, enq: float = 0.0):
         self.reqs = list(reqs)
         self.futs = futs
         self.fut = fut
+        # the sampled trace contexts riding the job (a singles chunk's,
+        # aligned with reqs; a batch's one) and its oldest enqueue stamp
+        self.ctxs = ctxs
+        self.enq = enq
         self.n = len(self.reqs)
         self.row = None
         self.lane = None
@@ -311,7 +344,8 @@ class RpcJob:
     their framed responses by item index (_spawn_forwards)."""
 
     __slots__ = ("data", "fut", "futs", "n", "row", "lane", "pos", "limit",
-                 "peer_mode", "after", "remote", "forward_task")
+                 "peer_mode", "after", "remote", "forward_task", "ctx",
+                 "enq")
 
     def __init__(self, data: bytes, fut: asyncio.Future,
                  peer_mode: bool = False):
@@ -319,6 +353,10 @@ class RpcJob:
         self.fut = fut
         self.futs = None
         self.peer_mode = peer_mode
+        # the sampled trace context the RPC rode in on, and its enqueue
+        # stamp
+        self.ctx = None
+        self.enq = 0.0
         self.n = 0
         self.row = None
         self.lane = None
@@ -386,7 +424,7 @@ class ColsJob:
     stays valid until the hub completes the record."""
 
     __slots__ = ("cols", "name_lens", "fut", "futs", "n", "row", "lane",
-                 "pos", "want_cols", "after")
+                 "pos", "want_cols", "after", "ctxs", "enq")
 
     def __init__(self, cols: tuple, name_lens, n: int, fut: asyncio.Future,
                  want_cols: bool = False):
@@ -394,6 +432,10 @@ class ColsJob:
         self.name_lens = name_lens
         self.fut = fut
         self.futs = None
+        # the record's trace context (the hub's `rpc` root), if it carried
+        # a traceparent, and its enqueue stamp
+        self.ctxs = None
+        self.enq = 0.0
         self.n = n
         self.row = None
         self.lane = None
@@ -427,6 +469,18 @@ class ColsJob:
                 remaining.astype(np.int64), reset.astype(np.int64))
 
 
+def _job_contexts(jobs):
+    """The sampled trace contexts the jobs carry (an RpcJob's `ctx`, a
+    ListJob's or ColsJob's `ctxs`)."""
+    for job in jobs:
+        c = getattr(job, "ctx", None)
+        if c is not None:
+            yield c
+        for c in (getattr(job, "ctxs", None) or ()):
+            if c is not None:
+                yield c
+
+
 def _pending_items(job) -> int:
     """A queued job's decisions; an RpcJob is unparsed until its drain,
     so its items are estimated from the wire size (at least ~16 bytes an
@@ -440,7 +494,8 @@ class _DrainResult:
                  "n_decisions", "error", "started", "pack_done",
                  "dispatch_done", "fetch_start", "fetch_done", "arena",
                  "cols_owner", "cfut", "deferred", "carried", "k_used",
-                 "ring_peers")
+                 "ring_peers", "n_lanes", "oldest_enq", "arm",
+                 "wait_start", "chain_fetch_start", "chain_fetch_done")
 
     def __init__(self):
         # the drain's response words and stored limits on the device, the
@@ -472,12 +527,27 @@ class _DrainResult:
         self.now = 0
         self.n_decisions = 0
         self.error = None
-        # stage boundaries (monotonic; 0.0 = never reached)
+        self.n_lanes = 0
+        # stage boundaries (monotonic; 0.0 = never reached): window_fill =
+        # started -> pack_done, device_dispatch = pack_done ->
+        # dispatch_done, drain_commit = wait_start (the fetch thread's
+        # wait for the drain's event, unchained drains) or fetch_start ->
+        # fetch_done, admission_wait = oldest_enq -> started.  The stage
+        # busy seconds and the AIMD read fetch_start -> fetch_done, the
+        # decode alone
         self.started = 0.0
         self.pack_done = 0.0
         self.dispatch_done = 0.0
+        self.wait_start = 0.0
         self.fetch_start = 0.0
         self.fetch_done = 0.0
+        self.oldest_enq = 0.0
+        # the devprof arm of the launch (composed_drain or
+        # composed_analytics; "" = nothing launched), and the chain's
+        # shared fetch window when it committed through one (0.0 = not)
+        self.arm = ""
+        self.chain_fetch_start = 0.0
+        self.chain_fetch_done = 0.0
 
 
 class DispatchPipeline:
@@ -491,8 +561,17 @@ class DispatchPipeline:
     def __init__(self, engine, engine_executor: ThreadPoolExecutor,
                  k_max: int = PIPELINE_K_BUCKETS[-1],
                  depth: Optional[int] = None, qos=None, analytics=None,
-                 slo=None):
+                 slo=None, metrics=None, tracer=None, profile=None):
         self.engine = engine
+        # observability: the Metrics registry (or None), the span recorder
+        # (None or disabled: no span), the armable capture shared with the
+        # batcher, and the always-on window clock (its histogram only with
+        # metrics; the JAX pipeline builds it only with metrics, the port
+        # always, since its Instance has no registry by default)
+        self.metrics = metrics
+        self.tracer = tracer
+        self.profile = profile
+        self.devclock = WindowClock(metrics=metrics)
         # QoSManager (qos/) or None: tenant-fair slotting and the
         # congestion window's budget of each drain, its in-flight depth
         # and the fetch stride; None keeps every path as without QoS
@@ -532,7 +611,6 @@ class DispatchPipeline:
         # Metrics (cluster_forwarded), when it has one
         self._ring_peers: tuple = ()
         self.forwarded = 0
-        self.metrics = None
         self._tasks: set = set()
         if not self.enabled:
             return
@@ -542,7 +620,7 @@ class DispatchPipeline:
             max_workers=env_int("GUBER_FETCH_WORKERS", 2),
             thread_name_prefix="guber-fetch")
         self._arena_ring = WindowArenaRing(
-            pinned=engine.device.type == "cuda")
+            pinned=engine.device.type == "cuda", metrics=metrics)
         self._cols = RequestColumns()
         self._cols_pool: List[RequestColumns] = []
         self._empty_control = engine.empty_drain_control()
@@ -556,7 +634,8 @@ class DispatchPipeline:
         # over active_wall it is the mean depth the pipeline ran at
         self.inflight_seconds = 0.0
         self._inflight_at = 0.0
-        self._singles: List[tuple] = []   # (req, fut, seq, col_idx)
+        # (req, fut, seq, enqueue stamp, trace context, col_idx)
+        self._singles: List[tuple] = []
         self._singles_seen = 0            # the next single's seq
         self._jobs: List[object] = []     # ListJob / RpcJob, FIFO
         # jobs a full stack left over: the engine thread keeps them in
@@ -621,6 +700,8 @@ class DispatchPipeline:
         elif delta < 0 and self._in_flight == 0 and self._active_since:
             self.active_wall += now - self._active_since
             self._active_since = 0.0
+        if self.metrics is not None:
+            self.metrics.pipeline_inflight_windows.set(self._in_flight)
         if self.qos is not None:
             self.qos.admission.note_inflight(self._in_flight)
 
@@ -667,10 +748,21 @@ class DispatchPipeline:
 
     # ------------------------------------------------------------ submit API
 
+    def _enqueued(self) -> tuple:
+        """(enqueue stamp, sampled trace context) of a submit, with its
+        `enqueue` span recorded."""
+        t_enq = time.monotonic()
+        ctx = current_context()
+        if self.tracer is not None and ctx is not None:
+            ctx.enqueued_at = t_enq
+            self.tracer.record_span(ctx, "enqueue", t_enq, t_enq)
+        return t_enq, ctx
+
     async def submit_one(self, req: RateLimitReq) -> RateLimitResp:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
-        self._singles.append((req, fut, self._singles_seen,
+        t_enq, ctx = self._enqueued()
+        self._singles.append((req, fut, self._singles_seen, t_enq, ctx,
                               self._cols.append(req)))
         self._singles_seen += 1
         self._pump()
@@ -680,7 +772,9 @@ class DispatchPipeline:
                           ) -> List[RateLimitResp]:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
-        job = ListJob(reqs, fut=fut)
+        ctx = current_context()
+        job = ListJob(reqs, fut=fut, ctxs=[ctx] if ctx is not None else None,
+                      enq=time.monotonic())
         job.after = self._singles_seen
         self._jobs.append(job)
         self._pump()
@@ -698,6 +792,7 @@ class DispatchPipeline:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
         job = RpcJob(data, fut, peer_mode=peer_mode)
+        job.enq, job.ctx = self._enqueued()
         job.after = self._singles_seen
         self._jobs.append(job)
         self._pump()
@@ -721,6 +816,9 @@ class DispatchPipeline:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
         job = ColsJob(cols, name_lens, n, fut, want_cols=want_cols)
+        job.enq, ctx = self._enqueued()
+        if ctx is not None:
+            job.ctxs = [ctx]
         job.after = self._singles_seen
         self._jobs.append(job)
         self._pump()
@@ -776,25 +874,26 @@ class DispatchPipeline:
                     # the deferred tail goes into the NEW columns (its old
                     # indices die with cols_owner), one gather a column
                     base = self._cols.extend_from(
-                        cols_owner, [t[3] for t in deferred])
-                    self._singles = [(req, fut, seq, base + k)
-                                     for k, (req, fut, seq, _)
-                                     in enumerate(deferred)]
+                        cols_owner, [t[5] for t in deferred])
+                    self._singles = [t[:5] + (base + k,)
+                                     for k, t in enumerate(deferred)]
             for base in range(0, len(singles), MAX_BATCH_SIZE):
                 chunk = singles[base:base + MAX_BATCH_SIZE]
                 job = ListJob([t[0] for t in chunk],
-                              futs=[t[1] for t in chunk])
+                              futs=[t[1] for t in chunk],
+                              ctxs=[t[4] for t in chunk],
+                              enq=min(t[3] for t in chunk))
                 # a chunk in submission order is a contiguous column range
                 # (zero-copy); one that fair slotting reordered gathers
                 idx = None
                 if fair:
-                    idx = np.fromiter((t[3] for t in chunk), np.int64,
+                    idx = np.fromiter((t[5] for t in chunk), np.int64,
                                       len(chunk))
                     if len(idx) == 1 or bool((np.diff(idx) == 1).all()):
                         idx = None
                 if idx is None:
-                    job._cols = cols_owner.take(chunk[0][3],
-                                                chunk[-1][3] + 1)
+                    job._cols = cols_owner.take(chunk[0][5],
+                                                chunk[-1][5] + 1)
                 else:
                     job._cols = cols_owner.take(0, len(idx), idx)
                 jobs.append(job)
@@ -902,6 +1001,8 @@ class DispatchPipeline:
         queue with no drain heading for dispatch); otherwise the linger
         timer bounds how late a chained commit can be."""
         self._chain.append(res)
+        if self.metrics is not None:
+            self.metrics.chain_inflight_windows.set(len(self._chain))
         idle = not self._jobs and not self._singles and self._predispatch == 0
         if len(self._chain) >= self._stride_target or idle or self._closed:
             self._chain_flush()
@@ -920,6 +1021,12 @@ class DispatchPipeline:
         group, self._chain = self._chain, []
         self.chain_flushes += 1
         self.fetch_elided += len(group) - 1
+        if self.metrics is not None:
+            m = self.metrics
+            m.chain_inflight_windows.set(0)
+            m.chain_fetch_stride.set(self._stride_target)
+            if len(group) > 1:
+                m.chain_fetch_elided.inc(len(group) - 1)
         if self.qos is not None:
             self.qos.congestion.observe_chain(self._backlog_windows(),
                                               self.fetch_stride_max)
@@ -930,11 +1037,18 @@ class DispatchPipeline:
     def _complete_chain_sync(self, group: List[_DrainResult]) -> list:
         """Fetch thread: wait once, for the LAST member's event (one
         stream: every earlier member's copies came before it), then decode
-        each member in dispatch order."""
+        each member in dispatch order.  The shared wait is each member's
+        chain_fetch window; its drain_commit covers its own decode only,
+        so the stage sums count the wait once, not stride times."""
+        t0 = time.monotonic()
         last = next((r.event for r in reversed(group)
                      if r.event is not None), None)
         if last is not None:
             last.synchronize()
+        t_fetched = time.monotonic()
+        for res in group:
+            res.chain_fetch_start = t0
+            res.chain_fetch_done = t_fetched
         return [self._complete_sync(res) for res in group]
 
     def _on_chain_completed(self, fut, group: List[_DrainResult]) -> None:
@@ -948,6 +1062,13 @@ class DispatchPipeline:
             for res in group:
                 self._fail_completed(res, e)
             return
+        if self.metrics is not None and pairs:
+            # one observation of the shared fetch a chain, not one a member
+            head = pairs[0][0]
+            if head.chain_fetch_done > head.chain_fetch_start:
+                self.metrics.observe_stage(
+                    "chain_fetch",
+                    head.chain_fetch_done - head.chain_fetch_start)
         for res, outs in pairs:
             self._commit_completed(res, outs)
 
@@ -1042,6 +1163,9 @@ class DispatchPipeline:
         res.arena = None
         for job, out in zip(res.staged, outs):
             self._resolve(job, out)
+        # one clock for control and observability: the drain's wall is the
+        # traced stage boundary started -> fetch_done, so the AIMD, the
+        # stage histograms and the spans read the same numbers
         drain_wall = (res.fetch_done or time.monotonic()) - res.started
         t_he = res.pack_done - res.started if res.pack_done else 0.0
         t_disp = (res.dispatch_done - res.pack_done
@@ -1064,7 +1188,66 @@ class DispatchPipeline:
                 log.exception("analytics ingest failed")
         if self.slo is not None:
             self.slo.observe_drain(drain_wall, res.n_decisions)
+        if self.metrics is not None:
+            self._observe_drain(res, drain_wall)
+        if res.arm and res.dispatch_done and res.fetch_done:
+            staged = res.staged
+
+            def trace_ids(jobs=staged):
+                return [c.trace_id for c in _job_contexts(jobs)][:4]
+
+            self.devclock.observe(res.arm, res.fetch_done - res.dispatch_done,
+                                  trace_ids=trace_ids,
+                                  windows=max(1, res.k_used))
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            for c in set(_job_contexts(res.staged)):
+                if c.enqueued_at:
+                    tr.record_span(c, "admission_wait", c.enqueued_at,
+                                   res.started)
+                if res.pack_done:
+                    tr.record_span(c, "window_fill", res.started,
+                                   res.pack_done)
+                if res.dispatch_done and res.pack_done:
+                    tr.record_span(c, "device_dispatch", res.pack_done,
+                                   res.dispatch_done)
+                if res.fetch_done and res.fetch_start:
+                    tr.record_span(c, "drain_commit",
+                                   res.wait_start or res.fetch_start,
+                                   res.fetch_done)
+                if res.chain_fetch_done > res.chain_fetch_start:
+                    tr.record_span(c, "chain_fetch", res.chain_fetch_start,
+                                   res.chain_fetch_done)
         self._pump(force=True)
+
+    def _observe_drain(self, res: _DrainResult, drain_wall: float) -> None:
+        """A committed drain's window, occupancy, depth and overlap
+        metrics and its stage histograms (JAX pipeline.py:1451-1493)."""
+        m = self.metrics
+        wall = self.active_wall
+        if self._active_since:
+            wall += time.monotonic() - self._active_since
+        if wall > 0:
+            m.pipeline_overlap_ratio.set(sum(self.stage_busy.values())
+                                         / wall)
+        m.window_count.inc()
+        m.window_occupancy.observe(res.n_decisions)
+        m.window_duration.observe(drain_wall)
+        m.agg_decisions.inc(res.n_decisions)
+        m.agg_lanes.inc(res.n_lanes)
+        m.drain_depth.observe(res.k_used)
+        if res.words is not None and not self.engine.per_op:
+            m.fused_drains.inc()
+        if res.oldest_enq:
+            m.observe_stage("admission_wait", res.started - res.oldest_enq)
+        if res.pack_done:
+            m.observe_stage("window_fill", res.pack_done - res.started)
+        if res.dispatch_done and res.pack_done:
+            m.observe_stage("device_dispatch",
+                            res.dispatch_done - res.pack_done)
+        if res.fetch_done and res.fetch_start:
+            m.observe_stage("drain_commit", res.fetch_done
+                            - (res.wait_start or res.fetch_start))
 
     def _spawn_forwards(self, jobs: List[RpcJob], ring_peers) -> None:
         """Forward a drain's remote items to their ring owners as spliced
@@ -1176,6 +1359,22 @@ class DispatchPipeline:
 
     def _drain_sync(self, jobs: List[object], now: Optional[int] = None,
                     cols: Optional[RequestColumns] = None) -> _DrainResult:
+        """The engine thread's drain, inside the armed capture when
+        POST /v1/admin/profile (or the periodic controller) asked for one;
+        disarmed, one int read."""
+        prof = self.profile
+        if prof is not None and prof.armed:
+            prof.before_drain()
+            try:
+                return self._drain_sync_inner(jobs, now, cols)
+            finally:
+                prof.after_drain()
+        return self._drain_sync_inner(jobs, now, cols)
+
+    def _drain_sync_inner(self, jobs: List[object],
+                          now: Optional[int] = None,
+                          cols: Optional[RequestColumns] = None
+                          ) -> _DrainResult:
         """Pack every job into one stacked compact dispatch (engine
         thread).
 
@@ -1274,10 +1473,14 @@ class DispatchPipeline:
                 break
 
         res.pack_done = time.monotonic()
+        enqs = [e for e in (j.enq for j in res.staged) if e]
+        res.oldest_enq = min(enqs) if enqs else 0.0
         if not res.staged:
             return res
         k_used = res.k_used = int(fills.any(axis=1).sum())
         if k_used:
+            res.arm = (ARM_ANALYTICS if self.analytics is not None
+                       else ARM_DRAIN)
             kb = next(b for b in self._k_buckets if b >= k_used)
             packed = arena.packed_t[:kb]
             nows = arena.nows_t[:kb]
@@ -1323,7 +1526,8 @@ class DispatchPipeline:
         # counted on the engine thread, like the legacy lane's process()
         eng.decisions_processed += res.n_decisions
         self.decisions_staged += res.n_decisions
-        self.lanes_staged += int(fills.sum())
+        res.n_lanes = int(fills.sum())
+        self.lanes_staged += res.n_lanes
         # a chain member submits no fetch: the loop chains it (the stride
         # target is an int the loop refreshes every pump; a stale read
         # moves only where the fetch is submitted)
@@ -1400,6 +1604,7 @@ class DispatchPipeline:
 
     def _complete_sync_one(self, res: _DrainResult):
         """Fetch thread, one drain: wait for its event, then decode."""
+        res.wait_start = time.monotonic()
         if res.event is not None:
             res.event.synchronize()
         return self._complete_sync(res)

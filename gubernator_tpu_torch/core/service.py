@@ -38,13 +38,22 @@ drain's stats to `TrafficAnalytics.ingest` and its wall time to
 `SLOEngine.observe_drain` (requests on the legacy lane feed neither, as in
 the JAX package).
 
+Device profiling (JAX service.py:152-168, :202-220): `devprof` is the
+observability/devprof.py facade over the batcher's armable ProfileCapture
+(`batcher.profile`), the pipeline's window clock, the rolling kernel
+table and, with devprof_mode "periodic", the controller that captures N
+drains every interval; `close` stops it.  `_publish_census` sets
+guber_tpu_kernels_per_window from the census of the serving arm, counted
+on the engine thread so that no serving launch lands in the count.
+
 The transport (server.py, api/http_gateway.py) calls `get_rate_limits`,
 `get_peer_rate_limits` (the peer plane's relay: this node owns every item
 it is sent), `update_peer_globals`, `health_check`, `batcher.submit_rpc`
 (the raw-RPC lane) and `add_to_server`, roots its traces in `tracer`
 (observability/tracing.py), and observes RPCs into `metrics` when it is
 set: an `observability.metrics.Metrics` (prometheus_client), None by default
-because the serving core needs no metrics library.  `mesh_mode` stays
+because the serving core needs no metrics library (a card's machine may
+lack it); the JAX Instance always builds one.  `mesh_mode` stays
 False until mesh serving is ported.
 
 QoS (qos/, JAX service.py:92-99) is on unless `qos=QoSConfig(enabled=
@@ -118,6 +127,12 @@ from gubernator_tpu_torch.observability.analytics import (
     SLOEngine,
     TrafficAnalytics,
 )
+from gubernator_tpu_torch.observability.devprof import (
+    ARM_ANALYTICS,
+    ARM_DRAIN,
+    Devprof,
+    census_table,
+)
 from gubernator_tpu_torch.observability.tracing import Tracer
 from gubernator_tpu_torch.parallel.router import ConsistentHashRing
 from gubernator_tpu_torch.qos import QoSManager, shed_response
@@ -152,7 +167,10 @@ class Instance:
                  advertise_address: str = "",
                  tracer: Optional[Tracer] = None,
                  health: Optional[HealthConfig] = None,
-                 peer_transport: Optional[Callable[[str], object]] = None):
+                 peer_transport: Optional[Callable[[str], object]] = None,
+                 devprof_mode: str = "",
+                 devprof_interval_s: Optional[float] = None,
+                 devprof_drains: Optional[int] = None):
         """engine: a ready engine, else one is built from engine_config on
         `device` (default `cuda`).  analytics / slo: when given and
         enabled, the traffic analytics (the engine's resident sketch and
@@ -169,7 +187,10 @@ class Instance:
         tracer: the span recorder; None builds one from GUBER_TRACE_SAMPLE
         and GUBER_TRACE_EXPORT.  health: the hinted handoff's knobs.
         peer_transport: host -> the transport of that peer's PeerClient
-        (net/peers.py); None connects over gRPC."""
+        (net/peers.py); None connects over gRPC.  devprof_mode: "" (off)
+        or "periodic" (GUBER_DEVPROF), with the periodic controller's
+        interval and drains (None: GUBER_DEVPROF_INTERVAL_S and
+        GUBER_DEVPROF_DRAINS)."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -188,7 +209,7 @@ class Instance:
         self.slo: Optional[SLOEngine] = None
         if analytics is not None and analytics.enabled:
             self.engine.enable_analytics(analytics)  # validates it
-            self.analytics = TrafficAnalytics(analytics)
+            self.analytics = TrafficAnalytics(analytics, metrics=metrics)
         if slo is not None and slo.enabled:
             slo.validate()
             self.slo = SLOEngine(slo)
@@ -213,9 +234,14 @@ class Instance:
         self.lease_conf.validate()
         self.leases = LeaseBook()
         self._lease_tmpl: Dict[str, RateLimitReq] = {}
+        # per-instance span recorder: each node's ring buffer is its own,
+        # so a stitched trace is assembled by trace id across nodes
+        self.tracer = tracer if tracer is not None else Tracer(
+            node=advertise_address or "local")
         self.batcher = WindowBatcher(self.engine, self.behaviors,
                                      analytics=self.analytics, slo=self.slo,
-                                     qos=self.qos)
+                                     qos=self.qos, metrics=metrics,
+                                     tracer=self.tracer)
         self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
         if metrics is not None:
             metrics.watch_engine(self.engine)
@@ -224,15 +250,24 @@ class Instance:
             if self.qos is not None:
                 metrics.watch_qos(self.qos)
             metrics.watch_leases(self.leases)
+            if self.analytics is not None or self.slo is not None:
+                metrics.watch_analytics(self.analytics, self.slo)
+        # the device-time flight recorder (observability/devprof.py): the
+        # kernel table, the pipeline's window clock and, periodic, the
+        # controller, sharing the batcher's armable capture
+        eng = self.engine
+        self.batcher.profile.windows_fn = lambda: int(eng.windows_processed)
+        self.devprof = Devprof(
+            mode=devprof_mode, metrics=metrics,
+            profile=self.batcher.profile,
+            windows_fn=lambda: int(eng.windows_processed),
+            interval=devprof_interval_s, drains=devprof_drains)
+        if self.batcher.pipeline is not None:
+            self.devprof.clock = self.batcher.pipeline.devclock
+        self.devprof.start()
         # mesh serving is not ported yet (ROADMAP Queue 1 item 8)
         self.mesh_mode = False
-        if self.batcher.pipeline is not None:
-            self.batcher.pipeline.metrics = metrics
         self.advertise_address = advertise_address
-        # per-instance span recorder: each node's ring buffer is its own,
-        # so a stitched trace is assembled by trace id across nodes
-        self.tracer = tracer if tracer is not None else Tracer(
-            node=advertise_address or "local")
         self.peer_transport = peer_transport
         self.global_mgr = GlobalManager(self.behaviors, self, metrics, log,
                                         health=health)
@@ -243,6 +278,29 @@ class Instance:
         # the multi-process front door serving this node (frontdoor.py
         # FrontdoorHub), when the daemon runs one
         self.frontdoor = None
+
+    def census_arm(self) -> str:
+        """The census arm this Instance serves through."""
+        return ARM_ANALYTICS if self.analytics is not None else ARM_DRAIN
+
+    def _publish_census(self):
+        """Set guber_tpu_kernels_per_window from the census of this
+        Instance's serving arm (observability/devprof.py census_table).
+        The census runs on the engine thread, so that no serving launch
+        lands in its count; returns that future (the daemon does not wait
+        on it).  Best effort: observability never takes the service
+        down."""
+        eng = self.engine
+
+        def publish():
+            try:
+                kpw = census_table(device=eng.device).get(self.census_arm())
+                if kpw and self.metrics is not None:
+                    self.metrics.kernels_per_window.set(kpw)
+            except Exception:  # noqa: BLE001 - telemetry, not serving
+                log.debug("census gauge publish failed", exc_info=True)
+
+        return self.batcher._executor.submit(publish)
 
     @property
     def standalone(self) -> bool:
@@ -863,4 +921,5 @@ class Instance:
 
     def close(self) -> None:
         self.global_mgr.stop()
+        self.devprof.close()
         self.batcher.close()

@@ -149,13 +149,17 @@ class WindowArenaRing:
     """Free list of WindowArenas keyed by stack shape.  Acquire happens on
     the engine thread, release on the event loop (drain completion), so
     the list sits behind a lock.  `pinned`: make pinned arenas (a CUDA
-    engine's)."""
+    engine's).  `metrics`: an observability Metrics whose
+    guber_tpu_window_buffer_reuse_total{event=reuse|alloc} counts each
+    acquire, or None."""
 
-    def __init__(self, pinned: bool = False, max_free: int = 8):
+    def __init__(self, pinned: bool = False, max_free: int = 8,
+                 metrics=None):
         self._free: List[WindowArena] = []
         self._lock = threading.Lock()
         self._max_free = max_free
         self.pinned = pinned
+        self.metrics = metrics
         self.reuse_events = 0
         self.alloc_events = 0
 
@@ -166,11 +170,15 @@ class WindowArenaRing:
                 if a.K >= K and a.S == S and a.B == B:
                     arena = self._free.pop(i)
                     break
+        event = "reuse" if arena is not None else "alloc"
         if arena is not None:
             self.reuse_events += 1
-            return arena
-        self.alloc_events += 1
-        return WindowArena(K, S, B, pinned=self.pinned)
+        else:
+            self.alloc_events += 1
+            arena = WindowArena(K, S, B, pinned=self.pinned)
+        if self.metrics is not None:
+            self.metrics.window_buffer_reuse.labels(event=event).inc()
+        return arena
 
     def release(self, arena: Optional[WindowArena]) -> None:
         """Return a CLEANLY completed drain's arena (its fetch event has

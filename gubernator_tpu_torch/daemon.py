@@ -50,8 +50,15 @@ over shared-memory rings (GUBER_SHM_RING_SLOTS, GUBER_SHM_SLAB_BYTES,
 GUBER_FRONTDOOR_ENCODE, GUBER_FRONTDOOR_BATCH_READS).  The drain phase
 starts by setting its draining flag (the workers shed in-band from then
 on), and the hub stops after the handoff, before the snapshot, so the
-snapshot holds the last decision served.  Device profiling and mesh
-serving are not ported yet: their knobs raise in config_from_env.
+snapshot holds the last decision served.
+
+Device profiling: GUBER_DEVPROF=periodic runs the periodic capture
+controller (observability/devprof.py, GUBER_DEVPROF_INTERVAL_S, _DRAINS),
+which stops with the drain phase, before the snapshot; POST
+/v1/admin/profile and GET /v1/admin/kernels are on the HTTP gateway.  At
+boot the daemon publishes guber_tpu_kernels_per_window from the census
+of its serving arm, on the engine thread and without waiting for it.
+Mesh serving is not ported yet: its knobs raise in config_from_env.
 """
 
 from __future__ import annotations
@@ -137,9 +144,15 @@ class Daemon:
             tiers=c.tiers, qos=c.qos, leases=c.leases,
             advertise_address=c.advertise_address, health=c.health,
             tracer=Tracer(sample=c.trace_sample, export=c.trace_export,
-                          node=c.advertise_address or "local"))
+                          node=c.advertise_address or "local"),
+            devprof_mode=c.devprof_mode,
+            devprof_interval_s=c.devprof_interval_s,
+            devprof_drains=c.devprof_drains)
         # launch every drain shape before accepting traffic
         self.instance.engine.warmup()
+        # the kernel census gauge, off the boot path: queued on the engine
+        # thread, not waited for
+        self.instance._publish_census()
         if c.snapshot_dir:
             # restore BEFORE serving, on the engine thread; a missing or
             # corrupt snapshot is a cold start, never a failed boot
@@ -223,8 +236,9 @@ class Daemon:
 
           1. monitor_stop: the failure detector must not react to this
              node's own departure;
-          2. drain: close admission intake and wait, at most
-             drain_timeout, for queued and in-flight decisions;
+          2. drain: stop the periodic capture controller, close
+             admission intake and wait, at most drain_timeout, for queued
+             and in-flight decisions;
           3. global_flush: queued GLOBAL hits and broadcasts ship now;
           4. handoff: with a surviving ring, every key this node owns
              ships to the survivors under drain_timeout
@@ -256,6 +270,13 @@ class Daemon:
 
     async def _drain_requests(self) -> None:
         self._phase("drain")
+        if self.instance is not None:
+            # no periodic capture spans the drain and the snapshot
+            try:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self.instance.devprof.close)
+            except Exception:
+                log.exception("stopping the device profiler failed")
         if self.frontdoor is not None:
             # the workers shed new work in-band (reason `draining`) from
             # here on, with no ring round trip

@@ -1,11 +1,34 @@
-"""Prometheus metrics with the reference's metric names: the port's subset.
+"""Prometheus metrics with the reference's metric names.
 
-The part of `gubernator_tpu/observability/metrics.py` the port serves,
-with the same names and labels:
+The port of `gubernator_tpu/observability/metrics.py`: every family of
+the JAX `Metrics`, with the same names, labels and buckets
+(tests/test_torch_metric_names.py holds them against it):
 
   cache_size, cache_access_count{type}          reference cache/lru.go:56-59
   grpc_request_counts{status,method},
   grpc_request_duration_milliseconds{method}    reference prometheus.go:52-59
+  guber_tpu_windows_total, guber_tpu_window_occupancy,
+  guber_tpu_aggregation_{decisions,lanes}_total,
+  guber_tpu_window_duration_seconds, guber_tpu_fused_drains_total,
+  guber_tpu_drain_depth_windows,
+  guber_tpu_pipeline_inflight_windows, guber_tpu_pipeline_overlap_ratio,
+  guber_tpu_window_buffer_reuse_total{event},
+  guber_tpu_chain_fetch_stride, guber_tpu_chain_inflight_windows,
+  guber_tpu_chain_fetch_elided_total            the pipelined drain
+                                                (core/pipeline.py)
+  guber_tpu_kernels_per_window,
+  guber_tpu_device_window_ms{arm}, guber_tpu_device_window_ewma_ms{arm},
+  guber_tpu_devprof_captures_total{status}      device profiling
+                                                (observability/devprof.py)
+  guber_tpu_stage_duration_ms{stage}            the request-lifecycle
+                                                stages (STAGES, chain_fetch)
+  guber_tpu_cache_slots{state}                  slot occupancy (watch_engine)
+  guber_tpu_hot_key_hits_total{key},
+  guber_tpu_tenant_decisions_total{tenant,outcome},
+  guber_tpu_arena_churn_total, guber_tpu_arena_occupancy_slots{state},
+  guber_slo_burn_rate{slo,window}, guber_slo_firing{slo}
+                                                traffic analytics and the
+                                                SLO engine (watch_analytics)
   guber_tpu_snapshot_duration_seconds, guber_tpu_snapshot_bytes,
   guber_tpu_snapshots_total{status}, guber_tpu_restore_age_seconds
                                                 the state lifecycle
@@ -20,23 +43,16 @@ with the same names and labels:
   guber_tpu_lease_releases_total{reason}        the algorithm plane and the
                                                 lease book (watch_leases)
   async_durations, broadcast_durations          reference global.go:44-51
-  guber_tpu_cluster_peers,
-  guber_tpu_cluster_forwarded_total,
-  guber_qos_peer_retries_total{peer},
-  guber_qos_fail_open_total,
-  global_send_errors_total{peer},
-  broadcast_errors_total{peer},
-  guber_hints_total{event,peer},
-  guber_tpu_stage_duration_ms{stage}            the peer ring (its stages
-                                                peer_forward and
-                                                global_broadcast)
+  guber_tpu_cluster_peers, guber_tpu_cluster_forwarded_total,
+  guber_qos_peer_retries_total{peer}, guber_qos_fail_open_total,
+  global_send_errors_total{peer}, broadcast_errors_total{peer},
+  guber_hints_total{event,peer}                 the peer ring
   guber_tpu_migrated_keys_total{direction},
   guber_tpu_migration_skipped_stale_total,
   guber_peer_health_state{peer},
   guber_ring_rehomes_total{direction}           failure handling and live
                                                 migration
-  guber_tpu_frontdoor_workers,
-  guber_tpu_frontdoor_rpcs_total{worker},
+  guber_tpu_frontdoor_workers, guber_tpu_frontdoor_rpcs_total{worker},
   guber_tpu_frontdoor_sheds_total{worker},
   guber_tpu_frontdoor_restarts_total,
   guber_tpu_frontdoor_encode_total{worker,path},
@@ -51,14 +67,13 @@ The stage histogram's rolling p50/p95/p99 per stage (`stage_snapshot`,
 the `stages` section of /v1/admin/debug) come from `_StageRing`s fed by
 observe_stage.
 
-The cache families are read from the native router (its resident key
-count, hits and misses) at scrape time.  This module imports
-prometheus_client, so the serving core never imports it: an Instance has
-no registry unless one is given (`Instance(metrics=Metrics())`, which the
-daemon always does).  The JAX package's other families (pipeline,
-analytics, devprof, the drain stages) are left for the observability
-item of the port's ROADMAP.  `observe_shed` only counts: the admission
-controller feeds each shed to the SLO engine itself.
+This module imports prometheus_client, so the serving core never imports
+it, and `Instance(metrics=None)` stays the Instance's default (the JAX
+Instance always builds a registry): a card's machine may lack
+prometheus_client, and every family is guarded by a `metrics is not None`
+check where it is fed.  The daemon always builds `Metrics()`.
+`observe_shed` only counts: the admission controller feeds each shed to
+the SLO engine itself.
 """
 
 from __future__ import annotations
@@ -80,7 +95,7 @@ from prometheus_client import (  # noqa: F401  (CONTENT_TYPE_LATEST re-exported)
 
 # Canonical request-lifecycle stage names (JAX observability/metrics.py
 # STAGES): the stage histogram and the rolling quantile snapshot order by
-# them.  The port observes peer_forward and global_broadcast so far.
+# them; chain_fetch (the deferred-fetch chain's shared fetch) comes after.
 STAGES = (
     "enqueue",          # submit -> appended to the pending window
     "admission_wait",   # time queued before a dispatch takes the request
@@ -162,6 +177,174 @@ class Metrics:
             "grpc_request_duration_milliseconds",
             "The timings of gRPC requests in milliseconds.",
             ["method"],
+            registry=self.registry,
+        )
+        # device windows and the pipelined drain (core/pipeline.py, the
+        # batcher's classic windows): rate(decisions)/rate(lanes) is the
+        # live fold factor
+        self.window_count = Counter(
+            "guber_tpu_windows_total",
+            "Device windows dispatched.",
+            registry=self.registry,
+        )
+        self.window_occupancy = Histogram(
+            "guber_tpu_window_occupancy",
+            "Requests per device window.",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1000),
+            registry=self.registry,
+        )
+        self.agg_decisions = Counter(
+            "guber_tpu_aggregation_decisions_total",
+            "Decisions served by the pipelined drain.",
+            registry=self.registry,
+        )
+        self.agg_lanes = Counter(
+            "guber_tpu_aggregation_lanes_total",
+            "Device lanes staged by the pipelined drain.",
+            registry=self.registry,
+        )
+        self.window_duration = Histogram(
+            "guber_tpu_window_duration_seconds",
+            "Wall time of one device window step.",
+            registry=self.registry,
+        )
+        # every pipeline drain is one launch of the hand-written drain
+        # kernel (the JAX package's fused megakernel counterpart); the
+        # depth histogram is how many windows deep each K-stack ran
+        self.fused_drains = Counter(
+            "guber_tpu_fused_drains_total",
+            "Pipeline drains served by the fused Pallas megakernel.",
+            registry=self.registry,
+        )
+        self.drain_depth = Histogram(
+            "guber_tpu_drain_depth_windows",
+            "Occupied window depth K per pipeline drain.",
+            buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512),
+            registry=self.registry,
+        )
+        # hand-kernel launches a window of the serving arm
+        # (observability/devprof.py census_table): a property of the
+        # program, published by the daemon and the kernels endpoint
+        self.kernels_per_window = Gauge(
+            "guber_tpu_kernels_per_window",
+            "Executed-kernel census of the composed serving window "
+            "(traced-program property; lower is better).",
+            registry=self.registry,
+        )
+        # overlap: drains in flight, sum(stage busy) / pipeline-active
+        # wall, staging arena recycling (core/window_buffers.py)
+        self.pipeline_inflight_windows = Gauge(
+            "guber_tpu_pipeline_inflight_windows",
+            "Drain windows currently in flight between dispatch and commit.",
+            registry=self.registry,
+        )
+        self.pipeline_overlap_ratio = Gauge(
+            "guber_tpu_pipeline_overlap_ratio",
+            "Aggregate stage busy time divided by pipeline-active wall time "
+            "(1.0 = serial, >1 = host/device/fetch stages overlapped).",
+            registry=self.registry,
+        )
+        self.window_buffer_reuse = Counter(
+            "guber_tpu_window_buffer_reuse_total",
+            "Drain staging arena acquisitions by outcome.",
+            ["event"],  # reuse | alloc
+            registry=self.registry,
+        )
+        # the deferred-fetch chain: its stride, the drains waiting on its
+        # shared fetch, and the fetches it elided
+        self.chain_fetch_stride = Gauge(
+            "guber_tpu_chain_fetch_stride",
+            "Current deferred-fetch chain stride (drains per stacked "
+            "fetch; 1 = fetch every drain).",
+            registry=self.registry,
+        )
+        self.chain_inflight_windows = Gauge(
+            "guber_tpu_chain_inflight_windows",
+            "Dispatched drains currently chained awaiting the shared "
+            "stacked fetch.",
+            registry=self.registry,
+        )
+        self.chain_fetch_elided = Counter(
+            "guber_tpu_chain_fetch_elided_total",
+            "Device-to-host fetch round trips elided by chaining drains "
+            "behind one stacked fetch.",
+            registry=self.registry,
+        )
+        # the device-time flight recorder (observability/devprof.py): the
+        # dispatch -> fetch-ready window clock per arm, its EWMA, and the
+        # periodic captures' outcomes
+        self.device_window_ms = Histogram(
+            "guber_tpu_device_window_ms",
+            "Dispatch-to-fetch-ready wall time of one drain window, by "
+            "executable arm.",
+            ["arm"],
+            buckets=(0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 1000),
+            registry=self.registry,
+        )
+        self.device_window_ewma = Gauge(
+            "guber_tpu_device_window_ewma_ms",
+            "EWMA of the dispatch-to-fetch-ready window time, by "
+            "executable arm.",
+            ["arm"],
+            registry=self.registry,
+        )
+        self.devprof_captures = Counter(
+            "guber_tpu_devprof_captures_total",
+            "Continuous-profiling capture cycles by outcome (folded = "
+            "parsed into the kernel table; shed = skipped, a capture was "
+            "already in flight; empty = trace parsed to nothing).",
+            ["status"],  # folded | shed | empty
+            registry=self.registry,
+        )
+        # slot occupancy, from engine.cache_stats at scrape time
+        self.cache_slots = Gauge(
+            "guber_tpu_cache_slots",
+            "Arena slot occupancy by state.",
+            ["state"],  # free | live | expired
+            registry=self.registry,
+        )
+        # traffic analytics (observability/analytics.py): hot keys,
+        # per-tenant decisions, the arena's churn and occupancy
+        self.hot_key_hits = Counter(
+            "guber_tpu_hot_key_hits_total",
+            "Hits attributed to device-reported hot keys (top-K only; "
+            "unresolved slots render as s<shard>:slot<n>).",
+            ["key"],
+            registry=self.registry,
+        )
+        self.tenant_decisions = Counter(
+            "guber_tpu_tenant_decisions_total",
+            "Decisions per fairness tenant, by outcome "
+            "(under_limit | over_limit).",
+            ["tenant", "outcome"],
+            registry=self.registry,
+        )
+        self.arena_churn = Counter(
+            "guber_tpu_arena_churn_total",
+            "Bucket initializations seen by the drain reduction (slot "
+            "allocations + window resets — the arena's write churn).",
+            registry=self.registry,
+        )
+        self.arena_occupancy = Gauge(
+            "guber_tpu_arena_occupancy_slots",
+            "Device-computed arena slot occupancy from the last drain's "
+            "expiry plane, by state (live | expired).",
+            ["state"],
+            registry=self.registry,
+        )
+        # the SLO burn-rate engine (observability/analytics.py SLOEngine)
+        self.slo_burn_rate = Gauge(
+            "guber_slo_burn_rate",
+            "Error-budget burn rate per objective and window "
+            "(1.0 = burning exactly the budget).",
+            ["slo", "window"],
+            registry=self.registry,
+        )
+        self.slo_firing = Gauge(
+            "guber_slo_firing",
+            "Multi-window burn-rate alert state per objective "
+            "(1 = firing).",
+            ["slo"],
             registry=self.registry,
         )
         # the state lifecycle (state/snapshot.py)
@@ -442,15 +625,18 @@ class Metrics:
         )
 
     def watch_engine(self, engine) -> None:
-        """Export the engine's cache counters at scrape time: the
-        cache_size gauge, and the hit/miss counters advanced by their
+        """Export the engine's cache stats at scrape time from one
+        engine.cache_stats read: the cache_size gauge, the free, live and
+        expired slot gauges, and the hit/miss counters advanced by their
         change since the last scrape."""
         last = {"hit": 0, "miss": 0}
 
         def refresh():
-            self.cache_size.set(engine.cache_size)
-            for kind, now in (("hit", engine.cache_hits),
-                              ("miss", engine.cache_misses)):
+            st = engine.cache_stats()
+            self.cache_size.set(st["size"])
+            for state in ("free", "live", "expired"):
+                self.cache_slots.labels(state=state).set(st[state])
+            for kind, now in (("hit", st["hits"]), ("miss", st["misses"])):
                 if now > last[kind]:
                     self.cache_access_count.labels(type=kind).inc(
                         now - last[kind])
@@ -518,6 +704,42 @@ class Metrics:
             self.qos_drain_depth_ewma.set(qos.congestion.depth_ewma)
 
         self._scrape_hooks.append(refresh)
+
+    def watch_analytics(self, analytics=None, slo=None) -> None:
+        """Export the traffic analytics' occupancy gauges and the SLO
+        engine's burn rates and alert states at scrape time.  Sheds reach
+        the SLO engine through the admission controller, not here."""
+
+        def refresh():
+            if analytics is not None:
+                occ = analytics.occupancy()
+                for state in ("live", "expired"):
+                    self.arena_occupancy.labels(state=state).set(occ[state])
+            if slo is not None:
+                for name, obj in slo.burn_rates().items():
+                    for win, burn in obj["windows"].items():
+                        self.slo_burn_rate.labels(
+                            slo=name, window=win).set(burn)
+                    self.slo_firing.labels(slo=name).set(
+                        1 if obj["firing"] else 0)
+
+        self._scrape_hooks.append(refresh)
+
+    def observe_hot_key(self, key: str, hits: int) -> None:
+        if hits > 0:
+            self.hot_key_hits.labels(key=key).inc(hits)
+
+    def observe_tenant(self, tenant: str, under: int, over: int) -> None:
+        if under > 0:
+            self.tenant_decisions.labels(
+                tenant=tenant, outcome="under_limit").inc(under)
+        if over > 0:
+            self.tenant_decisions.labels(
+                tenant=tenant, outcome="over_limit").inc(over)
+
+    def observe_churn(self, inits: int) -> None:
+        if inits > 0:
+            self.arena_churn.inc(inits)
 
     def observe_shed(self, reason: str, n: int = 1) -> None:
         self.qos_shed.labels(reason=reason).inc(n)

@@ -88,6 +88,28 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+class CallCounts(dict):
+    """A wrapper module's calls by kernel (its `launches` and
+    `plain_calls`): a dict whose increments also add to a tally of the
+    calling thread, so a count taken on one thread (the device profiler's
+    census, on the engine thread) holds no other thread's calls."""
+
+    def __init__(self, *names: str):
+        super().__init__((n, 0) for n in names)
+        self._tls = threading.local()
+
+    def __setitem__(self, name, value) -> None:
+        up = value - self.get(name, 0)
+        super().__setitem__(name, value)
+        if up > 0:
+            self._tls.n = getattr(self._tls, "n", 0) + up
+
+    def thread_total(self) -> int:
+        """The calling thread's increments, every kernel, since it
+        started."""
+        return getattr(self._tls, "n", 0)
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise unless `t` has the dtype, shape and device a kernel takes and
     is contiguous."""

@@ -54,9 +54,10 @@ CHUNK_LANES = 1024
 # guber_drain_plan's kinds
 _KIND = {"drain_compact": 0, "drain_compact_stats": 1, "window_full": 2}
 
-launches = {"drain_compact": 0, "drain_compact_stats": 0, "window_full": 0}
-plain_calls = {"drain_compact": 0, "drain_compact_stats": 0,
-               "window_full": 0}
+launches = build.CallCounts("drain_compact", "drain_compact_stats",
+                            "window_full")
+plain_calls = build.CallCounts("drain_compact", "drain_compact_stats",
+                               "window_full")
 
 _lock = threading.Lock()
 _lib = None

@@ -59,8 +59,9 @@ UPS_FIELDS = ("pslot", "plimit", "pduration", "premaining", "ptstamp",
               "pexpire", "palgo")
 _I32_FIELDS = ("slot", "algo", "uslot", "ualgo", "rslot", "pslot", "palgo")
 
-launches = {"global_window": 0, "global_stage": 0, "global_apply": 0}
-plain_calls = {"global_window": 0, "global_stage": 0, "global_apply": 0}
+launches = build.CallCounts("global_window", "global_stage", "global_apply")
+plain_calls = build.CallCounts("global_window", "global_stage",
+                               "global_apply")
 
 _lock = threading.Lock()
 _lib = None

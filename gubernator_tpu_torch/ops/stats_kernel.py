@@ -37,8 +37,8 @@ from gubernator_tpu_torch.ops.build import check_tensor
 
 SOURCE = "stats_finish"
 
-launches = {"stats_finish": 0}
-plain_calls = {"stats_finish": 0}
+launches = build.CallCounts("stats_finish")
+plain_calls = build.CallCounts("stats_finish")
 
 _lock = threading.Lock()
 _lib = None

@@ -57,8 +57,8 @@ _B, _I32, _I64 = torch.bool, torch.int32, torch.int64
 LANE_DTYPES = (_B, _I64, _I64, _I64, _I32, _B, _B, _I32, _I32, _I32, _B,
                _I64, _I64, _I64, _I32, _B, _I32, _I32, _I64)
 
-launches = {"window_math": 0}
-plain_calls = {"window_math": 0}
+launches = build.CallCounts("window_math")
+plain_calls = build.CallCounts("window_math")
 
 _lock = threading.Lock()
 _lib = None

@@ -234,7 +234,6 @@ def test_both_discovery_backends_raise_in_both(clean_env):
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("GUBER_DEVPROF", "periodic", 7),
     ("GUBER_MESH_PEERS", "127.0.0.1:1", 8),
     ("GUBER_MESH_COORDINATOR", "127.0.0.1:2", 8),
     ("GUBER_LOCKSTEP_STACK", "2", 8),
@@ -246,6 +245,24 @@ def test_unported_knob_raises_naming_its_roadmap_item(clean_env, name,
     with pytest.raises(ValueError,
                        match=f"{name}=.*ROADMAP.md Queue 1 item {item}"):
         pconfig.config_from_env()
+
+
+@pytest.mark.parametrize("name,value,knob,want", [
+    ("GUBER_DEVPROF", "periodic", "devprof_mode", "periodic"),
+    ("GUBER_DEVPROF_INTERVAL_S", "0.01", "devprof_interval_s", 0.05),
+    ("GUBER_DEVPROF_DRAINS", "3", "devprof_drains", 3),
+    ("GUBER_DEVPROF_RING", "9", "devprof_ring", 9),
+    ("GUBER_DEVPROF_SLOW_MS", "12.5", "devprof_slow_ms", 12.5),
+])
+def test_devprof_knob_reads_as_the_jax_function(clean_env, name, value,
+                                                 knob, want):
+    """The device profiler's knobs are served now (GUBER_DEVPROF raised
+    while it was unported): the port's config_from_env reads each as the
+    JAX package's Config does (gubernator_tpu/config.py:416-431), the
+    interval's 0.05 s floor included."""
+    clean_env.setenv(name, value)
+    got = getattr(pconfig.config_from_env(), knob)
+    assert got == getattr(jconfig.Config(), knob) == want
 
 
 @pytest.mark.parametrize("name,value,section,knob,want", [
@@ -398,6 +415,67 @@ def test_sigterm_stops_a_serving_daemon_in_order(clean_env, monkeypatch):
     assert d.shutdown_phases == [p for p in JAX_PHASES
                                  if p in d.shutdown_phases]
     assert d.instance.batcher.pipeline._closed
+
+
+def test_devprof_periodic_daemon_serves_the_profile_and_kernels_routes(
+        clean_env, tmp_path):
+    """GUBER_DEVPROF=periodic boots the port's daemon with the periodic
+    controller running; POST /v1/admin/profile and GET /v1/admin/kernels
+    answer as the JAX routes do (409 while a capture is armed, 400 on a
+    bad argument); the census gauge is published at boot; the drain phase
+    stops the controller before the teardown."""
+    for k, v in SMALL.items():
+        clean_env.setenv(k, v)
+    clean_env.setenv("GUBER_DEVPROF", "periodic")
+    clean_env.setenv("GUBER_DEVPROF_INTERVAL_S", "3600")
+
+    async def body():
+        d = daemon_mod.Daemon(pconfig.config_from_env())
+        await d.start()
+        try:
+            client = AsyncClient(d.grpc.address)
+            await client.get_rate_limits(_reqs())
+            await client.close()
+            # the boot's census, queued on the engine thread, has run
+            await asyncio.get_running_loop().run_in_executor(
+                d.instance.batcher._executor, lambda: None)
+            base = f"http://127.0.0.1:{d.http.port}"
+            got = {}
+            async with aiohttp.ClientSession() as s:
+                async with s.get(base + "/v1/admin/debug") as r:
+                    got["debug"] = await r.json()
+                async with s.post(base + "/v1/admin/profile?drains=x") as r:
+                    got["bad"] = r.status
+                async with s.post(base + "/v1/admin/profile",
+                                  json={"drains": 2, "dir": str(tmp_path)}) \
+                        as r:
+                    got["armed"] = (r.status, await r.json())
+                async with s.post(base + "/v1/admin/profile") as r:
+                    got["again"] = r.status
+                async with s.get(base + "/v1/admin/kernels?measure=1") as r:
+                    got["measure_armed"] = r.status
+                d.instance.batcher.profile.cancel()
+                async with s.get(base + "/v1/admin/kernels?census=0") as r:
+                    got["kernels"] = (r.status, await r.json())
+                async with s.get(base + "/metrics") as r:
+                    got["metrics"] = await r.text()
+        finally:
+            await d.stop()
+        return d, got
+
+    d, got = asyncio.run(body())
+    dp = got["debug"]["devprof"]
+    assert dp["mode"] == "periodic" and dp["controller"]["running"] is True
+    assert got["bad"] == 400 and got["again"] == 409
+    assert got["armed"][0] == 200 and got["armed"][1]["armed"] is True
+    assert got["measure_armed"] == 409
+    status, kern = got["kernels"]
+    assert status == 200 and kern["controller"]["interval_s"] == 3600.0
+    assert kern["clock"]["arms"]["composed_drain"]["count"] >= 1
+    assert "guber_tpu_kernels_per_window 0.125" in got["metrics"]
+    assert d.instance.devprof.controller.status()["running"] is False
+    assert d.shutdown_phases == ["monitor_stop", "drain", "global_flush",
+                                 "handoff_skipped", "teardown"]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

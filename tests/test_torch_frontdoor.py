@@ -610,12 +610,13 @@ def test_admin_debug_route_reports_the_front_door(loop, fd, jfd):
     theirs = json.loads(json.dumps(build_debug_snapshot(jfd.instance),
                                    default=str))
     assert {"engine", "admission", "congestion", "peers", "global_sync",
-            "frontdoor", "pipeline", "stages", "tracing"} <= set(mine)
-    for gone in ("slo", "devprof", "profile"):
-        assert gone not in mine
+            "frontdoor", "pipeline", "stages", "tracing", "profile",
+            "devprof"} <= set(mine)
+    # neither daemon runs an SLO engine
+    assert "slo" not in mine and "slo" not in theirs
     assert set(mine) - {"pipeline"} <= set(theirs)
     for sec in ("admission", "congestion", "global_sync", "frontdoor",
-                "tracing"):
+                "tracing", "profile", "devprof"):
         assert set(mine[sec]) == set(theirs[sec]), sec
     assert mine["frontdoor"]["workers"] == 2
     assert mine["standalone"] is True

@@ -59,6 +59,9 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.frontdoor_replay",
                   "gubernator_tpu_torch.core.shm_ring",
                   "gubernator_tpu_torch.observability.introspect",
+                  "gubernator_tpu_torch.observability.devprof",
+                  "gubernator_tpu_torch.observability",
+                  "gubernator_tpu_torch.cmd.cli",
                   "gubernator_tpu_torch.cmd.cluster_main")
 
 
@@ -72,6 +75,28 @@ def test_import_loads_no_jax_grpc_or_protobuf(module):
         "'prometheus_client') "
         "or m.startswith('google.protobuf')]\n"
         "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"{module} pulled in {res.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "gubernator_tpu_torch.observability.devprof",
+    "gubernator_tpu_torch.observability.introspect",
+    "gubernator_tpu_torch.observability",
+    "gubernator_tpu_torch.cmd.cli",
+])
+def test_profiling_modules_and_the_cli_load_no_torch(module):
+    """The device profiler's modules import torch only where a capture or
+    a census runs, and the operator CLI never: `python -m
+    gubernator_tpu_torch.cmd.cli` runs on a box with no card."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "print(','.join(sorted({m.split('.')[0] for m in sys.modules}\n"
+        "      & {'torch', 'jax', 'jaxlib', 'gubernator_tpu'})))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])

@@ -1061,3 +1061,120 @@ def test_qos_pipeline_grows_the_stride_under_backlog_and_answers_alike():
         k: _tuples([g for q, g in zip(reqs, rs) if q.hash_key() == k])
         for k in {q.hash_key() for q in reqs}}
     assert per_key(got) == per_key(want)
+
+
+# ------------------------------------------- slot layout vs state by key
+
+
+def _mixed_request(idx, hits, compact_only):
+    """Key idx's request in a serving mix: 70 of every 100 keys token or
+    leaky, 8 GCRA, 8 sliding window, 8 concurrency, 6 NO_BATCHING token
+    (compact_only: token or leaky only); a key keeps its algorithm."""
+    c = idx % 100
+    if compact_only:
+        c %= 70
+    algo, behavior = int(idx & 1), Behavior.BATCHING
+    if 70 <= c < 78:
+        algo = Algorithm.GCRA
+    elif 78 <= c < 86:
+        algo = Algorithm.SLIDING_WINDOW
+    elif 86 <= c < 94:
+        algo, hits = Algorithm.CONCURRENCY, 1 if hits else -1
+    elif c >= 94:
+        algo, behavior = Algorithm.TOKEN_BUCKET, Behavior.NO_BATCHING
+    return RateLimitReq(name=f"t{idx % 80}", unique_key=f"m{idx}",
+                        hits=hits, limit=20 + idx % 50, duration=60_000,
+                        algorithm=algo, behavior=behavior)
+
+
+def _mixed_rpcs(compact_only, n=1500, keys=640):
+    rng = np.random.default_rng(97)
+    idx = (rng.zipf(1.1, n) - 1) % keys
+    hits = rng.choice([0, 1, 1, 1, 1, 1, 1, 2], n)
+    reqs = [_mixed_request(int(i), int(h), compact_only)
+            for i, h in zip(idx, hits)]
+    return [reqs[i:i + 100] for i in range(0, n, 100)]
+
+
+def _keyed_state(eng):
+    """The arena keyed by key, not by slot: per shard the router's sorted
+    fingerprints, their expiry, every [S, C] plane's rows at their slots
+    and at the slots no key holds; then the [G] planes."""
+    arena = eng.export_arena()
+    per_slot = sorted(n for n, p in arena.items() if p.ndim == 2)
+    out = []
+    for s in range(eng.num_shards):
+        fp, slot, expire = eng.native.export_keys(s)
+        order = np.argsort(fp)
+        held = np.zeros(arena[per_slot[0]].shape[1], bool)
+        held[slot] = True
+        out.append([fp[order], expire[order]]
+                   + [arena[n][s, slot[order]] for n in per_slot]
+                   + [arena[n][s, ~held] for n in per_slot])
+    out.append([arena[n] for n in sorted(arena) if arena[n].ndim == 1])
+    return out
+
+
+def _serve_serially(rpcs, perturb=None, seed=0):
+    """A small QoS-on Instance on the CPU serves the RPCs one after another
+    on a pinned clock, depth 3; `perturb` shifts its timing: "window"
+    draws the QoS window's cut at random, "no_batching" delays the
+    NO_BATCHING lane.  (responses, arena, keyed state)."""
+    import random
+
+    inst = Instance(engine_config=EngineConfig(
+        capacity_per_shard=256, batch_per_shard=64, num_shards=8,
+        global_capacity=64, global_batch_per_shard=16,
+        max_global_updates=16, use_native="on"), device="cpu")
+    assert inst.qos is not None and inst.batcher.pipeline is not None
+    now = 1_754_000_000_000
+    inst.batcher.now_fn = lambda: now
+    inst.batcher.pipeline.now_fn = lambda: now
+    inst.batcher.pipeline.depth = 3
+    draw = random.Random(seed)
+    if perturb == "window":
+        inst.qos.congestion.effective_window = lambda: draw.randint(1, 300)
+    elif perturb == "no_batching":
+        submit_now = inst.batcher.submit_now
+
+        async def late(reqs, *a, **kw):
+            await asyncio.sleep(0.005)
+            return await submit_now(reqs, *a, **kw)
+
+        inst.batcher.submit_now = late
+
+    async def serial():
+        return [await inst.get_rate_limits(rpc) for rpc in rpcs]
+
+    try:
+        got = [q for rpc in asyncio.run(serial()) for q in rpc]
+    finally:
+        inst.close()
+    return ([(r.status, r.limit, r.remaining, r.reset_time, r.error)
+             for r in got], inst.engine.export_arena(),
+            _keyed_state(inst.engine))
+
+
+@pytest.mark.parametrize("perturb", ["window", "no_batching"])
+@pytest.mark.parametrize("traffic", ["mixed", "compact"])
+def test_slot_layout_follows_the_drain_order_state_by_key_does_not(
+        traffic, perturb):
+    """Which slot a new key takes follows the order keys are first seen
+    on the engine thread.  With serving's mix that order depends on
+    timing (the NO_BATCHING lane jumps the window; a drain job holding a
+    request the stack refuses takes the full path when it opens the stack
+    and waits for the next drain otherwise, so the QoS window's cut
+    decides the order): the same RPCs give the same responses and the
+    same state key by key, whatever the timing.  With token and leaky
+    requests only, every key takes its slot in submission order on one
+    path, and the arenas are equal plane for plane."""
+    rpcs = _mixed_rpcs(compact_only=traffic == "compact")
+    want, want_arena, want_keyed = _serve_serially(rpcs)
+    got, arena, keyed = _serve_serially(rpcs, perturb=perturb, seed=1)
+    assert got == want
+    for s, (a, b) in enumerate(zip(keyed, want_keyed)):
+        assert len(a) == len(b) and all(
+            np.array_equal(x, y) for x, y in zip(a, b)), f"shard {s}"
+    if traffic == "compact":
+        for name, plane in want_arena.items():
+            assert np.array_equal(arena[name], plane), name

@@ -679,7 +679,7 @@ def test_pipeline_drain_is_tenant_fair_and_budgeted(pair):
                 fut = loop.create_future()
                 i = p._cols.append(r)
                 p._singles.append((r, fut, 0.0, None, i) if jax_side
-                                  else (r, fut, k, i))
+                                  else (r, fut, k, 0.0, None, i))
             jobs, cols = p._take_jobs()
             job_keys = [[q.unique_key for q in j.reqs] for j in jobs]
             job_cols = [np.asarray(j._cols[2]).tolist() for j in jobs]
