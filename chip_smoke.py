@@ -346,6 +346,39 @@ Phases (one line each; any mismatch raises and exits non-zero):
      no trace directory.  Then a fresh process serves a small Instance
      and arms its first capture: the profiler's start there is the cold
      initialisation an engine thread pays once.
+ 16. mesh serving (parallel/distributed.py; the engine's, batcher's and
+     service's mesh mode): two rank processes started here, both on this
+     card in one gloo group (NCCL refuses two ranks on a device; where the
+     machine has a card a rank, each on its own, nccl), each
+     holding 4 of S = 8 shards of 2^21 slots, B = 1024, G = 4096 (the JAX
+     defaults).  16a, here first: global_stage_read (global_window.cu) and
+     global_apply_rows (global_apply.cu), the GLOBAL window split across
+     the all-reduce, on each half of phase 5a's edge windows and on the
+     sum of the halves' scratches, against their plain versions; 16b their
+     device time at G = 4096 and 2^20 on a rank's window beside their plain
+     versions and bounds.  Then the ranks: 20 ticks at a stack of 1
+     (engine.step) and 20 at 2 (step_stacked), a rank's window 1000
+     regular requests (Zipf keys of its shards, all five algorithms,
+     releases) and 64 GLOBAL ones on 256 keys registered at one `now`
+     (a third of them hit by one rank only); the same traffic, each tick's
+     windows the union of the two ranks', through one S = 8 engine here:
+     every response, each rank's rows of its shards and both ranks' GLOBAL
+     replicas and configs equal to it.  Where grpc imports, each rank then
+     serves through a mesh Instance with a gRPC server: rank 0 asks its
+     own server for a key of rank 1's shard three times (forwarded,
+     annotated with its owner), sends a first-seen GLOBAL key to rank 1
+     (registered through the registrar, rank 0, on both ranks) and reads
+     it back on its own server; the two stop at the tick rank 0 proposes;
+     each saves its own snapshot file (arena-r<offset>.snap), stamped with
+     the agreed final tick's time, and restores it into a fresh engine
+     through restore_mesh_engine (the ranks' files agree), equal.  Where
+     grpc does not import, one line says so.  Each rank counts its
+     launches from after its engine's warm-up to the differential's end,
+     and from after its Instance's warm-up to the serving part's end:
+     drain_compact, global_stage_read and global_apply_rows, no other
+     kernel, no plain version.  Figures: each rank's decisions/s (ticks
+     back to back), the all-reduce's median and p99 ms, the new kernels'
+     times.
 
 Thirteen main paths are counted, each from 0: the one-shard path (phases
 3b and 4), the GLOBAL path over 8 shards (phases 5c and 5d), the analytics
@@ -7146,6 +7179,690 @@ def report_devprof(r, fig, counts, wire_fig, smi):
     log("devprof figures: " + json.dumps(dict(card=smi, **fig)))
 
 
+# ---------------------------------------------------------------- phase 16
+
+MESH_RANKS = 2
+MESH_LOCAL = SHARDS // MESH_RANKS   # shards a rank: S = 2 x 4
+MESH_CAPACITY = 1 << 21             # slots a shard (the serving geometry)
+MESH_TICKS = 20                     # differential ticks a stack depth
+MESH_STACKS = (1, 2)
+MESH_REGULAR = 1000                 # regular requests a rank's window
+MESH_KEYS = 1 << 15                 # regular keys a rank
+MESH_GLOBAL = 64                    # GLOBAL requests a rank's window
+MESH_GKEYS = 256                    # GLOBAL keys registered at T0
+MESH_DURATION = 600_000
+MESH_TIMEOUT_S = 150.0              # the rank processes' time limit
+MESH_TIMED = 200                    # launches a device-time reading
+MESH_NOW = T0 + 10_000_000          # the differential's first tick
+# Python statements each rank process runs before it imports this script
+# (empty on the card; a CPU rehearsal puts its patches here)
+MESH_CHILD_SETUP = ""
+
+
+def mesh_keys(rank, n):
+    """n regular unique keys ("mk<i>") of `rank`'s shards: crc32 of the
+    hash key mod 8, divided by the shards a rank holds."""
+    import zlib
+    out, i = [], 0
+    while len(out) < n:
+        if (zlib.crc32(f"mesh_mk{i}".encode()) % SHARDS) // MESH_LOCAL == rank:
+            out.append(i)
+        i += 1
+    return np.asarray(out, np.int64)
+
+
+def mesh_scenario(seed=1616):
+    """Phase 16's seeded traffic as columns (one row a request): stack,
+    tick, window, rank, kind (0 regular, 1 GLOBAL), key id, hits, limit,
+    duration, algorithm.  A rank's window: MESH_REGULAR requests over its
+    own keys (Zipf, a = 1.2: duplicate runs), all five algorithms (token
+    and leaky 70%), CONCURRENCY releases; and MESH_GLOBAL GLOBAL requests
+    (token and leaky, 1-3 hits) on the registered keys: key j is hit by
+    rank 0 when j % 3 < 2 and by rank 1 when j % 3 > 0, so a third of the
+    keys only one rank hits."""
+    rng = np.random.default_rng(seed)
+    keys = [mesh_keys(r, MESH_KEYS) for r in range(MESH_RANKS)]
+    gk_ids = np.arange(MESH_GKEYS)
+    mine = [gk_ids[gk_ids % 3 < 2], gk_ids[gk_ids % 3 > 0]]
+    cols = {c: [] for c in ("stack", "tick", "win", "rank", "kind", "kid",
+                            "hits", "limit", "duration", "algo")}
+
+    def add(n, **kw):
+        for c, v in kw.items():
+            cols[c].append(np.broadcast_to(np.asarray(v, np.int64), (n,)))
+
+    for stack in MESH_STACKS:
+        for tick in range(MESH_TICKS):
+            for win in range(stack):
+                for r in range(MESH_RANKS):
+                    n = MESH_REGULAR
+                    z = np.minimum(rng.zipf(1.2, n) - 1, MESH_KEYS - 1)
+                    algo = rng.choice(5, n, p=[0.35, 0.35, 0.1, 0.1, 0.1])
+                    hits = rng.integers(0, 4, n)
+                    rel = (algo == 4) & (rng.random(n) < 0.2)
+                    hits[rel] = -1
+                    add(n, stack=stack, tick=tick, win=win, rank=r, kind=0,
+                        kid=keys[r][z], hits=hits,
+                        limit=rng.integers(1, 1000, n),
+                        duration=rng.choice([MESH_DURATION, 2_000], n),
+                        algo=algo)
+                    g = rng.choice(mine[r], MESH_GLOBAL)
+                    add(MESH_GLOBAL, stack=stack, tick=tick, win=win, rank=r,
+                        kind=1, kid=g, hits=rng.integers(1, 4, MESH_GLOBAL),
+                        limit=mesh_global_spec(g)[0],
+                        duration=MESH_DURATION, algo=mesh_global_spec(g)[1])
+    return {c: np.concatenate(v) for c, v in cols.items()}
+
+
+def mesh_global_spec(kid):
+    """A registered GLOBAL key's (limit, algorithm) by key id."""
+    kid = np.asarray(kid)
+    return 1000 + 37 * kid, (kid % 2).astype(np.int64)
+
+
+def mesh_global_specs():
+    limit, algo = mesh_global_spec(np.arange(MESH_GKEYS))
+    return [(f"meshg_g{j}", int(limit[j]), MESH_DURATION, int(algo[j]))
+            for j in range(MESH_GKEYS)]
+
+
+def mesh_requests(sc, rows):
+    """The scenario's rows as RateLimitReq, in order."""
+    out = []
+    for i in rows:
+        glob = sc["kind"][i] == 1
+        out.append(RateLimitReq(
+            name="meshg" if glob else "mesh",
+            unique_key=f"{'g' if glob else 'mk'}{int(sc['kid'][i])}",
+            hits=int(sc["hits"][i]), limit=int(sc["limit"][i]),
+            duration=int(sc["duration"][i]), algorithm=int(sc["algo"][i]),
+            behavior=Behavior.GLOBAL if glob else Behavior.BATCHING))
+    return out
+
+
+def mesh_windows(sc, stack, tick, ranks):
+    """The windows of one tick: for each window, the requests of `ranks`
+    (in rank order, each rank's in its order) and each rank's count."""
+    sel = (sc["stack"] == stack) & (sc["tick"] == tick)
+    out = []
+    for win in range(stack):
+        reqs, counts = [], []
+        for r in ranks:
+            rows = np.flatnonzero(sel & (sc["win"] == win) & (sc["rank"] == r))
+            reqs += mesh_requests(sc, rows)
+            counts.append(rows.size)
+        out.append((reqs, counts))
+    return out
+
+
+def mesh_engine(dev, shards, mesh=None):
+    return RateLimitEngine(
+        capacity_per_shard=MESH_CAPACITY, batch_per_shard=FULL_LANES,
+        num_shards=shards, global_capacity=G_FULL,
+        global_batch_per_shard=BG_FULL, max_global_updates=KG_FULL,
+        device=dev, use_native="on", mesh=mesh)
+
+
+def mesh_step(eng, windows, now, stack):
+    if stack > 1:
+        return eng.step_stacked([w for w, _ in windows], now, k_stack=stack)
+    return [eng.step(windows[0][0], now)]
+
+
+def resp_array(resps):
+    return np.asarray([[r.status, r.limit, r.remaining, r.reset_time]
+                       for r in resps], np.int64).reshape(-1, 4)
+
+
+def shard_rows(eng, shards):
+    """Every row of the listed shards that any plane holds nonzero:
+    (shard, slot, values [6]) as one host array [n, 8], in shard and slot
+    order."""
+    out = []
+    for s in shards:
+        planes = [p[s] for p in eng.state]
+        live = torch.zeros_like(planes[0], dtype=torch.bool)
+        for p in planes:
+            live |= p != 0
+        idx = live.nonzero().flatten()
+        vals = torch.stack([p[idx].to(torch.int64) for p in planes], -1)
+        out.append(torch.cat([torch.full_like(idx, s)[:, None], idx[:, None],
+                              vals], -1).cpu().numpy())
+    return np.concatenate(out)
+
+
+def mesh_rank(rank, scenario_path, out_path, serve_ports):
+    """One rank of phase 16 (a process of its own, run by phase_mesh):
+    join the group (GUBER_MESH_* in the environment), the differential on
+    a mesh engine, then, with serve_ports, serving through a mesh Instance
+    with a gRPC server; the counts, figures and outputs to out_path."""
+    from gubernator_tpu_torch.parallel import distributed as dd
+    t_start = time.perf_counter()
+    assert dd.initialize_from_env("cuda")
+    mesh = dd.global_mesh(MESH_LOCAL)
+    dev = dd.rank_device("cuda", rank)
+    sc = dict(np.load(scenario_path))
+    out = dict(backend=np.array(mesh.backend),
+               init_s=np.float64(time.perf_counter() - t_start))
+    eng = mesh_engine(dev, MESH_LOCAL, mesh)
+    eng.warmup(now=MESH_NOW, k_stack=max(MESH_STACKS))
+    eng.register_global_keys(mesh_global_specs(), now=MESH_NOW)
+    mesh.barrier()
+    # the main path: every count from 0, read when the rank is done
+    reset_counts()
+    mesh.reduce_seconds.clear()
+    decisions, wall = 0, 0.0
+    for stack in MESH_STACKS:
+        for tick in range(MESH_TICKS):
+            wins = mesh_windows(sc, stack, tick, (rank,))
+            now = MESH_NOW + 1000 * stack + 7 * tick
+            t0 = time.perf_counter()
+            got = mesh_step(eng, wins, now, stack)
+            wall += time.perf_counter() - t0
+            for k, rs in enumerate(got):
+                out[f"r{stack}_{tick}_{k}"] = resp_array(rs)
+                decisions += len(rs)
+    red = np.asarray(mesh.reduce_seconds) * 1e3
+    out.update(rows=shard_rows(eng, range(MESH_LOCAL)),
+               decisions_per_s=np.float64(decisions / wall),
+               reduce_ms=red, reductions=np.int64(mesh.reductions))
+    for name, t in eng.export_arena().items():
+        if name.startswith(("gstate.", "gcfg.")):
+            out[name] = t
+    del eng
+    torch.cuda.empty_cache()
+    # the differential's counts; serving counts its own from 0 after its
+    # Instance's warm-up (mesh_serve), and the two are added
+    counts = {f"launch.{k}": v for k, v in launch_counts().items()}
+    counts.update({f"plain.{k}": v for k, v in plain_counts().items()})
+    if serve_ports:
+        out.update(mesh_serve(rank, mesh, dev, serve_ports))
+        for k, v in launch_counts().items():
+            counts[f"launch.{k}"] += v
+        for k, v in plain_counts().items():
+            counts[f"plain.{k}"] += v
+    for k, v in counts.items():
+        out[k] = np.int64(v)
+    out["wall_s"] = np.float64(time.perf_counter() - t_start)
+    np.savez(out_path, **out)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(f"mesh rank {rank}: OK", flush=True)
+
+
+def mesh_serve(rank, mesh, dev, ports):
+    """Serving on a mesh Instance with a gRPC server, the two ranks on the
+    card: rank 0 asks its own server for a key of rank 1's shard (it
+    forwards; the answer names its owner), sends a first-seen GLOBAL key to
+    rank 1's server (it registers through the registrar, rank 0, on both
+    ranks in two phases) and reads it back on its own (the all-reduce
+    brought rank 1's hits), then ends the tick loop at a tick both agree
+    on, which rank 1 waits for; then each rank saves its own snapshot file,
+    stamped with the agreed final tick's time, and restores it into a
+    fresh engine of the rank through state/snapshot.py
+    restore_mesh_engine (the two files agree).  The counts start from 0
+    after the Instance's warm-up."""
+    from gubernator_tpu_torch.client import AsyncClient
+    from gubernator_tpu_torch.discovery.static import StaticPool
+    from gubernator_tpu_torch.server import GrpcServer
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    res = {}
+
+    async def run():
+        inst = Instance(
+            engine_config=EngineConfig(
+                capacity_per_shard=MESH_CAPACITY, num_shards=MESH_LOCAL,
+                batch_per_shard=FULL_LANES, global_capacity=G_FULL,
+                use_native="on"),
+            behaviors=BehaviorConfig(batch_wait=0.002, batch_timeout=10.0,
+                                     global_timeout=10.0),
+            device=dev, mesh=mesh, mesh_peers=addrs,
+            advertise_address=addrs[rank])
+        epoch = inst.batcher.clock.epoch_ms
+        inst.engine.warmup(now=epoch, k_stack=1)
+        inst.engine.register_global_keys(mesh_global_specs()[:8], now=epoch)
+        reset_counts()
+        server = GrpcServer(inst, addrs[rank])
+        await server.start()
+        await StaticPool(addrs, addrs[rank], inst.set_peers).start()
+        # every rank's server is up before rank 0 calls rank 1's
+        mesh.barrier()
+        inst.batcher.start_lockstep()
+        t0 = time.perf_counter()
+        if rank == 0:
+            import zlib
+            remote = next(f"s{i}" for i in range(10_000)
+                          if (zlib.crc32(f"meshs_s{i}".encode()) % SHARDS)
+                          // MESH_LOCAL == 1)
+            own = AsyncClient(addrs[0])
+            other = AsyncClient(addrs[1])
+            seq = []
+            for _ in range(3):
+                r = (await own.get_rate_limits([RateLimitReq(
+                    name="meshs", unique_key=remote, hits=1, limit=2,
+                    duration=60_000)]))[0]
+                seq.append((r.remaining, int(r.status), r.error,
+                            (r.metadata or {}).get("owner")))
+            res["forward"] = np.array(json.dumps(seq))
+            res["owner"] = np.array(addrs[1])
+            fresh = RateLimitReq(name="meshs", unique_key="fresh", hits=3,
+                                 limit=50, duration=60_000,
+                                 behavior=Behavior.GLOBAL)
+            r = (await other.get_rate_limits([fresh]))[0]
+            res["register"] = np.array(json.dumps(
+                [r.remaining, int(r.status), r.error]))
+            probe = None
+            for _ in range(100):
+                await asyncio.sleep(0.02)
+                probe = (await own.get_rate_limits([RateLimitReq(
+                    name="meshs", unique_key="fresh", hits=0, limit=50,
+                    duration=60_000, behavior=Behavior.GLOBAL)]))[0]
+                if probe.remaining == 47:
+                    break
+            res["probe"] = np.array(json.dumps(
+                [probe.remaining, probe.error]))
+            res["stop_tick"] = np.int64(
+                await inst.batcher.stop_lockstep(timeout=60))
+            await own.close()
+            await other.close()
+        else:
+            await asyncio.wait_for(asyncio.shield(inst.batcher._tick_task),
+                                   90)
+            res["stop_tick"] = np.int64(inst.batcher.stop_at_tick)
+        res["ticks"] = np.int64(inst.batcher.clock.tick)
+        res["serve_s"] = np.float64(time.perf_counter() - t0)
+        res["registered"] = np.int64(inst.engine.global_ready("meshs_fresh"))
+        # the rank's own snapshot file, restored into a fresh engine
+        tmp = tempfile.mkdtemp(prefix="guber-mesh-")
+        try:
+            path = snapmod.snapshot_path(tmp, inst.engine.local_shard_offset,
+                                         inst.engine.multiprocess)
+            t1 = time.perf_counter()
+            clock = inst.batcher.clock
+            size = await inst.save_snapshot(
+                path, now=clock.time_of(clock.tick))
+            fresh_eng = mesh_engine(dev, MESH_LOCAL, mesh)
+            restored = snapmod.restore_mesh_engine(fresh_eng, path)
+            res["snapshot_s"] = np.float64(time.perf_counter() - t1)
+            res["snapshot_bytes"] = np.int64(size)
+            res["snapshot_name"] = np.array(os.path.basename(path))
+            same = all(torch.equal(a, b) for a, b in zip(
+                fresh_eng._planes().values(), inst.engine._planes().values()))
+            res["snapshot_same"] = np.int64(
+                restored is not None and same
+                and fresh_eng._gpending == inst.engine._gpending
+                and fresh_eng.global_ready("meshs_fresh"))
+            del fresh_eng
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        await server.stop()
+        inst.close()
+
+    asyncio.run(run())
+    return res
+
+
+def mesh_kernels_vs_plain():
+    """Phase 16a, in this process: global_stage_read on each half of phase
+    5a's edge windows (two ranks' lanes, the same replica and config
+    writes) and global_apply_rows on the sum of the two scratches, each
+    against its plain version on copies: the read blocks, the scratches,
+    every gstate and gcfg plane, and the scratch back at zero after the
+    apply."""
+    rng = np.random.default_rng(1606)
+    n = SHARDS * BG_FULL
+    errs = []
+    cases = [(range(7), False), ((0, 1), False), (range(7), True),
+             ((0, 1), True)]
+    for i, (algos, wrap) in enumerate(cases):
+        st, cfg, bt, _ = global_edge_inputs(rng, G_FULL, n, algos, wrap)
+        gbatch, gacc, upd = edge_control(rng, G_FULL, bt, KG_FULL, wrap)
+        now = T0 + i
+        h = SHARDS // 2
+        ranks = []
+        for r in range(2):
+            ctl = gk.make_control(
+                tk.WindowBatch(*[a[r * h:(r + 1) * h] for a in gbatch]),
+                gacc[r * h:(r + 1) * h], upd, DEV)
+            k = (clone(st), clone(cfg),
+                 torch.zeros(G_FULL, dtype=torch.int64, device=DEV))
+            p = (clone(st), clone(cfg), torch.zeros_like(k[2]))
+            got = gk.global_stage_read(k[0], k[1], ctl, k[2], now)
+            want = gk.global_stage_read_plain(p[0], p[1], ctl, p[2], now)
+            torch.cuda.synchronize()
+            what = f"mesh case {i} rank {r} stage"
+            assert_same((got, k[2]), (want, p[2]), f"{what} read, scratch")
+            assert_same(k[0], p[0], f"{what} gstate")
+            assert_same(k[1], p[1], f"{what} gcfg")
+            errs += [(got, want), (k[2], p[2])]
+            ranks.append((k, p))
+        summed = ranks[0][0][2] + ranks[1][0][2]
+        for r, (k, p) in enumerate(ranks):
+            k[2].copy_(summed)
+            p[2].copy_(summed)
+            gk.global_apply_rows(k[0], k[1], k[2], now)
+            gk.global_apply_rows_plain(p[0], p[1], p[2], now)
+            torch.cuda.synchronize()
+            what = f"mesh case {i} rank {r} apply"
+            assert_same(k[0], p[0], f"{what} gstate")
+            assert_same(k[1], p[1], f"{what} gcfg")
+            check(not k[2].any(), f"{what}: the scratch is not back at 0")
+            errs += list(zip(k[0], p[0]))
+        assert_same(ranks[0][0][0], ranks[1][0][0], f"mesh case {i} replicas")
+    err = max_abs_err(errs)
+    log(f"phase 16a global_stage_read + global_apply_rows vs plain: "
+        f"{len(cases)} edge windows of {n} lanes over G={G_FULL}, split "
+        f"into two ranks' halves around a summed scratch: read blocks, "
+        f"scratches, gstate, gcfg bit-exact, both replicas equal, scratch "
+        f"back at 0 (max_abs_err {err})")
+    return err
+
+
+def mesh_timing_inputs(rng, G):
+    """A rank's GLOBAL window at the JAX defaults over a G-row arena: 4 x
+    256 lanes on 256 keys (70% token, 30% leaky), no config lane (a mesh
+    writes configs only at registration); the arena's rows hold their
+    configs; and the two ranks' summed hits on those keys."""
+    n = MESH_LOCAL * BG_FULL
+    keys = rng.choice(G, MESH_GKEYS, replace=False)
+    algo = (rng.random(G) < 0.3).astype(np.int32)
+    limit = rng.integers(100, 10_000, G)
+    st = tk.BucketState(*[torch.from_numpy(a).to(DEV) for a in (
+        limit, np.full(G, MESH_DURATION), rng.integers(0, 100, G),
+        np.full(G, T0 - 5), np.full(G, T0 + MESH_DURATION), algo)])
+    cfg = tk.GlobalConfig(*[torch.from_numpy(a).to(DEV) for a in (
+        limit.copy(), np.full(G, MESH_DURATION), algo.copy())])
+    slot = keys[rng.integers(0, keys.size, n)].astype(np.int32)
+    hits = rng.integers(1, 4, n).astype(np.int64)
+    gbatch = tk.WindowBatch(slot, hits, limit[slot], np.full(n, MESH_DURATION),
+                            algo[slot], np.zeros(n, bool))
+    upd = (np.full(1, G, np.int32), np.zeros(1, np.int64),
+           np.zeros(1, np.int64), np.zeros(1, np.int32),
+           np.full(1, G, np.int32))
+    ctl = gk.make_control(gbatch, hits, upd, DEV)
+    summed = np.zeros(G, np.int64)
+    np.add.at(summed, slot, 2 * hits)
+    return st, cfg, ctl, torch.from_numpy(summed).to(DEV), n, keys.size
+
+
+def mesh_bounds(n, touched, G):
+    """The least time of each new entry point, from what this window
+    needs.  global_stage_read: its control read once (56 B a lane), each
+    lane's row gathered (44 B) and its answer written (32 B), each lane's
+    atomic on its slot's sum (8 B); or each lane's ~200 32-bit operations
+    and two int64 divisions at the scalar rate.  global_apply_rows: the
+    [G] sums read once (8 B a row), each touched row's state and config
+    read (64 B), its state written (44 B) and its sum zeroed (8 B); or each
+    touched row's ladder.  Whichever is larger; (ms, bound_by) each."""
+    ladder = 200 + TRANSITION_DIVS * FDIV_OPS
+
+    def pick(nbytes, ops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = ops / INT32_OPS_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+    return (pick(n * (56 + 44 + 32 + 8), n * ladder),
+            pick(G * 8 + touched * (64 + 44 + 8), touched * ladder))
+
+
+def mesh_kernel_times():
+    """Phase 16b, in this process: the two new entry points' device time a
+    launch (profiler; CUDA events where it shows none) at G = 4096 and
+    G = 2^20 on a rank's window, beside their plain versions' time on the
+    card and their bounds.  The apply's scratch is refilled before each
+    launch (a copy the time leaves out)."""
+    rng = np.random.default_rng(1607)
+    out = {}
+    for G in (G_FULL, 1 << 20):
+        st, cfg, ctl, summed, n, touched = mesh_timing_inputs(rng, G)
+        scratch = torch.zeros(G, dtype=torch.int64, device=DEV)
+
+        def stage():
+            gk.global_stage_read(st, cfg, ctl, scratch, T0)
+
+        def apply():
+            scratch.copy_(summed)
+            gk.global_apply_rows(st, cfg, scratch, T0)
+        for fn in (stage, apply):
+            for _ in range(5):
+                fn()
+        torch.cuda.synchronize()
+        times = device_ms_each(
+            lambda: (stage(), apply()), MESH_TIMED,
+            ("global_stage_read_kernel", "global_apply_rows_kernel"))
+        if times["global_stage_read_kernel"] is None:
+            times["global_stage_read_kernel"] = cuda_ms(stage, MESH_TIMED)
+        if times["global_apply_rows_kernel"] is None:
+            refill = cuda_ms(lambda: scratch.copy_(summed), MESH_TIMED)
+            times["global_apply_rows_kernel"] = (cuda_ms(apply, MESH_TIMED)
+                                                 - refill)
+        s0 = torch.zeros_like(scratch)
+        plain_stage = cuda_ms(lambda: gk.global_stage_read_plain(
+            st, cfg, ctl, s0, T0), 5)
+        plain_apply = cuda_ms(lambda: (s0.copy_(summed),
+                                       gk.global_apply_rows_plain(
+                                           st, cfg, s0, T0)), 5)
+        (sb, sby), (ab, aby) = mesh_bounds(n, touched, G)
+        out[G] = dict(stage_ms=times["global_stage_read_kernel"],
+                      apply_ms=times["global_apply_rows_kernel"],
+                      plain_stage_ms=plain_stage, plain_apply_ms=plain_apply,
+                      stage_bound=(sb, sby), apply_bound=(ab, aby), n=n,
+                      touched=touched)
+        log(f"phase 16b at G={G}: global_stage_read "
+            f"{out[G]['stage_ms']:.6f} ms a launch ({n} lanes; plain "
+            f"{plain_stage:.4f} ms, bound {sb * 1e3:.3f} us by {sby}), "
+            f"global_apply_rows {out[G]['apply_ms']:.6f} ms ({touched} "
+            f"touched rows; plain {plain_apply:.4f} ms, bound "
+            f"{ab * 1e3:.3f} us by {aby})")
+        gk.reset_counts()
+    return out
+
+
+def mesh_reference(sc):
+    """The same seeded traffic through one single-process engine with
+    S = 8 on the card: each tick's windows the union of the two ranks'
+    (rank 0's requests, then rank 1's); its responses by (stack, tick,
+    window), each split by rank, its rows of each rank's shards and its
+    GLOBAL planes."""
+    eng = mesh_engine(DEV, SHARDS)
+    eng.register_global_keys(mesh_global_specs(), now=MESH_NOW)
+    resp = {}
+    for stack in MESH_STACKS:
+        for tick in range(MESH_TICKS):
+            wins = mesh_windows(sc, stack, tick, range(MESH_RANKS))
+            now = MESH_NOW + 1000 * stack + 7 * tick
+            for k, (rs, (w, counts)) in enumerate(zip(
+                    mesh_step(eng, wins, now, stack), wins)):
+                arr = resp_array(rs)
+                resp[(stack, tick, k)] = (arr[:counts[0]], arr[counts[0]:])
+    rows = [shard_rows(eng, range(r * MESH_LOCAL, (r + 1) * MESH_LOCAL))
+            for r in range(MESH_RANKS)]
+    g = {n: t for n, t in eng.export_arena().items()
+         if n.startswith(("gstate.", "gcfg."))}
+    del eng
+    torch.cuda.empty_cache()
+    return resp, rows, g
+
+
+def grpc_available():
+    """Do grpc and protobuf import here (the serving part needs both)?"""
+    import importlib.util
+    try:
+        return all(importlib.util.find_spec(m) is not None
+                   for m in ("grpc", "google.protobuf"))
+    except ModuleNotFoundError:
+        return False
+
+
+def phase_mesh():
+    """Phase 16: mesh serving, two ranks on the card (module docstring)."""
+    from gubernator_tpu_torch import native
+    t_phase = time.perf_counter()
+    check(native.available(), f"the native router: {native.build_error()}")
+    err = mesh_kernels_vs_plain()
+    times = mesh_kernel_times()
+    sc = mesh_scenario()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="guber-mesh-")
+    serve = grpc_available()
+    ports = []
+    for _ in range(3 if serve else 1):
+        import socket
+        so = socket.socket()
+        so.bind(("127.0.0.1", 0))
+        ports.append(so.getsockname()[1])
+        so.close()
+    procs = []
+    try:
+        np.savez(os.path.join(tmp, "scenario.npz"), **sc)
+        for rank in range(MESH_RANKS):
+            env = dict(os.environ, GUBER_MESH_COORDINATOR=f"127.0.0.1:{ports[0]}",
+                       GUBER_MESH_NUM_PROCESSES=str(MESH_RANKS),
+                       GUBER_MESH_PROCESS_ID=str(rank))
+            code = (f"import sys; sys.path.insert(0, {here!r})\n"
+                    f"{MESH_CHILD_SETUP}\n"
+                    f"import chip_smoke as cs; cs.mesh_rank({rank}, "
+                    f"{os.path.join(tmp, 'scenario.npz')!r}, "
+                    f"{os.path.join(tmp, f'rank{rank}.npz')!r}, "
+                    f"{ports[1:] if serve else []!r})")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=here, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        ref = mesh_reference(sc)
+        logs = []
+        deadline = t_phase + MESH_TIMEOUT_S
+        for p in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                out, _ = p.communicate()
+                out += "\n<the rank's time limit passed>"
+            logs.append(out)
+        failed = [f"mesh rank {rank} failed ({p.returncode}):\n{out[-6000:]}"
+                  for rank, (p, out) in enumerate(zip(procs, logs))
+                  if p.returncode != 0 or f"mesh rank {rank}: OK" not in out]
+        check(not failed, "\n".join(failed))
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(MESH_RANKS)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(err=err, times=times, ref=ref, ranks=ranks, serve=serve,
+                wall_s=time.perf_counter() - t_phase)
+
+
+def check_mesh(r):
+    """Every rank's responses, rows and GLOBAL planes against the S = 8
+    engine; both replicas equal; the counts; the serving part."""
+    resp, rows, g = r["ref"]
+    ranks = r["ranks"]
+    n_resp = 0
+    for (stack, tick, k), want in resp.items():
+        for rank in range(MESH_RANKS):
+            got = ranks[rank][f"r{stack}_{tick}_{k}"]
+            check(np.array_equal(got, want[rank]),
+                  f"mesh rank {rank} stack {stack} tick {tick} window {k}: "
+                  f"responses differ from the S = {SHARDS} engine's")
+            n_resp += got.shape[0]
+    for rank in range(MESH_RANKS):
+        got = ranks[rank]["rows"].copy()
+        got[:, 0] += rank * MESH_LOCAL
+        check(np.array_equal(got, rows[rank]),
+              f"mesh rank {rank}: its shards' rows differ from the S = "
+              f"{SHARDS} engine's ({got.shape[0]} vs {rows[rank].shape[0]})")
+        for name, want in g.items():
+            check(np.array_equal(ranks[rank][name], want),
+                  f"mesh rank {rank}: {name} differs from the S = {SHARDS} "
+                  f"engine's")
+    check(ranks[0]["reductions"] == ranks[1]["reductions"] > 0,
+          f"the ranks' all-reduces differ: "
+          f"{[int(x['reductions']) for x in ranks]}")
+    mesh_k = ("drain_compact", "global_stage_read", "global_apply_rows")
+    counts = []
+    for rank, x in enumerate(ranks):
+        launches = {k[7:]: int(v) for k, v in x.items()
+                    if k.startswith("launch.")}
+        plain = {k[6:]: int(v) for k, v in x.items()
+                 if k.startswith("plain.")}
+        check(all(launches[k] > 0 for k in mesh_k),
+              f"mesh rank {rank}: a kernel of the mesh path never launched: "
+              f"{launches}")
+        others = {k: v for k, v in launches.items() if k not in mesh_k}
+        check(not any(others.values()),
+              f"mesh rank {rank} launched another kernel: {others}")
+        check(not any(plain.values()),
+              f"mesh rank {rank} ran plain versions: {plain}")
+        want = ("nccl" if torch.cuda.device_count() >= MESH_RANKS
+                else "gloo")
+        check(str(x["backend"]) == want,
+              f"mesh rank {rank}: backend {x['backend']}, want {want} "
+              f"({torch.cuda.device_count()} cards for {MESH_RANKS} ranks)")
+        counts.append(launches)
+    if r["serve"]:
+        fwd = json.loads(str(ranks[0]["forward"]))
+        addr1 = str(ranks[0]["owner"])
+        check([(a, b) for a, b, _, _ in fwd] == [(1, 0), (0, 0), (0, 1)]
+              and all(not e for _, _, e, _ in fwd)
+              and all(o == addr1 for *_, o in fwd),
+              f"the forwarded key's answers: {fwd}, owner {addr1}")
+        reg = json.loads(str(ranks[0]["register"]))
+        check(reg == [47, 0, ""], f"the first-seen GLOBAL key: {reg}")
+        probe = json.loads(str(ranks[0]["probe"]))
+        check(probe == [47, ""], f"rank 0's read of rank 1's hits: {probe}")
+        stops = [int(x["stop_tick"]) for x in ranks]
+        check(stops[0] == stops[1] > 0
+              and [int(x["ticks"]) for x in ranks] == stops,
+              f"the agreed stop: {stops}, ticks "
+              f"{[int(x['ticks']) for x in ranks]}")
+        check(all(int(x["registered"]) for x in ranks),
+              "the registered key is not servable on both ranks")
+        check(all(int(x["snapshot_same"]) for x in ranks),
+              "a rank's snapshot did not restore equal")
+        check([str(x["snapshot_name"]) for x in ranks]
+              == ["arena-r0.snap", f"arena-r{MESH_LOCAL}.snap"],
+              f"snapshot files {[str(x['snapshot_name']) for x in ranks]}")
+        log(f"phase 16 serving: the forwarded key answered by {addr1}, the "
+            f"first-seen GLOBAL key registered on both ranks and read back "
+            f"on rank 0, both ranks stopped at tick {stops[0]}, snapshots "
+            f"{[str(x['snapshot_name']) for x in ranks]} of "
+            f"{[int(x['snapshot_bytes']) for x in ranks]} bytes restored "
+            f"equal in {[round(float(x['snapshot_s']), 3) for x in ranks]} s")
+    else:
+        log("phase 16 serving: grpc does not import here; the gRPC part "
+            "is skipped")
+    return n_resp, counts
+
+
+def report_mesh(r, n_resp, counts, smi):
+    t = r["times"]
+    red = np.concatenate([x["reduce_ms"] for x in r["ranks"]])
+    fig = dict(
+        decisions_per_s=[float(x["decisions_per_s"]) for x in r["ranks"]],
+        allreduce_ms_p50=float(np.percentile(red, 50)),
+        allreduce_ms_p99=float(np.percentile(red, 99)),
+        reductions=[int(x["reductions"]) for x in r["ranks"]],
+        rank_wall_s=[float(x["wall_s"]) for x in r["ranks"]],
+        phase_s=r["wall_s"])
+    log(f"phase 16 mesh, {MESH_RANKS} ranks x {MESH_LOCAL} shards of "
+        f"{MESH_CAPACITY} slots ({r['ranks'][0]['backend']}; "
+        f"{torch.cuda.device_count()} cards), {MESH_TICKS} ticks at "
+        f"stacks {MESH_STACKS} of {MESH_REGULAR} + {MESH_GLOBAL} requests a "
+        f"rank's window: {n_resp} responses, each rank's rows and both "
+        f"GLOBAL replicas equal to the S = {SHARDS} engine's; decisions/s "
+        f"per rank {fig['decisions_per_s']}; all-reduce ms p50 "
+        f"{fig['allreduce_ms_p50']:.4f} p99 {fig['allreduce_ms_p99']:.4f} "
+        f"over {red.size}; launches {counts}; new kernels' device ms at G = "
+        f"{G_FULL} {t[G_FULL]['stage_ms']:.6f} / {t[G_FULL]['apply_ms']:.6f}"
+        f", at G = 2^20 {t[1 << 20]['stage_ms']:.6f} / "
+        f"{t[1 << 20]['apply_ms']:.6f}; phase {r['wall_s']:.1f} s; {smi}")
+    return fig
+
+
 def main():
     smi = phase_device()
     grid_plans()
@@ -7385,6 +8102,14 @@ def main():
     dp_fig = check_devprof(dp)
     report_devprof(dp, dp_fig, path13, wire_fig, smi)
     del dp
+    # mesh serving: two rank processes on the card; each counts its own
+    # launches from 0, after its engine is warmed, to its end
+    mesh = phase_mesh()
+    n_mesh, mesh_counts = check_mesh(mesh)
+    mesh_fig = report_mesh(mesh, n_mesh, mesh_counts, smi)
+    path14 = {k: sum(c[k] for c in mesh_counts) for k in mesh_counts[0]}
+    mt = mesh["times"][G_FULL]
+    log(f"phase 16 figures: {json.dumps(mesh_fig)}")
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [
         dict(name="drain_compact", route="cuda", source=SOURCE,
@@ -7393,7 +8118,8 @@ def main():
                        + path6["drain_compact"] + path7["drain_compact"]
                        + path8["drain_compact"] + path9["drain_compact"]
                        + path10["drain_compact"] + path11["drain_compact"]
-                       + path12["drain_compact"] + path13["drain_compact"]),
+                       + path12["drain_compact"] + path13["drain_compact"]
+                       + path14["drain_compact"]),
              max_abs_err=max(drain_err, drain["max_abs_err"], s8_err,
                              glob["drain_err"]),
              ms=sig4(drain["ms"]), plain_ms=sig4(drain["plain_ms"]),
@@ -7464,6 +8190,18 @@ def main():
                      else pb["pair_events"]),
              plain_ms=sig4(pb["apply_plain"]), bound_ms=pb["apply_bound"][0],
              bound_by=pb["apply_bound"][1], library_ms=None),
+        dict(name="global_stage_read", route="cuda", source=GLOBAL_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
+             launches=path14["global_stage_read"], max_abs_err=mesh["err"],
+             ms=sig4(mt["stage_ms"]), plain_ms=sig4(mt["plain_stage_ms"]),
+             bound_ms=mt["stage_bound"][0], bound_by=mt["stage_bound"][1],
+             library_ms=None),
+        dict(name="global_apply_rows", route="cuda", source=APPLY_SOURCE,
+             replaces="gubernator_tpu/ops/pallas_kernel.py:1381",
+             launches=path14["global_apply_rows"], max_abs_err=mesh["err"],
+             ms=sig4(mt["apply_ms"]), plain_ms=sig4(mt["plain_apply_ms"]),
+             bound_ms=mt["apply_bound"][0], bound_by=mt["apply_bound"][1],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

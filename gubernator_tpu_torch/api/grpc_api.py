@@ -4,11 +4,9 @@ A copy of `gubernator_tpu/api/grpc_api.py` over the port's messages.
 Service and method names match the reference exactly ("pb.gubernator.V1"
 and "pb.gubernator.PeersV1", reference gubernator.pb.go:419,
 peers.pb.go:164) so reference clients interoperate.  Method handlers are
-registered directly instead of through generated *_grpc.py stubs.  Of
-PeersV1 GetPeerRateLimits, UpdatePeerGlobals and TransferBuckets (key
-migration, raw bytes in and out) are ported: RegisterGlobals and
-ApplyGlobalRegistration (mesh GLOBAL) are not registered, so they answer
-UNIMPLEMENTED.
+registered directly instead of through generated *_grpc.py stubs: every
+PeersV1 method, TransferBuckets (key migration) at the bytes level, and
+RegisterGlobals and ApplyGlobalRegistration (mesh GLOBAL registration).
 """
 
 from __future__ import annotations
@@ -47,7 +45,8 @@ def add_v1_servicer(server: grpc.aio.Server, servicer) -> None:
 
 def add_peers_servicer(server: grpc.aio.Server, servicer) -> None:
     """servicer: async GetPeerRateLimits(req, ctx), TransferBuckets(req,
-    ctx), UpdatePeerGlobals(req, ctx)."""
+    ctx), UpdatePeerGlobals(req, ctx), RegisterGlobals(req, ctx),
+    ApplyGlobalRegistration(req, ctx)."""
     handlers = {
         # bytes-level like V1.GetRateLimits: the servicer owns
         # decode/encode so authoritative relays can run the native
@@ -68,6 +67,17 @@ def add_peers_servicer(server: grpc.aio.Server, servicer) -> None:
             servicer.UpdatePeerGlobals,
             request_deserializer=pb.UpdatePeerGlobalsReq.FromString,
             response_serializer=pb.UpdatePeerGlobalsResp.SerializeToString,
+        ),
+        "RegisterGlobals": grpc.unary_unary_rpc_method_handler(
+            servicer.RegisterGlobals,
+            request_deserializer=pb.RegisterGlobalsReq.FromString,
+            response_serializer=pb.RegisterGlobalsResp.SerializeToString,
+        ),
+        "ApplyGlobalRegistration": grpc.unary_unary_rpc_method_handler(
+            servicer.ApplyGlobalRegistration,
+            request_deserializer=pb.ApplyGlobalRegistrationReq.FromString,
+            response_serializer=(
+                pb.ApplyGlobalRegistrationResp.SerializeToString),
         ),
     }
     server.add_generic_rpc_handlers(
@@ -92,8 +102,7 @@ class V1Stub:
 
 
 class PeersV1Stub:
-    """Client stub for the peer plane's ported methods (reference
-    peers.pb.go:122-155)."""
+    """Client stub for the peer plane (reference peers.pb.go:122-155)."""
 
     def __init__(self, channel):
         self.GetPeerRateLimits = channel.unary_unary(
@@ -105,4 +114,14 @@ class PeersV1Stub:
             f"/{PEERS_SERVICE}/UpdatePeerGlobals",
             request_serializer=pb.UpdatePeerGlobalsReq.SerializeToString,
             response_deserializer=pb.UpdatePeerGlobalsResp.FromString,
+        )
+        self.RegisterGlobals = channel.unary_unary(
+            f"/{PEERS_SERVICE}/RegisterGlobals",
+            request_serializer=pb.RegisterGlobalsReq.SerializeToString,
+            response_deserializer=pb.RegisterGlobalsResp.FromString,
+        )
+        self.ApplyGlobalRegistration = channel.unary_unary(
+            f"/{PEERS_SERVICE}/ApplyGlobalRegistration",
+            request_serializer=pb.ApplyGlobalRegistrationReq.SerializeToString,
+            response_deserializer=pb.ApplyGlobalRegistrationResp.FromString,
         )

@@ -20,8 +20,13 @@ from gubernator_tpu_torch.api.proto.gubernator_pb2 import (
     RateLimitResp,
 )
 from gubernator_tpu_torch.api.proto.peers_pb2 import (
+    ApplyGlobalRegistrationReq,
+    ApplyGlobalRegistrationResp,
     GetPeerRateLimitsReq,
     GetPeerRateLimitsResp,
+    GlobalSpec,
+    RegisterGlobalsReq,
+    RegisterGlobalsResp,
     UpdatePeerGlobal,
     UpdatePeerGlobalsReq,
     UpdatePeerGlobalsResp,

@@ -16,13 +16,16 @@ read by the daemon at boot, net/faults.py), the engine's lowering
 and the daemon's env config (DaemonConfig with GUBER_SNAPSHOT_DIR and
 GUBER_SNAPSHOT_INTERVAL_MS, the front door's GUBER_FRONTDOOR_* and
 GUBER_SHM_*, the discovery backends' GUBER_K8S_* and GUBER_ETCD_* with
-etcd's TLS, load_env_file, config_from_env: reference
-cmd/gubernator/config.go:59-147, the same GUBER_* names and values as the JAX package's for every knob the
-port serves).  GUBER_TORCH_DEVICE names the daemon's device (default
-`cuda`; `cpu` runs the plain versions), the port's counterpart of the JAX
-daemon's GUBER_JAX_PLATFORM.  A knob of a subsystem the port has not
-ported yet raises ValueError, naming its ROADMAP item, when it is set to
-anything but its default (_UNPORTED); it is never ignored.  QoS is on at
+etcd's TLS, mesh serving's GUBER_LOCKSTEP_STACK and GUBER_SKIP_GLOBAL,
+load_env_file, config_from_env: reference cmd/gubernator/config.go:59-147,
+the same GUBER_* names and values as the JAX package's for every knob).
+GUBER_MESH_* are read by parallel/distributed.py and the daemon, and
+GUBER_GLOBAL_KEYS_FILE by the daemon, where the JAX package reads them.
+GUBER_TORCH_DEVICE names the daemon's device (default `cuda`; `cpu` runs
+the plain versions), the port's counterpart of the JAX daemon's
+GUBER_JAX_PLATFORM.  A knob of a subsystem the port had not ported raised
+ValueError, naming its ROADMAP item (_UNPORTED, empty now that every
+subsystem is served).  QoS is on at
 the defaults, as in the JAX package (GUBER_QOS_ENABLED=0 turns it off);
 its peer-lane knobs (retries, breaker, fail-open) act on the peer ring.
 
@@ -89,11 +92,18 @@ class BehaviorConfig:
     global_sync_wait: float = 0.0005
     global_timeout: float = 0.5
     global_batch_limit: int = MAX_BATCH_SIZE
+    # mesh (lockstep) serving only: windows of the tick's stacked step
+    # (engine.step_stacked); every rank must use the same value, since each
+    # window's GLOBAL all-reduce is part of the tick's collective sequence.
+    # 1 = one-window ticks
+    lockstep_stack: int = 1
 
     def validate(self) -> None:
         if self.batch_limit > MAX_BATCH_SIZE:
             raise ValueError(
                 f"Behaviors.BatchLimit cannot exceed '{MAX_BATCH_SIZE}'")
+        if self.lockstep_stack < 1:
+            raise ValueError("Behaviors.lockstep_stack must be >= 1")
 
 
 @dataclass
@@ -122,6 +132,10 @@ class EngineConfig:
     # Replay-bound guard: max lanes of a NON-uniform duplicate-key run per
     # window before the window is cut there; 0 disables.
     replay_cap: int = 128
+    # Config-level promise of zero GLOBAL traffic (GUBER_SKIP_GLOBAL=1):
+    # GLOBAL windows are skipped on every rank alike, and a GLOBAL lane
+    # raises
+    skip_global: bool = False
 
 
 @dataclass
@@ -608,16 +622,11 @@ def per_op_lowering() -> bool:
 # Knobs of subsystems the port has not ported yet: (variable, or a prefix
 # ending in "_", its default (None: any value), ROADMAP Queue 1 item).
 # config_from_env raises when one is set to anything but its default.
-# The front door (GUBER_FRONTDOOR_*, GUBER_SHM_*), the discovery backends
-# (GUBER_K8S_*, GUBER_ETCD_*) and device profiling (GUBER_DEVPROF*) are
-# served; what is left is mesh serving.
-_UNPORTED = (
-    # mesh serving and GLOBAL across processes
-    ("GUBER_MESH_", None, 8),
-    ("GUBER_GLOBAL_KEYS_FILE", "", 8),
-    ("GUBER_LOCKSTEP_STACK", 1, 8),
-    ("GUBER_SKIP_GLOBAL", False, 8),
-)
+# Every subsystem is served now, mesh serving last (GUBER_MESH_* are read
+# in parallel/distributed.py and daemon.py, GUBER_GLOBAL_KEYS_FILE in
+# daemon.py, as in the JAX package), so the table is empty; it stays for a
+# subsystem a later JAX change may add.
+_UNPORTED: tuple = ()
 _UNPORTED_EXACT = {n: (d, i) for n, d, i in _UNPORTED if not n.endswith("_")}
 _UNPORTED_PREFIX = tuple((n, d, i) for n, d, i in _UNPORTED if n.endswith("_"))
 
@@ -748,6 +757,8 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
         b.global_timeout = float(_env("GUBER_GLOBAL_TIMEOUT"))
     if _env("GUBER_GLOBAL_BATCH_LIMIT"):
         b.global_batch_limit = int(_env("GUBER_GLOBAL_BATCH_LIMIT"))
+    if _env("GUBER_LOCKSTEP_STACK"):
+        b.lockstep_stack = int(_env("GUBER_LOCKSTEP_STACK"))
     b.validate()
 
     e = c.engine
@@ -766,6 +777,8 @@ def config_from_env(env_file: Optional[str] = None) -> DaemonConfig:
         e.exact_keys = _env("GUBER_EXACT_KEYS") == "1"
     if _env("GUBER_REPLAY_CAP"):
         e.replay_cap = int(_env("GUBER_REPLAY_CAP"))
+    if _env("GUBER_SKIP_GLOBAL"):
+        e.skip_global = _env("GUBER_SKIP_GLOBAL") == "1"
 
     # QoS / overload control (qos/), read as the JAX package reads it
     q = c.qos

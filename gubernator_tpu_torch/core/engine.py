@@ -68,9 +68,28 @@ global_stage), before the window's config lanes and reads.  Live key
 migration (state/migrate.py) reads and writes rows through `local_keys`,
 `export_rows` / `import_rows`, `export_global_rows` /
 `import_global_rows` and `remove_keys` (JAX engine.py:2045-2258), on the
-Python tables.  Mesh-mode registration (several processes) and the
-stacked legacy step (`step_stacked`) are not part of this single-process
-engine.
+Python tables.
+
+Mesh mode (JAX engine.py:180-200; parallel/distributed.py): with a `mesh`
+of several ranks, this process holds the shards [offset, offset +
+S_local) of S = world x S_local (`num_local_shards`,
+`local_shard_offset`, `multiprocess`), keys hash over S, and a key of
+another rank's shard is refused (`routing_error`) before anything is
+staged.  Every GLOBAL window then runs in three steps on every rank, staged
+lanes or not: global_stage_read (the lanes' hits summed into the scratch,
+the reads answered from the pre-apply replica; under the per-op lowering
+global_stage and the torch reads), the all-reduce of the scratch over the
+ranks (`mesh.all_reduce_`, the JAX psum), and global_apply_rows, which
+applies every nonzero sum, so every rank's GLOBAL replica stays equal.  The
+GLOBAL configs are fixed at registration (`register_global_keys`, two
+phases with `activate_global_keys`, never reclaiming a slot), a window
+names no config write, and upserts are refused, as in the JAX engine.
+`skip_global` promises that no GLOBAL traffic comes (GUBER_SKIP_GLOBAL):
+GLOBAL windows are then skipped on every rank alike, and a GLOBAL lane
+raises.  The window `now` is the caller's, always (the lockstep clock's in
+serving): a mesh engine never reads its own wall clock.  `step_stacked`
+runs K windows at one `now` (the lockstep tick's stacked step; one drain
+launch for K compact windows, a GLOBAL window each).
 
 Device profiling (observability/devprof.py) joins kernels to serving arms
 by the `torch.profiler.record_function` annotations put around each
@@ -263,6 +282,12 @@ def _control_live(gslot, upd, G: int, ups=None) -> bool:
         or bool((rslot < G).any()) or ups is not None
 
 
+# the config lanes of a GLOBAL window that writes no config
+_NO_UPD = (np.empty(0, np.int32), np.empty(0, np.int64),
+           np.empty(0, np.int64), np.empty(0, np.int32),
+           np.empty(0, np.int32))
+
+
 def _host(a) -> np.ndarray:
     """A host array (numpy, or a CPU tensor) as numpy.  Raises on a device
     tensor: fetching it would wait for the device, and the serving path
@@ -361,7 +386,10 @@ class RateLimitEngine:
 
     capacity_per_shard: slots per shard.
     batch_per_shard: max regular-key request lanes per shard per window.
-    num_shards: S, the shards of the regular arena (keys by `shard_of`).
+    num_shards: the shards of the regular arena on this device; keys go
+        by `shard_of` over them, or, with a mesh, over the mesh's S =
+        world x num_shards (then `num_shards` is S and
+        `num_local_shards` this device's).
     global_capacity: G, slots of the replicated GLOBAL arena.
     global_batch_per_shard: max GLOBAL lanes per shard per window.
     max_global_updates: max distinct GLOBAL keys per window.
@@ -380,6 +408,10 @@ class RateLimitEngine:
         "on" requires it and raises with g++'s output when it cannot be
         built.  `self.native` is the router or None.
     exact_keys: the router's exact-key guard (also GUBER_EXACT_KEYS=1).
+    mesh: a parallel/distributed.py Mesh whose local_shards is
+        num_shards (mesh mode when it has several ranks), or None.
+    skip_global: the config-level promise of no GLOBAL traffic
+        (EngineConfig.skip_global, GUBER_SKIP_GLOBAL).
 
     GUBER_PALLAS=1 in the environment at construction selects the per-op
     lowering (`per_op`; see the module docstring).
@@ -397,12 +429,39 @@ class RateLimitEngine:
         device=None,
         use_native=False,
         exact_keys: bool = False,
+        mesh=None,
+        skip_global: bool = False,
     ):
         self.device = resolve_device(device)
         self.per_op = config.per_op_lowering()
         if num_shards < 1:
             raise ValueError("num_shards must be >= 1")
-        self.num_shards = num_shards
+        if mesh is not None and mesh.local_shards != num_shards:
+            raise ValueError(f"the mesh's ranks hold {mesh.local_shards} "
+                             f"shards each, the engine {num_shards}")
+        # mesh mode: this process stages lanes only for its run of shards
+        # and every rank runs the same collective sequence (an all-reduce a
+        # GLOBAL window)
+        self.mesh = mesh
+        self.multiprocess = mesh is not None and mesh.world_size > 1
+        if self.multiprocess:
+            import torch.distributed as dist
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "a mesh engine of several ranks needs its process group "
+                    "(parallel/distributed.py initialize_from_env)")
+        self.num_local_shards = num_shards
+        self.local_shard_offset = 0 if mesh is None else mesh.shard_offset
+        self.num_shards = num_shards if mesh is None else mesh.num_shards
+        # GLOBAL configs change per request only in one process; in a mesh
+        # they are fixed at registration (a per-host refresh would diverge
+        # the replicas)
+        self._dynamic_global = not self.multiprocess
+        self._skip_global = bool(skip_global)
+        # keys registered (phase 1) but not yet activated (phase 2) mesh-wide
+        self._gpending: set = set()
+        # step_stacked's staging, by stack depth K
+        self._stacked_bufs: dict = {}
         self.capacity_per_shard = capacity_per_shard
         self.batch_per_shard = batch_per_shard
         self.global_capacity = global_capacity
@@ -451,7 +510,9 @@ class RateLimitEngine:
         self.native = None
         if use_native in ("auto", True, "on"):
             if native_mod.available():
-                self.native = native_mod.NativeRouter(S, C)
+                self.native = native_mod.NativeRouter(
+                    S, C, num_global_shards=self.num_shards,
+                    shard_offset=self.local_shard_offset)
                 if exact_keys or config.exact_keys_env():
                     self.native.set_exact_keys()
                 self.native.set_replay_cap(self.replay_cap)
@@ -476,10 +537,19 @@ class RateLimitEngine:
         the replica arena before this window's reads (stage_upserts); no
         key twice.  The caller must respect the window caps (use `process`
         for auto-chunking): per-shard regular lanes <= batch_per_shard,
-        GLOBAL lanes <= num_shards * global_batch_per_shard, distinct
-        GLOBAL keys <= max_global_updates, upserts <= max_global_updates.
-        With the native router it is `_process_native`, which chunks.
+        GLOBAL lanes <= num_local_shards * global_batch_per_shard,
+        distinct GLOBAL keys <= max_global_updates, upserts <=
+        max_global_updates.  With the native router it is
+        `_process_native`, which chunks.  In mesh mode every rank calls it
+        at the same point of its sequence with the same `now` (one
+        all-reduce), and a window must fit one dispatch.
         """
+        if upserts and not self._dynamic_global:
+            # an owner's broadcast is a host-local write: in a mesh it would
+            # diverge the replicas, which the all-reduce keeps equal
+            raise ValueError("upserts are not supported in mesh mode "
+                             "(GLOBAL state replicates via the in-mesh "
+                             "all-reduce)")
         if self.native is not None:
             return self._process_native(requests, now, accumulate, upserts)
         now = self._resolve_now(now)
@@ -522,10 +592,12 @@ class RateLimitEngine:
     def _stage_requests(self, buf, requests, now, accumulate):
         """Stage one window's requests into `buf`.  Returns (lanes,
         gcfg_upd, greset, max_reg_fill, g_count) with lanes [(shard, lane,
-        is_global)] per request for demux."""
-        S = self.num_shards
-        reg_fill = [0] * S
-        glob_fill = [0] * S
+        is_global)] per request for demux.  Raises before staging a lane
+        for a key of another rank's shard or a GLOBAL key not yet
+        registered mesh-wide (mesh mode)."""
+        S, SL = self.num_shards, self.num_local_shards
+        reg_fill = [0] * SL
+        glob_fill = [0] * SL
         # slot -> (limit, duration, algo): the window's latest request per
         # slot wins (deduplicated here: a scatter with duplicate indices
         # has no order)
@@ -536,20 +608,26 @@ class RateLimitEngine:
         for i, r in enumerate(requests):
             key = r.hash_key()
             if r.behavior == Behavior.GLOBAL:
+                if not self._dynamic_global and not self.global_ready(key):
+                    raise ValueError(
+                        f"GLOBAL key {key!r} is not registered; mesh mode "
+                        "registers GLOBAL keys through the registrar "
+                        "(core/service.py) before serving them")
                 slot, is_init = self.gtable.lookup(key, now, r.duration)
                 contribute = accumulate is None or accumulate[i]
-                if contribute:
+                if contribute and self._dynamic_global:
+                    # in a mesh the configs are fixed at registration
                     gcfg_upd[slot] = (r.limit, r.duration, r.algorithm)
                     if is_init:
                         greset.append(slot)
                 # GLOBAL lanes are shard-agnostic (the sum covers every
-                # shard), so they spread round-robin over the shards
-                if g_count >= S * self.global_batch_per_shard:
+                # shard), so they spread round-robin over the local shards
+                if g_count >= SL * self.global_batch_per_shard:
                     raise ValueError(
                         "window exceeds the GLOBAL lane cap "
-                        f"({S} shards x {self.global_batch_per_shard}); use "
+                        f"({SL} shards x {self.global_batch_per_shard}); use "
                         "process() for auto-chunking")
-                s = g_count % S
+                s = g_count % SL
                 g_count += 1
                 lane = glob_fill[s]
                 glob_fill[s] += 1
@@ -562,7 +640,9 @@ class RateLimitEngine:
                 buf.gis_init[s, lane] = is_init
                 lanes.append((s, lane, True))
             else:
-                s = shard_of(key, S)
+                s = shard_of(key, S) - self.local_shard_offset
+                if not 0 <= s < SL:
+                    raise ValueError(self.routing_error(r))
                 slot = None
                 is_init = False
                 if self._tiers is not None and key not in self.tables[s]:
@@ -604,7 +684,7 @@ class RateLimitEngine:
         Like step(), a call always dispatches at least one window, even for
         no requests."""
         now = self._resolve_now(now)
-        S = self.num_shards
+        SL = self.num_local_shards
         B = self.batch_per_shard
         buf = self._buf
         responses: List[Optional[RateLimitResp]] = [None] * len(requests)
@@ -637,7 +717,7 @@ class RateLimitEngine:
         if nreg:
             out_shard = np.zeros(nreg, np.int32)
             out_lane = np.zeros(nreg, np.int32)
-        shard_fill = np.zeros(S, np.int32)
+        shard_fill = np.zeros(SL, np.int32)
 
         pending_upserts = list(upserts) if upserts else []
         pos = 0
@@ -664,27 +744,39 @@ class RateLimitEngine:
                     buf.is_init.view(np.uint8),
                     out_shard[pos:], out_lane[pos:], shard_fill,
                 )
+                # mesh mode: the router marks keys of other ranks' shards;
+                # refused before the dispatch (no hits committed)
+                bad = out_shard[pos:pos + packed] < 0
+                if bad.any():
+                    self.native.abort()
+                    r_bad = requests[reg_idx[pos + int(np.argmax(bad))]]
+                    raise ValueError(self.routing_error(r_bad))
 
             # GLOBAL lanes (Python table) up to the caps, round-robin over
-            # the shards (the per-slot sum covers every shard)
+            # the local shards (the per-slot sum covers every shard)
             glanes: List[tuple] = []
             g_count = 0
             gcfg_upd: dict = {}
             greset: List[int] = []
             while gpos + len(glanes) < len(glob):
                 i, r, contribute = glob[gpos + len(glanes)]
-                if g_count + 1 > S * self.global_batch_per_shard:
+                key = r.hash_key()
+                if not self._dynamic_global and not self.global_ready(key):
+                    self.native.abort()
+                    raise ValueError(
+                        f"GLOBAL key {key!r} is not registered; mesh mode "
+                        "registers GLOBAL keys through the registrar")
+                if g_count + 1 > SL * self.global_batch_per_shard:
                     break
                 if len(gcfg_upd) + 1 > self.max_global_updates:
                     break
-                slot, is_init = self.gtable.lookup(r.hash_key(), now,
-                                                   r.duration)
-                if contribute:
+                slot, is_init = self.gtable.lookup(key, now, r.duration)
+                if contribute and self._dynamic_global:
                     gcfg_upd[slot] = (r.limit, r.duration, r.algorithm)
                     if is_init:
                         greset.append(slot)
-                s = g_count % S
-                lane = g_count // S
+                s = g_count % SL
+                lane = g_count // SL
                 g_count += 1
                 buf.gslot[s, lane] = slot
                 buf.ghits[s, lane] = r.hits
@@ -703,6 +795,15 @@ class RateLimitEngine:
             if (packed == 0 and not glanes and not ups_chunk
                     and (pos < nreg or gpos < len(glob))):
                 raise RuntimeError("window packing made no progress")
+            if self.multiprocess and (pos + packed < nreg
+                                      or gpos + len(glanes) < len(glob)
+                                      or pending_upserts):
+                # a second window would be a second all-reduce, which the
+                # other ranks do not issue: refuse before the first
+                self.native.abort()
+                raise ValueError(
+                    "a mesh window must fit one dispatch (size it with "
+                    "max_window_prefix)")
 
             out, gout = self._dispatch(
                 now, reg_fill=int(shard_fill.max()) if packed else 0)
@@ -731,7 +832,29 @@ class RateLimitEngine:
         return responses  # type: ignore[return-value]
 
     def _resolve_now(self, now: Optional[int]) -> int:
-        return millisecond_now() if now is None else now
+        """The window's `now`: the caller's, else the wall clock - except
+        in mesh mode, where every rank must pass the same agreed value
+        (the lockstep clock's tick time): a rank's own clock would diverge
+        the replicas (JAX engine.py:1270)."""
+        if now is not None:
+            return now
+        if self.multiprocess:
+            raise ValueError(
+                "mesh mode requires an explicit, cluster-agreed `now` per "
+                "window (the lockstep clock provides one)")
+        return millisecond_now()
+
+    def collectives_issued(self) -> int:
+        """All-reduces this engine has issued across its mesh (0 outside
+        one).  A lockstep call that raised with this unchanged issued no
+        collective, so an empty call can take its place in the sequence;
+        one that raised after it moved cannot be replayed."""
+        return self.mesh.reductions if self.multiprocess else 0
+
+    def clear_global_scratch(self) -> None:
+        """Zero the GLOBAL window's per-slot sums after a call that raised
+        (a stage may have added to them before the failure)."""
+        self._gsums.zero_()
 
     def _compact_eligible(self, buf) -> bool:
         """May this window travel in the compact wire format?  A limit or
@@ -778,8 +901,11 @@ class RateLimitEngine:
 
         Compact-eligible windows are sliced to the occupied-prefix bucket
         and travel as wire words; the rest take the full int64 columns at
-        full width."""
+        full width.  In mesh mode the GLOBAL window runs on every call
+        (stage, all-reduce, apply; `_global_window_mesh`), and a window
+        with no regular lane launches no regular kernel."""
         buf = self._buf
+        self._check_skip_global(buf.gslot, buf.upd(), buf.ups())
         compact = self._compact_eligible(buf)
         with record_function("guber_window" if compact
                              else "guber_window_full"):
@@ -787,7 +913,11 @@ class RateLimitEngine:
                      if compact and reg_fill is not None
                      else self.batch_per_shard)
             stage = self._staging.array
-            if compact:
+            idle = self.multiprocess and not bool((buf.slot >= 0).any())
+            if idle:
+                # nothing to decide: the responses are all pad lanes
+                wire = fout = None
+            elif compact:
                 packed = kernel.encode_batch_host(
                     buf.slot[:, :lanes], buf.hits[:, :lanes],
                     buf.limit[:, :lanes], buf.duration[:, :lanes],
@@ -814,15 +944,39 @@ class RateLimitEngine:
             self.windows_processed += 1
             gout = None
             ups = buf.ups()
-            if _control_live(buf.gslot, buf.upd(), self.global_capacity, ups):
+            if self._global_runs(buf.gslot, buf.upd(), ups):
                 gout = self._global_window(buf.gbatch(), buf.ghits_acc,
                                            buf.upd(), now, ups)
             # one fetch point: the responses come back after both launches
-            if compact:
+            if idle:
+                z = np.zeros((self.num_local_shards, lanes), np.int64)
+                out = WindowOutput(z.astype(np.int32), z, z, z)
+            elif compact:
                 out = kernel.decode_output_host(wire.cpu().numpy(), now)
             else:
                 out = WindowOutput(*[f.cpu().numpy() for f in fout])
             return out, (None if gout is None else gout.cpu().numpy())
+
+    def _check_skip_global(self, gslot, upd, ups=None) -> None:
+        """skip_global promises no GLOBAL traffic: a GLOBAL lane, config
+        write or upsert under it raises (JAX engine.py:1426-1436)."""
+        if self._skip_global and _control_live(gslot, upd,
+                                               self.global_capacity, ups):
+            raise ValueError("engine configured skip_global=True received "
+                             "GLOBAL lanes or control-plane writes")
+
+    def _global_runs(self, gslot, upd, ups=None) -> bool:
+        """Does this GLOBAL window run?  Never under skip_global (every
+        rank alike: it is config).  In mesh mode always otherwise: whether a
+        window stages a lane is each rank's own traffic, and every rank
+        must all-reduce at the same point of its sequence.  In one process
+        only when it stages a lane, a config write or an upsert
+        (_control_live): skipping an empty one is exact."""
+        if self._skip_global:
+            return False
+        if self.multiprocess:
+            return True
+        return _control_live(gslot, upd, self.global_capacity, ups)
 
     def _step_per_op(self, batch: WindowBatch, now: int) -> WindowOutput:
         """One window of [S, B] decoded lanes through the per-op lowering:
@@ -831,7 +985,7 @@ class RateLimitEngine:
         shard's planes in place.  Returns the responses [S, B], pad lanes
         0."""
         outs = []
-        for s in range(self.num_shards):
+        for s in range(self.num_local_shards):
             _, out = window_math_kernel.window_step_per_op(
                 BucketState(*[p[s] for p in self.state]),
                 WindowBatch(*[t[s] for t in batch]), now, in_place=True)
@@ -860,7 +1014,9 @@ class RateLimitEngine:
             lambda view: global_kernel.pack_control(view, gbatch, gacc, upd,
                                                     ups))
         ctl = global_kernel.Control(block, n, kg, ku)
-        if self.per_op:
+        if self.multiprocess:
+            read = self._global_window_mesh(ctl, now)
+        elif self.per_op:
             global_kernel.global_stage(self.gstate, self.gcfg, ctl,
                                        self._gsums)
             # a 0-d tensor filled on the device: torch.as_tensor(now,
@@ -873,6 +1029,28 @@ class RateLimitEngine:
             read = global_kernel.global_window(self.gstate, self.gcfg, ctl,
                                                self._gsums, now)
         return read.reshape(*np.shape(gbatch.slot), 4)
+
+    def _global_window_mesh(self, ctl, now: int) -> torch.Tensor:
+        """A GLOBAL window across the mesh (the JAX engine's _global_window
+        with its psum, engine.py:2665-2703): this rank's upserts, config
+        writes and lane hits staged and its reads answered from the
+        pre-apply replica (global_stage_read; under the per-op lowering
+        global_stage and the torch reads), the scratch all-reduced over the
+        ranks, then every row whose summed hits are nonzero applied
+        (global_apply_rows), the scratch left all zero.  Returns the read
+        block i64[n, 4]."""
+        if self.per_op:
+            global_kernel.global_stage(self.gstate, self.gcfg, ctl,
+                                       self._gsums)
+            now_t = torch.full((), now, dtype=torch.int64, device=self.device)
+            read = global_kernel.global_read_block(self.gstate, ctl, now_t)
+        else:
+            read = global_kernel.global_stage_read(self.gstate, self.gcfg,
+                                                   ctl, self._gsums, now)
+        self.mesh.all_reduce_(self._gsums)
+        global_kernel.global_apply_rows(self.gstate, self.gcfg, self._gsums,
+                                        now)
+        return read
 
     def pipeline_dispatch(self, packed, nows, n_windows: Optional[int] = None):
         """Dispatch a stacked compact drain WITHOUT fetching: K windows over
@@ -979,7 +1157,8 @@ class RateLimitEngine:
             words, limits, mism = self._drain(packed, nows, n_windows, tenants)
             gbatch = WindowBatch(*[_host(a) for a in gbatch])
             gacc, upd = _host(gacc), tuple(_host(a) for a in upd)
-            if _control_live(gbatch.slot, upd, self.global_capacity):
+            self._check_skip_global(gbatch.slot, upd)
+            if self._global_runs(gbatch.slot, upd):
                 gfused = self._global_window(gbatch, gacc, upd, now0)
             else:
                 gfused = torch.zeros((*tuple(gbatch.slot.shape), 4),
@@ -995,6 +1174,349 @@ class RateLimitEngine:
                 int(decay), topk=conf.topk, over_weight=conf.over_weight)
             return words, limits, mism, gfused, stats
 
+    # ------------------------------------------------ stacked legacy step
+
+    def step_stacked(self, windows: Sequence[Sequence[RateLimitReq]],
+                     now: Optional[int] = None,
+                     accumulates: Optional[Sequence] = None,
+                     k_stack: Optional[int] = None
+                     ) -> List[List[RateLimitResp]]:
+        """K windows at one `now` in one call (JAX engine.py:499): the
+        lockstep tick's stacked step.  Equal to K sequential step() calls
+        at the same `now`, with the JAX engine's one departure in a single
+        process: the GLOBAL config writes of all windows merge (the last
+        wins) and land before window 0 (a mesh has none).  `k_stack` pads
+        the stack with empty windows to a fixed K: in mesh mode every rank
+        calls this at the same point with the same k_stack and `now` (K
+        all-reduces, one a window) and its own windows."""
+        now = self._resolve_now(now)
+        K = k_stack if k_stack is not None else max(len(windows), 1)
+        if len(windows) > K:
+            raise ValueError(f"{len(windows)} windows exceed k_stack={K}")
+        SL, B = self.num_local_shards, self.batch_per_shard
+        Bg, Kg, G = (self.global_batch_per_shard, self.max_global_updates,
+                     self.global_capacity)
+        st = self._stacked_bufs.get(K)
+        if st is None:
+            st = self._stacked_bufs[K] = _PackedWindow.__new__(_PackedWindow)
+            for f, dt in (("slot", np.int32), ("hits", np.int64),
+                          ("limit", np.int64), ("duration", np.int64),
+                          ("algo", np.int32), ("is_init", bool)):
+                setattr(st, f, np.empty((K, SL, B), dt))
+                setattr(st, "g" + f, np.empty((K, SL, Bg), dt))
+            st.ghits_acc = np.empty((K, SL, Bg), np.int64)
+        # every field reset, so that a pad lane carries zeros (the compact
+        # check scans whole planes)
+        for f in ("hits", "limit", "duration", "algo", "is_init"):
+            getattr(st, f).fill(0)
+            getattr(st, "g" + f).fill(0)
+        st.slot.fill(kernel.PAD_SLOT)
+        st.gslot.fill(kernel.PAD_SLOT)
+        st.ghits_acc.fill(0)
+
+        class _View:
+            """One window's writable slice of the stacked staging."""
+
+            def __init__(self, k):
+                for f in ("slot", "hits", "limit", "duration", "algo",
+                          "is_init", "gslot", "ghits", "ghits_acc",
+                          "glimit", "gduration", "galgo", "gis_init"):
+                    setattr(self, f, getattr(st, f)[k])
+
+        for t in self.tables:
+            t.begin_window()
+        self.gtable.begin_window()
+        if self.native is not None:
+            self.native.drain_begin()
+        all_lanes: List[List[tuple]] = []
+        merged_upd: dict = {}
+        merged_reset: List[int] = []
+        try:
+            for k, reqs in enumerate(windows):
+                acc = accumulates[k] if accumulates is not None else None
+                if self.native is None:
+                    lanes, gcfg_upd, greset, _, _ = self._stage_requests(
+                        _View(k), reqs, now, acc)
+                else:
+                    lanes, gcfg_upd, greset = self._stage_window_native(
+                        _View(k), reqs, now, acc)
+                all_lanes.append(lanes)
+                merged_upd.update(gcfg_upd)
+                merged_reset.extend(greset)
+            if len(merged_upd) > Kg or len(merged_reset) > Kg:
+                raise ValueError("stacked windows carry more GLOBAL config "
+                                 f"updates than max_global_updates ({Kg})")
+        except Exception:
+            # staged nothing on the device: the fresh allocations stay
+            # pending, so their next touch initializes them again
+            if self.native is not None:
+                self.native.abort()
+            raise
+        uslot = np.full((Kg,), G, np.int32)
+        ulimit = np.zeros((Kg,), np.int64)
+        uduration = np.zeros((Kg,), np.int64)
+        ualgo = np.zeros((Kg,), np.int32)
+        rslot = np.full((Kg,), G, np.int32)
+        for i, (slot, cfg) in enumerate(merged_upd.items()):
+            uslot[i] = slot
+            ulimit[i], uduration[i], ualgo[i] = cfg
+        for i, slot in enumerate(merged_reset):
+            rslot[i] = slot
+        batches = WindowBatch(st.slot, st.hits, st.limit, st.duration,
+                              st.algo, st.is_init)
+        gbatches = WindowBatch(st.gslot, st.ghits, st.glimit, st.gduration,
+                               st.galgo, st.gis_init)
+        if self._tiers is not None:
+            # one fence for the stack: begin_window ran once above
+            self._tier_fence(now)
+        try:
+            fused = self.step_windows(
+                batches, gbatches, st.ghits_acc,
+                (uslot, ulimit, uduration, ualgo, rslot), None,
+                np.full((K,), now, np.int64),
+                n_decisions=sum(len(w) for w in windows))
+        except Exception:
+            if self.native is not None:
+                self.native.abort()
+            raise
+        for t in self.tables:
+            t.commit_window()
+        self.gtable.commit_window()
+        if self.native is not None:
+            self.native.commit()
+        responses: List[List[RateLimitResp]] = []
+        for k, lanes in enumerate(all_lanes):
+            resp = []
+            for s, lane, is_global in lanes:
+                st_, lim, rem, rst = fused[k, s, lane + (B if is_global
+                                                          else 0)].tolist()
+                resp.append(RateLimitResp(status=st_, limit=lim,
+                                          remaining=rem, reset_time=rst))
+            responses.append(resp)
+        return responses
+
+    def _stage_window_native(self, view, requests, now, accumulate):
+        """step_stacked's staging with the router resolving the regular
+        keys (JAX engine.py:654), inside a drain_begin .. commit/abort
+        bracket; GLOBAL lanes take the Python gtable as everywhere."""
+        B = self.batch_per_shard
+        reg_idx, glob_idx = [], []
+        for i, r in enumerate(requests):
+            (glob_idx if r.behavior == Behavior.GLOBAL else reg_idx).append(i)
+        lanes: List[Optional[tuple]] = [None] * len(requests)
+        if reg_idx:
+            n = len(reg_idx)
+            keys_b = [requests[i].hash_key().encode("utf-8") for i in reg_idx]
+            out_shard = np.empty(n, np.int32)
+            out_lane = np.empty(n, np.int32)
+            packed = self.native.pack_window(
+                np.frombuffer(b"".join(keys_b), dtype=np.uint8),
+                np.cumsum([len(k) for k in keys_b]).astype(np.int64),
+                np.asarray([requests[i].hits for i in reg_idx], np.int64),
+                np.asarray([requests[i].limit for i in reg_idx], np.int64),
+                np.asarray([requests[i].duration for i in reg_idx], np.int64),
+                np.asarray([requests[i].algorithm for i in reg_idx], np.int32),
+                now, B,
+                view.slot, view.hits, view.limit, view.duration, view.algo,
+                view.is_init.view(np.uint8),
+                out_shard, out_lane,
+                np.zeros(self.num_local_shards, np.int32))
+            if packed < n:
+                raise ValueError(
+                    "stacked window overflows batch_per_shard; size windows "
+                    "with max_window_prefix before step_stacked")
+            bad = out_shard < 0
+            if bad.any():
+                raise ValueError(self.routing_error(
+                    requests[reg_idx[int(np.argmax(bad))]]))
+            for j, i in enumerate(reg_idx):
+                lanes[i] = (int(out_shard[j]), int(out_lane[j]), False)
+        gcfg_upd: dict = {}
+        greset: List[int] = []
+        if glob_idx:
+            greqs = [requests[i] for i in glob_idx]
+            gacc = ([accumulate[i] for i in glob_idx]
+                    if accumulate is not None else None)
+            glanes, gcfg_upd, greset, _, _ = self._stage_requests(
+                view, greqs, now, gacc)
+            for lane, i in zip(glanes, glob_idx):
+                lanes[i] = lane
+        return lanes, gcfg_upd, greset
+
+    def step_windows(self, batches: WindowBatch, gbatches: WindowBatch,
+                     gaccs, upd, ups, nows,
+                     n_decisions: Optional[int] = None) -> np.ndarray:
+        """K stacked windows (JAX engine.py:930): regular lanes [K, S_local,
+        B] and GLOBAL lanes [K, S_local, Bg] with their contributed hits,
+        host arrays; the control writes `upd` (5 arrays of [Kg]) and `ups`
+        (7 of [Kg], or None) land once, before window 0; nows i64[K].  Equal
+        to K sequential step() calls whose first window carries every
+        control write: the regular lanes of all K windows run as one
+        drain_compact launch when every lane is within the compact ranges
+        (else a window_full a window; none when no lane is occupied), and
+        window k's GLOBAL window runs after window k - 1's, each reading
+        the replica its predecessor left.  Which GLOBAL windows run is
+        `_global_runs`' rule: in a mesh every one (an all-reduce each), in
+        one process those that stage something.  Returns the responses as
+        host i64[K, S_local, B + Bg, 4] (status, limit, remaining,
+        reset_time), the regular lanes first.
+
+        A departure from the JAX engine: a stack whose lanes are all in
+        the compact ranges keeps compact dispatch on (the JAX engine turns
+        it off for the engine's life after any stack it cannot scan; the
+        port's stacks are host arrays, always scanned).  Out-of-range
+        configs trip the same latch as step()'s windows."""
+        K = int(np.shape(batches.slot)[0])
+        SL, B = self.num_local_shards, self.batch_per_shard
+        G, Bg = self.global_capacity, self.global_batch_per_shard
+        nows = np.asarray(_host(nows), np.int64).reshape(-1)
+        batches = WindowBatch(*[np.asarray(_host(a)) for a in batches])
+        gbatches = WindowBatch(*[np.asarray(_host(a)) for a in gbatches])
+        gaccs = np.asarray(_host(gaccs))
+        upd = tuple(np.asarray(_host(a)) for a in upd)
+        if ups is not None:
+            ups = tuple(np.asarray(_host(a)) for a in ups)
+            if not (ups[0] < G).any():
+                ups = None
+        if self._skip_global:
+            for k in range(K):
+                self._check_skip_global(gbatches.slot[k],
+                                        upd if k == 0 else _NO_UPD, ups
+                                        if k == 0 else None)
+        if n_decisions is None:
+            n_decisions = (int((batches.slot >= 0).sum())
+                           + int((gbatches.slot >= 0).sum()))
+        stage = self._staging.array
+        fused = np.zeros((K, SL, B + Bg, 4), np.int64)
+        regular = None
+        if (batches.slot >= 0).any():
+            if self._compact_eligible(batches):
+                packed = np.stack([kernel.encode_batch_host(
+                    *[a[k] for a in batches]) for k in range(K)])
+                if self.per_op:
+                    words, limits, _ = self._drain_per_op(
+                        stage("packed", packed), nows)
+                else:
+                    words, limits, _ = drain_kernel.drain_compact(
+                        self.state, stage("packed", packed),
+                        stage("nows", nows))
+                regular = ("compact", torch.stack([words, limits], dim=-1))
+            else:
+                outs = []
+                for k in range(K):
+                    bt = WindowBatch(*[stage(f"full.{f}", a[k])
+                                       for f, a in zip(WindowBatch._fields,
+                                                       batches)])
+                    outs.append(self._step_per_op(bt, int(nows[k]))
+                                if self.per_op else
+                                drain_kernel.window_full(self.state, bt,
+                                                         int(nows[k])))
+                    # the next window's staging reuses the buffers
+                    outs[-1] = WindowOutput(*[o.cpu().numpy()
+                                              for o in outs[-1]])
+                regular = ("full", outs)
+        reads = [None] * K
+        for k in range(K):
+            gb = WindowBatch(*[a[k] for a in gbatches])
+            uk = upd if k == 0 else _NO_UPD
+            pk = ups if k == 0 else None
+            if self._global_runs(gb.slot, uk, pk):
+                reads[k] = self._global_window(gb, gaccs[k], uk,
+                                               int(nows[k]), pk)
+        if regular is not None and regular[0] == "compact":
+            wire = regular[1].cpu().numpy()
+            for k in range(K):
+                out = kernel.decode_output_host(wire[k], int(nows[k]))
+                for i, f in enumerate(out):
+                    fused[k, :, :B, i] = f
+        elif regular is not None:
+            for k, out in enumerate(regular[1]):
+                for i, f in enumerate(out):
+                    fused[k, :, :B, i] = f
+        for k, read in enumerate(reads):
+            if read is not None:
+                fused[k, :, B:] = read.cpu().numpy()
+        self.windows_processed += K
+        self.decisions_processed += n_decisions
+        return fused
+
+    def empty_control(self):
+        """(gbatch, gacc, upd, ups) padding for windows that carry no GLOBAL
+        traffic (JAX engine.py:1048), [S_local, Bg] lanes: every slot one
+        past the arena, dropped."""
+        gbatch, gacc, upd = self.empty_drain_control()
+        Kg, G = self.max_global_updates, self.global_capacity
+        ups = (np.full((Kg,), G, np.int32), np.zeros((Kg,), np.int64),
+               np.zeros((Kg,), np.int64), np.zeros((Kg,), np.int64),
+               np.zeros((Kg,), np.int64), np.zeros((Kg,), np.int64),
+               np.zeros((Kg,), np.int32))
+        return gbatch, gacc, upd, ups
+
+    # ------------------------------------------- GLOBAL registration (mesh)
+
+    def register_global_keys(self, specs: Sequence[tuple],
+                             now: Optional[int] = None,
+                             pending: bool = False) -> None:
+        """Register GLOBAL limits (key, limit, duration, algorithm) (JAX
+        engine.py:1093): each key takes a GLOBAL slot, its config is
+        written and a fresh slot's row reset, in chunks of
+        max_global_updates, with no collective, so in a mesh each rank may
+        run it at its own time provided every rank applies the same ordered
+        batches at the same `now` (the boot preload, or the registrar's
+        batches: core/service.py register_globals).  Until a rank has
+        applied a batch it stages no lane of its keys, so no sum reaches a
+        slot a replica has not configured.  pending=True is phase 1 of
+        dynamic mesh registration: the keys are configured but not
+        servable (routing_error refuses them) until activate_global_keys.
+        In mesh mode registration never reclaims a slot: a full arena
+        raises, because reclaim order follows each rank's own traffic and
+        would diverge the slot assignment.  The writes are torch scatters
+        (the JAX engine's are XLA scatters, _compiled_global_register)."""
+        now = self._resolve_now(now)
+        Kg, G = self.max_global_updates, self.global_capacity
+        # last wins, deduplicated before staging: a scatter with duplicate
+        # indices has no order
+        specs = list({key: (key, limit, duration, algorithm)
+                      for key, limit, duration, algorithm in specs}.values())
+        if self.multiprocess:
+            new = sum(1 for sp in specs if sp[0] not in self.gtable)
+            if len(self.gtable) + new > G:
+                raise ValueError(
+                    f"GLOBAL arena full ({G} slots): mesh-mode registration "
+                    "never reclaims (host-local LRU order would diverge the "
+                    "replicated slot assignment); raise global_capacity")
+        dev = self.device
+        for base in range(0, len(specs), Kg):
+            chunk = specs[base:base + Kg]
+            self.gtable.begin_window()
+            uslot = np.full((len(chunk),), G, np.int64)
+            ulimit = np.zeros((len(chunk),), np.int64)
+            uduration = np.zeros((len(chunk),), np.int64)
+            ualgo = np.zeros((len(chunk),), np.int32)
+            rslot: List[int] = []
+            for i, (key, limit, duration, algorithm) in enumerate(chunk):
+                slot, is_init = self.gtable.lookup(key, now, duration)
+                uslot[i], ulimit[i], uduration[i] = slot, limit, duration
+                ualgo[i] = algorithm
+                if is_init:
+                    rslot.append(slot)
+                if pending:
+                    self._gpending.add(key)
+            global_kernel.apply_config(self.gstate, self.gcfg, tuple(
+                torch.as_tensor(a, device=dev) for a in (
+                    uslot, ulimit, uduration, ualgo,
+                    np.asarray(rslot, np.int64))))
+            self.gtable.commit_window()
+
+    def activate_global_keys(self, keys: Sequence[str]) -> None:
+        """Phase 2 of dynamic mesh registration: the keys become servable
+        (every rank has applied their phase-1 writes)."""
+        self._gpending.difference_update(keys)
+
+    def global_ready(self, key: str) -> bool:
+        """Is this GLOBAL hash key servable on this engine now?"""
+        return key in self.gtable and key not in self._gpending
+
     # ------------------------------------------------------ traffic analytics
 
     def enable_analytics(self, conf) -> None:
@@ -1006,7 +1528,7 @@ class RateLimitEngine:
         if conf.topk > self.capacity_per_shard:
             raise ValueError(f"Analytics.topk {conf.topk} exceeds the "
                              f"{self.capacity_per_shard} slots of a shard")
-        S = self.num_shards
+        S = self.num_local_shards
         self._an_conf = conf
         self._an_sketch = torch.zeros(
             (S, conf.sketch_depth, conf.sketch_width), dtype=torch.int64,
@@ -1036,7 +1558,7 @@ class RateLimitEngine:
             words = stage("words", words, torch.int64)
             tenants = stage("tenants", tenants, torch.int32)
             out = []
-            for s in range(self.num_shards):
+            for s in range(self.num_local_shards):
                 sk, stats = analytics.shard_stats(
                     self._an_sketch[s], packed[:, s], words[:, s],
                     tenants[:, s], self.state.expire[s], now, int(decay),
@@ -1064,9 +1586,9 @@ class RateLimitEngine:
     def empty_drain_control(self):
         """(gbatch, gacc, upd) padding for a pipeline_dispatch_global that
         carries no GLOBAL lanes (JAX engine.py:1071): slots one past the
-        arena, which drop.  A drain never carries upserts (they ride
-        step's windows), as in the JAX engine."""
-        S, Bg, G, Kg = (self.num_shards, self.global_batch_per_shard,
+        arena, which drop; [S_local, Bg] lanes.  A drain never carries
+        upserts (they ride step's windows), as in the JAX engine."""
+        S, Bg, G, Kg = (self.num_local_shards, self.global_batch_per_shard,
                         self.global_capacity, self.max_global_updates)
         gbatch = WindowBatch(
             slot=np.full((S, Bg), kernel.PAD_SLOT, np.int32),
@@ -1082,15 +1604,22 @@ class RateLimitEngine:
                np.full((Kg,), G, np.int32))
         return gbatch, gacc, upd
 
-    def warmup(self, now: Optional[int] = None) -> None:
+    def warmup(self, now: Optional[int] = None,
+               k_stack: Optional[int] = None) -> None:
         """Build the kernels and launch each serving shape once on an empty
         window: the full format at full width, every compact lane bucket,
         a one-window stacked drain (with the native router one stacked
         drain per PIPELINE_K_BUCKETS depth, the serving pipeline's shapes)
         and a GLOBAL window at full width, and with analytics enabled the
         composed drain with analytics (zero tenants, no decay: the sketch
-        stays as it was).  Leaves both arenas as they were."""
+        stays as it was).  Leaves both arenas as they were.  `k_stack`
+        (lockstep serving, JAX engine.py:1170): the tick's stacked step
+        and its composed drain at that depth too.  In mesh mode every rank
+        warms up together, at the agreed `now` (its GLOBAL windows are
+        all-reduces)."""
         now = self._resolve_now(now)
+        if k_stack is not None and k_stack > 1:
+            self.step_stacked([[]], now, k_stack=k_stack)
         saved = self._compact_enabled
         self._compact_enabled = False
         self._buf.reset(self.global_capacity)
@@ -1101,14 +1630,26 @@ class RateLimitEngine:
                 self._buf.reset(self.global_capacity)
                 self._dispatch(now, reg_fill=lanes)
         for kb in PIPELINE_K_BUCKETS if self.native is not None else (1,):
-            packed = np.zeros((kb, self.num_shards, self.batch_per_shard, 2),
-                              np.int64)
+            packed = np.zeros((kb, self.num_local_shards,
+                               self.batch_per_shard, 2), np.int64)
             _, _, mism = self.pipeline_dispatch(
                 packed, np.full(kb, now, np.int64), n_windows=0)
         packed = packed[:1]
-        read = self._global_window(*self.empty_drain_control(), now)
+        read = None
+        if not self._skip_global:
+            read = self._global_window(*self.empty_drain_control(), now)
         mism.cpu()
-        read.cpu()
+        if read is not None:
+            read.cpu()
+        if k_stack is not None:
+            kb = max(k_stack, 1)
+            self.pipeline_dispatch_global(
+                np.zeros((kb, self.num_local_shards, self.batch_per_shard, 2),
+                         np.int64), np.full(kb, now, np.int64),
+                *self.empty_drain_control(), n_windows=0,
+                analytics_args=None if self._an_conf is None else (
+                    np.zeros((kb, self.num_local_shards,
+                              self.batch_per_shard), np.int32), 0))[2].cpu()
         if self._an_conf is not None:
             out = self.pipeline_dispatch_global(
                 packed, np.full(1, now, np.int64), *self.empty_drain_control(),
@@ -1121,9 +1662,19 @@ class RateLimitEngine:
                 accumulate: Optional[Sequence[bool]] = None
                 ) -> List[RateLimitResp]:
         """step() with automatic chunking when a window overflows the caps
-        (with the native router, `_process_native` chunks itself)."""
+        (with the native router, `_process_native` chunks itself).  In mesh
+        mode a call is one window, one all-reduce, never chunked: a
+        request this rank cannot serve, or more than one window holds,
+        raises before anything is staged (the JAX engine checks routing
+        first, engine.py:1696-1706, then chunks, which would issue an
+        all-reduce the other ranks do not)."""
         if self.native is not None:
             return self._process_native(requests, now, accumulate)
+        if self.multiprocess:
+            if requests and self.max_window_prefix(requests) < len(requests):
+                raise ValueError("a mesh window must fit one dispatch (size "
+                                 "it with max_window_prefix)")
+            return self.step(requests, now, accumulate)
         out: List[RateLimitResp] = []
         acc = (list(accumulate) if accumulate is not None
                else [True] * len(requests))
@@ -1136,9 +1687,22 @@ class RateLimitEngine:
         return out
 
     def routing_error(self, r: RateLimitReq) -> Optional[str]:
-        """Why this request cannot be served by THIS engine, or None.  One
-        process holds every shard and registers GLOBAL keys on first use,
-        so every well-formed request is servable here."""
+        """Why this request cannot be served by THIS engine, or None (JAX
+        engine.py:1716).  One process holds every shard and registers
+        GLOBAL keys on first use, so every well-formed request is servable
+        there; in a mesh a key of another rank's shard is not, nor a GLOBAL
+        key not yet registered and activated mesh-wide.  The lockstep
+        batcher fails such a request alone, before a window is staged."""
+        key = r.hash_key()
+        if r.behavior == Behavior.GLOBAL:
+            if not self._dynamic_global and not self.global_ready(key):
+                return (f"GLOBAL key {key!r} is not registered; mesh mode "
+                        "registers GLOBAL keys through the registrar")
+            return None
+        s = shard_of(key, self.num_shards)
+        if not 0 <= s - self.local_shard_offset < self.num_local_shards:
+            return (f"key {key!r} belongs to shard {s}, not owned by this "
+                    "process")
         return None
 
     def max_window_prefix(self, requests: Sequence[RateLimitReq]) -> int:
@@ -1147,8 +1711,8 @@ class RateLimitEngine:
         (num_shards x global_batch_per_shard), the distinct-GLOBAL-key cap
         (max_global_updates), and the replay-bound guard that cuts a
         NON-uniform duplicate-key run longer than replay_cap lanes."""
-        S = self.num_shards
-        reg_fill = [0] * S
+        S, SL = self.num_shards, self.num_local_shards
+        reg_fill = [0] * SL
         g_count = 0
         gkeys: set = set()
         cap = self.replay_cap
@@ -1157,13 +1721,15 @@ class RateLimitEngine:
             key = r.hash_key()
             if r.behavior == Behavior.GLOBAL:
                 new_gkey = 0 if key in gkeys else 1
-                if (g_count + 1 > S * self.global_batch_per_shard
+                if (g_count + 1 > SL * self.global_batch_per_shard
                         or len(gkeys) + new_gkey > self.max_global_updates):
                     return max(i, 1)
                 g_count += 1
                 gkeys.add(key)
                 continue
-            s = shard_of(key, S)
+            s = shard_of(key, S) - self.local_shard_offset
+            if not 0 <= s < SL:
+                raise ValueError(self.routing_error(r))
             if reg_fill[s] + 1 > self.batch_per_shard:
                 return max(i, 1)
             if cap:
@@ -1217,7 +1783,7 @@ class RateLimitEngine:
         g = self.gtable.stats(now)
         return {
             "size": self.cache_size,
-            "capacity": (self.num_shards * self.capacity_per_shard
+            "capacity": (self.num_local_shards * self.capacity_per_shard
                          + self.global_capacity),
             "hits": self.cache_hits,
             "misses": self.cache_misses,
@@ -1272,7 +1838,11 @@ class RateLimitEngine:
         "compact32", or "auto": compact32 while the compact latch holds);
         dumps widens to int64 whenever compact32 cannot hold the data
         exactly.  Call it where no window is half staged (the engine
-        thread, core/service.py)."""
+        thread, core/service.py).  The snapshot's `now` (its stamp)
+        defaults to the wall clock, except in mesh mode, where it must be
+        the agreed time of the tick the snapshot is taken at, the same on
+        every rank (_resolve_now; the daemon exports at agreed ticks and
+        state/snapshot.py restore_mesh_engine compares the stamps)."""
         now = self._resolve_now(now)
         if self.native is not None and self.native.exact:
             raise SnapshotError(
@@ -1287,7 +1857,7 @@ class RateLimitEngine:
         if self.native is not None:
             backend = "native"
             native_tables = [self.native.export_keys(s)
-                             for s in range(self.num_shards)]
+                             for s in range(self.num_local_shards)]
         else:
             backend = "python"
             tables = [_table_columns(t) for t in self.tables]
@@ -1300,38 +1870,27 @@ class RateLimitEngine:
             num_shards=self.num_shards,
             capacity_per_shard=self.capacity_per_shard,
             global_capacity=self.global_capacity,
-            num_local_shards=self.num_shards, local_shard_offset=0,
+            num_local_shards=self.num_local_shards,
+            local_shard_offset=self.local_shard_offset,
             compact_sound=self._compact_sound, backend=backend,
             planes=planes, gplanes=gplanes, gcfg=gcfg,
             tables=tables, native_tables=native_tables,
-            gtable=_table_columns(self.gtable), gpending=[])
+            gtable=_table_columns(self.gtable),
+            gpending=sorted(self._gpending))
 
-    def import_state(self, snap, rebase_to: Optional[int] = None) -> None:
-        """Replace the arenas and key maps with a snapshot's (JAX
-        engine.py:1932).  Times stay absolute by default: the downtime
-        counts against every TTL, as if the process had kept running.
-        `rebase_to` shifts every live time by (rebase_to - snap.now)
-        instead, keeping each bucket's remaining lifetime across a change
-        of clock domain.  Refuses (SnapshotError) another geometry, a mesh
-        snapshot (GLOBAL keys pending registration), a native snapshot
-        into Python tables (fingerprints cannot give back key strings) and
-        an exact-keys router.  A Python-table snapshot restores into the
-        native router with the fingerprints the router would assign."""
+    def check_snapshot(self, snap) -> None:
+        """Raise SnapshotError unless import_state can take `snap`; it
+        changes nothing."""
         geometry = dict(num_shards=self.num_shards,
                         capacity_per_shard=self.capacity_per_shard,
                         global_capacity=self.global_capacity,
-                        num_local_shards=self.num_shards,
-                        local_shard_offset=0)
+                        num_local_shards=self.num_local_shards,
+                        local_shard_offset=self.local_shard_offset)
         for attr, want in geometry.items():
             if getattr(snap, attr) != want:
                 raise SnapshotError(
                     f"snapshot geometry mismatch: {attr}={getattr(snap, attr)}"
                     f" but engine has {want}")
-        if snap.gpending:
-            raise SnapshotError(
-                f"snapshot holds {len(snap.gpending)} GLOBAL keys pending "
-                "mesh registration; a single-process engine cannot restore "
-                "a mesh snapshot")
         if snap.backend == "native" and self.native is None:
             raise SnapshotError(
                 "snapshot holds a native fingerprint table but this engine "
@@ -1342,6 +1901,21 @@ class RateLimitEngine:
                 "exact-keys native router cannot import a snapshot key map "
                 "(stored keys would stay empty and every lookup would "
                 "collide); disable exact_keys to restore")
+
+    def import_state(self, snap, rebase_to: Optional[int] = None) -> None:
+        """Replace the arenas and key maps with a snapshot's (JAX
+        engine.py:1932).  Times stay absolute by default: the downtime
+        counts against every TTL, as if the process had kept running.
+        `rebase_to` shifts every live time by (rebase_to - snap.now)
+        instead, keeping each bucket's remaining lifetime across a change
+        of clock domain.  Refuses (SnapshotError) another geometry (a
+        mesh rank restores only its own shards' file), a native snapshot
+        into Python tables (fingerprints cannot give back key strings) and
+        an exact-keys router.  A Python-table snapshot restores into the
+        native router with the fingerprints the router would assign.  The
+        GLOBAL keys a snapshot holds pending mesh registration stay pending
+        (JAX engine.py:1918)."""
+        self.check_snapshot(snap)
         shift = 0 if rebase_to is None else int(rebase_to) - snap.now
 
         def shifted(planes):
@@ -1359,7 +1933,7 @@ class RateLimitEngine:
         self.import_arena({**rp, **{f"gstate.{n}": a for n, a in gp.items()},
                            **{f"gcfg.{n}": a for n, a in snap.gcfg.items()}})
         if snap.backend == "native":
-            for s in range(self.num_shards):
+            for s in range(self.num_local_shards):
                 fp, slots, exps = snap.native_tables[s]
                 self.native.import_keys(
                     s, np.asarray(fp, np.uint64), np.asarray(slots, np.int32),
@@ -1389,6 +1963,7 @@ class RateLimitEngine:
         self.gtable.restore_entries(zip(
             gkeys, np.asarray(gslots, np.int64).tolist(),
             (np.asarray(gexps, np.int64) + shift).tolist()))
+        self._gpending = set(snap.gpending)
         warm = snap.warm
         if self._tiers is not None:
             tm = self._tiers
@@ -1425,6 +2000,10 @@ class RateLimitEngine:
     # these where no window is half staged (the engine thread).
 
     def _check_migratable(self) -> None:
+        if self.multiprocess:
+            # a mesh resizes by re-forming the group, not by moving keys
+            raise RuntimeError("live key migration is cluster-mode only; a "
+                               "mesh's shards do not move between ranks")
         if self.native is not None:
             raise RuntimeError(
                 "native router does not retain key strings; live migration "

@@ -84,7 +84,27 @@ owner's decisions: they do not count in this node's decisions.  The lane
 is gated by `rpc_enabled`, which set_peers closes across the swap of the
 ring and the drain re-reads on the engine thread, so an RPC that races a
 membership change takes the protobuf path instead of deciding keys this
-node no longer owns.  Not ported here: lockstep (mesh) serving.
+node no longer owns.
+
+Lockstep (mesh) serving (JAX pipeline.py:495-525, :861, :1165-1217): a
+pipeline behind a lockstep clock (core/batcher.py start_lockstep; required
+for a multiprocess engine) stages continuously but dispatches only on the
+tick (`lockstep_pump`), one drain a tick at the tick's fixed depth K and
+its agreed `now`, staged lanes or not, through
+`engine.pipeline_dispatch_global`: the stack plus one GLOBAL window, whose
+all-reduce is the tick's first collective on every rank.  GLOBAL singles
+of token and leaky keys (`eligible_global`) ride that window round-robin
+over the local shards (`_GlobalJob`, answered from the drain's GLOBAL
+read block).  A request of another rank's shard is not eligible, and a
+job no stack takes goes to the batcher's tick queue (`legacy`), never to
+an engine call of its own outside the tick.  The raw-RPC lane stays off
+(mesh routes by shard, not by ring), drains never chain, and an idle
+tick, which still launches and is fetched like any drain, feeds no SLO
+evidence.  A tick whose dispatch fails before its all-reduce (the
+engine's collectives_issued unchanged) dispatches an inert stack instead
+(up to three tries) so the collective sequence stays aligned; if even
+that fails, or the dispatch failed after its all-reduce, the tick raises
+and the batcher fail-stops.  Either way the GLOBAL scratch is cleared.
 
 The front door's column lane (`submit_cols`, ColsJob; frontdoor.py):
 request columns a worker process parsed with frontdoor_parse_req into its
@@ -488,8 +508,42 @@ def _pending_items(job) -> int:
     return len(job.data) // 16 if isinstance(job, RpcJob) else job.n
 
 
+class _GlobalJob:
+    """GLOBAL singles riding a lockstep drain's GLOBAL window (full wire
+    format: GLOBAL lanes are exempt from the compact caps), staged
+    round-robin over the local shards and answered per request from the
+    drain's read block i64[S_local, Bg, 4] (JAX pipeline.py:392)."""
+
+    __slots__ = ("reqs", "futs", "fut", "n", "shard", "lane", "ctxs", "enq")
+
+    def __init__(self, reqs: Sequence[RateLimitReq],
+                 futs: List[asyncio.Future], enq: float = 0.0):
+        self.reqs = list(reqs)
+        self.futs = futs
+        self.fut = None
+        self.n = len(self.reqs)
+        self.shard = np.empty(self.n, np.int32)
+        self.lane = np.empty(self.n, np.int32)
+        self.ctxs = None
+        self.enq = enq
+
+    def finish_global(self, gflat) -> List[RateLimitResp]:
+        s, ln = self.shard, self.lane
+        status, limit, remaining, reset = (gflat[s, ln, i].tolist()
+                                           for i in range(4))
+        return [RateLimitResp(status=status[i], limit=limit[i],
+                              remaining=remaining[i], reset_time=reset[i])
+                for i in range(self.n)]
+
+
+# a lockstep drain's fallback marker: the job goes to the batcher's tick
+# queue (the legacy lane), not to an engine call of its own
+_TO_TICK_QUEUE = object()
+
+
 class _DrainResult:
     __slots__ = ("words", "limits", "event", "stats", "stats_host",
+                 "gfused", "gjob",
                  "an_decay", "staged", "fallback", "leftover", "now",
                  "n_decisions", "error", "started", "pack_done",
                  "dispatch_done", "fetch_start", "fetch_done", "arena",
@@ -508,6 +562,10 @@ class _DrainResult:
         self.stats = None
         self.stats_host = None
         self.an_decay = 0
+        # a lockstep drain's GLOBAL singles and the host copy of its read
+        # block
+        self.gjob = None
+        self.gfused = None
         # staging ownership: the drain's arena (back to the ring only on
         # clean completion), the RequestColumns its singles sliced from,
         # and the fetch future submitted from the engine thread
@@ -561,8 +619,21 @@ class DispatchPipeline:
     def __init__(self, engine, engine_executor: ThreadPoolExecutor,
                  k_max: int = PIPELINE_K_BUCKETS[-1],
                  depth: Optional[int] = None, qos=None, analytics=None,
-                 slo=None, metrics=None, tracer=None, profile=None):
+                 slo=None, metrics=None, tracer=None, profile=None,
+                 lockstep: Optional[bool] = None):
         self.engine = engine
+        # lockstep mode (behind a tick clock; a multiprocess engine's only
+        # mode): drains dispatch on the tick, lockstep_pump
+        self.lockstep = (engine.multiprocess if lockstep is None
+                         else lockstep)
+        if engine.multiprocess and not self.lockstep:
+            raise ValueError(
+                "a multiprocess engine's pipeline must run in lockstep mode "
+                "(tick-driven drains keep the collective sequence equal on "
+                "every rank)")
+        # the batcher's tick queue for jobs no stack takes (lockstep):
+        # async (requests) -> responses
+        self.legacy: Optional[Callable] = None
         # observability: the Metrics registry (or None), the span recorder
         # (None or disabled: no span), the armable capture shared with the
         # batcher, and the always-on window clock (its histogram only with
@@ -604,8 +675,8 @@ class DispatchPipeline:
         self.rpc_refused = 0
         # the raw-RPC lane's gate (JAX pipeline.py:563): the Instance's
         # set_peers closes it across a ring swap; the drain re-reads it on
-        # the engine thread
-        self.rpc_enabled = self.enabled
+        # the engine thread.  Never open in lockstep mode
+        self.rpc_enabled = self.enabled and not self.lockstep
         # the ring's PeerClients, aligned with the parser's peer indices
         # (install_ring), the items forwarded to them, and the Instance's
         # Metrics (cluster_forwarded), when it has one
@@ -636,6 +707,8 @@ class DispatchPipeline:
         self._inflight_at = 0.0
         # (req, fut, seq, enqueue stamp, trace context, col_idx)
         self._singles: List[tuple] = []
+        # GLOBAL singles (lockstep mode only): (req, fut, enqueue stamp)
+        self._gsingles: List[tuple] = []
         self._singles_seen = 0            # the next single's seq
         self._jobs: List[object] = []     # ListJob / RpcJob, FIFO
         # jobs a full stack left over: the engine thread keeps them in
@@ -666,7 +739,7 @@ class DispatchPipeline:
         self.fetch_stride_max = max(self.fetch_stride,
                                     env_int("GUBER_FETCH_STRIDE_MAX",
                                             FETCH_STRIDE_MAX_DEFAULT))
-        self._stride_target = self.fetch_stride
+        self._stride_target = 1 if self.lockstep else self.fetch_stride
         self.chain_linger = env_float("GUBER_CHAIN_LINGER_MS",
                                       CHAIN_LINGER_MS_DEFAULT) / 1000.0
         self._chain: List[_DrainResult] = []
@@ -762,6 +835,11 @@ class DispatchPipeline:
         self._loop = asyncio.get_running_loop()
         fut = self._loop.create_future()
         t_enq, ctx = self._enqueued()
+        if req.behavior == Behavior.GLOBAL:
+            # only through eligible_global (lockstep): GLOBAL singles keep
+            # their own queue, for the drain's GLOBAL window
+            self._gsingles.append((req, fut, t_enq))
+            return await fut
         self._singles.append((req, fut, self._singles_seen, t_enq, ctx,
                               self._cols.append(req)))
         self._singles_seen += 1
@@ -826,16 +904,33 @@ class DispatchPipeline:
 
     def eligible(self, req: RateLimitReq) -> bool:
         """May this request ride the pipeline?  Mirrors the router's range
-        checks exactly, so a pipeline job never range-falls-back."""
-        return (self.enabled
-                and not self._closed
-                and req.behavior != Behavior.GLOBAL
+        checks exactly, so a pipeline job never range-falls-back.  In
+        lockstep mode the key must also be this rank's (a request of
+        another rank's shard takes the tick queue, which fails it alone)."""
+        ok = (self.enabled
+              and not self._closed
+              and req.behavior != Behavior.GLOBAL
+              and req.algorithm in (Algorithm.TOKEN_BUCKET,
+                                    Algorithm.LEAKY_BUCKET)
+              and 0 <= req.hits < kernel.COMPACT_MAX_HITS
+              and 0 <= req.limit < kernel.COMPACT_MAX_LIMIT
+              and 0 <= req.duration < kernel.COMPACT_MAX_DURATION
+              and self.engine._compact_enabled)
+        if ok and self.lockstep:
+            return self.engine.routing_error(req) is None
+        return ok
+
+    def eligible_global(self, req: RateLimitReq) -> bool:
+        """May this GLOBAL request ride the lockstep drain's GLOBAL window
+        (JAX pipeline.py:861)?  Lockstep mode only, token and leaky, a key
+        servable here; no compact range check (GLOBAL lanes take the full
+        format)."""
+        if not (self.enabled and self.lockstep and not self._closed
+                and req.behavior == Behavior.GLOBAL
                 and req.algorithm in (Algorithm.TOKEN_BUCKET,
-                                      Algorithm.LEAKY_BUCKET)
-                and 0 <= req.hits < kernel.COMPACT_MAX_HITS
-                and 0 <= req.limit < kernel.COMPACT_MAX_LIMIT
-                and 0 <= req.duration < kernel.COMPACT_MAX_DURATION
-                and self.engine._compact_enabled)
+                                      Algorithm.LEAKY_BUCKET)):
+            return False
+        return self.engine.routing_error(req) is None
 
     # ------------------------------------------------------------ pump
 
@@ -919,6 +1014,8 @@ class DispatchPipeline:
             self._cols_pool.append(cols)
 
     def _pump(self, force: bool = False) -> None:
+        if self.lockstep:
+            return  # drains dispatch only on the tick (lockstep_pump)
         depth = (self.depth if self.qos is None
                  else self.qos.congestion.effective_depth(self.depth))
         stride = self._stride_target = self._stride_current()
@@ -936,7 +1033,7 @@ class DispatchPipeline:
             lanes_est = self._pending_decisions() / max(fold, 1.0)
             eng = self.engine
             if lanes_est < (self.gate_frac * eng.batch_per_shard
-                            * eng.num_shards):
+                            * eng.num_local_shards):
                 self.gate_holds += 1
                 return
         if not force and self.coalesce_wait > 0:
@@ -970,6 +1067,73 @@ class DispatchPipeline:
         self._coalesce_handle = None
         self._pump(force=True)
 
+    # ------------------------------------------------------------ lockstep
+
+    def _take_global_job(self) -> Optional[_GlobalJob]:
+        """The queued GLOBAL singles as one _GlobalJob for this tick's
+        drain (loop thread; JAX pipeline.py:1165): a request no longer
+        servable here fails alone, so staging cannot raise for it on the
+        engine thread; past the window's GLOBAL lane cap (and, in one
+        process, its distinct-key cap) the rest wait for the next tick, in
+        order."""
+        if not self._gsingles:
+            return None
+        eng = self.engine
+        cap = eng.num_local_shards * eng.global_batch_per_shard
+        if eng._dynamic_global:
+            # a config lane a distinct key: bounding lanes bounds keys too
+            cap = min(cap, eng.max_global_updates)
+        items, self._gsingles = self._gsingles, []
+        ok: List[tuple] = []
+        for item in items:
+            if len(ok) >= cap:
+                self._gsingles.append(item)
+                continue
+            err = eng.routing_error(item[0])
+            if err is None:
+                ok.append(item)
+            elif not item[1].done():
+                item[1].set_exception(ValueError(err))
+        if not ok:
+            return None
+        return _GlobalJob([t[0] for t in ok], [t[1] for t in ok],
+                          enq=min(t[2] for t in ok))
+
+    def lockstep_pump(self, now: int, k_stack: int):
+        """Issue this tick's drain (lockstep mode, event loop; JAX
+        pipeline.py:1195).  The dispatch always happens, staged lanes or
+        not: its GLOBAL window's all-reduce is part of the tick's
+        collective sequence on every rank.  It runs on the engine thread,
+        so the caller orders the tick's stacked step after it by
+        submitting second.  Returns the dispatch future; awaiting it
+        surfaces a dispatch that raised after its all-reduce, or could not
+        realign (the batcher then fail-stops)."""
+        if not self.lockstep:
+            raise RuntimeError("lockstep_pump needs a lockstep pipeline")
+        if self._loop is None:
+            self._loop = asyncio.get_running_loop()
+        jobs, cols = self._take_jobs() if not self._closed else ([], None)
+        gjob = self._take_global_job() if not self._closed else None
+        all_jobs = jobs + ([gjob] if gjob is not None else [])
+        self._note_inflight(1)
+        self._predispatch += 1
+        fut = self._loop.run_in_executor(
+            self._engine_executor,
+            lambda: self._drain_sync(jobs, now, cols, k_fixed=k_stack,
+                                     gjob=gjob))
+        fut.add_done_callback(lambda f: self._on_dispatched(f, all_jobs))
+        return fut
+
+    async def _to_tick_queue(self, job) -> None:
+        """A lockstep job no stack takes rides the batcher's tick queue
+        (its stacked step), never an engine call outside the tick."""
+        try:
+            out = await self.legacy(job.reqs)
+        except Exception as e:
+            self._resolve_error(job, e)
+            return
+        self._resolve(job, out)
+
     # ------------------------------------------------------------ fetch chain
 
     def _stride_current(self) -> int:
@@ -977,7 +1141,10 @@ class DispatchPipeline:
         is GUBER_FETCH_STRIDE; the QoS stride controller may grow it with
         the backlog up to GUBER_FETCH_STRIDE_MAX, but never past the
         admission deadline's bound, so a chain's oldest drain still
-        commits inside the default deadline."""
+        commits inside the default deadline.  Lockstep drains never chain:
+        each commits on its own tick."""
+        if self.lockstep:
+            return 1
         if self.fetch_stride_max <= 1 or self.qos is None:
             return min(self.fetch_stride, self.fetch_stride_max)
         cc = self.qos.congestion
@@ -991,7 +1158,7 @@ class DispatchPipeline:
         fold = (self.decisions_staged / self.lanes_staged
                 if self.lanes_staged > MAX_BATCH_SIZE else 1.0)
         eng = self.engine
-        lanes = eng.batch_per_shard * eng.num_shards
+        lanes = eng.batch_per_shard * eng.num_local_shards
         return ((self._pending_decisions() / max(fold, 1.0))
                 / max(lanes, 1))
 
@@ -1087,7 +1254,9 @@ class DispatchPipeline:
             self._pump(force=True)
             return
         for job, out in res.fallback:
-            if isinstance(out, Exception):
+            if out is _TO_TICK_QUEUE:
+                self._spawn(self._to_tick_queue(job))
+            elif isinstance(out, Exception):
                 self._resolve_error(job, out)
             else:
                 self._resolve(job, out)
@@ -1104,8 +1273,9 @@ class DispatchPipeline:
             self._chain_flush()
             self._pump(force=True)
             return
-        if not res.staged:
-            # nothing staged: nothing was launched against the arena
+        if not res.staged and res.cfut is None:
+            # nothing staged: nothing was launched against the arena (an
+            # idle lockstep tick launched, and completes like any drain)
             self._note_inflight(-1)
             self._cols_release(res.cols_owner)
             self._arena_ring.release(res.arena)
@@ -1186,7 +1356,8 @@ class DispatchPipeline:
                 self.analytics.ingest(res.stats_host, res.an_decay)
             except Exception:
                 log.exception("analytics ingest failed")
-        if self.slo is not None:
+        if self.slo is not None and (res.n_decisions or not self.lockstep):
+            # an idle lockstep tick is no serving evidence
             self.slo.observe_drain(drain_wall, res.n_decisions)
         if self.metrics is not None:
             self._observe_drain(res, drain_wall)
@@ -1358,7 +1529,9 @@ class DispatchPipeline:
     # ------------------------------------------------------------ engine side
 
     def _drain_sync(self, jobs: List[object], now: Optional[int] = None,
-                    cols: Optional[RequestColumns] = None) -> _DrainResult:
+                    cols: Optional[RequestColumns] = None,
+                    k_fixed: Optional[int] = None,
+                    gjob: Optional[_GlobalJob] = None) -> _DrainResult:
         """The engine thread's drain, inside the armed capture when
         POST /v1/admin/profile (or the periodic controller) asked for one;
         disarmed, one int read."""
@@ -1366,14 +1539,16 @@ class DispatchPipeline:
         if prof is not None and prof.armed:
             prof.before_drain()
             try:
-                return self._drain_sync_inner(jobs, now, cols)
+                return self._drain_sync_inner(jobs, now, cols, k_fixed, gjob)
             finally:
                 prof.after_drain()
-        return self._drain_sync_inner(jobs, now, cols)
+        return self._drain_sync_inner(jobs, now, cols, k_fixed, gjob)
 
     def _drain_sync_inner(self, jobs: List[object],
                           now: Optional[int] = None,
-                          cols: Optional[RequestColumns] = None
+                          cols: Optional[RequestColumns] = None,
+                          k_fixed: Optional[int] = None,
+                          gjob: Optional[_GlobalJob] = None
                           ) -> _DrainResult:
         """Pack every job into one stacked compact dispatch (engine
         thread).
@@ -1383,12 +1558,17 @@ class DispatchPipeline:
         an event; nothing here waits for the device (the arena was free,
         the copies are non-blocking from and to pinned memory, the
         launches are asynchronous).  The fetch then runs on a fetch
-        thread, submitted from here unless the drain joins a chain."""
+        thread, submitted from here unless the drain joins a chain.
+
+        Lockstep (k_fixed set; JAX pipeline.py:1623-1916): `now` is the
+        tick's and the dispatch is always one pipeline_dispatch_global of
+        K = k_fixed windows, staged lanes or not, carrying `gjob`'s GLOBAL
+        singles in its GLOBAL window."""
         eng = self.engine
         native = eng.native
-        S = eng.num_shards
+        S = eng.num_local_shards
         B = eng.batch_per_shard
-        K = self.k_max
+        K = self.k_max if k_fixed is None else k_fixed
         res = _DrainResult()
         res.started = time.monotonic()
         if now is None:
@@ -1459,6 +1639,10 @@ class DispatchPipeline:
             if rc >= 0:
                 res.staged.append(job)
                 stack_empty = False
+            elif stack_empty and self.lockstep:
+                # lockstep: the job rides the tick queue (the batcher's
+                # stacked step), never an engine call of its own
+                res.fallback.append((job, _TO_TICK_QUEUE))
             elif stack_empty:
                 # a job no stack takes (an unsound engine, more items than
                 # a scratch block, a request the router refuses, more lanes
@@ -1472,6 +1656,8 @@ class DispatchPipeline:
                 self._leave_over(res, jobs[idx:])
                 break
 
+        if self.lockstep:
+            return self._lockstep_dispatch(res, arena, K, now, gjob)
         res.pack_done = time.monotonic()
         enqs = [e for e in (j.enq for j in res.staged) if e]
         res.oldest_enq = min(enqs) if enqs else 0.0
@@ -1537,6 +1723,126 @@ class DispatchPipeline:
         res.cfut = self._fetch_executor.submit(self._complete_sync_one, res)
         return res
 
+    def _lockstep_dispatch(self, res: _DrainResult, arena, K: int, now: int,
+                           gjob: Optional[_GlobalJob]) -> _DrainResult:
+        """The tick's drain after its jobs are packed (engine thread): the
+        GLOBAL singles staged round-robin over the local shards (the sum is
+        shard-agnostic; no config lane in a mesh, where configs are fixed
+        at registration), then one pipeline_dispatch_global of the K
+        windows, always, and the fetch of its words, flags and GLOBAL read
+        block.  A failed dispatch fails the drain's jobs and dispatches an
+        inert stack in its place (three tries), so this rank's collective
+        sequence stays aligned; if that fails too it raises."""
+        eng = self.engine
+        native = eng.native
+        S, B, G = eng.num_local_shards, eng.batch_per_shard, \
+            eng.global_capacity
+        fills = arena.fills
+        gbatch, gacc, upd = eng.empty_drain_control()
+        if gjob is not None:
+            eng.gtable.begin_window()
+            try:
+                gcfg_upd: dict = {}
+                greset: List[int] = []
+                for i, r in enumerate(gjob.reqs):
+                    slot, is_init = eng.gtable.lookup(r.hash_key(), now,
+                                                      r.duration)
+                    if eng._dynamic_global:
+                        gcfg_upd[slot] = (r.limit, r.duration, r.algorithm)
+                        if is_init:
+                            greset.append(slot)
+                    sh, lane = i % S, i // S
+                    gjob.shard[i], gjob.lane[i] = sh, lane
+                    gbatch.slot[sh, lane] = slot
+                    gbatch.hits[sh, lane] = r.hits
+                    gbatch.limit[sh, lane] = r.limit
+                    gbatch.duration[sh, lane] = r.duration
+                    gbatch.algo[sh, lane] = r.algorithm
+                    gbatch.is_init[sh, lane] = is_init
+                    gacc[sh, lane] = r.hits
+                for j, (slot, cfg) in enumerate(gcfg_upd.items()):
+                    upd[0][j] = slot
+                    upd[1][j], upd[2][j], upd[3][j] = cfg
+                for j, slot in enumerate(greset):
+                    upd[4][j] = slot
+                res.staged.append(gjob)
+                res.gjob = gjob
+            except Exception as e:
+                # staging failed: the fresh allocations stay pending (no
+                # commit), the singles fail, and the drain still dispatches
+                # with inert GLOBAL lanes
+                res.fallback.append((gjob, e))
+                gjob = None
+                gbatch, gacc, upd = eng.empty_drain_control()
+        res.pack_done = time.monotonic()
+        enqs = [e for e in (j.enq for j in res.staged) if e]
+        res.oldest_enq = min(enqs) if enqs else 0.0
+        k_used = res.k_used = int(fills.any(axis=1).sum())
+        an_args = None
+        if self.analytics is not None:
+            an_args = self._analytics_stage(res, arena, K, now)
+        res.arm = ARM_ANALYTICS if an_args is not None else ARM_DRAIN
+        packed = arena.packed_t[:K]
+        nows = arena.nows_t[:K]
+        nows.fill_(now)
+        before = eng.collectives_issued()
+        dispatched = False
+        try:
+            if FAULTS.enabled:
+                FAULTS.on_sync(SEAM_ENGINE_DISPATCH, "lockstep")
+            out = eng.pipeline_dispatch_global(
+                packed, nows, gbatch, gacc, upd, n_windows=k_used,
+                analytics_args=an_args)
+            dispatched = True
+            native.commit()
+            if gjob is not None:
+                eng.gtable.commit_window()
+        except Exception as e:
+            native.abort()
+            res.error = e
+            if dispatched:
+                return res
+            eng.clear_global_scratch()
+            if eng.collectives_issued() != before:
+                # the dispatch raised after its all-reduce: a second one
+                # would pair with the other ranks' next window (fail-stop)
+                raise
+            zb, za, zu = eng.empty_drain_control()
+            zeros = torch.zeros_like(packed)
+            for attempt in range(3):
+                try:
+                    eng.pipeline_dispatch_global(
+                        zeros, nows, zb, za, zu, n_windows=0,
+                        analytics_args=None if an_args is None else (
+                            torch.zeros_like(an_args[0]), 0))
+                    break
+                except Exception:
+                    if attempt == 2:
+                        raise
+                    time.sleep(0.05)
+            return res
+        res.words, res.limits, mism = out[:3]
+        pairs = [(res.words, arena.words_t[:K]), (mism, arena.mism_t[:K])]
+        if gjob is not None:
+            res.gfused = arena.host("gfused", tuple(out[3].shape),
+                                    torch.int64)
+            pairs.append((out[3], res.gfused))
+        if an_args is not None:
+            res.stats = arena.host("stats", tuple(out[4].shape), torch.int64)
+            res.an_decay = an_args[1]
+            pairs.append((out[4], res.stats))
+        res.event = eng.fetch_async(pairs)
+        self.drains += 1
+        self.windows_staged += k_used
+        res.dispatch_done = time.monotonic()
+        res.n_decisions = sum(j.n for j in res.staged)
+        eng.decisions_processed += res.n_decisions
+        self.decisions_staged += res.n_decisions
+        res.n_lanes = int(fills.sum())
+        self.lanes_staged += res.n_lanes
+        res.cfut = self._fetch_executor.submit(self._complete_sync_one, res)
+        return res
+
     def _leave_over(self, res: _DrainResult, rest: List[object]) -> None:
         """The jobs a full stack cannot take wait for the next drain, in
         order, ahead of whatever that drain is given (engine thread).  A
@@ -1567,7 +1873,7 @@ class DispatchPipeline:
         degrades to zero tenants and no decay: analytics never fails a
         drain."""
         eng = self.engine
-        S = eng.num_shards
+        S = eng.num_local_shards
         t = arena.host("tenants", (arena.K, S, eng.batch_per_shard),
                        torch.int32)[:kd]
         t.zero_()
@@ -1577,7 +1883,7 @@ class DispatchPipeline:
         try:
             an = self.analytics
             for job in res.staged:
-                if isinstance(job, (RpcJob, ColsJob)):
+                if isinstance(job, (RpcJob, ColsJob, _GlobalJob)):
                     continue
                 rows = job.row
                 for i in range(job.n):
@@ -1626,8 +1932,11 @@ class DispatchPipeline:
                 clflat = res.limits.cpu().numpy().reshape(-1, B)
         if res.stats is not None:
             res.stats_host = res.stats.numpy().copy()
+        gflat = None if res.gfused is None else res.gfused.numpy()
         outs = [job.finish(self, wflat, clflat, res.now)
                 if isinstance(job, (RpcJob, ColsJob))
+                else job.finish_global(gflat)
+                if isinstance(job, _GlobalJob)
                 else job.finish(wflat, clflat, res.now)
                 for job in res.staged]
         res.fetch_done = time.monotonic()
@@ -1636,7 +1945,7 @@ class DispatchPipeline:
     def busy(self) -> bool:
         """Is any job queued, left over or in flight?"""
         return bool(self._in_flight or self._singles or self._jobs
-                    or self._carried)
+                    or self._carried or self._gsingles)
 
     def close(self) -> None:
         if not self.enabled:
@@ -1649,9 +1958,10 @@ class DispatchPipeline:
         err = RuntimeError("pipeline closed")
         jobs, self._jobs = self._jobs, []
         singles, self._singles = self._singles, []
+        gsingles, self._gsingles = self._gsingles, []
         for job in jobs + self._carried:
             self._resolve_error(job, err)
-        for entry in singles:
+        for entry in singles + gsingles:
             if not entry[1].done():
                 entry[1].set_exception(err)
         # chained drains still pending fetch complete now: shutdown

@@ -1,7 +1,7 @@
 """Service core: request validation, owner routing and dispatch.
 
 The port of `gubernator_tpu/core/service.py` Instance (the reference's
-Instance, gubernator.go:41-322) without mesh serving: per-item validation
+Instance, gubernator.go:41-322): per-item validation
 with the reference's exact error strings (gubernator.go:102-110), the
 1000-item RPC cap (:78-81), owner-vs-forward routing over the
 consistent-hash ring (:114-152), and local decisions through the
@@ -53,8 +53,7 @@ it is sent), `update_peer_globals`, `health_check`, `batcher.submit_rpc`
 (observability/tracing.py), and observes RPCs into `metrics` when it is
 set: an `observability.metrics.Metrics` (prometheus_client), None by default
 because the serving core needs no metrics library (a card's machine may
-lack it); the JAX Instance always builds one.  `mesh_mode` stays
-False until mesh serving is ported.
+lack it); the JAX Instance always builds one.
 
 QoS (qos/, JAX service.py:92-99) is on unless `qos=QoSConfig(enabled=
 False)`: `get_rate_limits(deadline=)` carries the caller's deadline into
@@ -86,7 +85,23 @@ runs one) calls `release_peer_leases` and `rehome` when a peer goes down,
 and `rehome` then `on_peer_recovered` (the GLOBAL hints' replay) when it
 comes back.  `frontdoor` is the multi-process front door's hub
 (frontdoor.py) when the daemon runs one; it serves its workers' records on
-this Instance's event loop.  Not here yet: mesh serving (ROADMAP item 8).
+this Instance's event loop.
+
+Mesh serving (JAX service.py:138-190, :389-400, :491-565): with
+`mesh_peers` (every rank's gRPC address, in rank order) and an engine on a
+parallel/distributed.py Mesh of several ranks, `mesh_mode` is on: the
+batcher runs on a LockstepClock whose epoch is rank 0's clock
+(agree_epoch_ms), keys route to their shard's rank through a
+MeshShardPicker (a key of another rank's shard forwards there over the peer
+lane, annotated with its owner), and a GLOBAL item is served here whoever
+its owner is: the in-mesh all-reduce keeps every rank's replica
+authoritative, so the GLOBAL manager never starts.  A GLOBAL key seen for
+the first time registers mesh-wide first (`_ensure_global_registered`):
+through the registrar, rank 0 (`register_globals`), which orders the
+registrations and applies them on every rank in two phases
+(`apply_global_registration`: configure, then activate), so no rank sums
+hits into a slot another has not configured.  `health_check` reports a
+rank whose batcher fail-stopped.
 """
 
 from __future__ import annotations
@@ -134,7 +149,10 @@ from gubernator_tpu_torch.observability.devprof import (
     census_table,
 )
 from gubernator_tpu_torch.observability.tracing import Tracer
-from gubernator_tpu_torch.parallel.router import ConsistentHashRing
+from gubernator_tpu_torch.parallel.router import (
+    ConsistentHashRing,
+    MeshShardPicker,
+)
 from gubernator_tpu_torch.qos import QoSManager, shed_response
 from gubernator_tpu_torch.qos.admission import SHED_BREAKER_OPEN
 from gubernator_tpu_torch.state import migrate
@@ -170,7 +188,9 @@ class Instance:
                  peer_transport: Optional[Callable[[str], object]] = None,
                  devprof_mode: str = "",
                  devprof_interval_s: Optional[float] = None,
-                 devprof_drains: Optional[int] = None):
+                 devprof_drains: Optional[int] = None,
+                 mesh=None,
+                 mesh_peers: Optional[List[str]] = None):
         """engine: a ready engine, else one is built from engine_config on
         `device` (default `cuda`).  analytics / slo: when given and
         enabled, the traffic analytics (the engine's resident sketch and
@@ -190,7 +210,11 @@ class Instance:
         (net/peers.py); None connects over gRPC.  devprof_mode: "" (off)
         or "periodic" (GUBER_DEVPROF), with the periodic controller's
         interval and drains (None: GUBER_DEVPROF_INTERVAL_S and
-        GUBER_DEVPROF_DRAINS)."""
+        GUBER_DEVPROF_DRAINS).  mesh: the parallel/distributed.py Mesh an
+        engine built here runs on (each rank engine_config.num_shards
+        shards).  mesh_peers: every mesh rank's gRPC address in rank order,
+        which turns mesh serving on (the engine's mesh then spans the
+        ranks)."""
         self.behaviors = behaviors or BehaviorConfig()
         self.behaviors.validate()
         if engine is None:
@@ -203,7 +227,8 @@ class Instance:
                 global_batch_per_shard=e.global_batch_per_shard,
                 max_global_updates=e.max_global_updates,
                 replay_cap=e.replay_cap, device=device,
-                use_native=e.use_native, exact_keys=e.exact_keys)
+                use_native=e.use_native, exact_keys=e.exact_keys,
+                mesh=mesh, skip_global=e.skip_global)
         self.engine = engine
         self.analytics: Optional[TrafficAnalytics] = None
         self.slo: Optional[SLOEngine] = None
@@ -238,10 +263,23 @@ class Instance:
         # so a stitched trace is assembled by trace id across nodes
         self.tracer = tracer if tracer is not None else Tracer(
             node=advertise_address or "local")
+        # mesh serving: windows tick on a clock every rank agrees on
+        self.mesh_mode = mesh_peers is not None
+        clock = None
+        if self.mesh_mode:
+            from gubernator_tpu_torch.parallel.distributed import (
+                LockstepClock,
+                agree_epoch_ms,
+            )
+            if self.engine.mesh is None:
+                raise ValueError("mesh_peers needs an engine on a mesh")
+            clock = LockstepClock(agree_epoch_ms(self.engine.mesh),
+                                  self.behaviors.batch_wait)
         self.batcher = WindowBatcher(self.engine, self.behaviors,
                                      analytics=self.analytics, slo=self.slo,
                                      qos=self.qos, metrics=metrics,
-                                     tracer=self.tracer)
+                                     tracer=self.tracer,
+                                     lockstep_clock=clock)
         self.health = HealthCheckResp(status=HEALTHY, peer_count=0)
         if metrics is not None:
             metrics.watch_engine(self.engine)
@@ -265,13 +303,26 @@ class Instance:
         if self.batcher.pipeline is not None:
             self.devprof.clock = self.batcher.pipeline.devclock
         self.devprof.start()
-        # mesh serving is not ported yet (ROADMAP Queue 1 item 8)
-        self.mesh_mode = False
         self.advertise_address = advertise_address
         self.peer_transport = peer_transport
         self.global_mgr = GlobalManager(self.behaviors, self, metrics, log,
                                         health=health)
-        self._picker: ConsistentHashRing[PeerClient] = ConsistentHashRing()
+        if self.mesh_mode:
+            self._picker = MeshShardPicker.for_mesh(self.engine.mesh,
+                                                    mesh_peers)
+        else:
+            self._picker = ConsistentHashRing()
+        self.mesh_peers = list(mesh_peers) if mesh_peers else None
+        # dynamic mesh GLOBAL registration (the reference accepts a GLOBAL
+        # key on first use, global.go:62-68): rank 0 is the registrar that
+        # orders registrations mesh-wide; in-flight registrations of a key
+        # coalesce here, and the registrar keeps the keys whose two phases
+        # completed on every rank (not its own global_ready: a partial
+        # phase 2 leaves a key active here but pending elsewhere, and a
+        # retry must run both phases again to heal that rank)
+        self._greg_lock = asyncio.Lock()
+        self._greg_inflight: Dict[str, asyncio.Future] = {}
+        self._greg_done: set = set()
         # the failure detector watching this node's peers (net/health.py
         # HeartbeatMonitor), when the daemon runs one
         self.monitor = None
@@ -374,11 +425,24 @@ class Instance:
                            admit: bool = True) -> RateLimitResp:
         """A validated request to its owner (JAX service.py _route_inner
         :385-446): decided here when the ring is empty or names this node;
-        a non-owner's GLOBAL item from the replica; anything else
-        forwarded through the owner's PeerClient."""
+        a non-owner's GLOBAL item from the replica; in mesh mode a GLOBAL
+        item here, registered mesh-wide first when it is new; anything
+        else forwarded through the owner's PeerClient."""
         if self._picker.size() == 0:
             return await self._local(r, deadline, admit)
         key = r.hash_key()
+        if r.behavior == Behavior.GLOBAL and self.mesh_mode:
+            # after each window's all-reduce every rank's replica is
+            # authoritative: ownership does not matter
+            try:
+                if not self.engine.global_ready(key):
+                    await self._ensure_global_registered(r)
+                return await self.batcher.submit(r, deadline=deadline,
+                                                 admit=admit)
+            except Exception as e:
+                # one item's failure must not fail the caller's batch
+                return RateLimitResp(
+                    error=f"while applying rate limit for '{key}' - '{e}'")
         try:
             peer = self._picker.get(key)
         except Exception as e:
@@ -510,10 +574,6 @@ class Instance:
                 f"while applying rate limit for '{key}' - "
                 f"'GLOBAL behavior does not support algorithm "
                 f"'{r.algorithm}''"))
-        err = self.engine.routing_error(r)
-        if err is not None:
-            return RateLimitResp(
-                error=f"while applying rate limit for '{key}' - '{err}'")
         return None
 
     async def release_peer_leases(self, host: str) -> int:
@@ -534,9 +594,11 @@ class Instance:
                      admit: bool = True) -> RateLimitResp:
         """Owner-side decision through the device engine (the reference's
         getRateLimit under the cache mutex, gubernator.go:236-251)."""
-        if r.behavior == Behavior.GLOBAL and self._picker.size() > 0:
+        if (r.behavior == Behavior.GLOBAL and self._picker.size() > 0
+                and not self.mesh_mode):
             # the owner saw a GLOBAL change: schedule an authoritative
-            # broadcast (gubernator.go:240-242)
+            # broadcast (gubernator.go:240-242); a mesh reconciles through
+            # its all-reduce instead
             self.global_mgr.queue_update(r)
         if r.behavior == Behavior.NO_BATCHING:
             # not gated by admission: NO_BATCHING jumps the window and
@@ -571,7 +633,8 @@ class Instance:
                 out[i] = RateLimitResp(
                     error=f"invalid rate limit algorithm '{r.algorithm}'")
                 continue
-            if r.behavior == Behavior.GLOBAL and self._picker.size() > 0:
+            if (r.behavior == Behavior.GLOBAL and self._picker.size() > 0
+                    and not self.mesh_mode):
                 self.global_mgr.queue_update(r)
             valid.append(r)
             slots.append(i)
@@ -599,8 +662,14 @@ class Instance:
         return resp
 
     async def health_check(self) -> HealthCheckResp:
-        """A draining node, or one whose admission queue is pinned at its
-        cap, cannot take work, whatever the ring looked like."""
+        """A rank whose lockstep batcher fail-stopped, a draining node, or
+        one whose admission queue is pinned at its cap, cannot take work,
+        whatever the ring looked like."""
+        if self.batcher._ended is not None:
+            # a fail-stopped rank, or one past the mesh's agreed final tick
+            return HealthCheckResp(
+                status=UNHEALTHY, message=str(self.batcher._ended),
+                peer_count=self.health.peer_count)
         if self.qos is not None and self.qos.admission.draining:
             return HealthCheckResp(
                 status=UNHEALTHY,
@@ -634,6 +703,73 @@ class Instance:
                 return False
             await sleep(0.01)
         return True
+
+    # --------------------------------------------- dynamic mesh GLOBAL keys
+
+    async def _ensure_global_registered(self, r: RateLimitReq) -> None:
+        """Register a first-seen GLOBAL key mesh-wide through the registrar
+        (rank 0) and wait until it is servable here.  Concurrent first
+        sights of one key coalesce into one RPC."""
+        key = r.hash_key()
+        fut = self._greg_inflight.get(key)
+        if fut is not None:
+            await fut
+            return
+        fut = asyncio.get_running_loop().create_future()
+        self._greg_inflight[key] = fut
+        try:
+            registrar = self._picker.get_by_host(self.mesh_peers[0])
+            if registrar is None:
+                raise RuntimeError("mesh registrar peer is not connected")
+            await registrar.register_globals(
+                [(key, r.limit, r.duration, int(r.algorithm))])
+            fut.set_result(None)
+        except Exception as e:
+            fut.set_exception(e)
+            # a waiter that came meanwhile sees the error; retrieve it so
+            # an unawaited future logs nothing
+            fut.exception()
+            raise
+        finally:
+            self._greg_inflight.pop(key, None)
+
+    async def register_globals(self, specs) -> None:
+        """The registrar's endpoint (rank 0): order dynamic GLOBAL
+        registrations and apply them on every rank in two phases.  Phase 1
+        configures the keys everywhere (no collective: each rank at its own
+        time, the same batches and `now`); phase 2 activates them only
+        after every rank confirmed phase 1, so no rank adds hits to a slot
+        a replica has not configured."""
+        if not self.mesh_mode:
+            raise RuntimeError("RegisterGlobals is a mesh-mode RPC")
+        async with self._greg_lock:
+            todo = list({sp[0]: sp for sp in specs
+                         if sp[0] not in self._greg_done}.values())
+            if not todo:
+                return
+            now = millisecond_now()
+            peers = [self._picker.get_by_host(h) for h in self.mesh_peers]
+            if any(p is None for p in peers):
+                raise RuntimeError("mesh peers not all connected; cannot "
+                                   "register GLOBAL keys")
+            await asyncio.gather(*(
+                p.apply_global_registration(todo, now, False) for p in peers))
+            await asyncio.gather(*(
+                p.apply_global_registration(todo, now, True) for p in peers))
+            self._greg_done.update(sp[0] for sp in todo)
+
+    async def apply_global_registration(self, specs, now: int,
+                                        activate: bool) -> None:
+        """One registration phase on this rank (the registrar's fan-out),
+        on the engine thread, in turn with its windows."""
+        if activate:
+            keys = [sp[0] for sp in specs]
+            await self._quiesced(
+                lambda: self.engine.activate_global_keys(keys))
+        else:
+            await self._quiesced(
+                lambda: self.engine.register_global_keys(
+                    specs, now=now, pending=True))
 
     # ------------------------------------------------------------ membership
 
@@ -685,7 +821,10 @@ class Instance:
             peer_count=picker.size(),
         )
         await self._sync_pipeline_ring()
-        self.global_mgr.start()
+        if not self.mesh_mode:
+            # a mesh replicates GLOBAL state through its all-reduce; the
+            # gRPC hit and broadcast loops stay off
+            self.global_mgr.start()
         log.info("Peers updated: %s", [p.address for p in peers])
         for client in departed:
             if client is not None:
@@ -699,6 +838,10 @@ class Instance:
         in turn with the drains."""
         pipe = self.batcher.pipeline
         if pipe is None or not pipe.enabled:
+            return
+        if self.mesh_mode:
+            # the mesh routes by shard, not by ring: the lane stays shut
+            pipe.rpc_enabled = False
             return
         import numpy as np
         loop = asyncio.get_running_loop()
@@ -871,12 +1014,14 @@ class Instance:
         snap.leases = self.leases.export_rows()
         return snap
 
-    async def save_snapshot(self, path: str, layout: str = "auto") -> int:
+    async def save_snapshot(self, path: str, layout: str = "auto",
+                            now=None) -> int:
         """Export, then an atomic write; returns the bytes written.  The
         quiesce covers only the export: serializing and writing run off
-        the engine thread."""
+        the engine thread.  `now`: the snapshot's stamp (in mesh mode the
+        agreed time of the tick it is taken at, engine.export_state)."""
         start = time.monotonic()
-        snap = await self.export_snapshot(layout)
+        snap = await self.export_snapshot(layout, now=now)
         size = snapmod.save(snap, path)
         if self.metrics is not None:
             self.metrics.observe_snapshot(time.monotonic() - start, size,

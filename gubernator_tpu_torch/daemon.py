@@ -58,7 +58,28 @@ which stops with the drain phase, before the snapshot; POST
 /v1/admin/profile and GET /v1/admin/kernels are on the HTTP gateway.  At
 boot the daemon publishes guber_tpu_kernels_per_window from the census
 of its serving arm, on the engine thread and without waiting for it.
-Mesh serving is not ported yet: its knobs raise in config_from_env.
+Mesh serving (JAX daemon.py:100-233): GUBER_MESH_COORDINATOR (with
+GUBER_MESH_NUM_PROCESSES and GUBER_MESH_PROCESS_ID) joins this process to
+the mesh's torch.distributed group (parallel/distributed.py; the backend
+follows from where the ranks run) before anything touches the device, and
+GUBER_MESH_PEERS must list every rank's gRPC address in rank order.  Each
+rank holds EngineConfig.num_shards shards on its device (a bare `cuda`
+names card rank % cards).  Then: the warm-up at the agreed epoch and the
+lockstep stack (every rank together: its GLOBAL windows are all-reduces);
+GUBER_GLOBAL_KEYS_FILE (JSON lines of key, limit, duration, algorithm)
+registered on every rank at that epoch; this rank's own snapshot file
+restored (arena-r<shard offset>.snap) only when every rank's file holds
+the same agreed tick and GLOBAL part, else every rank starts cold
+(state/snapshot.py restore_mesh_engine); periodic snapshots taken by the
+tick loop after the same ticks on every rank (every
+GUBER_SNAPSHOT_INTERVAL_MS of ticks), each stamped with its tick's agreed
+time; GUBER_FRONTDOOR_WORKERS ignored with a warning (the ticks own the
+loop); a static pool over the fixed
+membership (no discovery backend, no heartbeat detector); and the tick
+loop.  The stop adds a phase after the drain, lockstep_stop: the ranks
+agree on a final tick through the group's store and this rank's loop ends
+there.  The handoff is skipped (a mesh does not move keys between ranks),
+and teardown leaves the group.
 """
 
 from __future__ import annotations
@@ -79,6 +100,7 @@ from gubernator_tpu_torch.net.faults import FAULTS
 from gubernator_tpu_torch.net.health import HeartbeatMonitor
 from gubernator_tpu_torch.observability.metrics import Metrics
 from gubernator_tpu_torch.observability.tracing import Tracer
+from gubernator_tpu_torch.parallel import distributed
 from gubernator_tpu_torch.server import GrpcServer
 from gubernator_tpu_torch.state import snapshot as snapmod
 
@@ -101,14 +123,22 @@ class Daemon:
         # daemon's shutdown contract
         self.shutdown_phases: list = []
         self._snapshot_task: Optional[asyncio.Task] = None
+        # mesh mode's periodic snapshots ride the tick loop (its hook)
+        self._tick_snapshots = False
         self._lease_sweep_task: Optional[asyncio.Task] = None
 
     def _snapshot_file(self) -> str:
-        return snapmod.snapshot_path(self.conf.snapshot_dir)
+        eng = self.instance.engine
+        return snapmod.snapshot_path(self.conf.snapshot_dir,
+                                     eng.local_shard_offset,
+                                     eng.multiprocess)
 
-    async def _snapshot_once(self) -> None:
+    async def _snapshot_once(self, now=None) -> None:
+        """One save; `now`: a mesh rank's agreed tick time (else the
+        engine's clock stamps it)."""
+        kw = {} if now is None else {"now": now}
         try:
-            await self.instance.save_snapshot(self._snapshot_file())
+            await self.instance.save_snapshot(self._snapshot_file(), **kw)
         except Exception:
             self.instance.metrics.observe_snapshot(0.0, 0, ok=False)
             log.exception("periodic snapshot failed")
@@ -135,11 +165,30 @@ class Daemon:
 
     async def start(self) -> None:
         c = self.conf
+        # mesh mode: join the group before anything touches the device
+        mesh = mesh_peers = None
+        device = c.device
+        if distributed.initialize_from_env(c.device):
+            mesh = distributed.global_mesh(c.engine.num_shards)
+            device = distributed.rank_device(c.device, mesh.rank)
+            mesh_peers = [a.strip() for a in os.environ.get(
+                "GUBER_MESH_PEERS", "").split(",") if a.strip()]
+            if not mesh_peers:
+                raise ValueError(
+                    "mesh mode requires GUBER_MESH_PEERS (gRPC addresses in "
+                    "process-rank order)")
+            if len(mesh_peers) != mesh.world_size:
+                raise ValueError(
+                    f"GUBER_MESH_PEERS lists {len(mesh_peers)} addresses but "
+                    f"the mesh has {mesh.world_size} processes; the list "
+                    "must name every process, in rank order")
+            log.info("mesh mode: %d processes, %d global shards",
+                     mesh.world_size, mesh.num_shards)
         # fault injection (net/faults.py): GUBER_FAULTS is read once here;
         # a rule on an unknown seam raises before anything is built
         FAULTS.load_from_env()
         self.instance = Instance(
-            engine_config=c.engine, behaviors=c.behaviors, device=c.device,
+            engine_config=c.engine, behaviors=c.behaviors, device=device,
             analytics=c.analytics, slo=c.slo, metrics=Metrics(),
             tiers=c.tiers, qos=c.qos, leases=c.leases,
             advertise_address=c.advertise_address, health=c.health,
@@ -147,9 +196,27 @@ class Daemon:
                           node=c.advertise_address or "local"),
             devprof_mode=c.devprof_mode,
             devprof_interval_s=c.devprof_interval_s,
-            devprof_drains=c.devprof_drains)
-        # launch every drain shape before accepting traffic
-        self.instance.engine.warmup()
+            devprof_drains=c.devprof_drains,
+            mesh=mesh, mesh_peers=mesh_peers)
+        eng = self.instance.engine
+        if mesh_peers is not None:
+            # every rank warms up together, at the agreed epoch and the
+            # tick's stack depth
+            epoch = self.instance.batcher.clock.epoch_ms
+            eng.warmup(now=epoch, k_stack=c.behaviors.lockstep_stack)
+            gk_file = os.environ.get("GUBER_GLOBAL_KEYS_FILE", "")
+            if gk_file:
+                import json
+                with open(gk_file) as f:
+                    specs = [(d["key"], d["limit"], d["duration"],
+                              d.get("algorithm", 0))
+                             for d in (json.loads(ln) for ln in f
+                                       if ln.strip())]
+                eng.register_global_keys(specs, now=epoch)
+                log.info("registered %d GLOBAL keys", len(specs))
+        else:
+            # launch every drain shape before accepting traffic
+            eng.warmup()
         # the kernel census gauge, off the boot path: queued on the engine
         # thread, not waited for
         self.instance._publish_census()
@@ -158,19 +225,32 @@ class Daemon:
             # corrupt snapshot is a cold start, never a failed boot
             os.makedirs(c.snapshot_dir, exist_ok=True)
             inst = self.instance
+            restore = (snapmod.restore_mesh_engine if inst.mesh_mode
+                       else snapmod.restore_engine)
             snap = await inst._quiesced(
-                lambda: snapmod.restore_engine(inst.engine,
-                                               self._snapshot_file(),
-                                               metrics=inst.metrics))
+                lambda: restore(inst.engine, self._snapshot_file(),
+                                metrics=inst.metrics))
             if snap is not None and snap.leases:
                 # the device free-slot counters came back with the planes
                 inst.leases.import_rows(snap.leases)
-            self._snapshot_task = asyncio.create_task(self._snapshot_loop())
+            if inst.mesh_mode:
+                # every rank saves after the same ticks, stamped with the
+                # tick's agreed time
+                b = inst.batcher
+                b.snapshot_every = max(1, round(
+                    c.snapshot_interval_ms / 1000.0 / c.behaviors.batch_wait))
+                b.on_tick_snapshot = self._snapshot_once
+                self._tick_snapshots = True
+            else:
+                self._snapshot_task = asyncio.create_task(
+                    self._snapshot_loop())
             log.info("snapshots -> %s every %dms", c.snapshot_dir,
                      c.snapshot_interval_ms)
         if c.leases.sweep_interval_ms > 0:
             self._lease_sweep_task = asyncio.create_task(
                 self._lease_sweep_loop(c.leases.sweep_interval_ms))
+        if c.frontdoor_workers > 0 and self.instance.mesh_mode:
+            log.warning("GUBER_FRONTDOOR_WORKERS ignored in mesh mode")
         if c.frontdoor_workers > 0 and not self.instance.mesh_mode:
             # the multi-process front door: the workers share the gRPC
             # port; this process binds no public gRPC port of its own
@@ -191,7 +271,15 @@ class Daemon:
             self.grpc = GrpcServer(self.instance, c.grpc_listen_address)
             await self.grpc.start()
             log.info("gRPC listening on %s", self.grpc.address)
-        if c.k8s_enabled:
+        if mesh_peers is not None:
+            # membership is fixed by rank: no discovery backend applies
+            # (elasticity is re-forming the group)
+            self.pool = StaticPool(addresses=mesh_peers,
+                                   advertise_address=c.advertise_address,
+                                   on_update=self.instance.set_peers)
+            await self.pool.start()
+            self.instance.batcher.start_lockstep()
+        elif c.k8s_enabled:
             from gubernator_tpu_torch.discovery.kubernetes import K8sPool
             self.pool = K8sPool(
                 namespace=c.k8s_namespace, pod_ip=c.k8s_pod_ip,
@@ -238,19 +326,23 @@ class Daemon:
              node's own departure;
           2. drain: stop the periodic capture controller, close
              admission intake and wait, at most drain_timeout, for queued
-             and in-flight decisions;
+             and in-flight decisions; in mesh mode then lockstep_stop:
+             the ranks agree on a final tick and the tick loop ends there
+             (at most drain_timeout past the margin's ticks);
           3. global_flush: queued GLOBAL hits and broadcasts ship now;
           4. handoff: with a surviving ring, every key this node owns
              ships to the survivors under drain_timeout
              (Instance.migrate_keys); handoff_skipped when this node is
-             the whole ring;
+             the whole ring, or a mesh rank;
           5. frontdoor_stop, with the front door: its workers exit and
              its segments are unlinked;
-          6. snapshot, with GUBER_SNAPSHOT_DIR, after the handoff;
+          6. snapshot, with GUBER_SNAPSHOT_DIR, after the handoff (a
+             mesh rank's stamped with the agreed final tick's time);
           7. teardown: discovery, http, grpc, the instance
              (main.go:127-139 order)."""
         await self._stop_monitor()
         await self._drain_requests()
+        await self._lockstep_stop()
         await self._global_flush()
         await self._handoff_keys()
         await self._stop_frontdoor()
@@ -289,6 +381,21 @@ class Daemon:
         except Exception:
             log.exception("drain failed; continuing shutdown")
 
+    async def _lockstep_stop(self) -> None:
+        """Mesh mode: agree on a final tick with the other ranks and wait
+        for this rank's tick loop to end there, so no rank is left in an
+        all-reduce another never issues."""
+        inst = self.instance
+        if inst is None or not getattr(inst, "mesh_mode", False):
+            return
+        self._phase("lockstep_stop")
+        try:
+            tick = await inst.batcher.stop_lockstep(
+                timeout=self.conf.drain_timeout + 30.0)
+            log.info("lockstep stopped at the agreed tick %d", tick)
+        except Exception:
+            log.exception("the lockstep stop failed; continuing shutdown")
+
     async def _global_flush(self) -> None:
         """Push every queued GLOBAL hit and broadcast, bounded by the drain
         timeout."""
@@ -307,7 +414,7 @@ class Daemon:
             return
         all_hosts = [p.host for p in inst.peer_list()]
         survivors = [h for h in all_hosts if h != inst.advertise_address]
-        if not survivors:
+        if not survivors or getattr(inst, "mesh_mode", False):
             # standalone, or the last node standing: the final snapshot is
             # the only continuity there is
             self._phase("handoff_skipped")
@@ -334,15 +441,22 @@ class Daemon:
             log.exception("stopping the front door failed")
 
     async def _final_snapshot(self) -> None:
-        if self._snapshot_task is None:
+        if self._snapshot_task is None and not self._tick_snapshots:
             return
         self._phase("snapshot")
-        self._snapshot_task.cancel()
-        try:
-            await self._snapshot_task
-        except asyncio.CancelledError:
-            pass
-        await self._snapshot_once()
+        if self._snapshot_task is not None:
+            self._snapshot_task.cancel()
+            try:
+                await self._snapshot_task
+            except asyncio.CancelledError:
+                pass
+        if getattr(self.instance, "mesh_mode", False):
+            # the tick loop ended at the agreed final tick: stamp the file
+            # with that tick's time, as every rank does
+            clock = self.instance.batcher.clock
+            await self._snapshot_once(clock.time_of(clock.tick))
+        else:
+            await self._snapshot_once()
 
     async def _teardown(self) -> None:
         self._phase("teardown")
@@ -360,6 +474,10 @@ class Daemon:
             await self.grpc.stop()
         if self.instance is not None:
             await self.instance.aclose()
+            if getattr(self.instance, "mesh_mode", False):
+                import torch.distributed as dist
+                if dist.is_initialized():
+                    dist.destroy_process_group()
 
 
 async def _amain(conf: DaemonConfig) -> None:

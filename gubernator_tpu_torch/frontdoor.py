@@ -571,6 +571,18 @@ class _WorkerPeers:
     async def TransferBuckets(self, data: bytes, context):
         return await self._raw(KIND_TRANSFER, data, context)
 
+    async def RegisterGlobals(self, request, context):
+        from gubernator_tpu_torch.api import pb
+        out = await self._raw(KIND_REGISTER, request.SerializeToString(),
+                              context)
+        return pb.RegisterGlobalsResp.FromString(out)
+
+    async def ApplyGlobalRegistration(self, request, context):
+        from gubernator_tpu_torch.api import pb
+        out = await self._raw(KIND_APPLY_GREG, request.SerializeToString(),
+                              context)
+        return pb.ApplyGlobalRegistrationResp.FromString(out)
+
     async def UpdatePeerGlobals(self, request, context):
         from gubernator_tpu_torch.api import pb
         out = await self._raw(KIND_UPDATE_GLOBALS,
@@ -1034,9 +1046,16 @@ class FrontdoorHub:
             req = pb.UpdatePeerGlobalsReq.FromString(rec.payload)
             out = await srv.serve_update_peer_globals(inst, req, ctx)
             return out.SerializeToString()
-        if rec.kind in (KIND_REGISTER, KIND_APPLY_GREG):
-            raise FrontdoorAbort(_UNIMPLEMENTED,
-                                 "mesh GLOBAL registration is not served")
+        if rec.kind == KIND_REGISTER:
+            from gubernator_tpu_torch.api import pb
+            req = pb.RegisterGlobalsReq.FromString(rec.payload)
+            out = await srv.serve_register_globals(inst, req, ctx)
+            return out.SerializeToString()
+        if rec.kind == KIND_APPLY_GREG:
+            from gubernator_tpu_torch.api import pb
+            req = pb.ApplyGlobalRegistrationReq.FromString(rec.payload)
+            out = await srv.serve_apply_global_registration(inst, req, ctx)
+            return out.SerializeToString()
         raise FrontdoorAbort(_UNIMPLEMENTED,
                              f"unknown frontdoor record kind {rec.kind}")
 

@@ -21,8 +21,10 @@ in-process loopback): the batching window, the retries, the breaker, the
 fault seam and the trace metadata run above the seam either way.
 
 `transfer_buckets` ships migrated bucket rows (state/migrate.py's bytes)
-through the same layer.  Not here yet: `register_globals` /
-`apply_global_registration` (mesh GLOBAL, ROADMAP item 8).
+through the same layer, and `register_globals` /
+`apply_global_registration` carry mesh GLOBAL registration (a rank to the
+registrar, the registrar to every rank; core/service.py) as in the JAX
+package (net/peers.py:247-268).
 """
 
 from __future__ import annotations
@@ -89,6 +91,13 @@ class BreakerOpenError(PeerError):
         super().__init__(host, "circuit breaker open", retryable=False)
 
 
+def _global_specs(specs: List[tuple]) -> list:
+    """(key, limit, duration, algorithm) tuples as GlobalSpec messages."""
+    from gubernator_tpu_torch.api import pb
+    return [pb.GlobalSpec(key=k, limit=lim, duration=dur, algorithm=int(a))
+            for (k, lim, dur, a) in specs]
+
+
 class GrpcPeerTransport:
     """The PeersV1 calls over an insecure grpc.aio channel, like the
     reference (peers.go:132).  Importing grpc and the protobuf stubs
@@ -143,6 +152,22 @@ class GrpcPeerTransport:
     async def transfer_buckets(self, payload: bytes,
                                timeout: float) -> bytes:
         return await self._raw_transfer(payload, timeout=timeout)
+
+    async def register_globals(self, specs: List[tuple],
+                               timeout: float) -> None:
+        from gubernator_tpu_torch.api import pb
+        await self.stub.RegisterGlobals(
+            pb.RegisterGlobalsReq(specs=_global_specs(specs)),
+            timeout=timeout)
+
+    async def apply_global_registration(self, specs: List[tuple], now: int,
+                                        activate: bool,
+                                        timeout: float) -> None:
+        from gubernator_tpu_torch.api import pb
+        await self.stub.ApplyGlobalRegistration(
+            pb.ApplyGlobalRegistrationReq(specs=_global_specs(specs),
+                                          now=now, activate=activate),
+            timeout=timeout)
 
     async def health_check(self, timeout: float):
         from gubernator_tpu_torch.api import pb
@@ -316,6 +341,19 @@ class PeerClient:
         relay: the codec lives in one module, not in generated protos."""
         return await self._call(lambda t: t.transfer_buckets(
             payload, timeout=self.conf.batch_timeout))
+
+    async def register_globals(self, specs: List[tuple]) -> None:
+        """Send (key, limit, duration, algorithm) registrations to the mesh
+        registrar (api/proto/peers.proto RegisterGlobals)."""
+        await self._call(lambda t: t.register_globals(
+            list(specs), timeout=self.conf.global_timeout))
+
+    async def apply_global_registration(self, specs: List[tuple], now: int,
+                                        activate: bool) -> None:
+        """The registrar's fan-out of one registration phase to this
+        rank."""
+        await self._call(lambda t: t.apply_global_registration(
+            list(specs), now, activate, timeout=self.conf.global_timeout))
 
     # -------------------------------------------------------------- batching
 

@@ -119,7 +119,8 @@ HAND_KERNELS = frozenset((
     "drain_compact_kernel", "drain_compact_stats_kernel",
     "window_full_kernel", "global_window_kernel", "stats_finish_kernel",
     "window_math_kernel", "global_stage_kernel", "global_apply_kernel",
-    "global_upsert_kernel"))
+    "global_upsert_kernel", "global_stage_read_kernel",
+    "global_apply_rows_kernel"))
 
 # chrome-trace categories: the card's own work, its annotation ranges, the
 # host calls that launch work, the CPU's ops

@@ -34,6 +34,16 @@
 // contributing lane exchanges its slot's sum for 0 and the one that gets a
 // nonzero sum applies it, so no list of touched slots is built and no lane
 // order matters.
+//
+// Mesh mode (several processes, one arena; parallel/distributed.py) adds a
+// third kernel, global_apply_rows: phase C' of global_phases.cuh, run
+// after the ranks' scratches are all-reduced, a thread per row of [G]
+// applying each nonzero reduced sum and leaving the scratch all zero.  A
+// rank's sums then cover slots that only another rank's lanes hit, which
+// global_apply (a thread per own lane) would never visit; the TPU kernel
+// reads its summed hits whole the same way.  What bounds it: the [G] sums
+// read once (8 B a row), a touched row's 64 B of state and config read and
+// 44 B written; at the JAX default G = 4096, launch latency.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,6 +70,12 @@ __global__ void __launch_bounds__(kApplyThreads)
     global_apply_kernel(GArena a, GConfig cfg, Control c, int64_t* sums, int64_t now) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < c.n) apply_lane(a, cfg, c, sums, now, i);
+}
+
+__global__ void __launch_bounds__(kApplyThreads)
+    global_apply_rows_kernel(GArena a, GConfig cfg, int64_t* sums, int64_t now) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row < a.G) apply_row(a, cfg, sums, now, row);
 }
 
 GArena arena_of(void* limit, void* duration, void* remaining, void* tstamp, void* expire,
@@ -132,6 +148,25 @@ int guber_global_apply(void* limit, void* duration, void* remaining, void* tstam
               static_cast<int32_t*>(cfg_algo)},
       Control{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
               static_cast<int64_t>(kg), static_cast<int64_t>(ku)},
+      static_cast<int64_t*>(sums), static_cast<int64_t>(now));
+  return cudaGetLastError();
+}
+
+
+// Phase C' of a mesh GLOBAL window, after the ranks' sums scratches were
+// all-reduced: every row whose reduced sum is nonzero applied under its
+// config, in place, and the scratch left all zero.  Returns
+// cudaGetLastError() after the launch.
+int guber_global_apply_rows(void* limit, void* duration, void* remaining, void* tstamp,
+                            void* expire, void* algo, void* cfg_limit, void* cfg_duration,
+                            void* cfg_algo, long long G, void* sums, long long now,
+                            void* stream) {
+  if (G < 1 || (G + kApplyThreads - 1) / kApplyThreads > 0x7FFFFFFFll)
+    return cudaErrorInvalidValue;
+  global_apply_rows_kernel<<<blocks_for(G), kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      arena_of(limit, duration, remaining, tstamp, expire, algo, G),
+      GConfig{static_cast<int64_t*>(cfg_limit), static_cast<int64_t*>(cfg_duration),
+              static_cast<int32_t*>(cfg_algo)},
       static_cast<int64_t*>(sums), static_cast<int64_t>(now));
   return cudaGetLastError();
 }

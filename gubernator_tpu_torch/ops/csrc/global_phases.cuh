@@ -47,6 +47,19 @@
 //     no list and no count, and which lane of a slot wins does not matter.
 //
 // Nothing reads or writes rows that no lane or config lane names.
+//
+// Mesh mode (several processes, one arena) splits the window across an
+// all-reduce of the sums (parallel/distributed.py): a rank runs phases A0,
+// A and B on its own lanes (global_window.cu global_stage_read, or
+// global_apply.cu global_stage and the torch reads), the ranks' scratches
+// are summed in place, and then
+//
+//   C' (apply rows), items [0, G): row g exchanges its reduced sum for 0
+//     and, when it is nonzero, applies it under the row's config as phase
+//     C does (kernel.global_apply).  After the all-reduce a rank holds sums
+//     for slots only another rank's lanes hit, so the touched rows are no
+//     longer its own lanes' slots: this phase visits every row, as the
+//     TPU kernel's apply does (global_apply_pallas reads `summed` whole).
 
 #pragma once
 
@@ -259,6 +272,28 @@ __device__ void apply_lane(const GArena& a, const GConfig& cfg, const Control& c
   ApplyLane l = apply_prefetch(a, c, i);
   apply_prepare(a, cfg, sums, now, l);
   apply_store(a, l);
+}
+
+// phase C' for one row: its reduced sum exchanged for 0, and applied when
+// it is nonzero
+__device__ void apply_row(const GArena& a, const GConfig& cfg, int64_t* sums, int64_t now,
+                          int64_t row) {
+  const int64_t h = sums[row];
+  if (h == 0) return;
+  sums[row] = 0;
+  Reg r = a.load_but_expire(row);
+  r.expire = a.expire[row];
+  Req q;
+  q.slot = static_cast<int32_t>(row);
+  q.valid = true;
+  q.agg = false;
+  q.init = false;
+  q.hits = h;
+  q.limit = cfg.limit[row];
+  q.duration = cfg.duration[row];
+  q.algo = cfg.algo[row];
+  transition(r, q, now, r.expire < now || q.algo != r.algo);
+  a.store(row, r);
 }
 
 }  // namespace

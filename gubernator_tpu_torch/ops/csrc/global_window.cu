@@ -60,6 +60,16 @@
 // _apply_control; the lanes' loads still overlap phase A.  (An upsert that
 // searched the config lanes for its row instead took 31.6 us a window
 // against 5.7 without upserts, PERF.md.)
+//
+// Mesh mode (several processes serve one arena, parallel/distributed.py)
+// needs the window split across an all-reduce of the sums, since a rank's
+// apply must see every rank's hits: the second entry point,
+// global_stage_read, is this kernel with phase C cut off (phases A0, A and
+// B: the upserts, the config writes and resets, the lanes' hits summed
+// into the scratch, every lane's answer from the pre-apply replica), a
+// thread per read lane over a cluster of 8 CTAs with one barrier after
+// phase A.  The caller all-reduces the scratch and launches
+// global_apply.cu's global_apply_rows, which applies every nonzero sum.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,6 +124,23 @@ __device__ void window_seg_c(const GArena& a, const GConfig& cfg, const Control&
   for (int64_t j = t.first + t.stride; j < 2 * c.n; j += t.stride) {
     if (j >= c.n) apply_lane(a, cfg, c, sums, now, j - c.n);
   }
+}
+
+// The stage-read launch's threads (global_stage_read: no apply lanes).
+// segment 1: the prefetch of the thread's first read lane, then phase A
+__device__ void stage_seg_a(const GArena& a, const GConfig& cfg, const Control& c,
+                            int64_t* sums, WindowThread& t) {
+  t.has_read = t.first < c.n;
+  t.has_apply = false;
+  if (t.has_read) t.rl = read_prefetch(a, c, t.first);
+  for (int64_t i = t.first; i < stage_items(c); i += t.stride) stage_item(a, cfg, c, sums, i);
+}
+
+// segment 2: phase B
+__device__ void stage_seg_b(const GArena& a, const Control& c, int64_t now, int64_t* read,
+                            WindowThread& t) {
+  if (t.has_read) read_finish(a, now, read, t.rl);
+  for (int64_t j = t.first + t.stride; j < c.n; j += t.stride) read_lane(a, c, now, read, j);
 }
 
 }  // namespace
@@ -178,21 +205,42 @@ __global__ void __launch_bounds__(kMaxThreads)
   stamp<kStamped>(stamps, 5);
 }
 
-// threads a CTA: a thread per read lane and one per apply lane over the
-// cluster, in whole warps
-long long window_threads(long long n, int ctas) {
-  long long threads = (2 * n + ctas - 1) / ctas;
+// The mesh window's first half: phases A0 (with upsert lanes), A and B,
+// the scratch left holding this rank's sums for the all-reduce.
+__global__ void __launch_bounds__(kMaxThreads)
+    global_stage_read_kernel(GArena a, GConfig cfg, Control c, int64_t* sums, int64_t now,
+                             int64_t* read) {
+  cg::cluster_group cluster = cg::this_cluster();
+  WindowThread t;
+  t.first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  t.stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if (c.ku > 0) {
+    window_seg_u(a, cfg, c, t);
+    cluster.sync();
+  }
+  stage_seg_a(a, cfg, c, sums, t);
+  cluster.sync();
+  stage_seg_b(a, c, now, read, t);
+}
+
+// the stage-read launch's cluster: the portable size
+constexpr int kStageCtas = 8;
+
+// threads a CTA: a thread per read lane and one per apply lane (2n items;
+// n for the stage-read launch) over the cluster, in whole warps
+long long window_threads(long long items, int ctas) {
+  long long threads = (items + ctas - 1) / ctas;
   threads = (threads + 31) / 32 * 32;
   if (threads < 64) threads = 64;
   if (threads > kMaxThreads) threads = kMaxThreads;
   return threads;
 }
 
-cudaLaunchConfig_t window_config(long long n, int ctas, cudaStream_t stream,
+cudaLaunchConfig_t window_config(long long items, int ctas, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t conf = {};
   conf.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
-  conf.blockDim = dim3(static_cast<unsigned>(window_threads(n, ctas)), 1, 1);
+  conf.blockDim = dim3(static_cast<unsigned>(window_threads(items, ctas)), 1, 1);
   conf.dynamicSmemBytes = 0;
   conf.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -223,12 +271,12 @@ cudaError_t allow_nonportable() {
 // Remembered per thread count.
 int choose_ctas(long long n) {
   static int chosen[kMaxThreads / 32 + 1] = {};
-  const long long threads = window_threads(n, 16);
+  const long long threads = window_threads(2 * n, 16);
   int& c = chosen[threads / 32];
   if (c == 0) {
     int clusters = 0;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t conf = window_config(n, 16, nullptr, &attr);
+    const cudaLaunchConfig_t conf = window_config(2 * n, 16, nullptr, &attr);
     const bool ok =
         allow_nonportable() == cudaSuccess &&
         cudaOccupancyMaxActiveClusters(&clusters, global_window_kernel<false>, &conf) ==
@@ -279,12 +327,44 @@ int guber_global_window(void* limit, void* duration, void* remaining, void* tsta
                   static_cast<int64_t>(kg), static_cast<int64_t>(ku)};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t conf =
-      window_config(n, ctas, static_cast<cudaStream_t>(stream), &attr);
+      window_config(2 * n, ctas, static_cast<cudaStream_t>(stream), &attr);
   auto* kernel = stamps != nullptr ? &global_window_kernel<true> : &global_window_kernel<false>;
   const cudaError_t e =
       cudaLaunchKernelEx(&conf, kernel, a, cfg, c, static_cast<int64_t*>(sums),
                          static_cast<int64_t>(now), static_cast<int64_t*>(read),
                          static_cast<unsigned long long*>(stamps));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+
+// The first half of a mesh GLOBAL window in one cluster launch of 8 CTAs:
+// the control's upserts (ku > 0: phase A0 and a barrier first), its config
+// writes and resets into the config and the arena, in place, its lanes'
+// contributed hits added into the sums scratch i64[G] (all zero before;
+// left holding them for the all-reduce), and the read block i64[n, 4]
+// answered from the arena as phase A left it.  Returns the launch's
+// error, or cudaGetLastError() after it.
+int guber_global_stage_read(void* limit, void* duration, void* remaining, void* tstamp,
+                            void* expire, void* algo, void* cfg_limit, void* cfg_duration,
+                            void* cfg_algo, long long G, const void* control, long long n,
+                            long long kg, long long ku, void* sums, long long now, void* read,
+                            void* stream) {
+  if (G < 1 || n < 0 || kg < 0 || ku < 0) return cudaErrorInvalidValue;
+  const GArena a{static_cast<int64_t*>(limit),  static_cast<int64_t*>(duration),
+                 static_cast<int64_t*>(remaining), static_cast<int64_t*>(tstamp),
+                 static_cast<int64_t*>(expire), static_cast<int32_t*>(algo),
+                 static_cast<int64_t>(G)};
+  const GConfig cfg{static_cast<int64_t*>(cfg_limit), static_cast<int64_t*>(cfg_duration),
+                    static_cast<int32_t*>(cfg_algo)};
+  const Control c{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
+                  static_cast<int64_t>(kg), static_cast<int64_t>(ku)};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t conf =
+      window_config(n, kStageCtas, static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&conf, global_stage_read_kernel, a, cfg, c, static_cast<int64_t*>(sums),
+                         static_cast<int64_t>(now), static_cast<int64_t*>(read));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

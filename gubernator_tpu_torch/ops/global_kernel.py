@@ -23,6 +23,17 @@ scratch i64[G] that the caller owns and keeps all zero between windows.
     lowering's halves (GUBER_PALLAS=1, global_apply_pallas): the upserts,
     the config writes and the sums, then, after the caller's replica
     reads, the apply, which leaves the scratch all zero.
+  * `global_stage_read(gstate, gcfg, control, scratch, now)` and
+    `global_apply_rows(gstate, gcfg, scratch, now)` - a GLOBAL window split
+    across the all-reduce of mesh mode (several processes, one arena;
+    parallel/distributed.py), the JAX engine's _global_window with its
+    psum between global_accumulate and global_combined_staged: the first
+    is global_window without its apply (this rank's sums are left in the
+    scratch and the read block answers from the pre-apply replica), the
+    caller all-reduces the scratch, and the second applies every row
+    whose reduced sum is nonzero (the rows another rank's lanes hit
+    included) and leaves the scratch all zero.  Under the per-op lowering
+    global_stage and the torch reads take the first one's place.
 
 For CUDA tensors each launches its kernel on the current stream (building
 it with nvcc on first use, ops/build.py) or raises; for CPU tensors it runs
@@ -59,9 +70,10 @@ UPS_FIELDS = ("pslot", "plimit", "pduration", "premaining", "ptstamp",
               "pexpire", "palgo")
 _I32_FIELDS = ("slot", "algo", "uslot", "ualgo", "rslot", "pslot", "palgo")
 
-launches = build.CallCounts("global_window", "global_stage", "global_apply")
-plain_calls = build.CallCounts("global_window", "global_stage",
-                               "global_apply")
+KERNELS = ("global_window", "global_stage", "global_apply",
+           "global_stage_read", "global_apply_rows")
+launches = build.CallCounts(*KERNELS)
+plain_calls = build.CallCounts(*KERNELS)
 
 _lock = threading.Lock()
 _lib = None
@@ -234,6 +246,9 @@ def load_library() -> ctypes.CDLL:
         lib.guber_global_window.argtypes = (
             [p] * 9 + [ll, p, ll, ll, ll, p, ll, p, i, p, p])
         lib.guber_global_window.restype = i
+        lib.guber_global_stage_read.argtypes = (
+            [p] * 9 + [ll, p, ll, ll, ll, p, ll, p, p])
+        lib.guber_global_stage_read.restype = i
         lib.guber_global_window_ctas.argtypes = [ll]
         lib.guber_global_window_ctas.restype = i
         lib.guber_global_error_string.argtypes = [i]
@@ -256,6 +271,8 @@ def load_apply_library() -> ctypes.CDLL:
         lib.guber_global_apply.argtypes = ([p] * 9
                                            + [ll, p, ll, ll, ll, p, ll, p])
         lib.guber_global_apply.restype = i
+        lib.guber_global_apply_rows.argtypes = [p] * 9 + [ll, p, ll, p]
+        lib.guber_global_apply_rows.restype = i
         lib.guber_apply_error_string.argtypes = [i]
         lib.guber_apply_error_string.restype = ctypes.c_char_p
         _apply_lib = lib
@@ -448,6 +465,83 @@ def global_apply_plain(gstate: BucketState, gcfg: GlobalConfig,
     of the scratch's sums over the whole arena, copied into gstate, and the
     scratch zeroed."""
     plain_calls["global_apply"] += 1
+    new = kernel.global_apply(gstate, gcfg, scratch, now)
+    for dst, src in zip(gstate, new):
+        dst.copy_(src)
+    scratch.zero_()
+
+
+def global_stage_read(gstate: BucketState, gcfg: GlobalConfig,
+                      control: Control, scratch: torch.Tensor,
+                      now: int) -> torch.Tensor:
+    """The first half of a mesh GLOBAL window, the arena and config
+    updated in place: the control's upserts, config writes and resets,
+    its lanes' gacc added per slot into scratch (i64[G], all zero before,
+    left holding this rank's sums for the all-reduce), and the read block
+    i64[n, 4] = (status, limit, remaining, reset_time) answered from the
+    arena as the writes left it, pad lanes 0."""
+    G = _check(gstate, gcfg, control, scratch, "global_stage_read")
+    if scratch.device.type == "cpu":
+        return global_stage_read_plain(gstate, gcfg, control, scratch, now)
+    lib = load_library()
+    read = torch.empty((control.n, 4), dtype=torch.int64,
+                       device=scratch.device)
+    rc = lib.guber_global_stage_read(
+        *_ptrs(gstate, gcfg), G, control.block.data_ptr(), control.n,
+        control.kg, control.ku, scratch.data_ptr(), int(now),
+        read.data_ptr(), _stream(scratch))
+    _raise(rc, "global_stage_read", lib.guber_global_error_string)
+    launches["global_stage_read"] += 1
+    return read
+
+
+def global_stage_read_plain(gstate: BucketState, gcfg: GlobalConfig,
+                            control: Control, scratch: torch.Tensor,
+                            now: int) -> torch.Tensor:
+    """The plain version of global_stage_read on any device:
+    apply_control, kernel.global_accumulate of the lanes' gacc into
+    scratch, and kernel.global_read of the lanes on the staged arena."""
+    plain_calls["global_stage_read"] += 1
+    lanes, gacc, upd = unpack_control(control)
+    apply_control(gstate, gcfg, upd, unpack_upserts(control))
+    scratch.copy_(kernel.global_accumulate(scratch,
+                                           lanes._replace(hits=gacc)))
+    return _read_block(kernel.global_read(gstate, lanes, now), lanes.slot)
+
+
+def global_apply_rows(gstate: BucketState, gcfg: GlobalConfig,
+                      scratch: torch.Tensor, now: int) -> None:
+    """The second half of a mesh GLOBAL window, after the all-reduce of
+    the scratch: every row whose summed hits are nonzero takes them under
+    its config (kernel.global_apply), in place, and the scratch is left
+    all zero."""
+    dev = scratch.device
+    G = scratch.shape[0] if scratch.dim() == 1 else -1
+    if G < 1:
+        raise ValueError(f"scratch: want i64[G], got {tuple(scratch.shape)}")
+    check_tensor(scratch, "scratch", torch.int64, (G,), dev)
+    for name, t in zip(BucketState._fields, gstate):
+        check_tensor(t, f"gstate.{name}", _dtype(name), (G,), dev)
+    for name, t in zip(GlobalConfig._fields, gcfg):
+        check_tensor(t, f"gcfg.{name}", _dtype(name), (G,), dev)
+    if dev.type == "cpu":
+        return global_apply_rows_plain(gstate, gcfg, scratch, now)
+    if dev.type != "cuda":
+        raise ValueError(f"global_apply_rows runs on cuda or cpu, not {dev}")
+    lib = load_apply_library()
+    rc = lib.guber_global_apply_rows(*_ptrs(gstate, gcfg), G,
+                                     scratch.data_ptr(), int(now),
+                                     _stream(scratch))
+    _raise(rc, "global_apply_rows", lib.guber_apply_error_string)
+    launches["global_apply_rows"] += 1
+
+
+def global_apply_rows_plain(gstate: BucketState, gcfg: GlobalConfig,
+                            scratch: torch.Tensor, now: int) -> None:
+    """The plain version of global_apply_rows on any device:
+    kernel.global_apply of the scratch's sums over the whole arena,
+    copied into gstate, and the scratch zeroed."""
+    plain_calls["global_apply_rows"] += 1
     new = kernel.global_apply(gstate, gcfg, scratch, now)
     for dst, src in zip(gstate, new):
         dst.copy_(src)

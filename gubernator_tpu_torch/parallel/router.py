@@ -6,8 +6,9 @@ A copy of `ConsistentHashRing` from `gubernator_tpu/parallel/router.py`
 compatible with the reference (hash.go:28-96): crc32 IEEE of the peer
 address, one point per host, a sorted ring, binary-search successor with
 wraparound, so a cluster of reference nodes, JAX nodes and port nodes
-routes every key to the same owner.  The mesh picker (`MeshShardPicker`)
-comes with mesh serving (ROADMAP item 8).
+routes every key to the same owner.  In mesh mode (parallel/distributed.py)
+`MeshShardPicker` takes the ring's place: key -> global shard -> owning
+rank -> host, a copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -64,3 +65,60 @@ class ConsistentHashRing(Generic[T]):
         """(sorted points, peer per point): the native RPC parser's
         classification table (host_router.cc router_set_ring)."""
         return list(self._points), [self._by_point[p] for p in self._points]
+
+
+class MeshShardPicker(Generic[T]):
+    """Mesh-mode PeerPicker: key -> global shard -> owning process -> host.
+
+    In mesh mode the keyspace partition is the mesh's shard axis, so host
+    routing must agree with the engine's `crc32(key) % num_shards` exactly
+    (a ring would route by host hash and disagree).  Hosts register in
+    process-rank order via add(); get() then maps shard -> rank.
+    """
+
+    def __init__(self, shard_to_process: List[int], rank_hosts: List[str]):
+        self._shard_to_process = shard_to_process  # global shard -> rank
+        self._rank_hosts = rank_hosts  # rank -> host address (fixed at boot)
+        self._by_host = {}
+
+    @classmethod
+    def for_mesh(cls, mesh, rank_hosts: List[str]) -> "MeshShardPicker[T]":
+        from gubernator_tpu_torch.parallel.distributed import owning_process
+        shard_to_process = [owning_process(s, mesh)
+                            for s in range(mesh.num_shards)]
+        if max(shard_to_process) >= len(rank_hosts):
+            raise ValueError(
+                f"mesh spans {max(shard_to_process) + 1} processes but only "
+                f"{len(rank_hosts)} peer addresses were given")
+        return cls(shard_to_process, list(rank_hosts))
+
+    def new(self) -> "MeshShardPicker[T]":
+        return MeshShardPicker(self._shard_to_process, self._rank_hosts)
+
+    def add(self, host: str, peer: T) -> None:
+        if host not in self._rank_hosts:
+            raise ValueError(f"host {host!r} is not in the mesh peer list "
+                             f"{self._rank_hosts}")
+        self._by_host[host] = peer
+
+    def size(self) -> int:
+        return len(self._by_host)
+
+    def peers(self) -> List[T]:
+        return list(self._by_host.values())
+
+    def get_by_host(self, host: str) -> Optional[T]:
+        return self._by_host.get(host)
+
+    def get(self, key: str) -> T:
+        """Rank-exact routing: a missing (e.g. connect-failed) peer raises
+        rather than shifting other ranks' shards onto the wrong host."""
+        if not self._by_host:
+            raise RuntimeError("unable to pick a peer; pool is empty")
+        shard = zlib.crc32(key.encode("utf-8")) % len(self._shard_to_process)
+        host = self._rank_hosts[self._shard_to_process[shard]]
+        peer = self._by_host.get(host)
+        if peer is None:
+            raise RuntimeError(
+                f"mesh peer {host} (owner of shard {shard}) is not connected")
+        return peer

@@ -11,11 +11,15 @@ inside GrpcServer and where an abort needs its status code, and protobuf
 only on the protobuf path (RPCs under FASTPATH_MIN_BYTES, or ones the
 parser refuses), which raises ImportError on a machine without it.
 
-Ported: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits,
-UpdatePeerGlobals (an owner's GLOBAL broadcast, `serve_update_peer_globals`)
-and TransferBuckets (key migration, `serve_transfer_buckets`: raw bytes in,
-raw bytes out).  Not registered yet, so a caller gets UNIMPLEMENTED:
-RegisterGlobals and ApplyGlobalRegistration (mesh GLOBAL, ROADMAP item 8).  With the Instance's tracer sampling, GetRateLimits
+Served: V1.GetRateLimits and HealthCheck, PeersV1.GetPeerRateLimits,
+UpdatePeerGlobals (an owner's GLOBAL broadcast, `serve_update_peer_globals`),
+TransferBuckets (key migration, `serve_transfer_buckets`: raw bytes in,
+raw bytes out), and RegisterGlobals and ApplyGlobalRegistration (mesh
+GLOBAL registration: `serve_register_globals` on the registrar,
+`serve_apply_global_registration` on every rank).  In mesh mode both
+GetRateLimits and GetPeerRateLimits take the protobuf path: the bytes lane
+classifies keys by ring, and a mesh routes by shard.  With the Instance's
+tracer sampling, GetRateLimits
 roots an `rpc` span and GetPeerRateLimits a `peer_rpc` span, each
 continuing the caller's `traceparent` invocation metadata (the peer lane
 sends it, net/peers.py), so a forwarded request is one trace across the
@@ -61,6 +65,8 @@ _HEALTH_CHECK = "/pb.gubernator.V1/HealthCheck"
 _GET_PEER_RATE_LIMITS = "/pb.gubernator.PeersV1/GetPeerRateLimits"
 _UPDATE_PEER_GLOBALS = "/pb.gubernator.PeersV1/UpdatePeerGlobals"
 _TRANSFER_BUCKETS = "/pb.gubernator.PeersV1/TransferBuckets"
+_REGISTER_GLOBALS = "/pb.gubernator.PeersV1/RegisterGlobals"
+_APPLY_GREG = "/pb.gubernator.PeersV1/ApplyGlobalRegistration"
 
 
 # gRPC status codes by name (the first element of each grpc.StatusCode
@@ -274,6 +280,40 @@ async def serve_transfer_buckets(inst: Instance, data: bytes,
     return ack
 
 
+async def serve_register_globals(inst: Instance, request, context):
+    """PeersV1.RegisterGlobals body (the mesh registrar, rank 0): a decoded
+    RegisterGlobalsReq's specs registered mesh-wide in two phases; a
+    registration that fails aborts with FAILED_PRECONDITION."""
+    from gubernator_tpu_torch.api import pb
+    start = time.monotonic()
+    specs = [(sp.key, sp.limit, sp.duration, int(sp.algorithm))
+             for sp in request.specs]
+    try:
+        await inst.register_globals(specs)
+    except Exception as e:
+        _observe(inst, _REGISTER_GLOBALS, start, False)
+        await _abort(context, "FAILED_PRECONDITION", str(e))
+    _observe(inst, _REGISTER_GLOBALS, start, True)
+    return pb.RegisterGlobalsResp()
+
+
+async def serve_apply_global_registration(inst: Instance, request, context):
+    """PeersV1.ApplyGlobalRegistration body: one registration phase on this
+    rank (phase 1 configures, activate = phase 2 serves)."""
+    from gubernator_tpu_torch.api import pb
+    start = time.monotonic()
+    specs = [(sp.key, sp.limit, sp.duration, int(sp.algorithm))
+             for sp in request.specs]
+    try:
+        await inst.apply_global_registration(specs, request.now,
+                                             request.activate)
+    except Exception as e:
+        _observe(inst, _APPLY_GREG, start, False)
+        await _abort(context, "FAILED_PRECONDITION", str(e))
+    _observe(inst, _APPLY_GREG, start, True)
+    return pb.ApplyGlobalRegistrationResp()
+
+
 class _V1Servicer:
     def __init__(self, instance: Instance):
         self.instance = instance
@@ -316,6 +356,13 @@ class _PeersServicer:
 
     async def TransferBuckets(self, data: bytes, context):
         return await serve_transfer_buckets(self.instance, data, context)
+
+    async def RegisterGlobals(self, request, context):
+        return await serve_register_globals(self.instance, request, context)
+
+    async def ApplyGlobalRegistration(self, request, context):
+        return await serve_apply_global_registration(self.instance, request,
+                                                     context)
 
 
 class GrpcServer:

@@ -39,7 +39,10 @@ File format (version 1), byte for byte the JAX package's:
   payload   npz archive (numpy savez) holding the meta JSON and every array
 
 A truncated or bit-flipped file fails the crc (or the parse) and raises
-SnapshotError; restore_engine turns that into a logged cold start.
+SnapshotError; restore_engine turns that into a logged cold start.  A
+mesh rank restores through restore_mesh_engine: only when every rank's
+file holds the same agreed tick and GLOBAL part, else every rank starts
+cold together.
 
 Lease rows travel in the same optional npz arrays as the JAX package's;
 the port has no lease registry yet, so an engine that restores them logs
@@ -48,6 +51,7 @@ their count and drops them (core/service.py).
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import logging
@@ -117,8 +121,8 @@ class ArenaSnapshot:
     # native backend: per shard, (fp u64[n], slot i32[n], expire i64[n])
     native_tables: List[tuple] = field(default_factory=list)
     gtable: tuple = ()            # (keys, slot, expire) of the GLOBAL table
-    # GLOBAL keys awaiting mesh registration: always empty in a
-    # single-process engine (import refuses a snapshot that has any)
+    # GLOBAL keys registered (phase 1) but not yet activated mesh-wide;
+    # they restore still pending
     gpending: List[str] = field(default_factory=list)
     # warm tier (state/tiers.py), when enabled at export: (keys,
     # {plane: int64[n]}) in canonical absolute form.  Optional npz arrays:
@@ -461,18 +465,20 @@ def load(path: str) -> ArenaSnapshot:
         return loads(f.read())
 
 
-def snapshot_path(directory: str) -> str:
-    """The daemon's file in GUBER_SNAPSHOT_DIR: arena.snap, the JAX
-    package's name for a single-process engine (its mesh processes write
-    arena-r<shard offset>.snap each, which the port has no use for)."""
-    return os.path.join(directory, "arena.snap")
+def snapshot_path(directory: str, local_shard_offset: int = 0,
+                  multiprocess: bool = False) -> str:
+    """The daemon's file in GUBER_SNAPSHOT_DIR (JAX snapshot.py:485): one
+    a process, since mesh ranks share the directory: arena.snap for a
+    single process, arena-r<shard offset>.snap for a mesh rank, holding
+    its own shards."""
+    name = (f"arena-r{local_shard_offset}.snap" if multiprocess
+            else "arena.snap")
+    return os.path.join(directory, name)
 
 
-def restore_engine(engine, path: str, rebase_to: Optional[int] = None,
-                   metrics=None) -> Optional[ArenaSnapshot]:
-    """Boot-time restore: load and import, degrading to a cold arena (with
-    a warning) on any failure: a corrupt snapshot never blocks a boot.
-    Returns the snapshot on success, None on a cold start."""
+def _load_usable(engine, path: str) -> Optional[ArenaSnapshot]:
+    """The file's snapshot if `engine` can import it, else None, logged: a
+    missing, corrupt or unreadable file, or one of another geometry."""
     try:
         snap = load(path)
     except FileNotFoundError:
@@ -482,14 +488,76 @@ def restore_engine(engine, path: str, rebase_to: Optional[int] = None,
         log.warning("snapshot %s unusable (%s); starting cold", path, e)
         return None
     try:
-        engine.import_state(snap, rebase_to=rebase_to)
-    except Exception as e:
-        log.warning("snapshot %s failed to import (%s); starting cold",
-                    path, e)
+        engine.check_snapshot(snap)
+    except SnapshotError as e:
+        log.warning("snapshot %s does not fit this engine (%s); starting "
+                    "cold", path, e)
         return None
+    return snap
+
+
+def _restored(snap: ArenaSnapshot, path: str, metrics) -> ArenaSnapshot:
     age_ms = max(0, millisecond_now() - snap.now)
     if metrics is not None:
         metrics.restore_age.set(age_ms / 1000.0)
     log.info("restored %d keys from %s (age %.1fs)", snap.total_keys(), path,
              age_ms / 1000.0)
     return snap
+
+
+def restore_engine(engine, path: str, rebase_to: Optional[int] = None,
+                   metrics=None) -> Optional[ArenaSnapshot]:
+    """Boot-time restore: load and import, degrading to a cold arena (with
+    a warning) on any failure: a corrupt snapshot never blocks a boot.
+    Returns the snapshot on success, None on a cold start."""
+    snap = _load_usable(engine, path)
+    if snap is None:
+        return None
+    try:
+        engine.import_state(snap, rebase_to=rebase_to)
+    except Exception as e:
+        log.warning("snapshot %s failed to import (%s); starting cold",
+                    path, e)
+        return None
+    return _restored(snap, path, metrics)
+
+
+def global_digest(snap: ArenaSnapshot) -> str:
+    """A mesh rank's snapshot stamp and GLOBAL part, hashed: equal on two
+    ranks exactly when their files hold the same agreed tick with the same
+    GLOBAL replica, configs, registrations and pending keys.  The GLOBAL
+    table's expiries, which each rank's own lookups move, and its entries'
+    order are left out."""
+    h = hashlib.sha256(struct.pack("<q", int(snap.now)))
+    for planes in (snap.gplanes, snap.gcfg):
+        for name in sorted(planes):
+            h.update(name.encode())
+            h.update(np.ascontiguousarray(planes[name]).tobytes())
+    keys, slots = (snap.gtable[0], snap.gtable[1]) if snap.gtable else ((), ())
+    h.update(json.dumps(sorted(zip(keys, np.asarray(slots).tolist())))
+             .encode())
+    h.update(json.dumps(sorted(snap.gpending)).encode())
+    return h.hexdigest()
+
+
+def restore_mesh_engine(engine, path: str,
+                        metrics=None) -> Optional[ArenaSnapshot]:
+    """Boot-time restore of a mesh rank (engine.mesh).  The ranks' GLOBAL
+    replicas must stay equal, and the all-reduce only adds deltas to them,
+    so each rank restores its own file only when every rank holds a usable
+    file of the same stamp and GLOBAL part (global_digest), compared
+    through the group's store (Mesh.exchange); otherwise every rank starts
+    cold, with a warning.  Returns the snapshot, or None on a cold start.
+    A file the ranks agree on that then fails to import raises: the others
+    restored theirs, and this rank cannot serve beside them."""
+    snap = _load_usable(engine, path)
+    mark = "" if snap is None else global_digest(snap)
+    marks = engine.mesh.exchange("restore", mark)
+    if not mark or len(set(marks)) != 1:
+        if mark:
+            log.warning("snapshot %s not restored: the ranks' files are of "
+                        "different ticks or GLOBAL replicas, or one is "
+                        "missing; every rank starts cold", path)
+        return None
+    engine.import_state(snap)
+    return _restored(snap, path, metrics)

@@ -241,10 +241,23 @@ def test_both_discovery_backends_raise_in_both(clean_env):
 ])
 def test_unported_knob_raises_naming_its_roadmap_item(clean_env, name,
                                                       value, item):
+    """ROADMAP item 8's knobs raised while mesh serving was unported (the
+    name is kept from then); they are served now, and config_from_env
+    raises for none and reads each as the JAX package's does:
+    GUBER_LOCKSTEP_STACK into behaviors.lockstep_stack, GUBER_SKIP_GLOBAL
+    into engine.skip_global (gubernator_tpu/config.py:666, :687).
+    GUBER_MESH_* are no config knobs in either package: the daemon and
+    parallel/distributed.py read them from the environment, both config
+    objects stay at their defaults."""
+    assert item == 8
     clean_env.setenv(name, value)
-    with pytest.raises(ValueError,
-                       match=f"{name}=.*ROADMAP.md Queue 1 item {item}"):
-        pconfig.config_from_env()
+    got_j, got_p = _both()
+    assert got_p == got_j and isinstance(got_p, dict)
+    jc, pc = jconfig.config_from_env(), pconfig.config_from_env()
+    read = (pc.behaviors.lockstep_stack, pc.engine.skip_global)
+    assert read == (jc.behaviors.lockstep_stack, jc.engine.skip_global)
+    assert read == {"GUBER_LOCKSTEP_STACK": (2, False),
+                    "GUBER_SKIP_GLOBAL": (1, True)}.get(name, (1, False))
 
 
 @pytest.mark.parametrize("name,value,knob,want", [

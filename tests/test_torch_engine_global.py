@@ -306,11 +306,13 @@ def test_warmup_launches_every_shape_and_leaves_the_arenas(engines):
     assert dk.plain_calls == {"drain_compact": 2, "drain_compact_stats": 0,
                               "window_full": 1}
     assert gk.plain_calls == {"global_window": 1, "global_stage": 0,
-                              "global_apply": 0}
+                              "global_apply": 0,
+        "global_stage_read": 0, "global_apply_rows": 0}
     assert dk.launches == {"drain_compact": 0, "drain_compact_stats": 0,
                            "window_full": 0}
     assert gk.launches == {"global_window": 0, "global_stage": 0,
-                           "global_apply": 0}
+                           "global_apply": 0,
+        "global_stage_read": 0, "global_apply_rows": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -219,9 +219,11 @@ def test_wrapper_runs_plain_on_cpu_and_zeroes_pads(case):
     read = gk.global_window(ts, tc, summed_control(batch, summed), scratch,
                             T0)
     assert gk.launches == {"global_window": 0, "global_stage": 0,
-                           "global_apply": 0}
+                           "global_apply": 0,
+        "global_stage_read": 0, "global_apply_rows": 0}
     assert gk.plain_calls == {"global_window": 1, "global_stage": 0,
-                              "global_apply": 0}
+                              "global_apply": 0,
+        "global_stage_read": 0, "global_apply_rows": 0}
     _eq(ts, w_state, f"{case} state")  # in place
     _eq(tc, jc, f"{case} cfg")
     assert not scratch.any()

@@ -262,11 +262,13 @@ def _port_window(state, cfg, ctl_np, now, per_op):
         read = gk.global_read_block(ts, ctl, now)
         gk.global_apply(ts, tc, ctl, scratch, now)
         assert gk.plain_calls == {"global_window": 0, "global_stage": 1,
-                                  "global_apply": 1}
+                                  "global_apply": 1,
+        "global_stage_read": 0, "global_apply_rows": 0}
     else:
         read = gk.global_window(ts, tc, ctl, scratch, now)
         assert gk.plain_calls == {"global_window": 1, "global_stage": 0,
-                                  "global_apply": 0}
+                                  "global_apply": 0,
+        "global_stage_read": 0, "global_apply_rows": 0}
     assert not any(gk.launches.values())
     assert not scratch.any(), "the scratch is not back at zero"
     # in place: the same planes

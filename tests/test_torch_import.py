@@ -51,6 +51,7 @@ _ENTRY_MODULES = ("gubernator_tpu_torch", "gubernator_tpu_torch.core.service",
                   "gubernator_tpu_torch.net.faults",
                   "gubernator_tpu_torch.core.global_sync",
                   "gubernator_tpu_torch.parallel.router",
+                  "gubernator_tpu_torch.parallel.distributed",
                   "gubernator_tpu_torch.observability.tracing",
                   "gubernator_tpu_torch.discovery.static",
                   "gubernator_tpu_torch.net.health",

@@ -205,9 +205,11 @@ def test_global_apply_matches_oracle_and_tpu_kernel(kind):
     _stage_apply(t_state, tk.GlobalConfig(*[_t(a) for a in cfg]),
                  np.asarray(summed), now)
     assert gk.plain_calls == {"global_window": 0, "global_stage": 1,
-                              "global_apply": 1}
+                              "global_apply": 1,
+        "global_stage_read": 0, "global_apply_rows": 0}
     assert gk.launches == {"global_window": 0, "global_stage": 0,
-                           "global_apply": 0}
+                           "global_apply": 0,
+        "global_stage_read": 0, "global_apply_rows": 0}
     for name, g, w, p in zip(jk.BucketState._fields, t_state, want, tpu):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
         np.testing.assert_array_equal(g.numpy(), np.asarray(p), err_msg=name)

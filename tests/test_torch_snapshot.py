@@ -212,16 +212,25 @@ def test_geometry_mismatch_rejected():
 
 
 def test_mesh_snapshot_and_exact_keys_refused():
-    """A snapshot carrying GLOBAL keys pending mesh registration is a mesh
-    snapshot, which a single-process engine refuses; an exact-keys router
-    refuses both directions (its key bytes are not in the format)."""
+    """A mesh rank's snapshot holds only its own shards (num_local_shards,
+    local_shard_offset), which a single-process engine refuses by geometry;
+    GLOBAL keys a snapshot holds pending mesh registration restore still
+    pending, as the JAX engine restores them (engine.py:1986), since mesh
+    snapshots are served now.  An exact-keys router refuses both
+    directions (its key bytes are not in the format)."""
     eng = _mk_engine()
     eng.process([RateLimitReq(name="m", unique_key="x", hits=1, limit=5,
                               duration=1000)], now=T0)
     snap = snapmod.loads(snapmod.dumps(eng.export_state(now=T0)))
+    rank = snapmod.loads(snapmod.dumps(eng.export_state(now=T0)))
+    rank.num_local_shards, rank.local_shard_offset = 4, 4
+    with pytest.raises(snapmod.SnapshotError, match="geometry"):
+        _mk_engine().import_state(rank)
     snap.gpending = ["glob_g0"]
-    with pytest.raises(snapmod.SnapshotError, match="mesh"):
-        _mk_engine().import_state(snap)
+    restored = _mk_engine()
+    restored.import_state(snap)
+    assert restored._gpending == {"glob_g0"}
+    assert not restored.global_ready("glob_g0")
     if not native.available():
         return
     exact = RateLimitEngine(**GEOM, num_shards=8, device="cpu",
