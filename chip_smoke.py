@@ -353,11 +353,17 @@ Phases (one line each; any mismatch raises and exits non-zero):
      holding 4 of S = 8 shards of 2^21 slots, B = 1024, G = 4096 (the JAX
      defaults).  16a, here first: global_stage_read (global_window.cu) and
      global_apply_rows (global_apply.cu), the GLOBAL window split across
-     the all-reduce, on each half of phase 5a's edge windows and on the
-     sum of the halves' scratches, against their plain versions; 16b their
-     device time at G = 4096 and 2^20 on a rank's window beside their plain
-     versions and bounds.  Then the ranks: 20 ticks at a stack of 1
-     (engine.step) and 20 at 2 (step_stacked), a rank's window 1000
+     the all-reduce, on each half of phase 5a's edge windows (three of
+     them with 256 upsert lanes, lanes reading rows upserted, reset and
+     config-written at once and row G - 1 through slots past G while index
+     -1 resets it; and the steady state, no control write) and on the sum
+     of the halves' scratches, against their plain versions bit for bit;
+     16b their device time at G = 4096 and 2^20 on a rank's window of 256
+     keys (with the engine's 256 pad config lanes, and with one) and on
+     one of 1024 distinct keys, beside their plain versions and bounds.
+     Then the ranks: 20 ticks at
+     a stack of 1 (engine.step) and 20 at 2 (step_stacked), a rank's
+     window 1000
      regular requests (Zipf keys of its shards, all five algorithms,
      releases) and 64 GLOBAL ones on 256 keys registered at one `now`
      (a third of them hit by one rank only); the same traffic, each tick's
@@ -7502,39 +7508,110 @@ def mesh_serve(rank, mesh, dev, ports):
     return res
 
 
-def mesh_kernels_vs_plain():
-    """Phase 16a, in this process: global_stage_read on each half of phase
-    5a's edge windows (two ranks' lanes, the same replica and config
-    writes) and global_apply_rows on the sum of the two scratches, each
-    against its plain version on copies: the read blocks, the scratches,
-    every gstate and gcfg plane, and the scratch back at zero after the
-    apply."""
-    rng = np.random.default_rng(1606)
+def mesh_edge_rows(G, gbatch, upd, ups, last):
+    """Phase 16a's rows forced onto an edge window's host control, in
+    place (each kind's slots stay unique): row G - 1 reset by index -1 and
+    read through slots past G by a lane of each rank; a row upserted,
+    reset and config-written at once, read by a lane of each rank (with
+    `last`, row G - 1 itself, upserted by index -1 and config-written by
+    G - 1); a row upserted only and a row reset only, each read by a lane
+    of each rank.  A name goes to a pad position (index G) of its column."""
+    def rows(idx):
+        idx = np.asarray(idx).astype(np.int64)
+        return np.where(idx < 0, idx + G, idx)
+    p_rows, u_rows, r_rows = rows(ups[0]), rows(upd[0]), rows(upd[4])
+
+    def name(col, col_rows, row, idx):
+        if not np.any(col_rows == row):
+            pos = np.flatnonzero(col == G)[-1]
+            col[pos], col_rows[pos] = idx, row
+    if last and not np.any(p_rows == G - 1):
+        q = np.flatnonzero((p_rows >= 0) & (p_rows < G))[0]
+        ups[0][q], p_rows[q] = -1, G - 1
+    name(upd[4], r_rows, G - 1, -1)
+    live = lambda r: (r >= 0) & (r < G) & (r != G - 1)  # noqa: E731
+    if last:
+        name(upd[0], u_rows, G - 1, G - 1)
+        x = G - 1
+    else:
+        x = int(p_rows[live(p_rows)][0])
+        name(upd[4], r_rows, x, x - G)
+        name(upd[0], u_rows, x, x)
+    y = int(p_rows[live(p_rows) & ~np.isin(p_rows, np.union1d(u_rows, r_rows))][0])
+    z = int(r_rows[live(r_rows) & ~np.isin(r_rows, p_rows)][0])
+    slot = gbatch.slot
+    h = slot.shape[0] // 2
+    for r_ in (0, h):
+        slot[r_, :4] = (G + 1 + r_, x, y, z)
+    return dict(x=x, y=y, z=z)
+
+
+def mesh_edge_windows(rng):
+    """Phase 16a's windows at the JAX engine's GLOBAL shape (G = 4096, 8 x
+    256 lanes, 256 config lanes): phase 5a's edge windows, the same with
+    256 upsert lanes and mesh_edge_rows' rows (once with every control
+    column reversed, its pads first), and the steady state (no config,
+    reset or upsert lane; one pad config lane, as the timed windows
+    carry).  Yields (what, state, cfg, gbatch, gacc, upd, ups)."""
     n = SHARDS * BG_FULL
-    errs = []
-    cases = [(range(7), False), ((0, 1), False), (range(7), True),
-             ((0, 1), True)]
-    for i, (algos, wrap) in enumerate(cases):
+    cases = [(range(7), False, None, False), ((0, 1), False, None, False),
+             (range(7), True, None, False), ((0, 1), True, None, False),
+             ((0, 1), False, False, False), (range(7), True, False, True),
+             (range(7), False, True, False)]
+    for i, (algos, wrap, last, reverse) in enumerate(cases):
         st, cfg, bt, _ = global_edge_inputs(rng, G_FULL, n, algos, wrap)
         gbatch, gacc, upd = edge_control(rng, G_FULL, bt, KG_FULL, wrap)
+        ups = None
+        what = f"mesh case {i}"
+        if last is not None:
+            ups = edge_upserts(rng, G_FULL, gbatch, upd, KG_FULL)
+            rows = mesh_edge_rows(G_FULL, gbatch, upd, ups, last)
+            what += f" upserts {rows}"
+        if reverse:
+            upd = tuple(np.ascontiguousarray(a[::-1]) for a in upd)
+            ups = tuple(np.ascontiguousarray(a[::-1]) for a in ups)
+            what += " reversed"
+        yield what, st, cfg, gbatch, gacc, upd, ups
+    for kg in (0, 1):
+        st, cfg, bt, _ = global_edge_inputs(rng, G_FULL, n, (0, 1), False)
+        gbatch, gacc, _ = edge_control(rng, G_FULL, bt, KG_FULL, False)
+        upd = (np.full(kg, G_FULL, np.int32), np.zeros(kg, np.int64),
+               np.zeros(kg, np.int64), np.zeros(kg, np.int32),
+               np.full(kg, G_FULL, np.int32))
+        yield f"mesh steady kg={kg}", st, cfg, gbatch, gacc, upd, None
+
+
+def mesh_kernels_vs_plain():
+    """Phase 16a, in this process: global_stage_read on each half of
+    mesh_edge_windows' windows (two ranks' lanes, the same replica and
+    control writes) and global_apply_rows on the sum of the two scratches,
+    each against its plain version on copies: the read blocks, the
+    scratches, every gstate and gcfg plane, and the scratch back at zero
+    after the apply; then global_apply_rows alone in both its instances
+    (one turn, the scan), the scratch aligned and not.  The counts are
+    reset after: these launches are not the main path's."""
+    rng = np.random.default_rng(1606)
+    err = cases = 0
+    for i, (what, st, cfg, gbatch, gacc, upd, ups) in enumerate(
+            mesh_edge_windows(rng)):
         now = T0 + i
         h = SHARDS // 2
         ranks = []
         for r in range(2):
             ctl = gk.make_control(
                 tk.WindowBatch(*[a[r * h:(r + 1) * h] for a in gbatch]),
-                gacc[r * h:(r + 1) * h], upd, DEV)
-            k = (clone(st), clone(cfg),
+                gacc[r * h:(r + 1) * h], upd, DEV, ups)
+            p = (clone(st), clone(cfg),
                  torch.zeros(G_FULL, dtype=torch.int64, device=DEV))
-            p = (clone(st), clone(cfg), torch.zeros_like(k[2]))
-            got = gk.global_stage_read(k[0], k[1], ctl, k[2], now)
             want = gk.global_stage_read_plain(p[0], p[1], ctl, p[2], now)
+            k = (clone(st), clone(cfg), torch.zeros_like(p[2]))
+            got = gk.global_stage_read(k[0], k[1], ctl, k[2], now)
             torch.cuda.synchronize()
-            what = f"mesh case {i} rank {r} stage"
-            assert_same((got, k[2]), (want, p[2]), f"{what} read, scratch")
-            assert_same(k[0], p[0], f"{what} gstate")
-            assert_same(k[1], p[1], f"{what} gcfg")
-            errs += [(got, want), (k[2], p[2])]
+            tag = f"{what} rank {r} stage"
+            assert_same((got, k[2]), (want, p[2]), f"{tag} read, scratch")
+            assert_same(k[0], p[0], f"{tag} gstate")
+            assert_same(k[1], p[1], f"{tag} gcfg")
+            err = max(err, max_abs_err([(got, want), (k[2], p[2])]))
             ranks.append((k, p))
         summed = ranks[0][0][2] + ranks[1][0][2]
         for r, (k, p) in enumerate(ranks):
@@ -7543,28 +7620,65 @@ def mesh_kernels_vs_plain():
             gk.global_apply_rows(k[0], k[1], k[2], now)
             gk.global_apply_rows_plain(p[0], p[1], p[2], now)
             torch.cuda.synchronize()
-            what = f"mesh case {i} rank {r} apply"
-            assert_same(k[0], p[0], f"{what} gstate")
-            assert_same(k[1], p[1], f"{what} gcfg")
-            check(not k[2].any(), f"{what}: the scratch is not back at 0")
-            errs += list(zip(k[0], p[0]))
-        assert_same(ranks[0][0][0], ranks[1][0][0], f"mesh case {i} replicas")
-    err = max_abs_err(errs)
+            tag = f"{what} rank {r} apply"
+            assert_same(k[0], p[0], f"{tag} gstate")
+            assert_same(k[1], p[1], f"{tag} gcfg")
+            check(not k[2].any(), f"{tag}: the scratch is not back at 0")
+            err = max(err, max_abs_err(zip(k[0], p[0])))
+        assert_same(ranks[0][0][0], ranks[1][0][0], f"{what} replicas")
+        cases += 1
+    # both instances of the apply (one turn at G = 4096, the scan at 2^20)
+    # on a 16-byte aligned scratch and one 8 bytes off (its scalar head),
+    # with a rank's 1024 distinct keys and with a dense sum (a third of the
+    # rows, int64 extremes among them)
+    ends = torch.tensor([I64_MAX, I64_MIN, -1, 2**62], dtype=torch.int64)
+    for G in (G_FULL, 1 << 20):
+        for dense in (False, True):
+            st, cfg, _, summed, _, _ = mesh_timing_inputs(rng, G, True)
+            if dense:
+                gen = torch.Generator().manual_seed(G + 1)
+                pick = torch.rand(G, generator=gen) < 1 / 3
+                vals = torch.where(torch.rand(G, generator=gen) < 0.05,
+                                   ends[torch.randint(0, 4, (G,), generator=gen)],
+                                   torch.randint(-5, 40, (G,), generator=gen))
+                summed = torch.where(pick, vals, 0).to(DEV)
+            for off in (0, 1):
+                buf = torch.zeros(G + 1, dtype=torch.int64, device=DEV)
+                k = (clone(st), clone(cfg), buf[off:off + G])
+                p = (clone(st), clone(cfg), summed.clone())
+                k[2].copy_(summed)
+                gk.global_apply_rows(k[0], k[1], k[2], T0)
+                gk.global_apply_rows_plain(p[0], p[1], p[2], T0)
+                torch.cuda.synchronize()
+                tag = f"apply G={G} dense={dense} offset={8 * off} B"
+                assert_same(k[0], p[0], f"{tag} gstate")
+                assert_same(k[1], p[1], f"{tag} gcfg")
+                check(not k[2].any(), f"{tag}: the scratch is not back at 0")
+                err = max(err, max_abs_err(zip(k[0], p[0])))
+                cases += 1
     log(f"phase 16a global_stage_read + global_apply_rows vs plain: "
-        f"{len(cases)} edge windows of {n} lanes over G={G_FULL}, split "
-        f"into two ranks' halves around a summed scratch: read blocks, "
-        f"scratches, gstate, gcfg bit-exact, both replicas equal, scratch "
-        f"back at 0 (max_abs_err {err})")
+        f"{cases} cases: windows of {SHARDS * BG_FULL} lanes over "
+        f"G={G_FULL} (edge windows, three of them with {KG_FULL} upsert "
+        f"lanes and reads on rows upserted, reset, config-written at once "
+        f"and on row G - 1 past G while index -1 resets it; the steady "
+        f"state with 0 and 1 pad config lane), split into two ranks' halves "
+        f"around a summed scratch; then the apply alone at G = {G_FULL} "
+        f"(one turn) and 2^20 (the scan), 1024 distinct keys or a dense "
+        f"sum, the scratch aligned and 8 bytes off: read blocks, scratches, gstate, gcfg bit-exact, both "
+        f"replicas equal, scratch back at 0 (max_abs_err {err})")
+    gk.reset_counts()
     return err
 
 
-def mesh_timing_inputs(rng, G):
+def mesh_timing_inputs(rng, G, distinct=False, kg=1):
     """A rank's GLOBAL window at the JAX defaults over a G-row arena: 4 x
-    256 lanes on 256 keys (70% token, 30% leaky), no config lane (a mesh
-    writes configs only at registration); the arena's rows hold their
+    256 lanes on 256 keys (70% token, 30% leaky), or with `distinct` each
+    lane on a key of its own (1024 touched rows), no config lane but `kg`
+    pads (a mesh writes configs only at registration; the engine's control
+    carries max_global_updates = 256 of them); the arena's rows hold their
     configs; and the two ranks' summed hits on those keys."""
     n = MESH_LOCAL * BG_FULL
-    keys = rng.choice(G, MESH_GKEYS, replace=False)
+    keys = rng.choice(G, n if distinct else MESH_GKEYS, replace=False)
     algo = (rng.random(G) < 0.3).astype(np.int32)
     limit = rng.integers(100, 10_000, G)
     st = tk.BucketState(*[torch.from_numpy(a).to(DEV) for a in (
@@ -7572,88 +7686,105 @@ def mesh_timing_inputs(rng, G):
         np.full(G, T0 - 5), np.full(G, T0 + MESH_DURATION), algo)])
     cfg = tk.GlobalConfig(*[torch.from_numpy(a).to(DEV) for a in (
         limit.copy(), np.full(G, MESH_DURATION), algo.copy())])
-    slot = keys[rng.integers(0, keys.size, n)].astype(np.int32)
+    slot = (rng.permutation(keys) if distinct
+            else keys[rng.integers(0, keys.size, n)]).astype(np.int32)
     hits = rng.integers(1, 4, n).astype(np.int64)
     gbatch = tk.WindowBatch(slot, hits, limit[slot], np.full(n, MESH_DURATION),
                             algo[slot], np.zeros(n, bool))
-    upd = (np.full(1, G, np.int32), np.zeros(1, np.int64),
-           np.zeros(1, np.int64), np.zeros(1, np.int32),
-           np.full(1, G, np.int32))
+    upd = (np.full(kg, G, np.int32), np.zeros(kg, np.int64),
+           np.zeros(kg, np.int64), np.zeros(kg, np.int32),
+           np.full(kg, G, np.int32))
     ctl = gk.make_control(gbatch, hits, upd, DEV)
     summed = np.zeros(G, np.int64)
     np.add.at(summed, slot, 2 * hits)
     return st, cfg, ctl, torch.from_numpy(summed).to(DEV), n, keys.size
 
 
-def mesh_bounds(n, touched, G):
+def mesh_bounds(n, touched, G, kg=1):
     """The least time of each new entry point, from what this window
-    needs.  global_stage_read: its control read once (56 B a lane), each
-    lane's row gathered (44 B) and its answer written (32 B), each lane's
-    atomic on its slot's sum (8 B); or each lane's ~200 32-bit operations
-    and two int64 divisions at the scalar rate.  global_apply_rows: the
-    [G] sums read once (8 B a row), each touched row's state and config
-    read (64 B), its state written (44 B) and its sum zeroed (8 B); or each
-    touched row's ladder.  Whichever is larger; (ms, bound_by) each."""
+    needs.  global_stage_read: its control read once (56 B a lane, 40 B a
+    config lane) and each lane's answer written (32 B); each distinct
+    touched row gathered once (44 B) and its sum updated once (8 B), since
+    a lane on a row another lane already named finds it in L2; or each
+    lane's ~200 32-bit operations and two int64 divisions at the scalar
+    rate.  global_apply_rows: the [G] sums read once (8 B a row), each
+    touched row's state and config read (64 B), its state written (44 B)
+    and its sum zeroed (8 B); or each touched row's ladder.  Whichever is
+    larger; (ms, bound_by) each."""
     ladder = 200 + TRANSITION_DIVS * FDIV_OPS
 
     def pick(nbytes, ops):
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_o = ops / INT32_OPS_PER_S * 1e3
         return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
-    return (pick(n * (56 + 44 + 32 + 8), n * ladder),
+    return (pick(n * (56 + 32) + touched * (44 + 8) + kg * 40, n * ladder),
             pick(G * 8 + touched * (64 + 44 + 8), touched * ladder))
 
 
 def mesh_kernel_times():
     """Phase 16b, in this process: the two new entry points' device time a
     launch (profiler; CUDA events where it shows none) at G = 4096 and
-    G = 2^20 on a rank's window, beside their plain versions' time on the
-    card and their bounds.  The apply's scratch is refilled before each
-    launch (a copy the time leaves out)."""
+    G = 2^20 on a rank's window of 256 keys with one pad config lane
+    ("keys"), on one of 1024 distinct keys ("distinct": 1024 ladders for
+    the apply) and on the 256-key window with the engine's 256 pad config
+    lanes ("padded": the control the engine gives the mesh path; the
+    kernels line reads this one), beside their
+    plain versions' time on the card and their bounds.  The apply's
+    scratch is refilled before each launch (a copy the time leaves out).
+    The counts are reset after each window: these launches are not the
+    main path's.  Keyed (G, window)."""
     rng = np.random.default_rng(1607)
     out = {}
     for G in (G_FULL, 1 << 20):
-        st, cfg, ctl, summed, n, touched = mesh_timing_inputs(rng, G)
-        scratch = torch.zeros(G, dtype=torch.int64, device=DEV)
+        for kind in ("keys", "distinct", "padded"):
+            st, cfg, ctl, summed, n, touched = mesh_timing_inputs(
+                rng, G, kind == "distinct",
+                KG_FULL if kind == "padded" else 1)
+            scratch = torch.zeros(G, dtype=torch.int64, device=DEV)
 
-        def stage():
-            gk.global_stage_read(st, cfg, ctl, scratch, T0)
+            def stage():
+                gk.global_stage_read(st, cfg, ctl, scratch, T0)
+                scratch.zero_()
 
-        def apply():
-            scratch.copy_(summed)
-            gk.global_apply_rows(st, cfg, scratch, T0)
-        for fn in (stage, apply):
-            for _ in range(5):
-                fn()
-        torch.cuda.synchronize()
-        times = device_ms_each(
-            lambda: (stage(), apply()), MESH_TIMED,
-            ("global_stage_read_kernel", "global_apply_rows_kernel"))
-        if times["global_stage_read_kernel"] is None:
-            times["global_stage_read_kernel"] = cuda_ms(stage, MESH_TIMED)
-        if times["global_apply_rows_kernel"] is None:
-            refill = cuda_ms(lambda: scratch.copy_(summed), MESH_TIMED)
-            times["global_apply_rows_kernel"] = (cuda_ms(apply, MESH_TIMED)
-                                                 - refill)
-        s0 = torch.zeros_like(scratch)
-        plain_stage = cuda_ms(lambda: gk.global_stage_read_plain(
-            st, cfg, ctl, s0, T0), 5)
-        plain_apply = cuda_ms(lambda: (s0.copy_(summed),
-                                       gk.global_apply_rows_plain(
-                                           st, cfg, s0, T0)), 5)
-        (sb, sby), (ab, aby) = mesh_bounds(n, touched, G)
-        out[G] = dict(stage_ms=times["global_stage_read_kernel"],
-                      apply_ms=times["global_apply_rows_kernel"],
-                      plain_stage_ms=plain_stage, plain_apply_ms=plain_apply,
-                      stage_bound=(sb, sby), apply_bound=(ab, aby), n=n,
-                      touched=touched)
-        log(f"phase 16b at G={G}: global_stage_read "
-            f"{out[G]['stage_ms']:.6f} ms a launch ({n} lanes; plain "
-            f"{plain_stage:.4f} ms, bound {sb * 1e3:.3f} us by {sby}), "
-            f"global_apply_rows {out[G]['apply_ms']:.6f} ms ({touched} "
-            f"touched rows; plain {plain_apply:.4f} ms, bound "
-            f"{ab * 1e3:.3f} us by {aby})")
-        gk.reset_counts()
+            def apply():
+                scratch.copy_(summed)
+                gk.global_apply_rows(st, cfg, scratch, T0)
+            for fn in (stage, apply):
+                for _ in range(5):
+                    fn()
+            torch.cuda.synchronize()
+            times = device_ms_each(
+                lambda: (stage(), apply()), MESH_TIMED,
+                ("global_stage_read_kernel", "global_apply_rows_kernel"))
+            if times["global_stage_read_kernel"] is None:
+                zero = cuda_ms(scratch.zero_, MESH_TIMED)
+                times["global_stage_read_kernel"] = (
+                    cuda_ms(stage, MESH_TIMED) - zero)
+            if times["global_apply_rows_kernel"] is None:
+                refill = cuda_ms(lambda: scratch.copy_(summed), MESH_TIMED)
+                times["global_apply_rows_kernel"] = (
+                    cuda_ms(apply, MESH_TIMED) - refill)
+            s0 = torch.zeros_like(scratch)
+            plain_stage = cuda_ms(lambda: gk.global_stage_read_plain(
+                st, cfg, ctl, s0, T0), 5)
+            plain_apply = cuda_ms(lambda: (s0.copy_(summed),
+                                           gk.global_apply_rows_plain(
+                                               st, cfg, s0, T0)), 5)
+            (sb, sby), (ab, aby) = mesh_bounds(n, touched, G, ctl.kg)
+            r = out[G, kind] = dict(
+                stage_ms=times["global_stage_read_kernel"],
+                apply_ms=times["global_apply_rows_kernel"],
+                plain_stage_ms=plain_stage, plain_apply_ms=plain_apply,
+                stage_bound=(sb, sby), apply_bound=(ab, aby), n=n,
+                touched=touched, kg=ctl.kg)
+            log(f"phase 16b at G={G}, {kind} window ({touched} touched "
+                f"rows, {ctl.kg} config lanes): global_stage_read "
+                f"{r['stage_ms']:.6f} ms a launch ({n} lanes; bound "
+                f"{sb * 1e3:.3f} us by {sby}, {sb / r['stage_ms']:.4f} of "
+                f"it; plain {plain_stage:.4f} ms), global_apply_rows {r['apply_ms']:.6f} ms (bound "
+                f"{ab * 1e3:.3f} us by {aby}, {ab / r['apply_ms']:.4f} of "
+                f"it; plain {plain_apply:.4f} ms)")
+            gk.reset_counts()
     return out
 
 
@@ -7856,10 +7987,18 @@ def report_mesh(r, n_resp, counts, smi):
         f"GLOBAL replicas equal to the S = {SHARDS} engine's; decisions/s "
         f"per rank {fig['decisions_per_s']}; all-reduce ms p50 "
         f"{fig['allreduce_ms_p50']:.4f} p99 {fig['allreduce_ms_p99']:.4f} "
-        f"over {red.size}; launches {counts}; new kernels' device ms at G = "
-        f"{G_FULL} {t[G_FULL]['stage_ms']:.6f} / {t[G_FULL]['apply_ms']:.6f}"
-        f", at G = 2^20 {t[1 << 20]['stage_ms']:.6f} / "
-        f"{t[1 << 20]['apply_ms']:.6f}; phase {r['wall_s']:.1f} s; {smi}")
+        f"over {red.size}; launches {counts}; new kernels' device ms "
+        f"(stage-read / apply-rows) on the engine's window ({KG_FULL} pad "
+        f"config lanes) at G = {G_FULL} "
+        f"{t[G_FULL, 'padded']['stage_ms']:.6f} / "
+        f"{t[G_FULL, 'padded']['apply_ms']:.6f}, at G = 2^20 "
+        f"{t[1 << 20, 'padded']['stage_ms']:.6f} / "
+        f"{t[1 << 20, 'padded']['apply_ms']:.6f}; with one pad config lane "
+        f"{t[G_FULL, 'keys']['stage_ms']:.6f} / "
+        f"{t[G_FULL, 'keys']['apply_ms']:.6f} and "
+        f"{t[1 << 20, 'keys']['stage_ms']:.6f} / "
+        f"{t[1 << 20, 'keys']['apply_ms']:.6f}; phase {r['wall_s']:.1f} s; "
+        f"{smi}")
     return fig
 
 
@@ -8108,7 +8247,7 @@ def main():
     n_mesh, mesh_counts = check_mesh(mesh)
     mesh_fig = report_mesh(mesh, n_mesh, mesh_counts, smi)
     path14 = {k: sum(c[k] for c in mesh_counts) for k in mesh_counts[0]}
-    mt = mesh["times"][G_FULL]
+    mt = mesh["times"][G_FULL, "padded"]
     log(f"phase 16 figures: {json.dumps(mesh_fig)}")
     sig4 = lambda x: None if x is None else float(f"{x:.4g}")  # noqa: E731
     kernels = [

@@ -1,19 +1,29 @@
-"""Time the GLOBAL window alone, as chip_smoke.py's phase 5e does, in the
-package of a given checkout: G = 4096 and G = 2^20, 2048 lanes over 256
-keys, device time (profiler, 100 launches) and CUDA-event time per call.
-It lets a commit and a checkout of an earlier one be timed in turns in
-one GPU session, each turn its own process:
+"""Time GLOBAL kernels as chip_smoke.py does, in the package of a given
+checkout, so that a commit and a checkout of an earlier one can be timed
+in turns on one card in one run, each turn its own process:
 
-    python3 compare_global_window.py CHECKOUT
+    python3 compare_global_window.py CHECKOUT [window|mesh]
 
 CHECKOUT is a directory holding a `gubernator_tpu_torch` package (`.` for
-this tree).  A package with `global_window` runs chip_smoke.py's
-`phase_global_scaling`.  A package from before it (the G-row design,
-which served a GLOBAL window through `global_combined`) runs the same
-window through `global_combined`, with the config written and the sums
-taken beforehand by its own torch ops, and is timed alike.  The measuring
-functions are this tree's chip_smoke.py either way.  Prints one JSON line
-per G, then the card's nvidia-smi name and power limit.
+this tree).  The measuring functions are this tree's chip_smoke.py; the
+kernels are the checkout's, launched through its public wrappers.  Prints
+one JSON line per window, then the card's nvidia-smi name and power
+limit.
+
+`window` (the default) times the GLOBAL window alone, as phase 5e does:
+G = 4096 and G = 2^20, 2048 lanes over 256 keys, device time (profiler,
+100 launches) and CUDA-event time per call.  A package with
+`global_window` runs chip_smoke.py's `phase_global_scaling`.  A package
+from before it (the G-row design, which served a GLOBAL window through
+`global_combined`) runs the same window through `global_combined`, with
+the config written and the sums taken beforehand by its own torch ops,
+and is timed alike.
+
+`mesh` times the mesh GLOBAL window's two kernels (global_stage_read and
+global_apply_rows) on phase 16b's windows of a rank (256 keys; 1024
+distinct keys; 256 keys with the engine's 256 pad config lanes) at
+G = 4096 and G = 2^20, device time a launch (profiler, 200 launches
+each).
 """
 
 import importlib.util
@@ -76,10 +86,8 @@ def g_row_scaling(cs, seed=1717):
     return out
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("compare_global_window: no CUDA device")
-    cs = load_chip_smoke(sys.argv[1] if len(sys.argv) > 1 else ".")
+def window_times(cs):
+    """The GLOBAL window alone at each G, as phase 5e times it."""
     if hasattr(cs.gk, "global_window"):
         kernel = "global_window"
         out = cs.phase_global_scaling()
@@ -89,6 +97,42 @@ def main():
     for G, r in out.items():
         print(json.dumps(dict(kernel=kernel, G=G, ms=r["ms"],
                               events_ms=r["events_ms"])))
+
+
+def mesh_times(cs, seed=1607):
+    """global_stage_read and global_apply_rows on phase 16b's windows."""
+    gk = cs.gk
+    cs.build.build((gk.SOURCE, gk.APPLY_SOURCE))
+    rng = np.random.default_rng(seed)
+    names = ("global_stage_read_kernel", "global_apply_rows_kernel")
+    for G in (cs.G_FULL, 1 << 20):
+        for kind in ("keys", "distinct", "padded"):
+            st, cfg, ctl, summed, _, touched = cs.mesh_timing_inputs(
+                rng, G, kind == "distinct",
+                cs.KG_FULL if kind == "padded" else 1)
+            scratch = torch.zeros(G, dtype=torch.int64, device=cs.DEV)
+
+            def both():
+                gk.global_stage_read(st, cfg, ctl, scratch, cs.T0)
+                scratch.copy_(summed)
+                gk.global_apply_rows(st, cfg, scratch, cs.T0)
+            for _ in range(5):
+                both()
+            torch.cuda.synchronize()
+            ms = cs.device_ms_each(both, cs.MESH_TIMED, names)
+            print(json.dumps(dict(G=G, window=kind, touched=touched,
+                                  stage_ms=ms[names[0]],
+                                  apply_ms=ms[names[1]])))
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("compare_global_window: no CUDA device")
+    which = sys.argv[2] if len(sys.argv) > 2 else "window"
+    if which not in ("window", "mesh"):
+        sys.exit(f"compare_global_window: unknown set {which!r}")
+    cs = load_chip_smoke(sys.argv[1] if len(sys.argv) > 1 else ".")
+    (mesh_times if which == "mesh" else window_times)(cs)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

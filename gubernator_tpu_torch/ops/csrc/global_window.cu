@@ -64,12 +64,23 @@
 // Mesh mode (several processes serve one arena, parallel/distributed.py)
 // needs the window split across an all-reduce of the sums, since a rank's
 // apply must see every rank's hits: the second entry point,
-// global_stage_read, is this kernel with phase C cut off (phases A0, A and
-// B: the upserts, the config writes and resets, the lanes' hits summed
-// into the scratch, every lane's answer from the pre-apply replica), a
-// thread per read lane over a cluster of 8 CTAs with one barrier after
-// phase A.  The caller all-reduces the scratch and launches
-// global_apply.cu's global_apply_rows, which applies every nonzero sum.
+// global_stage_read, runs phases A0, A and B (the upserts, the config
+// writes and resets, the lanes' hits summed into the scratch, every lane's
+// answer from the pre-apply replica).  The caller all-reduces the scratch
+// and launches global_apply.cu's global_apply_rows, which applies every
+// nonzero sum.  global_stage_read launches no cluster and has no barrier
+// across CTAs: a plain grid of kStageThreads-thread CTAs, a thread per
+// read lane (and per upsert and config lane), where a barrier's ordering
+// is replaced by global_phases.cuh's rule that a read takes what the
+// window writes on its row from the control block (each CTA's RowTable).
+// A window whose control has no reset and no upsert on a row (the mesh's
+// steady state: configs are written at registration) builds no table and
+// costs two dependent loads and one ladder a lane: its control (with its
+// config lane's and its CTA's share of the reset indices, all issued
+// together), then its row.  Each lane's atomic on its slot's sum goes out
+// as soon as its control is in, so that its latency hides behind the row
+// gather and the ladder; issued after them it cost more than the ladder
+// (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -124,23 +135,6 @@ __device__ void window_seg_c(const GArena& a, const GConfig& cfg, const Control&
   for (int64_t j = t.first + t.stride; j < 2 * c.n; j += t.stride) {
     if (j >= c.n) apply_lane(a, cfg, c, sums, now, j - c.n);
   }
-}
-
-// The stage-read launch's threads (global_stage_read: no apply lanes).
-// segment 1: the prefetch of the thread's first read lane, then phase A
-__device__ void stage_seg_a(const GArena& a, const GConfig& cfg, const Control& c,
-                            int64_t* sums, WindowThread& t) {
-  t.has_read = t.first < c.n;
-  t.has_apply = false;
-  if (t.has_read) t.rl = read_prefetch(a, c, t.first);
-  for (int64_t i = t.first; i < stage_items(c); i += t.stride) stage_item(a, cfg, c, sums, i);
-}
-
-// segment 2: phase B
-__device__ void stage_seg_b(const GArena& a, const Control& c, int64_t now, int64_t* read,
-                            WindowThread& t) {
-  if (t.has_read) read_finish(a, now, read, t.rl);
-  for (int64_t j = t.first + t.stride; j < c.n; j += t.stride) read_lane(a, c, now, read, j);
 }
 
 }  // namespace
@@ -205,29 +199,22 @@ __global__ void __launch_bounds__(kMaxThreads)
   stamp<kStamped>(stamps, 5);
 }
 
+// the stage-read launch's CTA size: 64 threads spread a rank's 1024 lanes
+// over 16 SMs (32, 64, 128 and 256 timed on the H100, PERF.md)
+constexpr int kStageThreads = 64;
+
 // The mesh window's first half: phases A0 (with upsert lanes), A and B,
-// the scratch left holding this rank's sums for the all-reduce.
-__global__ void __launch_bounds__(kMaxThreads)
+// the scratch left holding this rank's sums for the all-reduce; a plain
+// grid, no barrier across CTAs (global_phases.cuh stage_read_cta).
+__global__ void __launch_bounds__(kStageThreads)
     global_stage_read_kernel(GArena a, GConfig cfg, Control c, int64_t* sums, int64_t now,
                              int64_t* read) {
-  cg::cluster_group cluster = cg::this_cluster();
-  WindowThread t;
-  t.first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  t.stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  if (c.ku > 0) {
-    window_seg_u(a, cfg, c, t);
-    cluster.sync();
-  }
-  stage_seg_a(a, cfg, c, sums, t);
-  cluster.sync();
-  stage_seg_b(a, c, now, read, t);
+  __shared__ RowTable<kStageThreads> table;
+  stage_read_cta<kStageThreads>(a, cfg, c, sums, now, read, table);
 }
 
-// the stage-read launch's cluster: the portable size
-constexpr int kStageCtas = 8;
-
-// threads a CTA: a thread per read lane and one per apply lane (2n items;
-// n for the stage-read launch) over the cluster, in whole warps
+// threads a CTA: a thread per read lane and one per apply lane (2n items)
+// over the cluster, in whole warps
 long long window_threads(long long items, int ctas) {
   long long threads = (items + ctas - 1) / ctas;
   threads = (threads + 31) / 32 * 32;
@@ -338,19 +325,23 @@ int guber_global_window(void* limit, void* duration, void* remaining, void* tsta
 }
 
 
-// The first half of a mesh GLOBAL window in one cluster launch of 8 CTAs:
-// the control's upserts (ku > 0: phase A0 and a barrier first), its config
-// writes and resets into the config and the arena, in place, its lanes'
-// contributed hits added into the sums scratch i64[G] (all zero before;
-// left holding them for the all-reduce), and the read block i64[n, 4]
-// answered from the arena as phase A left it.  Returns the launch's
-// error, or cudaGetLastError() after it.
+// The first half of a mesh GLOBAL window in one launch of kStageThreads-
+// thread CTAs, a thread a read lane, with no cluster and no barrier across
+// CTAs: the control's upserts, its config writes and resets into the
+// config and the arena, in place, its lanes' contributed hits added into
+// the sums scratch i64[G] (all zero before; left holding them for the
+// all-reduce), and the read block i64[n, 4] answered from the arena as
+// the writes leave it.  Returns cudaGetLastError() after the launch.
 int guber_global_stage_read(void* limit, void* duration, void* remaining, void* tstamp,
                             void* expire, void* algo, void* cfg_limit, void* cfg_duration,
                             void* cfg_algo, long long G, const void* control, long long n,
                             long long kg, long long ku, void* sums, long long now, void* read,
                             void* stream) {
   if (G < 1 || n < 0 || kg < 0 || ku < 0) return cudaErrorInvalidValue;
+  long long items = n > ku ? n : ku;
+  if (items < 1) items = 1;
+  const long long ctas = (items + kStageThreads - 1) / kStageThreads;
+  if (ctas > 0x7FFFFFFFll) return cudaErrorInvalidValue;
   const GArena a{static_cast<int64_t*>(limit),  static_cast<int64_t*>(duration),
                  static_cast<int64_t*>(remaining), static_cast<int64_t*>(tstamp),
                  static_cast<int64_t*>(expire), static_cast<int32_t*>(algo),
@@ -359,13 +350,10 @@ int guber_global_stage_read(void* limit, void* duration, void* remaining, void* 
                     static_cast<int32_t*>(cfg_algo)};
   const Control c{static_cast<const int64_t*>(control), static_cast<int64_t>(n),
                   static_cast<int64_t>(kg), static_cast<int64_t>(ku)};
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t conf =
-      window_config(n, kStageCtas, static_cast<cudaStream_t>(stream), &attr);
-  const cudaError_t e =
-      cudaLaunchKernelEx(&conf, global_stage_read_kernel, a, cfg, c, static_cast<int64_t*>(sums),
-                         static_cast<int64_t>(now), static_cast<int64_t*>(read));
-  if (e != cudaSuccess) return e;
+  global_stage_read_kernel<<<static_cast<unsigned>(ctas), kStageThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      a, cfg, c, static_cast<int64_t*>(sums), static_cast<int64_t>(now),
+      static_cast<int64_t*>(read));
   return cudaGetLastError();
 }
 

@@ -501,20 +501,23 @@ def test_daemon_on_the_default_device_raises_without_a_card(clean_env):
 
 def _read_until(proc, marker, seconds):
     """Lines of the daemon's output up to the first holding `marker`
-    (waiting at most `seconds`); fails if the daemon exits first."""
-    import selectors
-    sel = selectors.DefaultSelector()
-    sel.register(proc.stdout, selectors.EVENT_READ)
-    deadline, lines = time.monotonic() + seconds, []
-    while time.monotonic() < deadline:
-        if not sel.select(timeout=max(0.0, deadline - time.monotonic())):
-            break
-        line = proc.stdout.readline()
-        if not line:
-            break
-        lines.append(line)
-        if marker in line:
-            return lines
+    (waiting at most `seconds`); fails if the daemon exits first.  A
+    thread reads them: a select on the pipe would wait for more bytes
+    while the text buffer already holds the marker's line."""
+    import threading
+    lines, found = [], threading.Event()
+
+    def read():
+        for line in iter(proc.stdout.readline, ""):
+            lines.append(line)
+            if marker in line:
+                found.set()
+                return
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(seconds)
+    if found.is_set():
+        return lines
     raise AssertionError(f"no {marker!r} from the daemon:\n{''.join(lines)}")
 
 

@@ -102,8 +102,11 @@ struct HostDim3 { unsigned x, y; };
 static const HostDim3 threadIdx{0, 0}, blockDim{1, 1};
 static HostDim3 blockIdx{0, 0}, gridDim{1, 1};
 inline void __syncthreads() {}
+inline int __syncthreads_or(int p) { return p; }
+inline void __syncwarp() {}
 inline void __threadfence() {}
 template <class T> inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
+template <class T> inline T atomicCAS(T* p, T cmp, T v) { T o = *p; if (o == cmp) *p = v; return o; }
 template <class T> inline T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
 template <class T> inline T atomicOr(T* p, T v) { T o = *p; *p |= v; return o; }
 template <class T> inline T atomicMax(T* p, T v) { T o = *p; if (v > o) *p = v; return o; }
@@ -113,9 +116,11 @@ struct longlong2 { long long x, y; };
 inline unsigned long long global_ns() { return 0; }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <class T> inline T __shfl_up_sync(unsigned, T v, int) { return v; }
+template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 // a warp's votes over its one thread: lane 0 alone
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+static const int warpSize = 1;
 inline unsigned __match_any_sync(unsigned, unsigned) { return 1u; }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
