@@ -156,6 +156,17 @@ observes each drain's dispatch_done -> fetch_done under its arm
 trace IDs of its requests taken only for a slow window.  An armed
 ProfileCapture (observability/introspect.py) wraps the engine thread's
 drains (`_drain_sync`) in its capture.
+
+The drain timeline (core/drain_ring.py `DrainRing`, `self.timeline`)
+keeps those stamps: every committed drain writes one row of them with
+three more, `submitted` (the loop hands the drain to the engine
+executor), `committed` (its callers are resolved) and `held_since` (the
+first pump that returned early while its decisions were pending), its
+counts, the router's C clocks (a native.RouterClock a drain) summed over
+its parse (engine thread) and its encode (fetch thread), and the engine
+thread's CPU seconds across its fill.  A pump that returns early with
+decisions pending records a hold segment: `gate` (the occupancy gate or
+the coalescing wait) or `depth`.
 """
 
 from __future__ import annotations
@@ -186,11 +197,17 @@ from gubernator_tpu_torch.config import (
     env_float,
     env_int,
 )
+from gubernator_tpu_torch.core.drain_ring import (
+    HOLD_DEPTH,
+    HOLD_GATE,
+    DrainRing,
+)
 from gubernator_tpu_torch.core.engine import PIPELINE_K_BUCKETS
 from gubernator_tpu_torch.core.window_buffers import (
     RequestColumns,
     WindowArenaRing,
 )
+from gubernator_tpu_torch.native import RouterClock
 from gubernator_tpu_torch.net.faults import FAULTS, SEAM_ENGINE_DISPATCH
 from gubernator_tpu_torch.observability.devprof import (
     ARM_ANALYTICS,
@@ -386,15 +403,17 @@ class RpcJob:
         self.remote = ()
         self.forward_task = None
 
-    def finish(self, pipeline, wflat, clflat, now):
+    def finish(self, pipeline, wflat, clflat, now, clock=None):
         # the encode target is a per-fetch-thread scratch buffer: bytes()
-        # copies out before this thread touches another job
+        # copies out before this thread touches another job; `clock`
+        # (native.RouterClock) sums the encode's C and binding time
         resp_buf = pipeline._resp_buf(self.n * 64 + 64)
         native = pipeline.engine.native
         if not self.remote:
             m = native.fastpath_encode_w(
                 wflat, self.limit, now, wflat.shape[-1], self.n,
-                self.row, self.lane, self.pos, resp_buf, climit=clflat)
+                self.row, self.lane, self.pos, resp_buf, climit=clflat,
+                clock=clock)
             return bytes(resp_buf[:m])
         # mixed RPC: the local items as framed per-item segments (a
         # forwarded item's length is 0); _assemble_mixed splices the rest
@@ -403,7 +422,7 @@ class RpcJob:
         m = native.fastpath_encode_parts(
             wflat, self.limit, now, wflat.shape[-1], self.n,
             self.row, self.lane, self.pos, resp_buf, item_off, item_len,
-            climit=clflat)
+            climit=clflat, clock=clock)
         return bytes(resp_buf[:m]), item_off, item_len
 
 
@@ -470,12 +489,13 @@ class ColsJob:
     def reqs(self) -> List[RateLimitReq]:
         return requests_from_cols(self.cols, self.name_lens, self.n)
 
-    def finish(self, pipeline, wflat, clflat, now):
+    def finish(self, pipeline, wflat, clflat, now, clock=None):
         if not self.want_cols:
             resp_buf = pipeline._resp_buf(self.n * 64 + 64)
             m = pipeline.engine.native.fastpath_encode_w(
                 wflat, self.cols[3], now, wflat.shape[-1], self.n,
-                self.row, self.lane, self.pos, resp_buf, climit=clflat)
+                self.row, self.lane, self.pos, resp_buf, climit=clflat,
+                clock=clock)
             return bytes(resp_buf[:m])
         status, remaining, reset = _decode_words(
             wflat[self.row, self.lane], self.pos, now)
@@ -549,7 +569,10 @@ class _DrainResult:
                  "dispatch_done", "fetch_start", "fetch_done", "arena",
                  "cols_owner", "cfut", "deferred", "carried", "k_used",
                  "ring_peers", "n_lanes", "oldest_enq", "arm",
-                 "wait_start", "chain_fetch_start", "chain_fetch_done")
+                 "wait_start", "chain_fetch_start", "chain_fetch_done",
+                 "held_since", "submitted", "parse_c_ns",
+                 "parse_wall_ns", "encode_c_ns", "encode_wall_ns",
+                 "fill_cpu_s", "fill_wall_s")
 
     def __init__(self):
         # the drain's response words and stored limits on the device, the
@@ -606,6 +629,17 @@ class _DrainResult:
         self.arm = ""
         self.chain_fetch_start = 0.0
         self.chain_fetch_done = 0.0
+        # the timeline's own (DrainRing): the first early pump its
+        # decisions waited through and its hand-off to the engine
+        # executor (loop stamps), the router's C clock and binding wall
+        # summed over its parse (engine thread) and encode (fetch
+        # thread), and the engine thread's CPU and wall seconds across
+        # the drain
+        self.held_since = 0.0
+        self.submitted = 0.0
+        self.parse_c_ns = self.parse_wall_ns = 0
+        self.encode_c_ns = self.encode_wall_ns = 0
+        self.fill_cpu_s = self.fill_wall_s = 0.0
 
 
 class DispatchPipeline:
@@ -749,6 +783,12 @@ class DispatchPipeline:
         self._predispatch = 0
         self.fetch_elided = 0
         self.chain_flushes = 0
+        # the drain timeline, and the open hold segment (reason 0: none)
+        # with the first early pump since the last submission
+        self.timeline = DrainRing()
+        self._hold_reason = 0
+        self._hold_start = 0.0
+        self._held_since = 0.0
 
     def _resp_buf(self, size: int) -> np.ndarray:
         """This fetch thread's reusable proto-encode buffer (grown to
@@ -1023,18 +1063,25 @@ class DispatchPipeline:
             # the chain needs stride drains pending fetch plus one being
             # packed, or it could never reach its stride
             depth = max(depth, stride + 1)
-        if self._closed or self._in_flight >= depth:
+        if self._closed:
+            return
+        if self._in_flight >= depth:
+            if self._jobs or self._singles or self._carried:
+                self._hold(HOLD_DEPTH)
             return
         if self.gate_enabled and self._in_flight >= 1 and self.gate_frac > 0:
             # occupancy gate: estimate the pending lanes from the queued
             # decisions through the live fold factor
             fold = (self.decisions_staged / self.lanes_staged
                     if self.lanes_staged > MAX_BATCH_SIZE else 1.0)
-            lanes_est = self._pending_decisions() / max(fold, 1.0)
+            pending = self._pending_decisions()
+            lanes_est = pending / max(fold, 1.0)
             eng = self.engine
             if lanes_est < (self.gate_frac * eng.batch_per_shard
                             * eng.num_local_shards):
                 self.gate_holds += 1
+                if pending:
+                    self._hold(HOLD_GATE)
                 return
         if not force and self.coalesce_wait > 0:
             pending = self._pending_decisions()
@@ -1042,6 +1089,7 @@ class DispatchPipeline:
                 if self._coalesce_handle is None:
                     self._coalesce_handle = self._loop.call_later(
                         self.coalesce_wait, self._coalesce_fire)
+                self._hold(HOLD_GATE)
                 return
         if self._coalesce_handle is not None:
             self._coalesce_handle.cancel()
@@ -1052,6 +1100,9 @@ class DispatchPipeline:
         carry = bool(self._carried) and self._predispatch == 0
         if not jobs and not carry:
             self._cols_release(cols)
+            if self._hold_reason:
+                self._hold_end(time.monotonic())
+            self._held_since = 0.0
             if self._chain and self._predispatch == 0:
                 # nothing queued and nothing heading for dispatch: no
                 # drain can join the chain anymore
@@ -1059,9 +1110,30 @@ class DispatchPipeline:
             return
         self._note_inflight(1)
         self._predispatch += 1
+        submitted = time.monotonic()
+        self._hold_end(submitted)
+        held_since, self._held_since = self._held_since, 0.0
         fut = self._loop.run_in_executor(self._engine_executor,
                                          self._drain_sync, jobs, None, cols)
-        fut.add_done_callback(lambda f: self._on_dispatched(f, jobs))
+        fut.add_done_callback(lambda f: self._on_dispatched(
+            f, jobs, submitted, held_since))
+
+    def _hold(self, reason: int) -> None:
+        """The pump returned early with decisions pending: open a hold
+        segment for `reason`, unless one is open for it already."""
+        if reason == self._hold_reason:
+            return
+        now = time.monotonic()
+        self._hold_end(now)
+        self._hold_reason, self._hold_start = reason, now
+        if not self._held_since:
+            self._held_since = now
+
+    def _hold_end(self, now: float) -> None:
+        """Close the open hold segment, if any, into the timeline."""
+        if self._hold_reason:
+            self.timeline.add_hold(self._hold_start, now, self._hold_reason)
+            self._hold_reason = 0
 
     def _coalesce_fire(self) -> None:
         self._coalesce_handle = None
@@ -1117,11 +1189,13 @@ class DispatchPipeline:
         all_jobs = jobs + ([gjob] if gjob is not None else [])
         self._note_inflight(1)
         self._predispatch += 1
+        submitted = time.monotonic()
         fut = self._loop.run_in_executor(
             self._engine_executor,
             lambda: self._drain_sync(jobs, now, cols, k_fixed=k_stack,
                                      gjob=gjob))
-        fut.add_done_callback(lambda f: self._on_dispatched(f, all_jobs))
+        fut.add_done_callback(lambda f: self._on_dispatched(f, all_jobs,
+                                                            submitted))
         return fut
 
     async def _to_tick_queue(self, job) -> None:
@@ -1239,7 +1313,8 @@ class DispatchPipeline:
         for res, outs in pairs:
             self._commit_completed(res, outs)
 
-    def _on_dispatched(self, fut, jobs) -> None:
+    def _on_dispatched(self, fut, jobs, submitted: float = 0.0,
+                       held_since: float = 0.0) -> None:
         self._predispatch -= 1
         try:
             res: _DrainResult = fut.result()
@@ -1253,6 +1328,7 @@ class DispatchPipeline:
             self._chain_flush()
             self._pump(force=True)
             return
+        res.submitted, res.held_since = submitted, held_since
         for job, out in res.fallback:
             if out is _TO_TICK_QUEUE:
                 self._spawn(self._to_tick_queue(job))
@@ -1333,6 +1409,8 @@ class DispatchPipeline:
         res.arena = None
         for job, out in zip(res.staged, outs):
             self._resolve(job, out)
+        # the callers have their answers: the timeline's `committed`
+        committed = time.monotonic()
         # one clock for control and observability: the drain's wall is the
         # traced stage boundary started -> fetch_done, so the AIMD, the
         # stage histograms and the spans read the same numbers
@@ -1389,6 +1467,7 @@ class DispatchPipeline:
                 if res.chain_fetch_done > res.chain_fetch_start:
                     tr.record_span(c, "chain_fetch", res.chain_fetch_start,
                                    res.chain_fetch_done)
+        self.timeline.add_drain(res, committed)
         self._pump(force=True)
 
     def _observe_drain(self, res: _DrainResult, drain_wall: float) -> None:
@@ -1539,16 +1618,28 @@ class DispatchPipeline:
         if prof is not None and prof.armed:
             prof.before_drain()
             try:
-                return self._drain_sync_inner(jobs, now, cols, k_fixed, gjob)
+                return self._drain_clocked(jobs, now, cols, k_fixed, gjob)
             finally:
                 prof.after_drain()
-        return self._drain_sync_inner(jobs, now, cols, k_fixed, gjob)
+        return self._drain_clocked(jobs, now, cols, k_fixed, gjob)
+
+    def _drain_clocked(self, *args) -> _DrainResult:
+        """_drain_sync_inner with the engine thread's CPU and wall
+        seconds across it and the router's C parse clock over it."""
+        clock = RouterClock()
+        cpu0, wall0 = time.thread_time(), time.monotonic()
+        res = self._drain_sync_inner(*args, clock=clock)
+        res.fill_cpu_s = time.thread_time() - cpu0
+        res.fill_wall_s = time.monotonic() - wall0
+        res.parse_c_ns, res.parse_wall_ns = clock.parse_c, clock.parse_wall
+        return res
 
     def _drain_sync_inner(self, jobs: List[object],
                           now: Optional[int] = None,
                           cols: Optional[RequestColumns] = None,
                           k_fixed: Optional[int] = None,
-                          gjob: Optional[_GlobalJob] = None
+                          gjob: Optional[_GlobalJob] = None,
+                          clock: Optional[RouterClock] = None
                           ) -> _DrainResult:
         """Pack every job into one stacked compact dispatch (engine
         thread).
@@ -1600,7 +1691,7 @@ class DispatchPipeline:
                     job.limit = scr.limit
                     n = native.parse_stack_fast(
                         job.data, now, B, K, MAX_BATCH_SIZE, arena, scr,
-                        use_ring=not job.peer_mode)
+                        use_ring=not job.peer_mode, clock=clock)
                 if n >= 0:
                     job.n = n
                     res.staged.append(job)
@@ -1933,12 +2024,14 @@ class DispatchPipeline:
         if res.stats is not None:
             res.stats_host = res.stats.numpy().copy()
         gflat = None if res.gfused is None else res.gfused.numpy()
-        outs = [job.finish(self, wflat, clflat, res.now)
+        clock = RouterClock()
+        outs = [job.finish(self, wflat, clflat, res.now, clock)
                 if isinstance(job, (RpcJob, ColsJob))
                 else job.finish_global(gflat)
                 if isinstance(job, _GlobalJob)
                 else job.finish(wflat, clflat, res.now)
                 for job in res.staged]
+        res.encode_c_ns, res.encode_wall_ns = clock.encode_c, clock.encode_wall
         res.fetch_done = time.monotonic()
         return res, outs
 

@@ -21,6 +21,15 @@ that hold no router state, `frontdoor_parse_req` and
 `frontdoor_encode_resp`.  A worker calls `prebuilt_only()` first: it then
 loads the library the engine process built before spawning it and never
 runs g++ itself, so no two workers race a build into the same output.
+
+The router's own clocks: `fastpath_parse_stack`, `fastpath_encode_w` and
+`fastpath_encode_parts` read CLOCK_MONOTONIC at entry and exit and hand
+back the nanoseconds of their C work through an out-slot; the binding
+reads `time.monotonic_ns()` around its own call.  A caller that passes
+a `RouterClock` (`clock=`) has both summed into it; without one nothing
+is read (a null out-slot).  The binding's wall minus the C time is the
+ctypes marshalling plus the wait to take the interpreter lock back, which
+the C parse and encode run without.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -108,12 +118,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fastpath_parse_stack.argtypes = [
         ctypes.c_void_p, u8p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, ctypes.c_int32,
-        i64p, i32p, i32p, i32p, i32p, i32p, i64p, i64p, i32p,
+        i64p, i32p, i32p, i32p, i32p, i32p, i64p, i64p, i32p, i64p,
     ]
     lib.fastpath_encode_parts.restype = ctypes.c_int64
     lib.fastpath_encode_parts.argtypes = [
         i64p, i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
-        i32p, i32p, i32p, i64p, u8p, ctypes.c_int64, i64p, i32p,
+        i32p, i32p, i32p, i64p, u8p, ctypes.c_int64, i64p, i32p, i64p,
     ]
     lib.router_set_ring.restype = None
     lib.router_set_ring.argtypes = [
@@ -129,7 +139,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fastpath_encode_w.restype = ctypes.c_int64
     lib.fastpath_encode_w.argtypes = [
         i64p, i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
-        i32p, i32p, i32p, i64p, u8p, ctypes.c_int64,
+        i32p, i32p, i32p, i64p, u8p, ctypes.c_int64, i64p,
     ]
     lib.router_export_keys.restype = ctypes.c_int64
     lib.router_export_keys.argtypes = [
@@ -232,6 +242,23 @@ def frontdoor_encode_resp(status: np.ndarray, limit: np.ndarray,
         _ptr(status, ctypes.c_int64), _ptr(limit, ctypes.c_int64),
         _ptr(remaining, ctypes.c_int64), _ptr(reset, ctypes.c_int64),
         fl, n, _ptr(out, ctypes.c_uint8), out.nbytes)
+
+
+class RouterClock:
+    """A caller's sums of the router's timed calls, in nanoseconds: the C
+    parse's and the C encodes' own clocks (`*_c`) and the binding's wall
+    around each call (`*_wall`).  The caller passes it to the calls it
+    wants timed (`clock=`; one thread at a time); `ptr` points at the
+    out-slot those calls pass to C."""
+
+    __slots__ = ("slot", "ptr", "parse_c", "parse_wall", "encode_c",
+                 "encode_wall")
+
+    def __init__(self):
+        self.slot = ctypes.c_int64(0)
+        self.ptr = ctypes.pointer(self.slot)
+        self.parse_c = self.parse_wall = 0
+        self.encode_c = self.encode_wall = 0
 
 
 class NativeRouter:
@@ -344,16 +371,18 @@ class NativeRouter:
                              out_pos: np.ndarray,
                              out_limit: np.ndarray, out_off: np.ndarray,
                              out_mlen: np.ndarray,
-                             use_ring: bool = True) -> int:
+                             use_ring: bool = True,
+                             clock: Optional[RouterClock] = None) -> int:
         """Serialized GetRateLimitsReq -> lanes staged across a K-window
         compact stack.  Returns n >= 0 (requests parsed; ring-remote items
         are NOT staged and come back as out_row < -1 markers with their
         message byte ranges in out_off/out_mlen) or a negative fallback
         code; see host_router.cc.  use_ring=False treats every item as
         local."""
+        t0 = time.monotonic_ns() if clock is not None else 0
         buf = ctypes.cast(ctypes.c_char_p(data),
                           ctypes.POINTER(ctypes.c_uint8))
-        return self._lib.fastpath_parse_stack(
+        n = self._lib.fastpath_parse_stack(
             self._handle, buf, len(data), now, lanes, K, max_items,
             1 if use_ring else 0,
             _ptr(packed, ctypes.c_int64), _ptr(kcur, ctypes.c_int32),
@@ -362,22 +391,34 @@ class NativeRouter:
             _ptr(out_pos, ctypes.c_int32),
             _ptr(out_limit, ctypes.c_int64), _ptr(out_off, ctypes.c_int64),
             _ptr(out_mlen, ctypes.c_int32),
+            None if clock is None else clock.ptr,
         )
+        if clock is not None:
+            clock.parse_wall += time.monotonic_ns() - t0
+            clock.parse_c += clock.slot.value
+        return n
 
     def parse_stack_fast(self, data: bytes, now: int, lanes: int,
                          K: int, max_items: int, arena, scr,
-                         use_ring: bool = True) -> int:
+                         use_ring: bool = True,
+                         clock: Optional[RouterClock] = None) -> int:
         """fastpath_parse_stack against a WindowArena + JobScratch
         (core/window_buffers.py), whose pointers were derived once."""
+        t0 = time.monotonic_ns() if clock is not None else 0
         buf = ctypes.cast(ctypes.c_char_p(data),
                           ctypes.POINTER(ctypes.c_uint8))
-        return self._lib.fastpath_parse_stack(
+        n = self._lib.fastpath_parse_stack(
             self._handle, buf, len(data), now, lanes, K, max_items,
             1 if use_ring else 0,
             arena.p_packed, arena.p_kcur, arena.p_fills,
             scr.p_row, scr.p_lane, scr.p_pos,
             scr.p_limit, scr.p_off, scr.p_mlen,
+            None if clock is None else clock.ptr,
         )
+        if clock is not None:
+            clock.parse_wall += time.monotonic_ns() - t0
+            clock.parse_c += clock.slot.value
+        return n
 
     def pack_stack_fast(self, key_bytes: np.ndarray, key_ends: np.ndarray,
                         hits: np.ndarray, limits: np.ndarray,
@@ -403,9 +444,11 @@ class NativeRouter:
                               out_pos: np.ndarray,
                               resp_buf: np.ndarray, item_off: np.ndarray,
                               item_len: np.ndarray,
-                              climit: Optional[np.ndarray] = None) -> int:
+                              climit: Optional[np.ndarray] = None,
+                              clock: Optional[RouterClock] = None) -> int:
         """Per-item framed response segments for splicing with forwarded
         peers' bytes (mixed-ownership RPCs); see host_router.cc."""
+        t0 = time.monotonic_ns() if clock is not None else 0
         cl = _ptr(climit, ctypes.c_int64) if climit is not None else None
         m = self._lib.fastpath_encode_parts(
             _ptr(w0, ctypes.c_int64), _ptr(item_limit, ctypes.c_int64),
@@ -414,7 +457,11 @@ class NativeRouter:
             _ptr(out_pos, ctypes.c_int32),
             cl, _ptr(resp_buf, ctypes.c_uint8), resp_buf.nbytes,
             _ptr(item_off, ctypes.c_int64), _ptr(item_len, ctypes.c_int32),
+            None if clock is None else clock.ptr,
         )
+        if clock is not None:
+            clock.encode_wall += time.monotonic_ns() - t0
+            clock.encode_c += clock.slot.value
         if m < 0:
             raise RuntimeError("fastpath_encode_parts: buffer too small")
         return m
@@ -459,11 +506,13 @@ class NativeRouter:
                           now: int, lanes: int, n: int,
                           out_row: np.ndarray, out_lane: np.ndarray,
                           out_pos: np.ndarray, resp_buf: np.ndarray,
-                          climit: Optional[np.ndarray] = None) -> int:
+                          climit: Optional[np.ndarray] = None,
+                          clock: Optional[RouterClock] = None) -> int:
         """Fetched response-word plane -> serialized GetRateLimitsResp bytes
         (returns the length written into resp_buf).  climit: the device's
         limit plane, passed only when a stored-limit mismatch was flagged.
         out_pos: per-item synthesis info (aggregated runs), -1 = plain."""
+        t0 = time.monotonic_ns() if clock is not None else 0
         cl = _ptr(climit, ctypes.c_int64) if climit is not None else None
         m = self._lib.fastpath_encode_w(
             _ptr(w0, ctypes.c_int64), _ptr(item_limit, ctypes.c_int64),
@@ -471,7 +520,11 @@ class NativeRouter:
             _ptr(out_row, ctypes.c_int32), _ptr(out_lane, ctypes.c_int32),
             _ptr(out_pos, ctypes.c_int32),
             cl, _ptr(resp_buf, ctypes.c_uint8), resp_buf.nbytes,
+            None if clock is None else clock.ptr,
         )
+        if clock is not None:
+            clock.encode_wall += time.monotonic_ns() - t0
+            clock.encode_c += clock.slot.value
         if m < 0:
             raise RuntimeError("fastpath_encode_w: response buffer too small")
         return m

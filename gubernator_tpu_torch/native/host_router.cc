@@ -29,8 +29,29 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
 
 namespace {
+
+// ---- the entry points' own clock ------------------------------------------
+
+int64_t mono_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (int64_t)ts.tv_sec * 1000000000ll + ts.tv_nsec;
+}
+
+// Writes the nanoseconds its scope took on CLOCK_MONOTONIC into *out as it
+// ends (no write when out is null): the C work of a call, without the
+// binding around it or the wait to take the interpreter lock back.
+struct ScopeClock {
+  int64_t* out;
+  int64_t t0;
+  explicit ScopeClock(int64_t* o) : out(o), t0(o ? mono_ns() : 0) {}
+  ~ScopeClock() {
+    if (out) *out = mono_ns() - t0;
+  }
+};
 
 // ---- hashing --------------------------------------------------------------
 
@@ -1111,6 +1132,8 @@ inline int32_t ring_owner(const Router* r, uint32_t h) {
 // use_ring == 0 treats every item as local even when a ring is installed:
 // the peer-plane lane (GetPeerRateLimits) is authoritative for whatever it
 // receives, like the reference owner (gubernator.go:210-227).
+// out_ns (may be null): the call's own nanoseconds (ScopeClock), as for
+// fastpath_encode_w and fastpath_encode_parts.
 int64_t fastpath_parse_stack(Router* r, const uint8_t* buf, int64_t len,
                              int64_t now, int32_t lanes, int32_t K,
                              int64_t max_items, int32_t use_ring,
@@ -1119,7 +1142,8 @@ int64_t fastpath_parse_stack(Router* r, const uint8_t* buf, int64_t len,
                              int32_t* out_row, int32_t* out_lane,
                              int32_t* out_pos,
                              int64_t* out_limit, int64_t* out_off,
-                             int32_t* out_mlen) {
+                             int32_t* out_mlen, int64_t* out_ns) {
+  ScopeClock clock(out_ns);
   int32_t S = r->num_shards;
   if (S > MAX_STACK_SHARDS) return -2;
   if (max_items > MAX_STACK_ITEMS) max_items = MAX_STACK_ITEMS;
@@ -1469,7 +1493,8 @@ int64_t router_pack_stack(Router* r, const uint8_t* key_bytes,
 // limit mismatches are rare (a config change on a live bucket), so the
 // device ships the full limit plane only when its per-window mismatch flag
 // fires, and `climit` is non-null only then.
-// Returns the byte length, or -1 if out_cap is too small.
+// Returns the byte length, or -1 if out_cap is too small; out_ns (may be
+// null) receives the call's own nanoseconds.
 
 // Decode one response word for item i: aggregated/synthesizable items
 // (out_pos[i] >= 0: bits 0..29 the item's 0-based position in its run,
@@ -1499,7 +1524,8 @@ int64_t fastpath_encode_w(const int64_t* w0, const int64_t* item_limit,
                           const int32_t* out_row, const int32_t* out_lane,
                           const int32_t* out_pos,
                           const int64_t* climit, uint8_t* out,
-                          int64_t out_cap) {
+                          int64_t out_cap, int64_t* out_ns) {
+  ScopeClock clock(out_ns);
   uint8_t* w = out;
   uint8_t* wend = out + out_cap;
   for (int64_t i = 0; i < n; i++) {
@@ -1553,7 +1579,8 @@ int64_t fastpath_encode_parts(const int64_t* w0, const int64_t* item_limit,
                               const int32_t* out_pos,
                               const int64_t* climit, uint8_t* out,
                               int64_t out_cap, int64_t* item_off,
-                              int32_t* item_len) {
+                              int32_t* item_len, int64_t* out_ns) {
+  ScopeClock clock(out_ns);
   uint8_t* w = out;
   uint8_t* wend = out + out_cap;
   for (int64_t i = 0; i < n; i++) {

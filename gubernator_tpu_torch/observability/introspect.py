@@ -5,10 +5,12 @@ one-read operator view served by `GET /v1/admin/debug`
 (api/http_gateway.py) and `cli debug` (cmd/cli.py): arena occupancy, the
 admission queue, the congestion window, per-peer breaker states, the
 GLOBAL plane's errors and hints, the failure detector, the front door, the
-fault rules, the serving pipeline, traffic analytics, the warm tier, the
-SLO burn rates, per-stage latency quantiles, recent traces, the capture's
-state and the device profiler's.  Every number comes from the accessor the
-control loops read, so what the operator sees is what the controllers saw.
+fault rules, the serving pipeline (with its drain timeline's last
+drains), traffic analytics, the warm tier, the SLO burn rates, per-stage
+latency quantiles (the drain stages read from the drain timeline),
+recent traces, the capture's state and the device profiler's.  Every
+number comes from the accessor the control loops read, so what the
+operator sees is what the controllers saw.
 
 `ProfileCapture` wraps the next N drains of the engine thread in a
 `torch.profiler` capture (CPU and CUDA activity: CUPTI on a card), armed
@@ -335,6 +337,9 @@ def build_debug_snapshot(instance) -> dict:
             "drains": pipe.drains,
             "depth": pipe.depth,
             "overlap": pipe.overlap_snapshot(),
+            # the drain ring's last drains (core/drain_ring.py): per-drain
+            # counts, the router's clocks and the host-state shares
+            "timeline": pipe.timeline.summary(),
         }
     if instance.analytics is not None:
         snap = instance.analytics.snapshot()
@@ -351,6 +356,10 @@ def build_debug_snapshot(instance) -> dict:
         out["slo"] = instance.slo.snapshot()
     out["stages"] = (instance.metrics.stage_snapshot()
                      if instance.metrics is not None else {})
+    if pipe is not None:
+        # the drain stages from the always-on drain ring, on the stage
+        # histograms' boundaries, with or without a Metrics registry
+        out["stages"].update(pipe.timeline.stage_snapshot())
     if instance.tracer is not None:
         out["tracing"] = {
             "sample": instance.tracer.sample,

@@ -110,6 +110,12 @@ def _serve(b, reqs):
         out = await asyncio.gather(*tasks)
         b.stop_at_tick = b.clock.tick
         await b._tick_task
+        # the last ticks' drains commit before the loop closes (each
+        # committed drain writes its timeline row)
+        for _ in range(10_000):
+            if not b.pipeline._in_flight:
+                break
+            await asyncio.sleep(0.001)
         return out
     try:
         return asyncio.run(run())
@@ -157,6 +163,14 @@ def test_lockstep_batcher_equals_the_jax_one(check_vma_off, stack, seed):
         jb.pipeline.decisions_staged, jb.pipeline.lanes_staged)
     n_global = sum(r.behavior == Behavior.GLOBAL for r in reqs)
     assert b.pipeline.decisions_staged >= n_global > 0
+    # every tick's drain, an idle one too, committed a timeline row
+    rows = b.pipeline.timeline.drains()
+    assert len(rows) == b.pipeline.drains
+    assert rows["decisions"].sum() == b.pipeline.decisions_staged
+    assert (rows["submitted"] > 0).all() and (rows["held_since"] == 0).all()
+    for a, c in (("submitted", "started"), ("started", "dispatch_done"),
+                 ("dispatch_done", "fetch_done"), ("fetch_done", "committed")):
+        assert (rows[a] <= rows[c]).all(), (a, c)
 
 
 def test_multiprocess_engine_without_a_clock_raises():

@@ -289,3 +289,86 @@ def test_unavailable_router_raises_when_required(monkeypatch):
     eng = RateLimitEngine(capacity_per_shard=8, batch_per_shard=8,
                           device="cpu", use_native="auto")
     assert eng.native is None and len(eng.tables) == 1
+
+
+def _wire(n, name="clk"):
+    """A GetRateLimitsReq of n items in protobuf's wire bytes."""
+    from gubernator_tpu_torch.api import pb
+    return pb.GetRateLimitsReq(requests=[
+        pb.RateLimitReq(name=name, unique_key=f"k{i}", hits=1, limit=10,
+                        duration=60_000) for i in range(n)]
+    ).SerializeToString()
+
+
+@pytest.mark.parametrize("n", [1, 300])
+def test_router_clocks_time_the_c_work_within_the_binding(n):
+    """parse_stack_fast, fastpath_parse_stack, fastpath_encode_w and
+    fastpath_encode_parts each add their C work's own nanoseconds (> 0
+    for a non-empty RPC) and the binding's wall around it (at least the C
+    time) to the RouterClock the caller passes."""
+    from gubernator_tpu_torch.core.window_buffers import WindowArena
+    K, S, B = 8, 2, 1024
+    r = native.NativeRouter(S, 1 << 12)
+    arena = WindowArena(K, S, B)
+    clock = native.RouterClock()
+    data = _wire(n)
+
+    def parsed(parse):
+        c0, w0 = clock.parse_c, clock.parse_wall
+        got = parse()
+        assert got == n
+        assert 0 < clock.parse_c - c0 <= clock.parse_wall - w0
+        return got
+
+    r.drain_begin()
+    scr = arena.acquire_scratch()
+    parsed(lambda: r.parse_stack_fast(data, T0, B, K, 1000, arena, scr,
+                                      clock=clock))
+    r.commit()
+    packed = np.zeros((K, S, B, 2), np.int64)
+    kcur = np.zeros(S, np.int32)
+    fill = np.zeros((K, S), np.int32)
+    row, lane, pos, mlen = (np.zeros(1000, np.int32) for _ in range(4))
+    limit, off = np.zeros(1000, np.int64), np.zeros(1000, np.int64)
+    r.drain_begin()
+    parsed(lambda: r.fastpath_parse_stack(data, T0, B, K, 1000, packed, kcur,
+                                          fill, row, lane, pos, limit, off,
+                                          mlen, clock=clock))
+    r.commit()
+    words = np.zeros((K * S, B), np.int64)
+    buf = np.empty(n * 64 + 64, np.uint8)
+    for encode in (
+            lambda: r.fastpath_encode_w(words, limit, T0, B, n, row, lane,
+                                        pos, buf, clock=clock),
+            lambda: r.fastpath_encode_parts(
+                words, limit, T0, B, n, row, lane, pos, buf,
+                np.empty(n, np.int64), np.empty(n, np.int32),
+                clock=clock)):
+        c0, w0 = clock.encode_c, clock.encode_wall
+        assert encode() > 0
+        assert 0 < clock.encode_c - c0 <= clock.encode_wall - w0
+
+
+def test_router_clocks_sum_only_into_the_clock_passed():
+    """A call with no clock reads no clock; a call with one sums into it
+    alone, the C time and the wall of each call added up."""
+    r = native.NativeRouter(1, 64)
+    words = np.zeros((1, 8), np.int64)
+    z32 = np.zeros(4, np.int32)
+    mine, other = native.RouterClock(), native.RouterClock()
+
+    def encode(**kw):
+        return r.fastpath_encode_w(words, np.full(4, 5, np.int64), T0, 8, 4,
+                                   z32, z32, np.full(4, -1, np.int32),
+                                   np.empty(512, np.uint8), **kw)
+
+    assert encode() > 0
+    assert mine.slot.value == 0 and mine.encode_c == mine.encode_wall == 0
+    encode(clock=mine)
+    first = (mine.encode_c, mine.encode_wall)
+    assert 0 < first[0] <= first[1]
+    encode(clock=mine)
+    assert mine.encode_c > first[0] and mine.encode_wall > first[1]
+    assert mine.encode_c <= mine.encode_wall
+    assert other.encode_c == other.encode_wall == 0
+    assert mine.parse_c == mine.parse_wall == 0

@@ -393,6 +393,60 @@ def test_debug_endpoint_snapshot(admin, loop):
     run(loop, body())
 
 
+def test_debug_snapshot_timeline_without_metrics(loop):
+    """The always-on drain ring feeds the debug view with no Metrics
+    registry (no prometheus_client): its `stages` table holds the drain
+    stages on the stage histograms' boundaries, and pipeline.timeline the
+    last drains' jobs, decisions, fold factor and windows per drain, the
+    router's clocks per 1000 decisions, the fill's CPU share and the
+    host-state shares."""
+    if not native.available():
+        pytest.skip("native router unavailable")
+    from gubernator_tpu_torch.core.drain_ring import HOST_STATES
+    from gubernator_tpu_torch.observability.introspect import (
+        build_debug_snapshot,
+    )
+    inst = Instance(
+        engine_config=EngineConfig(
+            capacity_per_shard=256, batch_per_shard=64, num_shards=2,
+            global_capacity=64, global_batch_per_shard=8,
+            max_global_updates=8, use_native="on"),
+        device="cpu")
+    assert inst.metrics is None
+
+    async def body():
+        for i in range(4):
+            out = await asyncio.gather(*(inst.get_rate_limits(
+                [req("tl", f"k{i}_{j}_{n}") for n in range(5)])
+                for j in range(6)))
+            assert all(r.error == "" for rs in out for r in rs)
+
+    try:
+        run(loop, body())
+        snap = json.loads(json.dumps(build_debug_snapshot(inst)))
+    finally:
+        inst.close()
+    pipe = snap["pipeline"]
+    tl = pipe["timeline"]
+    assert tl["drains"] == tl["drains_written"] == pipe["drains"] >= 1
+    for stage in ("engine_queue", "window_fill", "device_dispatch",
+                  "drain_commit"):
+        q = snap["stages"][stage]
+        assert 0 <= q["p50_ms"] <= q["p95_ms"] <= q["p99_ms"], stage
+        assert q["count"] == tl["drains"]
+    assert tl["decisions_per_drain"] * tl["drains"] == pytest.approx(
+        pipe["decisions_staged"])
+    assert tl["decisions_per_lane"] == pytest.approx(
+        pipe["decisions_staged"] / pipe["lanes_staged"])
+    assert tl["jobs_per_drain"] >= 1 and tl["windows_per_drain"] >= 1
+    # get_rate_limits takes the column lane: no router parse or encode
+    assert tl["parse_c_us_per_kdec"] == tl["encode_c_us_per_kdec"] == 0
+    assert 0 < tl["fill_cpu_pct"] <= 100.0
+    assert set(tl["host_state_pct"]) == set(HOST_STATES)
+    assert sum(tl["host_state_pct"].values()) == pytest.approx(100.0)
+    assert tl["host_state_pct"]["fill"] > 0
+
+
 def test_chain_fetch_stage_accounting_stride4():
     """With a fetch stride of 4 every chained member reports the shared
     fetch window as one `chain_fetch` span, the stage histogram sees one
